@@ -1,0 +1,104 @@
+"""Weights across the package boundary, and fresh random weights.
+
+The JAX package keeps a PreActResNet as a flax tree (`conv0/kernel` HWIO,
+`bn/{scale,bias}`, `layers_i/{conv0,conv1,skip_conv,bn0,bn1,skip_bn}`,
+`logit/{kernel,bias}`; batch_stats `mean`/`var`) and converted INT weights
+as a tree of QConvInt8 triples. Given either as numpy arrays, these
+functions return the port's tensors in the same structure.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from alignq_tpu_torch.kernels.convert import QConvInt8
+
+_QCONV_FIELDS = ("kernel_int8", "scale", "bias")
+
+
+def _tensors(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    return torch.tensor(np.asarray(tree)).to(device)
+
+
+def params_from_numpy(
+    params: Dict[str, Any], batch_stats: Dict[str, Any], device
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A flax PreActResNet (params, batch_stats), numpy (or tensor) leaves
+    -> tensors on `device`."""
+    return _tensors(params, device), _tensors(batch_stats, device)
+
+
+def _qparams(node, device):
+    fields = getattr(node, "_fields", None)
+    if fields == _QCONV_FIELDS or (isinstance(node, dict) and tuple(sorted(node)) == tuple(sorted(_QCONV_FIELDS))):
+        get = (lambda f: getattr(node, f)) if fields else node.__getitem__
+        return QConvInt8(*(torch.tensor(np.asarray(get(f))).to(device) for f in _QCONV_FIELDS))
+    if isinstance(node, dict):
+        return {k: _qparams(v, device) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_qparams(v, device) for v in node]
+    arr = np.asarray(node)
+    if arr.ndim == 0 and arr.dtype.kind in "iuf":
+        return arr.item()  # in_scale / m: host scalars, as the port's converter keeps them
+    return torch.tensor(arr).to(device)
+
+
+def qparams_from_numpy(qparams: Dict[str, Any], device) -> Dict[str, Any]:
+    """A qparams tree converted by the JAX package (QConvInt8 triples or
+    dicts of their fields, `*_cut` cutpoint dicts, logit head), numpy
+    leaves -> the port's QConvInt8 tree on `device`."""
+    return _qparams(qparams, device)
+
+
+def _uniform(gen, shape, bound):
+    return (torch.rand(shape, generator=gen, dtype=torch.float64) * 2.0 - 1.0).mul(bound).float()
+
+
+def init_preact_resnet_params(
+    depth: int, generator: torch.Generator, device, num_classes: int = 10
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A deploy tree with the shapes and inits of the JAX package's
+    `resnet20_quant(...).init` (PreActResNet, (depth-2)/6 blocks a stage):
+    conv and head kernels U(-1/sqrt(fan_in), 1/sqrt(fan_in)) as torch's
+    defaults, head bias likewise, BN scale 1, bias 0, mean 0, var 1.
+    Drawn on the CPU from `generator`, then moved to `device`."""
+    if (depth - 2) % 6:
+        raise ValueError(f"PreActResNet depth must be 6n+2, got {depth}")
+    n = (depth - 2) // 6
+
+    def conv(k, cin, cout):
+        return {"kernel": _uniform(generator, (k, k, cin, cout), 1.0 / math.sqrt(k * k * cin))}
+
+    def bn(c):
+        return {"scale": torch.ones(c), "bias": torch.zeros(c)}, {"mean": torch.zeros(c), "var": torch.ones(c)}
+
+    params: Dict[str, Any] = {"conv0": conv(3, 3, 16)}
+    stats: Dict[str, Any] = {}
+    params["bn"], stats["bn"] = bn(16)
+    cin = 16
+    for i in range(3 * n):
+        cout = (16, 32, 64)[i // n]
+        stride = 2 if i % n == 0 and i > 0 else 1
+        p: Dict[str, Any] = {"conv0": conv(3, cin, cout), "conv1": conv(3, cout, cout)}
+        s: Dict[str, Any] = {}
+        p["bn0"], s["bn0"] = bn(cout)
+        p["bn1"], s["bn1"] = bn(cout)
+        if stride != 1:
+            p["skip_conv"] = conv(1, cin, cout)
+            p["skip_bn"], s["skip_bn"] = bn(cout)
+        params[f"layers_{i}"], stats[f"layers_{i}"] = p, s
+        cin = cout
+    bound = 1.0 / math.sqrt(64)
+    params["logit"] = {
+        "kernel": _uniform(generator, (64, num_classes), bound),
+        "bias": _uniform(generator, (num_classes,), bound),
+    }
+    return params_from_numpy(params, stats, device)

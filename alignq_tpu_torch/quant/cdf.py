@@ -1,0 +1,145 @@
+"""Gaussian CDF alignment transform (port of alignq_tpu/quant/cdf.py).
+
+Rounding rule of the port: every `a * b + c` of an f32 epilogue is ONE
+rounding, as the JAX package's jitted graph evaluates it (XLA contracts
+`a * b + c` into a fused multiply-add). CUDA code uses `__fmaf_rn`; the
+plain PyTorch code evaluates in float64 and casts once to float32
+(`fma_f32`). The f64 product of two f32 values is exact, so the only
+difference from a true FMA is a double rounding at f32 midpoints, which
+is rare (counted by chip_smoke.py).
+
+Likewise XLA turns a division by a compile-time constant into a multiply
+by its reciprocal, so `z / sqrt2` is evaluated here as `z * (1/sqrt2)`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+_SQRT2 = math.sqrt(2.0)
+_INV_SQRT2 = 1.0 / _SQRT2
+_INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+
+# Degree-15 odd minimax-fit polynomial for erf(z/sqrt2) on |z| <= 3 (Horner
+# in z^2); the same coefficients as the JAX package's ERF_SQRT2_POLY. The
+# CUDA stage kernel carries their f32 roundings as hex literals
+# (csrc/stage_kernel.cu, checked by tests/test_torch_stage_kernel.py).
+ERF_SQRT2_POLY = (
+    0.7978767035812473,
+    -0.132937421134101,
+    0.01987666573612765,
+    -0.00232242597697477,
+    2.0980537887739438e-4,
+    -1.3852070586107547e-5,
+    5.848221808977707e-7,
+    -1.157208553963603e-8,
+)
+# each coefficient rounded to f32 once, as JAX casts a Python float constant
+_POLY_F32 = tuple(float(np.float32(c)) for c in ERF_SQRT2_POLY)
+
+
+# The f32 erf the JAX package computes: XLA's rational approximation,
+# erf(x) = x * P(x^2) / Q(x^2) on x clamped to +-3.7439211, Horner steps
+# rounded once. torch.erf is another approximation and differs from it by
+# an ulp or two on more than half of all inputs, which flips act codes at
+# rounding ties; this one is bit-identical to jax.lax.erf (tests/test_torch_convert.py).
+_ERF_CLAMP = float(np.float32(3.7439211))
+_ERF_P = tuple(float(np.float32(c)) for c in (
+    0.00022905065861350646, 0.0034082910107109506, 0.050955695062380861,
+    0.18520832239976145, 1.128379143519084,
+))
+_ERF_Q = tuple(float(np.float32(c)) for c in (
+    -1.1791602954361697e-7, 0.000023547966471313185, 0.0010179625278914885,
+    0.014070470171167667, 0.11098505178285362, 0.49746925110067538, 1.0,
+))
+
+
+def erf_f32(x: torch.Tensor) -> torch.Tensor:
+    """erf on f32 tensors, evaluated as the JAX package's XLA graph does."""
+    xc = torch.clamp(x, -_ERF_CLAMP, _ERF_CLAMP)
+    x2 = xc * xc
+    p = torch.full_like(x2, _ERF_P[0])
+    for c in _ERF_P[1:]:
+        p = fma_f32(p, x2, c)
+    q = torch.full_like(x2, _ERF_Q[0])
+    for c in _ERF_Q[1:]:
+        q = fma_f32(q, x2, c)
+    return xc * p / q
+
+
+def fma_f32(a, b, c) -> torch.Tensor:
+    """f32 `a * b + c` with one rounding (float64 evaluation cast to f32)."""
+    a64 = a.double() if torch.is_tensor(a) else a
+    b64 = b.double() if torch.is_tensor(b) else b
+    c64 = c.double() if torch.is_tensor(c) else c
+    return (a64 * b64 + c64).float()
+
+
+def _poly_parts(z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(zc, acc) of the poly grid: erf_sqrt2(z, 'poly') == zc * acc, with
+    zc = clip(z, -3, 3) and acc the Horner sum in zc^2, each step
+    `acc*u + c` rounded once."""
+    zc = torch.clamp(z, -3.0, 3.0)
+    u = zc * zc
+    acc = torch.full_like(u, _POLY_F32[-1])
+    for c in _POLY_F32[-2::-1]:
+        acc = fma_f32(acc, u, c)
+    return zc, acc
+
+
+def erf_sqrt2(z: torch.Tensor, impl: str = "erf") -> torch.Tensor:
+    """erf(z/sqrt2) == 2*Phi_{0,1}(z) - 1, the act-site CDF alignment map.
+
+    impl='erf': erf_f32. impl='poly': the ERF_SQRT2_POLY grid, each
+    Horner step `acc*u + c` rounded once (module docstring)."""
+    if impl == "erf":
+        return erf_f32(z * _INV_SQRT2)
+    if impl == "poly":
+        zc, acc = _poly_parts(z)
+        return zc * acc
+    raise ValueError(f"unknown cdf impl {impl!r}")
+
+
+def erf_grid_boundaries(g: int) -> np.ndarray:
+    """f32 decision boundaries t_k = sqrt2 * erfinv((k - 0.5) / g), k=1..g,
+    of the erf act-quant grid: code(h) >= k iff h >= t_k. Computed in
+    float64 with scipy and rounded once to f32."""
+    from scipy.special import erfinv
+
+    ks = (np.arange(1, g + 1, dtype=np.float64) - 0.5) / g
+    return (np.sqrt(2.0) * erfinv(ks)).astype(np.float32)
+
+
+def gaussian_cdf(x: torch.Tensor, mean, std, impl: str = "erf") -> torch.Tensor:
+    """Phi_{mean,std}(x). The erf branch keeps the JAX package's float
+    association: z = (x - mean) / (std * sqrt2), then erf."""
+    if impl == "erf":
+        z = (x - mean) / (std * _SQRT2)
+        return 0.5 * (1.0 + erf_f32(z))
+    if impl == "poly":
+        # `1 + zc * acc` is one more multiply-add: rounded once
+        zc, acc = _poly_parts((x - mean) / std)
+        return 0.5 * fma_f32(zc, acc, 1.0)
+    raise ValueError(f"unknown cdf impl {impl!r}")
+
+
+def gaussian_pdf2(x: torch.Tensor, mean, std) -> torch.Tensor:
+    """2 * phi_{mean,std}(x)."""
+    z = (x - mean) / std
+    return 2.0 * _INV_SQRT_2PI * torch.exp(-0.5 * z * z) / std
+
+
+def tensor_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor (mean, std) with Bessel correction (ddof=1)."""
+    return x.mean(), x.std(correction=1)
+
+
+def channel_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel (mean, std) of an HWIO kernel: reduce all but the
+    last axis, keepdims, ddof=1."""
+    dims = tuple(range(x.ndim - 1))
+    return x.mean(dim=dims, keepdim=True), x.std(dim=dims, correction=1, keepdim=True)
