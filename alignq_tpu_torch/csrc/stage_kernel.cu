@@ -1,5 +1,5 @@
 // K3: a run of stride-1 PreAct identity blocks on the int16 residual code
-// stream, one CTA per chunk of whole images, for sm_90a.
+// stream, one CTA per image, for sm_90a.
 //
 // Replaces the TPU kernel alignq_tpu/kernels/stage_kernel.py:171
 // stage_identity_blocks (body _stage_body). Per block, on the integer code
@@ -27,7 +27,7 @@
 //
 // C interface: stage_launch returns cudaGetLastError() after the launch.
 // Requirements (checked by the Python wrapper): C in {16, 32, 64},
-// H*W % 8 == 0, batch % chunk_imgs == 0, n_blocks <= MAX_BLOCKS.
+// H*W % 8 == 0, n_blocks <= MAX_BLOCKS.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -132,7 +132,7 @@ __global__ void __launch_bounds__(THREADS)
 stage_kernel(const int16_t* __restrict__ stream_in, int16_t* __restrict__ stream_out,
              const int8_t* __restrict__ wt, const float* __restrict__ scale,
              const float* __restrict__ bias, BlockMs ms, int n_blocks, int g,
-             int H, int W, int m_total, int chunk_imgs) {
+             int H, int W, int m_total) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int HW = H * W, Wp = W + 2, HWp = (H + 2) * Wp;
   const int tid = threadIdx.x;
@@ -147,80 +147,76 @@ stage_kernel(const int16_t* __restrict__ stream_in, int16_t* __restrict__ stream
   for (int i = tid; i < 2 * HWp * C / 16; i += THREADS)
     reinterpret_cast<int4*>(xa)[i] = make_int4(0, 0, 0, 0);
 
-  for (int img = 0; img < chunk_imgs; ++img) {
-    const size_t base = (size_t)(blockIdx.x * chunk_imgs + img) * HW;
-    for (int i = tid; i < C * HW / 8; i += THREADS) {
-      const int c = i / (HW / 8), q = i - c * (HW / 8);
-      reinterpret_cast<int4*>(plane)[i] =
-          *reinterpret_cast<const int4*>(stream_in + (size_t)c * m_total + base + q * 8);
-    }
-    __syncthreads();
+  const size_t base = (size_t)blockIdx.x * HW;  // this CTA's image
+  for (int i = tid; i < C * HW / 8; i += THREADS) {
+    const int c = i / (HW / 8), q = i - c * (HW / 8);
+    reinterpret_cast<int4*>(plane)[i] =
+        *reinterpret_cast<const int4*>(stream_in + (size_t)c * m_total + base + q * 8);
+  }
+  __syncthreads();
 
-    for (int b = 0; b < n_blocks; ++b) {
-      const int m = ms.v[b];
-      // requant the plane into xa's interior, and stage conv0's weights
-      for (int p = tid; p < HW; p += THREADS) {
-        const int y = p / W, x = p - y * W;
-        int8_t* dst = xa + ((y + 1) * Wp + x + 1) * C;
+  for (int b = 0; b < n_blocks; ++b) {
+    const int m = ms.v[b];
+    // requant the plane into xa's interior, and stage conv0's weights
+    for (int p = tid; p < HW; p += THREADS) {
+      const int y = p / W, x = p - y * W;
+      int8_t* dst = xa + ((y + 1) * Wp + x + 1) * C;
 #pragma unroll
-        for (int c16 = 0; c16 < C / 16; ++c16) {
-          uint32_t words[4];
+      for (int c16 = 0; c16 < C / 16; ++c16) {
+        uint32_t words[4];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            uint32_t word = 0;
+        for (int q = 0; q < 4; ++q) {
+          uint32_t word = 0;
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int kk = plane[(c16 * 16 + q * 4 + k) * HW + p];
-              // floor and truncation agree after the clip at 0
-              const int v = (m == 1) ? kk : (2 * kk + m) / (2 * m);
-              word |= static_cast<uint32_t>(min(max(v, 0), g)) << (8 * k);
-            }
-            words[q] = word;
+          for (int k = 0; k < 4; ++k) {
+            const int kk = plane[(c16 * 16 + q * 4 + k) * HW + p];
+            // floor and truncation agree after the clip at 0
+            const int v = (m == 1) ? kk : (2 * kk + m) / (2 * m);
+            word |= static_cast<uint32_t>(min(max(v, 0), g)) << (8 * k);
           }
-          *reinterpret_cast<uint4*>(dst + c16 * 16) =
-              make_uint4(words[0], words[1], words[2], words[3]);
+          words[q] = word;
         }
+        *reinterpret_cast<uint4*>(dst + c16 * 16) =
+            make_uint4(words[0], words[1], words[2], words[3]);
       }
-      const int8_t* w0 = wt + (size_t)(2 * b) * wbytes;
-      for (int i = tid; i < wbytes / 16; i += THREADS)
-        reinterpret_cast<int4*>(ws)[i] = reinterpret_cast<const int4*>(w0)[i];
-      __syncthreads();
-
-      conv3x3<C, true>(xa, ws, scale + (2 * b) * C, bias + (2 * b) * C, gf, H, W, xb, plane);
-      __syncthreads();
-
-      const int8_t* w1 = wt + (size_t)(2 * b + 1) * wbytes;
-      for (int i = tid; i < wbytes / 16; i += THREADS)
-        reinterpret_cast<int4*>(ws)[i] = reinterpret_cast<const int4*>(w1)[i];
-      __syncthreads();
-
-      conv3x3<C, false>(xb, ws, scale + (2 * b + 1) * C, bias + (2 * b + 1) * C, gf, H, W, xa, plane);
-      __syncthreads();
     }
-
-    for (int i = tid; i < C * HW / 8; i += THREADS) {
-      const int c = i / (HW / 8), q = i - c * (HW / 8);
-      *reinterpret_cast<int4*>(stream_out + (size_t)c * m_total + base + q * 8) =
-          reinterpret_cast<const int4*>(plane)[i];
-    }
+    const int8_t* w0 = wt + (size_t)(2 * b) * wbytes;
+    for (int i = tid; i < wbytes / 16; i += THREADS)
+      reinterpret_cast<int4*>(ws)[i] = reinterpret_cast<const int4*>(w0)[i];
     __syncthreads();
+
+    conv3x3<C, true>(xa, ws, scale + (2 * b) * C, bias + (2 * b) * C, gf, H, W, xb, plane);
+    __syncthreads();
+
+    const int8_t* w1 = wt + (size_t)(2 * b + 1) * wbytes;
+    for (int i = tid; i < wbytes / 16; i += THREADS)
+      reinterpret_cast<int4*>(ws)[i] = reinterpret_cast<const int4*>(w1)[i];
+    __syncthreads();
+
+    conv3x3<C, false>(xb, ws, scale + (2 * b + 1) * C, bias + (2 * b + 1) * C, gf, H, W, xa, plane);
+    __syncthreads();
+  }
+
+  for (int i = tid; i < C * HW / 8; i += THREADS) {
+    const int c = i / (HW / 8), q = i - c * (HW / 8);
+    *reinterpret_cast<int4*>(stream_out + (size_t)c * m_total + base + q * 8) =
+        reinterpret_cast<const int4*>(plane)[i];
   }
 }
 
 template <int C>
 int launch(const void* in, void* out, const void* wt, const void* scale,
            const void* bias, const BlockMs& ms, int n_blocks, int g, int H,
-           int W, int batch, int chunk_imgs, cudaStream_t stream) {
+           int W, int batch, cudaStream_t stream) {
   const int HWp = (H + 2) * (W + 2);
   const int smem = align16(2 * C * H * W) + 2 * HWp * C + 9 * C * C;
   cudaError_t err = cudaFuncSetAttribute(
       stage_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  stage_kernel<C><<<batch / chunk_imgs, THREADS, smem, stream>>>(
+  stage_kernel<C><<<batch, THREADS, smem, stream>>>(
       static_cast<const int16_t*>(in), static_cast<int16_t*>(out),
       static_cast<const int8_t*>(wt), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), ms, n_blocks, g, H, W, batch * H * W,
-      chunk_imgs);
+      static_cast<const float*>(bias), ms, n_blocks, g, H, W, batch * H * W);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -233,15 +229,15 @@ extern "C" int stage_smem_bytes(int C, int H, int W) {
 extern "C" int stage_launch(const void* in, void* out, const void* wt,
                             const void* scale, const void* bias, const int* ms,
                             int n_blocks, int g, int C, int H, int W, int batch,
-                            int chunk_imgs, void* stream) {
+                            void* stream) {
   if (n_blocks > MAX_BLOCKS) return static_cast<int>(cudaErrorInvalidValue);
   BlockMs m{};
   for (int i = 0; i < n_blocks; ++i) m.v[i] = ms[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 16: return launch<16>(in, out, wt, scale, bias, m, n_blocks, g, H, W, batch, chunk_imgs, s);
-    case 32: return launch<32>(in, out, wt, scale, bias, m, n_blocks, g, H, W, batch, chunk_imgs, s);
-    case 64: return launch<64>(in, out, wt, scale, bias, m, n_blocks, g, H, W, batch, chunk_imgs, s);
+    case 16: return launch<16>(in, out, wt, scale, bias, m, n_blocks, g, H, W, batch, s);
+    case 32: return launch<32>(in, out, wt, scale, bias, m, n_blocks, g, H, W, batch, s);
+    case 64: return launch<64>(in, out, wt, scale, bias, m, n_blocks, g, H, W, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

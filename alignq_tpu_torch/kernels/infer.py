@@ -20,7 +20,7 @@ conv there. On the CPU the same code runs K1's plain version.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,10 +30,11 @@ from alignq_tpu_torch.interop import init_preact_resnet_params
 from alignq_tpu_torch.kernels.convert import QConvInt8, fold_conv_bn, grid_max
 from alignq_tpu_torch.kernels.qmatmul import (
     K_MULT,
+    K1Weights,
     gather_taps,
-    int8_matmul_dequant,
-    int8_matmul_int32,
+    int8_matmul_packed,
     kernel_matrix,
+    pack_k1_weights,
 )
 from alignq_tpu_torch.kernels.stage_kernel import pack_block_weights, stage_identity_blocks
 from alignq_tpu_torch.quant.cdf import erf_grid_boundaries, erf_sqrt2
@@ -99,46 +100,58 @@ def _requant_codes(k: torch.Tensor, m: int, g: float, signed: bool = False) -> t
     return torch.clamp(q, lo, gi).to(torch.int8)
 
 
-def _conv_operands(x_int8, kernel, stride, padding):
+def _k1_weights(q: QConvInt8) -> K1Weights:
+    """A folded conv's kernel and epilogue laid out for K1 over its taps."""
+    return pack_k1_weights(kernel_matrix(q.kernel_int8), q.scale, q.bias)
+
+
+def _conv_k1(x_int8, q, stride, padding, op, mode):
     b, h, w, _ = x_int8.shape
-    ksize = kernel.shape[0]
+    ksize = q.kernel_int8.shape[0]
     cols = gather_taps(x_int8, ksize, stride, padding, K_MULT)
     ho = (h + 2 * padding - ksize) // stride + 1
     wo = (w + 2 * padding - ksize) // stride + 1
-    return cols, kernel_matrix(kernel, K_MULT), (b, ho, wo)
+    y = int8_matmul_packed(cols, _k1_weights(q) if op is None else op, mode)
+    return y.reshape(b, ho, wo, -1)
 
 
-def _int8_conv_acc(x_int8: torch.Tensor, q: QConvInt8, stride: int = 1, padding: int = 1):
-    """Raw int32 accumulator of one folded conv (no dequant epilogue)."""
-    cols, kmat, (b, ho, wo) = _conv_operands(x_int8, q.kernel_int8, stride, padding)
-    return int8_matmul_int32(cols, kmat).reshape(b, ho, wo, -1)
+def _int8_conv_acc(x_int8: torch.Tensor, q: QConvInt8, stride: int = 1, padding: int = 1,
+                   op: Optional[K1Weights] = None):
+    """Raw int32 accumulator of one folded conv (no dequant epilogue).
+    op: q laid out for K1 once (pack_int8_operands); None lays it out here."""
+    return _conv_k1(x_int8, q, stride, padding, op, "int32")
 
 
-def _int8_conv(x_int8: torch.Tensor, q: QConvInt8, stride: int = 1, padding: int = 1):
+def _int8_conv(x_int8: torch.Tensor, q: QConvInt8, stride: int = 1, padding: int = 1,
+               op: Optional[K1Weights] = None):
     """One folded conv with its f32 dequant epilogue, acc * scale + bias."""
-    cols, kmat, (b, ho, wo) = _conv_operands(x_int8, q.kernel_int8, stride, padding)
-    return int8_matmul_dequant(cols, kmat, q.scale, q.bias).reshape(b, ho, wo, -1)
+    return _conv_k1(x_int8, q, stride, padding, op, "f32")
 
 
-def _int8_conv_1x1_pallas(x_int8: torch.Tensor, q: QConvInt8, stride: int = 1):
+def _int8_conv_1x1_pallas(x_int8: torch.Tensor, q: QConvInt8, stride: int = 1,
+                          op: Optional[K1Weights] = None):
     """1x1 conv as K1 directly: a strided spatial subsample, then a
     (B*H'*W', Cin) @ (Cin, Cout) matmul with the fused epilogue."""
     if stride != 1:
         x_int8 = x_int8[:, ::stride, ::stride, :]
     b, h, w, cin = x_int8.shape
-    kmat = q.kernel_int8.reshape(cin, -1)
-    y = int8_matmul_dequant(x_int8.reshape(-1, cin), kmat, q.scale, q.bias)
+    y = int8_matmul_packed(x_int8.reshape(-1, cin), _k1_weights(q) if op is None else op)
     return y.reshape(b, h, w, -1)
 
 
-def _int8_conv_merged_skip(x_int8: torch.Tensor, q0: QConvInt8, qs: QConvInt8, stride: int):
-    """Stage-boundary conv0 (3x3, pad 1) and skip (1x1, pad 0) as ONE conv
-    over concatenated output channels: the skip kernel padded to 3x3 (zero
-    but the centre tap) gives bit-identical accumulators."""
+def _merged_skip_conv(q0: QConvInt8, qs: QConvInt8) -> QConvInt8:
+    """conv0 (3x3) and skip (1x1) as one 3x3 conv over concatenated output
+    channels: the skip kernel padded to 3x3, zero but the centre tap."""
     ks3 = torch.nn.functional.pad(qs.kernel_int8, (0, 0, 0, 0, 1, 1, 1, 1))
     km = torch.cat([q0.kernel_int8, ks3], dim=3)
-    merged = QConvInt8(km, torch.cat([q0.scale, qs.scale]), torch.cat([q0.bias, qs.bias]))
-    h = _int8_conv(x_int8, merged, stride, 1)
+    return QConvInt8(km, torch.cat([q0.scale, qs.scale]), torch.cat([q0.bias, qs.bias]))
+
+
+def _int8_conv_merged_skip(x_int8: torch.Tensor, q0: QConvInt8, qs: QConvInt8, stride: int,
+                           op: Optional[K1Weights] = None):
+    """Stage-boundary conv0 (3x3, pad 1) and skip (1x1, pad 0) as ONE conv
+    (_merged_skip_conv): bit-identical accumulators."""
+    h = _int8_conv(x_int8, _merged_skip_conv(q0, qs), stride, 1, op)
     c0 = q0.kernel_int8.shape[3]
     return h[..., :c0], h[..., c0:]
 
@@ -247,6 +260,40 @@ def convert_preact_resnet(
     return out
 
 
+def _identity_runs(layers) -> List[Tuple[int, int]]:
+    """(first, stop) of each maximal run of identity (no-skip) blocks."""
+    runs, i = [], 0
+    while i < len(layers):
+        j = i
+        while j < len(layers) and "skip" not in layers[j]:
+            j += 1
+        if j > i:
+            runs.append((i, j))
+        i = j + 1
+    return runs
+
+
+def pack_int8_operands(qparams: Dict[str, Any]) -> Dict[str, Any]:
+    """The forward's weights laid out once in the forms its kernels take,
+    so that a forward given them (operands=) re-lays out nothing. A tree
+    beside qparams: K1Weights for 'conv0' and for each block's 'conv0',
+    'conv1', 'skip' and 'merged' (conv0 + skip, for fuse_skip); and under
+    'stage', K3's (wt, scale, bias) for each run of identity blocks, keyed
+    by the run's first block."""
+    layers = qparams["layers"]
+    blocks = []
+    for blk in layers:
+        ops = {k: _k1_weights(blk[k]) for k in ("conv0", "conv1", "skip") if k in blk}
+        if "skip" in blk:
+            ops["merged"] = _k1_weights(_merged_skip_conv(blk["conv0"], blk["skip"]))
+        blocks.append(ops)
+    return {
+        "conv0": _k1_weights(qparams["conv0"]),
+        "layers": blocks,
+        "stage": {i: pack_block_weights(layers[i:j]) for i, j in _identity_runs(layers)},
+    }
+
+
 def _stage_kernel_chunk_imgs(c: int, h: int, w: int, batch: int) -> int:
     """Images per CTA of the CUDA stage kernel. One: a CTA holds one
     image's plane in shared memory (up to ~72 KB at 32x32x16), and one
@@ -258,7 +305,7 @@ def resnet20_int8_stream(
     qparams: Dict[str, Any], x: torch.Tensor, act_bits: int = 8,
     use_pallas_1x1: bool = False, fuse_skip: bool = False,
     act_impl: str = "erf", use_stage_kernel: bool = False,
-    stream: str = "int16",
+    stream: str = "int16", operands: Optional[Dict[str, Any]] = None,
 ) -> torch.Tensor:
     """The integer graph up to the head: the final residual code stream,
     (B, H, W, C) int16 in act_scale units. Knobs as resnet20_int8_forward."""
@@ -282,16 +329,19 @@ def resnet20_int8_stream(
     if use_stage_kernel and stream == "int8":
         raise ValueError("stage kernel carries the int16 stream")
 
-    def _site_codes(x8_in, q, cut, stride_, pad_):
+    ops = pack_int8_operands(qparams) if operands is None else operands
+
+    def _site_codes(x8_in, q, cut, stride_, pad_, op):
         if bins_int:
-            return _int_bin_codes(_int8_conv_acc(x8_in, q, stride_, pad_), cut)
-        return _erfq_codes(_int8_conv(x8_in, q, stride_, pad_), act_bits, act_impl)
+            return _int_bin_codes(_int8_conv_acc(x8_in, q, stride_, pad_, op), cut)
+        return _erfq_codes(_int8_conv(x8_in, q, stride_, pad_, op), act_bits, act_impl)
 
     layers = qparams["layers"]
     ms = residual_multipliers(["skip" in blk for blk in layers])
+    runs = dict(_identity_runs(layers))
     # stem: conv0 -> bn -> act_q0 -> relu
     out_c = torch.clamp_min(
-        _site_codes(_linear_q(x, S_IMG), qparams["conv0"], qparams.get("conv0_cut"), 1, 1)
+        _site_codes(_linear_q(x, S_IMG), qparams["conv0"], qparams.get("conv0_cut"), 1, 1, ops["conv0"])
         .to(torch.int16),
         0,
     )
@@ -300,13 +350,11 @@ def resnet20_int8_stream(
 
     i = 0
     while i < len(layers):
-        blk = layers[i]
-        if use_stage_kernel and "skip" not in blk:
-            j = i
-            while j < len(layers) and "skip" not in layers[j]:
-                j += 1
+        blk, bops = layers[i], ops["layers"][i]
+        if use_stage_kernel and i in runs:
+            j = runs[i]
             bsz, hh, ww, c = out_c.shape
-            wt, scale, bias = pack_block_weights(layers[i:j])
+            wt, scale, bias = ops["stage"][i]
             flat_c = out_c.permute(3, 0, 1, 2).reshape(c, -1)
             flat_c = stage_identity_blocks(
                 flat_c, wt, scale, bias, tuple(ms[i:j]), g=int(g), w_img=ww, h_img=hh,
@@ -321,23 +369,23 @@ def resnet20_int8_stream(
         if "skip" in blk:
             # shortcut = act_skip_q(skip_bn(skip_conv(x))), no relu
             if use_pallas_1x1:
-                sc_h = _int8_conv_1x1_pallas(x8, blk["skip"], stride)
+                sc_h = _int8_conv_1x1_pallas(x8, blk["skip"], stride, bops["skip"])
                 sc_c = _erfq_codes(sc_h, act_bits, act_impl).to(torch.int16)
-                a0 = _erfq_codes(_int8_conv(x8, blk["conv0"], stride, 1), act_bits, act_impl)
+                a0 = _erfq_codes(_int8_conv(x8, blk["conv0"], stride, 1, bops["conv0"]), act_bits, act_impl)
             elif fuse_skip:
-                h0, sc_h = _int8_conv_merged_skip(x8, blk["conv0"], blk["skip"], stride)
+                h0, sc_h = _int8_conv_merged_skip(x8, blk["conv0"], blk["skip"], stride, bops["merged"])
                 sc_c = _erfq_codes(sc_h, act_bits, act_impl).to(torch.int16)
                 a0 = _erfq_codes(h0, act_bits, act_impl)
             else:
-                sc_c = _site_codes(x8, blk["skip"], blk.get("cut_skip"), stride, 0).to(torch.int16)
-                a0 = _site_codes(x8, blk["conv0"], blk.get("cut0"), stride, 1)
+                sc_c = _site_codes(x8, blk["skip"], blk.get("cut_skip"), stride, 0, bops["skip"]).to(torch.int16)
+                a0 = _site_codes(x8, blk["conv0"], blk.get("cut0"), stride, 1, bops["conv0"])
         else:
             # int16 stream: the full-resolution code sum; int8 stream: the
             # requantized codes scaled back to grid-1 units (m * c8)
             sc_c = m * c8.to(torch.int16) if stream == "int8" else out_c
-            a0 = _site_codes(x8, blk["conv0"], blk.get("cut0"), stride, 1)
+            a0 = _site_codes(x8, blk["conv0"], blk.get("cut0"), stride, 1, bops["conv0"])
         r0 = torch.clamp_min(a0, 0)  # relu on codes == relu on values
-        a1_c = _site_codes(r0, blk["conv1"], blk.get("cut1"), 1, 1).to(torch.int16)
+        a1_c = _site_codes(r0, blk["conv1"], blk.get("cut1"), 1, 1, bops["conv1"]).to(torch.int16)
         out_c = torch.clamp_min(a1_c + sc_c, 0)  # residual add + relu, in codes
         if stream == "int8" and i + 1 < len(layers):
             c8 = _requant_codes(out_c, ms[i + 1], g)
@@ -359,7 +407,7 @@ def resnet20_int8_forward(
     qparams: Dict[str, Any], x: torch.Tensor, act_bits: int = 8,
     use_pallas_1x1: bool = False, fuse_skip: bool = False,
     act_impl: str = "erf", use_stage_kernel: bool = False,
-    stream: str = "int16",
+    stream: str = "int16", operands: Optional[Dict[str, Any]] = None,
 ) -> torch.Tensor:
     """INT forward: NHWC f32 images (B, 32, 32, 3) -> logits (B, classes).
 
@@ -368,10 +416,12 @@ def resnet20_int8_forward(
     (requantized codes as the stored stream). use_pallas_1x1: the stride-2
     skip convs as K1 matmuls. fuse_skip: conv0 and skip as one
     double-width conv. use_stage_kernel: runs of identity blocks through
-    kernel K3 (poly act grid and int16 stream only)."""
+    kernel K3 (poly act grid and int16 stream only). operands:
+    pack_int8_operands(qparams), made once; None lays the weights out on
+    every call."""
     out_c = resnet20_int8_stream(
         qparams, x, act_bits, use_pallas_1x1=use_pallas_1x1, fuse_skip=fuse_skip,
-        act_impl=act_impl, use_stage_kernel=use_stage_kernel, stream=stream,
+        act_impl=act_impl, use_stage_kernel=use_stage_kernel, stream=stream, operands=operands,
     )
     return resnet20_int8_head(qparams, out_c, act_bits)
 

@@ -7,6 +7,10 @@ tests hold against the JAX reference. The port also routes every int8
 conv outside the stage kernel through K1 (kernels/infer.py gathers the
 taps into an (M, K) matrix), since PyTorch has no int8 conv on CUDA.
 
+The weight side is laid out for the kernel by `pack_k1_weights`; a caller
+that reuses a weight (the forward, given kernels/infer.py
+pack_int8_operands) packs it once and calls `int8_matmul_packed`.
+
 Epilogue `acc * scale + bias` is one f32 rounding: `__fmaf_rn` in CUDA,
 `fma_f32` (float64 evaluation, one cast) in the plain version.
 """
@@ -14,6 +18,7 @@ Epilogue `acc * scale + bias` is one f32 rounding: `__fmaf_rn` in CUDA,
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -85,52 +90,69 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _qmm_cuda(x, w, scale, bias, mode: str) -> torch.Tensor:
-    if x.dtype != torch.int8 or w.dtype != torch.int8:
-        raise TypeError(f"int8 operands expected, got {x.dtype} and {w.dtype}")
-    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w.shape)} do not chain")
-    if w.device != x.device:
-        raise ValueError("x and w must lie on one device")
-    m, k = x.shape
-    n = w.shape[1]
+class K1Weights(NamedTuple):
+    """A (K, N) int8 weight and its epilogue, laid out once as K1 takes
+    them: wt is W^T, (N8, K32) int8 zero-padded (the MMA's column-major B
+    operand); scale and bias are (N8,) f32, zero-padded; n is the true N."""
+
+    wt: torch.Tensor
+    scale: torch.Tensor
+    bias: torch.Tensor
+    n: int
+
+
+def pack_k1_weights(w: torch.Tensor, scale=None, bias=None) -> K1Weights:
+    """Lay out w (K, N) int8 and its (N,) f32 scale/bias (None: 0) for K1."""
+    k, n = w.shape
     kp, np_ = _round_up(k, K_MULT), _round_up(n, N_MULT)
-    if kp != k:
-        x = torch.nn.functional.pad(x, (0, kp - k))
-        w = torch.nn.functional.pad(w, (0, 0, 0, kp - k))
+    wt = torch.nn.functional.pad(w.t(), (0, kp - k, 0, np_ - n)).contiguous()
+
+    def vec(v):
+        v = torch.zeros(n, device=w.device) if v is None else v.to(torch.float32)
+        return torch.nn.functional.pad(v, (0, np_ - n)).contiguous()
+
+    return K1Weights(wt, vec(scale), vec(bias), n)
+
+
+def int8_matmul_packed(x: torch.Tensor, op: K1Weights, mode: str = "f32") -> torch.Tensor:
+    """x (M, K) int8 @ a packed weight: the raw int32 accumulator
+    (mode 'int32') or the f32 epilogue (mode 'f32', or 'relu' with relu).
+    K1 on a CUDA tensor, its plain version on a CPU tensor."""
+    if x.dtype != torch.int8 or op.wt.dtype != torch.int8:
+        raise TypeError(f"int8 operands expected, got {x.dtype} and {op.wt.dtype}")
+    kp = op.wt.shape[1]
+    if x.ndim != 2 or x.shape[1] > kp:
+        raise ValueError(f"x {tuple(x.shape)} does not chain with a packed weight of depth {kp}")
+    if x.shape[1] != kp:
+        x = torch.nn.functional.pad(x, (0, kp - x.shape[1]))
+    if x.device.type == "cpu":
+        w = op.wt[: op.n].t()
+        if mode == "int32":
+            return int8_matmul_int32_reference(x, w)
+        return int8_matmul_dequant_reference(x, w, op.scale[: op.n], op.bias[: op.n], relu=mode == "relu")
+    if len({t.device for t in (x, *op[:3])}) != 1:
+        raise ValueError("x and the packed weight must lie on one device")
     x = x.contiguous()
-    # the MMA's B operand is column-major: pass W^T, (N, Kp) row-major
-    wt = torch.nn.functional.pad(w.t(), (0, 0, 0, np_ - n)).contiguous()
-    if mode == "int32":
-        out = torch.empty((m, np_), dtype=torch.int32, device=x.device)
-        sp = bp = None
-    else:
-        sp = torch.nn.functional.pad(scale.to(torch.float32), (0, np_ - n)).contiguous()
-        b = torch.zeros(n, device=x.device) if bias is None else bias.to(torch.float32)
-        bp = torch.nn.functional.pad(b, (0, np_ - n)).contiguous()
-        if sp.device != x.device or bp.device != x.device:
-            raise ValueError("scale and bias must lie on the operands' device")
-        out = torch.empty((m, np_), dtype=torch.float32, device=x.device)
-    if m == 0:
-        return out[:, :n]
-    if x.data_ptr() % 16 or wt.data_ptr() % 16:
+    if x.data_ptr() % 16 or op.wt.data_ptr() % 16:
         raise ValueError("K1 needs 16-byte aligned operands")
-    _qmm_launch(x, wt, sp, bp, out, mode)
-    _build.launches[KERNEL] += 1
-    return out if np_ == n else out[:, :n]
+    np_ = op.wt.shape[0]
+    out = torch.empty((x.shape[0], np_), device=x.device,
+                      dtype=torch.int32 if mode == "int32" else torch.float32)
+    if x.shape[0]:
+        _qmm_launch(x, op.wt, op.scale, op.bias, out, mode)
+        _build.launches[KERNEL] += 1
+    return out if np_ == op.n else out[:, : op.n]
 
 
 def _qmm_launch(x, wt, sp, bp, out, mode: str) -> None:
-    """One launch of csrc/qmatmul.cu on operands the wrapper prepared:
-    x (M, Kp) and wt (N, Kp) int8, scale/bias (N,) f32 or None for
-    mode 'int32', out (M, N). Counts nothing (the wrapper does)."""
+    """One launch of csrc/qmatmul.cu on operands int8_matmul_packed
+    prepared: x (M, Kp) and wt (N, Kp) int8, scale/bias (N,) f32 (unread in
+    mode 'int32'), out (M, N). Counts nothing (the wrapper does)."""
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.qmm_launch(
-            x.data_ptr(), wt.data_ptr(),
-            None if sp is None else sp.data_ptr(),
-            None if bp is None else bp.data_ptr(),
+            x.data_ptr(), wt.data_ptr(), sp.data_ptr(), bp.data_ptr(),
             out.data_ptr(), x.shape[0], wt.shape[0], x.shape[1], _MODE[mode], stream,
         )
     _build.check(err, "qmatmul.cu qmm_kernel")
@@ -146,7 +168,7 @@ def int8_matmul_dequant(
     """y[M, N] = relu?((x @ w) * scale + bias) in f32."""
     if x.device.type == "cpu":
         return int8_matmul_dequant_reference(x, w, scale, bias, relu)
-    return _qmm_cuda(x, w, scale, bias, "relu" if relu else "f32")
+    return int8_matmul_packed(x, pack_k1_weights(w, scale, bias), "relu" if relu else "f32")
 
 
 def int8_matmul_int32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -154,4 +176,4 @@ def int8_matmul_int32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     bins_int act sites compare it against integer cutpoints)."""
     if x.device.type == "cpu":
         return int8_matmul_int32_reference(x, w)
-    return _qmm_cuda(x, w, None, None, "int32")
+    return int8_matmul_packed(x, pack_k1_weights(w), "int32")

@@ -67,7 +67,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("stage_kernel")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.stage_launch.argtypes = [p, p, p, p, p, ctypes.POINTER(i), i, i, i, i, i, i, i, p]
+        lib.stage_launch.argtypes = [p, p, p, p, p, ctypes.POINTER(i), i, i, i, i, i, i, p]
         lib.stage_launch.restype = i
         lib.stage_smem_bytes.argtypes = [i, i, i]
         lib.stage_smem_bytes.restype = i
@@ -75,7 +75,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _stage_cuda(stream, wt, scale, bias, ms, g, w_img, h_img, chunk_imgs):
+def _stage_cuda(stream, wt, scale, bias, ms, g, w_img, h_img):
     c, m_total = stream.shape
     n_blocks = wt.shape[0]
     img = w_img * h_img
@@ -85,9 +85,6 @@ def _stage_cuda(stream, wt, scale, bias, ms, g, w_img, h_img, chunk_imgs):
         raise ValueError(f"the CUDA stage kernel takes C in {CHANNELS}, got {c}")
     if img % 8 or m_total % img:
         raise ValueError(f"stream width {m_total} is not whole {h_img}x{w_img} images (H*W % 8 == 0)")
-    batch = m_total // img
-    if batch % chunk_imgs:
-        raise ValueError(f"batch {batch} not divisible by chunk_imgs {chunk_imgs}")
     if tuple(wt.shape) != (n_blocks, 2, c, 9 * c) or tuple(scale.shape) != (n_blocks, 2, c):
         raise ValueError(f"weights {tuple(wt.shape)} / scale {tuple(scale.shape)} do not fit C={c}")
     if not 0 < n_blocks <= MAX_BLOCKS or not 0 < g <= 127:
@@ -103,12 +100,12 @@ def _stage_cuda(stream, wt, scale, bias, ms, g, w_img, h_img, chunk_imgs):
     if lib.stage_smem_bytes(c, h_img, w_img) > SMEM_LIMIT:
         raise ValueError(f"a {h_img}x{w_img}x{c} image does not fit one block's shared memory")
     out = torch.empty_like(stream)
-    _stage_launch(stream, out, wt, scale, bias, ms, g, h_img, w_img, chunk_imgs)
+    _stage_launch(stream, out, wt, scale, bias, ms, g, h_img, w_img)
     _build.launches[KERNEL] += 1
     return out
 
 
-def _stage_launch(stream, out, wt, scale, bias, ms, g, h_img, w_img, chunk_imgs) -> None:
+def _stage_launch(stream, out, wt, scale, bias, ms, g, h_img, w_img) -> None:
     """One launch of csrc/stage_kernel.cu on operands the wrapper checked.
     Counts nothing (the wrapper does)."""
     c, m_total = stream.shape
@@ -118,7 +115,7 @@ def _stage_launch(stream, out, wt, scale, bias, ms, g, h_img, w_img, chunk_imgs)
         err = _lib().stage_launch(
             stream.data_ptr(), out.data_ptr(), wt.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), ms_arr, len(ms), int(g), c, h_img, w_img,
-            m_total // (h_img * w_img), chunk_imgs, cu_stream,
+            m_total // (h_img * w_img), cu_stream,
         )
     _build.check(err, "stage_kernel.cu stage_kernel")
 
@@ -132,16 +129,22 @@ def stage_identity_blocks(
     g: int = 127,
     w_img: int = 32,
     h_img: int = 32,
-    chunk_imgs: int = 1,  # whole images per CTA
+    chunk_imgs: int = 1,  # images per CTA: fixed at 1 here
 ) -> torch.Tensor:
     """Run n consecutive identity PreAct blocks on the code stream and
-    return the updated (C, B*H*W) int16 stream."""
+    return the updated (C, B*H*W) int16 stream.
+
+    chunk_imgs is kept from the JAX signature, where it sets the images a
+    grid step holds in VMEM. The CUDA kernel always gives one image to a
+    CTA (kernels/infer.py _stage_kernel_chunk_imgs), so only 1 is taken."""
+    if chunk_imgs != 1:
+        raise ValueError(f"the CUDA stage kernel runs one image per CTA, got chunk_imgs={chunk_imgs}")
     ms = tuple(int(m) for m in ms)
     if len(ms) != wt.shape[0] or min(ms) < 1:
         raise ValueError(f"ms {ms} must give one multiplier >= 1 per block")
     if stream.device.type == "cpu":
         return stage_identity_blocks_reference(stream, wt, scale, bias, ms, g, w_img, h_img)
-    return _stage_cuda(stream, wt, scale, bias, ms, g, w_img, h_img, chunk_imgs)
+    return _stage_cuda(stream, wt, scale, bias, ms, g, w_img, h_img)
 
 
 def pack_block_weights(blocks) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

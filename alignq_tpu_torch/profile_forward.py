@@ -5,7 +5,8 @@
 Runs the forward (default: the stage kernel and K1 1x1 route, poly act
 grid, int16 stream) under torch.profiler after warm-up, and prints the
 device time by PyTorch op and by kernel, the window's wall time and the
-device's idle share. Writes the same to chiprun_out/profile_forward.json.
+device's idle share, 1 - busy / wall (below 0 where kernels overlap). The
+weights are laid out once before the window, as an engine does. Writes the same to chiprun_out/profile_forward.json.
 Needs a CUDA card.
 """
 
@@ -31,10 +32,10 @@ def main(argv=None) -> int:
         print("profile_forward: CUDA is not available", file=sys.stderr)
         return 2
 
-    from alignq_tpu_torch.kernels.infer import build_resnet20_int8
+    from alignq_tpu_torch.kernels.infer import build_resnet20_int8, pack_int8_operands
 
     fwd, (qp, x) = build_resnet20_int8(args.batch)
-    kw = {"act_impl": args.act_impl}
+    kw = {"act_impl": args.act_impl, "operands": pack_int8_operands(qp)}
     if not args.plain_route:
         kw.update(use_stage_kernel=True, use_pallas_1x1=True)
     with torch.inference_mode():
@@ -61,14 +62,15 @@ def main(argv=None) -> int:
         print("profile_forward: the profiler recorded no device time", file=sys.stderr)
         return 1
     card = torch.cuda.get_device_name(0)
+    knobs = {k: v for k, v in kw.items() if k != "operands"}
     out = {
-        "card": card, "batch": args.batch, "kwargs": kw, "wall_ms_per_forward": wall_ms,
-        "device_busy_ms_per_forward": busy_ms, "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+        "card": card, "batch": args.batch, "kwargs": knobs, "wall_ms_per_forward": wall_ms,
+        "device_busy_ms_per_forward": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
         "ops": [{"op": e.key, "device_ms": dev_us(e) / 1e3, "calls": e.count // args.iters} for e in ops[:25]],
         "kernels": [{"kernel": e.key[:120], "device_ms": dev_us(e) / 1e3, "calls": e.count // args.iters}
                     for e in kernels[:25]],
     }
-    print(f"{card}: batch {args.batch} {kw}: wall {wall_ms:.3f} ms/forward, device busy {busy_ms:.3f} ms "
+    print(f"{card}: batch {args.batch} {knobs}: wall {wall_ms:.3f} ms/forward, device busy {busy_ms:.3f} ms "
           f"(idle share {out['idle_share']:.3f})")
     for section in ("ops", "kernels"):
         print(f"-- device time by {section[:-1]} (ms per forward, calls per forward)")

@@ -151,15 +151,20 @@ def build_int8_resnet20_engine(
     select the deploy graph (kernels/infer.py resnet20_int8_forward); pair
     act_impl/stream with the QAT options that trained the model."""
     from alignq_tpu_torch.interop import params_from_numpy
-    from alignq_tpu_torch.kernels.infer import convert_resnet20, resnet20_int8_forward
+    from alignq_tpu_torch.kernels.infer import (
+        convert_resnet20,
+        pack_int8_operands,
+        resnet20_int8_forward,
+    )
 
     if mesh is not None:
         raise NotImplementedError("sharded serving over a mesh is not ported yet")
     dev = resolve_device(device)
     qparams = convert_resnet20(*params_from_numpy(params, batch_stats, dev))
+    # the kernels' weight layouts, made once here rather than per request
     fwd = functools.partial(
         resnet20_int8_forward, act_impl=act_impl, stream=stream,
         use_stage_kernel=use_stage_kernel, use_pallas_1x1=use_pallas_1x1,
-        fuse_skip=fuse_skip,
+        fuse_skip=fuse_skip, operands=pack_int8_operands(qparams),
     )
     return BatchedInferenceEngine(fwd, qparams, batch_size, (32, 32, 3), device=dev)

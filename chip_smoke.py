@@ -8,21 +8,31 @@ Phases, in order; any failure raises and the script exits non-zero:
  2. build the CUDA kernels from alignq_tpu_torch/csrc (one nvcc each, all
     started together);
  3. K1 (csrc/qmatmul.cu) against its plain version at the ResNet-20 path
-    shapes at batch 2048, plus a ragged M with K=27;
+    shapes at batch 2048 and at the serving batch 256, plus a ragged M
+    with K=27: int32 bit-identical; f32 bit-identical but for at most 1e-6
+    of the elements, each one ulp away (the plain float64 evaluation can
+    round twice at an f32 midpoint);
  4. K3 (csrc/stage_kernel.cu) against its plain version at the three
-    identity-block runs at batch 2048, and on the A4 grid (g=7);
+    identity-block runs at batch 2048 and 256, and on the A4 grid (g=7):
+    the int16 stream bit-identical but for at most 1e-6 of the codes, each
+    one code away;
  5. the slice's forward (act_impl='poly', stream='int16', stage kernel and
     the K1 1x1 route) on the card against the same forward on the CPU at
     batch 64; then the default erf/int16 forward likewise;
  6. serving, the main path: the launch counts are zeroed, an engine is
     built with build_int8_resnet20_engine(batch_size=256) and answers
-    requests of 1, 3, 100, 256 and 40 images, and the counts are read;
-    then the engine's latency for one-image requests and its images/s on a
-    backlog of 32 full batches (host clock);
+    requests of 1, 3, 100, 256 and 40 images, and the counts are read.
+    Then what was served is held against the CPU's plain path: each
+    request's logits within 1e-4, and the int16 stream of the engine's
+    forward at its padded batch of 256 bit for bit. Then the engine's
+    latency for one-image requests and its images/s on a backlog of 32
+    full batches (host clock);
  7. times from CUDA events (median of 20 after warm-up): the forward at
-    batch 2048, and each kernel at each path shape beside its plain
-    version, its bound and, for K1, torch._int_mm's time (timed only);
- 8. one JSON line of the kernels, the card line, and the final JSON line.
+    batch 2048, and each kernel at each path shape of batches 2048 and
+    256 beside its plain version, its bound and, for K1, torch._int_mm's
+    time (timed only);
+ 8. one JSON line of the kernels (times summed over the launches of one
+    forward at the serving batch), the card line, and the final JSON line.
 
 Exits with code 2 and prints no result where CUDA is not available. Writes
 the per-shape details to chiprun_out/chip_smoke.json.
@@ -38,6 +48,7 @@ from pathlib import Path
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
 BATCH = 2048  # bench.py's headline batch
+SERVE_BATCH = 256  # the engine's batch on the main path
 RUNS, WARMUP = 20, 3
 SEED = 0
 
@@ -70,6 +81,45 @@ def median_ms(fn, runs=RUNS, warmup=WARMUP, per_call=1):
     return statistics.median(times)
 
 
+def k1_shapes(batch):
+    """The path's K1 launches at `batch`: (name, M, K, N)."""
+    return [
+        ("stem conv", batch * 1024, 27, 16),
+        ("block3 conv0", batch * 256, 144, 32),
+        ("block3 skip", batch * 256, 16, 32),
+        ("block3 conv1", batch * 256, 288, 32),
+        ("block6 conv0", batch * 64, 288, 64),
+        ("block6 skip", batch * 64, 32, 64),
+        ("block6 conv1", batch * 64, 576, 64),
+    ]
+
+
+def f32_mismatches(got, want) -> int:
+    """Elements where got differs from want; raises if any is more than
+    one ulp away."""
+    import torch
+
+    diff = got != want
+    w = want[diff]
+    near = (got[diff] == torch.nextafter(w, w + 1)) | (got[diff] == torch.nextafter(w, w - 1))
+    if not bool(near.all()):
+        raise AssertionError("an f32 result is more than one ulp from its plain version")
+    return int(diff.sum())
+
+
+def to_device(tree, dev):
+    """A qparams tree (dicts, lists, QConvInt8, tensors, host scalars) on dev."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(to_device(v, dev) for v in tree))
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev) if torch.is_tensor(tree) else tree
+
+
 def bound(bytes_moved, ops):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_INT8_OPS_PER_S * 1e3
@@ -77,6 +127,7 @@ def bound(bytes_moved, ops):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -89,6 +140,7 @@ def main() -> int:
     from alignq_tpu_torch.kernels import stage_kernel as K3
     from alignq_tpu_torch.kernels.infer import (
         build_resnet20_int8,
+        pack_int8_operands,
         resnet20_int8_forward,
         resnet20_int8_head,
         resnet20_int8_stream,
@@ -123,51 +175,43 @@ def main() -> int:
     def i8(shape, lo=-127, hi=128):
         return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int8)
 
-    # the path's K1 launches at batch 2048: (name, M, K, N)
-    k1_shapes = [
-        ("stem conv", BATCH * 1024, 27, 16),
-        ("block3 conv0", BATCH * 256, 144, 32),
-        ("block3 skip", BATCH * 256, 16, 32),
-        ("block3 conv1", BATCH * 256, 288, 32),
-        ("block6 conv0", BATCH * 64, 288, 64),
-        ("block6 skip", BATCH * 64, 32, 64),
-        ("block6 conv1", BATCH * 64, 576, 64),
-    ]
     # 3. K1 against its plain version
     phase("K1 against its plain version")
     k1_err = 0.0
     k1_ops = {}
-    for name, m, k, n in k1_shapes + [("ragged", 1000003, 27, 16)]:
+    cases = [(b, *shape) for b in (BATCH, SERVE_BATCH) for shape in k1_shapes(b)]
+    for batch, name, m, k, n in cases + [(None, "ragged", 1000003, 27, 16)]:
         x, w = i8((m, k)), i8((k, n))
         scale = torch.rand(n, generator=gen, device=dev) * 2e-4
         bias = torch.randn(n, generator=gen, device=dev)
         raw, raw_ref = K1.int8_matmul_int32(x, w), K1.int8_matmul_int32_reference(x, w)
         torch.cuda.synchronize()
         if not torch.equal(raw, raw_ref):
-            raise AssertionError(f"K1 int32 {name} differs from its plain version")
+            raise AssertionError(f"K1 int32 {name} M={m} differs from its plain version")
         y, y_ref = K1.int8_matmul_dequant(x, w, scale, bias), K1.int8_matmul_dequant_reference(x, w, scale, bias)
         torch.cuda.synchronize()
-        diff = int((y != y_ref).sum())
+        diff = f32_mismatches(y, y_ref)
         err = float((y - y_ref).abs().max())
         if diff > 1e-6 * y.numel():
-            raise AssertionError(f"K1 f32 {name}: {diff} of {y.numel()} elements differ")
+            raise AssertionError(f"K1 f32 {name} M={m}: {diff} of {y.numel()} elements differ")
         k1_err = max(k1_err, err)
         print(f"K1 {name} M={m} K={k} N={n}: int32 identical; f32 differs on {diff} of {y.numel()} "
               f"(max abs {err:.3g})", flush=True)
-        if name != "ragged":
-            k1_ops[name] = (x, w, scale, bias)
+        if batch is not None:
+            k1_ops[batch, name] = (x, w, scale, bias)
 
-    # 4. K3 against its plain version (the path's runs at batch 2048, and g=7)
+    # 4. K3 against its plain version (the path's runs at batch 2048 and
+    # 256, and g=7)
     phase("K3 against its plain version")
     _, (qp, _) = build_resnet20_int8(1, device=dev)
     layers = qp["layers"]
-    k3_runs = [("stage1 blocks 0-2", layers[0:3], (1, 2, 3), 32, 127, BATCH),
-               ("stage2 blocks 4-5", layers[4:6], (2, 3), 16, 127, BATCH),
-               ("stage3 blocks 7-8", layers[7:9], (2, 3), 8, 127, BATCH),
-               ("stage1 A4 grid", layers[0:1], (2,), 32, 7, 64)]
+    k3_runs = [(batch, "stage1 blocks 0-2", layers[0:3], (1, 2, 3), 32, 127) for batch in (BATCH, SERVE_BATCH)]
+    k3_runs += [(batch, "stage2 blocks 4-5", layers[4:6], (2, 3), 16, 127) for batch in (BATCH, SERVE_BATCH)]
+    k3_runs += [(batch, "stage3 blocks 7-8", layers[7:9], (2, 3), 8, 127) for batch in (BATCH, SERVE_BATCH)]
+    k3_runs += [(64, "stage1 A4 grid", layers[0:1], (2,), 32, 7)]
     k3_err = 0
     k3_ops = {}
-    for name, blocks, ms, hw, g, batch in k3_runs:
+    for batch, name, blocks, ms, hw, g in k3_runs:
         wt, scale, bias = K3.pack_block_weights(blocks)
         c = wt.shape[2]
         stream = torch.randint(0, 4 * g, (c, batch * hw * hw), generator=gen, device=dev, dtype=torch.int16)
@@ -176,13 +220,14 @@ def main() -> int:
         torch.cuda.synchronize()
         diff = int((got != want).sum())
         err = int((got.int() - want.int()).abs().max())
-        if diff > 1e-6 * got.numel():
-            raise AssertionError(f"K3 {name}: {diff} of {got.numel()} stream codes differ")
+        if diff > 1e-6 * got.numel() or err > 1:
+            raise AssertionError(f"K3 {name} batch {batch}: {diff} of {got.numel()} stream codes differ, "
+                                 f"by up to {err}")
         k3_err = max(k3_err, err)
         print(f"K3 {name} C={c} {hw}x{hw} batch {batch} ms={ms} g={g}: stream differs on {diff} of "
               f"{got.numel()} (max abs {err})", flush=True)
         if g == 127:
-            k3_ops[name] = (stream, wt, scale, bias, ms, hw)
+            k3_ops[batch, name] = (stream, wt, scale, bias, ms, hw)
 
     # 5. the slice's forward on the card against the CPU
     phase("forward on the card against the CPU")
@@ -213,7 +258,7 @@ def main() -> int:
     params, stats = init_preact_resnet_params(20, torch.Generator().manual_seed(SEED + 1), dev)
     for k in list(_build.launches):
         _build.launches[k] = 0
-    engine = build_int8_resnet20_engine(params, stats, batch_size=256, device=dev, **slice_kw)
+    engine = build_int8_resnet20_engine(params, stats, batch_size=SERVE_BATCH, device=dev, **slice_kw)
     reqs = [torch.randn((n, 32, 32, 3), generator=torch.Generator().manual_seed(10 + n)).numpy()
             for n in (1, 3, 100, 256, 40)]
     futs = [engine.submit(r) for r in reqs]
@@ -224,16 +269,32 @@ def main() -> int:
         raise AssertionError(f"the main path did not launch every kernel: {main_launches}")
     if main_launches[K1.KERNEL] * 3 != main_launches[K3.KERNEL] * 7:
         raise AssertionError(f"main-path launches {main_launches} are not 7 K1 : 3 K3 per forward")
+    print(f"serving: requests of {[len(r) for r in reqs]} answered; main-path launches {main_launches}",
+          flush=True)
     if not (again == outs[2]).all():
         raise AssertionError("a repeated request gave other logits")
+    # what was served, against the CPU's plain path on the same qparams:
+    # the int16 stream of the engine's forward at its padded batch (the
+    # kernels at the serving shapes) bit for bit, each request's logits
+    qp_host = to_device(engine.params, "cpu")
+    images = np.concatenate(reqs)
+    padded = np.concatenate([images, np.zeros((-len(images) % SERVE_BATCH, 32, 32, 3), np.float32)])
+    served = np.concatenate(outs)
     serve_err = 0.0
-    for r, o in zip(reqs, outs):
-        direct = resnet20_int8_forward(engine.params, torch.from_numpy(r).to(dev), **slice_kw).cpu().numpy()
-        serve_err = max(serve_err, float(abs(o - direct).max()))
-        if o.shape != (len(r), 10) or not (abs(o - direct) <= 1e-5).all():
-            raise AssertionError(f"a {len(r)}-image request differs from its direct forward")
-    print(f"serving: requests of {[len(r) for r in reqs]} match their direct forwards "
-          f"(max abs {serve_err:.3g}); main-path launches {main_launches}", flush=True)
+    for lo in range(0, len(padded), SERVE_BATCH):
+        xb = torch.from_numpy(padded[lo : lo + SERVE_BATCH])
+        with torch.inference_mode():
+            s_gpu = resnet20_int8_stream(engine.params, xb.to(dev), **engine.forward.keywords).cpu()
+        s_cpu = resnet20_int8_stream(qp_host, xb, **slice_kw)
+        if not torch.equal(s_gpu, s_cpu):
+            raise AssertionError(f"images {lo}-{lo + SERVE_BATCH}: the engine's int16 stream differs from the CPU's")
+        want = resnet20_int8_head(qp_host, s_cpu).numpy()[: min(SERVE_BATCH, len(served) - lo)]
+        got = served[lo : lo + len(want)]
+        serve_err = max(serve_err, float(np.abs(got - want).max()))
+        if not (np.isfinite(got).all() and np.abs(got - want).max() <= 1e-4):
+            raise AssertionError(f"images {lo}-{lo + len(want)}: served logits off the CPU's by {serve_err}")
+    print(f"serving: every served image's logits within {serve_err:.3g} of the CPU plain path; the engine's "
+          f"batch-{SERVE_BATCH} int16 stream identical to the CPU's", flush=True)
     # the engine's own times, on the host clock: one image at a time, then
     # a backlog of full batches
     lat = []
@@ -254,45 +315,46 @@ def main() -> int:
     # 7. times
     phase("times")
     _, (qp_b, x_b) = build_resnet20_int8(BATCH, device=dev)
-    fwd_ms = median_ms(lambda: resnet20_int8_forward(qp_b, x_b, **slice_kw))
+    ops_b = pack_int8_operands(qp_b)  # laid out once, as an engine does
+    fwd_ms = median_ms(lambda: resnet20_int8_forward(qp_b, x_b, operands=ops_b, **slice_kw))
     print(f"forward batch {BATCH} (slice route): {fwd_ms:.3f} ms = {BATCH / fwd_ms * 1e3:.0f} images/s "
           f"[{card}]", flush=True)
-    default_ms = median_ms(lambda: resnet20_int8_forward(qp_b, x_b))
+    default_ms = median_ms(lambda: resnet20_int8_forward(qp_b, x_b, operands=ops_b))
     print(f"forward batch {BATCH} (default erf/int16): {default_ms:.3f} ms = "
           f"{BATCH / default_ms * 1e3:.0f} images/s [{card}]", flush=True)
     details["forward"] = {"batch": BATCH, "slice_ms": fwd_ms, "default_erf_ms": default_ms,
                           "slice_images_per_s": BATCH / fwd_ms * 1e3}
 
     rows = {K1.KERNEL: [], K3.KERNEL: []}
-    for name, (x, w, scale, bias) in k1_ops.items():
+    for (batch, name), (x, w, scale, bias) in k1_ops.items():
         m, k = x.shape
         n = w.shape[1]
         # the operands as the path hands them to the kernel: K zero-padded
         xp = torch.nn.functional.pad(x, (0, -k % K1.K_MULT))
-        wt = torch.nn.functional.pad(w.t(), (0, xp.shape[1] - k)).contiguous()
+        op = K1.pack_k1_weights(w, scale, bias)
         out = torch.empty((m, n), device=dev)
         out_i = torch.empty((m, n), device=dev, dtype=torch.int32)
-        ms = median_ms(lambda: K1._qmm_launch(xp, wt, scale, bias, out, "f32"), per_call=5)
-        raw_ms = median_ms(lambda: K1._qmm_launch(xp, wt, None, None, out_i, "int32"), per_call=5)
+        ms = median_ms(lambda: K1._qmm_launch(xp, op.wt, op.scale, op.bias, out, "f32"), per_call=5)
+        raw_ms = median_ms(lambda: K1._qmm_launch(xp, op.wt, op.scale, op.bias, out_i, "int32"), per_call=5)
         plain_ms = median_ms(lambda: K1.int8_matmul_dequant_reference(x, w, scale, bias))
         wp = torch.nn.functional.pad(w, (0, 0, 0, xp.shape[1] - k))
         lib_ms = median_ms(lambda: torch._int_mm(xp, wp), per_call=5)
         b_ms, b_by = bound(m * k + k * n + 8 * n + 4 * m * n, 2 * m * k * n)
-        rows[K1.KERNEL].append(dict(shape=name, M=m, K=k, N=n, ms=ms, int32_ms=raw_ms, plain_ms=plain_ms,
-                                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        rows[K1.KERNEL].append(dict(batch=batch, shape=name, M=m, K=k, N=n, ms=ms, int32_ms=raw_ms,
+                                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
         print(f"time K1 {name} M={m} K={k} N={n}: {ms:.4f} ms (int32 mode {raw_ms:.4f}), plain {plain_ms:.3f}, "
               f"bound {b_ms:.4f} ({b_by}), torch._int_mm {lib_ms:.4f} [{card}]", flush=True)
-    for name, (stream, wt, scale, bias, ms_, hw) in k3_ops.items():
+    for (batch, name), (stream, wt, scale, bias, ms_, hw) in k3_ops.items():
         c, mt = stream.shape
         out = torch.empty_like(stream)
-        ms = median_ms(lambda: K3._stage_launch(stream, out, wt, scale, bias, ms_, 127, hw, hw, 1), per_call=5)
+        ms = median_ms(lambda: K3._stage_launch(stream, out, wt, scale, bias, ms_, 127, hw, hw), per_call=5)
         plain_ms = median_ms(lambda: K3.stage_identity_blocks_reference(stream, wt, scale, bias, ms_, 127, hw, hw))
         nb = len(ms_)
         b_ms, b_by = bound(2 * 2 * c * mt + nb * 2 * (9 * c * c + 8 * c), nb * 2 * 2 * mt * 9 * c * c)
-        rows[K3.KERNEL].append(dict(shape=name, C=c, HW=hw, batch=BATCH, ms=ms, plain_ms=plain_ms,
+        rows[K3.KERNEL].append(dict(batch=batch, shape=name, C=c, HW=hw, ms=ms, plain_ms=plain_ms,
                                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
-        print(f"time K3 {name} C={c} {hw}x{hw}: {ms:.4f} ms, plain {plain_ms:.3f}, bound {b_ms:.4f} ({b_by}) "
-              f"[{card}]", flush=True)
+        print(f"time K3 {name} C={c} {hw}x{hw} batch {batch}: {ms:.4f} ms, plain {plain_ms:.3f}, "
+              f"bound {b_ms:.4f} ({b_by}) [{card}]", flush=True)
     details["kernels"] = rows
 
     # 8. the kernels line, the card line, the final line
@@ -303,17 +365,23 @@ def main() -> int:
     }
     kernels = []
     for kname, (src, replaces, err) in meta.items():
-        r = rows[kname]
-        t_bytes = sum(x["bound_ms"] for x in r if x["bound_by"] == "bytes")
-        t_ops = sum(x["bound_ms"] for x in r if x["bound_by"] == "operations")
-        lib = [x["library_ms"] for x in r]
+        per_batch = {}
+        for batch in (BATCH, SERVE_BATCH):
+            r = [x for x in rows[kname] if x["batch"] == batch]
+            t_bytes = sum(x["bound_ms"] for x in r if x["bound_by"] == "bytes")
+            t_ops = sum(x["bound_ms"] for x in r if x["bound_by"] == "operations")
+            lib = [x["library_ms"] for x in r]
+            # one forward's launches at this batch, summed
+            per_batch[batch] = {
+                "ms": sum(x["ms"] for x in r), "plain_ms": sum(x["plain_ms"] for x in r),
+                "bound_ms": t_bytes + t_ops, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None if None in lib else sum(lib),
+            }
+            print(f"{kname} over one batch-{batch} forward: {json.dumps(per_batch[batch])} [{card}]", flush=True)
+        details.setdefault("per_forward", {})[kname] = per_batch
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": main_launches[kname], "max_abs_err": err,
-            # per batch-2048 forward: the sum over the path's launches
-            "ms": sum(x["ms"] for x in r), "plain_ms": sum(x["plain_ms"] for x in r),
-            "bound_ms": t_bytes + t_ops, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None if None in lib else sum(lib),
+            "launches": main_launches[kname], "max_abs_err": err, **per_batch[SERVE_BATCH],
         })
     out_dir = repo / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -17,6 +17,8 @@ from alignq_tpu_torch.kernels.qmatmul import (
     int8_matmul_dequant_reference,
     int8_matmul_int32,
     int8_matmul_int32_reference,
+    int8_matmul_packed,
+    pack_k1_weights,
 )
 from alignq_tpu_torch.kernels.stage_kernel import (
     stage_identity_blocks,
@@ -39,6 +41,17 @@ def _i8(rng, shape, lo=-127, hi=128):
     return torch.from_numpy(rng.randint(lo, hi, shape).astype(np.int8))
 
 
+def _assert_f32_close(got, want):
+    """Bit-identical, but where the plain version's float64 evaluation
+    rounds twice at an f32 midpoint: at most 1e-6 of the elements, each
+    one ulp away."""
+    diff = got != want
+    assert diff.sum().item() <= 1e-6 * got.numel()
+    w = want[diff]
+    up, down = torch.nextafter(w, w + 1), torch.nextafter(w, w - 1)
+    assert ((got[diff] == up) | (got[diff] == down)).all()
+
+
 @pytest.mark.parametrize(
     "m,k,n",
     [(100, 70, 50), (1000, 27, 16), (4099, 144, 32), (300, 16, 32), (257, 576, 64), (130, 288, 128), (64, 32, 200)],
@@ -52,8 +65,11 @@ def test_qmatmul_vs_plain(cuda, m, k, n):
     for relu in (False, True):
         got = int8_matmul_dequant(x, w, s, b, relu=relu)
         want = int8_matmul_dequant_reference(x, w, s, b, relu=relu)
-        # the plain f64 evaluation may round twice at an f32 midpoint
-        assert (got != want).sum().item() <= 1e-6 * got.numel()
+        _assert_f32_close(got, want)
+    # a weight packed once, x at its own K (the 1x1 route's operands)
+    op = pack_k1_weights(w, s, b)
+    _assert_f32_close(int8_matmul_packed(x, op), int8_matmul_dequant_reference(x, w, s, b))
+    assert torch.equal(int8_matmul_packed(x, op, "int32"), int8_matmul_int32_reference(x, w))
     torch.cuda.synchronize()
 
 
@@ -67,17 +83,17 @@ def test_qmatmul_counts_launches(cuda):
 
 
 @pytest.mark.parametrize(
-    "c,h,w,batch,ms,g,chunk",
+    "c,h,w,batch,ms,g",
     [
-        (16, 8, 8, 4, (2, 3), 127, 2),
-        (32, 4, 4, 4, (2, 3), 127, 4),
-        (16, 8, 8, 2, (1,), 127, 1),
-        (16, 8, 8, 2, (2,), 7, 1),
-        (64, 8, 8, 3, (2, 3), 127, 1),
-        (16, 32, 32, 2, (1, 2, 3), 127, 1),
+        (16, 8, 8, 4, (2, 3), 127),
+        (32, 4, 4, 4, (2, 3), 127),
+        (16, 8, 8, 2, (1,), 127),
+        (16, 8, 8, 2, (2,), 7),
+        (64, 8, 8, 3, (2, 3), 127),
+        (16, 32, 32, 2, (1, 2, 3), 127),
     ],
 )
-def test_stage_kernel_vs_plain(cuda, c, h, w, batch, ms, g, chunk):
+def test_stage_kernel_vs_plain(cuda, c, h, w, batch, ms, g):
     rng = np.random.RandomState(c + h + len(ms))
     n = len(ms)
     wt = _i8(rng, (n, 2, c, 9 * c), -20, 20).to(cuda)
@@ -85,22 +101,27 @@ def test_stage_kernel_vs_plain(cuda, c, h, w, batch, ms, g, chunk):
     bias = torch.from_numpy((rng.rand(n, 2, c).astype(np.float32) - 0.5) * 0.1).to(cuda)
     stream = torch.from_numpy(rng.randint(0, 4 * g, (c, batch * h * w)).astype(np.int16)).to(cuda)
     before = _build.launches["stage_identity_blocks"]
-    got = stage_identity_blocks(stream, wt, scale, bias, ms, g=g, w_img=w, h_img=h, chunk_imgs=chunk)
+    got = stage_identity_blocks(stream, wt, scale, bias, ms, g=g, w_img=w, h_img=h)
     torch.cuda.synchronize()
     assert _build.launches["stage_identity_blocks"] == before + 1
     want = stage_identity_blocks_reference(stream, wt, scale, bias, ms, g, w, h)
-    assert (got != want).sum().item() <= 1e-6 * got.numel()
+    diff = got != want
+    assert diff.sum().item() <= 1e-6 * got.numel()
+    assert ((got.int() - want.int()).abs() <= 1).all()
 
 
 def test_forward_cuda_vs_cpu(cuda):
     from alignq_tpu_torch.kernels.infer import build_resnet20_int8, resnet20_int8_stream
 
+    from alignq_tpu_torch.kernels.infer import pack_int8_operands
+
     _, (qp_cpu, x_cpu) = build_resnet20_int8(4, device="cpu")
     _, (qp_gpu, x_gpu) = build_resnet20_int8(4, device=cuda)
     kw = dict(act_impl="poly", stream="int16", use_stage_kernel=True, use_pallas_1x1=True)
     want = resnet20_int8_stream(qp_cpu, x_cpu, **kw)
+    ops = pack_int8_operands(qp_gpu)
     k1, k3 = _build.launches["int8_matmul_dequant"], _build.launches["stage_identity_blocks"]
-    got = resnet20_int8_stream(qp_gpu, x_gpu, **kw)
+    got = resnet20_int8_stream(qp_gpu, x_gpu, operands=ops, **kw)
     torch.cuda.synchronize()
     assert _build.launches["int8_matmul_dequant"] - k1 == 7
     assert _build.launches["stage_identity_blocks"] - k3 == 3

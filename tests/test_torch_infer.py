@@ -146,6 +146,16 @@ def test_int_cutpoints_and_bin_codes_exact(act_bits):
     np.testing.assert_array_equal(T._int_bin_codes(_t(acc), tcut).numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize(
+    "has_skip,runs",
+    [([False] * 3 + [True, False, False] * 2, [(0, 3), (4, 6), (7, 9)]),
+     ([True, False, True, True], [(1, 2)]), ([False, False], [(0, 2)])],
+)
+def test_identity_runs(has_skip, runs):
+    layers = [{"skip": 0} if s else {} for s in has_skip]
+    assert T._identity_runs(layers) == runs
+
+
 def test_stage_kernel_chunk_divides_batch():
     for c, h, batch in ((16, 32, 2048), (32, 16, 7), (64, 8, 1)):
         chunk = T._stage_kernel_chunk_imgs(c, h, h, batch)
@@ -219,6 +229,9 @@ def test_forward_matches_jax(bits, act_impl, stream, knobs):
     # each route of the port gives the plain route's stream exactly
     plain = T.resnet20_int8_stream(tq, _t(x), act_bits=bits, act_impl=act_impl, stream=stream)
     assert torch.equal(out_c, plain)
+    # and so do the weights laid out once, as an engine serves them
+    packed = T.resnet20_int8_stream(tq, _t(x), operands=T.pack_int8_operands(tq), **kw)
+    assert torch.equal(out_c, packed)
 
 
 def _to_jax(tree):

@@ -17,7 +17,9 @@ from alignq_tpu_torch.kernels.qmatmul import (
     gather_taps,
     int8_matmul_dequant,
     int8_matmul_int32,
+    int8_matmul_packed,
     kernel_matrix,
+    pack_k1_weights,
 )
 
 SHAPES = [(100, 70, 50), (1000, 27, 16), (333, 144, 32), (64, 16, 32), (128, 576, 64), (40, 288, 128)]
@@ -58,6 +60,29 @@ def test_dequant_no_bias():
     want = jax.jit(jref)(x, w, s)
     got = int8_matmul_dequant(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(s))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("m,k,n", [(100, 70, 50), (64, 16, 32), (40, 288, 128)])
+@pytest.mark.parametrize("mode", ["int32", "f32", "relu"])
+def test_packed_matches_jax(m, k, n, mode):
+    """A weight packed once (K and N zero-padded, W^T) gives JAX's result;
+    x may keep its unpadded K."""
+    x, w, s, b = _operands(m, k, n, seed=3)
+    op = pack_k1_weights(*(torch.from_numpy(a) for a in (w, s, b)))
+    assert op.wt.shape == ((n + 7) // 8 * 8, (k + K_MULT - 1) // K_MULT * K_MULT)
+    got = int8_matmul_packed(torch.from_numpy(x), op, mode)
+    if mode == "int32":
+        want = jax.jit(lambda a, c: jnp.matmul(a, c, preferred_element_type=jnp.int32))(x, w)
+    else:
+        want = jax.jit(lambda *a: jref(*a, relu=mode == "relu"))(x, w, s, b)
+    assert got.shape == (m, n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_packed_rejects_deeper_x():
+    op = pack_k1_weights(torch.zeros((16, 8), dtype=torch.int8))
+    with pytest.raises(ValueError):
+        int8_matmul_packed(torch.zeros((4, 40), dtype=torch.int8), op)
 
 
 def test_cpu_runs_no_kernel():

@@ -94,3 +94,14 @@ def test_rejects_bad_multipliers():
         tsk.stage_identity_blocks(stream, wt, sc, sc, (2, 3), w_img=8, h_img=8)
     with pytest.raises(ValueError):
         tsk.stage_identity_blocks(stream, wt, sc, sc, (0,), w_img=8, h_img=8)
+
+
+def test_rejects_chunks_of_images():
+    """chunk_imgs stays in the signature, but one image a CTA is the only
+    value the CUDA kernel takes; the plain version holds to it too."""
+    wt = torch.zeros((1, 2, 16, 144), dtype=torch.int8)
+    sc = torch.zeros((1, 2, 16))
+    stream = torch.zeros((16, 128), dtype=torch.int16)
+    with pytest.raises(ValueError, match="chunk_imgs"):
+        tsk.stage_identity_blocks(stream, wt, sc, sc, (2,), w_img=8, h_img=8, chunk_imgs=2)
+    assert tsk.stage_identity_blocks(stream, wt, sc, sc, (2,), w_img=8, h_img=8, chunk_imgs=1).shape == (16, 128)
