@@ -19,12 +19,25 @@
 // Epilogue rule: f32 `acc * scale + bias` is ONE rounding (__fmaf_rn), the
 // same as the JAX graph's contracted multiply-add under jit.
 //
+// Epilogue modes: the raw int32 accumulator; f32 `acc * scale + bias`
+// (with or without relu); or the act-site codes of the serving graph, the
+// fused form of K2 (alignq_tpu/kernels/quantize.py:57 cdf_quantize_int8):
+// int8 clip(round(c(h) * g), +-g) of h = acc * scale + bias with c the
+// poly, erf or boundary-bin map, or bins_int's integer compare chains
+// straight on the accumulator (act_codes.cuh). In a codes mode the f32
+// (M, N) tensor never reaches device memory: the output is int8, a quarter
+// of the f32 bytes, stored as 2 codes a fragment row.
+//
 // C interface: qmm_launch returns cudaGetLastError() after the launch.
 // Requirements (checked by the Python wrapper): x (M, Kp) and wt (N, Kp)
-// int8 row-major with Kp % 32 == 0 and N % 8 == 0, both 16-byte aligned.
+// int8 row-major with Kp % 32 == 0 and N % 8 == 0, both 16-byte aligned;
+// for bins, bnd holds g f32 boundaries; for bins_int, sgn (N,) and t1, t2
+// (g, N) int32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "act_codes.cuh"
 
 namespace {
 
@@ -45,11 +58,39 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// mode 0: raw int32 out; 1: f32 fma epilogue; 2: f32 fma epilogue + relu
+// Epilogue modes (the wrapper's kernels/qmatmul.py _MODE)
+enum Mode { INT32 = 0, F32 = 1, RELU = 2, POLY = 3, ERF = 4, BINS = 5, BINS_INT = 6 };
+
+struct ActArgs {
+  const float* bnd;  // BINS: the g f32 erf-grid boundaries
+  const int* sgn;    // BINS_INT: (N,) sign of each column's scale
+  const int* t1;     // BINS_INT: (g, N) cutpoints of code >= k
+  const int* t2;     // BINS_INT: (g, N) cutpoints of code <= -k
+  int g;             // the grid's largest code
+};
+
+// The act code of one accumulator in column col (codes modes only)
+template <int MODE>
+__device__ __forceinline__ int site_code(int acc, float s, float b, int col,
+                                         const ActArgs& a, int N) {
+  if (MODE == BINS_INT) return act::bins_int_code(acc, col, a.sgn, a.t1, a.t2, a.g, N);
+  // int -> f32 rounds to nearest, as the JAX graph's astype does
+  const float h = __fmaf_rn(static_cast<float>(acc), s, b);
+  const float gf = static_cast<float>(a.g);
+  if (MODE == POLY) return act::poly_code(h, gf);
+  if (MODE == ERF) return act::erf_code(h, gf);
+  return act::bins_code(h, a.bnd, a.g);
+}
+
+__device__ __forceinline__ uint16_t pack2(int c0, int c1) {
+  return static_cast<uint16_t>((c0 & 0xff) | (c1 & 0xff) << 8);
+}
+
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 qmm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
            const float* __restrict__ scale, const float* __restrict__ bias,
-           void* __restrict__ out, int M, int N, int Kp, int mode) {
+           void* __restrict__ out, int M, int N, int Kp, ActArgs act_args) {
   __shared__ __align__(16) int8_t As[BM * SROW];
   __shared__ __align__(16) int8_t Bs[NMAX * SROW];
 
@@ -108,7 +149,19 @@ qmm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
   for (int j = 0; j < NMAX / 8; ++j) {
     if (j < ntiles) {
       const int col = n0 + j * 8 + t * 2;
-      if (mode == 0) {
+      if (MODE >= POLY) {
+        const float s0 = scale[col], s1 = scale[col + 1];
+        const float c0 = bias[col], c1 = bias[col + 1];
+        uint16_t* o = static_cast<uint16_t*>(out);
+        if (r0 < M)
+          o[((size_t)r0 * N + col) >> 1] =
+              pack2(site_code<MODE>(acc[j][0], s0, c0, col, act_args, N),
+                    site_code<MODE>(acc[j][1], s1, c1, col + 1, act_args, N));
+        if (r1 < M)
+          o[((size_t)r1 * N + col) >> 1] =
+              pack2(site_code<MODE>(acc[j][2], s0, c0, col, act_args, N),
+                    site_code<MODE>(acc[j][3], s1, c1, col + 1, act_args, N));
+      } else if (MODE == INT32) {
         int* o = static_cast<int*>(out);
         if (r0 < M) *reinterpret_cast<int2*>(o + (size_t)r0 * N + col) = make_int2(acc[j][0], acc[j][1]);
         if (r1 < M) *reinterpret_cast<int2*>(o + (size_t)r1 * N + col) = make_int2(acc[j][2], acc[j][3]);
@@ -122,7 +175,7 @@ qmm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
         float y1 = __fmaf_rn((float)acc[j][1], s1, c1);
         float y2 = __fmaf_rn((float)acc[j][2], s0, c0);
         float y3 = __fmaf_rn((float)acc[j][3], s1, c1);
-        if (mode == 2) {
+        if (MODE == RELU) {
           y0 = fmaxf(y0, 0.f); y1 = fmaxf(y1, 0.f);
           y2 = fmaxf(y2, 0.f); y3 = fmaxf(y3, 0.f);
         }
@@ -133,15 +186,34 @@ qmm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
   }
 }
 
+template <int MODE>
+void launch(const void* x, const void* wt, const void* scale, const void* bias,
+            void* out, int M, int N, int Kp, const ActArgs& a, cudaStream_t stream) {
+  dim3 grid((M + BM - 1) / BM, (N + NMAX - 1) / NMAX);
+  qmm_kernel<MODE><<<grid, THREADS, 0, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
+      static_cast<const float*>(scale), static_cast<const float*>(bias), out,
+      M, N, Kp, a);
+}
+
 }  // namespace
 
 extern "C" int qmm_launch(const void* x, const void* wt, const void* scale,
                           const void* bias, void* out, int M, int N, int Kp,
-                          int mode, void* stream) {
-  dim3 grid((M + BM - 1) / BM, (N + NMAX - 1) / NMAX);
-  qmm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
-      static_cast<const float*>(scale), static_cast<const float*>(bias), out,
-      M, N, Kp, mode);
+                          int mode, const void* bnd, const void* sgn,
+                          const void* t1, const void* t2, int g, void* stream) {
+  const ActArgs a{static_cast<const float*>(bnd), static_cast<const int*>(sgn),
+                  static_cast<const int*>(t1), static_cast<const int*>(t2), g};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case INT32: launch<INT32>(x, wt, scale, bias, out, M, N, Kp, a, s); break;
+    case F32: launch<F32>(x, wt, scale, bias, out, M, N, Kp, a, s); break;
+    case RELU: launch<RELU>(x, wt, scale, bias, out, M, N, Kp, a, s); break;
+    case POLY: launch<POLY>(x, wt, scale, bias, out, M, N, Kp, a, s); break;
+    case ERF: launch<ERF>(x, wt, scale, bias, out, M, N, Kp, a, s); break;
+    case BINS: launch<BINS>(x, wt, scale, bias, out, M, N, Kp, a, s); break;
+    case BINS_INT: launch<BINS_INT>(x, wt, scale, bias, out, M, N, Kp, a, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

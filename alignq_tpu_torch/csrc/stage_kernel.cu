@@ -23,7 +23,8 @@
 //
 // Rounding rule: every f32 `a * b + c` is one rounding (__fmaf_rn), as the
 // JAX graph's contracted multiply-adds under jit; rintf rounds half to even
-// like jnp.round.
+// like jnp.round. The poly act codes are act_codes.cuh's poly_code, shared
+// with K1's codes epilogue.
 //
 // C interface: stage_launch returns cudaGetLastError() after the launch.
 // Requirements (checked by the Python wrapper): C in {16, 32, 64},
@@ -31,6 +32,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "act_codes.cuh"
 
 namespace {
 
@@ -41,24 +44,6 @@ constexpr int MAX_BLOCKS = 32;
 struct BlockMs {
   int v[MAX_BLOCKS];
 };
-
-// ERF_SQRT2_POLY (alignq_tpu_torch/quant/cdf.py), each coefficient rounded
-// once to f32; tests/test_torch_stage_kernel.py checks these literals.
-__device__ __forceinline__ int poly_code(float h, float gf) {
-  const float zc = fminf(fmaxf(h, -3.0f), 3.0f);
-  const float u = __fmul_rn(zc, zc);
-  float acc = -0x1.8d9d24p-27f;
-  acc = __fmaf_rn(acc, u, 0x1.39f95ap-21f);
-  acc = __fmaf_rn(acc, u, -0x1.d0cc62p-17f);
-  acc = __fmaf_rn(acc, u, 0x1.b7fe68p-13f);
-  acc = __fmaf_rn(acc, u, -0x1.3067b0p-9f);
-  acc = __fmaf_rn(acc, u, 0x1.45a8c8p-6f);
-  acc = __fmaf_rn(acc, u, -0x1.10417ep-3f);
-  acc = __fmaf_rn(acc, u, 0x1.98834cp-1f);
-  const float c = __fmul_rn(zc, acc);
-  const float v = fminf(fmaxf(rintf(__fmul_rn(c, gf)), -gf), gf);
-  return static_cast<int>(v);
-}
 
 __host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
 
@@ -107,7 +92,7 @@ __device__ void conv3x3(const int8_t* xin, const int8_t* ws,
         for (int k = 0; k < 4; ++k) {
           const int co = cog * COG + q * 4 + k;
           const float h = __fmaf_rn(static_cast<float>(acc[q * 4 + k]), scale[co], bias[co]);
-          const int r = max(poly_code(h, gf), 0);
+          const int r = max(act::poly_code(h, gf), 0);
           word |= static_cast<uint32_t>(r & 0xff) << (8 * k);
         }
         packed[q] = word;
@@ -119,7 +104,7 @@ __device__ void conv3x3(const int8_t* xin, const int8_t* ws,
       for (int o = 0; o < COG; ++o) {
         const int co = cog * COG + o;
         const float h = __fmaf_rn(static_cast<float>(acc[o]), scale[co], bias[co]);
-        const int a1 = poly_code(h, gf);
+        const int a1 = act::poly_code(h, gf);
         int16_t* k = plane + co * HW + p;
         *k = static_cast<int16_t>(max(a1 + static_cast<int>(*k), 0));
       }

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/<name>.cu` exposes a plain C interface. At first use it is
+Each `csrc/<name>.cu` exposes a plain C interface; the `csrc/*.cuh`
+headers hold device code that several sources share. At first use it is
 compiled with nvcc for sm_90a into a shared library under
 `alignq_tpu_torch/_kernels_build/` (listed in .gitignore) and loaded with
 ctypes. A build failure raises; nothing falls back. `build_all()` starts
@@ -30,7 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("qmatmul", "stage_kernel")
+SOURCES = ("qmatmul", "quantize", "stage_kernel")
 
 launches: collections.Counter = collections.Counter()
 
@@ -49,8 +50,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library's path, keyed by the source, every shared header
+    (csrc/*.cuh, which a source may include) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.name.encode() + h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 

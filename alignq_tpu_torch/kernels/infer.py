@@ -15,7 +15,9 @@ The graph, value for value as the JAX package runs it under jit:
 Tensors keep the JAX package's layouts at the public functions: NHWC
 activations, HWIO kernels. On CUDA every conv outside the stage kernel is
 kernel K1 over gathered taps (kernels/qmatmul.py): PyTorch has no int8
-conv there. On the CPU the same code runs K1's plain version.
+conv there. Every act site after such a conv is K1's codes epilogue
+(int8_matmul_codes): the conv's f32 output is never stored. On the CPU the
+same code runs K1's plain version.
 """
 
 from __future__ import annotations
@@ -30,14 +32,19 @@ from alignq_tpu_torch.interop import init_preact_resnet_params
 from alignq_tpu_torch.kernels.convert import QConvInt8, fold_conv_bn, grid_max
 from alignq_tpu_torch.kernels.qmatmul import (
     K_MULT,
+    ActMap,
     K1Weights,
+    act_map,
     gather_taps,
+    int8_matmul_codes,
     int8_matmul_packed,
     kernel_matrix,
+    pack_act_cutpoints,
     pack_k1_weights,
 )
+from alignq_tpu_torch.kernels.quantize import act_codes, int_bin_codes
 from alignq_tpu_torch.kernels.stage_kernel import pack_block_weights, stage_identity_blocks
-from alignq_tpu_torch.quant.cdf import erf_grid_boundaries, erf_sqrt2
+from alignq_tpu_torch.quant.cdf import erf_grid_boundaries
 
 ACT_SCALE = 2.0 / 127.0  # act_range=2 over the symmetric 127 grid
 S_IMG = 3.0 / 127.0  # normalized-image scale (CIFAR norm ~ [-2.5, 2.7])
@@ -66,18 +73,8 @@ def _act_g(act_bits: int) -> float:
 def _erfq_codes(h: torch.Tensor, act_bits: int = 8, impl: str = "erf") -> torch.Tensor:
     """Act-site codes round(c(h) * g) in int8 storage (g = 127 for A8, 7
     for A4). impl: 'erf' | 'poly' | 'bins' (A4/A2: compares against the
-    exact erf-grid boundaries)."""
-    g = _act_g(act_bits)
-    if impl == "bins":
-        if g > 15:
-            raise ValueError("bins impl is for the A4/A2 grids (A8 g=127: use poly)")
-        acc = torch.zeros(h.shape, dtype=torch.int8, device=h.device)
-        for tk in erf_grid_boundaries(int(g)):
-            tk = float(tk)
-            acc = acc + (h >= tk).to(torch.int8) - (h <= -tk).to(torch.int8)
-        return acc
-    c = erf_sqrt2(h, impl)
-    return torch.clamp(torch.round(c * g), -g, g).to(torch.int8)
+    exact erf-grid boundaries). K1's codes epilogue runs the same map."""
+    return act_codes(h, int(_act_g(act_bits)), impl)
 
 
 def _linear_q(x: torch.Tensor, scale: float) -> torch.Tensor:
@@ -105,14 +102,20 @@ def _k1_weights(q: QConvInt8) -> K1Weights:
     return pack_k1_weights(kernel_matrix(q.kernel_int8), q.scale, q.bias)
 
 
-def _conv_k1(x_int8, q, stride, padding, op, mode):
+def _k1(x2d, q, op, mode, act):
+    """K1 on an (M, K) int8 matrix: the act codes where act is given
+    (int8), else the epilogue `mode` ('f32' or 'int32')."""
+    op = _k1_weights(q) if op is None else op
+    return int8_matmul_packed(x2d, op, mode) if act is None else int8_matmul_codes(x2d, op, act)
+
+
+def _conv_k1(x_int8, q, stride, padding, op, mode, act=None):
     b, h, w, _ = x_int8.shape
     ksize = q.kernel_int8.shape[0]
     cols = gather_taps(x_int8, ksize, stride, padding, K_MULT)
     ho = (h + 2 * padding - ksize) // stride + 1
     wo = (w + 2 * padding - ksize) // stride + 1
-    y = int8_matmul_packed(cols, _k1_weights(q) if op is None else op, mode)
-    return y.reshape(b, ho, wo, -1)
+    return _k1(cols, q, op, mode, act).reshape(b, ho, wo, -1)
 
 
 def _int8_conv_acc(x_int8: torch.Tensor, q: QConvInt8, stride: int = 1, padding: int = 1,
@@ -123,20 +126,21 @@ def _int8_conv_acc(x_int8: torch.Tensor, q: QConvInt8, stride: int = 1, padding:
 
 
 def _int8_conv(x_int8: torch.Tensor, q: QConvInt8, stride: int = 1, padding: int = 1,
-               op: Optional[K1Weights] = None):
-    """One folded conv with its f32 dequant epilogue, acc * scale + bias."""
-    return _conv_k1(x_int8, q, stride, padding, op, "f32")
+               op: Optional[K1Weights] = None, act: Optional[ActMap] = None):
+    """One folded conv with its f32 dequant epilogue, acc * scale + bias;
+    with act, that epilogue's int8 act codes instead."""
+    return _conv_k1(x_int8, q, stride, padding, op, "f32", act)
 
 
 def _int8_conv_1x1_pallas(x_int8: torch.Tensor, q: QConvInt8, stride: int = 1,
-                          op: Optional[K1Weights] = None):
+                          op: Optional[K1Weights] = None, act: Optional[ActMap] = None):
     """1x1 conv as K1 directly: a strided spatial subsample, then a
-    (B*H'*W', Cin) @ (Cin, Cout) matmul with the fused epilogue."""
+    (B*H'*W', Cin) @ (Cin, Cout) matmul with the fused epilogue (f32, or
+    the int8 act codes with act)."""
     if stride != 1:
         x_int8 = x_int8[:, ::stride, ::stride, :]
     b, h, w, cin = x_int8.shape
-    y = int8_matmul_packed(x_int8.reshape(-1, cin), _k1_weights(q) if op is None else op)
-    return y.reshape(b, h, w, -1)
+    return _k1(x_int8.reshape(-1, cin), q, op, "f32", act).reshape(b, h, w, -1)
 
 
 def _merged_skip_conv(q0: QConvInt8, qs: QConvInt8) -> QConvInt8:
@@ -148,10 +152,11 @@ def _merged_skip_conv(q0: QConvInt8, qs: QConvInt8) -> QConvInt8:
 
 
 def _int8_conv_merged_skip(x_int8: torch.Tensor, q0: QConvInt8, qs: QConvInt8, stride: int,
-                           op: Optional[K1Weights] = None):
+                           op: Optional[K1Weights] = None, act: Optional[ActMap] = None):
     """Stage-boundary conv0 (3x3, pad 1) and skip (1x1, pad 0) as ONE conv
-    (_merged_skip_conv): bit-identical accumulators."""
-    h = _int8_conv(x_int8, _merged_skip_conv(q0, qs), stride, 1, op)
+    (_merged_skip_conv): bit-identical accumulators. (f32 halves, or with
+    act their int8 act codes.)"""
+    h = _int8_conv(x_int8, _merged_skip_conv(q0, qs), stride, 1, op, act)
     c0 = q0.kernel_int8.shape[3]
     return h[..., :c0], h[..., c0:]
 
@@ -197,12 +202,9 @@ def act_int_cutpoints(q: QConvInt8, act_bits: int):
 
 def _int_bin_codes(acc: torch.Tensor, cut) -> torch.Tensor:
     """Act codes from the raw int32 accumulator by integer compare chains
-    against per-channel cutpoints (see act_int_cutpoints)."""
-    a = acc * cut["sgn"]  # fold negative BN scales into the comparand
-    codes = torch.zeros(acc.shape, dtype=torch.int8, device=acc.device)
-    for k in range(cut["t1"].shape[0]):
-        codes = codes + (a >= cut["t1"][k]).to(torch.int8) - (a <= cut["t2"][k]).to(torch.int8)
-    return codes
+    against per-channel cutpoints (see act_int_cutpoints). K1's codes
+    epilogue runs the same chains."""
+    return int_bin_codes(acc, cut["sgn"], cut["t1"], cut["t2"])
 
 
 def augment_int_cutpoints(qparams: Dict[str, Any], act_bits: int) -> Dict[str, Any]:
@@ -279,19 +281,28 @@ def pack_int8_operands(qparams: Dict[str, Any]) -> Dict[str, Any]:
     beside qparams: K1Weights for 'conv0' and for each block's 'conv0',
     'conv1', 'skip' and 'merged' (conv0 + skip, for fuse_skip); and under
     'stage', K3's (wt, scale, bias) for each run of identity blocks, keyed
-    by the run's first block."""
+    by the run's first block. Where qparams has bins_int cutpoints
+    (augment_int_cutpoints), each site's are laid out for K1's codes
+    epilogue too, as ActMaps under the same keys ('conv0_cut'; 'cut0',
+    'cut1', 'cut_skip')."""
     layers = qparams["layers"]
     blocks = []
     for blk in layers:
         ops = {k: _k1_weights(blk[k]) for k in ("conv0", "conv1", "skip") if k in blk}
         if "skip" in blk:
             ops["merged"] = _k1_weights(_merged_skip_conv(blk["conv0"], blk["skip"]))
+        for key, conv in (("cut0", "conv0"), ("cut1", "conv1"), ("cut_skip", "skip")):
+            if key in blk:
+                ops[key] = pack_act_cutpoints(blk[key], ops[conv].wt.shape[0])
         blocks.append(ops)
-    return {
+    out = {
         "conv0": _k1_weights(qparams["conv0"]),
         "layers": blocks,
         "stage": {i: pack_block_weights(layers[i:j]) for i, j in _identity_runs(layers)},
     }
+    if "conv0_cut" in qparams:
+        out["conv0_cut"] = pack_act_cutpoints(qparams["conv0_cut"], out["conv0"].wt.shape[0])
+    return out
 
 
 def _stage_kernel_chunk_imgs(c: int, h: int, w: int, batch: int) -> int:
@@ -330,18 +341,21 @@ def resnet20_int8_stream(
         raise ValueError("stage kernel carries the int16 stream")
 
     ops = pack_int8_operands(qparams) if operands is None else operands
+    if bins_int and "conv0_cut" not in ops:
+        raise ValueError("operands lack the bins_int cutpoints: pack them after augment_int_cutpoints")
+    # the act map of every site but bins_int's, whose cutpoints are per site
+    site_act = None if bins_int else act_map(act_impl, int(g), x.device)
 
     def _site_codes(x8_in, q, cut, stride_, pad_, op):
-        if bins_int:
-            return _int_bin_codes(_int8_conv_acc(x8_in, q, stride_, pad_, op), cut)
-        return _erfq_codes(_int8_conv(x8_in, q, stride_, pad_, op), act_bits, act_impl)
+        # cut: the site's bins_int cutpoints as laid out in ops
+        return _int8_conv(x8_in, q, stride_, pad_, op, cut if bins_int else site_act)
 
     layers = qparams["layers"]
     ms = residual_multipliers(["skip" in blk for blk in layers])
     runs = dict(_identity_runs(layers))
     # stem: conv0 -> bn -> act_q0 -> relu
     out_c = torch.clamp_min(
-        _site_codes(_linear_q(x, S_IMG), qparams["conv0"], qparams.get("conv0_cut"), 1, 1, ops["conv0"])
+        _site_codes(_linear_q(x, S_IMG), qparams["conv0"], ops.get("conv0_cut"), 1, 1, ops["conv0"])
         .to(torch.int16),
         0,
     )
@@ -369,23 +383,21 @@ def resnet20_int8_stream(
         if "skip" in blk:
             # shortcut = act_skip_q(skip_bn(skip_conv(x))), no relu
             if use_pallas_1x1:
-                sc_h = _int8_conv_1x1_pallas(x8, blk["skip"], stride, bops["skip"])
-                sc_c = _erfq_codes(sc_h, act_bits, act_impl).to(torch.int16)
-                a0 = _erfq_codes(_int8_conv(x8, blk["conv0"], stride, 1, bops["conv0"]), act_bits, act_impl)
+                sc_c = _int8_conv_1x1_pallas(x8, blk["skip"], stride, bops["skip"], site_act).to(torch.int16)
+                a0 = _site_codes(x8, blk["conv0"], None, stride, 1, bops["conv0"])
             elif fuse_skip:
-                h0, sc_h = _int8_conv_merged_skip(x8, blk["conv0"], blk["skip"], stride, bops["merged"])
-                sc_c = _erfq_codes(sc_h, act_bits, act_impl).to(torch.int16)
-                a0 = _erfq_codes(h0, act_bits, act_impl)
+                a0, sc_c = _int8_conv_merged_skip(x8, blk["conv0"], blk["skip"], stride, bops["merged"], site_act)
+                sc_c = sc_c.to(torch.int16)
             else:
-                sc_c = _site_codes(x8, blk["skip"], blk.get("cut_skip"), stride, 0, bops["skip"]).to(torch.int16)
-                a0 = _site_codes(x8, blk["conv0"], blk.get("cut0"), stride, 1, bops["conv0"])
+                sc_c = _site_codes(x8, blk["skip"], bops.get("cut_skip"), stride, 0, bops["skip"]).to(torch.int16)
+                a0 = _site_codes(x8, blk["conv0"], bops.get("cut0"), stride, 1, bops["conv0"])
         else:
             # int16 stream: the full-resolution code sum; int8 stream: the
             # requantized codes scaled back to grid-1 units (m * c8)
             sc_c = m * c8.to(torch.int16) if stream == "int8" else out_c
-            a0 = _site_codes(x8, blk["conv0"], blk.get("cut0"), stride, 1, bops["conv0"])
+            a0 = _site_codes(x8, blk["conv0"], bops.get("cut0"), stride, 1, bops["conv0"])
         r0 = torch.clamp_min(a0, 0)  # relu on codes == relu on values
-        a1_c = _site_codes(r0, blk["conv1"], blk.get("cut1"), 1, 1, bops["conv1"]).to(torch.int16)
+        a1_c = _site_codes(r0, blk["conv1"], bops.get("cut1"), 1, 1, bops["conv1"]).to(torch.int16)
         out_c = torch.clamp_min(a1_c + sc_c, 0)  # residual add + relu, in codes
         if stream == "int8" and i + 1 < len(layers):
             c8 = _requant_codes(out_c, ms[i + 1], g)

@@ -9,7 +9,10 @@ taps into an (M, K) matrix), since PyTorch has no int8 conv on CUDA.
 
 The weight side is laid out for the kernel by `pack_k1_weights`; a caller
 that reuses a weight (the forward, given kernels/infer.py
-pack_int8_operands) packs it once and calls `int8_matmul_packed`.
+pack_int8_operands) packs it once and calls `int8_matmul_packed`, or
+`int8_matmul_codes` for an act site: K1's codes epilogue maps the
+accumulators straight to int8 act codes (the fused form of K2,
+csrc/act_codes.cuh), so the f32 (M, N) tensor is never stored.
 
 Epilogue `acc * scale + bias` is one f32 rounding: `__fmaf_rn` in CUDA,
 `fma_f32` (float64 evaluation, one cast) in the plain version.
@@ -18,17 +21,23 @@ Epilogue `acc * scale + bias` is one f32 rounding: `__fmaf_rn` in CUDA,
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from alignq_tpu_torch.kernels import _build
-from alignq_tpu_torch.quant.cdf import fma_f32
+from alignq_tpu_torch.kernels.quantize import act_codes, int_bin_codes
+from alignq_tpu_torch.quant.cdf import erf_grid_boundaries, fma_f32
 
 K_MULT = 32  # depth of one m16n8k32 int8 MMA: K is zero-padded to it
 N_MULT = 8  # width of one MMA n-tile
-KERNEL = "int8_matmul_dequant"  # launch-counter key
-_MODE = {"int32": 0, "f32": 1, "relu": 2}
+KERNEL = "int8_matmul_dequant"  # launch-counter key of every launch
+# and of each family of epilogue modes: "int8_matmul_dequant:codes" etc.
+_MODE = {"int32": 0, "f32": 1, "relu": 2, "poly": 3, "erf": 4, "bins": 5, "bins_int": 6}
+_FAMILY = {"int32": "int32", "f32": "f32", "relu": "f32"}
+CODES = KERNEL + ":codes"
+F32 = KERNEL + ":f32"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -84,7 +93,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("qmatmul")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.qmm_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.qmm_launch.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p, p, i, p]
         lib.qmm_launch.restype = i
         lib._argtypes_set = True
     return lib
@@ -114,10 +123,48 @@ def pack_k1_weights(w: torch.Tensor, scale=None, bias=None) -> K1Weights:
     return K1Weights(wt, vec(scale), vec(bias), n)
 
 
-def int8_matmul_packed(x: torch.Tensor, op: K1Weights, mode: str = "f32") -> torch.Tensor:
-    """x (M, K) int8 @ a packed weight: the raw int32 accumulator
-    (mode 'int32') or the f32 epilogue (mode 'f32', or 'relu' with relu).
-    K1 on a CUDA tensor, its plain version on a CPU tensor."""
+class ActMap(NamedTuple):
+    """An act site's code map as K1's codes epilogue takes it. impl: 'poly'
+    | 'erf' | 'bins' | 'bins_int'; g: the grid's largest code. bins: bnd,
+    the (g,) f32 erf-grid boundaries. bins_int: sgn (N8,) and t1, t2
+    (g, N8) int32 per-column cutpoints (kernels/infer.py
+    act_int_cutpoints), zero-padded to the packed weight's width. Fields a
+    map does not use are None."""
+
+    impl: str
+    g: int
+    bnd: Optional[torch.Tensor] = None
+    sgn: Optional[torch.Tensor] = None
+    t1: Optional[torch.Tensor] = None
+    t2: Optional[torch.Tensor] = None
+
+
+@functools.lru_cache(maxsize=None)
+def act_map(impl: str, g: int, device: torch.device) -> ActMap:
+    """The poly, erf or bins map of grid g on a device, laid out once per
+    process (bins_int, which is per site, is pack_act_cutpoints')."""
+    if impl not in ("poly", "erf", "bins"):
+        raise ValueError(f"unknown act impl {impl!r}")
+    if impl == "bins":
+        if g > 15:
+            raise ValueError("bins impl is for the A4/A2 grids (A8 g=127: use poly)")
+        return ActMap(impl, g, bnd=torch.from_numpy(erf_grid_boundaries(g)).to(device))
+    return ActMap(impl, g)
+
+
+def pack_act_cutpoints(cut, n8: int) -> ActMap:
+    """A site's bins_int cutpoints {'sgn': (N,), 't1', 't2': (g, N)} int32
+    as an ActMap, zero-padded to n8 columns."""
+    n = cut["sgn"].shape[0]
+
+    def pad(t):
+        return torch.nn.functional.pad(t.to(torch.int32), (0, n8 - n)).contiguous()
+
+    return ActMap("bins_int", int(cut["t1"].shape[0]), sgn=pad(cut["sgn"]), t1=pad(cut["t1"]), t2=pad(cut["t2"]))
+
+
+def _chain(x: torch.Tensor, op: K1Weights) -> torch.Tensor:
+    """x (M, K) int8 checked against a packed weight, K zero-padded to its depth."""
     if x.dtype != torch.int8 or op.wt.dtype != torch.int8:
         raise TypeError(f"int8 operands expected, got {x.dtype} and {op.wt.dtype}")
     kp = op.wt.shape[1]
@@ -125,35 +172,81 @@ def int8_matmul_packed(x: torch.Tensor, op: K1Weights, mode: str = "f32") -> tor
         raise ValueError(f"x {tuple(x.shape)} does not chain with a packed weight of depth {kp}")
     if x.shape[1] != kp:
         x = torch.nn.functional.pad(x, (0, kp - x.shape[1]))
+    return x
+
+
+def _launch_k1(x, op: K1Weights, mode: str, dtype, act: Optional[ActMap] = None) -> torch.Tensor:
+    """K1 on CUDA operands that _chain prepared, into a new (M, N) out."""
+    tensors = [x, *op[:3]] + ([t for t in act[2:] if t is not None] if act is not None else [])
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("x, the packed weight and the act map must lie on one device")
+    x = x.contiguous()
+    if x.data_ptr() % 16 or op.wt.data_ptr() % 16:
+        raise ValueError("K1 needs 16-byte aligned operands")
+    np_ = op.wt.shape[0]
+    out = torch.empty((x.shape[0], np_), device=x.device, dtype=dtype)
+    if x.shape[0]:
+        _qmm_launch(x, op.wt, op.scale, op.bias, out, mode, act)
+        _build.launches[KERNEL] += 1
+        _build.launches[f"{KERNEL}:{_FAMILY.get(mode, 'codes')}"] += 1
+    return out if np_ == op.n else out[:, : op.n]
+
+
+def int8_matmul_packed(x: torch.Tensor, op: K1Weights, mode: str = "f32") -> torch.Tensor:
+    """x (M, K) int8 @ a packed weight: the raw int32 accumulator
+    (mode 'int32') or the f32 epilogue (mode 'f32', or 'relu' with relu).
+    K1 on a CUDA tensor, its plain version on a CPU tensor."""
+    if mode not in _FAMILY:
+        raise ValueError(f"unknown mode {mode!r}")
+    x = _chain(x, op)
     if x.device.type == "cpu":
         w = op.wt[: op.n].t()
         if mode == "int32":
             return int8_matmul_int32_reference(x, w)
         return int8_matmul_dequant_reference(x, w, op.scale[: op.n], op.bias[: op.n], relu=mode == "relu")
-    if len({t.device for t in (x, *op[:3])}) != 1:
-        raise ValueError("x and the packed weight must lie on one device")
-    x = x.contiguous()
-    if x.data_ptr() % 16 or op.wt.data_ptr() % 16:
-        raise ValueError("K1 needs 16-byte aligned operands")
-    np_ = op.wt.shape[0]
-    out = torch.empty((x.shape[0], np_), device=x.device,
-                      dtype=torch.int32 if mode == "int32" else torch.float32)
-    if x.shape[0]:
-        _qmm_launch(x, op.wt, op.scale, op.bias, out, mode)
-        _build.launches[KERNEL] += 1
-    return out if np_ == op.n else out[:, : op.n]
+    return _launch_k1(x, op, mode, torch.int32 if mode == "int32" else torch.float32)
 
 
-def _qmm_launch(x, wt, sp, bp, out, mode: str) -> None:
-    """One launch of csrc/qmatmul.cu on operands int8_matmul_packed
-    prepared: x (M, Kp) and wt (N, Kp) int8, scale/bias (N,) f32 (unread in
-    mode 'int32'), out (M, N). Counts nothing (the wrapper does)."""
+def int8_matmul_codes_reference(x: torch.Tensor, op: K1Weights, act: ActMap) -> torch.Tensor:
+    """Plain codes: act_codes of the f32 epilogue, or int_bin_codes of the
+    int32 accumulator for bins_int."""
+    x = _chain(x, op)
+    n = op.n
+    w = op.wt[:n].t()
+    if act.impl == "bins_int":
+        return int_bin_codes(int8_matmul_int32_reference(x, w), act.sgn[:n], act.t1[:, :n], act.t2[:, :n])
+    return act_codes(int8_matmul_dequant_reference(x, w, op.scale[:n], op.bias[:n]), act.g, act.impl)
+
+
+def int8_matmul_codes(x: torch.Tensor, op: K1Weights, act: ActMap) -> torch.Tensor:
+    """The act codes (M, N) int8 of x (M, K) int8 @ a packed weight: K1's
+    codes epilogue on a CUDA tensor, int8_matmul_codes_reference on a CPU
+    tensor."""
+    x = _chain(x, op)
+    if x.device.type == "cpu":
+        return int8_matmul_codes_reference(x, op, act)
+    if act.impl == "bins_int" and act.sgn.shape[0] != op.wt.shape[0]:
+        raise ValueError("the cutpoints are not padded to the packed weight's width")
+    return _launch_k1(x, op, act.impl, torch.int8, act)
+
+
+def _qmm_launch(x, wt, sp, bp, out, mode: str, act: Optional[ActMap] = None) -> None:
+    """One launch of csrc/qmatmul.cu on operands _chain prepared: x (M, Kp)
+    and wt (N, Kp) int8, scale/bias (N,) f32 (unread in modes 'int32' and
+    'bins_int'), out (M, N); act, the map of a codes mode. Counts nothing
+    (the wrapper does)."""
     lib = _lib()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    bnd, sgn, t1, t2 = (None,) * 4 if act is None else act[2:]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.qmm_launch(
             x.data_ptr(), wt.data_ptr(), sp.data_ptr(), bp.data_ptr(),
-            out.data_ptr(), x.shape[0], wt.shape[0], x.shape[1], _MODE[mode], stream,
+            out.data_ptr(), x.shape[0], wt.shape[0], x.shape[1], _MODE[mode],
+            ptr(bnd), ptr(sgn), ptr(t1), ptr(t2), 0 if act is None else act.g, stream,
         )
     _build.check(err, "qmatmul.cu qmm_kernel")
 

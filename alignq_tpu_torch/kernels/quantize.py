@@ -1,0 +1,124 @@
+"""CDF-alignment quantization to int8 (kernel K2), and the act-site code
+maps that K1 runs in its epilogue.
+
+Port of alignq_tpu/kernels/quantize.py. `cdf_quantize_int8` maps f32 of
+any shape to int8 codes clip(round(erf(x/sqrt2) * 127), +-127), erf being
+Abramowitz-Stegun 7.1.26 as the TPU kernel computes it. On a CUDA tensor it
+launches csrc/quantize.cu; on a CPU tensor it runs the plain version,
+`cdf_quantize_int8_plain`, which repeats the kernel's arithmetic. Both
+follow the JAX kernel under jit: a multiply by the f32 reciprocal of sqrt2,
+and every `a * b + c` rounded once (quant/cdf.py fma_f32), including
+`1 - poly * exp(-z^2)`.
+
+`act_codes` and `int_bin_codes` are the plain act-site maps of the serving
+graph (kernels/infer.py): codes = clip(round(c(h) * g), +-g), c the erf,
+poly or boundary-bin CDF, or integer compare chains on the int32
+accumulator. The same maps run on the card in K1's codes epilogue
+(csrc/act_codes.cuh, kernels/qmatmul.py int8_matmul_codes).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from alignq_tpu_torch.kernels import _build
+from alignq_tpu_torch.quant.cdf import _INV_SQRT2, erf_f32, erf_grid_boundaries, erf_sqrt2, fma_f32
+
+KERNEL = "cdf_quantize_int8"  # launch-counter key
+Q_MAX = 127.0
+
+# A&S 7.1.26, each constant rounded once to f32 as JAX casts a Python float
+# (csrc/quantize.cu carries the same values as hex literals)
+_AS_P = float(np.float32(0.3275911))
+_AS_A = tuple(float(np.float32(a)) for a in (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429))
+
+
+def _quantize(c: torch.Tensor, g: float) -> torch.Tensor:
+    return torch.clamp(torch.round(c * g), -g, g).to(torch.int8)
+
+
+def cdf_quantize_int8_plain(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch, value for value as the
+    JAX kernel computes under jit."""
+    z = x * _INV_SQRT2
+    az = torch.abs(z)
+    t = 1.0 / fma_f32(az, _AS_P, 1.0)
+    poly = torch.full_like(t, _AS_A[-1])
+    for a in _AS_A[-2::-1]:
+        poly = fma_f32(poly, t, a)
+    poly = poly * t
+    y = fma_f32(-poly, torch.exp(-az * az), 1.0)
+    return _quantize(torch.sign(z) * y, Q_MAX)
+
+
+def cdf_quantize_int8_reference(x: torch.Tensor) -> torch.Tensor:
+    """XLA's erf of x / sqrt2 (the JAX reference, which runs eagerly and so
+    divides: no constant is there to fold into a reciprocal)."""
+    return _quantize(erf_f32(x / np.float32(np.sqrt(2.0))), Q_MAX)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("quantize")
+    if not getattr(lib, "_argtypes_set", False):
+        p = ctypes.c_void_p
+        lib.cdf_quant_launch.argtypes = [p, p, ctypes.c_longlong, p]
+        lib.cdf_quant_launch.restype = ctypes.c_int
+        lib._argtypes_set = True
+    return lib
+
+
+def cdf_quantize_int8(x: torch.Tensor) -> torch.Tensor:
+    """Fused Phi-transform + int8 rounding: f32 of any shape -> int8 of the
+    same shape. K2 on a CUDA tensor, its plain version on a CPU tensor."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"cdf_quantize_int8 takes float32, got {x.dtype}")
+    if x.layout != torch.strided:
+        raise ValueError(f"cdf_quantize_int8 takes a dense tensor, got layout {x.layout}")
+    if x.device.type == "cpu":
+        return cdf_quantize_int8_plain(x)
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("K2 needs a 16-byte aligned input")
+    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if x.numel():
+        _k2_launch(x, out)
+        _build.launches[KERNEL] += 1
+    return out
+
+
+def _k2_launch(x: torch.Tensor, out: torch.Tensor) -> None:
+    """One launch of csrc/quantize.cu on x (f32, contiguous, 16-byte
+    aligned) into out (int8, as many elements). Counts nothing (the
+    wrapper does)."""
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.cdf_quant_launch(x.data_ptr(), out.data_ptr(), x.numel(), stream)
+    _build.check(err, "quantize.cu cdf_quant_kernel")
+
+
+def act_codes(h: torch.Tensor, g: int, impl: str) -> torch.Tensor:
+    """Act-site codes round(c(h) * g) in int8 storage. impl: 'erf' | 'poly'
+    | 'bins' (g <= 15: compares against the exact erf-grid boundaries)."""
+    if impl == "bins":
+        if g > 15:
+            raise ValueError("bins impl is for the A4/A2 grids (A8 g=127: use poly)")
+        acc = torch.zeros(h.shape, dtype=torch.int8, device=h.device)
+        for tk in erf_grid_boundaries(int(g)):
+            tk = float(tk)
+            acc = acc + (h >= tk).to(torch.int8) - (h <= -tk).to(torch.int8)
+        return acc
+    return _quantize(erf_sqrt2(h, impl), float(g))
+
+
+def int_bin_codes(acc: torch.Tensor, sgn: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
+    """Act codes from the raw int32 accumulator (M, N) by integer compare
+    chains against per-channel cutpoints: sgn (N,), t1 and t2 (g, N)."""
+    a = acc * sgn  # fold negative BN scales into the comparand
+    codes = torch.zeros(acc.shape, dtype=torch.int8, device=acc.device)
+    for k in range(t1.shape[0]):
+        codes = codes + (a >= t1[k]).to(torch.int8) - (a <= t2[k]).to(torch.int8)
+    return codes

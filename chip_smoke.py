@@ -5,34 +5,47 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
  1. the card's name and power limit; TF32 off for matmul and cuDNN;
- 2. build the CUDA kernels from alignq_tpu_torch/csrc (one nvcc each, all
-    started together);
+ 2. build the CUDA kernels from alignq_tpu_torch/csrc (qmatmul.cu,
+    quantize.cu, stage_kernel.cu: one nvcc each, all started together);
  3. K1 (csrc/qmatmul.cu) against its plain version at the ResNet-20 path
     shapes at batch 2048 and at the serving batch 256, plus a ragged M
     with K=27: int32 bit-identical; f32 bit-identical but for at most 1e-6
     of the elements, each one ulp away (the plain float64 evaluation can
-    round twice at an f32 midpoint);
- 4. K3 (csrc/stage_kernel.cu) against its plain version at the three
+    round twice at an f32 midpoint); the act codes of the codes epilogue
+    for poly and erf (g=127) at every shape, and for bins and bins_int
+    (g=7) at the batch-256 shapes: identical but for at most 1e-6 of the
+    codes, each one code away;
+ 4. K2's path, its entry point: the launch counts are zeroed,
+    cdf_quantize_int8 (csrc/quantize.cu) maps the act-site sizes of
+    batches 2048 and 256 and a ragged n, and the counts are read; then each
+    result is held against the plain version like K1's codes;
+ 5. K3 (csrc/stage_kernel.cu) against its plain version at the three
     identity-block runs at batch 2048 and 256, and on the A4 grid (g=7):
     the int16 stream bit-identical but for at most 1e-6 of the codes, each
     one code away;
- 5. the slice's forward (act_impl='poly', stream='int16', stage kernel and
-    the K1 1x1 route) on the card against the same forward on the CPU at
-    batch 64; then the default erf/int16 forward likewise;
- 6. serving, the main path: the launch counts are zeroed, an engine is
-    built with build_int8_resnet20_engine(batch_size=256) and answers
-    requests of 1, 3, 100, 256 and 40 images, and the counts are read.
+ 6. forwards on the card against the same forwards on the CPU at batch 64,
+    on qparams converted on the CPU: the slice's route (act_impl='poly',
+    int16 stream, stage kernel and the K1 1x1 route), the default erf
+    route, an A4 'bins' and a W4A4 'bins_int' forward. The final int16
+    stream bit for bit, and every K1 launch in codes mode;
+ 7. serving, the main path: the launch counts are zeroed, an engine is
+    built with build_int8_resnet20_engine(batch_size=256) on the slice's
+    route and answers requests of 1, 3, 100, 256 and 40 images, and the
+    counts are read: 7 K1 launches, all in codes mode, to 3 K3 a forward.
     Then what was served is held against the CPU's plain path: each
     request's logits within 1e-4, and the int16 stream of the engine's
     forward at its padded batch of 256 bit for bit. Then the engine's
     latency for one-image requests and its images/s on a backlog of 32
-    full batches (host clock);
- 7. times from CUDA events (median of 20 after warm-up): the forward at
-    batch 2048, and each kernel at each path shape of batches 2048 and
-    256 beside its plain version, its bound and, for K1, torch._int_mm's
-    time (timed only);
- 8. one JSON line of the kernels (times summed over the launches of one
-    forward at the serving batch), the card line, and the final JSON line.
+    full batches (host clock). Then the default erf route likewise, on
+    fewer requests: 21 K1 launches a forward, all in codes mode;
+ 8. times from CUDA events (median of 20 after warm-up): the forward at
+    batch 2048 on both routes, and each kernel at each path shape of
+    batches 2048 and 256 beside its plain version, its bound and, for K1,
+    torch._int_mm's time (timed only; no one PyTorch call computes K2);
+ 9. one JSON line of the kernels (K1 and K3: times summed over the
+    launches of one slice-route forward at the serving batch; K2: over one
+    launch at each act-site size of that batch), the card line, and the
+    final JSON line.
 
 Exits with code 2 and prints no result where CUDA is not available. Writes
 the per-shape details to chiprun_out/chip_smoke.json.
@@ -47,6 +60,11 @@ from pathlib import Path
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
+PEAK_F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+# f32 operations of one K2 code (csrc/quantize.cu cdf_code: 2 multiplies,
+# the divide, 6 multiply-adds at 2 each, 3 multiplies, the exp counted as 1,
+# the sign, rint and 2 compares)
+K2_OPS_PER_ELEMENT = 24
 BATCH = 2048  # bench.py's headline batch
 SERVE_BATCH = 256  # the engine's batch on the main path
 RUNS, WARMUP = 20, 3
@@ -82,16 +100,24 @@ def median_ms(fn, runs=RUNS, warmup=WARMUP, per_call=1):
 
 
 def k1_shapes(batch):
-    """The path's K1 launches at `batch`: (name, M, K, N)."""
-    return [
-        ("stem conv", batch * 1024, 27, 16),
-        ("block3 conv0", batch * 256, 144, 32),
-        ("block3 skip", batch * 256, 16, 32),
-        ("block3 conv1", batch * 256, 288, 32),
-        ("block6 conv0", batch * 64, 288, 64),
-        ("block6 skip", batch * 64, 32, 64),
-        ("block6 conv1", batch * 64, 576, 64),
-    ]
+    """The path's K1 launch shapes at `batch`: (name, M, K, N) -> launches
+    a forward on the slice route and on the default erf route."""
+    return {
+        ("stem conv", batch * 1024, 27, 16): (1, 1),
+        ("stage1 conv", batch * 1024, 144, 16): (0, 6),
+        ("block3 conv0", batch * 256, 144, 32): (1, 1),
+        ("block3 skip", batch * 256, 16, 32): (1, 1),
+        ("block3 conv1", batch * 256, 288, 32): (1, 5),
+        ("block6 conv0", batch * 64, 288, 64): (1, 1),
+        ("block6 skip", batch * 64, 32, 64): (1, 1),
+        ("block6 conv1", batch * 64, 576, 64): (1, 5),
+    }
+
+
+def act_site_sizes(batch):
+    """The element counts of the act sites' (M, N) at `batch`: K2's sizes."""
+    return [("stem sites", batch * 1024 * 16), ("stage2 sites", batch * 256 * 32),
+            ("stage3 sites", batch * 64 * 64)]
 
 
 def f32_mismatches(got, want) -> int:
@@ -107,6 +133,18 @@ def f32_mismatches(got, want) -> int:
     return int(diff.sum())
 
 
+def code_mismatches(got, want, what: str) -> int:
+    """Codes where got differs from want; raises if any is more than one
+    code away or more than 1e-6 of them differ."""
+    diff = got != want
+    n = int(diff.sum())
+    if n and int((got[diff].int() - want[diff].int()).abs().max()) > 1:
+        raise AssertionError(f"{what}: a code is more than one from its plain version")
+    if n > 1e-6 * got.numel():
+        raise AssertionError(f"{what}: {n} of {got.numel()} codes differ from the plain version")
+    return n
+
+
 def to_device(tree, dev):
     """A qparams tree (dicts, lists, QConvInt8, tensors, host scalars) on dev."""
     import torch
@@ -120,10 +158,15 @@ def to_device(tree, dev):
     return tree.to(dev) if torch.is_tensor(tree) else tree
 
 
-def bound(bytes_moved, ops):
+def bound(bytes_moved, ops, peak_ops=PEAK_INT8_OPS_PER_S):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_INT8_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def zero_counts(launches):
+    for k in list(launches):
+        launches[k] = 0
 
 
 def main() -> int:
@@ -137,9 +180,14 @@ def main() -> int:
     sys.path.insert(0, str(repo))
     from alignq_tpu_torch.kernels import _build
     from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels import quantize as K2
     from alignq_tpu_torch.kernels import stage_kernel as K3
+    from alignq_tpu_torch.kernels.convert import QConvInt8
     from alignq_tpu_torch.kernels.infer import (
+        act_int_cutpoints,
+        augment_int_cutpoints,
         build_resnet20_int8,
+        convert_resnet20,
         pack_int8_operands,
         resnet20_int8_forward,
         resnet20_int8_head,
@@ -175,10 +223,18 @@ def main() -> int:
     def i8(shape, lo=-127, hi=128):
         return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int8)
 
+    def code_epilogue(k, n):
+        """Per-column scale and bias that spread h = acc * s + b over the
+        act grid (|h| up to ~4 for int8 operands drawn uniformly), some
+        scales negative, as folded BN gives."""
+        s = (torch.rand(n, generator=gen, device=dev) * 2 - 0.4) * 2 / (k**0.5 * 73.3**2)
+        return s, torch.randn(n, generator=gen, device=dev) * 0.5
+
     # 3. K1 against its plain version
     phase("K1 against its plain version")
     k1_err = 0.0
     k1_ops = {}
+    code_counts = {}
     cases = [(b, *shape) for b in (BATCH, SERVE_BATCH) for shape in k1_shapes(b)]
     for batch, name, m, k, n in cases + [(None, "ragged", 1000003, 27, 16)]:
         x, w = i8((m, k)), i8((k, n))
@@ -188,19 +244,55 @@ def main() -> int:
         torch.cuda.synchronize()
         if not torch.equal(raw, raw_ref):
             raise AssertionError(f"K1 int32 {name} M={m} differs from its plain version")
+        del raw, raw_ref
         y, y_ref = K1.int8_matmul_dequant(x, w, scale, bias), K1.int8_matmul_dequant_reference(x, w, scale, bias)
         torch.cuda.synchronize()
         diff = f32_mismatches(y, y_ref)
         err = float((y - y_ref).abs().max())
-        if diff > 1e-6 * y.numel():
-            raise AssertionError(f"K1 f32 {name} M={m}: {diff} of {y.numel()} elements differ")
+        del y, y_ref
+        if diff > 1e-6 * m * n:
+            raise AssertionError(f"K1 f32 {name} M={m}: {diff} of {m * n} elements differ")
         k1_err = max(k1_err, err)
-        print(f"K1 {name} M={m} K={k} N={n}: int32 identical; f32 differs on {diff} of {y.numel()} "
-              f"(max abs {err:.3g})", flush=True)
+        # the codes epilogue, on scales that spread the codes over the grid
+        cs, cb = code_epilogue(k, n)
+        op = K1.pack_k1_weights(w, cs, cb)
+        maps = {"poly": K1.act_map("poly", 127, dev), "erf": K1.act_map("erf", 127, dev)}
+        if batch in (SERVE_BATCH, None):
+            maps["bins"] = K1.act_map("bins", 7, dev)
+            maps["bins_int"] = K1.pack_act_cutpoints(act_int_cutpoints(QConvInt8(w, cs, cb), 4), op.wt.shape[0])
+        counts = {}
+        for impl, act in maps.items():
+            got, want = K1.int8_matmul_codes(x, op, act), K1.int8_matmul_codes_reference(x, op, act)
+            torch.cuda.synchronize()
+            counts[impl] = code_mismatches(got, want, f"K1 {impl} codes {name} M={m}")
+            k1_err = max(k1_err, float((got.int() - want.int()).abs().max()))
+            code_counts[f"{impl} {name} M={m}"] = counts[impl]
+        print(f"K1 {name} M={m} K={k} N={n}: int32 identical; f32 differs on {diff} of {m * n} "
+              f"(max abs {err:.3g}); codes differ on {counts} of {m * n}", flush=True)
         if batch is not None:
-            k1_ops[batch, name] = (x, w, scale, bias)
+            k1_ops[batch, name] = (x, w, scale, bias, op)
+    details["k1_code_mismatches"] = code_counts
 
-    # 4. K3 against its plain version (the path's runs at batch 2048 and
+    # 4. K2's path, its entry point, then its results against the plain version
+    phase("K2: its entry point, against its plain version")
+    k2_inputs = [(b, name, torch.randn(n, generator=gen, device=dev) * 1.5)
+                 for b in (BATCH, SERVE_BATCH) for name, n in act_site_sizes(b)]
+    k2_inputs.append((None, "ragged", torch.randn((1000003,), generator=gen, device=dev) * 1.5))
+    zero_counts(_build.launches)
+    k2_out = [K2.cdf_quantize_int8(x) for _, _, x in k2_inputs]
+    torch.cuda.synchronize()
+    k2_launches = {k: v for k, v in _build.launches.items() if v}
+    if k2_launches != {K2.KERNEL: len(k2_inputs)}:
+        raise AssertionError(f"K2's path launched {k2_launches}, expected {len(k2_inputs)} K2 launches")
+    k2_err = 0
+    for (batch, name, x), got in zip(k2_inputs, k2_out):
+        want = K2.cdf_quantize_int8_plain(x)
+        diff = code_mismatches(got, want, f"K2 {name} n={x.numel()}")
+        k2_err = max(k2_err, int((got.int() - want.int()).abs().max()))
+        print(f"K2 {name} batch {batch} n={x.numel()}: codes differ on {diff} of {x.numel()}", flush=True)
+    del k2_out
+
+    # 5. K3 against its plain version (the path's runs at batch 2048 and
     # 256, and g=7)
     phase("K3 against its plain version")
     _, (qp, _) = build_resnet20_int8(1, device=dev)
@@ -229,72 +321,93 @@ def main() -> int:
         if g == 127:
             k3_ops[batch, name] = (stream, wt, scale, bias, ms, hw)
 
-    # 5. the slice's forward on the card against the CPU
-    phase("forward on the card against the CPU")
+    # 6. forwards on the card against the CPU, on qparams converted once on
+    # the CPU (so both sides hold the same weight codes)
+    phase("forwards on the card against the CPU")
     slice_kw = dict(act_impl="poly", stream="int16", use_stage_kernel=True, use_pallas_1x1=True)
-    _, (qp_gpu, x_gpu) = build_resnet20_int8(64, device=dev)
-    _, (qp_cpu, x_cpu) = build_resnet20_int8(64, device="cpu")
-    for label, kw, per_fwd in (("slice poly+K3+K1", slice_kw, {K1.KERNEL: 7, K3.KERNEL: 3}),
-                               ("default erf/int16", {}, {K1.KERNEL: 21, K3.KERNEL: 0})):
+    _, (_, x_cpu) = build_resnet20_int8(64, device="cpu")
+    params, stats = init_preact_resnet_params(20, torch.Generator().manual_seed(SEED + 1), "cpu")
+    keys = (K1.KERNEL, K1.CODES, K1.F32, K3.KERNEL)
+    for label, (wbits, abits), kw, k1_per_fwd, k3_per_fwd in (
+        ("slice poly+K3+K1", (8, 8), slice_kw, 7, 3),
+        ("default erf/int16", (8, 8), {}, 21, 0),
+        ("A4 bins", (8, 4), {"act_impl": "bins"}, 21, 0),
+        ("W4A4 bins_int", (4, 4), {"act_impl": "bins_int"}, 21, 0),
+    ):
+        qp_cpu = convert_resnet20(params, stats, weight_bits=wbits, act_bits=abits)
+        if kw.get("act_impl") == "bins_int":
+            qp_cpu = augment_int_cutpoints(qp_cpu, abits)
+        qp_gpu = to_device(qp_cpu, dev)
         before = dict(_build.launches)
-        s_gpu = resnet20_int8_stream(qp_gpu, x_gpu, **kw)
+        s_gpu = resnet20_int8_stream(qp_gpu, x_cpu.to(dev), act_bits=abits, **kw)
         torch.cuda.synchronize()
-        counts = {k: _build.launches[k] - before.get(k, 0) for k in per_fwd}
-        s_cpu = resnet20_int8_stream(qp_cpu, x_cpu, **kw)
-        l_gpu = resnet20_int8_head(qp_gpu, s_gpu).cpu()
-        l_cpu = resnet20_int8_head(qp_cpu, s_cpu)
+        counts = {k: _build.launches[k] - before.get(k, 0) for k in keys}
+        s_cpu = resnet20_int8_stream(qp_cpu, x_cpu, act_bits=abits, **kw)
+        l_gpu = resnet20_int8_head(qp_gpu, s_gpu, abits).cpu()
+        l_cpu = resnet20_int8_head(qp_cpu, s_cpu, abits)
         if not torch.equal(s_gpu.cpu(), s_cpu):
             raise AssertionError(f"{label}: the final int16 stream differs between CUDA and CPU")
         lerr = float((l_gpu - l_cpu).abs().max())
         if not (torch.isfinite(l_gpu).all() and lerr <= 1e-4 and l_gpu.shape == (64, 10)):
             raise AssertionError(f"{label}: logits off by {lerr}")
-        if counts != per_fwd:
-            raise AssertionError(f"{label}: launches per forward {counts}, expected {per_fwd}")
+        want = {K1.KERNEL: k1_per_fwd, K1.CODES: k1_per_fwd, K1.F32: 0, K3.KERNEL: k3_per_fwd}
+        if counts != want:
+            raise AssertionError(f"{label}: launches per forward {counts}, expected {want}")
         print(f"forward {label} batch 64: int16 stream identical to CPU, logits max abs {lerr:.3g}, "
               f"launches per forward {counts}", flush=True)
 
-    # 6. serving: the main path, through the entry points a user calls
+    # 7. serving: the main path, through the entry points a user calls
     phase("serving")
     params, stats = init_preact_resnet_params(20, torch.Generator().manual_seed(SEED + 1), dev)
-    for k in list(_build.launches):
-        _build.launches[k] = 0
-    engine = build_int8_resnet20_engine(params, stats, batch_size=SERVE_BATCH, device=dev, **slice_kw)
     reqs = [torch.randn((n, 32, 32, 3), generator=torch.Generator().manual_seed(10 + n)).numpy()
             for n in (1, 3, 100, 256, 40)]
-    futs = [engine.submit(r) for r in reqs]
-    outs = [f.result(timeout=300) for f in futs]
-    again = engine.submit(reqs[2]).result(timeout=300)
-    main_launches = dict(_build.launches)
+
+    def serve_and_check(label, kw, reqs):
+        """Serve reqs on an engine of the route kw; return the engine and
+        the launch counts of its build and its requests. What was served is
+        held against the CPU's plain path."""
+        zero_counts(_build.launches)
+        engine = build_int8_resnet20_engine(params, stats, batch_size=SERVE_BATCH, device=dev, **kw)
+        futs = [engine.submit(r) for r in reqs]
+        outs = [f.result(timeout=300) for f in futs]
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _build.launches.items() if v}
+        print(f"serving {label}: requests of {[len(r) for r in reqs]} answered; launches {launched}", flush=True)
+        # the int16 stream of the engine's forward at its padded batch (the
+        # kernels at the serving shapes) bit for bit, each request's logits
+        qp_host = to_device(engine.params, "cpu")
+        images = np.concatenate(reqs)
+        padded = np.concatenate([images, np.zeros((-len(images) % SERVE_BATCH, 32, 32, 3), np.float32)])
+        served = np.concatenate(outs)
+        serve_err = 0.0
+        for lo in range(0, len(padded), SERVE_BATCH):
+            xb = torch.from_numpy(padded[lo : lo + SERVE_BATCH])
+            with torch.inference_mode():
+                s_gpu = resnet20_int8_stream(engine.params, xb.to(dev), **engine.forward.keywords).cpu()
+            s_cpu = resnet20_int8_stream(qp_host, xb, **kw)
+            if not torch.equal(s_gpu, s_cpu):
+                raise AssertionError(f"{label} images {lo}-{lo + SERVE_BATCH}: the engine's int16 stream "
+                                     "differs from the CPU's")
+            want = resnet20_int8_head(qp_host, s_cpu).numpy()[: min(SERVE_BATCH, len(served) - lo)]
+            got = served[lo : lo + len(want)]
+            serve_err = max(serve_err, float(np.abs(got - want).max()))
+            if not (np.isfinite(got).all() and np.abs(got - want).max() <= 1e-4):
+                raise AssertionError(f"{label} images {lo}-{lo + len(want)}: served logits off the CPU's "
+                                     f"by {serve_err}")
+        print(f"serving {label}: every served image's logits within {serve_err:.3g} of the CPU plain path; "
+              f"the engine's batch-{SERVE_BATCH} int16 stream identical to the CPU's", flush=True)
+        return engine, outs, launched
+
+    engine, outs, main_launches = serve_and_check("slice route (main path)", slice_kw, reqs)
     if any(main_launches.get(k, 0) == 0 for k in (K1.KERNEL, K3.KERNEL)):
         raise AssertionError(f"the main path did not launch every kernel: {main_launches}")
     if main_launches[K1.KERNEL] * 3 != main_launches[K3.KERNEL] * 7:
         raise AssertionError(f"main-path launches {main_launches} are not 7 K1 : 3 K3 per forward")
-    print(f"serving: requests of {[len(r) for r in reqs]} answered; main-path launches {main_launches}",
-          flush=True)
+    if main_launches.get(K1.CODES, 0) != main_launches[K1.KERNEL] or main_launches.get(K1.F32, 0):
+        raise AssertionError(f"main path: K1 launches not all in codes mode: {main_launches}")
+    again = engine.submit(reqs[2]).result(timeout=300)
     if not (again == outs[2]).all():
         raise AssertionError("a repeated request gave other logits")
-    # what was served, against the CPU's plain path on the same qparams:
-    # the int16 stream of the engine's forward at its padded batch (the
-    # kernels at the serving shapes) bit for bit, each request's logits
-    qp_host = to_device(engine.params, "cpu")
-    images = np.concatenate(reqs)
-    padded = np.concatenate([images, np.zeros((-len(images) % SERVE_BATCH, 32, 32, 3), np.float32)])
-    served = np.concatenate(outs)
-    serve_err = 0.0
-    for lo in range(0, len(padded), SERVE_BATCH):
-        xb = torch.from_numpy(padded[lo : lo + SERVE_BATCH])
-        with torch.inference_mode():
-            s_gpu = resnet20_int8_stream(engine.params, xb.to(dev), **engine.forward.keywords).cpu()
-        s_cpu = resnet20_int8_stream(qp_host, xb, **slice_kw)
-        if not torch.equal(s_gpu, s_cpu):
-            raise AssertionError(f"images {lo}-{lo + SERVE_BATCH}: the engine's int16 stream differs from the CPU's")
-        want = resnet20_int8_head(qp_host, s_cpu).numpy()[: min(SERVE_BATCH, len(served) - lo)]
-        got = served[lo : lo + len(want)]
-        serve_err = max(serve_err, float(np.abs(got - want).max()))
-        if not (np.isfinite(got).all() and np.abs(got - want).max() <= 1e-4):
-            raise AssertionError(f"images {lo}-{lo + len(want)}: served logits off the CPU's by {serve_err}")
-    print(f"serving: every served image's logits within {serve_err:.3g} of the CPU plain path; the engine's "
-          f"batch-{SERVE_BATCH} int16 stream identical to the CPU's", flush=True)
     # the engine's own times, on the host clock: one image at a time, then
     # a backlog of full batches
     lat = []
@@ -307,12 +420,19 @@ def main() -> int:
         f.result(timeout=300)
     backlog_s = time.perf_counter() - t0
     engine.close()
-    details["serving"] = {"one_image_ms_p50": statistics.median(lat), "one_image_ms_max": max(lat),
-                          "backlog_images_per_s": 32 * 256 / backlog_s}
+    details["serving"] = {"main_path_launches": main_launches, "one_image_ms_p50": statistics.median(lat),
+                          "one_image_ms_max": max(lat), "backlog_images_per_s": 32 * 256 / backlog_s}
     print(f"serving times: one-image request {statistics.median(lat):.2f} ms median ({max(lat):.2f} max); "
           f"32 x 256 images {32 * 256 / backlog_s:.0f} images/s [{card}]", flush=True)
+    # the default erf route: 21 K1 launches a forward, every one in codes mode
+    engine, _, erf_launches = serve_and_check("default erf route", {}, reqs[:3])
+    engine.close()
+    n_k1 = erf_launches.get(K1.KERNEL, 0)
+    if n_k1 == 0 or n_k1 % 21 or erf_launches.get(K1.CODES, 0) != n_k1 or erf_launches.get(K1.F32, 0):
+        raise AssertionError(f"erf route: launches {erf_launches}, expected 21 codes-mode K1 a forward")
+    details["serving"]["erf_route_launches"] = erf_launches
 
-    # 7. times
+    # 8. times
     phase("times")
     _, (qp_b, x_b) = build_resnet20_int8(BATCH, device=dev)
     ops_b = pack_int8_operands(qp_b)  # laid out once, as an engine does
@@ -325,8 +445,8 @@ def main() -> int:
     details["forward"] = {"batch": BATCH, "slice_ms": fwd_ms, "default_erf_ms": default_ms,
                           "slice_images_per_s": BATCH / fwd_ms * 1e3}
 
-    rows = {K1.KERNEL: [], K3.KERNEL: []}
-    for (batch, name), (x, w, scale, bias) in k1_ops.items():
+    rows = {K1.KERNEL: [], K2.KERNEL: [], K3.KERNEL: []}
+    for (batch, name), (x, w, scale, bias, op_c) in k1_ops.items():
         m, k = x.shape
         n = w.shape[1]
         # the operands as the path hands them to the kernel: K zero-padded
@@ -334,16 +454,43 @@ def main() -> int:
         op = K1.pack_k1_weights(w, scale, bias)
         out = torch.empty((m, n), device=dev)
         out_i = torch.empty((m, n), device=dev, dtype=torch.int32)
+        out_c = torch.empty((m, n), device=dev, dtype=torch.int8)
         ms = median_ms(lambda: K1._qmm_launch(xp, op.wt, op.scale, op.bias, out, "f32"), per_call=5)
         raw_ms = median_ms(lambda: K1._qmm_launch(xp, op.wt, op.scale, op.bias, out_i, "int32"), per_call=5)
+        code_ms = {impl: median_ms(lambda: K1._qmm_launch(xp, op_c.wt, op_c.scale, op_c.bias, out_c, impl,
+                                                          K1.act_map(impl, 127, dev)), per_call=5)
+                   for impl in ("poly", "erf")}
         plain_ms = median_ms(lambda: K1.int8_matmul_dequant_reference(x, w, scale, bias))
+        plain_code_ms = {impl: median_ms(lambda: K1.int8_matmul_codes_reference(x, op_c, K1.act_map(impl, 127, dev)),
+                                         runs=5)
+                         for impl in ("poly", "erf")}
         wp = torch.nn.functional.pad(w, (0, 0, 0, xp.shape[1] - k))
         lib_ms = median_ms(lambda: torch._int_mm(xp, wp), per_call=5)
         b_ms, b_by = bound(m * k + k * n + 8 * n + 4 * m * n, 2 * m * k * n)
-        rows[K1.KERNEL].append(dict(batch=batch, shape=name, M=m, K=k, N=n, ms=ms, int32_ms=raw_ms,
-                                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-        print(f"time K1 {name} M={m} K={k} N={n}: {ms:.4f} ms (int32 mode {raw_ms:.4f}), plain {plain_ms:.3f}, "
-              f"bound {b_ms:.4f} ({b_by}), torch._int_mm {lib_ms:.4f} [{card}]", flush=True)
+        bc_ms, bc_by = bound(m * k + k * n + 8 * n + m * n, 2 * m * k * n)
+        slice_n, erf_n = k1_shapes(batch)[name, m, k, n]
+        rows[K1.KERNEL].append(dict(
+            batch=batch, shape=name, M=m, K=k, N=n, slice_launches=slice_n, erf_launches=erf_n,
+            f32_ms=ms, int32_ms=raw_ms, poly_ms=code_ms["poly"], erf_ms=code_ms["erf"],
+            plain_f32_ms=plain_ms, plain_poly_ms=plain_code_ms["poly"], plain_erf_ms=plain_code_ms["erf"],
+            bound_f32_ms=b_ms, bound_ms=bc_ms, bound_by=bc_by, library_ms=lib_ms,
+        ))
+        print(f"time K1 {name} M={m} K={k} N={n}: codes poly {code_ms['poly']:.4f} ms, erf {code_ms['erf']:.4f} "
+              f"(plain {plain_code_ms['poly']:.3f}, {plain_code_ms['erf']:.3f}; bound {bc_ms:.4f} {bc_by}); "
+              f"f32 {ms:.4f} (plain {plain_ms:.3f}; bound {b_ms:.4f} {b_by}); int32 {raw_ms:.4f}; "
+              f"torch._int_mm {lib_ms:.4f} [{card}]", flush=True)
+    for batch, name, x in k2_inputs:
+        if batch is None:
+            continue
+        n = x.numel()
+        out = torch.empty(x.shape, device=dev, dtype=torch.int8)
+        ms = median_ms(lambda: K2._k2_launch(x, out), per_call=5)
+        plain_ms = median_ms(lambda: K2.cdf_quantize_int8_plain(x), runs=5)
+        b_ms, b_by = bound(5 * n, K2_OPS_PER_ELEMENT * n, PEAK_F32_OPS_PER_S)
+        rows[K2.KERNEL].append(dict(batch=batch, shape=name, n=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=None))
+        print(f"time K2 {name} n={n}: {ms:.4f} ms, plain {plain_ms:.3f}, bound {b_ms:.4f} ({b_by}) [{card}]",
+              flush=True)
     for (batch, name), (stream, wt, scale, bias, ms_, hw) in k3_ops.items():
         c, mt = stream.shape
         out = torch.empty_like(stream)
@@ -357,32 +504,47 @@ def main() -> int:
               f"bound {b_ms:.4f} ({b_by}) [{card}]", flush=True)
     details["kernels"] = rows
 
-    # 8. the kernels line, the card line, the final line
+    # 9. the kernels line, the card line, the final line
     phase("done")
-    meta = {
-        K1.KERNEL: ("alignq_tpu_torch/csrc/qmatmul.cu", "alignq_tpu/kernels/qmatmul.py:45", k1_err),
-        K3.KERNEL: ("alignq_tpu_torch/csrc/stage_kernel.cu", "alignq_tpu/kernels/stage_kernel.py:171", k3_err),
-    }
-    kernels = []
-    for kname, (src, replaces, err) in meta.items():
-        per_batch = {}
-        for batch in (BATCH, SERVE_BATCH):
-            r = [x for x in rows[kname] if x["batch"] == batch]
-            t_bytes = sum(x["bound_ms"] for x in r if x["bound_by"] == "bytes")
-            t_ops = sum(x["bound_ms"] for x in r if x["bound_by"] == "operations")
-            lib = [x["library_ms"] for x in r]
-            # one forward's launches at this batch, summed
-            per_batch[batch] = {
-                "ms": sum(x["ms"] for x in r), "plain_ms": sum(x["plain_ms"] for x in r),
-                "bound_ms": t_bytes + t_ops, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None if None in lib else sum(lib),
-            }
-            print(f"{kname} over one batch-{batch} forward: {json.dumps(per_batch[batch])} [{card}]", flush=True)
-        details.setdefault("per_forward", {})[kname] = per_batch
-        kernels.append({
-            "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": main_launches[kname], "max_abs_err": err, **per_batch[SERVE_BATCH],
-        })
+
+    def summed(r, ms_key, plain_key, bound_key, weight):
+        """One forward's launches: each row's times times its launches."""
+        r = [(x, x[weight] if weight else 1) for x in r]
+        t_bytes = sum(x[bound_key] * c for x, c in r if x["bound_by"] == "bytes")
+        t_ops = sum(x[bound_key] * c for x, c in r if x["bound_by"] == "operations")
+        lib = [x["library_ms"] for x, _ in r]
+        return {
+            "ms": sum(x[ms_key] * c for x, c in r), "plain_ms": sum(x[plain_key] * c for x, c in r),
+            "bound_ms": t_bytes + t_ops, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None if None in lib else sum(x["library_ms"] * c for x, c in r),
+        }
+
+    per_forward = {}
+    for batch in (BATCH, SERVE_BATCH):
+        r1 = [x for x in rows[K1.KERNEL] if x["batch"] == batch]
+        per_forward[batch] = {
+            K1.KERNEL: summed(r1, "poly_ms", "plain_poly_ms", "bound_ms", "slice_launches"),
+            K1.KERNEL + " (erf route)": summed(r1, "erf_ms", "plain_erf_ms", "bound_ms", "erf_launches"),
+            K1.KERNEL + " (f32 mode, slice shapes)": summed(r1, "f32_ms", "plain_f32_ms", "bound_f32_ms",
+                                                             "slice_launches"),
+            K2.KERNEL: summed([x for x in rows[K2.KERNEL] if x["batch"] == batch], "ms", "plain_ms", "bound_ms", None),
+            K3.KERNEL: summed([x for x in rows[K3.KERNEL] if x["batch"] == batch], "ms", "plain_ms", "bound_ms",
+                              None),
+        }
+        for kname, v in per_forward[batch].items():
+            print(f"{kname} over one batch-{batch} forward: {json.dumps(v)} [{card}]", flush=True)
+    details["per_forward"] = per_forward
+    meta = [
+        (K1.KERNEL, "alignq_tpu_torch/csrc/qmatmul.cu", "alignq_tpu/kernels/qmatmul.py:45", k1_err,
+         main_launches[K1.KERNEL]),
+        (K2.KERNEL, "alignq_tpu_torch/csrc/quantize.cu", "alignq_tpu/kernels/quantize.py:57", k2_err,
+         k2_launches[K2.KERNEL]),
+        (K3.KERNEL, "alignq_tpu_torch/csrc/stage_kernel.cu", "alignq_tpu/kernels/stage_kernel.py:171", k3_err,
+         main_launches[K3.KERNEL]),
+    ]
+    kernels = [{"name": kname, "route": "cuda", "source": src, "replaces": replaces, "launches": launches,
+                "max_abs_err": err, **per_forward[SERVE_BATCH][kname]}
+               for kname, src, replaces, err, launches in meta]
     out_dir = repo / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))

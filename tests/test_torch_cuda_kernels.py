@@ -12,12 +12,19 @@ import pytest
 import torch
 
 from alignq_tpu_torch.kernels import _build
+from alignq_tpu_torch.kernels import quantize as K2
 from alignq_tpu_torch.kernels.qmatmul import (
+    CODES,
+    F32,
+    act_map,
+    int8_matmul_codes,
+    int8_matmul_codes_reference,
     int8_matmul_dequant,
     int8_matmul_dequant_reference,
     int8_matmul_int32,
     int8_matmul_int32_reference,
     int8_matmul_packed,
+    pack_act_cutpoints,
     pack_k1_weights,
 )
 from alignq_tpu_torch.kernels.stage_kernel import (
@@ -82,6 +89,61 @@ def test_qmatmul_counts_launches(cuda):
     assert _build.launches["int8_matmul_dequant"] == before + 2
 
 
+def _assert_codes_close(got, want):
+    """Identical, but where the plain version's float64 evaluation rounds
+    twice at an f32 midpoint (or an exp differs in its last bit): at most
+    1e-6 of the elements, each one code away."""
+    diff = got != want
+    assert diff.sum().item() <= 1e-6 * got.numel()
+    assert ((got.int() - want.int()).abs() <= 1).all()
+
+
+@pytest.mark.parametrize("shape", [(1,), (3,), (7, 33, 5), (4099,), (1 << 20, 3), (512, 1024)])
+def test_cdf_quantize_vs_plain(cuda, shape):
+    rng = np.random.RandomState(len(shape) + shape[0] % 97)
+    x = torch.from_numpy((rng.randn(*shape) * 1.5).astype(np.float32)).to(cuda)
+    before = _build.launches[K2.KERNEL]
+    got = K2.cdf_quantize_int8(x)
+    torch.cuda.synchronize()
+    assert _build.launches[K2.KERNEL] == before + 1
+    assert got.shape == x.shape and got.dtype == torch.int8
+    _assert_codes_close(got, K2.cdf_quantize_int8_plain(x))
+
+
+def test_cdf_quantize_saturates_and_rejects(cuda):
+    x = torch.tensor([-100.0, 0.0, 100.0, -0.0, 1e30, -1e30], device=cuda)
+    assert K2.cdf_quantize_int8(x).tolist() == [-127, 0, 127, 0, 127, -127]
+    with pytest.raises(TypeError):
+        K2.cdf_quantize_int8(x.double())
+    with pytest.raises(ValueError):  # a view 4 bytes into its storage
+        K2.cdf_quantize_int8(torch.zeros(9, device=cuda)[1:])
+
+
+@pytest.mark.parametrize("m,k,n", [(100, 70, 50), (4099, 144, 32), (300, 16, 32), (257, 576, 64), (130, 288, 128)])
+@pytest.mark.parametrize("impl,g", [("poly", 127), ("erf", 127), ("bins", 7), ("bins_int", 7)])
+def test_qmatmul_codes_vs_plain(cuda, m, k, n, impl, g):
+    from alignq_tpu_torch.kernels.convert import QConvInt8
+    from alignq_tpu_torch.kernels.infer import act_int_cutpoints
+
+    rng = np.random.RandomState(m + k + n + g)
+    x, w = _i8(rng, (m, k)).to(cuda), _i8(rng, (k, n)).to(cuda)
+    # h = acc * s + b spread over the act grid, some scales negative
+    s = torch.from_numpy(((rng.rand(n) * 2 - 0.4) * 2 / (np.sqrt(k) * 73.3**2)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy((rng.randn(n) * 0.5).astype(np.float32)).to(cuda)
+    op = pack_k1_weights(w, s, b)
+    if impl == "bins_int":
+        act = pack_act_cutpoints(act_int_cutpoints(QConvInt8(w, s, b), 4), op.wt.shape[0])
+    else:
+        act = act_map(impl, g, x.device)
+    want = int8_matmul_codes_reference(x, op, act)
+    before = (_build.launches[CODES], _build.launches[F32])
+    got = int8_matmul_codes(x, op, act)
+    torch.cuda.synchronize()
+    assert (_build.launches[CODES], _build.launches[F32]) == (before[0] + 1, before[1])
+    assert got.shape == (m, n) and got.dtype == torch.int8
+    _assert_codes_close(got, want)
+
+
 @pytest.mark.parametrize(
     "c,h,w,batch,ms,g",
     [
@@ -120,9 +182,42 @@ def test_forward_cuda_vs_cpu(cuda):
     kw = dict(act_impl="poly", stream="int16", use_stage_kernel=True, use_pallas_1x1=True)
     want = resnet20_int8_stream(qp_cpu, x_cpu, **kw)
     ops = pack_int8_operands(qp_gpu)
-    k1, k3 = _build.launches["int8_matmul_dequant"], _build.launches["stage_identity_blocks"]
+    before = dict(_build.launches)
     got = resnet20_int8_stream(qp_gpu, x_gpu, operands=ops, **kw)
     torch.cuda.synchronize()
-    assert _build.launches["int8_matmul_dequant"] - k1 == 7
-    assert _build.launches["stage_identity_blocks"] - k3 == 3
+    counts = {k: _build.launches[k] - before.get(k, 0) for k in ("int8_matmul_dequant", CODES, F32, "stage_identity_blocks")}
+    assert counts == {"int8_matmul_dequant": 7, CODES: 7, F32: 0, "stage_identity_blocks": 3}
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize(
+    "bits,kw",
+    [(8, {"act_impl": "erf"}), (8, {"act_impl": "poly", "fuse_skip": True}), (4, {"act_impl": "bins"}),
+     (4, {"act_impl": "bins_int"}), (8, {"act_impl": "erf", "stream": "int8"})],
+)
+def test_forward_codes_routes_vs_cpu(cuda, bits, kw):
+    """Every act site of these routes is K1's codes epilogue on the card;
+    the final int16 stream equals the CPU plain path's."""
+    from alignq_tpu_torch.kernels.infer import (
+        augment_int_cutpoints,
+        build_resnet20_int8,
+        convert_resnet20,
+        resnet20_int8_stream,
+    )
+    from alignq_tpu_torch.interop import init_preact_resnet_params
+
+    streams = []
+    for dev in ("cpu", cuda):
+        _, (_, x) = build_resnet20_int8(2, device=dev)
+        params, stats = init_preact_resnet_params(20, torch.Generator().manual_seed(1), dev)
+        qp = convert_resnet20(params, stats, act_bits=bits)
+        if kw["act_impl"] == "bins_int":
+            qp = augment_int_cutpoints(qp, bits)
+        before = dict(_build.launches)
+        streams.append(resnet20_int8_stream(qp, x, act_bits=bits, **kw).cpu())
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            launched = _build.launches["int8_matmul_dequant"] - before.get("int8_matmul_dequant", 0)
+            assert launched > 0 and _build.launches[CODES] - before.get(CODES, 0) == launched
+            assert _build.launches[F32] == before.get(F32, 0)
+    assert torch.equal(streams[0], streams[1])

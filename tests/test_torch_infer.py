@@ -295,3 +295,21 @@ def test_build_resnet20_int8_cpu():
     fwd, (qp, x) = T.build_resnet20_int8(2, device="cpu")
     out = fwd(qp, x, act_impl="poly", use_stage_kernel=True, use_pallas_1x1=True)
     assert out.shape == (2, 10) and torch.isfinite(out).all()
+
+
+def test_operands_carry_bins_int_cutpoints():
+    """pack_int8_operands lays out each site's bins_int cutpoints once, at
+    K1's padded width; operands packed without them are refused."""
+    _, tq, x = _net(4)
+    ops = T.pack_int8_operands(tq)
+    assert ops["conv0_cut"].impl == "bins_int" and ops["conv0_cut"].t1.shape[1] == ops["conv0"].wt.shape[0]
+    for blk, bops in zip(tq["layers"], ops["layers"]):
+        for key, conv in (("cut0", "conv0"), ("cut1", "conv1"), ("cut_skip", "skip")):
+            assert (key in bops) == (key in blk)
+            if key in blk:
+                assert bops[key].sgn.shape == (bops[conv].wt.shape[0],)
+                assert torch.equal(bops[key].t1[:, : blk[key]["t1"].shape[1]], blk[key]["t1"])
+    plain = {k: v for k, v in tq.items() if k != "conv0_cut"}
+    plain["layers"] = [{k: v for k, v in b.items() if not k.startswith("cut")} for b in tq["layers"]]
+    with pytest.raises(ValueError, match="operands lack"):
+        T.resnet20_int8_forward(tq, _t(x), act_bits=4, act_impl="bins_int", operands=T.pack_int8_operands(plain))

@@ -2,6 +2,9 @@
 the CPU runs) against the JAX reference under jax.jit, on the same numpy
 inputs. Raw int32 accumulators are exact; the f32 epilogue
 `acc * scale + bias` is one rounding on both sides, so it is bit-identical.
+So are the act codes of the codes epilogue (int8_matmul_codes), against
+the JAX graph's act-site maps `_erfq_codes` of that epilogue and
+`_int_bin_codes` of the accumulator.
 """
 
 import jax
@@ -10,15 +13,21 @@ import numpy as np
 import pytest
 import torch
 
+from alignq_tpu.kernels import infer as J
 from alignq_tpu.kernels.qmatmul import int8_matmul_dequant_reference as jref
 from alignq_tpu_torch.kernels import _build
+from alignq_tpu_torch.kernels import infer as T
+from alignq_tpu_torch.kernels.convert import QConvInt8 as TQConv
 from alignq_tpu_torch.kernels.qmatmul import (
     K_MULT,
+    act_map,
     gather_taps,
+    int8_matmul_codes,
     int8_matmul_dequant,
     int8_matmul_int32,
     int8_matmul_packed,
     kernel_matrix,
+    pack_act_cutpoints,
     pack_k1_weights,
 )
 
@@ -112,3 +121,60 @@ def test_gathered_taps_conv_exact(ksize, stride, padding, cin):
     assert cols.shape[1] % K_MULT == 0 and kmat.shape[0] == cols.shape[1]
     got = int8_matmul_int32(cols, kmat).reshape(np.shape(want))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+CODE_SHAPES = [(100, 70, 50), (333, 144, 32), (64, 16, 20), (40, 288, 128)]
+
+
+def _code_operands(m, k, n, seed):
+    """Operands whose epilogue h spreads over the act grid (|h| up to ~4),
+    with some negative scales, as folded BN gives."""
+    x, w, _, _ = _operands(m, k, n, seed)
+    rng = np.random.RandomState(seed + 100)
+    s = (rng.rand(n) * 2 - 0.4) * 2 / (np.sqrt(k) * 73.3**2)
+    b = rng.randn(n) * 0.5
+    return x, w, s.astype(np.float32), b.astype(np.float32)
+
+
+@pytest.mark.parametrize("m,k,n", CODE_SHAPES)
+@pytest.mark.parametrize("impl,bits", [("poly", 8), ("erf", 8), ("bins", 4)])
+def test_codes_match_jax(m, k, n, impl, bits):
+    x, w, s, b = _code_operands(m, k, n, seed=5)
+    want = jax.jit(lambda *a: J._erfq_codes(jref(*a), bits, impl))(x, w, s, b)
+    op = pack_k1_weights(*(torch.from_numpy(a) for a in (w, s, b)))
+    got = int8_matmul_codes(torch.from_numpy(x), op, act_map(impl, 2 ** (bits - 1) - 1, torch.device("cpu")))
+    assert got.dtype == torch.int8 and got.shape == (m, n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("m,k,n", CODE_SHAPES)
+def test_bins_int_codes_match_jax(m, k, n):
+    x, w, s, b = _code_operands(m, k, n, seed=6)
+    s[:2] = [0.0, -abs(s[2])]  # a degenerate channel and a negative scale
+    cut = T.act_int_cutpoints(TQConv(torch.zeros((1, 1, k, n), dtype=torch.int8), *map(torch.from_numpy, (s, b))), 4)
+    acc = jax.jit(lambda a, c: jnp.matmul(a, c, preferred_element_type=jnp.int32))(x, w)
+    want = jax.jit(J._int_bin_codes)(acc, {key: jnp.asarray(v.numpy()) for key, v in cut.items()})
+    op = pack_k1_weights(*(torch.from_numpy(a) for a in (w, s, b)))
+    act = pack_act_cutpoints(cut, op.wt.shape[0])
+    assert act.g == 7 and act.t1.shape == (7, op.wt.shape[0])
+    got = int8_matmul_codes(torch.from_numpy(x), op, act)
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_act_map_guards():
+    with pytest.raises(ValueError):
+        act_map("bins", 127, torch.device("cpu"))
+    with pytest.raises(ValueError):
+        act_map("bins_int", 7, torch.device("cpu"))  # per site: pack_act_cutpoints
+    bins = act_map("bins", 7, torch.device("cpu"))
+    assert bins.bnd.dtype == torch.float32 and bins.bnd.shape == (7,)
+    assert act_map("bins", 7, torch.device("cpu")) is bins  # laid out once
+
+
+def test_codes_cpu_runs_no_kernel():
+    x, w, s, b = _code_operands(8, 8, 8, seed=7)
+    before = dict(_build.launches)
+    op = pack_k1_weights(*(torch.from_numpy(a) for a in (w, s, b)))
+    int8_matmul_codes(torch.from_numpy(x), op, act_map("erf", 127, torch.device("cpu")))
+    assert dict(_build.launches) == before

@@ -18,7 +18,9 @@ from alignq_tpu.quant.cdf import ERF_SQRT2_POLY
 from alignq_tpu_torch.kernels import stage_kernel as tsk
 from alignq_tpu_torch.kernels.convert import QConvInt8 as TQConv
 
-CU = Path(tsk.__file__).resolve().parents[1] / "csrc" / "stage_kernel.cu"
+CSRC = Path(tsk.__file__).resolve().parents[1] / "csrc"
+CU = CSRC / "stage_kernel.cu"
+HEADER = CSRC / "act_codes.cuh"
 
 
 def _blocks(rng, c, nblk):
@@ -79,9 +81,15 @@ def test_poly_codes_equal():
 
 
 def test_cuda_source_carries_f32_poly_coefficients():
-    """csrc/stage_kernel.cu writes ERF_SQRT2_POLY as f32 hex literals,
-    highest degree first (the Horner order)."""
-    lits = re.findall(r"(-?0x[0-9a-f.]+p-?\d+)f", CU.read_text())
+    """The poly codes of csrc/stage_kernel.cu are csrc/act_codes.cuh's
+    poly_code, which writes ERF_SQRT2_POLY as f32 hex literals, highest
+    degree first (the Horner order)."""
+    cu = CU.read_text()
+    assert '#include "act_codes.cuh"' in cu and "act::poly_code(" in cu
+    hexfloat = r"(-?0x[0-9a-f.]+p[-+]?\d+)f"
+    assert re.findall(hexfloat, cu) == []  # no coefficient of its own
+    body = re.search(r"int poly_code\(.*?\n}\n", HEADER.read_text(), re.S).group(0)
+    lits = re.findall(hexfloat, body)
     want = [float(np.float32(c)) for c in ERF_SQRT2_POLY[::-1]]
     assert [float.fromhex(v) for v in lits] == want
 
