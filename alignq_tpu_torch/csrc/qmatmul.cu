@@ -1,20 +1,49 @@
-// K1: int8 x int8 -> int32 GEMM with a fused dequant epilogue, for sm_90a.
+// K1: int8 implicit-GEMM NHWC conv (and GEMM) with a fused dequant or
+// act-code epilogue, for sm_90a.
 //
 // Replaces the TPU kernel alignq_tpu/kernels/qmatmul.py:45
-// int8_matmul_dequant (body _qmm_kernel): y = relu?((x @ w) * scale + bias).
-// The port also runs every int8 conv outside the stage kernel through it
-// (the caller gathers the taps into x), so its shapes are tall and thin:
-// M up to ~2M rows, K 16..576, N 16..128.
+// int8_matmul_dequant (body _qmm_kernel), y = relu?((x @ w) * scale + bias),
+// and XLA's int8 conv_general_dilated that the JAX serving graph calls
+// (alignq_tpu/kernels/infer.py _int8_conv_acc): PyTorch has no int8 conv on
+// CUDA. It reads the int8 codes x (B, H, W, C) in place and writes the
+// (B*Ho*Wo, N8) result: out[m, n] = epilogue(sum_k A[m, k] * W[n, k]) with
+// A[m, (dy, dx, c)] = x[b, oy*s + dy - pad, ox*s + dx - pad, c] (zero off the
+// image), ksize 3 (pad 1) or 1 (pad 0), stride 1 or 2. The GEMM form
+// (x (M, Kp) @ W^T) is the 1x1 stride-1 conv over the (1, 1, M, Kp) view.
 //
-// What bounds it on an H100: bytes. At those shapes the f32 (M, N) output
-// and the int8 (M, K) input dominate, and the arithmetic intensity is far
-// below the ~600 int8 ops/byte where the tensor cores would be the limit.
-// The design therefore keeps the tensor-core product simple (mma.sync
-// m16n8k32, one 128-row tile by up to 128 columns per CTA, K walked in
-// 32-byte steps through shared memory) and spends its care on moving each
-// byte once: 16-byte loads of x rows, the whole N of a row tile in one CTA
-// so x is read once, and the epilogue applied in registers straight from
-// the accumulators, stored as 8-byte pairs that fill whole 32-byte sectors.
+// What bounds it on an H100, at the serving graph's shapes: bytes for most
+// convs. With the input read once, a 3x3 conv does 2*9*C*N operations for
+// every output pixel against C input bytes and N (codes) output bytes:
+// 21-288 int8 operations a byte for the stem, the 1x1 skips and the C <= 32
+// convs, far under the card's ridge of ~590 (1,979 TOP/s over 3.35 TB/s).
+// The C=64 block-6 conv1 sits at ~570, where mma.sync's own rate (well
+// under the 1,979 TOP/s of wgmma) sets the pace. At the serving batch 256
+// every launch's bound is 0.5-1.9 us, and a CTA's serial chain over its
+// one or few tiles (weight and band loads, K loop, epilogue) sets the time.
+//
+// What the design does about it:
+// - A CTA's output tile is a band of TR x TW output pixels of one image.
+//   Its input band with the halo is copied into shared memory once, by
+//   cp.async, zero-filled at the pad border; the 9 taps are offsets into
+//   that buffer (a table per k-word), so no input byte is fetched 9 times.
+// - The packed weight (N8, Kp) is resident in shared memory for the whole
+//   kernel where it fits (every conv of the path: at most 128 x 288 or
+//   64 x 576 bytes). A GEMM too deep for that streams K in chunks of 128,
+//   weight chunk beside input chunk.
+// - CTAs are persistent: a CTA walks tiles blockIdx.x, + gridDim.x, ... and
+//   its steps (tile, K chunk) go through a ring of 2-4 stage buffers (as
+//   many as the plan fits in the budget), so the next steps' cp.async loads
+//   are in flight while the current one runs its MMAs and epilogue: a band
+//   is small (0.8-13 KB), so one step ahead would leave the loads bound by
+//   the memory's latency. The grid is the SMs times the CTAs an SM holds
+//   (occupancy API), at most the tile count.
+// - Shared-memory pitches are chosen by the launch plan (kernels/qmatmul.py
+//   conv_plan) so that the 32 lanes of a fragment load hit 32 distinct
+//   banks: the 8 rows g of a fragment are 8 pixels of one output row, so a
+//   pixel pitch P with (stride*P/4) % 8 == 4 spreads them over the 8 groups
+//   of 4 banks that the 4 lanes t fill.
+// - Each warp holds 2 m16 x 4 n8 MMA tiles (mma.sync m16n8k32 s8): 8 A and
+//   8 B fragment words feed 8 MMAs a K step.
 //
 // Epilogue rule: f32 `acc * scale + bias` is ONE rounding (__fmaf_rn), the
 // same as the JAX graph's contracted multiply-add under jit.
@@ -25,14 +54,14 @@
 // int8 clip(round(c(h) * g), +-g) of h = acc * scale + bias with c the
 // poly, erf or boundary-bin map, or bins_int's integer compare chains
 // straight on the accumulator (act_codes.cuh). In a codes mode the f32
-// (M, N) tensor never reaches device memory: the output is int8, a quarter
-// of the f32 bytes, stored as 2 codes a fragment row.
+// (M, N) tensor never reaches device memory.
 //
-// C interface: qmm_launch returns cudaGetLastError() after the launch.
-// Requirements (checked by the Python wrapper): x (M, Kp) and wt (N, Kp)
-// int8 row-major with Kp % 32 == 0 and N % 8 == 0, both 16-byte aligned;
-// for bins, bnd holds g f32 boundaries; for bins_int, sgn (N,) and t1, t2
-// (g, N) int32.
+// C interface: k1_conv_launch returns cudaGetLastError() after the launch
+// (or the error that refused it). Requirements (checked by the Python
+// wrapper, which also computes the plan): x (B, H, W, C) int8 contiguous,
+// C % 4 == 0, 16-byte aligned; wt (N8, Kp) int8 with Kp % 32 == 0, N8 % 8
+// == 0, N8 <= 256; K ordered (dy, dx, c) over the C channels; for bins, bnd
+// holds g f32 boundaries; for bins_int, sgn (N8,) and t1, t2 (g, N8) int32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,39 +70,79 @@
 
 namespace {
 
-constexpr int BM = 128;     // rows per CTA: 8 warps x one 16-row MMA tile
-constexpr int BK = 32;      // K per shared-memory step = one MMA depth
-constexpr int NMAX = 128;   // columns per CTA: 16 n-tiles of 8
-constexpr int SROW = 48;    // smem row stride in bytes: 32 + 16 of padding
-                            // keeps the fragment loads free of bank conflicts
-constexpr int THREADS = 256;
+constexpr int MT = 2;  // m16 MMA tiles a warp
+constexpr int NT = 4;  // n8 MMA tiles a warp
+constexpr int WARP_ROWS = 16 * MT;
+constexpr int WARP_COLS = 8 * NT;
+constexpr int MAX_THREADS = 256;
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
+// The launch plan, in the order kernels/qmatmul.py ConvPlan lays it out.
+struct Plan {
+  int B, H, W, C, Ho, Wo, stride, pad, ksize, N8, Kp;
+  int TR, TW, tiles_y, tiles_x, n_tiles;
+  int HR, HC, P, RP;  // halo rows, cols; smem pixel pitch, row pitch (bytes)
+  int KC, n_chunks;   // K bytes a stage carries; stages a tile
+  int WP, vec;        // smem weight row pitch; cp.async size (4, 8, 16)
+  int koff_bytes, w_bytes, a_bytes, stage_bytes, smem;
+  int warps_m, warps_n;
+  int n_stages;  // stage buffers in the ring: 2, 3 or 4
+};
+constexpr int PLAN_INTS = sizeof(Plan) / sizeof(int);
+
+struct ActArgs {
+  const float* bnd;  // BINS: the g f32 erf-grid boundaries
+  const int* sgn;    // BINS_INT: (N8,) sign of each column's scale
+  const int* t1;     // BINS_INT: (g, N8) cutpoints of code >= k
+  const int* t2;     // BINS_INT: (g, N8) cutpoints of code <= -k
+  int g;             // the grid's largest code
+};
+
+// Epilogue modes (the wrapper's kernels/qmatmul.py _MODE)
+enum Mode { INT32 = 0, F32 = 1, RELU = 2, POLY = 3, ERF = 4, BINS = 5, BINS_INT = 6 };
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                        uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Epilogue modes (the wrapper's kernels/qmatmul.py _MODE)
-enum Mode { INT32 = 0, F32 = 1, RELU = 2, POLY = 3, ERF = 4, BINS = 5, BINS_INT = 6 };
+// cp.async of `bytes` (4, 8 or 16); src_bytes 0 zero-fills the destination
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+// wait until at most n (1, 2 or 3) groups are in flight
+__device__ __forceinline__ void cp_wait_n(int n) {
+  if (n >= 3) cp_wait<3>();
+  else if (n == 2) cp_wait<2>();
+  else cp_wait<1>();
+}
 
-struct ActArgs {
-  const float* bnd;  // BINS: the g f32 erf-grid boundaries
-  const int* sgn;    // BINS_INT: (N,) sign of each column's scale
-  const int* t1;     // BINS_INT: (g, N) cutpoints of code >= k
-  const int* t2;     // BINS_INT: (g, N) cutpoints of code <= -k
-  int g;             // the grid's largest code
-};
+// a / d, by a shift where d is a power of two (dlog2 >= 0): the shapes of
+// the path are, and an integer division costs tens of instructions
+__device__ __forceinline__ int div_by(int a, int d, int dlog2) { return dlog2 >= 0 ? a >> dlog2 : a / d; }
+__device__ __forceinline__ int log2_or_neg(int d) { return (d & (d - 1)) == 0 ? __ffs(d) - 1 : -1; }
+
+__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
 
 // The act code of one accumulator in column col (codes modes only)
 template <int MODE>
 __device__ __forceinline__ int site_code(int acc, float s, float b, int col,
-                                         const ActArgs& a, int N) {
-  if (MODE == BINS_INT) return act::bins_int_code(acc, col, a.sgn, a.t1, a.t2, a.g, N);
+                                         const ActArgs& a, int ld) {
+  if (MODE == BINS_INT) return act::bins_int_code(acc, col, a.sgn, a.t1, a.t2, a.g, ld);
   // int -> f32 rounds to nearest, as the JAX graph's astype does
   const float h = __fmaf_rn(static_cast<float>(acc), s, b);
   const float gf = static_cast<float>(a.g);
@@ -86,134 +155,294 @@ __device__ __forceinline__ uint16_t pack2(int c0, int c1) {
   return static_cast<uint16_t>((c0 & 0xff) | (c1 & 0xff) << 8);
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-qmm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
-           const float* __restrict__ scale, const float* __restrict__ bias,
-           void* __restrict__ out, int M, int N, int Kp, ActArgs act_args) {
-  __shared__ __align__(16) int8_t As[BM * SROW];
-  __shared__ __align__(16) int8_t Bs[NMAX * SROW];
+struct TileOrigin {
+  int b, oy0, ox0;
+};
+
+__device__ __forceinline__ TileOrigin tile_origin(const Plan& p, int tile) {
+  const int tx = tile % p.tiles_x;
+  const int rest = tile / p.tiles_x;
+  return {rest / p.tiles_y, (rest % p.tiles_y) * p.TR, tx * p.TW};
+}
+
+// Issue the cp.async loads of stage (tile, chunk) into buf: the input band
+// of the tile's channels [c0, c0 + KC) and, where the weight streams, its
+// columns [c0, c0 + KC).
+template <int KS>
+__device__ void issue_stage(const Plan& p, const int8_t* __restrict__ x,
+                            const int8_t* __restrict__ wt, unsigned char* buf, int tile,
+                            int chunk) {
+  const TileOrigin o = tile_origin(p, tile);
+  // KS 3: the band with its halo, every input pixel; KS 1: the strided
+  // sample of the pixels the tile reads
+  const int ls = KS == 3 ? 1 : p.stride;
+  const int iy0 = o.oy0 * p.stride - (KS == 3 ? p.pad : 0);
+  const int ix0 = o.ox0 * p.stride - (KS == 3 ? p.pad : 0);
+  const int c0 = chunk * p.KC;
+  const int cc = min(p.KC, p.C - c0);  // channels of x in this chunk
+  const int nv = cc / p.vec, nv_log2 = log2_or_neg(nv);
+  const int row_items = p.HC * nv, total = p.HR * row_items;
+  // item i = (band row r, item rem of the row), stepped by blockDim.x
+  // without a division a step
+  int r = threadIdx.x / row_items, rem = threadIdx.x - r * row_items;
+  const int dr = blockDim.x / row_items, drem = blockDim.x - dr * row_items;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int c = div_by(rem, nv, nv_log2), v = rem - c * nv;
+    const int iy = iy0 + r * ls, ix = ix0 + c * ls;
+    const bool in = static_cast<unsigned>(iy) < static_cast<unsigned>(p.H) &&
+                    static_cast<unsigned>(ix) < static_cast<unsigned>(p.W);
+    const int8_t* src = in ? x + ((static_cast<size_t>(o.b) * p.H + iy) * p.W + ix) * p.C + c0 + v * p.vec : x;
+    cp_async(buf + r * p.RP + c * p.P + v * p.vec, src, p.vec, in ? p.vec : 0);
+    rem += drem;
+    r += dr;
+    if (rem >= row_items) {
+      rem -= row_items;
+      ++r;
+    }
+  }
+  if (p.n_chunks > 1) {  // the weight's columns of this chunk, beside it
+    unsigned char* wbuf = buf + p.a_bytes;
+    const int kc = min(p.KC, p.Kp - c0);
+    const int n16 = kc / 16;
+    for (int i = threadIdx.x; i < p.N8 * n16; i += blockDim.x) {
+      const int n = i / n16, q = i % n16;
+      cp_async(wbuf + n * p.WP + q * 16, wt + static_cast<size_t>(n) * p.Kp + c0 + q * 16, 16, 16);
+    }
+  }
+}
+
+template <int MODE, int KS>
+__global__ void __launch_bounds__(MAX_THREADS)
+k1_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
+               const float* __restrict__ scale, const float* __restrict__ bias,
+               void* __restrict__ out, const Plan p, const ActArgs act_args) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* koff = reinterpret_cast<int*>(smem);          // KS 3: A byte offset of each k-word
+  unsigned char* wres = smem + p.koff_bytes;          // the resident weight
+  unsigned char* stages = wres + p.w_bytes;           // the ring of stage buffers
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // MMA fragment group / thread
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * NMAX;
-  const int nc = min(NMAX, N - n0);  // columns of this CTA, a multiple of 8
-  const int ntiles = nc >> 3;
+  const int wm = warp % p.warps_m, wn = warp / p.warps_m;
+  const int n_base = wn * WARP_COLS;
+  const int mgroups = p.TR * p.TW / WARP_ROWS;
+  const int ps = KS == 3 ? p.stride : 1;  // pixel step of one output pixel in the band
+  const int tw_log2 = log2_or_neg(p.TW);
 
-  int acc[NMAX / 8][4];
-#pragma unroll
-  for (int j = 0; j < NMAX / 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
-
-  for (int k0 = 0; k0 < Kp; k0 += BK) {
-    {  // x tile: 128 rows x 32 bytes, one 16-byte chunk per thread
-      const int r = tid >> 1, half = tid & 1;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (m0 + r < M)
-        v = *reinterpret_cast<const int4*>(x + (size_t)(m0 + r) * Kp + k0 + half * 16);
-      *reinterpret_cast<int4*>(As + r * SROW + half * 16) = v;
+  if (KS == 3) {
+    // word q of K holds k = 4q..4q+3: tap k / C, channels k % C.. (C % 4 == 0,
+    // so a word never straddles taps). The zero-weight tail repeats the last
+    // real word, so that its lanes share that word's addresses (a broadcast,
+    // not a bank conflict).
+    for (int q = tid; q < p.Kp / 4; q += blockDim.x) {
+      const int k = 4 * q, tap = k / p.C, c = k - tap * p.C;
+      koff[q] = tap < 9 ? (tap / 3) * p.RP + (tap % 3) * p.P + c : 2 * p.RP + 2 * p.P + p.C - 4;
     }
-    for (int i = tid; i < 2 * nc; i += THREADS) {  // W^T tile: nc rows x 32 bytes
-      const int r = i >> 1, half = i & 1;
-      *reinterpret_cast<int4*>(Bs + r * SROW + half * 16) =
-          *reinterpret_cast<const int4*>(wt + (size_t)(n0 + r) * Kp + k0 + half * 16);
+  }
+  if (p.n_chunks == 1) {  // the whole weight, resident for the kernel
+    const int n16 = p.Kp / 16;
+    for (int i = tid; i < p.N8 * n16; i += blockDim.x) {
+      const int n = i / n16, q = i % n16;
+      cp_async(wres + n * p.WP + q * 16, wt + static_cast<size_t>(n) * p.Kp + q * 16, 16, 16);
     }
-    __syncthreads();
-
-    // A fragment (16 x 32, row-major): rows g and g+8, bytes 4t..4t+3 and
-    // 16+4t..16+4t+3 of the step
-    const int8_t* a = As + warp * 16 * SROW;
-    const uint32_t a0 = *reinterpret_cast<const uint32_t*>(a + g * SROW + t * 4);
-    const uint32_t a1 = *reinterpret_cast<const uint32_t*>(a + (g + 8) * SROW + t * 4);
-    const uint32_t a2 = *reinterpret_cast<const uint32_t*>(a + g * SROW + 16 + t * 4);
-    const uint32_t a3 = *reinterpret_cast<const uint32_t*>(a + (g + 8) * SROW + 16 + t * 4);
-#pragma unroll
-    for (int j = 0; j < NMAX / 8; ++j) {
-      if (j < ntiles) {
-        // B fragment (32 x 8, column-major): column g, the same k bytes
-        const int8_t* b = Bs + (j * 8 + g) * SROW;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(b + t * 4);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(b + 16 + t * 4);
-        mma_s8(acc[j], a0, a1, a2, a3, b0, b1);
-      }
-    }
-    __syncthreads();
   }
 
-  // C fragment: (row g, cols 2t, 2t+1) in acc[j][0..1], row g+8 in [2..3]
-  const int r0 = m0 + warp * 16 + g;
-  const int r1 = r0 + 8;
+  const int my_tiles = (p.n_tiles - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1;
+  const int n_steps = my_tiles * p.n_chunks;
+  const int S = p.n_stages;
+  // a ring of S stage buffers: S - 1 stages' loads fly while one computes;
+  // every step commits one group (empty past the end), so that waiting for
+  // all but the S - 1 newest groups means this step's stage has landed
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < n_steps)
+      issue_stage<KS>(p, x, wt, stages + s * p.stage_bytes, blockIdx.x + (s / p.n_chunks) * gridDim.x,
+                      s % p.n_chunks);
+    cp_commit();
+  }
+
+  int acc[MT][NT][4];
+  for (int s = 0; s < n_steps; ++s) {
+    const int s1 = s + S - 1;
+    if (s1 < n_steps)  // into the buffer the step before this one freed
+      issue_stage<KS>(p, x, wt, stages + (s1 % S) * p.stage_bytes,
+                      blockIdx.x + (s1 / p.n_chunks) * gridDim.x, s1 % p.n_chunks);
+    cp_commit();
+    cp_wait_n(S - 1);
+    __syncthreads();
+
+    const int tile = blockIdx.x + (s / p.n_chunks) * gridDim.x;
+    const int chunk = s % p.n_chunks;
+    const unsigned char* A = stages + (s % S) * p.stage_bytes;
+    const unsigned char* Wm = p.n_chunks == 1 ? wres : A + p.a_bytes;
+    const int nk = min(p.KC, p.Kp - chunk * p.KC) / 32;
+    const TileOrigin o = tile_origin(p, tile);
+
+    for (int mg = wm; mg < mgroups; mg += p.warps_m) {
+      // the tile's output row and column of rows g and g+8 of each m16
+      // tile, and their A byte offset: the band pixel of the top-left tap
+      int ro[MT][2], co[MT][2], base[MT][2];
 #pragma unroll
-  for (int j = 0; j < NMAX / 8; ++j) {
-    if (j < ntiles) {
-      const int col = n0 + j * 8 + t * 2;
-      if (MODE >= POLY) {
-        const float s0 = scale[col], s1 = scale[col + 1];
-        const float c0 = bias[col], c1 = bias[col + 1];
-        uint16_t* o = static_cast<uint16_t*>(out);
-        if (r0 < M)
-          o[((size_t)r0 * N + col) >> 1] =
-              pack2(site_code<MODE>(acc[j][0], s0, c0, col, act_args, N),
-                    site_code<MODE>(acc[j][1], s1, c1, col + 1, act_args, N));
-        if (r1 < M)
-          o[((size_t)r1 * N + col) >> 1] =
-              pack2(site_code<MODE>(acc[j][2], s0, c0, col, act_args, N),
-                    site_code<MODE>(acc[j][3], s1, c1, col + 1, act_args, N));
-      } else if (MODE == INT32) {
-        int* o = static_cast<int*>(out);
-        if (r0 < M) *reinterpret_cast<int2*>(o + (size_t)r0 * N + col) = make_int2(acc[j][0], acc[j][1]);
-        if (r1 < M) *reinterpret_cast<int2*>(o + (size_t)r1 * N + col) = make_int2(acc[j][2], acc[j][3]);
-      } else {
-        float* o = static_cast<float*>(out);
-        const float s0 = scale[col], s1 = scale[col + 1];
-        const float c0 = bias[col], c1 = bias[col + 1];
-        // int -> f32 rounds to nearest, as the JAX graph's astype does
-        // (exact on the main path, where |acc| < 2^24)
-        float y0 = __fmaf_rn((float)acc[j][0], s0, c0);
-        float y1 = __fmaf_rn((float)acc[j][1], s1, c1);
-        float y2 = __fmaf_rn((float)acc[j][2], s0, c0);
-        float y3 = __fmaf_rn((float)acc[j][3], s1, c1);
-        if (MODE == RELU) {
-          y0 = fmaxf(y0, 0.f); y1 = fmaxf(y1, 0.f);
-          y2 = fmaxf(y2, 0.f); y3 = fmaxf(y3, 0.f);
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = mg * WARP_ROWS + mi * 16 + g + 8 * h;
+          ro[mi][h] = div_by(i, p.TW, tw_log2);
+          co[mi][h] = i - ro[mi][h] * p.TW;
+          base[mi][h] = ro[mi][h] * ps * p.RP + co[mi][h] * ps * p.P;
         }
-        if (r0 < M) *reinterpret_cast<float2*>(o + (size_t)r0 * N + col) = make_float2(y0, y1);
-        if (r1 < M) *reinterpret_cast<float2*>(o + (size_t)r1 * N + col) = make_float2(y2, y3);
+      if (chunk == 0) {
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0;
+      }
+      for (int ks = 0; ks < nk; ++ks) {
+        // A fragment (16 x 32, row-major): rows g and g+8, k-words t and 4+t
+        int o0, o1;
+        if (KS == 3) {
+          o0 = koff[ks * 8 + t];
+          o1 = koff[ks * 8 + 4 + t];
+        } else {
+          o0 = ks * 32 + 4 * t;
+          o1 = o0 + 16;
+        }
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+          af[mi][0] = lds32(A + base[mi][0] + o0);
+          af[mi][1] = lds32(A + base[mi][1] + o0);
+          af[mi][2] = lds32(A + base[mi][0] + o1);
+          af[mi][3] = lds32(A + base[mi][1] + o1);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (n_base + j * 8 < p.N8) {
+            // B fragment (32 x 8, column-major): column g, the same k-words
+            const unsigned char* b = Wm + (n_base + j * 8 + g) * p.WP + ks * 32 + 4 * t;
+            const uint32_t b0 = lds32(b), b1 = lds32(b + 16);
+#pragma unroll
+            for (int mi = 0; mi < MT; ++mi) mma_s8(acc[mi][j], af[mi], b0, b1);
+          }
+        }
+      }
+      if (chunk != p.n_chunks - 1) continue;
+
+      // C fragment: (row g, cols 2t, 2t+1) in acc[..][0..1], row g+8 in [2..3]
+      int rows[MT][2];  // output row of each fragment row, -1 past the ragged edge
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int oy = o.oy0 + ro[mi][h], ox = o.ox0 + co[mi][h];
+          rows[mi][h] = oy < p.Ho && ox < p.Wo ? (o.b * p.Ho + oy) * p.Wo + ox : -1;
+        }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = n_base + j * 8 + 2 * t;
+        if (col >= p.N8) continue;
+        float s0 = 0.f, s1 = 0.f, c0 = 0.f, c1 = 0.f;
+        if (MODE != INT32 && MODE != BINS_INT) {
+          s0 = scale[col], s1 = scale[col + 1], c0 = bias[col], c1 = bias[col + 1];
+        }
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (rows[mi][h] < 0) continue;
+            const size_t at = static_cast<size_t>(rows[mi][h]) * p.N8 + col;
+            const int a0 = acc[mi][j][2 * h], a1 = acc[mi][j][2 * h + 1];
+            if (MODE >= POLY) {
+              static_cast<uint16_t*>(out)[at >> 1] = pack2(site_code<MODE>(a0, s0, c0, col, act_args, p.N8),
+                                                           site_code<MODE>(a1, s1, c1, col + 1, act_args, p.N8));
+            } else if (MODE == INT32) {
+              *reinterpret_cast<int2*>(static_cast<int*>(out) + at) = make_int2(a0, a1);
+            } else {
+              // int -> f32 rounds to nearest, as the JAX graph's astype does
+              float y0 = __fmaf_rn(static_cast<float>(a0), s0, c0);
+              float y1 = __fmaf_rn(static_cast<float>(a1), s1, c1);
+              if (MODE == RELU) {
+                y0 = fmaxf(y0, 0.f);
+                y1 = fmaxf(y1, 0.f);
+              }
+              *reinterpret_cast<float2*>(static_cast<float*>(out) + at) = make_float2(y0, y1);
+            }
+          }
       }
     }
+    __syncthreads();  // the buffer is free for the step S - 1 ahead
   }
 }
 
-template <int MODE>
-void launch(const void* x, const void* wt, const void* scale, const void* bias,
-            void* out, int M, int N, int Kp, const ActArgs& a, cudaStream_t stream) {
-  dim3 grid((M + BM - 1) / BM, (N + NMAX - 1) / NMAX);
-  qmm_kernel<MODE><<<grid, THREADS, 0, stream>>>(
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+template <int MODE, int KS>
+int launch(const void* x, const void* wt, const void* scale, const void* bias, void* out,
+           const Plan& p, const ActArgs& a, cudaStream_t stream) {
+  auto kernel = k1_conv_kernel<MODE, KS>;
+  const int threads = 32 * p.warps_m * p.warps_n;
+  if (threads > MAX_THREADS || p.n_stages < 2 || p.n_stages > 4) return static_cast<int>(cudaErrorInvalidValue);
+  // the attribute and the occupancy of the last configuration, kept: a
+  // serving forward launches the same shapes again and again
+  static int smem_allowed = 48 * 1024, last_smem = -1, last_threads = -1, per_sm = 0;
+  if (p.smem > smem_allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_allowed = p.smem;
+  }
+  if (p.smem != last_smem || threads != last_threads) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, p.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    last_smem = p.smem;
+    last_threads = threads;
+  }
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int slots = per_sm * sm_count();
+  const int grid = p.n_tiles < slots ? p.n_tiles : slots;
+  kernel<<<grid, threads, p.smem, stream>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
-      static_cast<const float*>(scale), static_cast<const float*>(bias), out,
-      M, N, Kp, a);
+      static_cast<const float*>(scale), static_cast<const float*>(bias), out, p, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KS>
+int dispatch(int mode, const void* x, const void* wt, const void* scale, const void* bias,
+             void* out, const Plan& p, const ActArgs& a, cudaStream_t s) {
+  switch (mode) {
+    case INT32: return launch<INT32, KS>(x, wt, scale, bias, out, p, a, s);
+    case F32: return launch<F32, KS>(x, wt, scale, bias, out, p, a, s);
+    case RELU: return launch<RELU, KS>(x, wt, scale, bias, out, p, a, s);
+    case POLY: return launch<POLY, KS>(x, wt, scale, bias, out, p, a, s);
+    case ERF: return launch<ERF, KS>(x, wt, scale, bias, out, p, a, s);
+    case BINS: return launch<BINS, KS>(x, wt, scale, bias, out, p, a, s);
+    case BINS_INT: return launch<BINS_INT, KS>(x, wt, scale, bias, out, p, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-extern "C" int qmm_launch(const void* x, const void* wt, const void* scale,
-                          const void* bias, void* out, int M, int N, int Kp,
-                          int mode, const void* bnd, const void* sgn,
-                          const void* t1, const void* t2, int g, void* stream) {
+extern "C" int k1_plan_ints() { return PLAN_INTS; }
+
+extern "C" int k1_conv_launch(const void* x, const void* wt, const void* scale,
+                              const void* bias, void* out, const int* plan, int mode,
+                              const void* bnd, const void* sgn, const void* t1,
+                              const void* t2, int g, void* stream) {
+  Plan p;
+  int* dst = reinterpret_cast<int*>(&p);
+  for (int i = 0; i < PLAN_INTS; ++i) dst[i] = plan[i];
   const ActArgs a{static_cast<const float*>(bnd), static_cast<const int*>(sgn),
                   static_cast<const int*>(t1), static_cast<const int*>(t2), g};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case INT32: launch<INT32>(x, wt, scale, bias, out, M, N, Kp, a, s); break;
-    case F32: launch<F32>(x, wt, scale, bias, out, M, N, Kp, a, s); break;
-    case RELU: launch<RELU>(x, wt, scale, bias, out, M, N, Kp, a, s); break;
-    case POLY: launch<POLY>(x, wt, scale, bias, out, M, N, Kp, a, s); break;
-    case ERF: launch<ERF>(x, wt, scale, bias, out, M, N, Kp, a, s); break;
-    case BINS: launch<BINS>(x, wt, scale, bias, out, M, N, Kp, a, s); break;
-    case BINS_INT: launch<BINS_INT>(x, wt, scale, bias, out, M, N, Kp, a, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (p.ksize == 3) return dispatch<3>(mode, x, wt, scale, bias, out, p, a, s);
+  if (p.ksize == 1) return dispatch<1>(mode, x, wt, scale, bias, out, p, a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

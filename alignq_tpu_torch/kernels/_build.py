@@ -15,6 +15,7 @@ kernel name; the wrappers increment it where they launch, and nowhere else.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -98,6 +99,16 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(_target(name)))
         return _libs[name]
+
+
+def on_device(device):
+    """The context a launch on `device` needs: none where it is the
+    current device already (a device switch costs microseconds a launch)."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(err: int, what: str) -> None:

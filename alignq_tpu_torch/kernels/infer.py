@@ -14,10 +14,12 @@ The graph, value for value as the JAX package runs it under jit:
 
 Tensors keep the JAX package's layouts at the public functions: NHWC
 activations, HWIO kernels. On CUDA every conv outside the stage kernel is
-kernel K1 over gathered taps (kernels/qmatmul.py): PyTorch has no int8
-conv there. Every act site after such a conv is K1's codes epilogue
-(int8_matmul_codes): the conv's f32 output is never stored. On the CPU the
-same code runs K1's plain version.
+kernel K1's implicit-GEMM conv, which reads the NHWC codes in place
+(kernels/qmatmul.py int8_conv_packed): PyTorch has no int8 conv there.
+Every act site after such a conv is K1's codes epilogue (int8_conv_codes):
+the conv's f32 output is never stored. Runs of identity blocks go through
+kernel K3 on the same NHWC stream. On the CPU the same code runs the
+kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -31,19 +33,16 @@ from alignq_tpu_torch.device import resolve_device
 from alignq_tpu_torch.interop import init_preact_resnet_params
 from alignq_tpu_torch.kernels.convert import QConvInt8, fold_conv_bn, grid_max
 from alignq_tpu_torch.kernels.qmatmul import (
-    K_MULT,
     ActMap,
     K1Weights,
     act_map,
-    gather_taps,
-    int8_matmul_codes,
-    int8_matmul_packed,
-    kernel_matrix,
+    int8_conv_codes,
+    int8_conv_packed,
     pack_act_cutpoints,
-    pack_k1_weights,
+    pack_conv_weights,
 )
 from alignq_tpu_torch.kernels.quantize import act_codes, int_bin_codes
-from alignq_tpu_torch.kernels.stage_kernel import pack_block_weights, stage_identity_blocks
+from alignq_tpu_torch.kernels.stage_kernel import pack_block_weights, stage_identity_blocks_nhwc
 from alignq_tpu_torch.quant.cdf import erf_grid_boundaries
 
 ACT_SCALE = 2.0 / 127.0  # act_range=2 over the symmetric 127 grid
@@ -98,24 +97,17 @@ def _requant_codes(k: torch.Tensor, m: int, g: float, signed: bool = False) -> t
 
 
 def _k1_weights(q: QConvInt8) -> K1Weights:
-    """A folded conv's kernel and epilogue laid out for K1 over its taps."""
-    return pack_k1_weights(kernel_matrix(q.kernel_int8), q.scale, q.bias)
-
-
-def _k1(x2d, q, op, mode, act):
-    """K1 on an (M, K) int8 matrix: the act codes where act is given
-    (int8), else the epilogue `mode` ('f32' or 'int32')."""
-    op = _k1_weights(q) if op is None else op
-    return int8_matmul_packed(x2d, op, mode) if act is None else int8_matmul_codes(x2d, op, act)
+    """A folded conv's kernel and epilogue laid out for K1's conv form."""
+    return pack_conv_weights(q.kernel_int8, q.scale, q.bias)
 
 
 def _conv_k1(x_int8, q, stride, padding, op, mode, act=None):
-    b, h, w, _ = x_int8.shape
-    ksize = q.kernel_int8.shape[0]
-    cols = gather_taps(x_int8, ksize, stride, padding, K_MULT)
-    ho = (h + 2 * padding - ksize) // stride + 1
-    wo = (w + 2 * padding - ksize) // stride + 1
-    return _k1(cols, q, op, mode, act).reshape(b, ho, wo, -1)
+    """K1's conv on NHWC int8 codes: the act codes where act is given
+    (int8), else the epilogue `mode` ('f32' or 'int32')."""
+    op = _k1_weights(q) if op is None else op
+    if act is None:
+        return int8_conv_packed(x_int8, op, stride, padding, mode)
+    return int8_conv_codes(x_int8, op, stride, padding, act)
 
 
 def _int8_conv_acc(x_int8: torch.Tensor, q: QConvInt8, stride: int = 1, padding: int = 1,
@@ -134,13 +126,9 @@ def _int8_conv(x_int8: torch.Tensor, q: QConvInt8, stride: int = 1, padding: int
 
 def _int8_conv_1x1_pallas(x_int8: torch.Tensor, q: QConvInt8, stride: int = 1,
                           op: Optional[K1Weights] = None, act: Optional[ActMap] = None):
-    """1x1 conv as K1 directly: a strided spatial subsample, then a
-    (B*H'*W', Cin) @ (Cin, Cout) matmul with the fused epilogue (f32, or
-    the int8 act codes with act)."""
-    if stride != 1:
-        x_int8 = x_int8[:, ::stride, ::stride, :]
-    b, h, w, cin = x_int8.shape
-    return _k1(x_int8.reshape(-1, cin), q, op, "f32", act).reshape(b, h, w, -1)
+    """1x1 conv as K1 directly, its stride read in place, with the fused
+    epilogue (f32, or the int8 act codes with act)."""
+    return _conv_k1(x_int8, q, stride, 0, op, "f32", act)
 
 
 def _merged_skip_conv(q0: QConvInt8, qs: QConvInt8) -> QConvInt8:
@@ -307,7 +295,7 @@ def pack_int8_operands(qparams: Dict[str, Any]) -> Dict[str, Any]:
 
 def _stage_kernel_chunk_imgs(c: int, h: int, w: int, batch: int) -> int:
     """Images per CTA of the CUDA stage kernel. One: a CTA holds one
-    image's plane in shared memory (up to ~72 KB at 32x32x16), and one
+    image's plane in shared memory (up to ~74 KB at 32x32x16), and one
     image per CTA gives the grid the most CTAs to spread over the SMs."""
     return 1
 
@@ -367,14 +355,8 @@ def resnet20_int8_stream(
         blk, bops = layers[i], ops["layers"][i]
         if use_stage_kernel and i in runs:
             j = runs[i]
-            bsz, hh, ww, c = out_c.shape
             wt, scale, bias = ops["stage"][i]
-            flat_c = out_c.permute(3, 0, 1, 2).reshape(c, -1)
-            flat_c = stage_identity_blocks(
-                flat_c, wt, scale, bias, tuple(ms[i:j]), g=int(g), w_img=ww, h_img=hh,
-                chunk_imgs=_stage_kernel_chunk_imgs(c, hh, ww, bsz),
-            )
-            out_c = flat_c.reshape(c, bsz, hh, ww).permute(1, 2, 3, 0)
+            out_c = stage_identity_blocks_nhwc(out_c, wt, scale, bias, tuple(ms[i:j]), g=int(g))
             i = j
             continue
         m = ms[i]

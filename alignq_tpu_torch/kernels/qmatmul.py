@@ -1,18 +1,25 @@
-"""int8 x int8 -> int32 matmul with a fused dequant epilogue (kernel K1).
+"""int8 x int8 -> int32 conv and matmul with a fused dequant epilogue (kernel K1).
 
-Port of alignq_tpu/kernels/qmatmul.py. On a CUDA tensor the wrappers
-launch csrc/qmatmul.cu (an s8 tensor-core GEMM, `mma.sync` m16n8k32); on
-a CPU tensor they run the plain PyTorch version beside them, which the
-tests hold against the JAX reference. The port also routes every int8
-conv outside the stage kernel through K1 (kernels/infer.py gathers the
-taps into an (M, K) matrix), since PyTorch has no int8 conv on CUDA.
+Port of alignq_tpu/kernels/qmatmul.py, and of the int8 convs that the JAX
+serving graph leaves to XLA (alignq_tpu/kernels/infer.py _int8_conv_acc):
+PyTorch has no int8 conv on CUDA. On a CUDA tensor the wrappers launch
+csrc/qmatmul.cu, an implicit-GEMM NHWC conv on the s8 tensor cores
+(`mma.sync` m16n8k32) that reads the codes in place; on a CPU tensor they
+run the plain PyTorch version beside them, which the tests hold against
+the JAX reference.
 
-The weight side is laid out for the kernel by `pack_k1_weights`; a caller
-that reuses a weight (the forward, given kernels/infer.py
-pack_int8_operands) packs it once and calls `int8_matmul_packed`, or
-`int8_matmul_codes` for an act site: K1's codes epilogue maps the
-accumulators straight to int8 act codes (the fused form of K2,
-csrc/act_codes.cuh), so the f32 (M, N) tensor is never stored.
+The conv entry points are `int8_conv_packed` (int32 or f32 epilogue) and
+`int8_conv_codes` (act codes) on NHWC int8 codes and a weight laid out once
+by `pack_conv_weights`. The GEMM entry points (`int8_matmul_dequant`,
+`int8_matmul_packed`, `int8_matmul_codes`, `int8_matmul_int32`) run through
+the same kernel, as a 1x1 stride-1 conv over the (1, 1, M, Kp) view of x.
+K1's codes epilogue maps the accumulators straight to int8 act codes (the
+fused form of K2, csrc/act_codes.cuh), so the f32 (M, N) tensor is never
+stored. `conv_plan` chooses each launch's tiling.
+
+The plain conv gathers its taps (`gather_taps`) into an (M, K) matrix; the
+kernel never does. Every gather of a CUDA tensor is counted under
+TAP_GATHERS, so a run can show that the card's forward gathered nothing.
 
 Epilogue `acc * scale + bias` is one f32 rounding: `__fmaf_rn` in CUDA,
 `fma_f32` (float64 evaluation, one cast) in the plain version.
@@ -22,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -32,16 +40,25 @@ from alignq_tpu_torch.quant.cdf import erf_grid_boundaries, fma_f32
 
 K_MULT = 32  # depth of one m16n8k32 int8 MMA: K is zero-padded to it
 N_MULT = 8  # width of one MMA n-tile
+C_MULT = 4  # a conv's input channels are zero-padded to it: one MMA k-word
+N_MAX = 256  # widest packed weight one CTA takes (8 warps of 32 columns)
+SMEM_BUDGET = 110 * 1024  # bytes a CTA may take, so that two share an SM
+K_CHUNK = 128  # K bytes a stage carries where the weight does not fit
 KERNEL = "int8_matmul_dequant"  # launch-counter key of every launch
 # and of each family of epilogue modes: "int8_matmul_dequant:codes" etc.
 _MODE = {"int32": 0, "f32": 1, "relu": 2, "poly": 3, "erf": 4, "bins": 5, "bins_int": 6}
 _FAMILY = {"int32": "int32", "f32": "f32", "relu": "f32"}
 CODES = KERNEL + ":codes"
 F32 = KERNEL + ":f32"
+TAP_GATHERS = "gather_taps:cuda"  # counter key of tap gathers of CUDA tensors
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def conv_out_hw(h: int, w: int, ksize: int, stride: int, padding: int):
+    return (h + 2 * padding - ksize) // stride + 1, (w + 2 * padding - ksize) // stride + 1
 
 
 def gather_taps(
@@ -49,12 +66,14 @@ def gather_taps(
 ) -> torch.Tensor:
     """The taps of a ksize x ksize conv over NHWC `x`, as the (B*Ho*Wo, K)
     matrix whose columns run (dy, dx, c) like an HWIO kernel reshaped to
-    (ksize*ksize*C, Cout); K is zero-padded to a multiple of k_mult."""
+    (ksize*ksize*C, Cout); K is zero-padded to a multiple of k_mult. The
+    plain convs' layout; K1 reads x in place instead."""
+    if x.is_cuda:
+        _build.launches[TAP_GATHERS] += 1
     b, h, w, c = x.shape
     if padding:
         x = torch.nn.functional.pad(x, (0, 0, padding, padding, padding, padding))
-    ho = (h + 2 * padding - ksize) // stride + 1
-    wo = (w + 2 * padding - ksize) // stride + 1
+    ho, wo = conv_out_hw(h, w, ksize, stride, padding)
     taps = [
         x[:, dy : dy + stride * (ho - 1) + 1 : stride, dx : dx + stride * (wo - 1) + 1 : stride, :]
         for dy in range(ksize)
@@ -93,21 +112,29 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("qmatmul")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.qmm_launch.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p, p, i, p]
-        lib.qmm_launch.restype = i
+        lib.k1_conv_launch.argtypes = [p, p, p, p, p, ctypes.POINTER(i), i, p, p, p, p, i, p]
+        lib.k1_conv_launch.restype = i
+        lib.k1_plan_ints.restype = i
+        if lib.k1_plan_ints() != len(ConvPlan._fields):
+            raise RuntimeError("csrc/qmatmul.cu's Plan does not match ConvPlan")
         lib._argtypes_set = True
     return lib
 
 
 class K1Weights(NamedTuple):
     """A (K, N) int8 weight and its epilogue, laid out once as K1 takes
-    them: wt is W^T, (N8, K32) int8 zero-padded (the MMA's column-major B
-    operand); scale and bias are (N8,) f32, zero-padded; n is the true N."""
+    them: wt is W^T, (N8, Kp) int8 zero-padded (the MMA's column-major B
+    operand); scale and bias are (N8,) f32, zero-padded; n is the true N.
+    As a conv weight (pack_conv_weights), K runs (dy, dx, c) over ksize x
+    ksize taps of cin channels (the input's channels zero-padded to a
+    multiple of 4); a GEMM weight is a 1x1 conv over cin = Kp channels."""
 
     wt: torch.Tensor
     scale: torch.Tensor
     bias: torch.Tensor
     n: int
+    ksize: int
+    cin: int
 
 
 def pack_k1_weights(w: torch.Tensor, scale=None, bias=None) -> K1Weights:
@@ -120,7 +147,20 @@ def pack_k1_weights(w: torch.Tensor, scale=None, bias=None) -> K1Weights:
         v = torch.zeros(n, device=w.device) if v is None else v.to(torch.float32)
         return torch.nn.functional.pad(v, (0, np_ - n)).contiguous()
 
-    return K1Weights(wt, vec(scale), vec(bias), n)
+    return K1Weights(wt, vec(scale), vec(bias), n, 1, kp)
+
+
+def pack_conv_weights(kernel_hwio: torch.Tensor, scale=None, bias=None) -> K1Weights:
+    """Lay out an HWIO int8 conv kernel (ksize, ksize, Cin, N) and its (N,)
+    f32 scale/bias for K1's conv form: Cin zero-padded to a multiple of 4
+    (the stem's 3 -> 4, so that each 4-byte MMA k-word is one tap of one
+    pixel), then kernel_matrix's (dy, dx, c) columns."""
+    kh, kw, cin, _ = kernel_hwio.shape
+    if kh != kw:
+        raise ValueError(f"square kernels only, got {kh}x{kw}")
+    cp = _round_up(cin, C_MULT)
+    k = torch.nn.functional.pad(kernel_hwio, (0, 0, 0, cp - cin))
+    return pack_k1_weights(kernel_matrix(k), scale, bias)._replace(ksize=kh, cin=cp)
 
 
 class ActMap(NamedTuple):
@@ -163,10 +203,149 @@ def pack_act_cutpoints(cut, n8: int) -> ActMap:
     return ActMap("bins_int", int(cut["t1"].shape[0]), sgn=pad(cut["sgn"]), t1=pad(cut["t1"]), t2=pad(cut["t2"]))
 
 
-def _chain(x: torch.Tensor, op: K1Weights) -> torch.Tensor:
-    """x (M, K) int8 checked against a packed weight, K zero-padded to its depth."""
+class ConvPlan(NamedTuple):
+    """One K1 launch's tiling, in the order of csrc/qmatmul.cu's Plan.
+
+    A tile is TR x TW output pixels of one image; tiles run (b, ty, tx)
+    over tiles_y x tiles_x a image. Its input band, HR x HC pixels (the
+    halo included for ksize 3; the strided sample for ksize 1), sits in
+    shared memory at a pixel pitch P and a row pitch RP; a stage carries KC
+    bytes of K, n_chunks stages a tile (1 where the weight is resident).
+    WP: the weight's row pitch in shared memory; vec: the cp.async size;
+    then the shared-memory regions' bytes, the warps over M and N, and the
+    stage buffers in the ring (loads of n_stages - 1 steps in flight)."""
+
+    B: int
+    H: int
+    W: int
+    C: int
+    Ho: int
+    Wo: int
+    stride: int
+    pad: int
+    ksize: int
+    N8: int
+    Kp: int
+    TR: int
+    TW: int
+    tiles_y: int
+    tiles_x: int
+    n_tiles: int
+    HR: int
+    HC: int
+    P: int
+    RP: int
+    KC: int
+    n_chunks: int
+    WP: int
+    vec: int
+    koff_bytes: int
+    w_bytes: int
+    a_bytes: int
+    stage_bytes: int
+    smem: int
+    warps_m: int
+    warps_n: int
+    n_stages: int
+
+
+def _pixel_pitch(width: int, step: int) -> int:
+    """Bytes a band pixel takes in shared memory. From 16 channels up, the
+    4 lanes t of a fragment load read 16 bytes of one pixel and its 8 rows
+    g are pixels `step` apart: (step * P / 4) % 8 == 4 puts them on the 8
+    distinct groups of 4 banks. Under 16 (the stem), the lanes t read
+    different taps, and a dense pitch keeps the fragment free of conflicts
+    given _row_pitch."""
+    p = _round_up(width, C_MULT)
+    if width < 16:
+        return p
+    while (step * p // 4) % 8 != 4:
+        p += 4
+    return p
+
+
+def _row_pitch(hc: int, p: int, width: int) -> int:
+    """Bytes a band row takes: dense, but under 16 channels a pitch of 16
+    mod 32 banks, so that the lower tap row falls on the other half."""
+    rp = hc * p
+    if width < 16:
+        while (rp // 4) % 32 != 16:
+            rp += 4
+    return rp
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(b: int, h: int, w: int, c: int, ksize: int, stride: int, pad: int, n8: int, kp: int) -> ConvPlan:
+    """The tiling of one K1 launch over x (b, h, w, c) int8 and a packed
+    weight (n8, kp). Tiles are bands of whole output rows (TW the output
+    width rounded up to 8) of ~128 pixels where N8 <= 32 and ~64 above;
+    an image wider than that (the GEMM view) is cut into one-row tiles.
+    The weight is resident where the CTA fits SMEM_BUDGET with two stage
+    buffers; a 1x1 conv (the GEMM form) too deep for that streams K in
+    chunks of K_CHUNK. Then as many stage buffers as fit, up to 4."""
+    if (ksize, pad) not in ((3, 1), (1, 0)) or stride not in (1, 2):
+        raise ValueError(f"K1 takes 3x3 pad 1 or 1x1 pad 0 at stride 1 or 2, got {ksize}x{ksize} "
+                         f"pad {pad} stride {stride}")
+    if c % C_MULT or kp % K_MULT or n8 % N_MULT or not 0 < n8 <= N_MAX:
+        raise ValueError(f"C={c}, Kp={kp}, N8={n8} out of K1's range")
+    if kp != _round_up(ksize * ksize * c, K_MULT):
+        raise ValueError(f"a packed depth of {kp} does not fit a {ksize}x{ksize} conv over {c} channels")
+    ho, wo = conv_out_hw(h, w, ksize, stride, pad)
+    if b * ho * wo >= 2**31:
+        raise ValueError(f"{b * ho * wo} output rows: K1 indexes them with 32-bit ints")
+    warps_n = -(-n8 // 32)
+    warps_m_max = max(1, 8 // warps_n)
+    bm = 128 if n8 <= 32 else 64
+    tw = _round_up(wo, 8)
+    if tw >= bm:  # a wide image: one-row tiles, one 32-row group a warp
+        tr, tw = 1, 32 * min(bm // 32, warps_m_max)
+    else:
+        tr = _round_up(min(max(bm // tw, 1), ho), 32 // math.gcd(tw, 32))
+    mgroups = tr * tw // 32
+    warps_m = min(mgroups, warps_m_max)
+    ps = stride if ksize == 3 else 1
+    hr, hc = (tr - 1) * ps + ksize, (tw - 1) * ps + ksize
+    koff_bytes = _round_up(kp, 16) if ksize == 3 else 0
+
+    width = c if ksize == 3 else kp  # bytes a band pixel holds
+    p = _pixel_pitch(width, ps)
+    rp = _row_pitch(hc, p, width)
+    a_bytes = _round_up(hr * rp, 16)
+    kc, n_chunks, wp = kp, 1, kp + 16
+    w_bytes, stage = n8 * wp, a_bytes
+    loads = [c]
+    if koff_bytes + w_bytes + 2 * stage > SMEM_BUDGET:
+        if ksize != 1 or mgroups != warps_m:
+            raise ValueError(f"a {ksize}x{ksize} conv over {c} channels to {n8} does not fit K1's shared memory")
+        kc, n_chunks, wp = K_CHUNK, -(-kp // K_CHUNK), K_CHUNK + 16
+        p = _pixel_pitch(kc, 1)
+        rp = _row_pitch(hc, p, kc)
+        a_bytes = _round_up(hr * rp, 16)
+        w_bytes, stage = 0, a_bytes + n8 * wp
+        loads = [kc, c % kc or kc]
+    n_stages = next(n for n in (4, 3, 2) if koff_bytes + w_bytes + n * stage <= SMEM_BUDGET)
+    smem = koff_bytes + w_bytes + n_stages * stage
+    vec = next(v for v in (16, 8, 4) if all(s % v == 0 for s in (p, rp, *loads)))
+    return ConvPlan(
+        b, h, w, c, ho, wo, stride, pad, ksize, n8, kp, tr, tw, -(-ho // tr), -(-wo // tw),
+        b * -(-ho // tr) * -(-wo // tw), hr, hc, p, rp, kc, n_chunks, wp, vec,
+        koff_bytes, w_bytes, a_bytes, stage, smem, warps_m, warps_n, n_stages,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_ints(plan: ConvPlan):
+    return (ctypes.c_int * len(plan))(*plan)
+
+
+def _check_operands(x: torch.Tensor, op: K1Weights) -> None:
     if x.dtype != torch.int8 or op.wt.dtype != torch.int8:
         raise TypeError(f"int8 operands expected, got {x.dtype} and {op.wt.dtype}")
+
+
+def _chain(x: torch.Tensor, op: K1Weights) -> torch.Tensor:
+    """x (M, K) int8 checked against a packed weight, K zero-padded to its depth."""
+    _check_operands(x, op)
     kp = op.wt.shape[1]
     if x.ndim != 2 or x.shape[1] > kp:
         raise ValueError(f"x {tuple(x.shape)} does not chain with a packed weight of depth {kp}")
@@ -175,21 +354,85 @@ def _chain(x: torch.Tensor, op: K1Weights) -> torch.Tensor:
     return x
 
 
-def _launch_k1(x, op: K1Weights, mode: str, dtype, act: Optional[ActMap] = None) -> torch.Tensor:
-    """K1 on CUDA operands that _chain prepared, into a new (M, N) out."""
+def _conv_input(x: torch.Tensor, op: K1Weights) -> torch.Tensor:
+    """NHWC int8 x checked against a packed conv weight, its channels
+    zero-padded to the weight's (the stem's 3 -> 4)."""
+    _check_operands(x, op)
+    if x.ndim != 4 or x.shape[-1] > op.cin:
+        raise ValueError(f"x {tuple(x.shape)} does not fit a packed conv weight of {op.cin} input channels")
+    if x.shape[-1] != op.cin:
+        x = torch.nn.functional.pad(x, (0, op.cin - x.shape[-1]))
+    return x
+
+
+def _run_k1(x, op: K1Weights, ksize, stride, padding, mode: str, act: Optional[ActMap] = None) -> torch.Tensor:
+    """K1 on CUDA NHWC x (B, H, W, C) int8, into a new (B*Ho*Wo, N) out:
+    operands checked, the plan chosen, the launch counted."""
     tensors = [x, *op[:3]] + ([t for t in act[2:] if t is not None] if act is not None else [])
     if len({t.device for t in tensors}) != 1:
         raise ValueError("x, the packed weight and the act map must lie on one device")
     x = x.contiguous()
     if x.data_ptr() % 16 or op.wt.data_ptr() % 16:
         raise ValueError("K1 needs 16-byte aligned operands")
-    np_ = op.wt.shape[0]
-    out = torch.empty((x.shape[0], np_), device=x.device, dtype=dtype)
-    if x.shape[0]:
-        _qmm_launch(x, op.wt, op.scale, op.bias, out, mode, act)
+    n8, kp = op.wt.shape
+    plan = conv_plan(*x.shape, ksize, stride, padding, n8, kp)
+    dtype = torch.int8 if mode not in _FAMILY else (torch.int32 if mode == "int32" else torch.float32)
+    out = torch.empty((plan.B * plan.Ho * plan.Wo, n8), device=x.device, dtype=dtype)
+    if out.shape[0]:
+        _k1_launch(x, op, plan, out, mode, act)
         _build.launches[KERNEL] += 1
         _build.launches[f"{KERNEL}:{_FAMILY.get(mode, 'codes')}"] += 1
-    return out if np_ == op.n else out[:, : op.n]
+    return out if n8 == op.n else out[:, : op.n]
+
+
+def _k1_launch(x, op: K1Weights, plan: ConvPlan, out, mode: str, act: Optional[ActMap] = None) -> None:
+    """One launch of csrc/qmatmul.cu on checked operands: x NHWC int8,
+    op's wt (N8, Kp) int8 and scale/bias (N8,) f32 (unread in modes
+    'int32' and 'bins_int'), out (B*Ho*Wo, N8) of the mode's type; act, the
+    map of a codes mode. Counts nothing (the wrapper does)."""
+    lib = _lib()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    bnd, sgn, t1, t2 = (None,) * 4 if act is None else act[2:]
+    with _build.on_device(x.device):
+        err = lib.k1_conv_launch(
+            x.data_ptr(), op.wt.data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(), out.data_ptr(),
+            _plan_ints(plan), _MODE[mode], ptr(bnd), ptr(sgn), ptr(t1), ptr(t2),
+            0 if act is None else act.g, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(err, "qmatmul.cu k1_conv_kernel")
+
+
+def _packed_reference(x: torch.Tensor, op: K1Weights, mode: str, act: Optional[ActMap] = None) -> torch.Tensor:
+    """Plain x (M, Kp) @ a packed weight: the act codes where act is given
+    (act_codes of the f32 epilogue, or int_bin_codes of the int32
+    accumulator for bins_int), else the epilogue `mode`."""
+    n = op.n
+    w = op.wt[:n].t()
+    if act is not None:
+        if act.impl == "bins_int":
+            return int_bin_codes(int8_matmul_int32_reference(x, w), act.sgn[:n], act.t1[:, :n], act.t2[:, :n])
+        return act_codes(int8_matmul_dequant_reference(x, w, op.scale[:n], op.bias[:n]), act.g, act.impl)
+    if mode == "int32":
+        return int8_matmul_int32_reference(x, w)
+    return int8_matmul_dequant_reference(x, w, op.scale[:n], op.bias[:n], relu=mode == "relu")
+
+
+def _check_act(op: K1Weights, act: ActMap) -> None:
+    if act.impl == "bins_int" and act.sgn.shape[0] != op.wt.shape[0]:
+        raise ValueError("the cutpoints are not padded to the packed weight's width")
+
+
+def _gemm(x: torch.Tensor, op: K1Weights, mode: str, act: Optional[ActMap] = None) -> torch.Tensor:
+    """x (M, K) @ a packed weight: the plain version on a CPU tensor, else
+    K1 as a 1x1 stride-1 conv over the (1, 1, M, Kp) view."""
+    x = _chain(x, op)
+    if x.device.type == "cpu":
+        return _packed_reference(x, op, mode, act)
+    m, kp = x.shape
+    return _run_k1(x.reshape(1, 1, m, kp), op, 1, 1, 0, mode, act)
 
 
 def int8_matmul_packed(x: torch.Tensor, op: K1Weights, mode: str = "f32") -> torch.Tensor:
@@ -198,57 +441,61 @@ def int8_matmul_packed(x: torch.Tensor, op: K1Weights, mode: str = "f32") -> tor
     K1 on a CUDA tensor, its plain version on a CPU tensor."""
     if mode not in _FAMILY:
         raise ValueError(f"unknown mode {mode!r}")
-    x = _chain(x, op)
-    if x.device.type == "cpu":
-        w = op.wt[: op.n].t()
-        if mode == "int32":
-            return int8_matmul_int32_reference(x, w)
-        return int8_matmul_dequant_reference(x, w, op.scale[: op.n], op.bias[: op.n], relu=mode == "relu")
-    return _launch_k1(x, op, mode, torch.int32 if mode == "int32" else torch.float32)
+    return _gemm(x, op, mode)
 
 
 def int8_matmul_codes_reference(x: torch.Tensor, op: K1Weights, act: ActMap) -> torch.Tensor:
     """Plain codes: act_codes of the f32 epilogue, or int_bin_codes of the
     int32 accumulator for bins_int."""
-    x = _chain(x, op)
-    n = op.n
-    w = op.wt[:n].t()
-    if act.impl == "bins_int":
-        return int_bin_codes(int8_matmul_int32_reference(x, w), act.sgn[:n], act.t1[:, :n], act.t2[:, :n])
-    return act_codes(int8_matmul_dequant_reference(x, w, op.scale[:n], op.bias[:n]), act.g, act.impl)
+    return _packed_reference(_chain(x, op), op, act.impl, act)
 
 
 def int8_matmul_codes(x: torch.Tensor, op: K1Weights, act: ActMap) -> torch.Tensor:
     """The act codes (M, N) int8 of x (M, K) int8 @ a packed weight: K1's
     codes epilogue on a CUDA tensor, int8_matmul_codes_reference on a CPU
     tensor."""
-    x = _chain(x, op)
+    _check_act(op, act)
+    return _gemm(x, op, act.impl, act)
+
+
+def int8_conv_reference(x: torch.Tensor, op: K1Weights, stride: int, padding: int, mode: str = "f32",
+                        act: Optional[ActMap] = None) -> torch.Tensor:
+    """Plain conv: gather_taps, then the plain GEMM of its epilogue (mode,
+    or the act codes where act is given). (B, Ho, Wo, N)."""
+    x = _conv_input(x, op)
+    b, h, w, _ = x.shape
+    ho, wo = conv_out_hw(h, w, op.ksize, stride, padding)
+    cols = gather_taps(x, op.ksize, stride, padding, K_MULT)
+    return _packed_reference(cols, op, mode, act).reshape(b, ho, wo, -1)
+
+
+def _conv(x, op: K1Weights, stride, padding, mode, act=None) -> torch.Tensor:
+    x = _conv_input(x, op)
     if x.device.type == "cpu":
-        return int8_matmul_codes_reference(x, op, act)
-    if act.impl == "bins_int" and act.sgn.shape[0] != op.wt.shape[0]:
-        raise ValueError("the cutpoints are not padded to the packed weight's width")
-    return _launch_k1(x, op, act.impl, torch.int8, act)
+        return int8_conv_reference(x, op, stride, padding, mode, act)
+    b, h, w, _ = x.shape
+    ho, wo = conv_out_hw(h, w, op.ksize, stride, padding)
+    return _run_k1(x, op, op.ksize, stride, padding, mode, act).reshape(b, ho, wo, -1)
 
 
-def _qmm_launch(x, wt, sp, bp, out, mode: str, act: Optional[ActMap] = None) -> None:
-    """One launch of csrc/qmatmul.cu on operands _chain prepared: x (M, Kp)
-    and wt (N, Kp) int8, scale/bias (N,) f32 (unread in modes 'int32' and
-    'bins_int'), out (M, N); act, the map of a codes mode. Counts nothing
-    (the wrapper does)."""
-    lib = _lib()
+def int8_conv_packed(x: torch.Tensor, op: K1Weights, stride: int = 1, padding: int = 1,
+                     mode: str = "f32") -> torch.Tensor:
+    """A conv of NHWC int8 codes x (B, H, W, Cin) with a packed conv weight
+    (pack_conv_weights): the raw int32 accumulator (mode 'int32') or the f32
+    epilogue ('f32', or 'relu'), (B, Ho, Wo, N). K1 reading x in place on a
+    CUDA tensor (3x3 pad 1 or 1x1 pad 0, stride 1 or 2); on a CPU tensor
+    its plain version, int8_conv_reference."""
+    if mode not in _FAMILY:
+        raise ValueError(f"unknown mode {mode!r}")
+    return _conv(x, op, stride, padding, mode)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
 
-    bnd, sgn, t1, t2 = (None,) * 4 if act is None else act[2:]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.qmm_launch(
-            x.data_ptr(), wt.data_ptr(), sp.data_ptr(), bp.data_ptr(),
-            out.data_ptr(), x.shape[0], wt.shape[0], x.shape[1], _MODE[mode],
-            ptr(bnd), ptr(sgn), ptr(t1), ptr(t2), 0 if act is None else act.g, stream,
-        )
-    _build.check(err, "qmatmul.cu qmm_kernel")
+def int8_conv_codes(x: torch.Tensor, op: K1Weights, stride: int, padding: int, act: ActMap) -> torch.Tensor:
+    """The act codes (B, Ho, Wo, N) int8 of a conv of NHWC int8 codes x
+    with a packed conv weight: K1's codes epilogue on a CUDA tensor,
+    int8_conv_reference on a CPU tensor."""
+    _check_act(op, act)
+    return _conv(x, op, stride, padding, act.impl, act)
 
 
 def int8_matmul_dequant(

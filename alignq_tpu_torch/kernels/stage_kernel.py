@@ -1,12 +1,14 @@
 """Stage-interior megakernel for the INT8 PreAct ResNet graph (kernel K3).
 
-Port of alignq_tpu/kernels/stage_kernel.py. `stage_identity_blocks` runs n
-consecutive stride-1 identity blocks on the int16 residual code stream,
-(C, B*H*W) as in the JAX signature. On a CUDA tensor it launches
-csrc/stage_kernel.cu, which keeps each image's stream plane in shared
-memory through all n blocks; on a CPU tensor it runs the plain version,
-`stage_identity_blocks_reference`, whose convs accumulate in float64
+Port of alignq_tpu/kernels/stage_kernel.py. `stage_identity_blocks_nhwc`
+runs n consecutive stride-1 identity blocks on the int16 residual code
+stream in the forward's own layout, (B, H, W, C). On a CUDA tensor it
+launches csrc/stage_kernel.cu, which keeps each image's stream plane in
+shared memory through all n blocks and runs the convs on the tensor
+cores; on a CPU tensor it runs the plain version,
+`stage_identity_blocks_nhwc_reference`, whose convs accumulate in float64
 (exact: every partial sum is an integer below 2^53).
+`stage_identity_blocks` keeps the JAX signature, (C, B*H*W), around it.
 """
 
 from __future__ import annotations
@@ -40,13 +42,12 @@ def _requant(k32: torch.Tensor, m: int, g: int) -> torch.Tensor:
     return torch.clamp(torch.div(2 * k32 + m, 2 * m, rounding_mode="floor"), 0, g)
 
 
-def stage_identity_blocks_reference(stream, wt, scale, bias, ms, g, w_img, h_img):
-    """Plain version: the same blocks as NHWC convs over gathered taps.
-
-    scale/bias: (n_blocks, 2, C), broadcast over the NHWC channel axis."""
-    c, m_total = stream.shape
-    batch = m_total // (w_img * h_img)
-    out_c = stream.reshape(c, batch, h_img, w_img).permute(1, 2, 3, 0).to(torch.int32)
+def stage_identity_blocks_nhwc_reference(x, wt, scale, bias, ms, g):
+    """Plain version on the NHWC stream x (B, H, W, C) int16: the same
+    blocks as convs over gathered taps. scale/bias: (n_blocks, 2, C),
+    broadcast over the channel axis."""
+    batch, h_img, w_img, c = x.shape
+    out_c = x.to(torch.int32)
     for b in range(wt.shape[0]):
         x8 = _requant(out_c, ms[b], g)
         for j in range(2):
@@ -60,7 +61,22 @@ def stage_identity_blocks_reference(stream, wt, scale, bias, ms, g, w_img, h_img
                 r = torch.clamp_min(codes, 0)
             else:
                 out_c = torch.clamp_min(codes + out_c, 0)
-    return out_c.permute(3, 0, 1, 2).reshape(c, m_total).to(torch.int16)
+    return out_c.to(torch.int16)
+
+
+def _to_nhwc(stream, w_img, h_img):
+    c, m_total = stream.shape
+    return stream.reshape(c, m_total // (w_img * h_img), h_img, w_img).permute(1, 2, 3, 0)
+
+
+def _from_nhwc(x):
+    return x.permute(3, 0, 1, 2).reshape(x.shape[3], -1)
+
+
+def stage_identity_blocks_reference(stream, wt, scale, bias, ms, g, w_img, h_img):
+    """Plain version on the (C, B*H*W) stream of the JAX signature."""
+    x = _to_nhwc(stream, w_img, h_img)
+    return _from_nhwc(stage_identity_blocks_nhwc_reference(x, wt, scale, bias, ms, g))
 
 
 def _lib() -> ctypes.CDLL:
@@ -75,49 +91,70 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _stage_cuda(stream, wt, scale, bias, ms, g, w_img, h_img):
-    c, m_total = stream.shape
+def _stage_cuda(x, wt, scale, bias, ms, g):
+    batch, h_img, w_img, c = x.shape
     n_blocks = wt.shape[0]
-    img = w_img * h_img
-    if stream.dtype != torch.int16 or wt.dtype != torch.int8:
-        raise TypeError(f"int16 stream and int8 weights expected, got {stream.dtype}, {wt.dtype}")
+    if x.dtype != torch.int16 or wt.dtype != torch.int8:
+        raise TypeError(f"int16 stream and int8 weights expected, got {x.dtype}, {wt.dtype}")
     if c not in CHANNELS:
         raise ValueError(f"the CUDA stage kernel takes C in {CHANNELS}, got {c}")
-    if img % 8 or m_total % img:
-        raise ValueError(f"stream width {m_total} is not whole {h_img}x{w_img} images (H*W % 8 == 0)")
     if tuple(wt.shape) != (n_blocks, 2, c, 9 * c) or tuple(scale.shape) != (n_blocks, 2, c):
         raise ValueError(f"weights {tuple(wt.shape)} / scale {tuple(scale.shape)} do not fit C={c}")
     if not 0 < n_blocks <= MAX_BLOCKS or not 0 < g <= 127:
         raise ValueError(f"n_blocks={n_blocks} or g={g} out of range")
-    stream, wt = stream.contiguous(), wt.contiguous()
+    x, wt = x.contiguous(), wt.contiguous()
     scale = scale.to(torch.float32).contiguous()
     bias = bias.to(torch.float32).contiguous()
-    if len({t.device for t in (stream, wt, scale, bias)}) != 1:
+    if len({t.device for t in (x, wt, scale, bias)}) != 1:
         raise ValueError("stream, weights, scale and bias must lie on one device")
-    if stream.data_ptr() % 16 or wt.data_ptr() % 16:
+    if x.data_ptr() % 16 or wt.data_ptr() % 16:
         raise ValueError("K3 needs 16-byte aligned stream and weights")
     lib = _lib()
     if lib.stage_smem_bytes(c, h_img, w_img) > SMEM_LIMIT:
         raise ValueError(f"a {h_img}x{w_img}x{c} image does not fit one block's shared memory")
-    out = torch.empty_like(stream)
-    _stage_launch(stream, out, wt, scale, bias, ms, g, h_img, w_img)
-    _build.launches[KERNEL] += 1
+    out = torch.empty_like(x)
+    if batch:
+        _stage_launch(x, out, wt, scale, bias, ms, g)
+        _build.launches[KERNEL] += 1
     return out
 
 
-def _stage_launch(stream, out, wt, scale, bias, ms, g, h_img, w_img) -> None:
-    """One launch of csrc/stage_kernel.cu on operands the wrapper checked.
-    Counts nothing (the wrapper does)."""
-    c, m_total = stream.shape
+def _stage_launch(x, out, wt, scale, bias, ms, g) -> None:
+    """One launch of csrc/stage_kernel.cu on NHWC operands the wrapper
+    checked. Counts nothing (the wrapper does)."""
+    batch, h_img, w_img, c = x.shape
     ms_arr = (ctypes.c_int * len(ms))(*ms)
-    with torch.cuda.device(stream.device):
-        cu_stream = torch.cuda.current_stream(stream.device).cuda_stream
+    with _build.on_device(x.device):
+        cu_stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().stage_launch(
-            stream.data_ptr(), out.data_ptr(), wt.data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), ms_arr, len(ms), int(g), c, h_img, w_img,
-            m_total // (h_img * w_img), cu_stream,
+            x.data_ptr(), out.data_ptr(), wt.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), ms_arr, len(ms), int(g), c, h_img, w_img, batch, cu_stream,
         )
     _build.check(err, "stage_kernel.cu stage_kernel")
+
+
+def _check_ms(ms, wt):
+    ms = tuple(int(m) for m in ms)
+    if len(ms) != wt.shape[0] or min(ms) < 1:
+        raise ValueError(f"ms {ms} must give one multiplier >= 1 per block")
+    return ms
+
+
+def stage_identity_blocks_nhwc(
+    x: torch.Tensor,  # (B, H, W, C) int16 residual-code stream
+    wt: torch.Tensor,  # (n_blocks, 2, C, 9C) int8 transposed kernels
+    scale: torch.Tensor,  # (n_blocks, 2, C) f32
+    bias: torch.Tensor,  # (n_blocks, 2, C) f32
+    ms: Sequence[int],  # per-block requant multipliers
+    g: int = 127,
+) -> torch.Tensor:
+    """Run n consecutive identity PreAct blocks on the NHWC code stream, the
+    forward's own layout, and return the updated (B, H, W, C) int16 stream:
+    K3 on a CUDA tensor, stage_identity_blocks_nhwc_reference on a CPU one."""
+    ms = _check_ms(ms, wt)
+    if x.device.type == "cpu":
+        return stage_identity_blocks_nhwc_reference(x, wt, scale, bias, ms, g)
+    return _stage_cuda(x, wt, scale, bias, ms, g)
 
 
 def stage_identity_blocks(
@@ -131,20 +168,19 @@ def stage_identity_blocks(
     h_img: int = 32,
     chunk_imgs: int = 1,  # images per CTA: fixed at 1 here
 ) -> torch.Tensor:
-    """Run n consecutive identity PreAct blocks on the code stream and
-    return the updated (C, B*H*W) int16 stream.
+    """The JAX signature: the same blocks on the (C, B*H*W) stream, which
+    it permutes to NHWC and back around stage_identity_blocks_nhwc.
 
     chunk_imgs is kept from the JAX signature, where it sets the images a
     grid step holds in VMEM. The CUDA kernel always gives one image to a
-    CTA (kernels/infer.py _stage_kernel_chunk_imgs), so only 1 is taken."""
+    CTA, so only 1 is taken."""
     if chunk_imgs != 1:
         raise ValueError(f"the CUDA stage kernel runs one image per CTA, got chunk_imgs={chunk_imgs}")
-    ms = tuple(int(m) for m in ms)
-    if len(ms) != wt.shape[0] or min(ms) < 1:
-        raise ValueError(f"ms {ms} must give one multiplier >= 1 per block")
-    if stream.device.type == "cpu":
-        return stage_identity_blocks_reference(stream, wt, scale, bias, ms, g, w_img, h_img)
-    return _stage_cuda(stream, wt, scale, bias, ms, g, w_img, h_img)
+    c, m_total = stream.shape
+    if m_total % (w_img * h_img):
+        raise ValueError(f"stream width {m_total} is not whole {h_img}x{w_img} images")
+    x = _to_nhwc(stream, w_img, h_img)
+    return _from_nhwc(stage_identity_blocks_nhwc(x, wt, scale, bias, ms, g))
 
 
 def pack_block_weights(blocks) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -6,7 +6,8 @@ Runs the forward (default: the stage kernel and K1 1x1 route, poly act
 grid, int16 stream) under torch.profiler after warm-up, and prints the
 device time by PyTorch op and by kernel, the window's wall time and the
 device's idle share, 1 - busy / wall (below 0 where kernels overlap). The
-weights are laid out once before the window, as an engine does. Writes the same to chiprun_out/profile_forward.json.
+weights are laid out once before the window, as an engine does. Writes the
+same to chiprun_out/profile_forward_<route>_<act_impl>_<batch>.json.
 Needs a CUDA card.
 """
 
@@ -79,7 +80,8 @@ def main(argv=None) -> int:
             print(f"  {row['device_ms']:9.4f} {row['calls']:5d}  {name}")
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "profile_forward.json").write_text(json.dumps(out, indent=1))
+    route = "plain" if args.plain_route else "slice"
+    (out_dir / f"profile_forward_{route}_{args.act_impl}_{args.batch}.json").write_text(json.dumps(out, indent=1))
     return 0
 
 

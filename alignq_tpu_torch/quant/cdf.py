@@ -24,6 +24,16 @@ _SQRT2 = math.sqrt(2.0)
 _INV_SQRT2 = 1.0 / _SQRT2
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
+# torch.exp of a CPU tensor runs MKL's VML vsExp/vdExp on chunks of 2048
+# elements, one OpenMP thread each. When VML's first call in a process
+# comes from several threads at once, on a loaded host one chunk can come
+# out ~1e-4 relative off (seen in gaussian_pdf2, tests/test_torch_convert.py;
+# later calls are exact). One call on a single element runs on this thread
+# alone and does that first call here, for both types the port uses.
+for _dtype in (torch.float32, torch.float64):
+    torch.exp(torch.zeros(1, dtype=_dtype))
+del _dtype
+
 # Degree-15 odd minimax-fit polynomial for erf(z/sqrt2) on |z| <= 3 (Horner
 # in z^2); the same coefficients as the JAX package's ERF_SQRT2_POLY. The
 # CUDA stage kernel carries their f32 roundings as hex literals

@@ -7,41 +7,50 @@ Phases, in order; any failure raises and the script exits non-zero:
  1. the card's name and power limit; TF32 off for matmul and cuDNN;
  2. build the CUDA kernels from alignq_tpu_torch/csrc (qmatmul.cu,
     quantize.cu, stage_kernel.cu: one nvcc each, all started together);
- 3. K1 (csrc/qmatmul.cu) against its plain version at the ResNet-20 path
-    shapes at batch 2048 and at the serving batch 256, plus a ragged M
-    with K=27: int32 bit-identical; f32 bit-identical but for at most 1e-6
-    of the elements, each one ulp away (the plain float64 evaluation can
-    round twice at an f32 midpoint); the act codes of the codes epilogue
-    for poly and erf (g=127) at every shape, and for bins and bins_int
-    (g=7) at the batch-256 shapes: identical but for at most 1e-6 of the
-    codes, each one code away;
+ 3. K1 (csrc/qmatmul.cu) against its plain version. Its GEMM form at the
+    path's gathered-matrix shapes of batches 2048 and 256, plus a ragged M
+    with K=27; then its conv form on NHWC codes read in place, at every
+    path conv (the stem's 3 channels, 3x3 at stride 1 and 2, the 1x1
+    stride-2 skips, fuse_skip's merged convs) of batches 2048 (poly and erf
+    codes), 256 and a ragged 3 (int32, f32, relu and every codes mode).
+    int32 bit-identical; f32 bit-identical but for at most 1e-6 of the
+    elements, each one ulp away (the plain float64 evaluation can round
+    twice at an f32 midpoint); act codes identical but for at most 1e-6 of
+    the codes, each one code away; the counts of differing elements are
+    printed;
  4. K2's path, its entry point: the launch counts are zeroed,
     cdf_quantize_int8 (csrc/quantize.cu) maps the act-site sizes of
     batches 2048 and 256 and a ragged n, and the counts are read; then each
     result is held against the plain version like K1's codes;
- 5. K3 (csrc/stage_kernel.cu) against its plain version at the three
-    identity-block runs at batch 2048 and 256, and on the A4 grid (g=7):
+ 5. K3 (csrc/stage_kernel.cu) through its NHWC entry point against its
+    plain version at the three identity-block runs at batch 2048, 256 and
+    a ragged 3 (stages 1 and 3), and on the A4 grid (g=7):
     the int16 stream bit-identical but for at most 1e-6 of the codes, each
     one code away;
  6. forwards on the card against the same forwards on the CPU at batch 64,
     on qparams converted on the CPU: the slice's route (act_impl='poly',
     int16 stream, stage kernel and the K1 1x1 route), the default erf
     route, an A4 'bins' and a W4A4 'bins_int' forward. The final int16
-    stream bit for bit, and every K1 launch in codes mode;
+    stream bit for bit, every K1 launch in codes mode, and no tap gather
+    of a CUDA tensor;
  7. serving, the main path: the launch counts are zeroed, an engine is
     built with build_int8_resnet20_engine(batch_size=256) on the slice's
     route and answers requests of 1, 3, 100, 256 and 40 images, and the
-    counts are read: 7 K1 launches, all in codes mode, to 3 K3 a forward.
+    counts are read: 7 K1 launches, all in codes mode, to 3 K3 a forward,
+    and no tap gather.
     Then what was served is held against the CPU's plain path: each
     request's logits within 1e-4, and the int16 stream of the engine's
     forward at its padded batch of 256 bit for bit. Then the engine's
     latency for one-image requests and its images/s on a backlog of 32
     full batches (host clock). Then the default erf route likewise, on
-    fewer requests: 21 K1 launches a forward, all in codes mode;
+    fewer requests: 21 K1 launches a forward, all in codes mode, and no
+    tap gather;
  8. times from CUDA events (median of 20 after warm-up): the forward at
-    batch 2048 on both routes, and each kernel at each path shape of
-    batches 2048 and 256 beside its plain version, its bound and, for K1,
-    torch._int_mm's time (timed only; no one PyTorch call computes K2);
+    batches 2048 and 256 on both routes, and each kernel at each path
+    shape of batches 2048 and 256 beside its plain version, its bound
+    (conv_bound for K1: the input read once) and, for K1, torch._int_mm's
+    time on the pre-gathered (M, Kp) matrix (timed only; no one PyTorch
+    call computes K2 or K3);
  9. one JSON line of the kernels (K1 and K3: times summed over the
     launches of one slice-route forward at the serving batch; K2: over one
     launch at each act-site size of that batch), the card line, and the
@@ -99,9 +108,38 @@ def median_ms(fn, runs=RUNS, warmup=WARMUP, per_call=1):
     return statistics.median(times)
 
 
+def conv_shapes(batch):
+    """The path's K1 convs at `batch`: (name, B, H, W, Cin, ksize, stride,
+    N) -> launches a forward on the slice route and on the default erf
+    route (fuse_skip's merged convs are on neither)."""
+    return {
+        ("stem conv", batch, 32, 32, 3, 3, 1, 16): (1, 1),
+        ("stage1 conv", batch, 32, 32, 16, 3, 1, 16): (0, 6),
+        ("block3 conv0", batch, 32, 32, 16, 3, 2, 32): (1, 1),
+        ("block3 skip", batch, 32, 32, 16, 1, 2, 32): (1, 1),
+        ("block3 conv1", batch, 16, 16, 32, 3, 1, 32): (1, 5),
+        ("block6 conv0", batch, 16, 16, 32, 3, 2, 64): (1, 1),
+        ("block6 skip", batch, 16, 16, 32, 1, 2, 64): (1, 1),
+        ("block6 conv1", batch, 8, 8, 64, 3, 1, 64): (1, 5),
+        ("block3 merged", batch, 32, 32, 16, 3, 2, 64): (0, 0),
+        ("block6 merged", batch, 16, 16, 32, 3, 2, 128): (0, 0),
+    }
+
+
+def conv_bound(b, h, w, cin, ksize, stride, n, out_bytes):
+    """The conv's least time: its input read once (every pixel for a 3x3,
+    the strided sample for a 1x1), the weight and epilogue vectors, the
+    (M, N) output of out_bytes an element; 2*M*K*N operations."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    m = b * ho * wo
+    x_bytes = b * h * w * cin if ksize == 3 else m * cin
+    return bound(x_bytes + ksize * ksize * cin * n + 8 * n + out_bytes * m * n, 2 * m * ksize * ksize * cin * n)
+
+
 def k1_shapes(batch):
-    """The path's K1 launch shapes at `batch`: (name, M, K, N) -> launches
-    a forward on the slice route and on the default erf route."""
+    """The path's K1 launches at `batch` as GEMMs over gathered taps:
+    (name, M, K, N) -> launches a forward on the slice route and on the
+    default erf route. K1 runs them through its GEMM form."""
     return {
         ("stem conv", batch * 1024, 27, 16): (1, 1),
         ("stage1 conv", batch * 1024, 144, 16): (0, 6),
@@ -267,10 +305,51 @@ def main() -> int:
             counts[impl] = code_mismatches(got, want, f"K1 {impl} codes {name} M={m}")
             k1_err = max(k1_err, float((got.int() - want.int()).abs().max()))
             code_counts[f"{impl} {name} M={m}"] = counts[impl]
-        print(f"K1 {name} M={m} K={k} N={n}: int32 identical; f32 differs on {diff} of {m * n} "
+        print(f"K1 GEMM form {name} M={m} K={k} N={n}: int32 identical; f32 differs on {diff} of {m * n} "
               f"(max abs {err:.3g}); codes differ on {counts} of {m * n}", flush=True)
-        if batch is not None:
-            k1_ops[batch, name] = (x, w, scale, bias, op)
+        del x, w
+
+    # the conv form, on NHWC codes read in place, at every path conv of
+    # batches 2048 (poly and erf) and 256 and a ragged batch 3 (every mode)
+    conv_cases = [(b, *shape) for b in (BATCH, SERVE_BATCH, 3) for shape in conv_shapes(b)]
+    for batch, name, b, h, w, cin, ksize, stride, n in conv_cases:
+        pad = 1 if ksize == 3 else 0
+        x = i8((b, h, w, cin))
+        kern = i8((ksize, ksize, cin, n))
+        cs, cb = code_epilogue(ksize * ksize * cin, n)
+        op = K1.pack_conv_weights(kern, cs, cb)
+        maps = {"poly": K1.act_map("poly", 127, dev), "erf": K1.act_map("erf", 127, dev)}
+        counts = {}
+        if batch != BATCH:
+            maps["bins"] = K1.act_map("bins", 7, dev)
+            maps["bins_int"] = K1.pack_act_cutpoints(act_int_cutpoints(QConvInt8(kern, cs, cb), 4), op.wt.shape[0])
+            raw = K1.int8_conv_packed(x, op, stride, pad, "int32")
+            raw_ref = K1.int8_conv_reference(x, op, stride, pad, "int32")
+            torch.cuda.synchronize()
+            if not torch.equal(raw, raw_ref):
+                raise AssertionError(f"K1 conv int32 {name} batch {batch} differs from its plain version")
+            del raw, raw_ref
+            for mode in ("f32", "relu"):
+                y, y_ref = K1.int8_conv_packed(x, op, stride, pad, mode), K1.int8_conv_reference(x, op, stride, pad, mode)
+                torch.cuda.synchronize()
+                counts[mode] = f32_mismatches(y, y_ref)
+                k1_err = max(k1_err, float((y - y_ref).abs().max()))
+                if counts[mode] > 1e-6 * y.numel():
+                    raise AssertionError(f"K1 conv {mode} {name} batch {batch}: {counts[mode]} elements differ")
+                del y, y_ref
+        for impl, act in maps.items():
+            got = K1.int8_conv_codes(x, op, stride, pad, act)
+            want = K1.int8_conv_reference(x, op, stride, pad, impl, act)
+            torch.cuda.synchronize()
+            counts[impl] = code_mismatches(got, want, f"K1 conv {impl} codes {name} batch {batch}")
+            k1_err = max(k1_err, float((got.int() - want.int()).abs().max()))
+            code_counts[f"conv {impl} {name} batch {batch}"] = counts[impl]
+            del got, want
+        print(f"K1 conv {name} batch {b} {h}x{w}x{cin} k{ksize} s{stride} N={n}: "
+              f"{'int32 identical; ' if batch != BATCH else ''}differing elements {counts} of "
+              f"{b * ((h - 1) // stride + 1) * ((w - 1) // stride + 1) * n}", flush=True)
+        if batch in (BATCH, SERVE_BATCH) and conv_shapes(batch)[name, b, h, w, cin, ksize, stride, n] != (0, 0):
+            k1_ops[batch, name] = (x, kern, cs, cb, op, stride, pad)
     details["k1_code_mismatches"] = code_counts
 
     # 4. K2's path, its entry point, then its results against the plain version
@@ -300,15 +379,18 @@ def main() -> int:
     k3_runs = [(batch, "stage1 blocks 0-2", layers[0:3], (1, 2, 3), 32, 127) for batch in (BATCH, SERVE_BATCH)]
     k3_runs += [(batch, "stage2 blocks 4-5", layers[4:6], (2, 3), 16, 127) for batch in (BATCH, SERVE_BATCH)]
     k3_runs += [(batch, "stage3 blocks 7-8", layers[7:9], (2, 3), 8, 127) for batch in (BATCH, SERVE_BATCH)]
+    k3_runs += [(3, "stage1 blocks 0-2", layers[0:3], (1, 2, 3), 32, 127), (3, "stage3 blocks 7-8", layers[7:9],
+                                                                             (2, 3), 8, 127)]
     k3_runs += [(64, "stage1 A4 grid", layers[0:1], (2,), 32, 7)]
     k3_err = 0
     k3_ops = {}
     for batch, name, blocks, ms, hw, g in k3_runs:
         wt, scale, bias = K3.pack_block_weights(blocks)
         c = wt.shape[2]
-        stream = torch.randint(0, 4 * g, (c, batch * hw * hw), generator=gen, device=dev, dtype=torch.int16)
-        got = K3.stage_identity_blocks(stream, wt, scale, bias, ms, g=g, w_img=hw, h_img=hw)
-        want = K3.stage_identity_blocks_reference(stream, wt, scale, bias, ms, g, hw, hw)
+        # the NHWC stream, the forward's own layout
+        stream = torch.randint(0, 4 * g, (batch, hw, hw, c), generator=gen, device=dev, dtype=torch.int16)
+        got = K3.stage_identity_blocks_nhwc(stream, wt, scale, bias, ms, g=g)
+        want = K3.stage_identity_blocks_nhwc_reference(stream, wt, scale, bias, ms, g)
         torch.cuda.synchronize()
         diff = int((got != want).sum())
         err = int((got.int() - want.int()).abs().max())
@@ -318,7 +400,7 @@ def main() -> int:
         k3_err = max(k3_err, err)
         print(f"K3 {name} C={c} {hw}x{hw} batch {batch} ms={ms} g={g}: stream differs on {diff} of "
               f"{got.numel()} (max abs {err})", flush=True)
-        if g == 127:
+        if g == 127 and batch in (BATCH, SERVE_BATCH):
             k3_ops[batch, name] = (stream, wt, scale, bias, ms, hw)
 
     # 6. forwards on the card against the CPU, on qparams converted once on
@@ -327,7 +409,7 @@ def main() -> int:
     slice_kw = dict(act_impl="poly", stream="int16", use_stage_kernel=True, use_pallas_1x1=True)
     _, (_, x_cpu) = build_resnet20_int8(64, device="cpu")
     params, stats = init_preact_resnet_params(20, torch.Generator().manual_seed(SEED + 1), "cpu")
-    keys = (K1.KERNEL, K1.CODES, K1.F32, K3.KERNEL)
+    keys = (K1.KERNEL, K1.CODES, K1.F32, K3.KERNEL, K1.TAP_GATHERS)
     for label, (wbits, abits), kw, k1_per_fwd, k3_per_fwd in (
         ("slice poly+K3+K1", (8, 8), slice_kw, 7, 3),
         ("default erf/int16", (8, 8), {}, 21, 0),
@@ -350,7 +432,7 @@ def main() -> int:
         lerr = float((l_gpu - l_cpu).abs().max())
         if not (torch.isfinite(l_gpu).all() and lerr <= 1e-4 and l_gpu.shape == (64, 10)):
             raise AssertionError(f"{label}: logits off by {lerr}")
-        want = {K1.KERNEL: k1_per_fwd, K1.CODES: k1_per_fwd, K1.F32: 0, K3.KERNEL: k3_per_fwd}
+        want = {K1.KERNEL: k1_per_fwd, K1.CODES: k1_per_fwd, K1.F32: 0, K3.KERNEL: k3_per_fwd, K1.TAP_GATHERS: 0}
         if counts != want:
             raise AssertionError(f"{label}: launches per forward {counts}, expected {want}")
         print(f"forward {label} batch 64: int16 stream identical to CPU, logits max abs {lerr:.3g}, "
@@ -405,6 +487,8 @@ def main() -> int:
         raise AssertionError(f"main-path launches {main_launches} are not 7 K1 : 3 K3 per forward")
     if main_launches.get(K1.CODES, 0) != main_launches[K1.KERNEL] or main_launches.get(K1.F32, 0):
         raise AssertionError(f"main path: K1 launches not all in codes mode: {main_launches}")
+    if main_launches.get(K1.TAP_GATHERS, 0):
+        raise AssertionError(f"main path: a conv gathered its taps on the card: {main_launches}")
     again = engine.submit(reqs[2]).result(timeout=300)
     if not (again == outs[2]).all():
         raise AssertionError("a repeated request gave other logits")
@@ -430,55 +514,59 @@ def main() -> int:
     n_k1 = erf_launches.get(K1.KERNEL, 0)
     if n_k1 == 0 or n_k1 % 21 or erf_launches.get(K1.CODES, 0) != n_k1 or erf_launches.get(K1.F32, 0):
         raise AssertionError(f"erf route: launches {erf_launches}, expected 21 codes-mode K1 a forward")
+    if erf_launches.get(K1.TAP_GATHERS, 0):
+        raise AssertionError(f"erf route: a conv gathered its taps on the card: {erf_launches}")
     details["serving"]["erf_route_launches"] = erf_launches
 
     # 8. times
     phase("times")
-    _, (qp_b, x_b) = build_resnet20_int8(BATCH, device=dev)
-    ops_b = pack_int8_operands(qp_b)  # laid out once, as an engine does
-    fwd_ms = median_ms(lambda: resnet20_int8_forward(qp_b, x_b, operands=ops_b, **slice_kw))
-    print(f"forward batch {BATCH} (slice route): {fwd_ms:.3f} ms = {BATCH / fwd_ms * 1e3:.0f} images/s "
-          f"[{card}]", flush=True)
-    default_ms = median_ms(lambda: resnet20_int8_forward(qp_b, x_b, operands=ops_b))
-    print(f"forward batch {BATCH} (default erf/int16): {default_ms:.3f} ms = "
-          f"{BATCH / default_ms * 1e3:.0f} images/s [{card}]", flush=True)
-    details["forward"] = {"batch": BATCH, "slice_ms": fwd_ms, "default_erf_ms": default_ms,
-                          "slice_images_per_s": BATCH / fwd_ms * 1e3}
+    details["forward"] = {}
+    for batch in (BATCH, SERVE_BATCH):
+        _, (qp_b, x_b) = build_resnet20_int8(batch, device=dev)
+        ops_b = pack_int8_operands(qp_b)  # laid out once, as an engine does
+        fwd_ms = median_ms(lambda: resnet20_int8_forward(qp_b, x_b, operands=ops_b, **slice_kw))
+        print(f"forward batch {batch} (slice route): {fwd_ms:.4f} ms = {batch / fwd_ms * 1e3:.0f} images/s "
+              f"[{card}]", flush=True)
+        default_ms = median_ms(lambda: resnet20_int8_forward(qp_b, x_b, operands=ops_b))
+        print(f"forward batch {batch} (default erf/int16): {default_ms:.4f} ms = "
+              f"{batch / default_ms * 1e3:.0f} images/s [{card}]", flush=True)
+        details["forward"][batch] = {"slice_ms": fwd_ms, "default_erf_ms": default_ms,
+                                     "slice_images_per_s": batch / fwd_ms * 1e3}
+        del qp_b, x_b, ops_b
 
     rows = {K1.KERNEL: [], K2.KERNEL: [], K3.KERNEL: []}
-    for (batch, name), (x, w, scale, bias, op_c) in k1_ops.items():
-        m, k = x.shape
-        n = w.shape[1]
-        # the operands as the path hands them to the kernel: K zero-padded
-        xp = torch.nn.functional.pad(x, (0, -k % K1.K_MULT))
-        op = K1.pack_k1_weights(w, scale, bias)
-        out = torch.empty((m, n), device=dev)
-        out_i = torch.empty((m, n), device=dev, dtype=torch.int32)
-        out_c = torch.empty((m, n), device=dev, dtype=torch.int8)
-        ms = median_ms(lambda: K1._qmm_launch(xp, op.wt, op.scale, op.bias, out, "f32"), per_call=5)
-        raw_ms = median_ms(lambda: K1._qmm_launch(xp, op.wt, op.scale, op.bias, out_i, "int32"), per_call=5)
-        code_ms = {impl: median_ms(lambda: K1._qmm_launch(xp, op_c.wt, op_c.scale, op_c.bias, out_c, impl,
-                                                          K1.act_map(impl, 127, dev)), per_call=5)
+    for (batch, name), (x, kern, cs, cb, op, stride, pad) in k1_ops.items():
+        _, b, h, w, cin, ksize, _, n = next(key for key in conv_shapes(batch) if key[0] == name)
+        xc = K1._conv_input(x, op)  # as the kernel takes it: the stem's channels padded to 4
+        plan = K1.conv_plan(*xc.shape, ksize, stride, pad, *op.wt.shape)
+        m = plan.B * plan.Ho * plan.Wo
+        out_c = torch.empty((m, op.wt.shape[0]), device=dev, dtype=torch.int8)
+        out_f = torch.empty((m, op.wt.shape[0]), device=dev)
+        code_ms = {impl: median_ms(lambda: K1._k1_launch(xc, op, plan, out_c, impl, K1.act_map(impl, 127, dev)),
+                                   per_call=5)
                    for impl in ("poly", "erf")}
-        plain_ms = median_ms(lambda: K1.int8_matmul_dequant_reference(x, w, scale, bias))
-        plain_code_ms = {impl: median_ms(lambda: K1.int8_matmul_codes_reference(x, op_c, K1.act_map(impl, 127, dev)),
-                                         runs=5)
+        f32_ms = median_ms(lambda: K1._k1_launch(xc, op, plan, out_f, "f32"), per_call=5)
+        plain_code_ms = {impl: median_ms(lambda: K1.int8_conv_reference(x, op, stride, pad, impl,
+                                                                           K1.act_map(impl, 127, dev)), runs=5)
                          for impl in ("poly", "erf")}
-        wp = torch.nn.functional.pad(w, (0, 0, 0, xp.shape[1] - k))
-        lib_ms = median_ms(lambda: torch._int_mm(xp, wp), per_call=5)
-        b_ms, b_by = bound(m * k + k * n + 8 * n + 4 * m * n, 2 * m * k * n)
-        bc_ms, bc_by = bound(m * k + k * n + 8 * n + m * n, 2 * m * k * n)
-        slice_n, erf_n = k1_shapes(batch)[name, m, k, n]
+        # torch._int_mm on the pre-gathered (M, Kp) matrix: the raw int32 product
+        cols = K1.gather_taps(xc, ksize, stride, pad, K1.K_MULT)
+        wmat = op.wt[:n].t().contiguous()
+        lib_ms = median_ms(lambda: torch._int_mm(cols, wmat), per_call=5)
+        del cols
+        bc_ms, bc_by = conv_bound(b, h, w, cin, ksize, stride, n, 1)
+        bf_ms, _ = conv_bound(b, h, w, cin, ksize, stride, n, 4)
+        slice_n, erf_n = conv_shapes(batch)[name, b, h, w, cin, ksize, stride, n]
         rows[K1.KERNEL].append(dict(
-            batch=batch, shape=name, M=m, K=k, N=n, slice_launches=slice_n, erf_launches=erf_n,
-            f32_ms=ms, int32_ms=raw_ms, poly_ms=code_ms["poly"], erf_ms=code_ms["erf"],
-            plain_f32_ms=plain_ms, plain_poly_ms=plain_code_ms["poly"], plain_erf_ms=plain_code_ms["erf"],
-            bound_f32_ms=b_ms, bound_ms=bc_ms, bound_by=bc_by, library_ms=lib_ms,
+            batch=batch, shape=name, M=m, K=ksize * ksize * cin, N=n, slice_launches=slice_n, erf_launches=erf_n,
+            tile=f"{plan.TR}x{plan.TW}", poly_ms=code_ms["poly"], erf_ms=code_ms["erf"], f32_ms=f32_ms,
+            plain_poly_ms=plain_code_ms["poly"], plain_erf_ms=plain_code_ms["erf"],
+            bound_ms=bc_ms, bound_f32_ms=bf_ms, bound_by=bc_by, library_ms=lib_ms,
         ))
-        print(f"time K1 {name} M={m} K={k} N={n}: codes poly {code_ms['poly']:.4f} ms, erf {code_ms['erf']:.4f} "
-              f"(plain {plain_code_ms['poly']:.3f}, {plain_code_ms['erf']:.3f}; bound {bc_ms:.4f} {bc_by}); "
-              f"f32 {ms:.4f} (plain {plain_ms:.3f}; bound {b_ms:.4f} {b_by}); int32 {raw_ms:.4f}; "
-              f"torch._int_mm {lib_ms:.4f} [{card}]", flush=True)
+        print(f"time K1 conv {name} batch {b} M={m} K={ksize * ksize * cin} N={n} (tile {plan.TR}x{plan.TW}): "
+              f"codes poly {code_ms['poly']:.4f} ms, erf {code_ms['erf']:.4f} (plain {plain_code_ms['poly']:.3f}, "
+              f"{plain_code_ms['erf']:.3f}; bound {bc_ms:.4f} {bc_by}); f32 {f32_ms:.4f} (bound {bf_ms:.4f}); "
+              f"torch._int_mm on the gathered matrix {lib_ms:.4f} [{card}]", flush=True)
     for batch, name, x in k2_inputs:
         if batch is None:
             continue
@@ -492,10 +580,10 @@ def main() -> int:
         print(f"time K2 {name} n={n}: {ms:.4f} ms, plain {plain_ms:.3f}, bound {b_ms:.4f} ({b_by}) [{card}]",
               flush=True)
     for (batch, name), (stream, wt, scale, bias, ms_, hw) in k3_ops.items():
-        c, mt = stream.shape
+        mt, c = stream.numel() // stream.shape[-1], stream.shape[-1]
         out = torch.empty_like(stream)
-        ms = median_ms(lambda: K3._stage_launch(stream, out, wt, scale, bias, ms_, 127, hw, hw), per_call=5)
-        plain_ms = median_ms(lambda: K3.stage_identity_blocks_reference(stream, wt, scale, bias, ms_, 127, hw, hw))
+        ms = median_ms(lambda: K3._stage_launch(stream, out, wt, scale, bias, ms_, 127), per_call=5)
+        plain_ms = median_ms(lambda: K3.stage_identity_blocks_nhwc_reference(stream, wt, scale, bias, ms_, 127))
         nb = len(ms_)
         b_ms, b_by = bound(2 * 2 * c * mt + nb * 2 * (9 * c * c + 8 * c), nb * 2 * 2 * mt * 9 * c * c)
         rows[K3.KERNEL].append(dict(batch=batch, shape=name, C=c, HW=hw, ms=ms, plain_ms=plain_ms,
@@ -525,8 +613,6 @@ def main() -> int:
         per_forward[batch] = {
             K1.KERNEL: summed(r1, "poly_ms", "plain_poly_ms", "bound_ms", "slice_launches"),
             K1.KERNEL + " (erf route)": summed(r1, "erf_ms", "plain_erf_ms", "bound_ms", "erf_launches"),
-            K1.KERNEL + " (f32 mode, slice shapes)": summed(r1, "f32_ms", "plain_f32_ms", "bound_f32_ms",
-                                                             "slice_launches"),
             K2.KERNEL: summed([x for x in rows[K2.KERNEL] if x["batch"] == batch], "ms", "plain_ms", "bound_ms", None),
             K3.KERNEL: summed([x for x in rows[K3.KERNEL] if x["batch"] == batch], "ms", "plain_ms", "bound_ms",
                               None),

@@ -16,7 +16,11 @@ from alignq_tpu_torch.kernels import quantize as K2
 from alignq_tpu_torch.kernels.qmatmul import (
     CODES,
     F32,
+    TAP_GATHERS,
     act_map,
+    int8_conv_codes,
+    int8_conv_packed,
+    int8_conv_reference,
     int8_matmul_codes,
     int8_matmul_codes_reference,
     int8_matmul_dequant,
@@ -25,10 +29,13 @@ from alignq_tpu_torch.kernels.qmatmul import (
     int8_matmul_int32_reference,
     int8_matmul_packed,
     pack_act_cutpoints,
+    pack_conv_weights,
     pack_k1_weights,
 )
 from alignq_tpu_torch.kernels.stage_kernel import (
     stage_identity_blocks,
+    stage_identity_blocks_nhwc,
+    stage_identity_blocks_nhwc_reference,
     stage_identity_blocks_reference,
 )
 
@@ -187,6 +194,7 @@ def test_forward_cuda_vs_cpu(cuda):
     torch.cuda.synchronize()
     counts = {k: _build.launches[k] - before.get(k, 0) for k in ("int8_matmul_dequant", CODES, F32, "stage_identity_blocks")}
     assert counts == {"int8_matmul_dequant": 7, CODES: 7, F32: 0, "stage_identity_blocks": 3}
+    assert _build.launches[TAP_GATHERS] == before.get(TAP_GATHERS, 0)  # no conv gathered its taps
     assert torch.equal(got.cpu(), want)
 
 
@@ -220,4 +228,74 @@ def test_forward_codes_routes_vs_cpu(cuda, bits, kw):
             launched = _build.launches["int8_matmul_dequant"] - before.get("int8_matmul_dequant", 0)
             assert launched > 0 and _build.launches[CODES] - before.get(CODES, 0) == launched
             assert _build.launches[F32] == before.get(F32, 0)
+            assert _build.launches[TAP_GATHERS] == before.get(TAP_GATHERS, 0)
     assert torch.equal(streams[0], streams[1])
+
+
+# every conv geometry of the serving path: (H, W, Cin, ksize, stride, Cout);
+# the last two are fuse_skip's merged conv0 + skip
+CONV_GEOMS = [
+    (32, 32, 3, 3, 1, 16), (32, 32, 16, 3, 1, 16), (32, 32, 16, 3, 2, 32), (32, 32, 16, 1, 2, 32),
+    (16, 16, 32, 3, 1, 32), (16, 16, 32, 3, 2, 64), (16, 16, 32, 1, 2, 64), (8, 8, 64, 3, 1, 64),
+    (32, 32, 16, 3, 2, 64), (16, 16, 32, 3, 2, 128),
+]
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("geom", CONV_GEOMS)
+def test_conv_vs_plain(cuda, geom, batch):
+    """K1's conv form on NHWC codes against its plain version (gathered
+    taps) in every epilogue mode: one launch each, no gather."""
+    from alignq_tpu_torch.kernels.convert import QConvInt8
+    from alignq_tpu_torch.kernels.infer import act_int_cutpoints
+
+    h, w, cin, ksize, stride, cout = geom
+    pad = 1 if ksize == 3 else 0
+    rng = np.random.RandomState(h + cin + ksize + stride + cout + batch)
+    x = _i8(rng, (batch, h, w, cin)).to(cuda)
+    kern = _i8(rng, (ksize, ksize, cin, cout)).to(cuda)
+    k = ksize * ksize * cin
+    s = torch.from_numpy(((rng.rand(cout) * 2 - 0.4) * 2 / (np.sqrt(k) * 73.3**2)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy((rng.randn(cout) * 0.5).astype(np.float32)).to(cuda)
+    op = pack_conv_weights(kern, s, b)
+    for mode in ("int32", "f32", "relu"):
+        before = (_build.launches["int8_matmul_dequant"], _build.launches[TAP_GATHERS])
+        got = int8_conv_packed(x, op, stride, pad, mode)
+        torch.cuda.synchronize()
+        assert (_build.launches["int8_matmul_dequant"], _build.launches[TAP_GATHERS]) == (before[0] + 1, before[1])
+        want = int8_conv_reference(x, op, stride, pad, mode)
+        assert got.shape == want.shape
+        if mode == "int32":
+            assert torch.equal(got, want)
+        else:
+            _assert_f32_close(got, want)
+    acts = [act_map("poly", 127, cuda), act_map("erf", 127, cuda), act_map("bins", 7, cuda),
+            pack_act_cutpoints(act_int_cutpoints(QConvInt8(kern, s, b), 4), op.wt.shape[0])]
+    for act in acts:
+        before = (_build.launches[CODES], _build.launches[TAP_GATHERS])
+        got = int8_conv_codes(x, op, stride, pad, act)
+        torch.cuda.synchronize()
+        assert (_build.launches[CODES], _build.launches[TAP_GATHERS]) == (before[0] + 1, before[1])
+        want = int8_conv_reference(x, op, stride, pad, act.impl, act)
+        assert got.shape == want.shape and got.dtype == torch.int8
+        _assert_codes_close(got, want)
+
+
+@pytest.mark.parametrize("c,hw,ms,batch", [(16, 32, (1, 2, 3), 3), (32, 16, (2, 3), 8), (64, 8, (2, 3), 1),
+                                           (64, 8, (2,), 8), (32, 4, (2, 3), 3)])
+def test_stage_kernel_nhwc_vs_plain(cuda, c, hw, ms, batch):
+    rng = np.random.RandomState(c + hw + batch)
+    n = len(ms)
+    wt = _i8(rng, (n, 2, c, 9 * c), -20, 20).to(cuda)
+    scale = torch.from_numpy(rng.rand(n, 2, c).astype(np.float32) * 1e-3).to(cuda)
+    bias = torch.from_numpy((rng.rand(n, 2, c).astype(np.float32) - 0.5) * 0.1).to(cuda)
+    x = torch.from_numpy(rng.randint(0, 4 * 127, (batch, hw, hw, c)).astype(np.int16)).to(cuda)
+    before = _build.launches["stage_identity_blocks"]
+    got = stage_identity_blocks_nhwc(x, wt, scale, bias, ms)
+    torch.cuda.synchronize()
+    assert _build.launches["stage_identity_blocks"] == before + 1
+    want = stage_identity_blocks_nhwc_reference(x, wt, scale, bias, ms, 127)
+    assert got.shape == x.shape
+    diff = got != want
+    assert diff.sum().item() <= 1e-6 * got.numel()
+    assert ((got.int() - want.int()).abs() <= 1).all()

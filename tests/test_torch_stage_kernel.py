@@ -65,6 +65,29 @@ def test_plain_bit_identical_to_jax(c, h, w, batch, ms, g):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize(
+    "c,hw,ms",
+    [(16, 32, (1, 2, 3)), (32, 16, (2, 3)), (64, 8, (2, 3))],  # the three runs of ResNet-20
+)
+def test_nhwc_plain_bit_identical_to_jax(c, hw, ms):
+    """stage_identity_blocks_nhwc, the forward's entry point, on a CPU
+    tensor: JAX's reference on the (C, B*H*W) stream, transposed."""
+    batch = 2
+    rng = np.random.RandomState(c + hw)
+    blocks = _blocks(rng, c, len(ms))
+    wt, scale, bias = jsk.pack_block_weights(_as(blocks, JQConv, jnp.asarray))
+    stream = rng.randint(0, 4 * 127, (c, batch * hw * hw)).astype(np.int16)
+    want = jax.jit(jsk.stage_identity_blocks_reference, static_argnums=(4, 5, 6, 7))(
+        stream, wt, scale, bias, ms, 127, hw, hw
+    )
+    want = np.asarray(want).reshape(c, batch, hw, hw).transpose(1, 2, 3, 0)
+    x = torch.from_numpy(np.ascontiguousarray(stream.reshape(c, batch, hw, hw).transpose(1, 2, 3, 0)))
+    tw, ts, tb = tsk.pack_block_weights(_as(blocks, TQConv, torch.from_numpy))
+    got = tsk.stage_identity_blocks_nhwc(x, tw, ts, tb, ms, g=127)
+    assert got.dtype == torch.int16 and got.shape == x.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_pack_block_weights_equal():
     blocks = _blocks(np.random.RandomState(5), 32, 3)
     want = jsk.pack_block_weights(_as(blocks, JQConv, jnp.asarray))
