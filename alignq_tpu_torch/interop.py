@@ -5,6 +5,11 @@ The JAX package keeps a PreActResNet as a flax tree (`conv0/kernel` HWIO,
 `logit/{kernel,bias}`; batch_stats `mean`/`var`) and converted INT weights
 as a tree of QConvInt8 triples. Given either as numpy arrays, these
 functions return the port's tensors in the same structure.
+
+Training state crosses too: a flax tree loads into the port's QAT model
+(whose conv kernels are OIHW), JAX's ADMM duals become the port's, and
+`deploy_tree` gives a trained model back as the flax-layout tree that
+`kernels/infer.py convert_preact_resnet` folds.
 """
 
 from __future__ import annotations
@@ -102,3 +107,71 @@ def init_preact_resnet_params(
         "bias": _uniform(generator, (num_classes,), bound),
     }
     return params_from_numpy(params, stats, device)
+
+
+def _flat(tree, prefix=""):
+    """A nested dict -> {'a.b.c': leaf}."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flat(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def _is_conv_kernel(name: str, ndim: int) -> bool:
+    return name.endswith("kernel") and ndim == 4
+
+
+@torch.no_grad()
+def load_flax_preact(model: torch.nn.Module, params: Dict[str, Any], batch_stats: Dict[str, Any]) -> None:
+    """Copy a flax PreActResNet tree (numpy or tensor leaves; conv kernels
+    HWIO) into the port's model of the same structure, in the model's
+    dtype and device (conv kernels OIHW). Every parameter and statistic
+    must be given, and nothing else."""
+    given = {**_flat(params), **_flat(batch_stats)}
+    own = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    if set(given) != set(own):
+        raise ValueError(f"trees differ: only in flax {sorted(set(given) - set(own))}, "
+                         f"only in the model {sorted(set(own) - set(given))}")
+    for name, t in own.items():
+        v = torch.as_tensor(np.array(given[name]))
+        if _is_conv_kernel(name, v.ndim):
+            v = v.permute(3, 2, 0, 1)  # HWIO -> OIHW
+        if tuple(v.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: shape {tuple(v.shape)}, the model has {tuple(t.shape)}")
+        t.copy_(v)
+
+
+def deploy_tree(model: torch.nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A trained model's (params, batch_stats) in the flax layout (nested
+    dicts, conv kernels HWIO), detached, on the model's device: what
+    convert_preact_resnet folds and build_int8_resnet20_engine takes."""
+
+    def nest(named):
+        out: Dict[str, Any] = {}
+        for name, t in named:
+            t = t.detach()
+            if _is_conv_kernel(name, t.ndim):
+                t = t.permute(2, 3, 1, 0).contiguous()  # OIHW -> HWIO
+            *path, leaf = name.split(".")
+            node = out
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = t
+        return out
+
+    return nest(model.named_parameters()), nest(model.named_buffers())
+
+
+def duals_from_jax(duals: Dict[str, Any], device, dtype=None) -> Dict[str, Any]:
+    """JAX ADMMSiteState duals ({site: (alter_d, gamma)}, numpy or jax
+    leaves) -> the port's ADMMSiteState dict on `device`."""
+    from alignq_tpu_torch.admm.state import ADMMSiteState
+
+    def t(a):
+        return torch.as_tensor(np.array(a), dtype=dtype).to(device)
+
+    return {name: ADMMSiteState(t(s[0]), t(s[1])) for name, s in duals.items()}

@@ -50,6 +50,7 @@ _MODE = {"int32": 0, "f32": 1, "relu": 2, "poly": 3, "erf": 4, "bins": 5, "bins_
 _FAMILY = {"int32": "int32", "f32": "f32", "relu": "f32"}
 CODES = KERNEL + ":codes"
 F32 = KERNEL + ":f32"
+MODE = KERNEL + ":mode:{}"  # and of each epilogue mode: MODE.format("poly")
 TAP_GATHERS = "gather_taps:cuda"  # counter key of tap gathers of CUDA tensors
 
 
@@ -382,6 +383,7 @@ def _run_k1(x, op: K1Weights, ksize, stride, padding, mode: str, act: Optional[A
         _k1_launch(x, op, plan, out, mode, act)
         _build.launches[KERNEL] += 1
         _build.launches[f"{KERNEL}:{_FAMILY.get(mode, 'codes')}"] += 1
+        _build.launches[MODE.format(mode)] += 1
     return out if n8 == op.n else out[:, : op.n]
 
 

@@ -1,0 +1,158 @@
+"""Quantized layers: BatchNorm, QConv, QDense, QuantAct (port of
+alignq_tpu/nn/layers.py).
+
+Activations are NCHW and conv kernels OIHW, PyTorch's layouts (the JAX
+package's are NHWC and HWIO; interop.py converts). Parameter and buffer
+names are flax's (`kernel`, `bias`, `scale`; BatchNorm's `mean`, `var`),
+so a state_dict key `layers_0.conv0.kernel` is the flax path
+`layers_0/conv0/kernel`.
+
+Methods 'ours' (AlignQ CDF alignment) and 'fp' (identity) are ported; the
+baseline quantizers are ROADMAP queue 1 item 8, and StageRequant waits for
+DenseNet (item 7).
+
+The f32 convs and the head must run true f32: the JAX package pins
+Precision.HIGHEST because reduced-precision passes cost 6.6 points of W4A4
+train-vs-deploy agreement. On CUDA that means TF32 off for cuDNN and
+matmul, which the trainer's entry point sets (train/loop.py fit).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from alignq_tpu_torch.admm.correlation import corr_discrepancy
+from alignq_tpu_torch.quant.fake_quant import act_cdf, quantize_act, quantize_weight
+
+METHODS = ("ours", "fp")
+
+
+def _check_method(method: str) -> None:
+    if method not in METHODS:
+        raise NotImplementedError(
+            f"quant method {method!r} is not ported: the baseline quantizers are ROADMAP queue 1 item 8"
+        )
+
+
+def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """U(-bound, bound) drawn on the CPU (torch's default conv/linear init,
+    kaiming_uniform(a=sqrt(5)) == U(-1/sqrt(fan_in), 1/sqrt(fan_in)))."""
+    return (torch.rand(shape, generator=generator, dtype=torch.float64) * 2.0 - 1.0).mul(bound).float()
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the channels of NCHW with flax's rule: momentum 0.9
+    in flax's sense (running = 0.9 * running + 0.1 * batch), eps 1e-5, the
+    batch variance BIASED and from the fast E[x^2] - E[x]^2 estimator
+    (clipped at 0), and the running variance updated with it. The deploy
+    graph folds the running variance into every conv's scale, so
+    torch.nn.BatchNorm2d's unbiased running variance would change the
+    exported codes."""
+
+    def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5):
+        super().__init__()
+        self.momentum, self.epsilon = momentum, epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        if train:
+            dims = (0,) + tuple(range(2, x.ndim))
+            mean = x.mean(dim=dims)
+            var = torch.maximum(x.new_zeros(()), (x * x).mean(dim=dims) - mean * mean)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = x - mean.reshape(shape)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        return y * mul.reshape(shape) + self.bias.reshape(shape)
+
+
+class QConv(nn.Module):
+    """Quantized 2-D convolution (no bias), NCHW in and out, kernel OIHW.
+
+    mxu_dtype (torch.bfloat16): both conv operands in bf16 and the output
+    cast back to f32, the opt-in fast path; None runs true f32 (f64 at
+    f64)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3, stride: int = 1, padding: int = 0,
+                 w_bit: int = 8, method: str = "ours", variant: str = "b", channelwise: bool = False,
+                 mxu_dtype=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_method(method)
+        self.stride, self.padding = stride, padding
+        self.w_bit, self.method, self.variant, self.channelwise = w_bit, method, variant, channelwise
+        self.mxu_dtype = mxu_dtype
+        fan_in = in_features * kernel_size * kernel_size
+        self.kernel = nn.Parameter(
+            _uniform((features, in_features, kernel_size, kernel_size), 1.0 / math.sqrt(fan_in), generator)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.kernel
+        if self.method == "ours":
+            w = quantize_weight(w, self.w_bit, variant=self.variant, channelwise=self.channelwise,
+                                channel_axis=0).wq
+        if self.mxu_dtype is not None:
+            return F.conv2d(x.to(self.mxu_dtype), w.to(self.mxu_dtype), stride=self.stride,
+                            padding=self.padding).float()
+        return F.conv2d(x, w, stride=self.stride, padding=self.padding)
+
+
+class QDense(nn.Module):
+    """Quantized linear layer, kernel (in, out) as flax's; the FP head
+    (method 'fp') by default."""
+
+    def __init__(self, in_features: int, features: int, w_bit: int = 32, method: str = "fp", variant: str = "b",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_method(method)
+        self.w_bit, self.method, self.variant = w_bit, method, variant
+        bound = 1.0 / math.sqrt(in_features)
+        self.kernel = nn.Parameter(_uniform((in_features, features), bound, generator))
+        self.bias = nn.Parameter(_uniform((features,), bound, generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.kernel
+        if self.method == "ours" and self.w_bit < 32:
+            w = quantize_weight(w, self.w_bit, variant=self.variant).wq
+        return torch.matmul(x, w) + self.bias
+
+
+class QuantAct(nn.Module):
+    """Activation fake-quantizer with the optional ADMM side output.
+
+    With admm on, a sink (a dict) given to forward receives this site's
+    B x B discrepancy D under `site` (its flax path, `layers_0/act_q0/d`;
+    set by the model), and the train step builds the trans loss from it:
+    eval, which passes no sink, stays loss-free. (The JAX package's
+    alignment-only `stage='align'` serves the domain-adaptation drivers,
+    ROADMAP queue 1 item 9.)"""
+
+    def __init__(self, a_bit: int = 8, act_range: float = 2.0, method: str = "ours", variant: str = "b",
+                 admm: bool = False, cdf_impl: str = "erf", corr_eps: float = 1e-5):
+        super().__init__()
+        _check_method(method)
+        self.a_bit, self.act_range, self.method, self.variant = a_bit, act_range, method, variant
+        self.admm, self.cdf_impl, self.corr_eps = admm, cdf_impl, corr_eps
+        self.site = "d"
+
+    def forward(self, x: torch.Tensor, sink: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        if self.method == "fp" or self.a_bit == 32:
+            return x
+        if self.admm and sink is not None:
+            b = x.shape[0]
+            c = act_cdf(x, act_range=self.act_range, variant=self.variant, impl=self.cdf_impl)
+            sink[self.site] = corr_discrepancy(x.reshape(b, -1), c.reshape(b, -1), eps=self.corr_eps)
+        return quantize_act(x, self.a_bit, act_range=self.act_range, variant=self.variant, impl=self.cdf_impl)

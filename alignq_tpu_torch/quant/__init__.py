@@ -1,6 +1,8 @@
 from alignq_tpu_torch.quant.cdf import (  # noqa: F401
     ERF_SQRT2_POLY,
+    cdf_transform,
     channel_stats,
+    erf,
     erf_f32,
     erf_grid_boundaries,
     erf_sqrt2,
@@ -8,4 +10,17 @@ from alignq_tpu_torch.quant.cdf import (  # noqa: F401
     gaussian_cdf,
     gaussian_pdf2,
     tensor_stats,
+)
+from alignq_tpu_torch.quant.fake_quant import (  # noqa: F401
+    WeightQuantResult,
+    act_cdf,
+    quantize_act,
+    quantize_weight,
+)
+from alignq_tpu_torch.quant.ste import (  # noqa: F401
+    requant_grid_ste,
+    requant_ste,
+    round_ste,
+    sign_ste,
+    uniform_quantize,
 )

@@ -10,12 +10,18 @@ is rare (counted by chip_smoke.py).
 
 Likewise XLA turns a division by a compile-time constant into a multiply
 by its reciprocal, so `z / sqrt2` is evaluated here as `z * (1/sqrt2)`.
+
+The QAT path calls the same functions under autograd, at f32 or f64. At
+f64 every function computes in f64 (as the JAX package's layers do under
+x64): torch.erf, the poly grid's float64 coefficients, plain `a * b + c`.
+erf's gradient is the analytic 2/sqrt(pi) * exp(-z^2), as JAX
+differentiates lax.erf, not the derivative of the f32 approximation.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +29,7 @@ import torch
 _SQRT2 = math.sqrt(2.0)
 _INV_SQRT2 = 1.0 / _SQRT2
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+_TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
 
 # torch.exp of a CPU tensor runs MKL's VML vsExp/vdExp on chunks of 2048
 # elements, one OpenMP thread each. When VML's first call in a process
@@ -69,7 +76,8 @@ _ERF_Q = tuple(float(np.float32(c)) for c in (
 
 
 def erf_f32(x: torch.Tensor) -> torch.Tensor:
-    """erf on f32 tensors, evaluated as the JAX package's XLA graph does."""
+    """erf on f32 tensors, evaluated as the JAX package's XLA graph does
+    (values only: differentiate through `erf`)."""
     xc = torch.clamp(x, -_ERF_CLAMP, _ERF_CLAMP)
     x2 = xc * xc
     p = torch.full_like(x2, _ERF_P[0])
@@ -89,25 +97,59 @@ def fma_f32(a, b, c) -> torch.Tensor:
     return (a64 * b64 + c64).float()
 
 
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """`a * b + c` in a's type: one rounding at f32 (fma_f32), plain f64."""
+    return a * b + c if a.dtype == torch.float64 else fma_f32(a, b, c)
+
+
+class _Erf(torch.autograd.Function):
+    """erf_f32's values with erf's analytic gradient (jax.lax.erf's JVP:
+    2/sqrt(pi) * exp(-x^2)); without it autograd would differentiate the
+    clamped rational approximation, which is flat beyond +-3.74."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return erf_f32(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * (_TWO_OVER_SQRT_PI * torch.exp(-(x * x)))
+
+
+def erf(x: torch.Tensor) -> torch.Tensor:
+    """erf at x's type, differentiable: erf_f32 at f32, torch.erf at f64."""
+    return torch.erf(x) if x.dtype == torch.float64 else _Erf.apply(x)
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip as min(max(x, lo), hi): where x equals a bound its gradient
+    is 1/2, as lax.max/lax.min split a tie (torch.maximum and
+    torch.minimum split it the same way; torch.clamp would give 1)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def _poly_parts(z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(zc, acc) of the poly grid: erf_sqrt2(z, 'poly') == zc * acc, with
     zc = clip(z, -3, 3) and acc the Horner sum in zc^2, each step
-    `acc*u + c` rounded once."""
-    zc = torch.clamp(z, -3.0, 3.0)
+    `acc*u + c` rounded once (f32; the f64 coefficients in plain f64)."""
+    zc = _clip(z, -3.0, 3.0)
     u = zc * zc
-    acc = torch.full_like(u, _POLY_F32[-1])
-    for c in _POLY_F32[-2::-1]:
-        acc = fma_f32(acc, u, c)
+    coefs = ERF_SQRT2_POLY if z.dtype == torch.float64 else _POLY_F32
+    acc = torch.full_like(u, coefs[-1])
+    for c in coefs[-2::-1]:
+        acc = _fma(acc, u, c)
     return zc, acc
 
 
 def erf_sqrt2(z: torch.Tensor, impl: str = "erf") -> torch.Tensor:
     """erf(z/sqrt2) == 2*Phi_{0,1}(z) - 1, the act-site CDF alignment map.
 
-    impl='erf': erf_f32. impl='poly': the ERF_SQRT2_POLY grid, each
+    impl='erf': erf. impl='poly': the ERF_SQRT2_POLY grid, each
     Horner step `acc*u + c` rounded once (module docstring)."""
     if impl == "erf":
-        return erf_f32(z * _INV_SQRT2)
+        return erf(z * _INV_SQRT2)
     if impl == "poly":
         zc, acc = _poly_parts(z)
         return zc * acc
@@ -129,11 +171,11 @@ def gaussian_cdf(x: torch.Tensor, mean, std, impl: str = "erf") -> torch.Tensor:
     association: z = (x - mean) / (std * sqrt2), then erf."""
     if impl == "erf":
         z = (x - mean) / (std * _SQRT2)
-        return 0.5 * (1.0 + erf_f32(z))
+        return 0.5 * (1.0 + erf(z))
     if impl == "poly":
         # `1 + zc * acc` is one more multiply-add: rounded once
         zc, acc = _poly_parts((x - mean) / std)
-        return 0.5 * fma_f32(zc, acc, 1.0)
+        return 0.5 * _fma(zc, acc, 1.0)
     raise ValueError(f"unknown cdf impl {impl!r}")
 
 
@@ -148,8 +190,32 @@ def tensor_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return x.mean(), x.std(correction=1)
 
 
-def channel_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-output-channel (mean, std) of an HWIO kernel: reduce all but the
-    last axis, keepdims, ddof=1."""
-    dims = tuple(range(x.ndim - 1))
+def channel_stats(x: torch.Tensor, axis: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel (mean, std) of a conv kernel: reduce all but the
+    channel `axis` (-1 for HWIO, 0 for the QAT layers' OIHW), keepdims,
+    ddof=1."""
+    axis %= x.ndim
+    dims = tuple(d for d in range(x.ndim) if d != axis)
     return x.mean(dim=dims, keepdim=True), x.std(dim=dims, correction=1, keepdim=True)
+
+
+def cdf_transform(
+    x: torch.Tensor,
+    mean,
+    std,
+    *,
+    affine: bool,
+    act_range: Optional[float] = None,
+    impl: str = "erf",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(c, pdf) of the CDF alignment map, pdf = 2*phi(x).
+
+    affine=False (variant a): c = Phi(x) in [0, 1].
+    affine=True (variant b): c = 2*Phi(x) - 1, times act_range when given
+    (activations), before any rounding."""
+    c = gaussian_cdf(x, mean, std, impl)
+    if affine:
+        c = c * 2.0 - 1.0
+        if act_range is not None:
+            c = c * act_range
+    return c, gaussian_pdf2(x, mean, std)

@@ -1,0 +1,82 @@
+"""Checkpoints of the full train state with torch.save (port of
+alignq_tpu/train/checkpoint.py): parameters, BatchNorm statistics, the
+optimizer's momentum traces and step count, the ADMM duals and the step,
+so the duals survive a restart. One file per saved epoch under
+job_dir/checkpoint; the max_to_keep best by eval top-1 are kept."""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional, Tuple
+
+import torch
+
+from alignq_tpu_torch.admm.state import ADMMSiteState
+from alignq_tpu_torch.train.state import TrainState
+
+
+class CheckpointManager:
+    def __init__(self, job_dir: str, max_to_keep: int = 3):
+        self.dir = os.path.abspath(os.path.join(job_dir, "checkpoint"))
+        os.makedirs(self.dir, exist_ok=True)
+        self.max_to_keep = max_to_keep
+        self._index = os.path.join(self.dir, "index.json")
+
+    def _path(self, epoch: int) -> str:
+        return os.path.join(self.dir, f"epoch_{epoch}.pt")
+
+    def _read_index(self) -> dict:
+        if not os.path.isfile(self._index):
+            return {}
+        with open(self._index) as f:
+            return {int(k): v for k, v in json.load(f).items()}
+
+    def save(self, epoch: int, state: TrainState, metrics: Optional[dict] = None) -> None:
+        payload = {
+            "params": {k: v.detach().cpu() for k, v in state.params.items()},
+            "batch_stats": {k: v.detach().cpu() for k, v in state.batch_stats.items()},
+            "opt_state": {"trace": {k: v.cpu() for k, v in state.tx.trace.items()}, "count": state.tx.count},
+            "admm_duals": {k: {"alter_d": s.alter_d.cpu(), "gamma": s.gamma.cpu()}
+                           for k, s in state.admm_duals.items()},
+            "step": state.step,
+        }
+        tmp = self._path(epoch) + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, self._path(epoch))  # a crash mid-save leaves the last good file
+        index = self._read_index()
+        index[epoch] = float((metrics or {}).get("top1", 0.0))
+        keep = sorted(index, key=lambda e: (index[e], e), reverse=True)[: self.max_to_keep]
+        for e in set(index) - set(keep):
+            if os.path.isfile(self._path(e)):
+                os.remove(self._path(e))
+            del index[e]
+        with open(self._index + ".tmp", "w") as f:
+            json.dump({str(k): v for k, v in index.items()}, f)
+        os.replace(self._index + ".tmp", self._index)
+
+    def latest_epoch(self) -> Optional[int]:
+        index = self._read_index()
+        return max(index) if index else None
+
+    def restore(self, state: TrainState, epoch: Optional[int] = None) -> Tuple[TrainState, int]:
+        """Load a saved epoch (default: the latest kept) into state, in
+        place, on the state's device; returns (state, start_epoch)."""
+        if epoch is None:
+            epoch = self.latest_epoch()
+        if epoch is None:
+            return state, 0
+        payload = torch.load(self._path(epoch), map_location="cpu", weights_only=True)
+        with torch.no_grad():
+            for table, saved in ((state.params, payload["params"]), (state.batch_stats, payload["batch_stats"])):
+                if set(table) != set(saved):
+                    raise ValueError(f"checkpoint {self._path(epoch)} holds another model")
+                for k, v in table.items():
+                    v.copy_(saved[k])
+        dev = next(state.model.parameters()).device
+        state.tx.load_state_dict({"trace": {k: v.to(dev) for k, v in payload["opt_state"]["trace"].items()},
+                                  "count": payload["opt_state"]["count"]})
+        state.admm_duals = {k: ADMMSiteState(v["alter_d"].to(dev), v["gamma"].to(dev))
+                            for k, v in payload["admm_duals"].items()}
+        state.step = int(payload["step"])
+        return state, int(epoch)

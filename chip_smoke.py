@@ -45,13 +45,30 @@ Phases, in order; any failure raises and the script exits non-zero:
     full batches (host clock). Then the default erf route likewise, on
     fewer requests: 21 K1 launches a forward, all in codes mode, and no
     tap gather;
- 8. times from CUDA events (median of 20 after warm-up): the forward at
+ 8. the QAT half of the main path (train -> fold -> serve):
+    (a) 3 train steps of a PreActResNet num_units=(1, 1, 1), W4A4, ADMM and
+        the PDF correction, batch 8, in float64 on the card and on the CPU
+        from one seed: params, BatchNorm statistics and duals within 1e-9;
+    (b) the training CLI (train.cli.main) on the card: ResNet-20 W8A8
+        int8 deploy_exact poly ADMM on the synthetic set, batch 64, 2
+        epochs (64 steps); every loss finite and the last below the first;
+    (c) the launch counts zeroed, export_int8 of (b)'s net with
+        --stage_kernel (fake-quant and INT top-1, delta, prediction
+        agreement, at least 99.0%), the counts read; then an engine serves
+        that net on the slice's route, held against the CPU plain path as
+        in phase 7. Both runs launch K1 in the poly codes mode only, K3,
+        and gather no taps;
+ 9. times from CUDA events (median of 20 after warm-up): the forward at
     batches 2048 and 256 on both routes, and each kernel at each path
     shape of batches 2048 and 256 beside its plain version, its bound
     (conv_bound for K1: the input read once) and, for K1, torch._int_mm's
     time on the pre-gathered (M, Kp) matrix (timed only; no one PyTorch
     call computes K2 or K3);
- 9. one JSON line of the kernels (K1 and K3: times summed over the
+10. QAT train-step times (CUDA events, median of 20 after warm-up, TF32
+    asserted off): ResNet-20 W8A8 erf with ADMM at batch 128, and erf and
+    poly without ADMM at batch 1024; the batch-128 step's device busy
+    time, idle share and five largest kernels from torch.profiler;
+11. one JSON line of the kernels (K1 and K3: times summed over the
     launches of one slice-route forward at the serving batch; K2: over one
     launch at each act-site size of that batch), the card line, and the
     final JSON line.
@@ -205,6 +222,181 @@ def bound(bytes_moved, ops, peak_ops=PEAK_INT8_OPS_PER_S):
 def zero_counts(launches):
     for k in list(launches):
         launches[k] = 0
+
+
+QAT_JOB_ARGS = ["--dataset", "synthetic", "--bitW", "8", "--abitW", "8", "--variant", "int8", "--deploy_exact",
+                "--cdf_impl", "poly", "--admm", "--train_batch_size", "64", "--eval_batch_size", "64",
+                "--num_epochs", "2", "--print_freq", "1"]
+
+
+def qat_card_vs_cpu(dev, steps=3):
+    """Phase 8(a): 3 train steps of a PreActResNet num_units=(1, 1, 1), W4A4,
+    ADMM and the correction, batch 8, in float64, on the card and on the
+    CPU from one seed; returns the largest difference of the params, the
+    BatchNorm statistics and the duals."""
+    import numpy as np
+    import torch
+
+    from alignq_tpu_torch.models.resnet_cifar import PreActResNet
+    from alignq_tpu_torch.train import TrainConfig, create_train_state, make_train_step
+
+    cfg = TrainConfig(train_batch_size=8, bitW=4, abitW=4, admm=True, lr=0.02, lr_decay_steps=(1000,))
+    states = {}
+    for where in ("cpu", dev):
+        gen = torch.Generator().manual_seed(SEED)
+        model = PreActResNet(num_units=(1, 1, 1), w_bit=4, a_bit=4, admm=True, generator=gen).double().to(where)
+        state = create_train_state(gen, model, cfg, input_shape=(1, 32, 32, 3), steps_per_epoch=10_000)
+        step = make_train_step(model, cfg)
+        rng = np.random.RandomState(SEED)
+        for _ in range(steps):
+            x = torch.tensor(rng.randn(8, 32, 32, 3)).to(where)
+            step(state, x, torch.tensor(rng.randint(0, 10, 8)).to(where))
+        states[str(where)] = state
+    cpu, card = states["cpu"], states[str(dev)]
+    pairs = [(cpu.params[k], card.params[k]) for k in cpu.params]
+    pairs += [(cpu.batch_stats[k], card.batch_stats[k]) for k in cpu.batch_stats]
+    for k, s in cpu.admm_duals.items():
+        pairs += [(s.alter_d, card.admm_duals[k].alter_d), (s.gamma, card.admm_duals[k].gamma)]
+    if len(cpu.admm_duals) != 9 or card.step != steps:
+        raise AssertionError(f"QAT (a): {len(cpu.admm_duals)} ADMM sites, {card.step} steps")
+    return max(float((a.detach() - b.detach().cpu()).abs().max()) for a, b in pairs)
+
+
+def qat_on_the_card(dev, repo, serve_and_check, reqs, slice_kw):
+    """Phase 8: (a) the card against the CPU in float64; (b) the training
+    CLI on the card; (c) export_int8 of (b)'s net through K1 and K3, then
+    serving it, held against the CPU plain path."""
+    import math
+    import shutil
+
+    import torch
+
+    from alignq_tpu_torch import export_int8
+    from alignq_tpu_torch.interop import deploy_tree
+    from alignq_tpu_torch.kernels import _build
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels import stage_kernel as K3
+    from alignq_tpu_torch.train import cli
+
+    out = {}
+    # (a)
+    err = qat_card_vs_cpu(dev)
+    print(f"QAT (a) 3 float64 steps, W4A4 ADMM + correction, batch 8: card vs CPU max abs diff {err:.3g} "
+          "(params, BatchNorm statistics, duals)", flush=True)
+    if not err <= 1e-9:
+        raise AssertionError(f"QAT (a): the card's float64 steps differ from the CPU's by {err}")
+    out["card_vs_cpu_f64_max_abs"] = err
+
+    # (b) the CLI, on the card (its default device)
+    job = repo / "chiprun_out" / "qat_job"
+    shutil.rmtree(job, ignore_errors=True)
+    t0 = time.perf_counter()
+    result = cli.main(QAT_JOB_ARGS + ["--job_dir", str(job)])
+    train_s = time.perf_counter() - t0
+    losses = [json.loads(line)["loss"] for line in (job / "run" / "train.jsonl").read_text().splitlines()]
+    print(f"QAT (b) CLI ResNet-20 W8A8 int8 deploy_exact poly ADMM, batch 64, 2 epochs: {len(losses)} steps in "
+          f"{train_s:.1f} s; loss first {losses[0]:.4f} last {losses[-1]:.4f}; eval top-1 "
+          f"{result['best_top1']:.2f}", flush=True)
+    if "aborted" in result or len(losses) != 64 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"QAT (b): {len(losses)} steps, losses {losses[:3]}..., {result.get('aborted')}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"QAT (b): the loss did not fall ({losses[0]} -> {losses[-1]})")
+    out.update(train_s=train_s, loss_first=losses[0], loss_last=losses[-1], eval_top1=result["best_top1"])
+
+    # (c) export (b)'s net and serve it: the QAT path's kernels
+    zero_counts(_build.launches)
+    rep = export_int8.main(["--dataset", "synthetic", "--bits", "8", "--variant", "int8", "--cdf_impl", "poly",
+                            "--deploy_exact", "--admm", "--epochs", "2", "--batch", "64", "--job_dir", str(job),
+                            "--resume", "--stage_kernel"])
+    torch.cuda.synchronize()
+    export_launches = {k: v for k, v in _build.launches.items() if v}
+    print(f"QAT (c) export: fake-quant top-1 {rep['fq_top1']:.2f}, INT top-1 {rep['int_top1']:.2f}, delta "
+          f"{rep['delta']:+.2f} pts, prediction agreement {rep['agreement']:.2f}%; launches {export_launches}",
+          flush=True)
+    if rep["state"].step != 64:
+        raise AssertionError(f"QAT (c): exported a net of {rep['state'].step} steps, not (b)'s 64")
+    if rep["agreement"] < 99.0:
+        raise AssertionError(f"QAT (c): prediction agreement {rep['agreement']:.2f}% is below 99.0%")
+    _, _, served = serve_and_check("QAT-trained net, slice route", slice_kw, reqs, deploy_tree(rep["state"].model))
+    poly = K1.MODE.format("poly")
+    for label, counts in (("export", export_launches), ("serving", served)):
+        if not (counts.get(K1.KERNEL, 0) > 0 and counts.get(poly, 0) == counts[K1.KERNEL]
+                and counts.get(K3.KERNEL, 0) > 0 and not counts.get(K1.TAP_GATHERS, 0)):
+            raise AssertionError(f"QAT (c) {label}: launches {counts}: expected K1 in poly codes mode only, "
+                                 "K3, and no tap gather")
+    out.update(fq_top1=rep["fq_top1"], int_top1=rep["int_top1"], delta=rep["delta"], agreement=rep["agreement"],
+               export_launches=export_launches, serving_launches=served)
+    return out
+
+
+def qat_times(dev, card):
+    """Phase 10: a ResNet-20 QAT train step, CUDA events (median of 20 after
+    warm-up), TF32 off: batch 128 W8A8 erf ADMM (TrainConfig's default,
+    the reference's configuration) and batch 1024 W8A8 erf and poly, ADMM
+    off; then the batch-128 ADMM step under torch.profiler: device busy,
+    idle share and the five largest kernels."""
+    import numpy as np
+    import torch
+
+    from alignq_tpu_torch.models.registry import build_model
+    from alignq_tpu_torch.train import TrainConfig, create_train_state, make_train_step
+    from alignq_tpu_torch.train.loop import true_f32
+
+    true_f32()
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on")
+    out = {}
+    for batch, impl, admm in ((128, "erf", True), (1024, "erf", False), (1024, "poly", False)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        cfg = TrainConfig(train_batch_size=batch, bitW=8, abitW=8, admm=admm, cdf_impl=impl)
+        model = build_model(cfg, torch.Generator().manual_seed(SEED)).to(dev)
+        state = create_train_state(torch.Generator().manual_seed(SEED), model, cfg)
+        step = make_train_step(model, cfg)
+        rng = np.random.RandomState(SEED)
+        x = torch.tensor(rng.randn(batch, 32, 32, 3), dtype=torch.float32, device=dev)
+        y = torch.tensor(rng.randint(0, 10, batch), device=dev)
+        ms = median_ms(lambda: step(state, x, y))
+        key = f"batch {batch} W8A8 {impl} admm={admm}"
+        out[key] = {"ms_per_step": ms, "images_per_s": batch / ms * 1e3,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        print(f"QAT step {key}: {ms:.3f} ms/step = {batch / ms * 1e3:.0f} images/s [{card}]", flush=True)
+        if batch == 128:
+            out["profile_batch_128_admm"] = profile_step(lambda: step(state, x, y), card)
+        del model, state, step, x, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_step(fn, card, iters=5):
+    """Device busy time, idle share (1 - busy / wall) and the five largest
+    kernels of fn, per call, under torch.profiler after warm-up."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda and e.self_device_time_total > 0]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / iters / 1e3
+    if busy_ms == 0:
+        raise AssertionError("the profiler recorded no device time")
+    launches = sum(e.count for e in kernels) // iters
+    top = [{"kernel": e.key[:100], "device_ms": e.self_device_time_total / iters / 1e3, "calls": e.count // iters}
+           for e in kernels[:5]]
+    print(f"QAT step batch 128 ADMM under torch.profiler: wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms "
+          f"(idle share {1 - busy_ms / wall_ms:.3f}), {launches} kernel launches a step [{card}]", flush=True)
+    for row in top:
+        print(f"  {row['device_ms']:9.4f} ms {row['calls']:5d} calls  {row['kernel']}", flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "launches_per_step": launches, "top5": top}
 
 
 def main() -> int:
@@ -444,12 +636,13 @@ def main() -> int:
     reqs = [torch.randn((n, 32, 32, 3), generator=torch.Generator().manual_seed(10 + n)).numpy()
             for n in (1, 3, 100, 256, 40)]
 
-    def serve_and_check(label, kw, reqs):
-        """Serve reqs on an engine of the route kw; return the engine and
-        the launch counts of its build and its requests. What was served is
-        held against the CPU's plain path."""
+    def serve_and_check(label, kw, reqs, tree=None):
+        """Serve reqs on an engine of the route kw, on the (params,
+        batch_stats) tree given (default: the random ResNet-20); return the
+        engine and the launch counts of its build and its requests. What
+        was served is held against the CPU's plain path."""
         zero_counts(_build.launches)
-        engine = build_int8_resnet20_engine(params, stats, batch_size=SERVE_BATCH, device=dev, **kw)
+        engine = build_int8_resnet20_engine(*(tree or (params, stats)), batch_size=SERVE_BATCH, device=dev, **kw)
         futs = [engine.submit(r) for r in reqs]
         outs = [f.result(timeout=300) for f in futs]
         torch.cuda.synchronize()
@@ -518,7 +711,11 @@ def main() -> int:
         raise AssertionError(f"erf route: a conv gathered its taps on the card: {erf_launches}")
     details["serving"]["erf_route_launches"] = erf_launches
 
-    # 8. times
+    # 8. the QAT half of the main path: train on the card, export, serve
+    phase("QAT on the card")
+    details["qat"] = qat_on_the_card(dev, repo, serve_and_check, reqs, slice_kw)
+
+    # 9. times
     phase("times")
     details["forward"] = {}
     for batch in (BATCH, SERVE_BATCH):
@@ -592,7 +789,11 @@ def main() -> int:
               f"bound {b_ms:.4f} ({b_by}) [{card}]", flush=True)
     details["kernels"] = rows
 
-    # 9. the kernels line, the card line, the final line
+    # 10. QAT step times and where a step's device time goes
+    phase("QAT times")
+    details["qat_times"] = qat_times(dev, card)
+
+    # 11. the kernels line, the card line, the final line
     phase("done")
 
     def summed(r, ms_key, plain_key, bound_key, weight):

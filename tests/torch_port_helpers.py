@@ -1,6 +1,7 @@
 """Shared inputs of the tests/test_torch_*.py files."""
 
 import numpy as np
+import pytest
 import torch
 
 from alignq_tpu_torch import interop
@@ -28,3 +29,58 @@ def random_preact_tree(depth, seed):
         return out
 
     return draw(shapes), draw(stat_shapes)
+
+
+def f64_tree(tree):
+    """A nested dict with every floating leaf as float64 numpy."""
+    if isinstance(tree, dict):
+        return {k: f64_tree(v) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return a.astype(np.float64) if a.dtype.kind == "f" else a
+
+
+def flat_names(tree, prefix=""):
+    """A nested dict -> {'a.b.c': numpy leaf}, the port's parameter names."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_names(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def to_port_layout(name, a):
+    """A flax leaf in the port's layout: conv kernels HWIO -> OIHW."""
+    a = np.asarray(a)
+    return a.transpose(3, 2, 0, 1) if name.endswith("kernel") and a.ndim == 4 else a
+
+
+def write_tiny_cifar10(data_dir, per_batch=16, n_test=64, seed=0):
+    """CIFAR-10's python pickles (five train batches and a test batch) of
+    a few seeded random images under data_dir/cifar-10-batches-py, so that
+    a loader or a trainer runs on the cifar10 path in a second."""
+    import os
+    import pickle
+
+    base = os.path.join(str(data_dir), "cifar-10-batches-py")
+    os.makedirs(base, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    names = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]
+    for name in names:
+        n = n_test if name == "test_batch" else per_batch
+        d = {b"data": rng.randint(0, 256, (n, 3072)).astype(np.uint8), b"labels": list(rng.randint(0, 10, n))}
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump(d, f)
+    return str(data_dir)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """torch on one intra-op thread for the test, restored after: the
+    suite runs several test processes at once, and eager PyTorch on small
+    tensors gains nothing from threads that then contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
