@@ -27,9 +27,17 @@
 //   cp.async, zero-filled at the pad border; the 9 taps are offsets into
 //   that buffer (a table per k-word), so no input byte is fetched 9 times.
 // - The packed weight (N8, Kp) is resident in shared memory for the whole
-//   kernel where it fits (every conv of the path: at most 128 x 288 or
-//   64 x 576 bytes). A GEMM too deep for that streams K in chunks of 128,
-//   weight chunk beside input chunk.
+//   kernel where it fits (every ResNet conv: at most 128 x 288 or 64 x 576
+//   bytes). Where it does not, K streams in chunks, weight chunk beside
+//   input chunk: a 1x1 conv (and the GEMM) in chunks of 128 channels; a 3x3
+//   conv (DenseNet's convs over 200 and more channels) in chunks of CC
+//   channels, each with its 9 taps: the band of the chunk's channels with
+//   its halo, and the weight's (tap, channel) columns of those channels.
+//   The last chunk may be narrower; its K is zero-padded to 32 by
+//   zero-filled weight columns.
+// - Output widths above 256 (MobileNet's 384-1280) split N into n_blocks
+//   blocks of NB <= 256 columns, a grid dimension (blockIdx.y): each block
+//   keeps its own weight rows, and reads the input bands again (from L2).
 // - CTAs are persistent: a CTA walks tiles blockIdx.x, + gridDim.x, ... and
 //   its steps (tile, K chunk) go through a ring of 2-4 stage buffers (as
 //   many as the plan fits in the budget), so the next steps' cp.async loads
@@ -54,14 +62,18 @@
 // int8 clip(round(c(h) * g), +-g) of h = acc * scale + bias with c the
 // poly, erf or boundary-bin map, or bins_int's integer compare chains
 // straight on the accumulator (act_codes.cuh). In a codes mode the f32
-// (M, N) tensor never reaches device memory.
+// (M, N) tensor never reaches device memory. The codes may take relu,
+// max(code, 0). And the stage buffer's int8 requant of DenseNet's
+// stage_int8 graph (alignq_tpu/kernels/infer_densenet.py _requant_write):
+// clip(rint((acc * scale) * inv), +-127), two f32 roundings, inv the f32
+// reciprocal of the buffer slice's scale, passed in the bias vector.
 //
 // C interface: k1_conv_launch returns cudaGetLastError() after the launch
 // (or the error that refused it). Requirements (checked by the Python
 // wrapper, which also computes the plan): x (B, H, W, C) int8 contiguous,
 // C % 4 == 0, 16-byte aligned; wt (N8, Kp) int8 with Kp % 32 == 0, N8 % 8
-// == 0, N8 <= 256; K ordered (dy, dx, c) over the C channels; for bins, bnd
-// holds g f32 boundaries; for bins_int, sgn (N8,) and t1, t2 (g, N8) int32.
+// == 0; K ordered (dy, dx, c) over the C channels; for bins, bnd holds g
+// f32 boundaries; for bins_int, sgn (N8,) and t1, t2 (g, N8) int32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,11 +93,13 @@ struct Plan {
   int B, H, W, C, Ho, Wo, stride, pad, ksize, N8, Kp;
   int TR, TW, tiles_y, tiles_x, n_tiles;
   int HR, HC, P, RP;  // halo rows, cols; smem pixel pitch, row pitch (bytes)
-  int KC, n_chunks;   // K bytes a stage carries; stages a tile
+  int KC, n_chunks;   // K bytes a full stage carries; stages a tile
+  int CC, KCL;        // channels a full stage carries; K bytes of the last
   int WP, vec;        // smem weight row pitch; cp.async size (4, 8, 16)
   int koff_bytes, w_bytes, a_bytes, stage_bytes, smem;
   int warps_m, warps_n;
   int n_stages;  // stage buffers in the ring: 2, 3 or 4
+  int NB, n_blocks;  // columns of an N block (blockIdx.y); N blocks
 };
 constexpr int PLAN_INTS = sizeof(Plan) / sizeof(int);
 
@@ -95,10 +109,11 @@ struct ActArgs {
   const int* t1;     // BINS_INT: (g, N8) cutpoints of code >= k
   const int* t2;     // BINS_INT: (g, N8) cutpoints of code <= -k
   int g;             // the grid's largest code
+  int relu;          // codes modes: max(code, 0)
 };
 
 // Epilogue modes (the wrapper's kernels/qmatmul.py _MODE)
-enum Mode { INT32 = 0, F32 = 1, RELU = 2, POLY = 3, ERF = 4, BINS = 5, BINS_INT = 6 };
+enum Mode { INT32 = 0, F32 = 1, RELU = 2, POLY = 3, ERF = 4, BINS = 5, BINS_INT = 6, REQUANT = 7 };
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                        uint32_t b1) {
@@ -142,13 +157,20 @@ __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
 template <int MODE>
 __device__ __forceinline__ int site_code(int acc, float s, float b, int col,
                                          const ActArgs& a, int ld) {
-  if (MODE == BINS_INT) return act::bins_int_code(acc, col, a.sgn, a.t1, a.t2, a.g, ld);
   // int -> f32 rounds to nearest, as the JAX graph's astype does
-  const float h = __fmaf_rn(static_cast<float>(acc), s, b);
-  const float gf = static_cast<float>(a.g);
-  if (MODE == POLY) return act::poly_code(h, gf);
-  if (MODE == ERF) return act::erf_code(h, gf);
-  return act::bins_code(h, a.bnd, a.g);
+  if (MODE == REQUANT)
+    return static_cast<int>(fminf(fmaxf(rintf(__fmul_rn(__fmul_rn(static_cast<float>(acc), s), b)), -127.f), 127.f));
+  int code;
+  if (MODE == BINS_INT) {
+    code = act::bins_int_code(acc, col, a.sgn, a.t1, a.t2, a.g, ld);
+  } else {
+    const float h = __fmaf_rn(static_cast<float>(acc), s, b);
+    const float gf = static_cast<float>(a.g);
+    if (MODE == POLY) code = act::poly_code(h, gf);
+    else if (MODE == ERF) code = act::erf_code(h, gf);
+    else code = act::bins_code(h, a.bnd, a.g);
+  }
+  return a.relu ? max(code, 0) : code;
 }
 
 __device__ __forceinline__ uint16_t pack2(int c0, int c1) {
@@ -166,20 +188,22 @@ __device__ __forceinline__ TileOrigin tile_origin(const Plan& p, int tile) {
 }
 
 // Issue the cp.async loads of stage (tile, chunk) into buf: the input band
-// of the tile's channels [c0, c0 + KC) and, where the weight streams, its
-// columns [c0, c0 + KC).
+// of the tile's channels [c0, c0 + CC) and, where the weight streams, the
+// chunk's columns of the N block's rows [n0, n0 + nbr): for a 1x1 conv K
+// bytes [c0, c0 + KC); for a 3x3 conv each tap's channels [c0, c0 + cc),
+// tap after tap, then zeros to the chunk's depth (a multiple of 32).
 template <int KS>
 __device__ void issue_stage(const Plan& p, const int8_t* __restrict__ x,
                             const int8_t* __restrict__ wt, unsigned char* buf, int tile,
-                            int chunk) {
+                            int chunk, int n0, int nbr) {
   const TileOrigin o = tile_origin(p, tile);
   // KS 3: the band with its halo, every input pixel; KS 1: the strided
   // sample of the pixels the tile reads
   const int ls = KS == 3 ? 1 : p.stride;
   const int iy0 = o.oy0 * p.stride - (KS == 3 ? p.pad : 0);
   const int ix0 = o.ox0 * p.stride - (KS == 3 ? p.pad : 0);
-  const int c0 = chunk * p.KC;
-  const int cc = min(p.KC, p.C - c0);  // channels of x in this chunk
+  const int c0 = chunk * p.CC;
+  const int cc = min(p.CC, p.C - c0);  // channels of x in this chunk
   const int nv = cc / p.vec, nv_log2 = log2_or_neg(nv);
   const int row_items = p.HC * nv, total = p.HR * row_items;
   // item i = (band row r, item rem of the row), stepped by blockDim.x
@@ -200,13 +224,26 @@ __device__ void issue_stage(const Plan& p, const int8_t* __restrict__ x,
       ++r;
     }
   }
-  if (p.n_chunks > 1) {  // the weight's columns of this chunk, beside it
-    unsigned char* wbuf = buf + p.a_bytes;
-    const int kc = min(p.KC, p.Kp - c0);
-    const int n16 = kc / 16;
-    for (int i = threadIdx.x; i < p.N8 * n16; i += blockDim.x) {
+  if (p.n_chunks == 1) return;
+  unsigned char* wbuf = buf + p.a_bytes;  // the weight's columns of this chunk, beside it
+  if (KS == 1) {
+    const int n16 = min(p.KC, p.Kp - c0) / 16;
+    for (int i = threadIdx.x; i < nbr * n16; i += blockDim.x) {
       const int n = i / n16, q = i % n16;
-      cp_async(wbuf + n * p.WP + q * 16, wt + static_cast<size_t>(n) * p.Kp + c0 + q * 16, 16, 16);
+      cp_async(wbuf + n * p.WP + q * 16, wt + static_cast<size_t>(n0 + n) * p.Kp + c0 + q * 16, 16, 16);
+    }
+  } else {
+    const int per_row = 9 * nv;
+    for (int i = threadIdx.x; i < nbr * per_row; i += blockDim.x) {
+      const int n = i / per_row, rr = i - n * per_row, tap = rr / nv, v = rr - tap * nv;
+      cp_async(wbuf + n * p.WP + tap * cc + v * p.vec,
+               wt + static_cast<size_t>(n0 + n) * p.Kp + tap * p.C + c0 + v * p.vec, p.vec, p.vec);
+    }
+    const int kc = chunk == p.n_chunks - 1 ? p.KCL : p.KC;
+    const int nz = (kc - 9 * cc) / 4;  // zero words of the padded tail
+    for (int i = threadIdx.x; i < nbr * nz; i += blockDim.x) {
+      const int n = i / nz, q = i - n * nz;
+      cp_async(wbuf + n * p.WP + 9 * cc + 4 * q, wt, 4, 0);
     }
   }
 }
@@ -229,22 +266,30 @@ k1_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
   const int mgroups = p.TR * p.TW / WARP_ROWS;
   const int ps = KS == 3 ? p.stride : 1;  // pixel step of one output pixel in the band
   const int tw_log2 = log2_or_neg(p.TW);
+  const int n0 = blockIdx.y * p.NB;         // this CTA's N block
+  const int nbr = min(p.NB, p.N8 - n0);     // its columns (a multiple of 8)
+  // the k-word table of the last chunk (the only one where the weight is
+  // resident) follows that of a full chunk
+  const int last_words = p.n_chunks > 1 ? p.KC / 4 : 0;
 
   if (KS == 3) {
-    // word q of K holds k = 4q..4q+3: tap k / C, channels k % C.. (C % 4 == 0,
-    // so a word never straddles taps). The zero-weight tail repeats the last
-    // real word, so that its lanes share that word's addresses (a broadcast,
-    // not a bank conflict).
-    for (int q = tid; q < p.Kp / 4; q += blockDim.x) {
-      const int k = 4 * q, tap = k / p.C, c = k - tap * p.C;
-      koff[q] = tap < 9 ? (tap / 3) * p.RP + (tap % 3) * p.P + c : 2 * p.RP + 2 * p.P + p.C - 4;
+    // word q of a chunk of cc channels holds k = 4q..4q+3: tap k / cc,
+    // channels k % cc.. (cc % 4 == 0, so a word never straddles taps). The
+    // zero-weight tail repeats the last real word, so that its lanes share
+    // that word's addresses (a broadcast, not a bank conflict).
+    const int ccl = p.C - (p.n_chunks - 1) * p.CC;
+    for (int q = tid; q < last_words + p.KCL / 4; q += blockDim.x) {
+      const bool last = q >= last_words;
+      const int cc = last ? ccl : p.CC;
+      const int k = 4 * (last ? q - last_words : q), tap = k / cc, c = k - tap * cc;
+      koff[q] = tap < 9 ? (tap / 3) * p.RP + (tap % 3) * p.P + c : 2 * p.RP + 2 * p.P + cc - 4;
     }
   }
-  if (p.n_chunks == 1) {  // the whole weight, resident for the kernel
+  if (p.n_chunks == 1) {  // the N block's weight rows, resident for the kernel
     const int n16 = p.Kp / 16;
-    for (int i = tid; i < p.N8 * n16; i += blockDim.x) {
+    for (int i = tid; i < nbr * n16; i += blockDim.x) {
       const int n = i / n16, q = i % n16;
-      cp_async(wres + n * p.WP + q * 16, wt + static_cast<size_t>(n) * p.Kp + q * 16, 16, 16);
+      cp_async(wres + n * p.WP + q * 16, wt + static_cast<size_t>(n0 + n) * p.Kp + q * 16, 16, 16);
     }
   }
 
@@ -257,7 +302,7 @@ k1_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
   for (int s = 0; s < S - 1; ++s) {
     if (s < n_steps)
       issue_stage<KS>(p, x, wt, stages + s * p.stage_bytes, blockIdx.x + (s / p.n_chunks) * gridDim.x,
-                      s % p.n_chunks);
+                      s % p.n_chunks, n0, nbr);
     cp_commit();
   }
 
@@ -266,7 +311,7 @@ k1_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
     const int s1 = s + S - 1;
     if (s1 < n_steps)  // into the buffer the step before this one freed
       issue_stage<KS>(p, x, wt, stages + (s1 % S) * p.stage_bytes,
-                      blockIdx.x + (s1 / p.n_chunks) * gridDim.x, s1 % p.n_chunks);
+                      blockIdx.x + (s1 / p.n_chunks) * gridDim.x, s1 % p.n_chunks, n0, nbr);
     cp_commit();
     cp_wait_n(S - 1);
     __syncthreads();
@@ -275,7 +320,9 @@ k1_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
     const int chunk = s % p.n_chunks;
     const unsigned char* A = stages + (s % S) * p.stage_bytes;
     const unsigned char* Wm = p.n_chunks == 1 ? wres : A + p.a_bytes;
-    const int nk = min(p.KC, p.Kp - chunk * p.KC) / 32;
+    const bool last_chunk = chunk == p.n_chunks - 1;
+    const int nk = (last_chunk ? p.KCL : p.KC) / 32;
+    const int* kt = koff + (last_chunk ? last_words : 0);
     const TileOrigin o = tile_origin(p, tile);
 
     for (int mg = wm; mg < mgroups; mg += p.warps_m) {
@@ -301,8 +348,8 @@ k1_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
         // A fragment (16 x 32, row-major): rows g and g+8, k-words t and 4+t
         int o0, o1;
         if (KS == 3) {
-          o0 = koff[ks * 8 + t];
-          o1 = koff[ks * 8 + 4 + t];
+          o0 = kt[ks * 8 + t];
+          o1 = kt[ks * 8 + 4 + t];
         } else {
           o0 = ks * 32 + 4 * t;
           o1 = o0 + 16;
@@ -317,7 +364,7 @@ k1_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
         }
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
-          if (n_base + j * 8 < p.N8) {
+          if (n_base + j * 8 < nbr) {
             // B fragment (32 x 8, column-major): column g, the same k-words
             const unsigned char* b = Wm + (n_base + j * 8 + g) * p.WP + ks * 32 + 4 * t;
             const uint32_t b0 = lds32(b), b1 = lds32(b + 16);
@@ -326,7 +373,7 @@ k1_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
           }
         }
       }
-      if (chunk != p.n_chunks - 1) continue;
+      if (!last_chunk) continue;
 
       // C fragment: (row g, cols 2t, 2t+1) in acc[..][0..1], row g+8 in [2..3]
       int rows[MT][2];  // output row of each fragment row, -1 past the ragged edge
@@ -339,8 +386,8 @@ k1_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
         }
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        const int col = n_base + j * 8 + 2 * t;
-        if (col >= p.N8) continue;
+        if (n_base + j * 8 + 2 * t >= nbr) continue;
+        const int col = n0 + n_base + j * 8 + 2 * t;
         float s0 = 0.f, s1 = 0.f, c0 = 0.f, c1 = 0.f;
         if (MODE != INT32 && MODE != BINS_INT) {
           s0 = scale[col], s1 = scale[col + 1], c0 = bias[col], c1 = bias[col + 1];
@@ -389,7 +436,8 @@ int launch(const void* x, const void* wt, const void* scale, const void* bias, v
            const Plan& p, const ActArgs& a, cudaStream_t stream) {
   auto kernel = k1_conv_kernel<MODE, KS>;
   const int threads = 32 * p.warps_m * p.warps_n;
-  if (threads > MAX_THREADS || p.n_stages < 2 || p.n_stages > 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (threads > MAX_THREADS || p.n_stages < 2 || p.n_stages > 4 || p.n_blocks < 1 || p.n_blocks > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   // the attribute and the occupancy of the last configuration, kept: a
   // serving forward launches the same shapes again and again
   static int smem_allowed = 48 * 1024, last_smem = -1, last_threads = -1, per_sm = 0;
@@ -405,8 +453,9 @@ int launch(const void* x, const void* wt, const void* scale, const void* bias, v
     last_threads = threads;
   }
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int slots = per_sm * sm_count();
-  const int grid = p.n_tiles < slots ? p.n_tiles : slots;
+  // persistent CTAs: those the SMs hold, over the N blocks
+  const int slots = per_sm * sm_count() / p.n_blocks;
+  const dim3 grid(p.n_tiles < slots ? p.n_tiles : (slots > 0 ? slots : 1), p.n_blocks);
   kernel<<<grid, threads, p.smem, stream>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
       static_cast<const float*>(scale), static_cast<const float*>(bias), out, p, a);
@@ -424,6 +473,7 @@ int dispatch(int mode, const void* x, const void* wt, const void* scale, const v
     case ERF: return launch<ERF, KS>(x, wt, scale, bias, out, p, a, s);
     case BINS: return launch<BINS, KS>(x, wt, scale, bias, out, p, a, s);
     case BINS_INT: return launch<BINS_INT, KS>(x, wt, scale, bias, out, p, a, s);
+    case REQUANT: return launch<REQUANT, KS>(x, wt, scale, bias, out, p, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -435,12 +485,12 @@ extern "C" int k1_plan_ints() { return PLAN_INTS; }
 extern "C" int k1_conv_launch(const void* x, const void* wt, const void* scale,
                               const void* bias, void* out, const int* plan, int mode,
                               const void* bnd, const void* sgn, const void* t1,
-                              const void* t2, int g, void* stream) {
+                              const void* t2, int g, int relu, void* stream) {
   Plan p;
   int* dst = reinterpret_cast<int*>(&p);
   for (int i = 0; i < PLAN_INTS; ++i) dst[i] = plan[i];
   const ActArgs a{static_cast<const float*>(bnd), static_cast<const int*>(sgn),
-                  static_cast<const int*>(t1), static_cast<const int*>(t2), g};
+                  static_cast<const int*>(t1), static_cast<const int*>(t2), g, relu};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p.ksize == 3) return dispatch<3>(mode, x, wt, scale, bias, out, p, a, s);
   if (p.ksize == 1) return dispatch<1>(mode, x, wt, scale, bias, out, p, a, s);

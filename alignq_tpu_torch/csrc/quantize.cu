@@ -24,9 +24,35 @@
 // C interface: cdf_quant_launch returns cudaGetLastError() after the
 // launch. Requirements (checked by the Python wrapper): x f32 and 16-byte
 // aligned, out int8 with room for n codes.
+//
+// Beside K2, the fused BN-act code kernel of DenseNet's pre-activation
+// sites (bn_act_launch). It replaces the elementwise pass that XLA fuses
+// ahead of every DenseNet conv (alignq_tpu/kernels/infer_densenet.py
+// _pre_act_conv, _stage_prealloc, _stage_prealloc_int8: bn -> act_q ->
+// relu over the live-channel prefix of the stage buffer):
+//     codes[m, c] = max(map(fma(x[m, c], s[c], b[c])), 0)   (c < c_live)
+// x is the f32 stage buffer, or the int8 stage buffer's codes cast to f32
+// (s then holds svec * bn.scale, folded once at load); map is
+// act_codes.cuh's erf, poly or bins code, so one rounding per multiply-add
+// and XLA's erf, as the JAX graph computes under jit. It reads the prefix
+// in place, at the buffer's pixel pitch ld, and writes contiguous codes at
+// a pitch c_out >= c_live, zero past c_live (K1's conv takes c_out
+// channels, a multiple of 16).
+//
+// What bounds it: bytes. DenseNet re-reads the live prefix of its stage
+// buffer before every conv; the pass does ~40 operations an element (erf)
+// against 4 (f32) or 1 (int8) bytes in and 1 out. Each thread of a
+// grid-stride loop takes 4 channels of a pixel (one 16- or 4-byte load,
+// one 4-byte store), neighbouring threads on neighbouring quads.
+//
+// C interface: bn_act_launch returns cudaGetLastError() after the launch.
+// Requirements (checked by kernels/quantize.py bn_act_codes): x 16-byte
+// aligned, ld, c_live and c_out multiples of 4, c_live <= min(ld, c_out).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "act_codes.cuh"
 
 namespace {
 
@@ -69,7 +95,85 @@ cdf_quant_kernel(const float* __restrict__ x, int8_t* __restrict__ out, long lon
     out[i] = static_cast<int8_t>(cdf_code(x[i]));
 }
 
+// BN-act maps (the wrapper's kernels/quantize.py _BN_ACT_MODE)
+enum BnActMode { POLY = 3, ERF = 4, BINS = 5 };
+
+template <int MODE>
+__device__ __forceinline__ int bn_act_code(float x, float s, float b, const float* bnd, int g, int relu) {
+  const float h = __fmaf_rn(x, s, b);
+  const float gf = static_cast<float>(g);
+  int code;
+  if (MODE == POLY) code = act::poly_code(h, gf);
+  else if (MODE == ERF) code = act::erf_code(h, gf);
+  else code = act::bins_code(h, bnd, g);
+  return relu ? max(code, 0) : code;
+}
+
+__device__ __forceinline__ float4 load4(const float* x) { return *reinterpret_cast<const float4*>(x); }
+__device__ __forceinline__ float4 load4(const int8_t* x) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(x);
+  return make_float4(static_cast<float>(static_cast<int8_t>(v & 0xff)),
+                     static_cast<float>(static_cast<int8_t>((v >> 8) & 0xff)),
+                     static_cast<float>(static_cast<int8_t>((v >> 16) & 0xff)),
+                     static_cast<float>(static_cast<int8_t>(v >> 24)));
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(THREADS)
+bn_act_kernel(const T* __restrict__ x, const float* __restrict__ s, const float* __restrict__ b,
+              uint32_t* __restrict__ out, long long m_rows, int ld, int c_live, int c_out,
+              const float* __restrict__ bnd, int g, int relu) {
+  const int quads = c_out / 4;
+  const long long items = m_rows * quads;
+  for (long long item = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x; item < items;
+       item += static_cast<long long>(gridDim.x) * THREADS) {
+    const long long m = item / quads;
+    const int c = 4 * static_cast<int>(item - m * quads);
+    uint32_t word = 0;
+    if (c < c_live) {
+      const float4 v = load4(x + m * ld + c);
+      word = (static_cast<uint32_t>(bn_act_code<MODE>(v.x, s[c], b[c], bnd, g, relu)) & 0xff) |
+             (static_cast<uint32_t>(bn_act_code<MODE>(v.y, s[c + 1], b[c + 1], bnd, g, relu)) & 0xff) << 8 |
+             (static_cast<uint32_t>(bn_act_code<MODE>(v.z, s[c + 2], b[c + 2], bnd, g, relu)) & 0xff) << 16 |
+             (static_cast<uint32_t>(bn_act_code<MODE>(v.w, s[c + 3], b[c + 3], bnd, g, relu)) & 0xff) << 24;
+    }
+    out[item] = word;
+  }
+}
+
+template <typename T, int MODE>
+int bn_act_run(const void* x, const void* s, const void* b, void* out, long long m_rows, int ld, int c_live,
+               int c_out, const void* bnd, int g, int relu, cudaStream_t stream) {
+  const long long want = (m_rows * (c_out / 4) + THREADS - 1) / THREADS;
+  const int ctas = static_cast<int>(want < MAX_CTAS ? (want > 0 ? want : 1) : MAX_CTAS);
+  bn_act_kernel<T, MODE><<<ctas, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(s), static_cast<const float*>(b),
+      static_cast<uint32_t*>(out), m_rows, ld, c_live, c_out, static_cast<const float*>(bnd), g, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bn_act_dispatch(int mode, const void* x, const void* s, const void* b, void* out, long long m_rows, int ld,
+                    int c_live, int c_out, const void* bnd, int g, int relu, cudaStream_t stream) {
+  switch (mode) {
+    case POLY: return bn_act_run<T, POLY>(x, s, b, out, m_rows, ld, c_live, c_out, bnd, g, relu, stream);
+    case ERF: return bn_act_run<T, ERF>(x, s, b, out, m_rows, ld, c_live, c_out, bnd, g, relu, stream);
+    case BINS: return bn_act_run<T, BINS>(x, s, b, out, m_rows, ld, c_live, c_out, bnd, g, relu, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
+
+extern "C" int bn_act_launch(const void* x, int x_is_int8, const void* s, const void* b, void* out,
+                             long long m_rows, int ld, int c_live, int c_out, int mode, const void* bnd, int g,
+                             int relu, void* stream) {
+  if (ld % 4 || c_live % 4 || c_out % 4 || c_live > ld || c_live > c_out)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_is_int8) return bn_act_dispatch<int8_t>(mode, x, s, b, out, m_rows, ld, c_live, c_out, bnd, g, relu, st);
+  return bn_act_dispatch<float>(mode, x, s, b, out, m_rows, ld, c_live, c_out, bnd, g, relu, st);
+}
 
 extern "C" int cdf_quant_launch(const void* x, void* out, long long n, void* stream) {
   const long long n4 = (n >> 2) > 0 ? (n >> 2) : 1;

@@ -13,6 +13,8 @@ prediction agreement.
 
 Runs on the CUDA card unless given --device cpu. --resume exports the run
 already trained in --job_dir (its latest checkpoint) instead of training.
+--save writes the frozen INT artifact that serve.engine_from_artifact
+serves; with --bits 4, --pack_int4 packs its conv kernels two codes a byte.
 """
 
 from __future__ import annotations
@@ -89,6 +91,9 @@ def main(argv=None) -> dict:
                    help="residual-stream storage in the INT graph ('int8' needs --deploy_exact)")
     p.add_argument("--stage_kernel", action="store_true", help="runs of identity blocks through K3 (poly)")
     p.add_argument("--save", default=None, metavar="PATH.npz", help="save the frozen INT artifact")
+    p.add_argument("--pack_int4", action="store_true",
+                   help="with --save and --bits 4: nibble-pack the conv kernels (halves their bytes); "
+                        "engine_from_artifact unpacks them once at load")
     p.add_argument("--admm", action="store_true", help="train with the ADMM correlation loss")
     p.add_argument("--dataset", default="synthetic")
     p.add_argument("--data_dir", default="data")
@@ -106,10 +111,14 @@ def main(argv=None) -> dict:
 
     if a.stream == "int8" and not a.deploy_exact:
         p.error("--stream int8 requires --deploy_exact")
+    if a.pack_int4 and a.bits != 4:
+        p.error("--pack_int4 requires --bits 4 (codes must fit a nibble)")
     try:
         int_kw = int_forward_kwargs(a.bits, a.cdf_impl, a.deploy_act_impl, a.stream, a.stage_kernel)
     except ValueError as e:
         p.error(str(e))
+    if a.pack_int4 and int_kw["act_impl"] == "bins_int":
+        p.error("bins_int + --pack_int4 is not supported (serving derives the cutpoints from unpacked weights)")
     cfg = TrainConfig(
         target_model=f"{a.model}_quant", method="ours", bitW=a.bits, abitW=a.bits, variant=a.variant,
         dataset=a.dataset, data_dir=a.data_dir, num_epochs=a.epochs, train_batch_size=a.batch,
@@ -127,13 +136,14 @@ def main(argv=None) -> dict:
     print(f"deployment accuracy delta (fake-quant - int8): {report['delta']:+.2f} pts")
     if a.save:
         from alignq_tpu_torch.kernels.artifact import save_int8_artifact
+        from alignq_tpu_torch.kernels.convert import pack_qparams_int4
 
-        save_int8_artifact(a.save, qparams, meta={
+        save_int8_artifact(a.save, pack_qparams_int4(qparams) if a.pack_int4 else qparams, meta={
             "model": a.model, "act_bits": a.bits, "weight_bits": a.bits, "act_impl": int_kw["act_impl"],
-            "stream": a.stream, "variant": a.variant, "deploy_exact": int(a.deploy_exact), "packed_int4": 0,
-            "stage_int8": 0, "use_stage_kernel": int(a.stage_kernel),
+            "stream": a.stream, "variant": a.variant, "deploy_exact": int(a.deploy_exact),
+            "packed_int4": int(a.pack_int4), "stage_int8": 0, "use_stage_kernel": int(a.stage_kernel),
         })
-        print(f"saved INT artifact -> {a.save}")
+        print(f"saved INT artifact -> {a.save}" + (" (int4-packed kernels)" if a.pack_int4 else ""))
     return {**report, "state": result["state"], "qparams": qparams, "int_kwargs": int_kw}
 
 

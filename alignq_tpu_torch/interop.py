@@ -3,8 +3,10 @@
 The JAX package keeps a PreActResNet as a flax tree (`conv0/kernel` HWIO,
 `bn/{scale,bias}`, `layers_i/{conv0,conv1,skip_conv,bn0,bn1,skip_bn}`,
 `logit/{kernel,bias}`; batch_stats `mean`/`var`) and converted INT weights
-as a tree of QConvInt8 triples. Given either as numpy arrays, these
-functions return the port's tensors in the same structure.
+as a tree of QConvInt8 triples (DenseNet's of QConvPre and BNAffine).
+Given either as numpy arrays, these functions return the port's tensors in
+the same structure. `init_*_params` draw fresh random trees of each CIFAR
+family with the shapes and key names of the JAX models' `init`.
 
 Training state crosses too: a flax tree loads into the port's QAT model
 (whose conv kernels are OIHW), JAX's ADMM duals become the port's, and
@@ -41,26 +43,36 @@ def params_from_numpy(
     return _tensors(params, device), _tensors(batch_stats, device)
 
 
-def _qparams(node, device):
+def _named_tuples():
+    """The port's NamedTuples of converted trees, by their field names."""
+    from alignq_tpu_torch.kernels.infer_densenet import BNAffine, QConvPre
+
+    return {cls._fields: cls for cls in (QConvInt8, QConvPre, BNAffine)}
+
+
+def _qparams(node, device, named):
     fields = getattr(node, "_fields", None)
-    if fields == _QCONV_FIELDS or (isinstance(node, dict) and tuple(sorted(node)) == tuple(sorted(_QCONV_FIELDS))):
+    if fields in named or (isinstance(node, dict) and tuple(sorted(node)) == tuple(sorted(_QCONV_FIELDS))):
+        cls = named[fields] if fields else QConvInt8
         get = (lambda f: getattr(node, f)) if fields else node.__getitem__
-        return QConvInt8(*(torch.tensor(np.asarray(get(f))).to(device) for f in _QCONV_FIELDS))
+        return cls(*(_qparams(get(f), device, named) for f in cls._fields))
     if isinstance(node, dict):
-        return {k: _qparams(v, device) for k, v in node.items()}
+        return {k: _qparams(v, device, named) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return [_qparams(v, device) for v in node]
+        return [_qparams(v, device, named) for v in node]
     arr = np.asarray(node)
-    if arr.ndim == 0 and arr.dtype.kind in "iuf":
+    if arr.ndim == 0 and arr.dtype != np.float32:
         return arr.item()  # in_scale / m: host scalars, as the port's converter keeps them
-    return torch.tensor(arr).to(device)
+    return torch.tensor(arr).to(device)  # f32 0-d leaves (DenseNet's conv scales) stay tensors
 
 
 def qparams_from_numpy(qparams: Dict[str, Any], device) -> Dict[str, Any]:
     """A qparams tree converted by the JAX package (QConvInt8 triples or
-    dicts of their fields, `*_cut` cutpoint dicts, logit head), numpy
-    leaves -> the port's QConvInt8 tree on `device`."""
-    return _qparams(qparams, device)
+    dicts of their fields, QConvPre and BNAffine, `*_cut` cutpoint dicts,
+    the head), numpy leaves -> the port's tree on `device`: NamedTuples as
+    the port's, f32 leaves as tensors (0-d ones too), other 0-d leaves as
+    host scalars."""
+    return _qparams(qparams, device, _named_tuples())
 
 
 def _uniform(gen, shape, bound):
@@ -106,6 +118,110 @@ def init_preact_resnet_params(
         "kernel": _uniform(generator, (64, num_classes), bound),
         "bias": _uniform(generator, (num_classes,), bound),
     }
+    return params_from_numpy(params, stats, device)
+
+
+def _he_fan_out(gen, shape):
+    """normal(0, sqrt(2 / (kh * kw * cout))): the JAX models' conv init."""
+    kh, kw, _, cout = shape
+    return (torch.randn(shape, generator=gen, dtype=torch.float64) * math.sqrt(2.0 / (kh * kw * cout))).float()
+
+
+def _bn(c):
+    return {"scale": torch.ones(c), "bias": torch.zeros(c)}, {"mean": torch.zeros(c), "var": torch.ones(c)}
+
+
+def _dense_head(gen, fan_in, n):
+    bound = 1.0 / math.sqrt(fan_in)
+    return {"kernel": _uniform(gen, (fan_in, n), bound), "bias": _uniform(gen, (n,), bound)}
+
+
+def init_densenet_params(
+    depth: int, generator: torch.Generator, device, growth: int = 12, stage_int8: bool = False,
+    num_classes: int = 10,
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A deploy tree with the shapes and key names of the JAX package's
+    `densenet_40_quant(...).init` at any depth 3n+4 (compression 1): `conv1`,
+    `dense{s}_{i}/{bn1,conv1}`, `trans{1,2}/{bn1,conv1}`, `bn`, `fc`; conv
+    kernels He fan-out normal, BN scale 1, bias 0, mean 0, var 1, the head
+    uniform(+-1/sqrt(fan_in)). With stage_int8, the StageRequant
+    statistics too (`requant_stem/amax`, `dense*/requant/amax`,
+    `trans*/requant/amax`), drawn uniform in [2, 6] so that a random net's
+    buffer scales are those of a calibrated one, not the init's zeros.
+    Drawn on the CPU from `generator`, then moved to `device`."""
+    if (depth - 4) % 3:
+        raise ValueError(f"DenseNet depth must be 3n+4, got {depth}")
+    n = (depth - 4) // 3
+
+    def conv(k, cin, cout):
+        return {"kernel": _he_fan_out(generator, (k, k, cin, cout))}
+
+    def amax(c):
+        return {"amax": (torch.rand(c, generator=generator, dtype=torch.float64) * 4 + 2).float()}
+
+    c = 2 * growth
+    params: Dict[str, Any] = {"conv1": conv(3, 3, c)}
+    stats: Dict[str, Any] = {}
+    if stage_int8:
+        stats["requant_stem"] = amax(c)
+    for stage in range(3):
+        for i in range(n):
+            name = f"dense{stage + 1}_{i}"
+            p, s = {}, {}
+            p["bn1"], s["bn1"] = _bn(c)
+            p["conv1"] = conv(3, c, growth)
+            if stage_int8:
+                s["requant"] = amax(growth)
+            params[name], stats[name] = p, s
+            c += growth
+        if stage < 2:
+            name = f"trans{stage + 1}"
+            p, s = {}, {}
+            p["bn1"], s["bn1"] = _bn(c)
+            p["conv1"] = conv(1, c, c)
+            if stage_int8:
+                s["requant"] = amax(c)
+            params[name], stats[name] = p, s
+    params["bn"], stats["bn"] = _bn(c)
+    params["fc"] = _dense_head(generator, c, num_classes)
+    return params_from_numpy(params, stats, device)
+
+
+def init_mobilenetv2_params(
+    generator: torch.Generator, device, num_classes: int = 10
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A deploy tree with the shapes and key names of the JAX package's
+    `mobile_v2(...).init` (CIFAR/SVHN MobileNet-V2, infer_mobilenet.CFG):
+    `conv1`, `bn1`, `layers_{i}/{conv1,bn1,conv2 (depthwise, HWIO (3, 3, 1,
+    planes)),bn2,conv3,bn3}` plus `shortcut_conv`, `shortcut_bn` in the
+    stride-1 blocks, `conv2` (1280), `bn2`, `linear`. Inits as
+    init_densenet_params'. Drawn on the CPU from `generator`, then moved to
+    `device`."""
+    from alignq_tpu_torch.kernels.infer_mobilenet import CFG
+
+    def conv(k, cin, cout):
+        return {"kernel": _he_fan_out(generator, (k, k, cin, cout))}
+
+    params: Dict[str, Any] = {"conv1": conv(3, 3, 32)}
+    stats: Dict[str, Any] = {}
+    params["bn1"], stats["bn1"] = _bn(32)
+    cin, idx = 32, 0
+    for expansion, out_planes, num_blocks, stride in CFG:
+        for s in [stride] + [1] * (num_blocks - 1):
+            planes = expansion * cin
+            p: Dict[str, Any] = {"conv1": conv(1, cin, planes), "conv2": conv(3, 1, planes),
+                                 "conv3": conv(1, planes, out_planes)}
+            st: Dict[str, Any] = {}
+            for bn, c in (("bn1", planes), ("bn2", planes), ("bn3", out_planes)):
+                p[bn], st[bn] = _bn(c)
+            if s == 1:
+                p["shortcut_conv"] = conv(1, cin, out_planes)
+                p["shortcut_bn"], st["shortcut_bn"] = _bn(out_planes)
+            params[f"layers_{idx}"], stats[f"layers_{idx}"] = p, st
+            cin, idx = out_planes, idx + 1
+    params["conv2"] = conv(1, cin, 1280)
+    params["bn2"], stats["bn2"] = _bn(1280)
+    params["linear"] = _dense_head(generator, 1280, num_classes)
     return params_from_numpy(params, stats, device)
 
 

@@ -2,8 +2,9 @@
 alignq_tpu/kernels/artifact.py).
 
 One .npz holds the converted qparams tree, keyed by tree path exactly as
-the JAX package writes it: dict keys, list indices and QConvInt8 field
-names joined by '/' (`conv0/kernel_int8`, `layers/0/conv0/scale`,
+the JAX package writes it: dict keys, list indices and NamedTuple field
+names (QConvInt8, DenseNet's QConvPre and BNAffine) joined by '/'
+(`conv0/kernel_int8`, `layers/0/conv0/scale`, `stages/0/blocks/3/bn/bias`,
 `logit/kernel`), plus `__meta__/<name>` entries. Artifacts written by
 either package load in the other.
 """
@@ -14,8 +15,6 @@ from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
-
-from alignq_tpu_torch.kernels.convert import QConvInt8
 
 
 def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -69,15 +68,18 @@ def forward_kwargs_from_meta(meta: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _restore(template, data, prefix: str):
+    def key(k):
+        return f"{prefix}/{k}" if prefix else str(k)
+
     if isinstance(template, dict):
-        return {k: _restore(v, data, f"{prefix}/{k}" if prefix else str(k)) for k, v in template.items()}
-    if isinstance(template, QConvInt8):
-        return QConvInt8(*(_restore(v, data, f"{prefix}/{f}") for f, v in zip(template._fields, template)))
+        return {k: _restore(v, data, key(k)) for k, v in template.items()}
+    if hasattr(template, "_fields"):  # any NamedTuple, by its field names
+        return type(template)(*(_restore(v, data, key(f)) for f, v in zip(template._fields, template)))
     if isinstance(template, (list, tuple)):
-        return [_restore(v, data, f"{prefix}/{i}") for i, v in enumerate(template)]
+        return [_restore(v, data, key(i)) for i, v in enumerate(template)]
     arr = data[prefix]
-    if torch.is_tensor(template):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(template.device)
+    if torch.is_tensor(template):  # 0-d leaves stay 0-d (DenseNet's conv scales)
+        return torch.from_numpy(np.array(arr)).to(template.device)
     return arr.item()  # host scalar leaves (in_scale, m)
 
 

@@ -1,0 +1,166 @@
+"""Deploy-family registry: artifact meta -> (template, forward, operands,
+input shape) (port of alignq_tpu/kernels/deploy_registry.py).
+
+Contract per family:
+- `template(meta, device)` builds a qparams tree with the same structure as
+  the exported artifact (kernels/artifact.py `load_int8_artifact` takes
+  leaves from the npz, so only the structure and key paths matter). It
+  converts a fresh random tree of the family (interop.init_*_params): the
+  port has no flax `init`. Structure options live in the meta:
+  `stage_int8` (DenseNet's buffer scales).
+- `forward(meta)` returns `fwd(params, x, operands=...) -> logits` with the
+  deploy-graph knobs the meta records (act_bits, act_impl, and the
+  family's own).
+- `operands(qparams, meta)` lays the weights out once for the forward's
+  kernels.
+- `input_shape(meta)` is the engine's fixed request shape.
+
+The ImageNet, domain-adaptation and digit families are in the table, as
+in the JAX package, but not ported: their template raises
+NotImplementedError (ROADMAP.md queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+
+def _meta_int(meta: Dict[str, Any], key: str, default: int) -> int:
+    return int(np.asarray(meta[key])) if key in meta else default
+
+
+def _act_kwargs(meta: Dict[str, Any]) -> Dict[str, Any]:
+    from alignq_tpu_torch.kernels.artifact import forward_kwargs_from_meta
+
+    return forward_kwargs_from_meta(meta)
+
+
+def _bits(meta):
+    return {"weight_bits": _meta_int(meta, "weight_bits", 8), "act_bits": _meta_int(meta, "act_bits", 8)}
+
+
+@dataclasses.dataclass(frozen=True)
+class DeployFamily:
+    name: str
+    template: Callable[[Dict[str, Any], Any], Any]
+    forward: Callable[[Dict[str, Any]], Callable]
+    operands: Callable[[Any, Dict[str, Any]], Any]
+    input_shape: Callable[[Dict[str, Any]], Tuple[int, ...]]
+    supports_packed_int4: bool = False
+
+
+def _seed():
+    return torch.Generator().manual_seed(0)
+
+
+# ---------------------------------------------------------------- CIFAR nets
+
+
+def _preact_template(depth: int):
+    def template(meta, device):
+        from alignq_tpu_torch.interop import init_preact_resnet_params
+        from alignq_tpu_torch.kernels.infer import convert_preact_resnet
+
+        return convert_preact_resnet(*init_preact_resnet_params(depth, _seed(), device), **_bits(meta))
+
+    return template
+
+
+def _preact_forward(meta):
+    from alignq_tpu_torch.kernels.infer import resnet20_int8_forward
+
+    kw = _act_kwargs(meta)
+    if bool(_meta_int(meta, "use_stage_kernel", 0)):
+        kw["use_stage_kernel"] = True  # pairs with the poly grid (export gate)
+    return functools.partial(resnet20_int8_forward, **kw)
+
+
+def _preact_operands(qparams, meta):
+    from alignq_tpu_torch.kernels.infer import pack_int8_operands
+
+    return pack_int8_operands(qparams)
+
+
+def _densenet_template(meta, device):
+    from alignq_tpu_torch.interop import init_densenet_params
+    from alignq_tpu_torch.kernels.infer_densenet import convert_densenet40
+
+    stage_int8 = bool(_meta_int(meta, "stage_int8", 0))
+    params, stats = init_densenet_params(40, _seed(), device, stage_int8=stage_int8)
+    return convert_densenet40(params, stats, stage_int8=stage_int8, **_bits(meta))
+
+
+def _densenet_forward(meta):
+    from alignq_tpu_torch.kernels.infer_densenet import densenet40_int8_forward
+
+    kw = _act_kwargs(meta)
+    kw.pop("stream", None)  # PreActResNet-only knob
+    if bool(_meta_int(meta, "stage_int8", 0)):
+        kw["stage_int8"] = True
+    return functools.partial(densenet40_int8_forward, **kw)
+
+
+def _densenet_operands(qparams, meta):
+    from alignq_tpu_torch.kernels.infer_densenet import pack_densenet40_operands
+
+    return pack_densenet40_operands(qparams, bool(_meta_int(meta, "stage_int8", 0)))
+
+
+def _mobilenet_template(meta, device):
+    from alignq_tpu_torch.interop import init_mobilenetv2_params
+    from alignq_tpu_torch.kernels.infer_mobilenet import convert_mobilenetv2
+
+    return convert_mobilenetv2(*init_mobilenetv2_params(_seed(), device), **_bits(meta))
+
+
+def _mobilenet_forward(meta):
+    from alignq_tpu_torch.kernels.infer_mobilenet import mobilenetv2_int8_forward
+
+    kw = _act_kwargs(meta)
+    kw.pop("stream", None)
+    return functools.partial(mobilenetv2_int8_forward, **kw)
+
+
+def _mobilenet_operands(qparams, meta):
+    from alignq_tpu_torch.kernels.infer_mobilenet import pack_mobilenetv2_operands
+
+    return pack_mobilenetv2_operands(qparams)
+
+
+def _cifar_shape(meta):
+    return (32, 32, 3)
+
+
+# ------------------------------------------ families the port does not serve
+
+
+def _not_ported(name: str):
+    def refuse(*_):
+        raise NotImplementedError(
+            f"deploy family {name!r} is not ported to alignq_tpu_torch yet (ROADMAP.md queue 1 item 9)"
+        )
+
+    return refuse
+
+
+def _unported(name: str) -> DeployFamily:
+    refuse = _not_ported(name)
+    return DeployFamily(name, refuse, refuse, refuse, refuse)
+
+
+DEPLOY_FAMILIES: Dict[str, DeployFamily] = {
+    "resnet20": DeployFamily("resnet20", _preact_template(20), _preact_forward, _preact_operands, _cifar_shape,
+                             supports_packed_int4=True),
+    "resnet56": DeployFamily("resnet56", _preact_template(56), _preact_forward, _preact_operands, _cifar_shape,
+                             supports_packed_int4=True),
+    "densenet40": DeployFamily("densenet40", _densenet_template, _densenet_forward, _densenet_operands,
+                               _cifar_shape),
+    "mobilenetv2": DeployFamily("mobilenetv2", _mobilenet_template, _mobilenet_forward, _mobilenet_operands,
+                                _cifar_shape),
+    **{name: _unported(name) for name in ("resnet18", "resnet34", "resnet50", "dann", "dsan", "mdd", "digit_dann")},
+}

@@ -8,9 +8,10 @@ csrc/qmatmul.cu, an implicit-GEMM NHWC conv on the s8 tensor cores
 run the plain PyTorch version beside them, which the tests hold against
 the JAX reference.
 
-The conv entry points are `int8_conv_packed` (int32 or f32 epilogue) and
-`int8_conv_codes` (act codes) on NHWC int8 codes and a weight laid out once
-by `pack_conv_weights`. The GEMM entry points (`int8_matmul_dequant`,
+The conv entry points are `int8_conv_packed` (int32, f32 or a stage
+buffer's int8 requant epilogue) and `int8_conv_codes` (act codes, relu'd
+or not) on NHWC int8 codes and a weight laid out once by
+`pack_conv_weights`. The GEMM entry points (`int8_matmul_dequant`,
 `int8_matmul_packed`, `int8_matmul_codes`, `int8_matmul_int32`) run through
 the same kernel, as a 1x1 stride-1 conv over the (1, 1, M, Kp) view of x.
 K1's codes epilogue maps the accumulators straight to int8 act codes (the
@@ -41,15 +42,16 @@ from alignq_tpu_torch.quant.cdf import erf_grid_boundaries, fma_f32
 K_MULT = 32  # depth of one m16n8k32 int8 MMA: K is zero-padded to it
 N_MULT = 8  # width of one MMA n-tile
 C_MULT = 4  # a conv's input channels are zero-padded to it: one MMA k-word
-N_MAX = 256  # widest packed weight one CTA takes (8 warps of 32 columns)
+N_MAX = 256  # widest N block one CTA takes (8 warps of 32 columns)
 SMEM_BUDGET = 110 * 1024  # bytes a CTA may take, so that two share an SM
-K_CHUNK = 128  # K bytes a stage carries where the weight does not fit
+K_CHUNK = 128  # K bytes a stage carries where a 1x1 weight does not fit
 KERNEL = "int8_matmul_dequant"  # launch-counter key of every launch
 # and of each family of epilogue modes: "int8_matmul_dequant:codes" etc.
-_MODE = {"int32": 0, "f32": 1, "relu": 2, "poly": 3, "erf": 4, "bins": 5, "bins_int": 6}
-_FAMILY = {"int32": "int32", "f32": "f32", "relu": "f32"}
+_MODE = {"int32": 0, "f32": 1, "relu": 2, "poly": 3, "erf": 4, "bins": 5, "bins_int": 6, "requant": 7}
+_FAMILY = {"int32": "int32", "f32": "f32", "relu": "f32", "requant": "requant"}
 CODES = KERNEL + ":codes"
 F32 = KERNEL + ":f32"
+REQUANT = KERNEL + ":requant"
 MODE = KERNEL + ":mode:{}"  # and of each epilogue mode: MODE.format("poly")
 TAP_GATHERS = "gather_taps:cuda"  # counter key of tap gathers of CUDA tensors
 
@@ -113,7 +115,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("qmatmul")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.k1_conv_launch.argtypes = [p, p, p, p, p, ctypes.POINTER(i), i, p, p, p, p, i, p]
+        lib.k1_conv_launch.argtypes = [p, p, p, p, p, ctypes.POINTER(i), i, p, p, p, p, i, i, p]
         lib.k1_conv_launch.restype = i
         lib.k1_plan_ints.restype = i
         if lib.k1_plan_ints() != len(ConvPlan._fields):
@@ -170,7 +172,7 @@ class ActMap(NamedTuple):
     the (g,) f32 erf-grid boundaries. bins_int: sgn (N8,) and t1, t2
     (g, N8) int32 per-column cutpoints (kernels/infer.py
     act_int_cutpoints), zero-padded to the packed weight's width. Fields a
-    map does not use are None."""
+    map does not use are None. relu: the codes take max(code, 0)."""
 
     impl: str
     g: int
@@ -178,19 +180,21 @@ class ActMap(NamedTuple):
     sgn: Optional[torch.Tensor] = None
     t1: Optional[torch.Tensor] = None
     t2: Optional[torch.Tensor] = None
+    relu: bool = False
 
 
 @functools.lru_cache(maxsize=None)
-def act_map(impl: str, g: int, device: torch.device) -> ActMap:
-    """The poly, erf or bins map of grid g on a device, laid out once per
-    process (bins_int, which is per site, is pack_act_cutpoints')."""
+def act_map(impl: str, g: int, device: torch.device, relu: bool = False) -> ActMap:
+    """The poly, erf or bins map of grid g on a device (with relu: the
+    codes' max(code, 0)), laid out once per process (bins_int, which is per
+    site, is pack_act_cutpoints')."""
     if impl not in ("poly", "erf", "bins"):
         raise ValueError(f"unknown act impl {impl!r}")
     if impl == "bins":
         if g > 15:
             raise ValueError("bins impl is for the A4/A2 grids (A8 g=127: use poly)")
-        return ActMap(impl, g, bnd=torch.from_numpy(erf_grid_boundaries(g)).to(device))
-    return ActMap(impl, g)
+        return ActMap(impl, g, bnd=torch.from_numpy(erf_grid_boundaries(g)).to(device), relu=relu)
+    return ActMap(impl, g, relu=relu)
 
 
 def pack_act_cutpoints(cut, n8: int) -> ActMap:
@@ -210,11 +214,13 @@ class ConvPlan(NamedTuple):
     A tile is TR x TW output pixels of one image; tiles run (b, ty, tx)
     over tiles_y x tiles_x a image. Its input band, HR x HC pixels (the
     halo included for ksize 3; the strided sample for ksize 1), sits in
-    shared memory at a pixel pitch P and a row pitch RP; a stage carries KC
-    bytes of K, n_chunks stages a tile (1 where the weight is resident).
-    WP: the weight's row pitch in shared memory; vec: the cp.async size;
-    then the shared-memory regions' bytes, the warps over M and N, and the
-    stage buffers in the ring (loads of n_stages - 1 steps in flight)."""
+    shared memory at a pixel pitch P and a row pitch RP; a stage carries CC
+    channels, KC bytes of K, n_chunks stages a tile (1 where the weight is
+    resident: then CC = C, KC = Kp); the last stage KCL bytes of K. WP: the
+    weight's row pitch in shared memory; vec: the cp.async size; then the
+    shared-memory regions' bytes, the warps over M and N, the stage buffers
+    in the ring (loads of n_stages - 1 steps in flight), and N's split into
+    n_blocks blocks of NB columns (a grid dimension)."""
 
     B: int
     H: int
@@ -238,6 +244,8 @@ class ConvPlan(NamedTuple):
     RP: int
     KC: int
     n_chunks: int
+    CC: int
+    KCL: int
     WP: int
     vec: int
     koff_bytes: int
@@ -248,6 +256,8 @@ class ConvPlan(NamedTuple):
     warps_m: int
     warps_n: int
     n_stages: int
+    NB: int
+    n_blocks: int
 
 
 def _pixel_pitch(width: int, step: int) -> int:
@@ -275,28 +285,40 @@ def _row_pitch(hc: int, p: int, width: int) -> int:
     return rp
 
 
+def _band_bytes(hr: int, hc: int, width: int, step: int):
+    """(P, RP, bytes) of a band of hr x hc pixels of `width` bytes."""
+    p = _pixel_pitch(width, step)
+    rp = _row_pitch(hc, p, width)
+    return p, rp, _round_up(hr * rp, 16)
+
+
 @functools.lru_cache(maxsize=None)
 def conv_plan(b: int, h: int, w: int, c: int, ksize: int, stride: int, pad: int, n8: int, kp: int) -> ConvPlan:
     """The tiling of one K1 launch over x (b, h, w, c) int8 and a packed
-    weight (n8, kp). Tiles are bands of whole output rows (TW the output
-    width rounded up to 8) of ~128 pixels where N8 <= 32 and ~64 above;
-    an image wider than that (the GEMM view) is cut into one-row tiles.
-    The weight is resident where the CTA fits SMEM_BUDGET with two stage
-    buffers; a 1x1 conv (the GEMM form) too deep for that streams K in
-    chunks of K_CHUNK. Then as many stage buffers as fit, up to 4."""
+    weight (n8, kp). N splits into the fewest blocks of at most N_MAX
+    columns. Tiles are bands of whole output rows (TW the output width
+    rounded up to 8) of ~128 pixels where a block has <= 32 columns and ~64
+    above; an image wider than that (the GEMM view) is cut into one-row
+    tiles. The weight is resident where the CTA fits SMEM_BUDGET with two
+    stage buffers; else K streams: a 1x1 conv (the GEMM form) in chunks of
+    K_CHUNK channels, a 3x3 conv in chunks of the most channels (a multiple
+    of 32) that fit, each with its 9 taps. Then as many stage buffers as
+    fit, up to 4."""
     if (ksize, pad) not in ((3, 1), (1, 0)) or stride not in (1, 2):
         raise ValueError(f"K1 takes 3x3 pad 1 or 1x1 pad 0 at stride 1 or 2, got {ksize}x{ksize} "
                          f"pad {pad} stride {stride}")
-    if c % C_MULT or kp % K_MULT or n8 % N_MULT or not 0 < n8 <= N_MAX:
+    if c % C_MULT or kp % K_MULT or n8 % N_MULT or n8 <= 0:
         raise ValueError(f"C={c}, Kp={kp}, N8={n8} out of K1's range")
     if kp != _round_up(ksize * ksize * c, K_MULT):
         raise ValueError(f"a packed depth of {kp} does not fit a {ksize}x{ksize} conv over {c} channels")
     ho, wo = conv_out_hw(h, w, ksize, stride, pad)
     if b * ho * wo >= 2**31:
         raise ValueError(f"{b * ho * wo} output rows: K1 indexes them with 32-bit ints")
-    warps_n = -(-n8 // 32)
+    n_blocks = -(-n8 // N_MAX)
+    nb = _round_up(-(-n8 // n_blocks), N_MULT)
+    warps_n = -(-nb // 32)
     warps_m_max = max(1, 8 // warps_n)
-    bm = 128 if n8 <= 32 else 64
+    bm = 128 if nb <= 32 else 64
     tw = _round_up(wo, 8)
     if tw >= bm:  # a wide image: one-row tiles, one 32-row group a warp
         tr, tw = 1, 32 * min(bm // 32, warps_m_max)
@@ -306,31 +328,46 @@ def conv_plan(b: int, h: int, w: int, c: int, ksize: int, stride: int, pad: int,
     warps_m = min(mgroups, warps_m_max)
     ps = stride if ksize == 3 else 1
     hr, hc = (tr - 1) * ps + ksize, (tw - 1) * ps + ksize
-    koff_bytes = _round_up(kp, 16) if ksize == 3 else 0
 
     width = c if ksize == 3 else kp  # bytes a band pixel holds
-    p = _pixel_pitch(width, ps)
-    rp = _row_pitch(hc, p, width)
-    a_bytes = _round_up(hr * rp, 16)
-    kc, n_chunks, wp = kp, 1, kp + 16
-    w_bytes, stage = n8 * wp, a_bytes
+    p, rp, a_bytes = _band_bytes(hr, hc, width, ps)
+    kc, cc, n_chunks, kcl, wp = kp, c, 1, kp, kp + 16
+    koff_bytes = _round_up(kp, 16) if ksize == 3 else 0
+    w_bytes, stage = nb * wp, a_bytes
     loads = [c]
     if koff_bytes + w_bytes + 2 * stage > SMEM_BUDGET:
-        if ksize != 1 or mgroups != warps_m:
+        if mgroups != warps_m:
             raise ValueError(f"a {ksize}x{ksize} conv over {c} channels to {n8} does not fit K1's shared memory")
-        kc, n_chunks, wp = K_CHUNK, -(-kp // K_CHUNK), K_CHUNK + 16
-        p = _pixel_pitch(kc, 1)
-        rp = _row_pitch(hc, p, kc)
-        a_bytes = _round_up(hr * rp, 16)
-        w_bytes, stage = 0, a_bytes + n8 * wp
-        loads = [kc, c % kc or kc]
+        if ksize == 1:
+            kc = cc = K_CHUNK
+            n_chunks = -(-kp // kc)
+            kcl = kp - (n_chunks - 1) * kc
+            p, rp, a_bytes = _band_bytes(hr, hc, kc, 1)
+            koff_bytes, wp = 0, kc + 16
+            loads = [kc, c % kc or kc]
+        else:
+            def fits(cc_):
+                kcl_ = _round_up(9 * (c - (-(-c // cc_) - 1) * cc_), K_MULT)
+                band = _band_bytes(hr, hc, cc_, ps)[2]
+                return _round_up(9 * cc_ + kcl_, 16) + 2 * (band + nb * (9 * cc_ + 16)) <= SMEM_BUDGET
+
+            cc = next((m for m in range(c // 32 * 32, 0, -32) if fits(m)), 0)
+            if cc == 0:
+                raise ValueError(f"a 3x3 conv over {c} channels to {n8} does not fit K1's shared memory")
+            kc, n_chunks = 9 * cc, -(-c // cc)
+            ccl = c - (n_chunks - 1) * cc
+            kcl = _round_up(9 * ccl, K_MULT)
+            p, rp, a_bytes = _band_bytes(hr, hc, cc, ps)
+            koff_bytes, wp = _round_up(kc + kcl, 16), kc + 16
+            loads = [c, cc, ccl]
+        w_bytes, stage = 0, a_bytes + nb * wp
     n_stages = next(n for n in (4, 3, 2) if koff_bytes + w_bytes + n * stage <= SMEM_BUDGET)
     smem = koff_bytes + w_bytes + n_stages * stage
     vec = next(v for v in (16, 8, 4) if all(s % v == 0 for s in (p, rp, *loads)))
     return ConvPlan(
         b, h, w, c, ho, wo, stride, pad, ksize, n8, kp, tr, tw, -(-ho // tr), -(-wo // tw),
-        b * -(-ho // tr) * -(-wo // tw), hr, hc, p, rp, kc, n_chunks, wp, vec,
-        koff_bytes, w_bytes, a_bytes, stage, smem, warps_m, warps_n, n_stages,
+        b * -(-ho // tr) * -(-wo // tw), hr, hc, p, rp, kc, n_chunks, cc, kcl, wp, vec,
+        koff_bytes, w_bytes, a_bytes, stage, smem, warps_m, warps_n, n_stages, nb, n_blocks,
     )
 
 
@@ -369,7 +406,7 @@ def _conv_input(x: torch.Tensor, op: K1Weights) -> torch.Tensor:
 def _run_k1(x, op: K1Weights, ksize, stride, padding, mode: str, act: Optional[ActMap] = None) -> torch.Tensor:
     """K1 on CUDA NHWC x (B, H, W, C) int8, into a new (B*Ho*Wo, N) out:
     operands checked, the plan chosen, the launch counted."""
-    tensors = [x, *op[:3]] + ([t for t in act[2:] if t is not None] if act is not None else [])
+    tensors = [x, *op[:3]] + ([t for t in act[2:6] if t is not None] if act is not None else [])
     if len({t.device for t in tensors}) != 1:
         raise ValueError("x, the packed weight and the act map must lie on one device")
     x = x.contiguous()
@@ -377,7 +414,7 @@ def _run_k1(x, op: K1Weights, ksize, stride, padding, mode: str, act: Optional[A
         raise ValueError("K1 needs 16-byte aligned operands")
     n8, kp = op.wt.shape
     plan = conv_plan(*x.shape, ksize, stride, padding, n8, kp)
-    dtype = torch.int8 if mode not in _FAMILY else (torch.int32 if mode == "int32" else torch.float32)
+    dtype = {"int32": torch.int32, "f32": torch.float32, "relu": torch.float32}.get(mode, torch.int8)
     out = torch.empty((plan.B * plan.Ho * plan.Wo, n8), device=x.device, dtype=dtype)
     if out.shape[0]:
         _k1_launch(x, op, plan, out, mode, act)
@@ -390,35 +427,48 @@ def _run_k1(x, op: K1Weights, ksize, stride, padding, mode: str, act: Optional[A
 def _k1_launch(x, op: K1Weights, plan: ConvPlan, out, mode: str, act: Optional[ActMap] = None) -> None:
     """One launch of csrc/qmatmul.cu on checked operands: x NHWC int8,
     op's wt (N8, Kp) int8 and scale/bias (N8,) f32 (unread in modes
-    'int32' and 'bins_int'), out (B*Ho*Wo, N8) of the mode's type; act, the
+    'int32' and 'bins_int'; in 'requant' the bias holds the reciprocal of
+    the output's scale), out (B*Ho*Wo, N8) of the mode's type; act, the
     map of a codes mode. Counts nothing (the wrapper does)."""
     lib = _lib()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    bnd, sgn, t1, t2 = (None,) * 4 if act is None else act[2:]
+    bnd, sgn, t1, t2 = (None,) * 4 if act is None else act[2:6]
     with _build.on_device(x.device):
         err = lib.k1_conv_launch(
             x.data_ptr(), op.wt.data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(), out.data_ptr(),
             _plan_ints(plan), _MODE[mode], ptr(bnd), ptr(sgn), ptr(t1), ptr(t2),
-            0 if act is None else act.g, torch.cuda.current_stream(x.device).cuda_stream,
+            0 if act is None else act.g, int(act is not None and act.relu),
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(err, "qmatmul.cu k1_conv_kernel")
+
+
+def requant_int8(value: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """clip(round(value * inv), +-127) int8: a stage buffer's requant, inv
+    the f32 reciprocal of the buffer slice's scale (one f32 rounding)."""
+    return torch.clamp(torch.round(value * inv), -127.0, 127.0).to(torch.int8)
 
 
 def _packed_reference(x: torch.Tensor, op: K1Weights, mode: str, act: Optional[ActMap] = None) -> torch.Tensor:
     """Plain x (M, Kp) @ a packed weight: the act codes where act is given
     (act_codes of the f32 epilogue, or int_bin_codes of the int32
-    accumulator for bins_int), else the epilogue `mode`."""
+    accumulator for bins_int; relu'd where act.relu), else the epilogue
+    `mode` ('requant': requant_int8 of acc * scale, inv in the bias)."""
     n = op.n
     w = op.wt[:n].t()
     if act is not None:
         if act.impl == "bins_int":
-            return int_bin_codes(int8_matmul_int32_reference(x, w), act.sgn[:n], act.t1[:, :n], act.t2[:, :n])
-        return act_codes(int8_matmul_dequant_reference(x, w, op.scale[:n], op.bias[:n]), act.g, act.impl)
+            codes = int_bin_codes(int8_matmul_int32_reference(x, w), act.sgn[:n], act.t1[:, :n], act.t2[:, :n])
+        else:
+            codes = act_codes(int8_matmul_dequant_reference(x, w, op.scale[:n], op.bias[:n]), act.g, act.impl)
+        return torch.clamp_min(codes, 0) if act.relu else codes
     if mode == "int32":
         return int8_matmul_int32_reference(x, w)
+    if mode == "requant":
+        return requant_int8(int8_matmul_int32_reference(x, w).float() * op.scale[:n], op.bias[:n])
     return int8_matmul_dequant_reference(x, w, op.scale[:n], op.bias[:n], relu=mode == "relu")
 
 
@@ -483,10 +533,12 @@ def _conv(x, op: K1Weights, stride, padding, mode, act=None) -> torch.Tensor:
 def int8_conv_packed(x: torch.Tensor, op: K1Weights, stride: int = 1, padding: int = 1,
                      mode: str = "f32") -> torch.Tensor:
     """A conv of NHWC int8 codes x (B, H, W, Cin) with a packed conv weight
-    (pack_conv_weights): the raw int32 accumulator (mode 'int32') or the f32
-    epilogue ('f32', or 'relu'), (B, Ho, Wo, N). K1 reading x in place on a
-    CUDA tensor (3x3 pad 1 or 1x1 pad 0, stride 1 or 2); on a CPU tensor
-    its plain version, int8_conv_reference."""
+    (pack_conv_weights): the raw int32 accumulator (mode 'int32'), the f32
+    epilogue ('f32', or 'relu'), or a stage buffer's int8 requant of it
+    ('requant': clip(rint((acc * scale) * inv), +-127), inv packed as the
+    bias), (B, Ho, Wo, N). K1 reading x in place on a CUDA tensor (3x3 pad
+    1 or 1x1 pad 0, stride 1 or 2); on a CPU tensor its plain version,
+    int8_conv_reference."""
     if mode not in _FAMILY:
         raise ValueError(f"unknown mode {mode!r}")
     return _conv(x, op, stride, padding, mode)

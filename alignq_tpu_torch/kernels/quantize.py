@@ -15,11 +15,17 @@ graph (kernels/infer.py): codes = clip(round(c(h) * g), +-g), c the erf,
 poly or boundary-bin CDF, or integer compare chains on the int32
 accumulator. The same maps run on the card in K1's codes epilogue
 (csrc/act_codes.cuh, kernels/qmatmul.py int8_matmul_codes).
+
+`bn_act_codes` is DenseNet's pre-activation site, bn -> act_q -> relu over
+the live-channel prefix of a stage buffer, as one pass: the fused BN-act
+code kernel of csrc/quantize.cu on a CUDA tensor, `bn_act_codes_plain` on
+a CPU tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -28,7 +34,9 @@ from alignq_tpu_torch.kernels import _build
 from alignq_tpu_torch.quant.cdf import _INV_SQRT2, erf_f32, erf_grid_boundaries, erf_sqrt2, fma_f32
 
 KERNEL = "cdf_quantize_int8"  # launch-counter key
+BN_ACT = "bn_act_codes"  # launch-counter key of the BN-act code kernel
 Q_MAX = 127.0
+_BN_ACT_MODE = {"poly": 3, "erf": 4, "bins": 5}
 
 # A&S 7.1.26, each constant rounded once to f32 as JAX casts a Python float
 # (csrc/quantize.cu carries the same values as hex literals)
@@ -64,8 +72,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("quantize")
     if not getattr(lib, "_argtypes_set", False):
         p = ctypes.c_void_p
+        i = ctypes.c_int
         lib.cdf_quant_launch.argtypes = [p, p, ctypes.c_longlong, p]
-        lib.cdf_quant_launch.restype = ctypes.c_int
+        lib.cdf_quant_launch.restype = i
+        lib.bn_act_launch.argtypes = [p, i, p, p, p, ctypes.c_longlong, i, i, i, i, p, i, i, p]
+        lib.bn_act_launch.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -122,3 +133,65 @@ def int_bin_codes(acc: torch.Tensor, sgn: torch.Tensor, t1: torch.Tensor, t2: to
     for k in range(t1.shape[0]):
         codes = codes + (a >= t1[k]).to(torch.int8) - (a <= t2[k]).to(torch.int8)
     return codes
+
+
+def bn_act_codes_plain(x: torch.Tensor, c_live: int, s: torch.Tensor, b: torch.Tensor, act,
+                       c_out: int) -> torch.Tensor:
+    """The BN-act code kernel's arithmetic in plain PyTorch: codes of
+    fma(x, s, b) over the first c_live channels of x (..., ld), relu'd
+    where act.relu, zero-padded to c_out channels."""
+    h = fma_f32(x[..., :c_live].to(torch.float32), s, b)
+    codes = act_codes(h, act.g, act.impl)
+    if act.relu:
+        codes = torch.clamp_min(codes, 0)
+    return torch.nn.functional.pad(codes, (0, c_out - c_live))
+
+
+def bn_act_codes(x: torch.Tensor, c_live: int, s: torch.Tensor, b: torch.Tensor, act,
+                 c_out: Optional[int] = None) -> torch.Tensor:
+    """A pre-activation site over a stage buffer x (..., ld), f32 values or
+    int8 codes: int8 (..., c_out) codes max?(map(x[..., c] * s[c] + b[c]))
+    for c < c_live (one rounding), zero for c_live <= c < c_out (default
+    c_live). act: the site's map (kernels/qmatmul.py ActMap: impl 'poly',
+    'erf' or 'bins', g, bnd, relu); s, b: (c_live,) f32. The fused BN-act
+    code kernel of csrc/quantize.cu on a CUDA tensor, reading the prefix in
+    place; bn_act_codes_plain on a CPU tensor."""
+    c_out = c_live if c_out is None else c_out
+    if x.dtype not in (torch.float32, torch.int8):
+        raise TypeError(f"bn_act_codes takes an f32 or int8 buffer, got {x.dtype}")
+    if act.impl not in _BN_ACT_MODE:
+        raise ValueError(f"bn_act_codes maps poly, erf or bins, got {act.impl!r}")
+    ld = x.shape[-1]
+    if not (0 < c_live <= min(ld, c_out)) or c_live % 4 or c_out % 4 or ld % 4:
+        raise ValueError(f"c_live={c_live}, c_out={c_out}, pitch {ld}: multiples of 4 with c_live <= both")
+    if s.shape != (c_live,) or b.shape != (c_live,):
+        raise ValueError(f"s and b must be ({c_live},), got {tuple(s.shape)} and {tuple(b.shape)}")
+    if x.device.type == "cpu":
+        return bn_act_codes_plain(x, c_live, s, b, act, c_out)
+    x = x.contiguous()
+    s, b = s.to(torch.float32).contiguous(), b.to(torch.float32).contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("the BN-act code kernel needs a 16-byte aligned buffer")
+    if len({t.device for t in (x, s, b)}) != 1:
+        raise ValueError("the buffer, s and b must lie on one device")
+    out = torch.empty((*x.shape[:-1], c_out), dtype=torch.int8, device=x.device)
+    if out.numel():
+        _bn_act_launch(x, c_live, s, b, act, out)
+        _build.launches[BN_ACT] += 1
+    return out
+
+
+def _bn_act_launch(x, c_live: int, s, b, act, out) -> None:
+    """One launch of csrc/quantize.cu's bn_act_kernel on checked operands
+    (x contiguous and 16-byte aligned, s and b (c_live,) f32, out int8
+    (..., c_out)). Counts nothing (the wrapper does)."""
+    lib = _lib()
+    m_rows = x.numel() // x.shape[-1]
+    with _build.on_device(x.device):
+        err = lib.bn_act_launch(
+            x.data_ptr(), int(x.dtype == torch.int8), s.data_ptr(), b.data_ptr(), out.data_ptr(), m_rows,
+            x.shape[-1], c_live, out.shape[-1], _BN_ACT_MODE[act.impl],
+            None if act.bnd is None else act.bnd.data_ptr(), act.g, int(act.relu),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(err, "quantize.cu bn_act_kernel")

@@ -4,7 +4,10 @@
   zeros and the padding dropped on the way out;
 - one executor thread owns the device work, under torch.inference_mode()
   on the engine's device, overlapping host batching with device compute;
-- the model is the frozen INT8 graph (kernels/infer.py).
+- the model is a frozen INT8 graph: built from trained params
+  (build_int8_resnet20_engine) or loaded from an artifact of any CIFAR
+  deploy family (engine_from_artifact: resnet20, resnet56, densenet40,
+  mobilenetv2), with its weights laid out for the kernels once.
 
 Sharded serving over a mesh is not ported yet: passing one raises.
 """
@@ -168,3 +171,53 @@ def build_int8_resnet20_engine(
         fuse_skip=fuse_skip, operands=pack_int8_operands(qparams),
     )
     return BatchedInferenceEngine(fwd, qparams, batch_size, (32, 32, 3), device=dev)
+
+
+def engine_from_artifact(
+    path: str, batch_size: int = 256, mesh: Any = None, device=None
+) -> BatchedInferenceEngine:
+    """Serve a frozen INT artifact (alignq_tpu_torch/export_int8.py --save,
+    or the JAX package's tools/export_int8.py --save) on `device` (default
+    the CUDA card).
+
+    The artifact's meta records the family and the deploy graph its weights
+    were trained for; the deploy registry (kernels/deploy_registry.py)
+    turns that into a structure-matching template, the family's forward and
+    its operand layout. An int4-packed artifact (meta packed_int4, families
+    with supports_packed_int4) is unpacked once here, and its codes laid out
+    for the kernels like any other. A bins_int artifact's cutpoints are
+    derived from the loaded scales and biases (PreAct ResNets only)."""
+    from alignq_tpu_torch.kernels.artifact import load_int8_artifact
+    from alignq_tpu_torch.kernels.convert import pack_qparams_int4, unpack_qparams_int4
+    from alignq_tpu_torch.kernels.deploy_registry import DEPLOY_FAMILIES
+
+    if mesh is not None:
+        raise NotImplementedError("sharded serving over a mesh is not ported yet")
+    dev = resolve_device(device)
+    with np.load(path) as raw:  # the meta first: it picks the template
+        meta0 = {k.split("/", 1)[1]: raw[k] for k in raw.files if k.startswith("__meta__/")}
+    model_name = str(np.asarray(meta0.get("model", "resnet20")))
+    packed = bool(int(np.asarray(meta0.get("packed_int4", 0))))
+    if model_name not in DEPLOY_FAMILIES:
+        raise ValueError(f"artifact model {model_name!r} not in the deploy registry; have {sorted(DEPLOY_FAMILIES)}")
+    family = DEPLOY_FAMILIES[model_name]
+    if packed and not family.supports_packed_int4:
+        raise ValueError(f"{model_name!r} has no int4-packed deploy path")
+    bins_int = str(np.asarray(meta0.get("act_impl", ""))) == "bins_int"
+    if bins_int and packed:
+        raise ValueError("bins_int + packed_int4 serving not supported")
+    template = family.template(meta0, dev)
+    fwd = family.forward(meta0)
+    qparams, _ = load_int8_artifact(path, pack_qparams_int4(template) if packed else template)
+    if packed:
+        qparams = unpack_qparams_int4(qparams)
+    if bins_int:
+        if model_name not in ("resnet20", "resnet56"):
+            raise ValueError(f"bins_int serves the PreAct ResNets only, not {model_name!r}")
+        from alignq_tpu_torch.kernels.infer import augment_int_cutpoints
+
+        # derived from the loaded scale and bias, so that the file's schema
+        # stays the same for every family (export saves them unaugmented)
+        qparams = augment_int_cutpoints(qparams, int(np.asarray(meta0.get("act_bits", 4))))
+    fwd = functools.partial(fwd, operands=family.operands(qparams, meta0))
+    return BatchedInferenceEngine(fwd, qparams, batch_size, family.input_shape(meta0), device=dev)

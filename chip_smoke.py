@@ -6,7 +6,8 @@
 Phases, in order; any failure raises and the script exits non-zero:
  1. the card's name and power limit; TF32 off for matmul and cuDNN;
  2. build the CUDA kernels from alignq_tpu_torch/csrc (qmatmul.cu,
-    quantize.cu, stage_kernel.cu: one nvcc each, all started together);
+    quantize.cu, stage_kernel.cu, dwconv.cu: one nvcc each, all started
+    together);
  3. K1 (csrc/qmatmul.cu) against its plain version. Its GEMM form at the
     path's gathered-matrix shapes of batches 2048 and 256, plus a ragged M
     with K=27; then its conv form on NHWC codes read in place, at every
@@ -68,10 +69,36 @@ Phases, in order; any failure raises and the script exits non-zero:
     asserted off): ResNet-20 W8A8 erf with ADMM at batch 128, and erf and
     poly without ADMM at batch 1024; the batch-128 step's device busy
     time, idle share and five largest kernels from torch.profiler;
-11. one JSON line of the kernels (K1 and K3: times summed over the
+11. the CIFAR deploy families, DenseNet-40 (f32 and int8 stage buffers)
+    and MobileNet-V2 at full width from seeded random weights: each graph's
+    forward at batches 256 and 3 on the card with every K1, depthwise
+    (csrc/dwconv.cu) and BN-act (csrc/quantize.cu) launch recorded, and
+    every distinct launch (69 a DenseNet buffer, 40 for MobileNet-V2, at
+    each batch; K1's streamed 3x3, N blocks, relu'd codes and int8 requant
+    among them) held against its plain version on its recorded operands,
+    like K1's in phase 3 (requant identical);
+12. the three graphs at batch 8 on the card against the CPU plain path, on
+    qparams converted on the CPU: every DenseNet stage buffer and
+    MobileNet block stream bit for bit, logits within 1e-5;
+13. serving from artifacts: ResNet-20 W4A4 int4-packed, ResNet-56,
+    DenseNet-40 (both buffers) and MobileNet-V2 saved by the port, served
+    by serve.engine_from_artifact at engine batch 16 with the counts zeroed
+    before and read after; each engine's final stream bit for bit and its
+    logits within 1e-5 of the CPU plain path; 39 K1 and 39 BN-act launches
+    a DenseNet forward, 50 K1 and 17 depthwise a MobileNet one, no tap
+    gathered;
+14. times: each graph's forward at batches 256 and 1024 (CUDA events),
+    its launches a forward and, at 256, its idle share under
+    torch.profiler; each distinct launch at batch 256 beside its plain
+    version, its bound and the library call of the same product
+    (torch._int_mm on the gathered taps for K1, F.conv2d with groups=C on
+    f32 for the depthwise conv, none for the BN-act pass);
+15. one JSON line of the kernels (K1 and K3: times summed over the
     launches of one slice-route forward at the serving batch; K2: over one
-    launch at each act-site size of that batch), the card line, and the
-    final JSON line.
+    launch at each act-site size of that batch; K1 on DenseNet-40 and
+    MobileNet-V2, the depthwise kernel and the BN-act kernel: over one
+    batch-256 forward of their graph, launches from phase 13), the card
+    line, and the final JSON line.
 
 Exits with code 2 and prints no result where CUDA is not available. Writes
 the per-shape details to chiprun_out/chip_smoke.json.
@@ -367,7 +394,7 @@ def qat_times(dev, card):
     return out
 
 
-def profile_step(fn, card, iters=5):
+def profile_step(fn, card, label="QAT step batch 128 ADMM", iters=5):
     """Device busy time, idle share (1 - busy / wall) and the five largest
     kernels of fn, per call, under torch.profiler after warm-up."""
     import torch
@@ -391,12 +418,366 @@ def profile_step(fn, card, iters=5):
     launches = sum(e.count for e in kernels) // iters
     top = [{"kernel": e.key[:100], "device_ms": e.self_device_time_total / iters / 1e3, "calls": e.count // iters}
            for e in kernels[:5]]
-    print(f"QAT step batch 128 ADMM under torch.profiler: wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms "
-          f"(idle share {1 - busy_ms / wall_ms:.3f}), {launches} kernel launches a step [{card}]", flush=True)
+    print(f"{label} under torch.profiler: wall {wall_ms:.3f} ms a call, device busy {busy_ms:.3f} ms "
+          f"(idle share {1 - busy_ms / wall_ms:.3f}), {launches} kernel launches a call [{card}]", flush=True)
     for row in top:
         print(f"  {row['device_ms']:9.4f} ms {row['calls']:5d} calls  {row['kernel']}", flush=True)
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
             "launches_per_step": launches, "top5": top}
+
+
+# ---------------------------------------------- the CIFAR deploy families
+
+FAMILY_SERVE_BATCH = 16  # the engine batch of the families' serving phase
+FAMILY_TIME_BATCHES = (256, 1024)
+# f32 operations of one BN-act code on the CUDA cores (csrc/quantize.cu
+# bn_act_code: the BN multiply-add at 2, then act_codes.cuh's map: erf 3
+# multiplies, 2 clamps, 11 multiply-adds at 2, the divide, rint, 2 clamps,
+# the relu; poly 2 clamps, 2 multiplies, 7 multiply-adds at 2, 2
+# multiplies, rint, 2 clamps, the relu)
+BN_ACT_OPS = {"erf": 34, "poly": 25}
+# the int32 operations of one depthwise output element (9 multiply-adds at
+# 2), counted at the CUDA cores' f32 rate
+DW_OPS = 18
+
+
+def family_configs():
+    """(label, build, forward, streams, pack, kw) of each new served graph."""
+    from alignq_tpu_torch.kernels import infer_densenet as D
+    from alignq_tpu_torch.kernels import infer_mobilenet as M
+
+    return [
+        ("densenet40 f32", D.build_densenet40_int8, D.densenet40_int8_forward, D.densenet40_int8_buffers,
+         D.pack_densenet40_operands, {"stage_int8": False}),
+        ("densenet40 stage_int8", D.build_densenet40_int8, D.densenet40_int8_forward, D.densenet40_int8_buffers,
+         D.pack_densenet40_operands, {"stage_int8": True}),
+        ("mobilenetv2", M.build_mobilenetv2_int8, M.mobilenetv2_int8_forward, M.mobilenetv2_int8_streams,
+         M.pack_mobilenetv2_operands, {}),
+    ]
+
+
+def record_launches(fn):
+    """Run fn with every K1, depthwise and BN-act launch recorded: a list
+    of (kind, operands) in launch order. The wrappers count as always."""
+    from alignq_tpu_torch.kernels import dwconv as DWm
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels import quantize as K2
+
+    rec = []
+    saved = (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch)
+
+    def k1(x, op, plan, out, mode, act=None):
+        rec.append(("K1", (x, op, plan, mode, act)))
+        saved[0](x, op, plan, out, mode, act)
+
+    def dw(x, op, stride, impl, act, out):
+        rec.append(("dw", (x, op, stride, impl, act)))
+        saved[1](x, op, stride, impl, act, out)
+
+    def bn(x, c_live, s, b, act, out):
+        rec.append(("bn", (x, c_live, s, b, act, out.shape[-1])))
+        saved[2](x, c_live, s, b, act, out)
+
+    K1._k1_launch, DWm._dw_launch, K2._bn_act_launch = k1, dw, bn
+    try:
+        fn()
+    finally:
+        K1._k1_launch, DWm._dw_launch, K2._bn_act_launch = saved
+    return rec
+
+
+def launch_key(kind, args):
+    """The distinct shape and epilogue of a recorded launch."""
+    act = args[4]
+    tail = (act.impl, act.relu) if act is not None else ()
+    if kind == "K1":
+        x, op, plan, mode, _ = args
+        return (kind, tuple(x.shape), tuple(op.wt.shape), plan.ksize, plan.stride, mode, *tail)
+    if kind == "dw":
+        return (kind, tuple(args[0].shape), args[2], args[3], *tail)
+    x, c_live, _, _, _, c_out = args
+    return (kind, tuple(x.shape), str(x.dtype), c_live, c_out, *tail)
+
+
+def distinct_launches(rec):
+    """{launch_key: [operands, launches]} of a recorded run."""
+    out = {}
+    for kind, args in rec:
+        key = launch_key(kind, args)
+        if key in out:
+            out[key][1] += 1
+        else:
+            out[key] = [(kind, args), 1]
+    return out
+
+
+def check_launch(kind, args):
+    """The launch's wrapper against its plain version on the recorded
+    operands: (differing elements, elements, max abs difference). int32
+    and requant results must be identical; f32 within one ulp and codes
+    within one code on at most 1e-6 of the elements (the plain version's
+    float64 evaluation can round twice at an f32 midpoint)."""
+    import torch
+
+    from alignq_tpu_torch.kernels import dwconv as DWm
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels import quantize as K2
+
+    key = launch_key(kind, args)
+    if kind == "K1":
+        x, op, plan, mode, act = args
+        if act is not None:
+            got, want = K1.int8_conv_codes(x, op, plan.stride, plan.pad, act), \
+                K1.int8_conv_reference(x, op, plan.stride, plan.pad, act.impl, act)
+        else:
+            got, want = K1.int8_conv_packed(x, op, plan.stride, plan.pad, mode), \
+                K1.int8_conv_reference(x, op, plan.stride, plan.pad, mode)
+    elif kind == "dw":
+        x, op, stride, impl, act = args
+        got, want = DWm.dw_conv(x, op, stride, impl, act), DWm.dw_conv_reference(x, op, stride, impl, act)
+    else:
+        x, c_live, sv, bv, act, c_out = args
+        got, want = K2.bn_act_codes(x, c_live, sv, bv, act, c_out), K2.bn_act_codes_plain(x, c_live, sv, bv, act, c_out)
+    torch.cuda.synchronize()
+    if got.dtype == torch.float32:
+        diff = f32_mismatches(got, want)
+        if diff > 1e-6 * got.numel():
+            raise AssertionError(f"{key}: {diff} f32 elements differ from the plain version")
+    elif kind == "K1" and args[3] == "requant":
+        diff = int((got != want).sum())
+        if diff:
+            raise AssertionError(f"{key}: {diff} requant codes differ from the plain version")
+    else:
+        diff = code_mismatches(got, want, str(key))
+    return diff, got.numel(), float((got.double() - want.double()).abs().max())
+
+
+def time_launch(kind, args):
+    """(ms, plain_ms, bound_ms, bound_by, library_ms) of one launch at its
+    recorded operands: the raw launch (CUDA events, median of 20 runs of 5),
+    its plain version, its bound (each input read once, each output written
+    once), and one PyTorch call of the same product where there is one
+    (K1: torch._int_mm on the gathered taps; depthwise: F.conv2d with
+    groups=C on f32, TF32 off; the BN-act pass: none)."""
+    import torch
+
+    from alignq_tpu_torch.kernels import dwconv as DWm
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels import quantize as K2
+
+    if kind == "K1":
+        x, op, plan, mode, act = args
+        out_dtype = torch.float32 if mode == "f32" else torch.int8
+        out = torch.empty((plan.B * plan.Ho * plan.Wo, op.wt.shape[0]), device=x.device, dtype=out_dtype)
+        ms = median_ms(lambda: K1._k1_launch(x, op, plan, out, mode, act), per_call=5)
+        impl = act.impl if act is not None else mode
+        plain_ms = median_ms(lambda: K1.int8_conv_reference(x, op, plan.stride, plan.pad, impl, act), runs=3, warmup=1)
+        b, h, w, c = x.shape
+        b_ms, b_by = conv_bound(b, h, w, c, plan.ksize, plan.stride, op.n, 4 if mode == "f32" else 1)
+        cols = K1.gather_taps(x, plan.ksize, plan.stride, plan.pad, K1.K_MULT)
+        wmat = op.wt.t().contiguous()
+        lib_ms = median_ms(lambda: torch._int_mm(cols, wmat), per_call=5)
+        del cols
+    elif kind == "dw":
+        x, op, stride, impl, act = args
+        b, h, w, c = x.shape
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        out = torch.empty((b, ho, wo, c), device=x.device, dtype=torch.float32 if impl == "f32" else torch.int8)
+        ms = median_ms(lambda: DWm._dw_launch(x, op, stride, impl, act, out), per_call=5)
+        plain_ms = median_ms(lambda: DWm.dw_conv_reference(x, op, stride, impl, act), runs=3, warmup=1)
+        b_ms, b_by = bound(b * h * w * c + 17 * c + out.numel() * out.element_size(), DW_OPS * out.numel(),
+                           PEAK_F32_OPS_PER_S)
+        xf = x.permute(0, 3, 1, 2).float().contiguous()
+        wf = op.w.t().reshape(c, 1, 3, 3).float().contiguous()
+        lib_ms = median_ms(lambda: torch.nn.functional.conv2d(xf, wf, stride=stride, padding=1, groups=c), per_call=5)
+        del xf
+    else:
+        x, c_live, sv, bv, act, c_out = args
+        out = torch.empty((*x.shape[:-1], c_out), device=x.device, dtype=torch.int8)
+        ms = median_ms(lambda: K2._bn_act_launch(x, c_live, sv, bv, act, out), per_call=5)
+        plain_ms = median_ms(lambda: K2.bn_act_codes_plain(x, c_live, sv, bv, act, c_out), runs=3, warmup=1)
+        m = x.numel() // x.shape[-1]
+        b_ms, b_by = bound(m * c_live * x.element_size() + 8 * c_live + m * c_out,
+                           BN_ACT_OPS.get(act.impl, 4) * m * c_live, PEAK_F32_OPS_PER_S)
+        lib_ms = None
+    return ms, plain_ms, b_ms, b_by, lib_ms
+
+
+def family_kernel_checks(dev, batches=(256, 3)):
+    """Each new graph's launches at each batch recorded from one card
+    forward, and every distinct one held against its plain version. Returns
+    ({(label, batch): distinct launches}, max abs error by kind, counts)."""
+    import torch
+
+    out, err, counts = {}, {"K1": 0.0, "dw": 0.0, "bn": 0.0}, {}
+    for label, build, fwd, _, pack, kw in family_configs():
+        for batch in batches:
+            _, (qp, x) = build(batch, device=dev, **kw)
+            ops = pack(qp, **kw)
+            with torch.inference_mode():
+                rec = record_launches(lambda: fwd(qp, x, operands=ops, **kw))
+            launches = distinct_launches(rec)
+            for key, ((kind, args), _) in launches.items():
+                diff, numel, e = check_launch(kind, args)
+                err[kind] = max(err[kind], e)
+                counts[f"{label} batch {batch} {key}"] = diff
+            n_by = {k: sum(c for (kk, _), c in launches.values() if kk == k) for k in ("K1", "dw", "bn")}
+            n_diff = sum(counts[f"{label} batch {batch} {k}"] for k in launches)
+            print(f"{label} batch {batch}: {len(rec)} launches ({n_by}), {len(launches)} distinct, each held against "
+                  f"its plain version: {n_diff} differing elements", flush=True)
+            out[label, batch] = launches
+            del qp, x, ops
+    return out, err, counts
+
+
+def deploy_families(dev, card, repo, details, phase):
+    """Phases 11-14: DenseNet-40 (f32 and int8 stage buffers) and
+    MobileNet-V2 on the card. Returns (the batch-256 launch time rows, max
+    abs error by kernel kind, each served artifact's launches and error)."""
+    import numpy as np
+    import torch
+
+    from alignq_tpu_torch.interop import init_preact_resnet_params
+    from alignq_tpu_torch.kernels import _build
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels import quantize as K2
+    from alignq_tpu_torch.kernels.infer import convert_resnet20, resnet20_int8_stream
+
+    phase("deploy families: every K1, depthwise and BN-act launch against its plain version")
+    from alignq_tpu_torch.kernels import dwconv as DWm
+    from alignq_tpu_torch.kernels.artifact import save_int8_artifact
+    from alignq_tpu_torch.kernels.convert import pack_qparams_int4
+    from alignq_tpu_torch.serve import engine_from_artifact
+
+    def final_stream(streams, qp, x, **kw):
+        """The last stream a graph's stream function gives (ResNet's is one)."""
+        if streams is resnet20_int8_stream:
+            return streams(qp, x, **kw)
+        return list(streams(qp, x, **kw))[-1]
+
+    fam_launches, fam_err, details["family_mismatches"] = family_kernel_checks(dev)
+
+    phase("deploy families: full-width forwards on the card against the CPU")
+    for label, build, fwd, streams, _, kw in family_configs():
+        _, (qp_cpu, x_cpu) = build(8, device="cpu", **kw)
+        qp_gpu = to_device(qp_cpu, dev)
+        with torch.inference_mode():
+            got = [t.cpu() for t in streams(qp_gpu, x_cpu.to(dev), **kw)]
+            l_gpu = fwd(qp_gpu, x_cpu.to(dev), **kw).cpu()
+        want = list(streams(qp_cpu, x_cpu, **kw))
+        for i, (g_, w_) in enumerate(zip(got, want)):
+            if not torch.equal(g_, w_):
+                raise AssertionError(f"{label}: stream {i} differs between CUDA and CPU")
+        lerr = float((l_gpu - fwd(qp_cpu, x_cpu, **kw)).abs().max())
+        if not (torch.isfinite(l_gpu).all() and lerr <= 1e-5 and l_gpu.shape == (8, 10)):
+            raise AssertionError(f"{label}: logits off the CPU's by {lerr}")
+        print(f"forward {label} batch 8: all {len(got)} stage buffers / block streams identical to the CPU's, "
+              f"logits max abs {lerr:.3g}", flush=True)
+
+    phase("deploy families: serving from artifacts")
+    art_dir = repo / "chiprun_out" / "artifacts"
+    art_dir.mkdir(parents=True, exist_ok=True)
+    freqs = [torch.randn((n, 32, 32, 3), generator=torch.Generator().manual_seed(20 + n)).numpy()
+             for n in (1, 5, 16, 10)]
+    p20, s20 = init_preact_resnet_params(20, torch.Generator().manual_seed(SEED + 1), "cpu")
+    p56, s56 = init_preact_resnet_params(56, torch.Generator().manual_seed(SEED + 1), "cpu")
+    fam = {label: (build, streams, kw) for label, build, _, streams, _, kw in family_configs()}
+    served_cases = [
+        ("resnet20 W4A4 int4-packed", pack_qparams_int4(convert_resnet20(p20, s20, weight_bits=4, act_bits=4)),
+         {"model": "resnet20", "act_bits": 4, "weight_bits": 4, "act_impl": "bins", "stream": "int16",
+          "packed_int4": 1}, resnet20_int8_stream),
+        ("resnet56", convert_resnet20(p56, s56),
+         {"model": "resnet56", "act_bits": 8, "weight_bits": 8, "act_impl": "erf", "stream": "int16"},
+         resnet20_int8_stream),
+    ]
+    for label in ("densenet40 f32", "densenet40 stage_int8", "mobilenetv2"):
+        build, streams, kw = fam[label]
+        _, (qp_cpu, _) = build(1, device="cpu", **kw)
+        meta = {"model": label.split()[0], "act_bits": 8, "weight_bits": 8, "act_impl": "erf"}
+        if kw.get("stage_int8"):
+            meta["stage_int8"] = 1
+        served_cases.append((label, qp_cpu, meta, streams))
+    fam_serving = {}
+    for label, qp_cpu, meta, streams in served_cases:
+        path = art_dir / f"{label.replace(' ', '_')}.npz"
+        save_int8_artifact(str(path), qp_cpu, meta=meta)
+        zero_counts(_build.launches)
+        engine = engine_from_artifact(str(path), batch_size=FAMILY_SERVE_BATCH, device=dev)
+        outs = [f.result(timeout=300) for f in [engine.submit(r) for r in freqs]]
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _build.launches.items() if v}
+        engine.close()
+        if launched.get(K1.TAP_GATHERS, 0):
+            raise AssertionError(f"serving {label}: a conv gathered its taps on the card: {launched}")
+        # what was served, against the CPU's plain path at the engine's
+        # padded batch: the final stream bit for bit, the logits within 1e-5
+        fkw = {k: v for k, v in engine.forward.keywords.items() if k != "operands"}
+        qp_host = to_device(engine.params, "cpu")
+        images = np.concatenate(freqs)
+        padded = np.concatenate([images, np.zeros((-len(images) % FAMILY_SERVE_BATCH, 32, 32, 3), np.float32)])
+        served = np.concatenate(outs)
+        serve_err = 0.0
+        for lo in range(0, len(padded), FAMILY_SERVE_BATCH):
+            xb = torch.from_numpy(padded[lo : lo + FAMILY_SERVE_BATCH])
+            skw = {k: v for k, v in fkw.items() if k in ("act_bits", "act_impl", "stage_int8", "stream",
+                                                         "use_stage_kernel")}
+            with torch.inference_mode():
+                s_gpu = final_stream(streams, engine.params, xb.to(dev), operands=engine.forward.keywords["operands"],
+                                     **skw)
+            if not torch.equal(s_gpu.cpu(), final_stream(streams, qp_host, xb, **skw)):
+                raise AssertionError(f"serving {label}: the engine's final stream differs from the CPU's")
+            want = engine.forward.func(qp_host, xb, **fkw).numpy()[: min(FAMILY_SERVE_BATCH, len(served) - lo)]
+            got = served[lo : lo + len(want)]
+            serve_err = max(serve_err, float(np.abs(got - want).max()))
+            if not (np.isfinite(got).all() and serve_err <= 1e-5):
+                raise AssertionError(f"serving {label}: served logits off the CPU's by {serve_err}")
+        fam_serving[label] = {"launches": launched, "max_abs_err": serve_err}
+        print(f"serving {label} from its artifact, engine batch {FAMILY_SERVE_BATCH}: requests of "
+              f"{[len(r) for r in freqs]} answered, logits within {serve_err:.3g} of the CPU plain path, the final "
+              f"stream identical; launches {launched}", flush=True)
+    n_dn = fam_serving["densenet40 stage_int8"]["launches"]
+    n_mb = fam_serving["mobilenetv2"]["launches"]
+    if not (n_dn.get(K1.KERNEL, 0) and n_dn[K1.KERNEL] % 39 == 0 and n_dn.get(K2.BN_ACT) == n_dn[K1.KERNEL]):
+        raise AssertionError(f"DenseNet-40 serving: launches {n_dn}, expected 39 K1 and 39 BN-act a forward")
+    if not (n_mb.get(K1.KERNEL, 0) and n_mb[K1.KERNEL] * 17 == n_mb.get(DWm.DW, 0) * 50):
+        raise AssertionError(f"MobileNet-V2 serving: launches {n_mb}, expected 50 K1 and 17 depthwise a forward")
+    details["family_serving"] = fam_serving
+
+    phase("deploy families: times")
+    fam_times = {}
+    for label, build, fwd, _, pack, kw in family_configs():
+        for batch in FAMILY_TIME_BATCHES:
+            _, (qp_b, x_b) = build(batch, device=dev, **kw)
+            ops_b = pack(qp_b, **kw)  # laid out once, as an engine does
+            with torch.inference_mode():
+                fwd_ms = median_ms(lambda: fwd(qp_b, x_b, operands=ops_b, **kw))
+                zero_counts(_build.launches)
+                fwd(qp_b, x_b, operands=ops_b, **kw)
+                torch.cuda.synchronize()
+                per_fwd = {k: v for k, v in _build.launches.items() if v}
+                prof = profile_step(lambda: fwd(qp_b, x_b, operands=ops_b, **kw), card,
+                                    f"{label} forward batch {batch}") if batch == FAMILY_TIME_BATCHES[0] else None
+            if per_fwd.get(K1.TAP_GATHERS, 0):
+                raise AssertionError(f"{label}: a conv gathered its taps on the card")
+            fam_times[f"{label} batch {batch}"] = {"ms": fwd_ms, "images_per_s": batch / fwd_ms * 1e3,
+                                                   "launches_per_forward": per_fwd, "profile": prof}
+            print(f"forward {label} batch {batch}: {fwd_ms:.4f} ms = {batch / fwd_ms * 1e3:.0f} images/s; "
+                  f"launches a forward {per_fwd} [{card}]", flush=True)
+            del qp_b, x_b, ops_b
+    fam_rows = []
+    for (label, batch), launches in fam_launches.items():
+        if batch != SERVE_BATCH:
+            continue
+        for key, ((kind, args), count) in launches.items():
+            ms, plain_ms, b_ms, b_by, lib_ms = time_launch(kind, args)
+            fam_rows.append(dict(family=label, kind=kind, shape=str(key), launches=count, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+            print(f"time {label} {key} x{count}: {ms:.4f} ms, plain {plain_ms:.3f}, bound {b_ms:.4f} ({b_by}), "
+                  f"library {'none' if lib_ms is None else f'{lib_ms:.4f}'} [{card}]", flush=True)
+    details["family_times"] = {"forwards": fam_times, "launches": fam_rows}
+    torch.cuda.empty_cache()
+
+    return fam_rows, fam_err, fam_serving
 
 
 def main() -> int:
@@ -409,6 +790,7 @@ def main() -> int:
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
     from alignq_tpu_torch.kernels import _build
+    from alignq_tpu_torch.kernels import dwconv as DWm
     from alignq_tpu_torch.kernels import qmatmul as K1
     from alignq_tpu_torch.kernels import quantize as K2
     from alignq_tpu_torch.kernels import stage_kernel as K3
@@ -793,7 +1175,12 @@ def main() -> int:
     phase("QAT times")
     details["qat_times"] = qat_times(dev, card)
 
-    # 11. the kernels line, the card line, the final line
+
+    # 11-14. the CIFAR deploy families: DenseNet-40 (f32 and int8 stage
+    # buffers) and MobileNet-V2
+    fam_rows, fam_err, fam_serving = deploy_families(dev, card, repo, details, phase)
+
+    # 15. the kernels line, the card line, the final line
     phase("done")
 
     def summed(r, ms_key, plain_key, bound_key, weight):
@@ -832,6 +1219,31 @@ def main() -> int:
     kernels = [{"name": kname, "route": "cuda", "source": src, "replaces": replaces, "launches": launches,
                 "max_abs_err": err, **per_forward[SERVE_BATCH][kname]}
                for kname, src, replaces, err, launches in meta]
+
+    def family_sum(label, kind):
+        """One batch-256 forward of a family's launches of one kernel."""
+        r = [x for x in fam_rows if x["family"] == label and x["kind"] == kind]
+        lib = [x["library_ms"] for x in r]
+        t_bytes = sum(x["bound_ms"] * x["launches"] for x in r if x["bound_by"] == "bytes")
+        t_ops = sum(x["bound_ms"] * x["launches"] for x in r if x["bound_by"] == "operations")
+        return {"ms": sum(x["ms"] * x["launches"] for x in r), "plain_ms": sum(x["plain_ms"] * x["launches"] for x in r),
+                "bound_ms": t_bytes + t_ops, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None if None in lib else sum(x["library_ms"] * x["launches"] for x in r)}
+
+    for kname, src, replaces, label, kind, counter in (
+        (K1.KERNEL + "@densenet40", "alignq_tpu_torch/csrc/qmatmul.cu", "alignq_tpu/kernels/qmatmul.py:45",
+         "densenet40 stage_int8", "K1", K1.KERNEL),
+        (K1.KERNEL + "@mobilenetv2", "alignq_tpu_torch/csrc/qmatmul.cu", "alignq_tpu/kernels/qmatmul.py:45",
+         "mobilenetv2", "K1", K1.KERNEL),
+        (DWm.DW, "alignq_tpu_torch/csrc/dwconv.cu", "alignq_tpu/kernels/infer_mobilenet.py:39", "mobilenetv2", "dw",
+         DWm.DW),
+        (K2.BN_ACT, "alignq_tpu_torch/csrc/quantize.cu", "alignq_tpu/kernels/infer_densenet.py:125",
+         "densenet40 stage_int8", "bn", K2.BN_ACT),
+    ):
+        kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": fam_serving[label]["launches"].get(counter, 0), "max_abs_err": fam_err[kind],
+                        **family_sum(label, kind)})
+        print(f"{kname} over one batch-{SERVE_BATCH} {label} forward: {json.dumps(kernels[-1])} [{card}]", flush=True)
     out_dir = repo / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))

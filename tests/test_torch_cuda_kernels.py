@@ -16,6 +16,7 @@ from alignq_tpu_torch.kernels import quantize as K2
 from alignq_tpu_torch.kernels.qmatmul import (
     CODES,
     F32,
+    REQUANT,
     TAP_GATHERS,
     act_map,
     int8_conv_codes,
@@ -299,3 +300,134 @@ def test_stage_kernel_nhwc_vs_plain(cuda, c, hw, ms, batch):
     diff = got != want
     assert diff.sum().item() <= 1e-6 * got.numel()
     assert ((got.int() - want.int()).abs() <= 1).all()
+
+
+# K1's forms for DenseNet-40 and MobileNet-V2: (B, H, W, Cin, ksize,
+# stride, N) -- 3x3 convs over 200 and more channels (K streamed, the last
+# chunk narrower), N above 256 (N blocks), deep 1x1 convs (K streamed)
+NEW_K1_FORMS = [
+    (2, 8, 8, 448, 3, 1, 12), (3, 16, 16, 304, 3, 1, 12), (2, 8, 8, 336, 3, 1, 12), (1, 16, 16, 224, 3, 1, 12),
+    (3, 16, 16, 320, 1, 1, 312), (2, 4, 4, 320, 1, 1, 1280), (3, 4, 4, 160, 1, 1, 960), (3, 4, 4, 960, 1, 1, 160),
+    (2, 8, 8, 576, 1, 1, 96), (2, 32, 32, 176, 1, 1, 168), (3, 32, 32, 160, 3, 1, 12),
+]
+
+
+@pytest.mark.parametrize("form", NEW_K1_FORMS)
+def test_conv_new_forms_vs_plain(cuda, form):
+    """K1's streamed 3x3, N blocks, relu'd codes and int8 requant against
+    the plain version: one launch each."""
+    b, h, w, cin, ksize, stride, n = form
+    pad = ksize // 2
+    rng = np.random.RandomState(cin + n + b)
+    x = _i8(rng, (b, h, w, cin), 0, 128).to(cuda)
+    kern = _i8(rng, (ksize, ksize, cin, n)).to(cuda)
+    k = ksize * ksize * cin
+    s = torch.from_numpy(((rng.rand(n) * 2 - 0.4) * 2 / (np.sqrt(k) * 73.3**2)).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy((rng.randn(n) * 0.5).astype(np.float32)).to(cuda)
+    op = pack_conv_weights(kern, s, bias)
+    assert torch.equal(int8_conv_packed(x, op, stride, pad, "int32"), int8_conv_reference(x, op, stride, pad, "int32"))
+    _assert_f32_close(int8_conv_packed(x, op, stride, pad, "f32"), int8_conv_reference(x, op, stride, pad, "f32"))
+    # the stage buffer's requant: scale, then the reciprocal of the slice's scale
+    rq = pack_conv_weights(kern, torch.full((n,), 1.3e-4, device=cuda), torch.full((n,), 1.0 / 0.37, device=cuda))
+    before = _build.launches[REQUANT]
+    got = int8_conv_packed(x, rq, stride, pad, "requant")
+    torch.cuda.synchronize()
+    assert _build.launches[REQUANT] == before + 1 and got.dtype == torch.int8
+    assert torch.equal(got, int8_conv_reference(x, rq, stride, pad, "requant"))
+    for act in (act_map("erf", 127, cuda, relu=True), act_map("poly", 127, cuda), act_map("bins", 7, cuda, relu=True)):
+        got = int8_conv_codes(x, op, stride, pad, act)
+        torch.cuda.synchronize()
+        want = int8_conv_reference(x, op, stride, pad, act.impl, act)
+        _assert_codes_close(got, want)
+        if act.relu:
+            assert int(got.min()) >= 0
+
+
+@pytest.mark.parametrize("c,hw,stride,batch", [(32, 32, 1, 3), (96, 32, 1, 2), (144, 32, 2, 2), (192, 16, 2, 3),
+                                               (384, 8, 1, 2), (576, 8, 2, 3), (960, 4, 1, 2), (16, 5, 2, 1)])
+def test_dw_conv_vs_plain(cuda, c, hw, stride, batch):
+    """The depthwise kernel against its plain version in every epilogue."""
+    from alignq_tpu_torch.kernels import dwconv
+
+    rng = np.random.RandomState(c + hw + stride)
+    x = _i8(rng, (batch, hw, hw, c), 0, 128).to(cuda)
+    kern = _i8(rng, (3, 3, 1, c)).to(cuda)
+    s = torch.from_numpy(((rng.rand(c) * 2 - 0.4) * 2 / (3 * 73.3**2)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy((rng.randn(c) * 0.5).astype(np.float32)).to(cuda)
+    op = dwconv.pack_dw_weights(kern, s, b)
+    before = _build.launches[dwconv.DW]
+    got = dwconv.dw_conv(x, op, stride, "int32")
+    torch.cuda.synchronize()
+    assert _build.launches[dwconv.DW] == before + 1
+    assert torch.equal(got, dwconv.dw_conv_reference(x, op, stride, "int32"))
+    _assert_f32_close(dwconv.dw_conv(x, op, stride, "f32"), dwconv.dw_conv_reference(x, op, stride, "f32"))
+    for act in (act_map("erf", 127, cuda, relu=True), act_map("poly", 127, cuda), act_map("bins", 7, cuda, relu=True),
+                act_map("erf", 127, cuda)):
+        got = dwconv.dw_conv(x, op, stride, act=act)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int8 and got.shape == (batch, (hw - 1) // stride + 1, (hw - 1) // stride + 1, c)
+        _assert_codes_close(got, dwconv.dw_conv_reference(x, op, stride, act=act))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("ld,c_live,c_out", [(168, 24, 32), (168, 156, 160), (312, 300, 304), (456, 456, 456),
+                                             (456, 312, 320), (40, 12, 12)])
+def test_bn_act_codes_vs_plain(cuda, dtype, ld, c_live, c_out):
+    """The fused BN-act code kernel over the live prefix of a stage buffer
+    (its pitch ld wider than c_live), f32 values or int8 codes, against its
+    plain version: codes zero past c_live."""
+    rng = np.random.RandomState(ld + c_live + (dtype == torch.int8))
+    if dtype == torch.int8:
+        x = _i8(rng, (3, 8, 8, ld)).to(cuda)
+        s = torch.from_numpy((rng.rand(c_live) * 0.05 + 0.001).astype(np.float32)).to(cuda)
+    else:
+        x = torch.from_numpy((rng.randn(3, 8, 8, ld) * 1.5).astype(np.float32)).to(cuda)
+        s = torch.from_numpy((rng.rand(c_live) * 2 - 0.3).astype(np.float32)).to(cuda)
+    b = torch.from_numpy((rng.randn(c_live) * 0.5).astype(np.float32)).to(cuda)
+    for act in (act_map("erf", 127, cuda, relu=True), act_map("poly", 127, cuda, relu=True),
+                act_map("bins", 7, cuda, relu=True), act_map("erf", 127, cuda)):
+        before = _build.launches[K2.BN_ACT]
+        got = K2.bn_act_codes(x, c_live, s, b, act, c_out)
+        torch.cuda.synchronize()
+        assert _build.launches[K2.BN_ACT] == before + 1
+        assert got.shape == (3, 8, 8, c_out) and got.dtype == torch.int8
+        assert not got[..., c_live:].any()
+        _assert_codes_close(got, K2.bn_act_codes_plain(x, c_live, s, b, act, c_out))
+
+
+@pytest.mark.parametrize("family", ["densenet40 f32", "densenet40 stage_int8", "mobilenetv2"])
+def test_family_forward_cuda_vs_cpu(cuda, family):
+    """Full-width DenseNet-40 (both buffers) and MobileNet-V2 at batch 3 on
+    the card against the CPU plain path, on qparams converted on the CPU:
+    every stage buffer / block stream bit for bit, the logits within 1e-5;
+    39 K1 and 39 BN-act launches a DenseNet forward, 50 K1 and 17 depthwise
+    a MobileNet one, no tap gathered."""
+    from alignq_tpu_torch.kernels import dwconv
+    from alignq_tpu_torch.kernels import infer_densenet as D
+    from alignq_tpu_torch.kernels import infer_mobilenet as M
+    from alignq_tpu_torch.kernels.convert import tree_map
+
+    if family.startswith("densenet"):
+        kw = {"stage_int8": family.endswith("stage_int8")}
+        _, (qp, x) = D.build_densenet40_int8(3, device="cpu", **kw)
+        streams, forward = D.densenet40_int8_buffers, D.densenet40_int8_forward
+        ops = D.pack_densenet40_operands
+        want = {"int8_matmul_dequant": 39, K2.BN_ACT: 39, dwconv.DW: 0}
+    else:
+        kw = {}
+        _, (qp, x) = M.build_mobilenetv2_int8(3, device="cpu")
+        streams, forward, ops = M.mobilenetv2_int8_streams, M.mobilenetv2_int8_forward, M.pack_mobilenetv2_operands
+        want = {"int8_matmul_dequant": 50, K2.BN_ACT: 0, dwconv.DW: 17}
+    qg = tree_map(lambda t: t.to(cuda) if torch.is_tensor(t) else t, qp)
+    xg, og = x.to(cuda), ops(qg, **kw)
+    forward(qg, xg, operands=og, **kw)  # builds the kernels
+    before = dict(_build.launches)
+    lg = forward(qg, xg, operands=og, **kw).cpu()
+    counted = {k: _build.launches[k] - before.get(k, 0) for k in (*want, TAP_GATHERS)}
+    assert counted == {**want, TAP_GATHERS: 0}
+    lc = forward(qp, x, **kw)
+    assert torch.isfinite(lg).all() and float((lg - lc).abs().max()) <= 1e-5
+    got, ref = list(streams(qg, xg, operands=og, **kw)), list(streams(qp, x, **kw))
+    assert len(got) == len(ref)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert torch.equal(g.cpu(), r), f"{family}: stream {i} differs from the CPU's"

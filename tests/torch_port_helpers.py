@@ -11,7 +11,27 @@ def random_preact_tree(depth, seed):
     """A flax-layout PreActResNet (params, batch_stats) of the given depth,
     every leaf drawn with numpy: fan-in-scaled uniform kernels and
     non-trivial BN scale, shift, mean and variance."""
-    shapes, stat_shapes = interop.init_preact_resnet_params(depth, torch.Generator().manual_seed(0), "cpu")
+    return random_like(interop.init_preact_resnet_params(depth, torch.Generator().manual_seed(0), "cpu"), seed)
+
+
+def random_densenet_tree(depth, seed, stage_int8=False):
+    """A flax-layout DenseNet (params, batch_stats), drawn as
+    random_like draws; with stage_int8 the StageRequant amax too."""
+    shapes = interop.init_densenet_params(depth, torch.Generator().manual_seed(0), "cpu", stage_int8=stage_int8)
+    return random_like(shapes, seed)
+
+
+def random_mobilenet_tree(seed):
+    """A flax-layout MobileNet-V2 (params, batch_stats), drawn as
+    random_like draws."""
+    return random_like(interop.init_mobilenetv2_params(torch.Generator().manual_seed(0), "cpu"), seed)
+
+
+def random_like(trees, seed):
+    """(params, batch_stats) of the shapes of `trees`, every leaf drawn with
+    numpy: fan-in-scaled uniform kernels, non-trivial BN scale, shift, mean
+    and variance, StageRequant amax uniform in [2, 6]."""
+    shapes, stat_shapes = trees
     rng = np.random.RandomState(seed)
 
     def draw(tree):
@@ -24,6 +44,8 @@ def random_preact_tree(depth, seed):
                 out[k] = (rng.uniform(-1, 1, shape) / np.sqrt(np.prod(shape[:-1]))).astype(np.float32)
             elif k in ("scale", "var"):
                 out[k] = (rng.rand(*shape) + 0.5).astype(np.float32)
+            elif k == "amax":
+                out[k] = (rng.rand(*shape) * 4 + 2).astype(np.float32)
             else:  # bias, mean
                 out[k] = (rng.randn(*shape) * 0.2).astype(np.float32)
         return out
