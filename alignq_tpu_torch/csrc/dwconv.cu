@@ -9,22 +9,38 @@
 // x[b, oy*s + dy - 1, ox*s + dx - 1, c] * w[dy, dx, c]) (zero off the
 // image), pad 1, stride 1 or 2, int32 accumulation.
 //
-// What bounds it on an H100: bytes. One channel a group leaves an MMA
-// nothing to contract over, and a 3x3 depthwise conv does 18 operations an
-// output element against one input byte and one (codes) or four (f32)
-// output bytes: far under the card's ridge, so the tensor cores are of no
-// use and the kernel is a direct one that reads each input byte from
-// device memory once (the 9 taps' re-reads hit L1/L2).
+// What bounds it on an H100: one channel a group leaves an MMA nothing to
+// contract over, and a 3x3 depthwise conv moves one input byte and one
+// (codes) or four (f32) output bytes for 18 operations an output element:
+// bytes, on paper. In the act-code modes the epilogue (~40 f32 operations
+// an element for erf, a division among them) makes the kernel bound by its
+// instruction issue, so the design spends no instruction it can avoid on
+// indexing and taps.
 //
-// What the design does about it:
-// - Each thread of a grid-stride loop takes 4 channels of one output pixel:
-//   one 32-bit load a tap, 4 int32 multiply-adds, neighbouring threads on
-//   neighbouring channel quads of the pixel, so a warp reads 128
-//   contiguous bytes a tap.
-// - The (9, C) weight and the (C,) scale and bias sit in shared memory,
-//   loaded once a CTA.
-// - The 4 results leave as one 32-bit word (codes) or one 16-byte store
-//   (f32, int32).
+// What the design does about it (the launch plan, kernels/dwconv.py
+// dw_plan, is passed in as ints):
+// - A CTA takes a tile: one image, a band of TR output rows and a chunk of
+//   CH channels. It copies the tile's input rows with their halo, HR x HC
+//   pixels of the chunk's channels, into shared memory once, by cp.async of
+//   16 bytes (4 where C is not a multiple of 16); the pad border is
+//   zero-filled there, so no tap is bounds-checked. The copy's latency is
+//   hidden by the other CTAs of the SM (persistent CTAs with the next
+//   band's copy in flight, and two outputs a loop step, measured slower).
+// - A thread (threadIdx = quad, row, x group) owns a channel quad of one
+//   output row and a run of RUN outputs along x. It keeps its 9 weight
+//   words, scale and bias in registers and slides a 3-column window along
+//   the run: each input word is read from shared memory once a row (twice
+//   at stride 2's shared column).
+// - The taps: a column's 3 row words of the quad are transposed with
+//   __byte_perm into 4 words, one a channel, holding that channel's 3 taps
+//   of the column; one __dp4a a (column, channel) against the
+//   likewise-transposed weight column (its 4th byte 0) gives 12 dp4a an
+//   output quad in place of 36 byte extracts and 36 multiply-adds.
+// - Index math is 32-bit (an image's H*W*C < 2^31, checked by the plan),
+//   with no division in any loop: the band copy steps its (row, column,
+//   piece) indices by carries.
+// - The row pitch of the band is padded so that the lanes of a warp (the
+//   quads of up to 32 / quads rows) read distinct banks.
 //
 // Epilogue rule, as K1's: f32 `acc * scale + bias` is one rounding
 // (__fmaf_rn); the codes are act_codes.cuh's poly, erf or bins maps of it,
@@ -42,23 +58,98 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int MAX_THREADS = 512;
 
 // Epilogue modes (the wrapper's kernels/dwconv.py _MODE)
 enum Mode { INT32 = 0, F32 = 1, POLY = 3, ERF = 4, BINS = 5 };
 
-struct DwArgs {
+// The launch plan, in the order kernels/dwconv.py DwPlan lays it out.
+struct Plan {
   int B, H, W, C, Ho, Wo, stride;
+  int CH, n_chunks;    // channels a tile; chunks
+  int TR, n_bands;     // output rows a tile; bands an image
+  int RUN, GX;         // outputs a thread along x; thread groups along x
+  int HR, HC, P, RP;   // band rows, cols; smem pixel pitch, row pitch (bytes)
+  int vec, threads, smem;  // cp.async bytes; threads a CTA; bytes of the band
+};
+constexpr int PLAN_INTS = sizeof(Plan) / sizeof(int);
+
+struct ActArgs {
   const float* bnd;  // BINS: the g f32 erf-grid boundaries
   int g, relu;
 };
 
-__device__ __forceinline__ int sbyte(uint32_t v, int j) {
-  return static_cast<int>(static_cast<int8_t>((v >> (8 * j)) & 0xff));
+// cp.async of `bytes` (4 or 16); src_bytes 0 zero-fills the destination
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The 3 row words (r0, r1, r2) of a column of one channel quad, transposed:
+// t[j] holds channel j's bytes (r0.j, r1.j, r2.j, r0.j); the 4th byte
+// meets a zero weight byte.
+__device__ __forceinline__ void transpose3(uint32_t r0, uint32_t r1, uint32_t r2, uint32_t (&t)[4]) {
+  const uint32_t lo = __byte_perm(r0, r1, 0x5140);  // r0.0 r1.0 r0.1 r1.1
+  const uint32_t hi = __byte_perm(r0, r1, 0x7362);  // r0.2 r1.2 r0.3 r1.3
+  t[0] = __byte_perm(lo, r2, 0x0410);
+  t[1] = __byte_perm(lo, r2, 0x2532);
+  t[2] = __byte_perm(hi, r2, 0x0610);
+  t[3] = __byte_perm(hi, r2, 0x2732);
+}
+
+// One band column of a thread's quad and output row: its 3 row words,
+// transposed
+struct Col {
+  uint32_t v[4];
+};
+
+__device__ __forceinline__ Col load_col(const unsigned char* p, int rp) {
+  Col col;
+  transpose3(lds32(p), lds32(p + rp), lds32(p + 2 * rp), col.v);
+  return col;
+}
+
+// The weights of a thread's quad as the tap sums take them: per column dx
+// and channel j the word (w[0][dx].j, w[1][dx].j, w[2][dx].j, 0)
+struct QuadWeights {
+  int v[3 * 4];
+};
+
+__device__ __forceinline__ QuadWeights load_weights(const int8_t* __restrict__ w, int C, int c) {
+  const uint32_t* w4 = reinterpret_cast<const uint32_t*>(w);
+  const int quads = C / 4, q = c / 4;
+  QuadWeights qw;
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) {
+    uint32_t t[4];
+    transpose3(__ldg(w4 + dx * quads + q), __ldg(w4 + (3 + dx) * quads + q), __ldg(w4 + (6 + dx) * quads + q), t);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) qw.v[dx * 4 + j] = static_cast<int>(t[j] & 0x00ffffffu);
+  }
+  return qw;
+}
+
+// The 4 channels' sums over the 9 taps of the window (columns a, b, c):
+// one dp4a a column and channel
+__device__ __forceinline__ void tap_sums(const Col& a, const Col& b, const Col& c, const QuadWeights& qw,
+                                         int (&acc)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    int s = __dp4a(static_cast<int>(a.v[j]), qw.v[j], 0);
+    s = __dp4a(static_cast<int>(b.v[j]), qw.v[4 + j], s);
+    acc[j] = __dp4a(static_cast<int>(c.v[j]), qw.v[8 + j], s);
+  }
 }
 
 template <int MODE>
-__device__ __forceinline__ int dw_code(int acc, float s, float b, const DwArgs& a) {
+__device__ __forceinline__ int dw_code(int acc, float s, float b, const ActArgs& a) {
   const float h = __fmaf_rn(static_cast<float>(acc), s, b);
   const float gf = static_cast<float>(a.g);
   int code;
@@ -69,106 +160,165 @@ __device__ __forceinline__ int dw_code(int acc, float s, float b, const DwArgs& 
 }
 
 template <int MODE>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void store_quad(unsigned char* px, const int (&acc)[4], const float (&s)[4],
+                                           const float (&b)[4], const ActArgs& a) {
+  if (MODE == INT32) {
+    *reinterpret_cast<int4*>(px) = make_int4(acc[0], acc[1], acc[2], acc[3]);
+  } else if (MODE == F32) {
+    float y[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y[j] = __fmaf_rn(static_cast<float>(acc[j]), s[j], b[j]);
+    *reinterpret_cast<float4*>(px) = make_float4(y[0], y[1], y[2], y[3]);
+  } else {
+    uint32_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      word |= (static_cast<uint32_t>(dw_code<MODE>(acc[j], s[j], b[j], a)) & 0xff) << (8 * j);
+    *reinterpret_cast<uint32_t*>(px) = word;
+  }
+}
+
+struct Tile {
+  int c0, ch, oy0, b;  // first channel, channels; first output row; image
+};
+
+// tile = (b * n_bands + band) * n_chunks + chunk
+__device__ __forceinline__ Tile tile_at(const Plan& p, int tile) {
+  const int chunk = tile % p.n_chunks, rest = tile / p.n_chunks;
+  const int c0 = chunk * p.CH;
+  return {c0, min(p.CH, p.C - c0), (rest % p.n_bands) * p.TR, rest / p.n_bands};
+}
+
+// Issue the cp.async copies of a tile's band: HR x HC pixels of its
+// channels, input rows oy0*S - 1 on and columns -1 on, zero-filled off the
+// image. Piece i = (r * HC + col) * nv + v, stepped by the CTA's threads
+// with carries.
+template <int S>
+__device__ void issue_band(const Plan& p, const int8_t* __restrict__ x, unsigned char* band, const Tile& t,
+                           int tid) {
+  const int8_t* xb = x + static_cast<size_t>(t.b) * p.H * p.W * p.C;
+  const int nth = p.threads, nv = t.ch / p.vec, total = p.HR * p.HC * nv;
+  int v = tid % nv, col = (tid / nv) % p.HC, r = tid / nv / p.HC;
+  const int dv = nth % nv, dcol = (nth / nv) % p.HC, dr = nth / nv / p.HC;
+  const int iy0 = t.oy0 * S - 1;
+  for (int i = tid; i < total; i += nth) {
+    const int iy = iy0 + r, ix = col - 1;
+    const bool in = static_cast<unsigned>(iy) < static_cast<unsigned>(p.H) &&
+                    static_cast<unsigned>(ix) < static_cast<unsigned>(p.W);
+    const int8_t* src = in ? xb + (iy * p.W + ix) * p.C + t.c0 + v * p.vec : x;
+    cp_async(band + r * p.RP + col * p.P + v * p.vec, src, p.vec, in ? p.vec : 0);
+    v += dv;
+    if (v >= nv) {
+      v -= nv;
+      ++col;
+    }
+    col += dcol;
+    if (col >= p.HC) {
+      col -= p.HC;
+      ++r;
+    }
+    r += dr;
+  }
+}
+
+// A thread's outputs of a tile whose band has landed: its quad, output row
+// and run along x
+template <int MODE, int S>
+__device__ void compute_tile(const Plan& p, const unsigned char* band, const Tile& t,
+                             const int8_t* __restrict__ w, const float* __restrict__ scale,
+                             const float* __restrict__ bias, void* __restrict__ out, const ActArgs& a) {
+  const int q = threadIdx.x, oy = t.oy0 + threadIdx.y;
+  const int ox_begin = threadIdx.z * p.RUN, ox_end = min(ox_begin + p.RUN, p.Wo);
+  if (4 * q >= t.ch || oy >= p.Ho || ox_begin >= ox_end) return;
+  const int c = t.c0 + 4 * q;
+  const QuadWeights qw = load_weights(w, p.C, c);
+  float s[4], b[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s[j] = __ldg(scale + c + j);
+    b[j] = __ldg(bias + c + j);
+  }
+  // the window's band columns ox*S, ox*S + 1, ox*S + 2 of the output row's
+  // taps (band rows threadIdx.y*S .. + 2)
+  const unsigned char* row0 = band + threadIdx.y * S * p.RP + 4 * q;
+  const int esize = (MODE == INT32 || MODE == F32) ? 4 : 1;
+  unsigned char* orow = static_cast<unsigned char*>(out) +
+                        (static_cast<size_t>(t.b) * p.Ho * p.Wo * p.C + (oy * p.Wo) * p.C + c) * esize;
+  auto col = [&](int band_col) { return load_col(row0 + band_col * p.P, p.RP); };
+  Col ca = col(ox_begin * S), cb;
+  if (S == 1) cb = col(ox_begin + 1);
+  for (int ox = ox_begin; ox < ox_end; ++ox) {
+    if (S == 2) cb = col(2 * ox + 1);
+    const Col cc = col(ox * S + 2);
+    int acc[4];
+    tap_sums(ca, cb, cc, qw, acc);
+    store_quad<MODE>(orow + ox * p.C * esize, acc, s, b, a);
+    if (S == 1) {
+      ca = cb;
+      cb = cc;
+    } else {
+      ca = cc;
+    }
+  }
+}
+
+template <int MODE, int S>
+__global__ void __launch_bounds__(MAX_THREADS)
 dw_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                const float* __restrict__ scale, const float* __restrict__ bias,
-               void* __restrict__ out, const DwArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* s_scale = reinterpret_cast<float*>(smem);
-  float* s_bias = s_scale + a.C;
-  uint32_t* s_w = reinterpret_cast<uint32_t*>(s_bias + a.C);  // (9, C / 4) words
-  const int quads = a.C / 4;
-  for (int i = threadIdx.x; i < a.C; i += blockDim.x) {
-    s_scale[i] = scale[i];
-    s_bias[i] = bias[i];
-  }
-  const uint32_t* w4 = reinterpret_cast<const uint32_t*>(w);
-  for (int i = threadIdx.x; i < 9 * quads; i += blockDim.x) s_w[i] = w4[i];
+               void* __restrict__ out, const Plan p, const ActArgs a) {
+  extern __shared__ __align__(16) unsigned char band[];
+  const int tid = threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z);
+  const Tile t = tile_at(p, blockIdx.x);
+  issue_band<S>(p, x, band, t, tid);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
-
-  const long long items = static_cast<long long>(a.B) * a.Ho * a.Wo * quads;
-  for (long long item = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; item < items;
-       item += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long m = item / quads;
-    const int q = static_cast<int>(item - m * quads);
-    const int ox = static_cast<int>(m % a.Wo);
-    const long long r = m / a.Wo;
-    const int oy = static_cast<int>(r % a.Ho);
-    const int b = static_cast<int>(r / a.Ho);
-    int acc[4] = {0, 0, 0, 0};
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-      const int iy = oy * a.stride + dy - 1;
-      if (static_cast<unsigned>(iy) >= static_cast<unsigned>(a.H)) continue;
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const int ix = ox * a.stride + dx - 1;
-        if (static_cast<unsigned>(ix) >= static_cast<unsigned>(a.W)) continue;
-        const uint32_t xv = *reinterpret_cast<const uint32_t*>(
-            x + ((static_cast<size_t>(b) * a.H + iy) * a.W + ix) * a.C + 4 * q);
-        const uint32_t wv = s_w[(dy * 3 + dx) * quads + q];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[j] += sbyte(xv, j) * sbyte(wv, j);
-      }
-    }
-    const int c = 4 * q;
-    if (MODE == INT32) {
-      reinterpret_cast<int4*>(out)[item] = make_int4(acc[0], acc[1], acc[2], acc[3]);
-    } else if (MODE == F32) {
-      float y[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) y[j] = __fmaf_rn(static_cast<float>(acc[j]), s_scale[c + j], s_bias[c + j]);
-      reinterpret_cast<float4*>(out)[item] = make_float4(y[0], y[1], y[2], y[3]);
-    } else {
-      uint32_t word = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        word |= (static_cast<uint32_t>(dw_code<MODE>(acc[j], s_scale[c + j], s_bias[c + j], a)) & 0xff) << (8 * j);
-      reinterpret_cast<uint32_t*>(out)[item] = word;
-    }
-  }
+  compute_tile<MODE, S>(p, band, t, w, scale, bias, out, a);
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+template <int MODE, int S>
+int launch(const void* x, const void* w, const void* scale, const void* bias, void* out, const Plan& p,
+           const ActArgs& a, cudaStream_t stream) {
+  auto kern = dw_conv_kernel<MODE, S>;
+  if (p.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  return sms;
-}
-
-template <int MODE>
-int launch(const void* x, const void* w, const void* scale, const void* bias, void* out, const DwArgs& a,
-           cudaStream_t stream) {
-  const int smem = 8 * a.C + 9 * a.C;
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const long long items = static_cast<long long>(a.B) * a.Ho * a.Wo * (a.C / 4);
-  const long long want = (items + THREADS - 1) / THREADS;
-  const long long cap = static_cast<long long>(sm_count()) * 8;  // 8 CTAs of 256 threads an SM
-  const int grid = static_cast<int>(want < cap ? (want > 0 ? want : 1) : cap);
-  dw_conv_kernel<MODE><<<grid, THREADS, smem, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), out, a);
+  const dim3 grid(p.n_chunks * p.n_bands * p.B), block(p.CH / 4, p.TR, p.GX);
+  kern<<<grid, block, p.smem, stream>>>(static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+                                        static_cast<const float*>(scale), static_cast<const float*>(bias), out,
+                                        p, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int S>
+int dispatch(int mode, const void* x, const void* w, const void* scale, const void* bias, void* out,
+             const Plan& p, const ActArgs& a, cudaStream_t s) {
+  switch (mode) {
+    case INT32: return launch<INT32, S>(x, w, scale, bias, out, p, a, s);
+    case F32: return launch<F32, S>(x, w, scale, bias, out, p, a, s);
+    case POLY: return launch<POLY, S>(x, w, scale, bias, out, p, a, s);
+    case ERF: return launch<ERF, S>(x, w, scale, bias, out, p, a, s);
+    case BINS: return launch<BINS, S>(x, w, scale, bias, out, p, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
+extern "C" int dw_plan_ints() { return PLAN_INTS; }
+
 extern "C" int dw_conv_launch(const void* x, const void* w, const void* scale, const void* bias, void* out,
-                              int B, int H, int W, int C, int stride, int mode, const void* bnd, int g,
-                              int relu, void* stream) {
-  if (C % 4 || (stride != 1 && stride != 2)) return static_cast<int>(cudaErrorInvalidValue);
-  const DwArgs a{B, H, W, C, (H - 1) / stride + 1, (W - 1) / stride + 1, stride,
-                 static_cast<const float*>(bnd), g, relu};
+                              const int* plan, int mode, const void* bnd, int g, int relu, void* stream) {
+  Plan p;
+  int* dst = reinterpret_cast<int*>(&p);
+  for (int i = 0; i < PLAN_INTS; ++i) dst[i] = plan[i];
+  if (p.C % 4 || p.CH % p.vec || p.threads != p.CH / 4 * p.TR * p.GX || p.threads > MAX_THREADS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ActArgs a{static_cast<const float*>(bnd), g, relu};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case INT32: return launch<INT32>(x, w, scale, bias, out, a, s);
-    case F32: return launch<F32>(x, w, scale, bias, out, a, s);
-    case POLY: return launch<POLY>(x, w, scale, bias, out, a, s);
-    case ERF: return launch<ERF>(x, w, scale, bias, out, a, s);
-    case BINS: return launch<BINS>(x, w, scale, bias, out, a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (p.stride == 1) return dispatch<1>(mode, x, w, scale, bias, out, p, a, s);
+  if (p.stride == 2) return dispatch<2>(mode, x, w, scale, bias, out, p, a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,10 +4,10 @@ depthwise form.
 The JAX serving graph of MobileNet-V2 runs its depthwise convs through
 XLA's conv_general_dilated with feature_group_count = C
 (alignq_tpu/kernels/infer_mobilenet.py:39-49); PyTorch has no int8 conv on
-CUDA. On a CUDA tensor `dw_conv` launches csrc/dwconv.cu, a direct kernel
-(one channel a group gives an MMA nothing to contract over); on a CPU
-tensor it runs the plain version beside it, `dw_conv_reference`, which
-sums the 9 taps in int32.
+CUDA. On a CUDA tensor `dw_conv` launches csrc/dwconv.cu, a tiled direct
+kernel (one channel a group gives an MMA nothing to contract over) whose
+tiling `dw_plan` chooses here; on a CPU tensor it runs the plain version
+beside it, `dw_conv_reference`, which sums the 9 taps in int32.
 
 Its launches count under K1's family, DW = 'int8_matmul_dequant:dw', and
 not in K1's own total.
@@ -16,6 +16,7 @@ not in K1's own total.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -26,6 +27,10 @@ from alignq_tpu_torch.quant.cdf import fma_f32
 
 DW = "int8_matmul_dequant:dw"  # launch-counter key
 _MODE = {"int32": 0, "f32": 1, "poly": 3, "erf": 4, "bins": 5}
+CHUNK = 64  # most channels a CTA takes
+RUN = 8  # outputs a thread takes along x
+THREADS, MAX_THREADS = 256, 512  # threads a CTA: the aim, the most
+SMEM_MAX = 227 * 1024
 
 
 class DwWeights(NamedTuple):
@@ -48,6 +53,95 @@ def pack_dw_weights(kernel_hwio: torch.Tensor, scale: torch.Tensor, bias: torch.
 
 def _out_hw(h: int, w: int, stride: int):
     return (h - 1) // stride + 1, (w - 1) // stride + 1
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(a: int, m: int) -> int:
+    return _cdiv(a, m) * m
+
+
+class DwPlan(NamedTuple):
+    """One depthwise launch's tiling, in the order of csrc/dwconv.cu's Plan.
+
+    A CTA takes a tile, CH channels (the last chunk fewer) of a band of TR
+    output rows of one image: n_chunks x n_bands x B of them. Its threads
+    are (CH / 4 quads, TR rows, GX groups along x), each with a run of RUN
+    outputs. The tile's input, HR x HC pixels with the halo, sits in shared
+    memory at a pixel pitch P and a row pitch RP (bytes), copied in pieces
+    of vec bytes; smem is its size."""
+
+    B: int
+    H: int
+    W: int
+    C: int
+    Ho: int
+    Wo: int
+    stride: int
+    CH: int
+    n_chunks: int
+    TR: int
+    n_bands: int
+    RUN: int
+    GX: int
+    HR: int
+    HC: int
+    P: int
+    RP: int
+    vec: int
+    threads: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(b: int, h: int, w: int, c: int, stride: int, sms: int) -> DwPlan:
+    """The tiling of one depthwise launch over x (b, h, w, c) int8 on a
+    card of `sms` SMs. The channels split into the fewest chunks of at most
+    CHUNK (a multiple of 16 where c is, so that the band copies 16 bytes a
+    piece); a thread takes RUN outputs along x (more where the row would
+    need over MAX_THREADS threads); a band as many output rows as bring the
+    CTA to THREADS. While the grid holds fewer than 2 CTAs an SM, the bands
+    thin to one row and then the chunks narrow; then the bands of an image
+    even out. The band's
+    row pitch is padded so that the quads of the rows a warp spans read
+    distinct banks."""
+    if c % 4 or stride not in (1, 2):
+        raise ValueError(f"the depthwise kernel takes channels in fours at stride 1 or 2, got C={c}, "
+                         f"stride {stride}")
+    ho, wo = _out_hw(h, w, stride)
+    if h * w * c >= 2**31 or b > 65535:
+        raise ValueError(f"x ({b}, {h}, {w}, {c}) is out of the depthwise kernel's range")
+    vec = 16 if c % 16 == 0 else 4
+    n_chunks = _cdiv(c, CHUNK)
+    ch = _round_up(_cdiv(c, n_chunks), vec)
+    run = min(RUN, wo)
+    while ch // 4 * _cdiv(wo, run) > MAX_THREADS:
+        run += 1
+    gx = _cdiv(wo, run)
+    tr = max(1, min(ho, THREADS // (ch // 4 * gx)))
+    while b * _cdiv(ho, tr) * _cdiv(c, ch) < 2 * sms:
+        if tr > 1:
+            tr = _cdiv(tr, 2)
+        elif ch > vec:
+            ch = _round_up(ch // 2, vec)
+        else:
+            break
+    tr = _cdiv(ho, _cdiv(ho, tr))  # the bands of one image even
+    q = ch // 4
+    hr, hc = (tr - 1) * stride + 3, (wo - 1) * stride + 3
+    rp = hc * ch
+    if q < 32 and 32 % q == 0:  # a warp spans 32 / q rows, stride*RP bytes apart
+        for pad in range(0, 32 * vec, vec):
+            if (stride * (rp + pad) // 4) % 32 == q:
+                rp += pad
+                break
+    smem = hr * rp
+    if smem > SMEM_MAX:
+        raise ValueError(f"a depthwise band of {smem} bytes exceeds shared memory")
+    return DwPlan(b, h, w, c, ho, wo, stride, ch, _cdiv(c, ch), tr, _cdiv(ho, tr), run, gx, hr, hc, ch, rp, vec,
+                  q * tr * gx, smem)
 
 
 def dw_conv_reference(x: torch.Tensor, op: DwWeights, stride: int, mode: str = "f32", act=None) -> torch.Tensor:
@@ -76,8 +170,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("dwconv")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dw_conv_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p, i, i, p]
+        lib.dw_conv_launch.argtypes = [p, p, p, p, p, ctypes.POINTER(i), i, p, i, i, p]
         lib.dw_conv_launch.restype = i
+        lib.dw_plan_ints.restype = i
+        if lib.dw_plan_ints() != len(DwPlan._fields):
+            raise RuntimeError("csrc/dwconv.cu's Plan does not match DwPlan")
         lib._argtypes_set = True
     return lib
 
@@ -99,34 +196,46 @@ def dw_conv(x: torch.Tensor, op: DwWeights, stride: int = 1, mode: str = "f32", 
         raise ValueError(f"stride 1 or 2, got {stride}")
     if x.device.type == "cpu":
         return dw_conv_reference(x, op, stride, mode, act)
-    b, h, w, c = x.shape
-    if c % 4:
-        raise ValueError(f"the depthwise kernel takes channels in fours, got {c}")
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("the depthwise kernel needs a 16-byte aligned input")
     tensors = [x, *op] + ([act.bnd] if act is not None and act.bnd is not None else [])
     if len({t.device for t in tensors}) != 1:
         raise ValueError("x, the packed kernel and the act map must lie on one device")
-    ho, wo = _out_hw(h, w, stride)
+    b, h, w, c = x.shape
+    plan = device_plan(x, stride)  # raises on a shape out of the kernel's range
     dtype = {"int32": torch.int32, "f32": torch.float32}.get(impl, torch.int8)
-    out = torch.empty((b, ho, wo, c), dtype=dtype, device=x.device)
+    out = torch.empty((b, plan.Ho, plan.Wo, c), dtype=dtype, device=x.device)
     if out.numel():
-        _dw_launch(x, op, stride, impl, act, out)
+        _dw_launch(x, op, plan, impl, act, out)
         _build.launches[DW] += 1
     return out
 
 
-def _dw_launch(x, op: DwWeights, stride: int, impl: str, act: Optional[object], out) -> None:
-    """One launch of csrc/dwconv.cu on checked operands. Counts nothing
-    (the wrapper does)."""
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def device_plan(x: torch.Tensor, stride: int) -> DwPlan:
+    """dw_plan of x (a CUDA tensor) on its card."""
+    return dw_plan(*x.shape, stride, _sm_count(x.device.index))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_ints(plan: DwPlan):
+    return (ctypes.c_int * len(plan))(*plan)
+
+
+def _dw_launch(x, op: DwWeights, plan: DwPlan, impl: str, act: Optional[object], out) -> None:
+    """One launch of csrc/dwconv.cu on checked operands, tiled by plan
+    (dw_plan of x). Counts nothing (the wrapper does)."""
     lib = _lib()
-    b, h, w, c = x.shape
     bnd = None if act is None or act.bnd is None else act.bnd.data_ptr()
     with _build.on_device(x.device):
         err = lib.dw_conv_launch(
             x.data_ptr(), op.w.data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(), out.data_ptr(),
-            b, h, w, c, stride, _MODE[impl], bnd, 0 if act is None else act.g, int(act is not None and act.relu),
+            _plan_ints(plan), _MODE[impl], bnd, 0 if act is None else act.g, int(act is not None and act.relu),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(err, "dwconv.cu dw_conv_kernel")

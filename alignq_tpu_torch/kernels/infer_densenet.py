@@ -7,7 +7,10 @@ from the previous conv by the concat, so it cannot fold into a conv
 epilogue. It stays a per-channel f32 affine, run with the act map and the
 relu as one pass over the live-channel prefix of the stage buffer: the
 fused BN-act code kernel (kernels/quantize.py bn_act_codes), reading the
-buffer in place and writing contiguous codes for the conv. Every conv
+buffer in place and writing contiguous codes for the conv. Over the int8
+buffer a site's map is a table of the 256 values a channel, built on the
+site's first use and kept in the operands (bn_act_table,
+bn_act_codes_table). Every conv
 (stem, the 3x3 block convs, the 1x1 transitions) runs on K1
 (kernels/qmatmul.py) with the epilogue `acc * scale` (the scale a scalar
 act_scale * w_scale).
@@ -27,7 +30,7 @@ CPU in this graph.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, NamedTuple, Optional
+from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,7 +39,7 @@ from alignq_tpu_torch.interop import init_densenet_params
 from alignq_tpu_torch.kernels.convert import grid_max, quantize_weight_int8
 from alignq_tpu_torch.kernels.infer import S_IMG, _act_g, _linear_q
 from alignq_tpu_torch.kernels.qmatmul import act_map, int8_conv_packed, pack_conv_weights, requant_int8
-from alignq_tpu_torch.kernels.quantize import bn_act_codes
+from alignq_tpu_torch.kernels.quantize import BnActTable, bn_act_codes, bn_act_codes_table, bn_act_table
 
 C_ALIGN = 16  # the BN-act codes' channels are zero-padded to it: K1 copies 16-byte pieces
 
@@ -44,6 +47,16 @@ C_ALIGN = 16  # the BN-act codes' channels are zero-padded to it: K1 copies 16-b
 class BNAffine(NamedTuple):
     scale: torch.Tensor  # gamma / sqrt(var + eps)
     bias: torch.Tensor  # beta - mean * scale
+
+
+class PreActSite(NamedTuple):
+    """A pre-activation site's BN-act operands: s, b (c_live,) f32, and the
+    code tables of the maps it has run over an int8 buffer, by (impl, g,
+    relu), each built on first use."""
+
+    s: torch.Tensor
+    b: torch.Tensor
+    tables: Dict[Tuple[str, int, bool], BnActTable]
 
 
 class QConvPre(NamedTuple):
@@ -141,8 +154,8 @@ def pack_densenet40_operands(qparams: Dict[str, Any], stage_int8: bool = False) 
     """The forward's weights laid out once: K1Weights of every conv ('conv'
     of the stem, each block and transition; in stage_int8 mode the stem's
     and the blocks' with their requant reciprocals) and each pre-act site's
-    BN-act (s, b) ('bn'; in stage_int8 mode s = svec * bn.scale, the buffer
-    scale folded in), in a tree of the forward's order."""
+    PreActSite ('bn': s, b; in stage_int8 mode s = svec * bn.scale, the
+    buffer scale folded in), in a tree of the forward's order."""
     if stage_int8 and "stem_scale" not in qparams:
         raise ValueError("the stage_int8 forward needs convert_densenet40(stage_int8=True)")
 
@@ -150,7 +163,7 @@ def pack_densenet40_operands(qparams: Dict[str, Any], stage_int8: bool = False) 
         s = bn.scale.reshape(-1)
         if svec is not None:
             s = svec[:c] * s
-        return s.to(torch.float32).contiguous(), bn.bias.reshape(-1).to(torch.float32).contiguous()
+        return PreActSite(s.to(torch.float32).contiguous(), bn.bias.reshape(-1).to(torch.float32).contiguous(), {})
 
     stem_inv = _reciprocal(qparams["stem_scale"]) if stage_int8 else None
     out: Dict[str, Any] = {"conv": _k1_pre(qparams["conv1"], stem_inv, pad_cin=False), "stages": []}
@@ -173,6 +186,18 @@ def pack_densenet40_operands(qparams: Dict[str, Any], stage_int8: bool = False) 
     return out
 
 
+def _site_codes(buf: torch.Tensor, c_live: int, site: PreActSite, act, c_out: Optional[int] = None) -> torch.Tensor:
+    """bn -> act_q -> relu codes of buf's first c_live channels, zero-padded
+    to c_out: over an int8 buffer through the site's code table for act
+    (built on first use), over an f32 one by the arithmetic pass."""
+    if buf.dtype != torch.int8:
+        return bn_act_codes(buf, c_live, site.s, site.b, act, c_out)
+    key = (act.impl, act.g, act.relu)
+    if key not in site.tables:
+        site.tables[key] = bn_act_table(site.s, site.b, act)
+    return bn_act_codes_table(buf, c_live, site.tables[key], c_out)
+
+
 def _pre_act_conv(buf: torch.Tensor, c_live: int, sops: Dict[str, Any], act, padding: int,
                   mode: str) -> torch.Tensor:
     """bn -> act_q -> relu -> int8 conv (JAX's _pre_act_conv, and
@@ -180,7 +205,7 @@ def _pre_act_conv(buf: torch.Tensor, c_live: int, sops: Dict[str, Any], act, pad
     buf's first c_live channels, zero-padded to C_ALIGN, then K1 with the
     epilogue `mode` ('f32' acc * scale, or 'requant' onto the output's
     buffer grid, as JAX's _requant_write)."""
-    codes = bn_act_codes(buf, c_live, sops["bn"][0], sops["bn"][1], act, _c_pad(c_live))
+    codes = _site_codes(buf, c_live, sops["bn"], act, _c_pad(c_live))
     return int8_conv_packed(codes, sops["conv"], 1, padding, mode)
 
 
@@ -240,7 +265,7 @@ def densenet40_int8_head(qparams: Dict[str, Any], out: torch.Tensor, act_bits: i
     the head in float64, rounded once."""
     g = _act_g(act_bits)
     site = (pack_densenet40_operands(qparams, stage_int8) if operands is None else operands)["bn"]
-    codes = bn_act_codes(out, out.shape[-1], site[0], site[1], act_map(act_impl, int(g), out.device, relu=True))
+    codes = _site_codes(out, out.shape[-1], site, act_map(act_impl, int(g), out.device, relu=True))
     feat = torch.mean(codes.to(torch.float32) * (2.0 / g), dim=(1, 2))
     kern, bias = qparams["fc"]["kernel"], qparams["fc"]["bias"]
     return (feat.double() @ kern.double() + bias.double()).float()
@@ -259,7 +284,8 @@ def densenet40_int8_forward(
     (needs convert_densenet40(stage_int8=True)). operands:
     pack_densenet40_operands(qparams, stage_int8), made once; None lays the
     weights out here. On CUDA 39 K1 and 39 BN-act launches a forward at
-    depth 40."""
+    depth 40: the arithmetic form over the f32 buffer, the table form over
+    the int8 one (and, once per site and map, the table's build)."""
     ops = pack_densenet40_operands(qparams, stage_int8) if operands is None else operands
     for out in densenet40_int8_buffers(qparams, x, act_bits, act_impl, prealloc, stage_int8, ops):
         pass

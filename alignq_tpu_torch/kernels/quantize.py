@@ -19,13 +19,17 @@ accumulator. The same maps run on the card in K1's codes epilogue
 `bn_act_codes` is DenseNet's pre-activation site, bn -> act_q -> relu over
 the live-channel prefix of a stage buffer, as one pass: the fused BN-act
 code kernel of csrc/quantize.cu on a CUDA tensor, `bn_act_codes_plain` on
-a CPU tensor.
+a CPU tensor. Over an int8 buffer a site's map takes 256 values a channel:
+`bn_act_table` builds the site's codes of every value once, by
+`bn_act_codes` itself, and `bn_act_codes_table` gathers from it (the
+table kernel of csrc/quantize.cu on a CUDA tensor,
+`bn_act_codes_table_plain` on a CPU tensor).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,8 +38,11 @@ from alignq_tpu_torch.kernels import _build
 from alignq_tpu_torch.quant.cdf import _INV_SQRT2, erf_f32, erf_grid_boundaries, erf_sqrt2, fma_f32
 
 KERNEL = "cdf_quantize_int8"  # launch-counter key
-BN_ACT = "bn_act_codes"  # launch-counter key of the BN-act code kernel
+BN_ACT = "bn_act_codes"  # launch-counter key of the BN-act kernels, both forms
+BN_ACT_ARITH = BN_ACT + ":arith"  # ... of the arithmetic form (bn_act_codes)
+BN_ACT_TABLE = BN_ACT + ":table"  # ... of the table form (bn_act_codes_table)
 Q_MAX = 127.0
+TABLE_CHANNELS = 128  # a code table's pitch is a multiple of this: csrc/quantize.cu's chunk, TB_CH
 _BN_ACT_MODE = {"poly": 3, "erf": 4, "bins": 5}
 
 # A&S 7.1.26, each constant rounded once to f32 as JAX casts a Python float
@@ -77,6 +84,8 @@ def _lib() -> ctypes.CDLL:
         lib.cdf_quant_launch.restype = i
         lib.bn_act_launch.argtypes = [p, i, p, p, p, ctypes.c_longlong, i, i, i, i, p, i, i, p]
         lib.bn_act_launch.restype = i
+        lib.bn_table_launch.argtypes = [p, p, i, p, ctypes.c_longlong, i, i, i, p]
+        lib.bn_table_launch.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -161,9 +170,7 @@ def bn_act_codes(x: torch.Tensor, c_live: int, s: torch.Tensor, b: torch.Tensor,
         raise TypeError(f"bn_act_codes takes an f32 or int8 buffer, got {x.dtype}")
     if act.impl not in _BN_ACT_MODE:
         raise ValueError(f"bn_act_codes maps poly, erf or bins, got {act.impl!r}")
-    ld = x.shape[-1]
-    if not (0 < c_live <= min(ld, c_out)) or c_live % 4 or c_out % 4 or ld % 4:
-        raise ValueError(f"c_live={c_live}, c_out={c_out}, pitch {ld}: multiples of 4 with c_live <= both")
+    _check_prefix(x, c_live, c_out)
     if s.shape != (c_live,) or b.shape != (c_live,):
         raise ValueError(f"s and b must be ({c_live},), got {tuple(s.shape)} and {tuple(b.shape)}")
     if x.device.type == "cpu":
@@ -178,7 +185,18 @@ def bn_act_codes(x: torch.Tensor, c_live: int, s: torch.Tensor, b: torch.Tensor,
     if out.numel():
         _bn_act_launch(x, c_live, s, b, act, out)
         _build.launches[BN_ACT] += 1
+        _build.launches[BN_ACT_ARITH] += 1
     return out
+
+
+def _check_prefix(x: torch.Tensor, c_live: int, c_out: int) -> None:
+    """The BN-act kernels' range: a live prefix of c_live <= min(ld, c_out)
+    channels of x (..., ld), multiples of 4, under 2^30 rows."""
+    ld = x.shape[-1]
+    if not (0 < c_live <= min(ld, c_out)) or c_live % 4 or c_out % 4 or ld % 4:
+        raise ValueError(f"c_live={c_live}, c_out={c_out}, pitch {ld}: multiples of 4 with c_live <= both")
+    if x.numel() // ld >= 2**30:
+        raise ValueError(f"{x.numel() // ld} rows: the BN-act kernels index rows with 32-bit ints")
 
 
 def _bn_act_launch(x, c_live: int, s, b, act, out) -> None:
@@ -195,3 +213,82 @@ def _bn_act_launch(x, c_live: int, s, b, act, out) -> None:
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(err, "quantize.cu bn_act_kernel")
+
+
+class BnActTable(NamedTuple):
+    """A pre-activation site's codes of every int8 input value: codes
+    (256, c_pad) int8, codes[v & 255, c] the site's code of the value v in
+    channel c < c_live (c_pad: c_live rounded up to TABLE_CHANNELS, the
+    columns past c_live zero); and the (s, b, act) it was built from."""
+
+    codes: torch.Tensor
+    s: torch.Tensor
+    b: torch.Tensor
+    act: Any
+
+
+def _table_pitch(c_live: int) -> int:
+    return -(-c_live // TABLE_CHANNELS) * TABLE_CHANNELS
+
+
+def bn_act_table(s: torch.Tensor, b: torch.Tensor, act) -> BnActTable:
+    """The code table of a site (s, b (c_live,) f32, act its map) over an
+    int8 buffer: bn_act_codes over a (256, c_pad) int8 tensor whose row r
+    holds the value int8(r) in every channel, its first c_live channels
+    live. So the table is bn_act_codes' own codes, on s's device (the
+    arithmetic kernel on a card, the plain version on the CPU). Built once
+    a site and map."""
+    c_live = s.shape[0]
+    c_pad = _table_pitch(c_live)
+    values = torch.arange(256, device=s.device).to(torch.uint8).view(torch.int8)  # r -> int8(r)
+    codes = bn_act_codes(values[:, None].expand(256, c_pad).contiguous(), c_live, s, b, act, c_pad)
+    return BnActTable(codes, s, b, act)
+
+
+def bn_act_codes_table_plain(x: torch.Tensor, c_live: int, table: BnActTable, c_out: int) -> torch.Tensor:
+    """The table kernel in plain PyTorch: each live code gathered from the
+    table by its byte and its channel, zero-padded to c_out channels."""
+    idx = x[..., :c_live].to(torch.int64) & 255
+    codes = table.codes[idx, torch.arange(c_live, device=x.device)]
+    return torch.nn.functional.pad(codes, (0, c_out - c_live))
+
+
+def bn_act_codes_table(x: torch.Tensor, c_live: int, table: BnActTable, c_out: Optional[int] = None) -> torch.Tensor:
+    """A pre-activation site over an int8 stage buffer x (..., ld) through
+    its code table (bn_act_table): int8 (..., c_out) codes, the same as
+    bn_act_codes(x, c_live, table.s, table.b, table.act, c_out). The table
+    kernel of csrc/quantize.cu on a CUDA tensor, reading the prefix in
+    place; bn_act_codes_table_plain on a CPU tensor."""
+    c_out = c_live if c_out is None else c_out
+    if x.dtype != torch.int8 or table.codes.dtype != torch.int8:
+        raise TypeError(f"the table form takes an int8 buffer and table, got {x.dtype} and {table.codes.dtype}")
+    if table.s.shape != (c_live,) or table.codes.shape != (256, _table_pitch(c_live)):
+        raise ValueError(f"a table of {c_live} channels, (256, {_table_pitch(c_live)}), expected; got one of "
+                         f"{table.s.shape[0]}, {tuple(table.codes.shape)}")
+    _check_prefix(x, c_live, c_out)
+    if x.device.type == "cpu":
+        return bn_act_codes_table_plain(x, c_live, table, c_out)
+    x = x.contiguous()
+    if x.data_ptr() % 16 or table.codes.data_ptr() % 16:
+        raise ValueError("the BN-act table kernel needs a 16-byte aligned buffer and table")
+    if x.device != table.codes.device:
+        raise ValueError("the buffer and the table must lie on one device")
+    out = torch.empty((*x.shape[:-1], c_out), dtype=torch.int8, device=x.device)
+    if out.numel():
+        _bn_table_launch(x, c_live, table, out)
+        _build.launches[BN_ACT] += 1
+        _build.launches[BN_ACT_TABLE] += 1
+    return out
+
+
+def _bn_table_launch(x, c_live: int, table: BnActTable, out) -> None:
+    """One launch of csrc/quantize.cu's bn_table_kernel on checked operands
+    (x int8 contiguous and 16-byte aligned, the table's codes (256, c_pad),
+    out int8 (..., c_out)). Counts nothing (the wrapper does)."""
+    lib = _lib()
+    with _build.on_device(x.device):
+        err = lib.bn_table_launch(
+            x.data_ptr(), table.codes.data_ptr(), table.codes.shape[1], out.data_ptr(), x.numel() // x.shape[-1],
+            x.shape[-1], c_live, out.shape[-1], torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(err, "quantize.cu bn_table_kernel")

@@ -206,6 +206,10 @@ def engine_from_artifact(
     bins_int = str(np.asarray(meta0.get("act_impl", ""))) == "bins_int"
     if bins_int and packed:
         raise ValueError("bins_int + packed_int4 serving not supported")
+    if bins_int and "act_bits" not in meta0:
+        # the cutpoints and the forward must share one grid: refuse here,
+        # not at the first request
+        raise ValueError("a bins_int artifact must record act_bits in its meta")
     template = family.template(meta0, dev)
     fwd = family.forward(meta0)
     qparams, _ = load_int8_artifact(path, pack_qparams_int4(template) if packed else template)
@@ -218,6 +222,6 @@ def engine_from_artifact(
 
         # derived from the loaded scale and bias, so that the file's schema
         # stays the same for every family (export saves them unaugmented)
-        qparams = augment_int_cutpoints(qparams, int(np.asarray(meta0.get("act_bits", 4))))
+        qparams = augment_int_cutpoints(qparams, int(np.asarray(meta0["act_bits"])))
     fwd = functools.partial(fwd, operands=family.operands(qparams, meta0))
     return BatchedInferenceEngine(fwd, qparams, batch_size, family.input_shape(meta0), device=dev)

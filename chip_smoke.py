@@ -61,10 +61,13 @@ Phases, in order; any failure raises and the script exits non-zero:
         and gather no taps;
  9. times from CUDA events (median of 20 after warm-up): the forward at
     batches 2048 and 256 on both routes, and each kernel at each path
-    shape of batches 2048 and 256 beside its plain version, its bound
+    shape of batches 2048 and 256 (its device time from a cold L2,
+    utils/cuda_timing.py graph_ms: 20 launches captured in a CUDA graph,
+    each after a read that evicts the L2, and replayed, so that no
+    launch's host cost is in it) beside its plain version, its bound
     (conv_bound for K1: the input read once) and, for K1, torch._int_mm's
-    time on the pre-gathered (M, Kp) matrix (timed only; no one PyTorch
-    call computes K2 or K3);
+    time on the pre-gathered (M, Kp) matrix, taken the same way (timed
+    only; no one PyTorch call computes K2 or K3);
 10. QAT train-step times (CUDA events, median of 20 after warm-up, TF32
     asserted off): ResNet-20 W8A8 erf with ADMM at batch 128, and erf and
     poly without ADMM at batch 1024; the batch-128 step's device busy
@@ -72,11 +75,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 11. the CIFAR deploy families, DenseNet-40 (f32 and int8 stage buffers)
     and MobileNet-V2 at full width from seeded random weights: each graph's
     forward at batches 256 and 3 on the card with every K1, depthwise
-    (csrc/dwconv.cu) and BN-act (csrc/quantize.cu) launch recorded, and
-    every distinct launch (69 a DenseNet buffer, 40 for MobileNet-V2, at
-    each batch; K1's streamed 3x3, N blocks, relu'd codes and int8 requant
-    among them) held against its plain version on its recorded operands,
-    like K1's in phase 3 (requant identical);
+    (csrc/dwconv.cu) and BN-act (csrc/quantize.cu: the arithmetic form over
+    the f32 buffer and to build the int8 buffer's code tables, the table
+    form over the int8 buffer) launch recorded, and every distinct launch
+    (69 a DenseNet buffer, and 39 table builds over the int8 one; 40 for
+    MobileNet-V2; at each batch; K1's streamed 3x3, N blocks, relu'd codes
+    and int8 requant among them) held against its plain version on its
+    recorded operands, like K1's in phase 3 (requant identical; the table
+    form against the arithmetic's plain version, bn_act_codes_plain, on the
+    s, b and map its table was built from);
 12. the three graphs at batch 8 on the card against the CPU plain path, on
     qparams converted on the CPU: every DenseNet stage buffer and
     MobileNet block stream bit for bit, logits within 1e-5;
@@ -85,18 +92,21 @@ Phases, in order; any failure raises and the script exits non-zero:
     by serve.engine_from_artifact at engine batch 16 with the counts zeroed
     before and read after; each engine's final stream bit for bit and its
     logits within 1e-5 of the CPU plain path; 39 K1 and 39 BN-act launches
-    a DenseNet forward, 50 K1 and 17 depthwise a MobileNet one, no tap
-    gathered;
+    a DenseNet forward (table form over the int8 buffer, its 39 tables
+    built once; arithmetic over the f32 one), 50 K1 and 17 depthwise a
+    MobileNet one, no tap gathered;
 14. times: each graph's forward at batches 256 and 1024 (CUDA events),
     its launches a forward and, at 256, its idle share under
     torch.profiler; each distinct launch at batch 256 beside its plain
-    version, its bound and the library call of the same product
-    (torch._int_mm on the gathered taps for K1, F.conv2d with groups=C on
-    f32 for the depthwise conv, none for the BN-act pass);
+    version, its bound and the library call of the same product, both
+    timed as in phase 9 (torch._int_mm on the gathered taps for K1,
+    F.conv2d with groups=C on f32 for the depthwise conv, none for either
+    BN-act form);
 15. one JSON line of the kernels (K1 and K3: times summed over the
     launches of one slice-route forward at the serving batch; K2: over one
     launch at each act-site size of that batch; K1 on DenseNet-40 and
-    MobileNet-V2, the depthwise kernel and the BN-act kernel: over one
+    MobileNet-V2, the depthwise kernel and the BN-act kernel's two forms
+    (table on the int8 buffer, arithmetic on the f32 one): over one
     batch-256 forward of their graph, launches from phase 13), the card
     line, and the final JSON line.
 
@@ -111,6 +121,8 @@ import sys
 import time
 from pathlib import Path
 
+from alignq_tpu_torch.utils.cuda_timing import RUNS, graph_ms, median_ms, profile
+
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
@@ -120,7 +132,6 @@ PEAK_F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 K2_OPS_PER_ELEMENT = 24
 BATCH = 2048  # bench.py's headline batch
 SERVE_BATCH = 256  # the engine's batch on the main path
-RUNS, WARMUP = 20, 3
 SEED = 0
 
 
@@ -130,26 +141,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def median_ms(fn, runs=RUNS, warmup=WARMUP, per_call=1):
-    """Median over `runs` of the CUDA-event time of `per_call` back-to-back
-    calls of fn, divided by per_call."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per_call):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_call)
-    return statistics.median(times)
 
 
 def conv_shapes(batch):
@@ -395,35 +386,16 @@ def qat_times(dev, card):
 
 
 def profile_step(fn, card, label="QAT step batch 128 ADMM", iters=5):
-    """Device busy time, idle share (1 - busy / wall) and the five largest
-    kernels of fn, per call, under torch.profiler after warm-up."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages() if e.device_type == cuda and e.self_device_time_total > 0]
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / iters / 1e3
-    if busy_ms == 0:
-        raise AssertionError("the profiler recorded no device time")
-    launches = sum(e.count for e in kernels) // iters
-    top = [{"kernel": e.key[:100], "device_ms": e.self_device_time_total / iters / 1e3, "calls": e.count // iters}
-           for e in kernels[:5]]
-    print(f"{label} under torch.profiler: wall {wall_ms:.3f} ms a call, device busy {busy_ms:.3f} ms "
-          f"(idle share {1 - busy_ms / wall_ms:.3f}), {launches} kernel launches a call [{card}]", flush=True)
-    for row in top:
+    """cuda_timing.profile of fn, printed: wall, host issue and busy time
+    a call, idle share, launches and the five largest kernels."""
+    r = profile(fn, iters)
+    print(f"{label} under torch.profiler: wall {r['wall_ms']:.3f} ms a call, device busy {r['busy_ms']:.3f} ms "
+          f"(idle share {r['idle_share']:.3f}), host issue {r['host_ms']:.3f} ms "
+          f"({r['host_ms_per_launch'] * 1e3:.1f} us a launch), {r['launches_per_step']} kernel launches a call "
+          f"[{card}]", flush=True)
+    for row in r["top5"]:
         print(f"  {row['device_ms']:9.4f} ms {row['calls']:5d} calls  {row['kernel']}", flush=True)
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-            "launches_per_step": launches, "top5": top}
+    return r
 
 
 # ---------------------------------------------- the CIFAR deploy families
@@ -457,32 +429,37 @@ def family_configs():
 
 
 def record_launches(fn):
-    """Run fn with every K1, depthwise and BN-act launch recorded: a list
-    of (kind, operands) in launch order. The wrappers count as always."""
+    """Run fn with every K1, depthwise and BN-act (both forms) launch
+    recorded: a list of (kind, operands) in launch order. The wrappers
+    count as always."""
     from alignq_tpu_torch.kernels import dwconv as DWm
     from alignq_tpu_torch.kernels import qmatmul as K1
     from alignq_tpu_torch.kernels import quantize as K2
 
     rec = []
-    saved = (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch)
+    saved = (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch)
 
     def k1(x, op, plan, out, mode, act=None):
         rec.append(("K1", (x, op, plan, mode, act)))
         saved[0](x, op, plan, out, mode, act)
 
-    def dw(x, op, stride, impl, act, out):
-        rec.append(("dw", (x, op, stride, impl, act)))
-        saved[1](x, op, stride, impl, act, out)
+    def dw(x, op, plan, impl, act, out):
+        rec.append(("dw", (x, op, plan, impl, act)))
+        saved[1](x, op, plan, impl, act, out)
 
     def bn(x, c_live, s, b, act, out):
         rec.append(("bn", (x, c_live, s, b, act, out.shape[-1])))
         saved[2](x, c_live, s, b, act, out)
 
-    K1._k1_launch, DWm._dw_launch, K2._bn_act_launch = k1, dw, bn
+    def bn_table(x, c_live, table, out):
+        rec.append(("bn_table", (x, c_live, table, None, table.act, out.shape[-1])))
+        saved[3](x, c_live, table, out)
+
+    K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch = k1, dw, bn, bn_table
     try:
         fn()
     finally:
-        K1._k1_launch, DWm._dw_launch, K2._bn_act_launch = saved
+        K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch = saved
     return rec
 
 
@@ -494,7 +471,7 @@ def launch_key(kind, args):
         x, op, plan, mode, _ = args
         return (kind, tuple(x.shape), tuple(op.wt.shape), plan.ksize, plan.stride, mode, *tail)
     if kind == "dw":
-        return (kind, tuple(args[0].shape), args[2], args[3], *tail)
+        return (kind, tuple(args[0].shape), args[2].stride, args[3], *tail)
     x, c_live, _, _, _, c_out = args
     return (kind, tuple(x.shape), str(x.dtype), c_live, c_out, *tail)
 
@@ -533,11 +510,15 @@ def check_launch(kind, args):
             got, want = K1.int8_conv_packed(x, op, plan.stride, plan.pad, mode), \
                 K1.int8_conv_reference(x, op, plan.stride, plan.pad, mode)
     elif kind == "dw":
-        x, op, stride, impl, act = args
-        got, want = DWm.dw_conv(x, op, stride, impl, act), DWm.dw_conv_reference(x, op, stride, impl, act)
-    else:
+        x, op, plan, impl, act = args
+        got, want = DWm.dw_conv(x, op, plan.stride, impl, act), DWm.dw_conv_reference(x, op, plan.stride, impl, act)
+    elif kind == "bn":
         x, c_live, sv, bv, act, c_out = args
         got, want = K2.bn_act_codes(x, c_live, sv, bv, act, c_out), K2.bn_act_codes_plain(x, c_live, sv, bv, act, c_out)
+    else:  # the table form, against the arithmetic's plain version on its table's (s, b, map)
+        x, c_live, table, _, act, c_out = args
+        got = K2.bn_act_codes_table(x, c_live, table, c_out)
+        want = K2.bn_act_codes_plain(x, c_live, table.s, table.b, act, c_out)
     torch.cuda.synchronize()
     if got.dtype == torch.float32:
         diff = f32_mismatches(got, want)
@@ -554,11 +535,13 @@ def check_launch(kind, args):
 
 def time_launch(kind, args):
     """(ms, plain_ms, bound_ms, bound_by, library_ms) of one launch at its
-    recorded operands: the raw launch (CUDA events, median of 20 runs of 5),
-    its plain version, its bound (each input read once, each output written
-    once), and one PyTorch call of the same product where there is one
-    (K1: torch._int_mm on the gathered taps; depthwise: F.conv2d with
-    groups=C on f32, TF32 off; the BN-act pass: none)."""
+    recorded operands: the raw launch's device time from a cold L2
+    (graph_ms), its plain version, its bound (each input read once, each
+    output written once), and one PyTorch call of the same product where
+    there is one, also by graph_ms (K1: torch._int_mm on the gathered taps;
+    depthwise: F.conv2d with groups=C on f32, TF32 off; the BN-act pass,
+    either form: none). Both BN-act forms are read against the same bound:
+    the live prefix read, the codes written, BN_ACT_OPS an element."""
     import torch
 
     from alignq_tpu_torch.kernels import dwconv as DWm
@@ -569,33 +552,38 @@ def time_launch(kind, args):
         x, op, plan, mode, act = args
         out_dtype = torch.float32 if mode == "f32" else torch.int8
         out = torch.empty((plan.B * plan.Ho * plan.Wo, op.wt.shape[0]), device=x.device, dtype=out_dtype)
-        ms = median_ms(lambda: K1._k1_launch(x, op, plan, out, mode, act), per_call=5)
+        ms = graph_ms(lambda: K1._k1_launch(x, op, plan, out, mode, act))
         impl = act.impl if act is not None else mode
         plain_ms = median_ms(lambda: K1.int8_conv_reference(x, op, plan.stride, plan.pad, impl, act), runs=3, warmup=1)
         b, h, w, c = x.shape
         b_ms, b_by = conv_bound(b, h, w, c, plan.ksize, plan.stride, op.n, 4 if mode == "f32" else 1)
         cols = K1.gather_taps(x, plan.ksize, plan.stride, plan.pad, K1.K_MULT)
         wmat = op.wt.t().contiguous()
-        lib_ms = median_ms(lambda: torch._int_mm(cols, wmat), per_call=5)
+        lib_ms = graph_ms(lambda: torch._int_mm(cols, wmat))
         del cols
     elif kind == "dw":
-        x, op, stride, impl, act = args
+        x, op, plan, impl, act = args
         b, h, w, c = x.shape
-        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-        out = torch.empty((b, ho, wo, c), device=x.device, dtype=torch.float32 if impl == "f32" else torch.int8)
-        ms = median_ms(lambda: DWm._dw_launch(x, op, stride, impl, act, out), per_call=5)
+        stride = plan.stride
+        dtype = torch.float32 if impl == "f32" else torch.int8
+        out = torch.empty((b, plan.Ho, plan.Wo, c), device=x.device, dtype=dtype)
+        ms = graph_ms(lambda: DWm._dw_launch(x, op, plan, impl, act, out))
         plain_ms = median_ms(lambda: DWm.dw_conv_reference(x, op, stride, impl, act), runs=3, warmup=1)
         b_ms, b_by = bound(b * h * w * c + 17 * c + out.numel() * out.element_size(), DW_OPS * out.numel(),
                            PEAK_F32_OPS_PER_S)
         xf = x.permute(0, 3, 1, 2).float().contiguous()
         wf = op.w.t().reshape(c, 1, 3, 3).float().contiguous()
-        lib_ms = median_ms(lambda: torch.nn.functional.conv2d(xf, wf, stride=stride, padding=1, groups=c), per_call=5)
+        lib_ms = graph_ms(lambda: torch.nn.functional.conv2d(xf, wf, stride=stride, padding=1, groups=c))
         del xf
     else:
         x, c_live, sv, bv, act, c_out = args
         out = torch.empty((*x.shape[:-1], c_out), device=x.device, dtype=torch.int8)
-        ms = median_ms(lambda: K2._bn_act_launch(x, c_live, sv, bv, act, out), per_call=5)
-        plain_ms = median_ms(lambda: K2.bn_act_codes_plain(x, c_live, sv, bv, act, c_out), runs=3, warmup=1)
+        if kind == "bn":
+            ms = graph_ms(lambda: K2._bn_act_launch(x, c_live, sv, bv, act, out))
+            plain_ms = median_ms(lambda: K2.bn_act_codes_plain(x, c_live, sv, bv, act, c_out), runs=3, warmup=1)
+        else:
+            ms = graph_ms(lambda: K2._bn_table_launch(x, c_live, sv, out))
+            plain_ms = median_ms(lambda: K2.bn_act_codes_table_plain(x, c_live, sv, c_out), runs=3, warmup=1)
         m = x.numel() // x.shape[-1]
         b_ms, b_by = bound(m * c_live * x.element_size() + 8 * c_live + m * c_out,
                            BN_ACT_OPS.get(act.impl, 4) * m * c_live, PEAK_F32_OPS_PER_S)
@@ -609,7 +597,8 @@ def family_kernel_checks(dev, batches=(256, 3)):
     ({(label, batch): distinct launches}, max abs error by kind, counts)."""
     import torch
 
-    out, err, counts = {}, {"K1": 0.0, "dw": 0.0, "bn": 0.0}, {}
+    kinds = ("K1", "dw", "bn", "bn_table")
+    out, err, counts = {}, dict.fromkeys(kinds, 0.0), {}
     for label, build, fwd, _, pack, kw in family_configs():
         for batch in batches:
             _, (qp, x) = build(batch, device=dev, **kw)
@@ -621,7 +610,7 @@ def family_kernel_checks(dev, batches=(256, 3)):
                 diff, numel, e = check_launch(kind, args)
                 err[kind] = max(err[kind], e)
                 counts[f"{label} batch {batch} {key}"] = diff
-            n_by = {k: sum(c for (kk, _), c in launches.values() if kk == k) for k in ("K1", "dw", "bn")}
+            n_by = {k: sum(c for (kk, _), c in launches.values() if kk == k) for k in kinds}
             n_diff = sum(counts[f"{label} batch {batch} {k}"] for k in launches)
             print(f"{label} batch {batch}: {len(rec)} launches ({n_by}), {len(launches)} distinct, each held against "
                   f"its plain version: {n_diff} differing elements", flush=True)
@@ -736,9 +725,19 @@ def deploy_families(dev, card, repo, details, phase):
               f"{[len(r) for r in freqs]} answered, logits within {serve_err:.3g} of the CPU plain path, the final "
               f"stream identical; launches {launched}", flush=True)
     n_dn = fam_serving["densenet40 stage_int8"]["launches"]
+    n_f32 = fam_serving["densenet40 f32"]["launches"]
     n_mb = fam_serving["mobilenetv2"]["launches"]
-    if not (n_dn.get(K1.KERNEL, 0) and n_dn[K1.KERNEL] % 39 == 0 and n_dn.get(K2.BN_ACT) == n_dn[K1.KERNEL]):
-        raise AssertionError(f"DenseNet-40 serving: launches {n_dn}, expected 39 K1 and 39 BN-act a forward")
+    # the int8 buffer: 39 table launches a forward, and its 39 tables built
+    # once (arithmetic launches at the first forward); the f32 buffer: 39
+    # arithmetic launches a forward, no table
+    if not (n_dn.get(K1.KERNEL, 0) and n_dn[K1.KERNEL] % 39 == 0 and n_dn.get(K2.BN_ACT_TABLE) == n_dn[K1.KERNEL]
+            and n_dn.get(K2.BN_ACT_ARITH) == 39):
+        raise AssertionError(f"DenseNet-40 int8 serving: launches {n_dn}, expected 39 K1 and 39 table launches a "
+                             "forward and 39 table builds")
+    if not (n_f32.get(K1.KERNEL, 0) and n_f32[K1.KERNEL] % 39 == 0
+            and n_f32.get(K2.BN_ACT_ARITH) == n_f32[K1.KERNEL] and not n_f32.get(K2.BN_ACT_TABLE)):
+        raise AssertionError(f"DenseNet-40 f32 serving: launches {n_f32}, expected 39 K1 and 39 arithmetic BN-act "
+                             "launches a forward")
     if not (n_mb.get(K1.KERNEL, 0) and n_mb[K1.KERNEL] * 17 == n_mb.get(DWm.DW, 0) * 50):
         raise AssertionError(f"MobileNet-V2 serving: launches {n_mb}, expected 50 K1 and 17 depthwise a forward")
     details["family_serving"] = fam_serving
@@ -1121,17 +1120,17 @@ def main() -> int:
         m = plan.B * plan.Ho * plan.Wo
         out_c = torch.empty((m, op.wt.shape[0]), device=dev, dtype=torch.int8)
         out_f = torch.empty((m, op.wt.shape[0]), device=dev)
-        code_ms = {impl: median_ms(lambda: K1._k1_launch(xc, op, plan, out_c, impl, K1.act_map(impl, 127, dev)),
-                                   per_call=5)
+        maps = {impl: K1.act_map(impl, 127, dev) for impl in ("poly", "erf")}
+        code_ms = {impl: graph_ms(lambda: K1._k1_launch(xc, op, plan, out_c, impl, maps[impl]))
                    for impl in ("poly", "erf")}
-        f32_ms = median_ms(lambda: K1._k1_launch(xc, op, plan, out_f, "f32"), per_call=5)
+        f32_ms = graph_ms(lambda: K1._k1_launch(xc, op, plan, out_f, "f32"))
         plain_code_ms = {impl: median_ms(lambda: K1.int8_conv_reference(x, op, stride, pad, impl,
                                                                            K1.act_map(impl, 127, dev)), runs=5)
                          for impl in ("poly", "erf")}
         # torch._int_mm on the pre-gathered (M, Kp) matrix: the raw int32 product
         cols = K1.gather_taps(xc, ksize, stride, pad, K1.K_MULT)
         wmat = op.wt[:n].t().contiguous()
-        lib_ms = median_ms(lambda: torch._int_mm(cols, wmat), per_call=5)
+        lib_ms = graph_ms(lambda: torch._int_mm(cols, wmat))
         del cols
         bc_ms, bc_by = conv_bound(b, h, w, cin, ksize, stride, n, 1)
         bf_ms, _ = conv_bound(b, h, w, cin, ksize, stride, n, 4)
@@ -1151,7 +1150,7 @@ def main() -> int:
             continue
         n = x.numel()
         out = torch.empty(x.shape, device=dev, dtype=torch.int8)
-        ms = median_ms(lambda: K2._k2_launch(x, out), per_call=5)
+        ms = graph_ms(lambda: K2._k2_launch(x, out))
         plain_ms = median_ms(lambda: K2.cdf_quantize_int8_plain(x), runs=5)
         b_ms, b_by = bound(5 * n, K2_OPS_PER_ELEMENT * n, PEAK_F32_OPS_PER_S)
         rows[K2.KERNEL].append(dict(batch=batch, shape=name, n=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -1161,7 +1160,7 @@ def main() -> int:
     for (batch, name), (stream, wt, scale, bias, ms_, hw) in k3_ops.items():
         mt, c = stream.numel() // stream.shape[-1], stream.shape[-1]
         out = torch.empty_like(stream)
-        ms = median_ms(lambda: K3._stage_launch(stream, out, wt, scale, bias, ms_, 127), per_call=5)
+        ms = graph_ms(lambda: K3._stage_launch(stream, out, wt, scale, bias, ms_, 127))
         plain_ms = median_ms(lambda: K3.stage_identity_blocks_nhwc_reference(stream, wt, scale, bias, ms_, 127))
         nb = len(ms_)
         b_ms, b_by = bound(2 * 2 * c * mt + nb * 2 * (9 * c * c + 8 * c), nb * 2 * 2 * mt * 9 * c * c)
@@ -1237,8 +1236,10 @@ def main() -> int:
          "mobilenetv2", "K1", K1.KERNEL),
         (DWm.DW, "alignq_tpu_torch/csrc/dwconv.cu", "alignq_tpu/kernels/infer_mobilenet.py:39", "mobilenetv2", "dw",
          DWm.DW),
-        (K2.BN_ACT, "alignq_tpu_torch/csrc/quantize.cu", "alignq_tpu/kernels/infer_densenet.py:125",
-         "densenet40 stage_int8", "bn", K2.BN_ACT),
+        (K2.BN_ACT_TABLE, "alignq_tpu_torch/csrc/quantize.cu", "alignq_tpu/kernels/infer_densenet.py:125",
+         "densenet40 stage_int8", "bn_table", K2.BN_ACT_TABLE),
+        (K2.BN_ACT_ARITH, "alignq_tpu_torch/csrc/quantize.cu", "alignq_tpu/kernels/infer_densenet.py:125",
+         "densenet40 f32", "bn", K2.BN_ACT_ARITH),
     ):
         kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": fam_serving[label]["launches"].get(counter, 0), "max_abs_err": fam_err[kind],

@@ -181,6 +181,22 @@ def test_registry_refusals(tmp_path):
     assert {"resnet20", "resnet56", "densenet40", "mobilenetv2"} < set(DEPLOY_FAMILIES)
 
 
+def test_bins_int_artifact_without_act_bits_refused_at_load(tmp_path):
+    """A bins_int artifact whose meta drops act_bits is refused by
+    engine_from_artifact at load: its cutpoints' grid would not be the
+    forward's."""
+    from alignq_tpu_torch import interop
+    from alignq_tpu_torch.kernels.infer import convert_preact_resnet
+
+    params, stats = random_preact_tree(20, seed=7)
+    tq = convert_preact_resnet(*interop.params_from_numpy(params, stats, "cpu"), weight_bits=4, act_bits=4)
+    path = str(tmp_path / "bins_int_no_bits.npz")
+    tart.save_int8_artifact(path, tq, meta={"model": "resnet20", "weight_bits": 4, "act_impl": "bins_int",
+                                            "stream": "int16"})
+    with pytest.raises(ValueError, match="act_bits"):
+        engine_from_artifact(path, batch_size=2, device="cpu")
+
+
 @pytest.mark.parametrize("name", ["resnet20", "resnet56", "densenet40", "mobilenetv2"])
 def test_port_templates_have_jax_keys(name):
     """The port's template of each family and a tree JAX's converter makes

@@ -344,9 +344,13 @@ def test_conv_new_forms_vs_plain(cuda, form):
 
 
 @pytest.mark.parametrize("c,hw,stride,batch", [(32, 32, 1, 3), (96, 32, 1, 2), (144, 32, 2, 2), (192, 16, 2, 3),
-                                               (384, 8, 1, 2), (576, 8, 2, 3), (960, 4, 1, 2), (16, 5, 2, 1)])
+                                               (384, 8, 1, 2), (576, 8, 2, 3), (960, 4, 1, 2), (16, 5, 2, 1),
+                                               (4, 8, 1, 1), (4, 9, 2, 2), (100, 11, 1, 1), (20, 7, 2, 1),
+                                               (144, 9, 2, 1), (960, 4, 1, 300), (144, 32, 1, 64)])
 def test_dw_conv_vs_plain(cuda, c, hw, stride, batch):
-    """The depthwise kernel against its plain version in every epilogue."""
+    """The depthwise kernel against its plain version in every epilogue, at
+    the graph's shapes and the edges: C = 4, C not a multiple of 16 or of
+    the chunk, batch 1, odd sizes at stride 2, a full-card plan."""
     from alignq_tpu_torch.kernels import dwconv
 
     rng = np.random.RandomState(c + hw + stride)
@@ -369,9 +373,25 @@ def test_dw_conv_vs_plain(cuda, c, hw, stride, batch):
         _assert_codes_close(got, dwconv.dw_conv_reference(x, op, stride, act=act))
 
 
+def test_dw_conv_wide_image(cuda):
+    """Rows of 400 outputs: runs longer than 8 and bands over 48 KB of
+    shared memory."""
+    from alignq_tpu_torch.kernels import dwconv
+
+    rng = np.random.RandomState(600)
+    x = _i8(rng, (128, 3, 400, 64)).to(cuda)
+    op = dwconv.pack_dw_weights(_i8(rng, (3, 3, 1, 64)).to(cuda), torch.ones(64, device=cuda),
+                                torch.zeros(64, device=cuda))
+    assert dwconv.device_plan(x, 1).smem > 48 * 1024
+    got = dwconv.dw_conv(x, op, 1, "int32")
+    torch.cuda.synchronize()
+    assert torch.equal(got, dwconv.dw_conv_reference(x, op, 1, "int32"))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
 @pytest.mark.parametrize("ld,c_live,c_out", [(168, 24, 32), (168, 156, 160), (312, 300, 304), (456, 456, 456),
-                                             (456, 312, 320), (40, 12, 12)])
+                                             (456, 312, 320), (40, 12, 12), (168, 4, 16), (168, 168, 176),
+                                             (44, 20, 24), (48, 44, 44)])
 def test_bn_act_codes_vs_plain(cuda, dtype, ld, c_live, c_out):
     """The fused BN-act code kernel over the live prefix of a stage buffer
     (its pitch ld wider than c_live), f32 values or int8 codes, against its
@@ -386,13 +406,38 @@ def test_bn_act_codes_vs_plain(cuda, dtype, ld, c_live, c_out):
     b = torch.from_numpy((rng.randn(c_live) * 0.5).astype(np.float32)).to(cuda)
     for act in (act_map("erf", 127, cuda, relu=True), act_map("poly", 127, cuda, relu=True),
                 act_map("bins", 7, cuda, relu=True), act_map("erf", 127, cuda)):
-        before = _build.launches[K2.BN_ACT]
+        before = _build.launches[K2.BN_ACT_ARITH]
         got = K2.bn_act_codes(x, c_live, s, b, act, c_out)
         torch.cuda.synchronize()
-        assert _build.launches[K2.BN_ACT] == before + 1
+        assert _build.launches[K2.BN_ACT_ARITH] == before + 1
         assert got.shape == (3, 8, 8, c_out) and got.dtype == torch.int8
         assert not got[..., c_live:].any()
-        _assert_codes_close(got, K2.bn_act_codes_plain(x, c_live, s, b, act, c_out))
+        want = K2.bn_act_codes_plain(x, c_live, s, b, act, c_out)
+        _assert_codes_close(got, want)
+        if dtype == torch.int8:
+            # the table form: built by the arithmetic kernel, then gathered
+            table = K2.bn_act_table(s, b, act)
+            before = _build.launches[K2.BN_ACT_TABLE]
+            got_t = K2.bn_act_codes_table(x, c_live, table, c_out)
+            torch.cuda.synchronize()
+            assert _build.launches[K2.BN_ACT_TABLE] == before + 1
+            assert torch.equal(got_t, got)
+            assert torch.equal(got_t, K2.bn_act_codes_table_plain(x, c_live, table, c_out))
+
+
+@pytest.mark.parametrize("batch", [1, 256])
+def test_bn_act_table_vs_plain_at_stage_shapes(cuda, batch):
+    """The table form over DenseNet's int8 buffers (pitches 168, 312, 456,
+    not multiples of 16) against bn_act_codes_plain, 0 differing codes."""
+    rng = np.random.RandomState(batch)
+    for hw, ld, c_live in ((32, 168, 168), (16, 312, 228), (8, 456, 444), (8, 456, 312)):
+        x = _i8(rng, (batch, hw, hw, ld)).to(cuda)
+        s = torch.from_numpy((rng.rand(c_live) * 0.05 + 0.001).astype(np.float32)).to(cuda)
+        b = torch.from_numpy((rng.randn(c_live) * 0.5).astype(np.float32)).to(cuda)
+        act = act_map("erf", 127, cuda, relu=True)
+        got = K2.bn_act_codes_table(x, c_live, K2.bn_act_table(s, b, act), -(-c_live // 16) * 16)
+        torch.cuda.synchronize()
+        assert torch.equal(got, K2.bn_act_codes_plain(x, c_live, s, b, act, -(-c_live // 16) * 16))
 
 
 @pytest.mark.parametrize("family", ["densenet40 f32", "densenet40 stage_int8", "mobilenetv2"])
@@ -400,8 +445,10 @@ def test_family_forward_cuda_vs_cpu(cuda, family):
     """Full-width DenseNet-40 (both buffers) and MobileNet-V2 at batch 3 on
     the card against the CPU plain path, on qparams converted on the CPU:
     every stage buffer / block stream bit for bit, the logits within 1e-5;
-    39 K1 and 39 BN-act launches a DenseNet forward, 50 K1 and 17 depthwise
-    a MobileNet one, no tap gathered."""
+    39 K1 and 39 BN-act launches a DenseNet forward (the table form over
+    the int8 buffer, its tables built by the first forward; the arithmetic
+    form over the f32 one), 50 K1 and 17 depthwise a MobileNet one, no tap
+    gathered."""
     from alignq_tpu_torch.kernels import dwconv
     from alignq_tpu_torch.kernels import infer_densenet as D
     from alignq_tpu_torch.kernels import infer_mobilenet as M
@@ -412,15 +459,17 @@ def test_family_forward_cuda_vs_cpu(cuda, family):
         _, (qp, x) = D.build_densenet40_int8(3, device="cpu", **kw)
         streams, forward = D.densenet40_int8_buffers, D.densenet40_int8_forward
         ops = D.pack_densenet40_operands
-        want = {"int8_matmul_dequant": 39, K2.BN_ACT: 39, dwconv.DW: 0}
+        table = kw["stage_int8"]
+        want = {"int8_matmul_dequant": 39, K2.BN_ACT: 39, K2.BN_ACT_TABLE: 39 if table else 0,
+                K2.BN_ACT_ARITH: 0 if table else 39, dwconv.DW: 0}
     else:
         kw = {}
         _, (qp, x) = M.build_mobilenetv2_int8(3, device="cpu")
         streams, forward, ops = M.mobilenetv2_int8_streams, M.mobilenetv2_int8_forward, M.pack_mobilenetv2_operands
-        want = {"int8_matmul_dequant": 50, K2.BN_ACT: 0, dwconv.DW: 17}
+        want = {"int8_matmul_dequant": 50, K2.BN_ACT: 0, K2.BN_ACT_TABLE: 0, K2.BN_ACT_ARITH: 0, dwconv.DW: 17}
     qg = tree_map(lambda t: t.to(cuda) if torch.is_tensor(t) else t, qp)
     xg, og = x.to(cuda), ops(qg, **kw)
-    forward(qg, xg, operands=og, **kw)  # builds the kernels
+    forward(qg, xg, operands=og, **kw)  # builds the kernels (and the int8 buffer's code tables)
     before = dict(_build.launches)
     lg = forward(qg, xg, operands=og, **kw).cpu()
     counted = {k: _build.launches[k] - before.get(k, 0) for k in (*want, TAP_GATHERS)}
