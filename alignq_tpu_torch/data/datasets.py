@@ -1,5 +1,5 @@
 """Raw dataset loading (port of alignq_tpu/data/datasets.py: CIFAR-10's
-python pickles and the synthetic set). Numpy only; the port keeps its own
+python pickles, SVHN's .mat files and the synthetic set). Numpy only; the port keeps its own
 copy so that it imports nothing of the JAX package. The same seed gives the
 same arrays as the JAX package's `synthetic`."""
 
@@ -16,6 +16,8 @@ Arrays = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
 # torchvision normalization constants used by the reference
 CIFAR10_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
 CIFAR10_STD = np.array([0.2023, 0.1994, 0.2010], np.float32)
+SVHN_MEAN = np.array([0.5, 0.5, 0.5], np.float32)  # the reference's svhn.py:15-22
+SVHN_STD = np.array([0.5, 0.5, 0.5], np.float32)
 
 
 def load_cifar10(data_dir: str) -> Optional[Arrays]:
@@ -34,6 +36,22 @@ def load_cifar10(data_dir: str) -> Optional[Arrays]:
     xs, ys = zip(*(read_batch(f"data_batch_{i}") for i in range(1, 6)))
     tx, ty = read_batch("test_batch")
     return np.concatenate(xs), np.concatenate(ys), tx, ty
+
+
+def load_svhn(data_dir: str) -> Optional[Arrays]:
+    """SVHN's cropped digits (train_32x32.mat, test_32x32.mat under
+    data_dir) -> uint8 NHWC, labels 0-9 (the files' 10 is the digit 0), or
+    None where they are absent."""
+    tr, te = os.path.join(data_dir, "train_32x32.mat"), os.path.join(data_dir, "test_32x32.mat")
+    if not (os.path.isfile(tr) and os.path.isfile(te)):
+        return None
+    from scipy.io import loadmat
+
+    def read(path):
+        m = loadmat(path)
+        return np.transpose(m["X"], (3, 0, 1, 2)), m["y"].reshape(-1).astype(np.int32) % 10  # HWCN -> NHWC
+
+    return (*read(tr), *read(te))
 
 
 def synthetic(n_train: int = 2048, n_test: int = 512, shape: Tuple[int, int, int] = (32, 32, 3),

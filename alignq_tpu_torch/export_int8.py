@@ -1,37 +1,49 @@
 """Train -> freeze -> INT8 export -> accuracy delta (port of
-tools/export_int8.py for the PreAct ResNets).
+tools/export_int8.py, for the four CIFAR families).
 
-Trains ResNet-20/56 with CDF QAT (`train/loop.py fit`), folds the trained
-weights and BatchNorm statistics with `kernels/infer.py
-convert_preact_resnet`, runs the INT graph (`resnet20_int8_forward`: on
-the card K1's convs and, with --stage_kernel, K3) on the test set, and
-reports fake-quant top-1, INT top-1, their delta and the two forwards'
-prediction agreement.
+Trains the model with CDF QAT (`train/loop.py fit`), folds the trained
+weights and statistics with the family's converter, and runs the family's
+INT graph on the test set with its operands laid out once
+(`kernels/deploy_registry.py`: on the card K1's convs, the depthwise
+kernel, the BN-act passes and, with --stage_kernel, K3), then reports
+fake-quant top-1, INT top-1, their delta and the two forwards' prediction
+agreement.
 
     python -m alignq_tpu_torch.export_int8 --dataset synthetic --epochs 2 \\
         --deploy_exact --cdf_impl poly --stage_kernel
+    python -m alignq_tpu_torch.export_int8 --model densenet40 --stage_int8
+    python -m alignq_tpu_torch.export_int8 --model mobilenetv2 --deploy_exact --lr 0.01 --warmup_epochs 1
 
 Runs on the CUDA card unless given --device cpu. --resume exports the run
 already trained in --job_dir (its latest checkpoint) instead of training.
 --save writes the frozen INT artifact that serve.engine_from_artifact
-serves; with --bits 4, --pack_int4 packs its conv kernels two codes a byte.
+serves; with --bits 4, --pack_int4 packs a PreAct ResNet's conv kernels
+two codes a byte.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import functools
 from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from alignq_tpu_torch.interop import deploy_tree
-from alignq_tpu_torch.kernels.infer import (
-    augment_int_cutpoints,
-    convert_preact_resnet,
-    pack_int8_operands,
-    resnet20_int8_forward,
-)
+from alignq_tpu_torch.kernels.deploy_registry import DEPLOY_FAMILIES
+from alignq_tpu_torch.kernels.infer import augment_int_cutpoints
+
+# --model -> (TrainConfig.target_model, the convs the PDF correction skips)
+FAMILIES = {
+    "resnet20": ("resnet20_quant", ("conv0",)),
+    "resnet56": ("resnet56_quant", ("conv0",)),
+    # the DenseNet and MobileNet drivers correct every conv, the stem's too
+    "densenet40": ("densenet_40_quant", ()),
+    "mobilenetv2": ("mobile_v2", ()),
+}
+PREACT = ("resnet20", "resnet56")
 
 
 def int_forward_kwargs(bits: int, cdf_impl: str, deploy_act_impl: str, stream: str, stage_kernel: bool) -> dict:
@@ -51,19 +63,23 @@ def int_forward_kwargs(bits: int, cdf_impl: str, deploy_act_impl: str, stream: s
     return kw
 
 
-def export_and_compare(model: torch.nn.Module, loader, bits: int, int_kw: dict) -> Tuple[Dict[str, float], Any]:
-    """Fold the trained model into the INT graph and run both on every
-    batch of loader, on the model's device. Returns ({'fq_top1',
-    'int_top1', 'delta', 'agreement'} in percent, qparams)."""
+def export_and_compare(model: torch.nn.Module, loader, family: str, meta: Dict[str, Any]
+                       ) -> Tuple[Dict[str, float], Any]:
+    """Fold the trained model into the INT graph of the deploy family that
+    `meta` (an artifact's meta: bits, act_impl, stream, stage_int8,
+    use_stage_kernel) describes, and run both on every batch of loader, on
+    the model's device. Returns ({'fq_top1', 'int_top1', 'delta',
+    'agreement'} in percent, qparams)."""
     dev = next(model.parameters()).device
-    qparams = convert_preact_resnet(*deploy_tree(model), weight_bits=bits, act_bits=bits)
-    eval_qp = augment_int_cutpoints(qparams, bits) if int_kw["act_impl"] == "bins_int" else qparams
-    ops = pack_int8_operands(eval_qp)
+    fam = DEPLOY_FAMILIES[family]
+    qparams = fam.convert(*deploy_tree(model), meta)
+    eval_qp = augment_int_cutpoints(qparams, meta["act_bits"]) if meta["act_impl"] == "bins_int" else qparams
+    int_forward = functools.partial(fam.forward(meta), operands=fam.operands(eval_qp, meta))
     correct = fq_correct = agree = total = 0
     with torch.no_grad():
         for xb, yb in loader:
             x = torch.from_numpy(np.ascontiguousarray(xb)).to(dev)
-            pred_i8 = resnet20_int8_forward(eval_qp, x, operands=ops, **int_kw).argmax(-1).cpu().numpy()
+            pred_i8 = int_forward(eval_qp, x).argmax(-1).cpu().numpy()
             pred_fq = model(x, train=False).argmax(-1).cpu().numpy()
             y = np.asarray(yb)
             correct += int((pred_i8 == y).sum())
@@ -77,7 +93,7 @@ def export_and_compare(model: torch.nn.Module, loader, bits: int, int_kw: dict) 
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description="QAT -> INT8 export and its accuracy delta (PyTorch/CUDA)")
-    p.add_argument("--model", default="resnet20", choices=["resnet20", "resnet56"])
+    p.add_argument("--model", default="resnet20", choices=list(FAMILIES))
     p.add_argument("--bits", type=int, default=8, choices=[8, 4], help="W/A bit width")
     p.add_argument("--variant", default="int8",
                    help="quantizer variant: 'int8' trains on the exact deployment grid; 'b' the reference grid")
@@ -86,29 +102,54 @@ def main(argv=None) -> dict:
     p.add_argument("--deploy_act_impl", choices=("same", "erf", "poly", "bins", "bins_int"), default="same",
                    help="act-site impl in the INT graph only (default: follow --cdf_impl)")
     p.add_argument("--deploy_exact", action="store_true",
-                   help="deploy-exact QAT: the stem-input and residual requant sites in training")
+                   help="deploy-exact QAT: the INT graph's requant sites in training (the ResNets: stem and block "
+                        "inputs; mobilenetv2: stem and the signed m=2 block edges; densenet40: the stem)")
+    p.add_argument("--stage_int8", action="store_true",
+                   help="densenet40 only: the int8 stage buffer, its calibrated per-channel requant trained "
+                        "through (StageRequant); implies --deploy_exact")
+    p.add_argument("--stage_calib", choices=("max", "ema", "ema_p999"), default="ema",
+                   help="StageRequant calibrator for --stage_int8")
     p.add_argument("--stream", choices=("int16", "int8"), default="int16",
-                   help="residual-stream storage in the INT graph ('int8' needs --deploy_exact)")
-    p.add_argument("--stage_kernel", action="store_true", help="runs of identity blocks through K3 (poly)")
+                   help="residual-stream storage in a PreAct ResNet's INT graph ('int8' needs --deploy_exact)")
+    p.add_argument("--stage_kernel", action="store_true",
+                   help="a PreAct ResNet's runs of identity blocks through K3 (poly)")
     p.add_argument("--save", default=None, metavar="PATH.npz", help="save the frozen INT artifact")
     p.add_argument("--pack_int4", action="store_true",
-                   help="with --save and --bits 4: nibble-pack the conv kernels (halves their bytes); "
-                        "engine_from_artifact unpacks them once at load")
+                   help="with --save and --bits 4, a PreAct ResNet: nibble-pack the conv kernels (halves their "
+                        "bytes); engine_from_artifact unpacks them once at load")
     p.add_argument("--admm", action="store_true", help="train with the ADMM correlation loss")
+    p.add_argument("--mxu_bf16", action="store_true",
+                   help="bf16 convs in the train step only; the agreement and the export run the f32 forward "
+                        "on the trained weights")
     p.add_argument("--dataset", default="synthetic")
     p.add_argument("--data_dir", default="data")
     p.add_argument("--epochs", type=int, default=2)
     p.add_argument("--batch", type=int, default=64)
-    p.add_argument("--lr", type=float, default=None, help="override TrainConfig.lr")
+    p.add_argument("--lr", type=float, default=None,
+                   help="override TrainConfig.lr (0.04); MobileNet-V2 diverges from scratch at it: use --lr 0.01 "
+                        "--warmup_epochs 1")
+    p.add_argument("--warmup_epochs", type=float, default=None, help="override TrainConfig.warmup_epochs")
+    p.add_argument("--print_freq", type=int, default=1000,
+                   help="log the train loss every N steps of an epoch (job_dir/run/train.jsonl)")
     p.add_argument("--job_dir", default=None)
     p.add_argument("--resume", action="store_true", help="export the run trained in --job_dir")
     p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     a = p.parse_args(argv)
 
     from alignq_tpu_torch.data.registry import get_data
+    from alignq_tpu_torch.models.registry import build_model
     from alignq_tpu_torch.train.config import TrainConfig
     from alignq_tpu_torch.train.loop import fit
 
+    if a.stage_int8:
+        if a.model != "densenet40":
+            p.error("--stage_int8 is a densenet40 deploy option")
+        a.deploy_exact = True  # the int8-buffer graph requantizes the stem input
+    if a.model not in PREACT:
+        for flag, on in (("--stage_kernel", a.stage_kernel), ("--stream int8", a.stream == "int8"),
+                         ("--pack_int4", a.pack_int4), ("--deploy_act_impl bins_int", a.deploy_act_impl == "bins_int")):
+            if on:
+                p.error(f"{flag} is a PreAct ResNet deploy option")
     if a.stream == "int8" and not a.deploy_exact:
         p.error("--stream int8 requires --deploy_exact")
     if a.pack_int4 and a.bits != 4:
@@ -119,17 +160,31 @@ def main(argv=None) -> dict:
         p.error(str(e))
     if a.pack_int4 and int_kw["act_impl"] == "bins_int":
         p.error("bins_int + --pack_int4 is not supported (serving derives the cutpoints from unpacked weights)")
+    target, exclude = FAMILIES[a.model]
     cfg = TrainConfig(
-        target_model=f"{a.model}_quant", method="ours", bitW=a.bits, abitW=a.bits, variant=a.variant,
-        dataset=a.dataset, data_dir=a.data_dir, num_epochs=a.epochs, train_batch_size=a.batch,
-        eval_batch_size=a.batch, print_freq=1000, correction_exclude=("conv0",), deploy_exact=a.deploy_exact,
-        cdf_impl=a.cdf_impl, stream_int8=(a.stream == "int8"), admm=a.admm,
-        **({"lr": a.lr} if a.lr is not None else {}), **({"job_dir": a.job_dir} if a.job_dir else {}),
+        target_model=target, method="ours", bitW=a.bits, abitW=a.bits, variant=a.variant, dataset=a.dataset,
+        data_dir=a.data_dir, num_epochs=a.epochs, train_batch_size=a.batch, eval_batch_size=a.batch,
+        print_freq=a.print_freq,
+        correction_exclude=exclude, deploy_exact=a.deploy_exact, cdf_impl=a.cdf_impl,
+        stream_int8=(a.stream == "int8"), stage_int8=a.stage_int8, stage_calib=a.stage_calib, admm=a.admm,
+        mxu_bf16=a.mxu_bf16, **({"lr": a.lr} if a.lr is not None else {}),
+        **({"warmup_epochs": a.warmup_epochs} if a.warmup_epochs is not None else {}),
+        **({"job_dir": a.job_dir} if a.job_dir else {}),
     )
     data = get_data(cfg.dataset, cfg.data_dir, cfg.train_batch_size, cfg.eval_batch_size, cfg.seed)
     result = fit(cfg, data, resume=a.resume, device=a.device)
     model = result["state"].model
-    report, qparams = export_and_compare(model, data.loader_test, a.bits, int_kw)
+    if a.mxu_bf16:
+        # the f32 twin of the bf16 train model, on the same weights
+        f32 = build_model(dataclasses.replace(cfg, mxu_bf16=False)).to(next(model.parameters()).device)
+        f32.load_state_dict(model.state_dict())
+        model = f32
+    meta = {"model": a.model, "act_bits": a.bits, "weight_bits": a.bits, "act_impl": int_kw["act_impl"],
+            "stream": a.stream, "variant": a.variant, "deploy_exact": int(a.deploy_exact),
+            "packed_int4": int(a.pack_int4), "stage_int8": int(a.stage_int8), "use_stage_kernel": int(a.stage_kernel)}
+    if a.model == "densenet40":
+        meta["depth"] = model.depth
+    report, qparams = export_and_compare(model, data.loader_test, a.model, meta)
     print(f"QAT fake-quant eval top1: {report['fq_top1']:.2f}")
     print(f"INT8 top1: {report['int_top1']:.2f}  fake-quant top1: {report['fq_top1']:.2f}  "
           f"prediction agreement: {report['agreement']:.2f}%")
@@ -138,13 +193,9 @@ def main(argv=None) -> dict:
         from alignq_tpu_torch.kernels.artifact import save_int8_artifact
         from alignq_tpu_torch.kernels.convert import pack_qparams_int4
 
-        save_int8_artifact(a.save, pack_qparams_int4(qparams) if a.pack_int4 else qparams, meta={
-            "model": a.model, "act_bits": a.bits, "weight_bits": a.bits, "act_impl": int_kw["act_impl"],
-            "stream": a.stream, "variant": a.variant, "deploy_exact": int(a.deploy_exact),
-            "packed_int4": int(a.pack_int4), "stage_int8": 0, "use_stage_kernel": int(a.stage_kernel),
-        })
+        save_int8_artifact(a.save, pack_qparams_int4(qparams) if a.pack_int4 else qparams, meta=meta)
         print(f"saved INT artifact -> {a.save}" + (" (int4-packed kernels)" if a.pack_int4 else ""))
-    return {**report, "state": result["state"], "qparams": qparams, "int_kwargs": int_kw}
+    return {**report, "state": result["state"], "model": model, "qparams": qparams, "meta": meta}
 
 
 if __name__ == "__main__":

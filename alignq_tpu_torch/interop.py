@@ -8,10 +8,13 @@ Given either as numpy arrays, these functions return the port's tensors in
 the same structure. `init_*_params` draw fresh random trees of each CIFAR
 family with the shapes and key names of the JAX models' `init`.
 
-Training state crosses too: a flax tree loads into the port's QAT model
-(whose conv kernels are OIHW), JAX's ADMM duals become the port's, and
-`deploy_tree` gives a trained model back as the flax-layout tree that
-`kernels/infer.py convert_preact_resnet` folds.
+Training state crosses too: a flax tree of any of the four CIFAR families
+loads into the port's QAT model (`load_flax_tree`; conv kernels OIHW,
+MobileNet's depthwise HWIO (3, 3, 1, C) as (C, 1, 3, 3), StageRequant's
+`amax` among the statistics), JAX's ADMM duals become the port's, and
+`deploy_tree` gives a trained model back as the flax-layout tree that the
+family's converter (`convert_preact_resnet`, `convert_densenet40`,
+`convert_mobilenetv2`) folds.
 """
 
 from __future__ import annotations
@@ -242,11 +245,12 @@ def _is_conv_kernel(name: str, ndim: int) -> bool:
 
 
 @torch.no_grad()
-def load_flax_preact(model: torch.nn.Module, params: Dict[str, Any], batch_stats: Dict[str, Any]) -> None:
-    """Copy a flax PreActResNet tree (numpy or tensor leaves; conv kernels
-    HWIO) into the port's model of the same structure, in the model's
-    dtype and device (conv kernels OIHW). Every parameter and statistic
-    must be given, and nothing else."""
+def load_flax_tree(model: torch.nn.Module, params: Dict[str, Any], batch_stats: Dict[str, Any]) -> None:
+    """Copy a flax tree (numpy or tensor leaves; conv kernels HWIO, a
+    depthwise one (k, k, 1, C)) into the port's model of the same
+    structure, in the model's dtype and device (conv kernels OIHW, a
+    depthwise one (C, 1, k, k)). Every parameter and statistic must be
+    given, and nothing else."""
     given = {**_flat(params), **_flat(batch_stats)}
     own = {**dict(model.named_parameters()), **dict(model.named_buffers())}
     if set(given) != set(own):
@@ -261,10 +265,13 @@ def load_flax_preact(model: torch.nn.Module, params: Dict[str, Any], batch_stats
         t.copy_(v)
 
 
+load_flax_preact = load_flax_tree  # the name of the PreActResNet-only version
+
+
 def deploy_tree(model: torch.nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """A trained model's (params, batch_stats) in the flax layout (nested
-    dicts, conv kernels HWIO), detached, on the model's device: what
-    convert_preact_resnet folds and build_int8_resnet20_engine takes."""
+    dicts, conv kernels HWIO), detached, on the model's device: what the
+    family's converter folds and build_int8_resnet20_engine takes."""
 
     def nest(named):
         out: Dict[str, Any] = {}

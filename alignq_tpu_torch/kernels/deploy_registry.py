@@ -2,12 +2,16 @@
 input shape) (port of alignq_tpu/kernels/deploy_registry.py).
 
 Contract per family:
+- `convert(params, batch_stats, meta)` folds a trained model's flax-layout
+  tree (interop.deploy_tree) into the family's qparams, at the meta's bits
+  and structure options (export_int8 uses it).
 - `template(meta, device)` builds a qparams tree with the same structure as
   the exported artifact (kernels/artifact.py `load_int8_artifact` takes
   leaves from the npz, so only the structure and key paths matter). It
   converts a fresh random tree of the family (interop.init_*_params): the
   port has no flax `init`. Structure options live in the meta:
-  `stage_int8` (DenseNet's buffer scales).
+  `stage_int8` (DenseNet's buffer scales) and `depth` (DenseNet's, 40
+  where the meta has none).
 - `forward(meta)` returns `fwd(params, x, operands=...) -> logits` with the
   deploy-graph knobs the meta records (act_bits, act_impl, and the
   family's own).
@@ -17,7 +21,8 @@ Contract per family:
 
 The ImageNet, domain-adaptation and digit families are in the table, as
 in the JAX package, but not ported: their template raises
-NotImplementedError (ROADMAP.md queue 1 item 9).
+NotImplementedError (ROADMAP.md queue 1, ImageNet ResNets and domain
+adaptation).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ def _bits(meta):
 @dataclasses.dataclass(frozen=True)
 class DeployFamily:
     name: str
+    convert: Callable[[Any, Any, Dict[str, Any]], Any]
     template: Callable[[Dict[str, Any], Any], Any]
     forward: Callable[[Dict[str, Any]], Callable]
     operands: Callable[[Any, Dict[str, Any]], Any]
@@ -61,12 +67,17 @@ def _seed():
 # ---------------------------------------------------------------- CIFAR nets
 
 
+def _preact_convert(params, batch_stats, meta):
+    from alignq_tpu_torch.kernels.infer import convert_preact_resnet
+
+    return convert_preact_resnet(params, batch_stats, **_bits(meta))
+
+
 def _preact_template(depth: int):
     def template(meta, device):
         from alignq_tpu_torch.interop import init_preact_resnet_params
-        from alignq_tpu_torch.kernels.infer import convert_preact_resnet
 
-        return convert_preact_resnet(*init_preact_resnet_params(depth, _seed(), device), **_bits(meta))
+        return _preact_convert(*init_preact_resnet_params(depth, _seed(), device), meta)
 
     return template
 
@@ -86,13 +97,21 @@ def _preact_operands(qparams, meta):
     return pack_int8_operands(qparams)
 
 
-def _densenet_template(meta, device):
-    from alignq_tpu_torch.interop import init_densenet_params
+def _stage_int8(meta) -> bool:
+    return bool(_meta_int(meta, "stage_int8", 0))
+
+
+def _densenet_convert(params, batch_stats, meta):
     from alignq_tpu_torch.kernels.infer_densenet import convert_densenet40
 
-    stage_int8 = bool(_meta_int(meta, "stage_int8", 0))
-    params, stats = init_densenet_params(40, _seed(), device, stage_int8=stage_int8)
-    return convert_densenet40(params, stats, stage_int8=stage_int8, **_bits(meta))
+    return convert_densenet40(params, batch_stats, stage_int8=_stage_int8(meta), **_bits(meta))
+
+
+def _densenet_template(meta, device):
+    from alignq_tpu_torch.interop import init_densenet_params
+
+    depth = _meta_int(meta, "depth", 40)  # any 3n+4; JAX's artifacts are all DenseNet-40
+    return _densenet_convert(*init_densenet_params(depth, _seed(), device, stage_int8=_stage_int8(meta)), meta)
 
 
 def _densenet_forward(meta):
@@ -100,7 +119,7 @@ def _densenet_forward(meta):
 
     kw = _act_kwargs(meta)
     kw.pop("stream", None)  # PreActResNet-only knob
-    if bool(_meta_int(meta, "stage_int8", 0)):
+    if _stage_int8(meta):
         kw["stage_int8"] = True
     return functools.partial(densenet40_int8_forward, **kw)
 
@@ -108,14 +127,19 @@ def _densenet_forward(meta):
 def _densenet_operands(qparams, meta):
     from alignq_tpu_torch.kernels.infer_densenet import pack_densenet40_operands
 
-    return pack_densenet40_operands(qparams, bool(_meta_int(meta, "stage_int8", 0)))
+    return pack_densenet40_operands(qparams, _stage_int8(meta))
+
+
+def _mobilenet_convert(params, batch_stats, meta):
+    from alignq_tpu_torch.kernels.infer_mobilenet import convert_mobilenetv2
+
+    return convert_mobilenetv2(params, batch_stats, **_bits(meta))
 
 
 def _mobilenet_template(meta, device):
     from alignq_tpu_torch.interop import init_mobilenetv2_params
-    from alignq_tpu_torch.kernels.infer_mobilenet import convert_mobilenetv2
 
-    return convert_mobilenetv2(*init_mobilenetv2_params(_seed(), device), **_bits(meta))
+    return _mobilenet_convert(*init_mobilenetv2_params(_seed(), device), meta)
 
 
 def _mobilenet_forward(meta):
@@ -142,7 +166,8 @@ def _cifar_shape(meta):
 def _not_ported(name: str):
     def refuse(*_):
         raise NotImplementedError(
-            f"deploy family {name!r} is not ported to alignq_tpu_torch yet (ROADMAP.md queue 1 item 9)"
+            f"deploy family {name!r} is not ported to alignq_tpu_torch yet (ROADMAP.md queue 1, ImageNet ResNets "
+            "and domain adaptation)"
         )
 
     return refuse
@@ -150,17 +175,17 @@ def _not_ported(name: str):
 
 def _unported(name: str) -> DeployFamily:
     refuse = _not_ported(name)
-    return DeployFamily(name, refuse, refuse, refuse, refuse)
+    return DeployFamily(name, refuse, refuse, refuse, refuse, refuse)
 
 
 DEPLOY_FAMILIES: Dict[str, DeployFamily] = {
-    "resnet20": DeployFamily("resnet20", _preact_template(20), _preact_forward, _preact_operands, _cifar_shape,
-                             supports_packed_int4=True),
-    "resnet56": DeployFamily("resnet56", _preact_template(56), _preact_forward, _preact_operands, _cifar_shape,
-                             supports_packed_int4=True),
-    "densenet40": DeployFamily("densenet40", _densenet_template, _densenet_forward, _densenet_operands,
-                               _cifar_shape),
-    "mobilenetv2": DeployFamily("mobilenetv2", _mobilenet_template, _mobilenet_forward, _mobilenet_operands,
-                                _cifar_shape),
+    "resnet20": DeployFamily("resnet20", _preact_convert, _preact_template(20), _preact_forward, _preact_operands,
+                             _cifar_shape, supports_packed_int4=True),
+    "resnet56": DeployFamily("resnet56", _preact_convert, _preact_template(56), _preact_forward, _preact_operands,
+                             _cifar_shape, supports_packed_int4=True),
+    "densenet40": DeployFamily("densenet40", _densenet_convert, _densenet_template, _densenet_forward,
+                               _densenet_operands, _cifar_shape),
+    "mobilenetv2": DeployFamily("mobilenetv2", _mobilenet_convert, _mobilenet_template, _mobilenet_forward,
+                                _mobilenet_operands, _cifar_shape),
     **{name: _unported(name) for name in ("resnet18", "resnet34", "resnet50", "dann", "dsan", "mdd", "digit_dann")},
 }

@@ -3,7 +3,7 @@ correlation sites (port of alignq_tpu/models/resnet_cifar.py).
 
 Orderings ported: 'ours' (conv -> bn -> act_q -> relu, method 'ours') and
 'none' (no act sites, method 'fp'). The 'after' ordering serves only the
-baseline quantizers (ROADMAP queue 1 item 8).
+baseline quantizers (ROADMAP queue 1, Baseline quantizers).
 
 The model takes NHWC images, as the JAX model, the data loaders and the
 INT graph do, and runs NCHW inside. Submodules carry flax's names (`conv0`,

@@ -1,1 +1,1 @@
-from alignq_tpu_torch.nn.layers import BatchNorm, QConv, QDense, QuantAct  # noqa: F401
+from alignq_tpu_torch.nn.layers import BatchNorm, QConv, QDense, QuantAct, StageRequant  # noqa: F401

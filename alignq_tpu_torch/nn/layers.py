@@ -1,5 +1,5 @@
-"""Quantized layers: BatchNorm, QConv, QDense, QuantAct (port of
-alignq_tpu/nn/layers.py).
+"""Quantized layers: BatchNorm, QConv, QDense, StageRequant, QuantAct
+(port of alignq_tpu/nn/layers.py).
 
 Activations are NCHW and conv kernels OIHW, PyTorch's layouts (the JAX
 package's are NHWC and HWIO; interop.py converts). Parameter and buffer
@@ -8,8 +8,8 @@ so a state_dict key `layers_0.conv0.kernel` is the flax path
 `layers_0/conv0/kernel`.
 
 Methods 'ours' (AlignQ CDF alignment) and 'fp' (identity) are ported; the
-baseline quantizers are ROADMAP queue 1 item 8, and StageRequant waits for
-DenseNet (item 7).
+baseline quantizers wait for their ROADMAP queue 1 item, "Baseline
+quantizers".
 
 The f32 convs and the head must run true f32: the JAX package pins
 Precision.HIGHEST because reduced-precision passes cost 6.6 points of W4A4
@@ -22,12 +22,14 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from alignq_tpu_torch.admm.correlation import corr_discrepancy
 from alignq_tpu_torch.quant.fake_quant import act_cdf, quantize_act, quantize_weight
+from alignq_tpu_torch.quant.ste import requant_ste
 
 METHODS = ("ours", "fp")
 
@@ -35,7 +37,7 @@ METHODS = ("ours", "fp")
 def _check_method(method: str) -> None:
     if method not in METHODS:
         raise NotImplementedError(
-            f"quant method {method!r} is not ported: the baseline quantizers are ROADMAP queue 1 item 8"
+            f"quant method {method!r} is not ported: see ROADMAP queue 1, Baseline quantizers"
         )
 
 
@@ -80,7 +82,10 @@ class BatchNorm(nn.Module):
 
 
 class QConv(nn.Module):
-    """Quantized 2-D convolution (no bias), NCHW in and out, kernel OIHW.
+    """Quantized 2-D convolution (no bias), NCHW in and out, kernel OIHW
+    ((features, in_features // groups, k, k)). groups is flax's
+    feature_group_count: groups == in_features == features is a depthwise
+    conv. The weight quantizer's statistics stay per tensor.
 
     mxu_dtype (torch.bfloat16): both conv operands in bf16 and the output
     cast back to f32, the opt-in fast path; None runs true f32 (f64 at
@@ -88,16 +93,20 @@ class QConv(nn.Module):
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3, stride: int = 1, padding: int = 0,
                  w_bit: int = 8, method: str = "ours", variant: str = "b", channelwise: bool = False,
-                 mxu_dtype=None, generator: Optional[torch.Generator] = None):
+                 mxu_dtype=None, groups: int = 1, init: str = "torch", generator: Optional[torch.Generator] = None):
         super().__init__()
         _check_method(method)
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.groups = stride, padding, groups
         self.w_bit, self.method, self.variant, self.channelwise = w_bit, method, variant, channelwise
         self.mxu_dtype = mxu_dtype
-        fan_in = in_features * kernel_size * kernel_size
-        self.kernel = nn.Parameter(
-            _uniform((features, in_features, kernel_size, kernel_size), 1.0 / math.sqrt(fan_in), generator)
-        )
+        shape = (features, in_features // groups, kernel_size, kernel_size)
+        if init == "he_fan_out":
+            # normal(0, sqrt(2 / (k * k * features))): DenseNet's conv init
+            std = math.sqrt(2.0 / (kernel_size * kernel_size * features))
+            kernel = (torch.randn(shape, generator=generator, dtype=torch.float64) * std).float()
+        else:
+            kernel = _uniform(shape, 1.0 / math.sqrt(shape[1] * kernel_size * kernel_size), generator)
+        self.kernel = nn.Parameter(kernel)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.kernel
@@ -106,8 +115,8 @@ class QConv(nn.Module):
                                 channel_axis=0).wq
         if self.mxu_dtype is not None:
             return F.conv2d(x.to(self.mxu_dtype), w.to(self.mxu_dtype), stride=self.stride,
-                            padding=self.padding).float()
-        return F.conv2d(x, w, stride=self.stride, padding=self.padding)
+                            padding=self.padding, groups=self.groups).float()
+        return F.conv2d(x, w, stride=self.stride, padding=self.padding, groups=self.groups)
 
 
 class QDense(nn.Module):
@@ -130,6 +139,64 @@ class QDense(nn.Module):
         return torch.matmul(x, w) + self.bias
 
 
+CALIBS = ("max", "ema", "ema_p999")
+
+
+def _percentile_by_channel(x: torch.Tensor, q: float) -> torch.Tensor:
+    """The q-th percentile of x (NCHW or NC) over every axis but the
+    channel axis 1, interpolated linearly as jnp.percentile does: position
+    q/100 * (n - 1) and its weights in x's dtype, the two order statistics
+    beside it read by topk (only the top ~0.1% of a column is sorted; no
+    size limit, where torch.quantile refuses inputs over 2^24 elements)."""
+    cols = x.transpose(0, 1).reshape(x.shape[1], -1)
+    n = cols.shape[1]
+    npd = np.float64 if x.dtype == torch.float64 else np.float32
+    pos = npd(q) / npd(100) * npd(n - 1)
+    lo = min(max(int(np.floor(pos)), 0), n - 1)
+    hi = min(max(int(np.ceil(pos)), 0), n - 1)
+    w_hi = pos - np.floor(pos)
+    w_lo = npd(1) - w_hi
+    top = torch.topk(cols, n - lo, dim=1, sorted=True).values  # descending: top[:, n-1-i] is the i-th smallest
+    return top[:, n - 1 - lo] * float(w_lo) + top[:, n - 1 - hi] * float(w_hi)
+
+
+class StageRequant(nn.Module):
+    """Calibrated per-channel int8 requantization site: DenseNet's int8
+    stage buffer (kernels/infer_densenet.py stage_int8), trained through.
+
+    A buffer `amax` (C,), zero at init, holds the per-channel |value|
+    statistic, a BatchNorm-like statistic: only a train forward updates it,
+    and the current batch's statistic takes part in that step. calib 'max'
+    keeps the running max; 'ema' an EMA (ema_decay) of the batch's max,
+    'ema_p999' of its per-channel 99.9th percentile, the first update
+    seeding the EMA. The value is requant_ste(x, s, g) with the detached
+    scale s = max(amax, 1e-6) * (1/g): clip(round(x / s), -g, g) * s, the
+    rounding the deployed conv epilogue applies to the same value."""
+
+    def __init__(self, features: int, g: int = 127, calib: str = "max", ema_decay: float = 0.99):
+        super().__init__()
+        if calib not in CALIBS:
+            raise ValueError(f"unknown StageRequant calib {calib!r}; have {CALIBS}")
+        self.g, self.calib, self.ema_decay = g, calib, ema_decay
+        self.register_buffer("amax", torch.zeros(features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            with torch.no_grad():
+                absx = x.detach().abs()
+                if self.calib == "ema_p999":
+                    stat = _percentile_by_channel(absx, 99.9)
+                else:
+                    stat = absx.amax(dim=(0,) + tuple(range(2, x.ndim)))
+                if self.calib == "max":
+                    self.amax.copy_(torch.maximum(self.amax, stat))
+                else:
+                    d = self.ema_decay
+                    self.amax.copy_(torch.where(self.amax > 0, d * self.amax + (1 - d) * stat, stat))
+        scale = torch.clamp_min(self.amax, 1e-6) * (1.0 / self.g)
+        return requant_ste(x, scale.detach(), self.g)
+
+
 class QuantAct(nn.Module):
     """Activation fake-quantizer with the optional ADMM side output.
 
@@ -138,7 +205,7 @@ class QuantAct(nn.Module):
     set by the model), and the train step builds the trans loss from it:
     eval, which passes no sink, stays loss-free. (The JAX package's
     alignment-only `stage='align'` serves the domain-adaptation drivers,
-    ROADMAP queue 1 item 9.)"""
+    ROADMAP queue 1, ImageNet ResNets and domain adaptation.)"""
 
     def __init__(self, a_bit: int = 8, act_range: float = 2.0, method: str = "ours", variant: str = "b",
                  admm: bool = False, cdf_impl: str = "erf", corr_eps: float = 1e-5):

@@ -1,13 +1,14 @@
 """Where the time of one INT8 ResNet-20 forward goes on the card.
 
-    python -m alignq_tpu_torch.profile_forward [--batch 2048] [--act_impl poly]
+    python -m alignq_tpu_torch.profile_forward [--batch 2048] [--act_impl poly] [--plain_route] [--stream int8]
 
 Runs the forward (default: the stage kernel and K1 1x1 route, poly act
-grid, int16 stream) under torch.profiler after warm-up, and prints the
+grid, int16 stream; `--plain_route --stream int8` is
+alignq_tpu_torch/bench.py's graph) under torch.profiler after warm-up, and prints the
 device time by PyTorch op and by kernel, the window's wall time and the
 device's idle share, 1 - busy / wall (below 0 where kernels overlap). The
 weights are laid out once before the window, as an engine does. Writes the
-same to chiprun_out/profile_forward_<route>_<act_impl>_<batch>.json.
+same to chiprun_out/profile_forward_<route>_<act_impl>_<stream>_<batch>.json.
 Needs a CUDA card.
 """
 
@@ -27,6 +28,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--act_impl", default="poly")
     ap.add_argument("--plain_route", action="store_true", help="every conv through K1, no stage kernel")
+    ap.add_argument("--stream", choices=("int16", "int8"), default="int16", help="the residual stream's storage")
     ap.add_argument("--iters", type=int, default=5)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -36,7 +38,7 @@ def main(argv=None) -> int:
     from alignq_tpu_torch.kernels.infer import build_resnet20_int8, pack_int8_operands
 
     fwd, (qp, x) = build_resnet20_int8(args.batch)
-    kw = {"act_impl": args.act_impl, "operands": pack_int8_operands(qp)}
+    kw = {"act_impl": args.act_impl, "stream": args.stream, "operands": pack_int8_operands(qp)}
     if not args.plain_route:
         kw.update(use_stage_kernel=True, use_pallas_1x1=True)
     with torch.inference_mode():
@@ -81,7 +83,8 @@ def main(argv=None) -> int:
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     route = "plain" if args.plain_route else "slice"
-    (out_dir / f"profile_forward_{route}_{args.act_impl}_{args.batch}.json").write_text(json.dumps(out, indent=1))
+    (out_dir / f"profile_forward_{route}_{args.act_impl}_{args.stream}_{args.batch}.json").write_text(
+        json.dumps(out, indent=1))
     return 0
 
 

@@ -123,11 +123,13 @@ def erf(x: torch.Tensor) -> torch.Tensor:
     return torch.erf(x) if x.dtype == torch.float64 else _Erf.apply(x)
 
 
-def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-    """jnp.clip as min(max(x, lo), hi): where x equals a bound its gradient
-    is 1/2, as lax.max/lax.min split a tie (torch.maximum and
-    torch.minimum split it the same way; torch.clamp would give 1)."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """jnp.clip as min(max(x, lo), hi), the bounds floats or tensors that
+    broadcast against x: where x equals a bound its gradient is 1/2, as
+    lax.max/lax.min split a tie (torch.maximum and torch.minimum split it
+    the same way; torch.clamp would give 1)."""
+    lo, hi = (b if torch.is_tensor(b) else x.new_tensor(b) for b in (lo, hi))
+    return torch.minimum(torch.maximum(x, lo), hi)
 
 
 def _poly_parts(z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

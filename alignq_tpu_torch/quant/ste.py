@@ -96,14 +96,19 @@ def requant_grid_ste(x: torch.Tensor, act_scale: float, m: int, g: int, signed: 
     return _RequantGridSTE.apply(x, act_scale, m, g, signed)
 
 
-def requant_ste(x: torch.Tensor, scale: float, g: int) -> torch.Tensor:
-    """Deploy-exact linear requantization (the INT graph's stem-input
-    site): clip(x, -g*scale, g*scale), rounded to the grid of `scale` by
-    round_ste.
+def requant_ste(x: torch.Tensor, scale, g: int) -> torch.Tensor:
+    """Deploy-exact linear requantization: clip(x, -g*scale, g*scale),
+    rounded to the grid of `scale` by round_ste. `scale` is a Python float
+    (the INT graph's stem-input site) or a (C,) tensor of per-channel
+    scales over x's channel axis, axis 1 (a StageRequant site's calibrated
+    scales; the JAX package broadcasts them over NHWC's last axis).
 
-    The clip is an ordinary differentiated op, as in the JAX package:
-    gradient 1 inside, 0 outside, and 1/2 where x equals a bound exactly
-    (jnp.clip's tie, which the port follows; torch.clamp would give 1)."""
+    The scale is applied as xc * (1 / scale), elementwise, as the JAX
+    package does. The clip is an ordinary differentiated op: gradient 1
+    inside, 0 outside, and 1/2 where x equals a bound exactly (jnp.clip's
+    tie, which the port follows; torch.clamp would give 1)."""
+    if torch.is_tensor(scale) and scale.ndim == 1:
+        scale = scale.reshape((1, -1) + (1,) * (x.ndim - 2))
     lim = g * scale
     xc = _clip(x, -lim, lim)
     return round_ste(xc * (1.0 / scale)) * scale

@@ -59,6 +59,10 @@ class CheckpointManager:
         index = self._read_index()
         return max(index) if index else None
 
+    def load(self, epoch: int) -> dict:
+        """A saved epoch's payload, its tensors on the CPU."""
+        return torch.load(self._path(epoch), map_location="cpu", weights_only=True)
+
     def restore(self, state: TrainState, epoch: Optional[int] = None) -> Tuple[TrainState, int]:
         """Load a saved epoch (default: the latest kept) into state, in
         place, on the state's device; returns (state, start_epoch)."""
@@ -66,7 +70,7 @@ class CheckpointManager:
             epoch = self.latest_epoch()
         if epoch is None:
             return state, 0
-        payload = torch.load(self._path(epoch), map_location="cpu", weights_only=True)
+        payload = self.load(epoch)
         with torch.no_grad():
             for table, saved in ((state.params, payload["params"]), (state.batch_stats, payload["batch_stats"])):
                 if set(table) != set(saved):
@@ -80,3 +84,13 @@ class CheckpointManager:
                             for k, v in payload["admm_duals"].items()}
         state.step = int(payload["step"])
         return state, int(epoch)
+
+
+def latest_payload(job_dir: str) -> Optional[dict]:
+    """The payload of the latest epoch kept under another run's job_dir, or
+    None where it holds no checkpoint (nothing is created there)."""
+    if not os.path.isdir(os.path.join(job_dir, "checkpoint")):
+        return None
+    mgr = CheckpointManager(job_dir)
+    epoch = mgr.latest_epoch()
+    return None if epoch is None else mgr.load(epoch)

@@ -4,8 +4,11 @@ same flags, plus --device).
     python -m alignq_tpu_torch.train.cli --target_model resnet20_quant \\
         --method ours --bitW 8 --abitW 8 --lr 0.04 --train_batch_size 128
 
-Runs on the CUDA card unless given --device cpu. --mesh, --multihost and
---pretrained raise: they are ROADMAP queue 1 item 11 and later.
+Trains any of the four CIFAR families (--target_model resnet20_quant,
+resnet56_quant, densenet_40_quant, mobile_v2). Runs on the CUDA card
+unless given --device cpu. --pretrained JOB_DIR warm-starts from another
+run's latest checkpoint. --mesh and --multihost raise: they wait for
+ROADMAP queue 1, Distribution.
 """
 
 from __future__ import annotations
@@ -38,11 +41,11 @@ def parse_args(argv=None):
     p.add_argument("--lam2", type=float, default=d.lam2)
     p.add_argument("--admm", action="store_true")
     p.add_argument("--mesh", type=int, nargs="+", default=None, metavar="N",
-                   help="device mesh shape (not ported: ROADMAP queue 1 item 11)")
+                   help="device mesh shape (not ported: ROADMAP queue 1, Distribution)")
     p.add_argument("--corr_mode", choices=("gather", "local"), default=d.corr_mode)
     p.add_argument("--grad_compression", choices=("f32", "bf16", "int8_gather"), default=d.grad_compression)
     p.add_argument("--mxu_bf16", action="store_true", help="bf16 conv operands in the train step")
-    p.add_argument("--multihost", action="store_true", help="not ported: ROADMAP queue 1 item 11")
+    p.add_argument("--multihost", action="store_true", help="not ported: ROADMAP queue 1, Distribution")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
@@ -60,13 +63,15 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--print_freq", type=int, default=d.print_freq)
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--pretrained", default=None, metavar="JOB_DIR", help="not ported yet")
+    p.add_argument("--pretrained", default=None, metavar="JOB_DIR",
+                   help="warm-start from another run's latest checkpoint (parameters and statistics merged by "
+                        "name and shape)")
     p.add_argument("--max_steps", type=int, default=None, help="early stop for smoke runs")
     p.add_argument("--no_correction", action="store_true", help="disable the PDF gradient correction")
     p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     a = p.parse_args(argv)
     if a.multihost or a.coordinator:
-        raise NotImplementedError("multi-host training is ROADMAP queue 1 item 11")
+        raise NotImplementedError("multi-host training waits for ROADMAP queue 1, Distribution")
     a.use_correction = not a.no_correction
     field_names = {f.name for f in dataclasses.fields(TrainConfig)}
     overrides = {k: v for k, v in vars(a).items() if k in field_names}

@@ -4,8 +4,8 @@ port keeps under the working directory and the temporary directory).
 
 Fields the port does not act on yet raise where they are used:
 mesh_shape > 1 and corr_mode/grad_compression across devices (ROADMAP
-queue 1 item 11), stage_int8 (item 7), methods other than 'ours' and 'fp'
-(item 8).
+queue 1, Distribution), methods other than 'ours' and 'fp' (ROADMAP queue
+1, Baseline quantizers).
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ class TrainConfig:
     admm: bool = False
     deploy_exact: bool = False  # model the INT graph's stem/residual requant sites; pair with variant 'int8'
     stream_int8: bool = False  # with deploy_exact: the INT graph's int8 stream (stream='int8')
-    stage_int8: bool = False  # DenseNet only
+    stage_int8: bool = False  # with deploy_exact, DenseNet only: the INT graph's int8 stage buffer
     stage_calib: str = "ema"
     admm_mu: float = 0.2
     admm_rho: float = 0.3

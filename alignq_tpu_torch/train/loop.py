@@ -1,7 +1,6 @@
 """Epoch-based training driver (port of alignq_tpu/train/loop.py), on one
 device: the CUDA card unless the caller asks for the CPU. Data-parallel
-meshes and multi-host runs are ROADMAP queue 1 item 11; warm starts from
-another run (`pretrained_dir`) wait with them."""
+meshes and multi-host runs wait for ROADMAP queue 1, Distribution."""
 
 from __future__ import annotations
 
@@ -49,11 +48,12 @@ def fit(cfg: TrainConfig, data: Data, model=None, resume: bool = False, max_step
     """Train per config; returns {'best_top1', 'best_top5', 'state'} (and
     'aborted' where a loss was not finite). model: a model to train, on
     any device (moved to `device`); None builds the config's from its
-    seed."""
+    seed. pretrained_dir: warm-start the parameters and statistics from
+    another run's latest checkpoint (train/pretrained.py); the optimizer
+    and the duals stay fresh."""
     if math.prod(cfg.mesh_shape) > 1:
-        raise NotImplementedError("meshes (data- and tensor-parallel training) are ROADMAP queue 1 item 11")
-    if pretrained_dir:
-        raise NotImplementedError("warm starts from another run (--pretrained) are not ported yet")
+        raise NotImplementedError("meshes (data- and tensor-parallel training) wait for ROADMAP queue 1, "
+                                  "Distribution")
     dev = resolve_device(device)
     true_f32()
     logger = get_logger(f"{cfg.job_dir}/logger.log")
@@ -77,6 +77,11 @@ def fit(cfg: TrainConfig, data: Data, model=None, resume: bool = False, max_step
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model={cfg.target_model} method={cfg.method} W{cfg.bitW}A{cfg.abitW} admm={cfg.admm} "
                 f"params={n_params:,} steps/epoch={steps_per_epoch} device={dev}")
+    if pretrained_dir:
+        # partial warm start (reference main.py:62-82)
+        from alignq_tpu_torch.train.pretrained import load_pretrained
+
+        state = load_pretrained(state, pretrained_dir)
     train_step = make_train_step(model, cfg)
     eval_step = make_eval_step(eval_model, cfg)
 

@@ -26,7 +26,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
 
 def _no_axis(axis_name: Optional[str]) -> None:
     if axis_name is not None:
-        raise NotImplementedError("data-parallel steps are ROADMAP queue 1 item 11")
+        raise NotImplementedError("data-parallel steps wait for ROADMAP queue 1, Distribution")
 
 
 def make_train_step(model: nn.Module, cfg: TrainConfig, axis_name: Optional[str] = None) -> Callable:

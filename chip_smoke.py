@@ -59,7 +59,29 @@ Phases, in order; any failure raises and the script exits non-zero:
         that net on the slice's route, held against the CPU plain path as
         in phase 7. Both runs launch K1 in the poly codes mode only, K3,
         and gather no taps;
- 9. times from CUDA events (median of 20 after warm-up): the forward at
+ 9. the QAT of DenseNet-40 (f32 and int8 stage buffers) and MobileNet-V2:
+    (a) 3 float64 train steps, W4A4 with ADMM and the correction, batch
+        8 of 16x16 images, on the card and on the CPU from one seed, of a
+        depth-10 DenseNet with the int8 buffer (ema, its statistics
+        starting at a calibrated net's) and with the f32 one, and of
+        MobileNet-V2: params, statistics (amax included) and duals within
+        1e-9;
+    (b) each family trained at full width through export_int8.main on the
+        synthetic set: W8A8, the int8 grid, deploy_exact, erf; DenseNet-40
+        3 epochs at batch 128, MobileNet-V2 8 at batch 64, lr 0.01 with 1
+        warmup epoch; every loss finite, the last quarter's mean below the
+        first's;
+    (c) exported (fake-quant and INT top-1, delta, prediction agreement of
+        at least 99.0%) and its artifact served by engine_from_artifact at
+        engine batch 16, held against the CPU plain path as in phase 14;
+        the launches of the export and of serving: K1, the BN-act form of
+        the buffer (DenseNet) or the depthwise kernel (MobileNet-V2), no
+        tap gathered;
+    (d) each family's train step at batch 128 with ADMM (CUDA events,
+        median of 10; device busy, idle share and launches of one step
+        under torch.profiler), and one run of `python -m
+        alignq_tpu_torch.bench`, its line printed;
+10. times from CUDA events (median of 20 after warm-up): the forward at
     batches 2048 and 256 on both routes, and each kernel at each path
     shape of batches 2048 and 256 (its device time from a cold L2,
     utils/cuda_timing.py graph_ms: 20 launches captured in a CUDA graph,
@@ -68,11 +90,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     (conv_bound for K1: the input read once) and, for K1, torch._int_mm's
     time on the pre-gathered (M, Kp) matrix, taken the same way (timed
     only; no one PyTorch call computes K2 or K3);
-10. QAT train-step times (CUDA events, median of 20 after warm-up, TF32
+11. QAT train-step times (CUDA events, median of 20 after warm-up, TF32
     asserted off): ResNet-20 W8A8 erf with ADMM at batch 128, and erf and
     poly without ADMM at batch 1024; the batch-128 step's device busy
     time, idle share and five largest kernels from torch.profiler;
-11. the CIFAR deploy families, DenseNet-40 (f32 and int8 stage buffers)
+12. the CIFAR deploy families, DenseNet-40 (f32 and int8 stage buffers)
     and MobileNet-V2 at full width from seeded random weights: each graph's
     forward at batches 256 and 3 on the card with every K1, depthwise
     (csrc/dwconv.cu) and BN-act (csrc/quantize.cu: the arithmetic form over
@@ -84,10 +106,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     recorded operands, like K1's in phase 3 (requant identical; the table
     form against the arithmetic's plain version, bn_act_codes_plain, on the
     s, b and map its table was built from);
-12. the three graphs at batch 8 on the card against the CPU plain path, on
+13. the three graphs at batch 8 on the card against the CPU plain path, on
     qparams converted on the CPU: every DenseNet stage buffer and
     MobileNet block stream bit for bit, logits within 1e-5;
-13. serving from artifacts: ResNet-20 W4A4 int4-packed, ResNet-56,
+14. serving from artifacts: ResNet-20 W4A4 int4-packed, ResNet-56,
     DenseNet-40 (both buffers) and MobileNet-V2 saved by the port, served
     by serve.engine_from_artifact at engine batch 16 with the counts zeroed
     before and read after; each engine's final stream bit for bit and its
@@ -95,19 +117,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     a DenseNet forward (table form over the int8 buffer, its 39 tables
     built once; arithmetic over the f32 one), 50 K1 and 17 depthwise a
     MobileNet one, no tap gathered;
-14. times: each graph's forward at batches 256 and 1024 (CUDA events),
+15. times: each graph's forward at batches 256 and 1024 (CUDA events),
     its launches a forward and, at 256, its idle share under
     torch.profiler; each distinct launch at batch 256 beside its plain
     version, its bound and the library call of the same product, both
     timed as in phase 9 (torch._int_mm on the gathered taps for K1,
     F.conv2d with groups=C on f32 for the depthwise conv, none for either
     BN-act form);
-15. one JSON line of the kernels (K1 and K3: times summed over the
+16. one JSON line of the kernels (K1 and K3: times summed over the
     launches of one slice-route forward at the serving batch; K2: over one
     launch at each act-site size of that batch; K1 on DenseNet-40 and
     MobileNet-V2, the depthwise kernel and the BN-act kernel's two forms
     (table on the int8 buffer, arithmetic on the f32 one): over one
-    batch-256 forward of their graph, launches from phase 13), the card
+    batch-256 forward of their graph, launches from phase 14), the card
     line, and the final JSON line.
 
 Exits with code 2 and prints no result where CUDA is not available. Writes
@@ -247,27 +269,26 @@ QAT_JOB_ARGS = ["--dataset", "synthetic", "--bitW", "8", "--abitW", "8", "--vari
                 "--num_epochs", "2", "--print_freq", "1"]
 
 
-def qat_card_vs_cpu(dev, steps=3):
-    """Phase 8(a): 3 train steps of a PreActResNet num_units=(1, 1, 1), W4A4,
-    ADMM and the correction, batch 8, in float64, on the card and on the
-    CPU from one seed; returns the largest difference of the params, the
-    BatchNorm statistics and the duals."""
+def qat_card_vs_cpu(dev, build, cfg, hw, n_sites, steps=3):
+    """`steps` train steps of the model build(generator) gives, ADMM and
+    the correction per cfg, batch 8 of hw x hw images, in float64 on the
+    card and on the CPU from one seed; returns the largest difference of
+    the params, the statistics (BatchNorm's, StageRequant's amax) and the
+    duals. Raises unless the model has n_sites ADMM sites."""
     import numpy as np
     import torch
 
-    from alignq_tpu_torch.models.resnet_cifar import PreActResNet
-    from alignq_tpu_torch.train import TrainConfig, create_train_state, make_train_step
+    from alignq_tpu_torch.train import create_train_state, make_train_step
 
-    cfg = TrainConfig(train_batch_size=8, bitW=4, abitW=4, admm=True, lr=0.02, lr_decay_steps=(1000,))
     states = {}
     for where in ("cpu", dev):
         gen = torch.Generator().manual_seed(SEED)
-        model = PreActResNet(num_units=(1, 1, 1), w_bit=4, a_bit=4, admm=True, generator=gen).double().to(where)
-        state = create_train_state(gen, model, cfg, input_shape=(1, 32, 32, 3), steps_per_epoch=10_000)
+        model = build(gen).double().to(where)
+        state = create_train_state(gen, model, cfg, input_shape=(1, hw, hw, 3), steps_per_epoch=10_000)
         step = make_train_step(model, cfg)
         rng = np.random.RandomState(SEED)
         for _ in range(steps):
-            x = torch.tensor(rng.randn(8, 32, 32, 3)).to(where)
+            x = torch.tensor(rng.randn(8, hw, hw, 3)).to(where)
             step(state, x, torch.tensor(rng.randint(0, 10, 8)).to(where))
         states[str(where)] = state
     cpu, card = states["cpu"], states[str(dev)]
@@ -275,8 +296,8 @@ def qat_card_vs_cpu(dev, steps=3):
     pairs += [(cpu.batch_stats[k], card.batch_stats[k]) for k in cpu.batch_stats]
     for k, s in cpu.admm_duals.items():
         pairs += [(s.alter_d, card.admm_duals[k].alter_d), (s.gamma, card.admm_duals[k].gamma)]
-    if len(cpu.admm_duals) != 9 or card.step != steps:
-        raise AssertionError(f"QAT (a): {len(cpu.admm_duals)} ADMM sites, {card.step} steps")
+    if len(cpu.admm_duals) != n_sites or card.step != steps:
+        raise AssertionError(f"QAT f64 steps: {len(cpu.admm_duals)} ADMM sites, {card.step} steps")
     return max(float((a.detach() - b.detach().cpu()).abs().max()) for a, b in pairs)
 
 
@@ -298,7 +319,12 @@ def qat_on_the_card(dev, repo, serve_and_check, reqs, slice_kw):
 
     out = {}
     # (a)
-    err = qat_card_vs_cpu(dev)
+    from alignq_tpu_torch.models.resnet_cifar import PreActResNet
+    from alignq_tpu_torch.train import TrainConfig
+
+    err = qat_card_vs_cpu(dev, lambda g: PreActResNet(num_units=(1, 1, 1), w_bit=4, a_bit=4, admm=True, generator=g),
+                          TrainConfig(train_batch_size=8, bitW=4, abitW=4, admm=True, lr=0.02,
+                                      lr_decay_steps=(1000,)), 32, 9)
     print(f"QAT (a) 3 float64 steps, W4A4 ADMM + correction, batch 8: card vs CPU max abs diff {err:.3g} "
           "(params, BatchNorm statistics, duals)", flush=True)
     if not err <= 1e-9:
@@ -348,7 +374,7 @@ def qat_on_the_card(dev, repo, serve_and_check, reqs, slice_kw):
 
 
 def qat_times(dev, card):
-    """Phase 10: a ResNet-20 QAT train step, CUDA events (median of 20 after
+    """Phase 11: a ResNet-20 QAT train step, CUDA events (median of 20 after
     warm-up), TF32 off: batch 128 W8A8 erf ADMM (TrainConfig's default,
     the reference's configuration) and batch 1024 W8A8 erf and poly, ADMM
     off; then the batch-128 ADMM step under torch.profiler: device busy,
@@ -619,30 +645,100 @@ def family_kernel_checks(dev, batches=(256, 3)):
     return out, err, counts
 
 
+def serve_artifact(label, path, streams, dev, requests):
+    """Serve an artifact through serve.engine_from_artifact on the card at
+    engine batch FAMILY_SERVE_BATCH, the launch counts zeroed before the
+    engine is built and read after its requests, and hold what was served
+    against the CPU's plain path at the engine's padded batch: the final
+    stream (a graph's last stage buffer or block stream, `streams` its
+    stream function) bit for bit, the logits within 1e-5. Returns
+    {'launches', 'max_abs_err'}; raises if a conv gathered its taps."""
+    import numpy as np
+    import torch
+
+    from alignq_tpu_torch.kernels import _build
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels.infer import resnet20_int8_stream
+    from alignq_tpu_torch.serve import engine_from_artifact
+
+    def final_stream(qp, x, **kw):
+        """The last stream of the graph (ResNet's stream function gives one)."""
+        if streams is resnet20_int8_stream:
+            return streams(qp, x, **kw)
+        return list(streams(qp, x, **kw))[-1]
+
+    zero_counts(_build.launches)
+    engine = engine_from_artifact(str(path), batch_size=FAMILY_SERVE_BATCH, device=dev)
+    outs = [f.result(timeout=300) for f in [engine.submit(r) for r in requests]]
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _build.launches.items() if v}
+    engine.close()
+    if launched.get(K1.TAP_GATHERS, 0):
+        raise AssertionError(f"serving {label}: a conv gathered its taps on the card: {launched}")
+    fkw = {k: v for k, v in engine.forward.keywords.items() if k != "operands"}
+    skw = {k: v for k, v in fkw.items() if k in ("act_bits", "act_impl", "stage_int8", "stream", "use_stage_kernel")}
+    qp_host = to_device(engine.params, "cpu")
+    images = np.concatenate(requests)
+    padded = np.concatenate([images, np.zeros((-len(images) % FAMILY_SERVE_BATCH, 32, 32, 3), np.float32)])
+    served = np.concatenate(outs)
+    serve_err = 0.0
+    for lo in range(0, len(padded), FAMILY_SERVE_BATCH):
+        xb = torch.from_numpy(padded[lo : lo + FAMILY_SERVE_BATCH])
+        with torch.inference_mode():
+            s_gpu = final_stream(engine.params, xb.to(dev), operands=engine.forward.keywords["operands"], **skw)
+        if not torch.equal(s_gpu.cpu(), final_stream(qp_host, xb, **skw)):
+            raise AssertionError(f"serving {label}: the engine's final stream differs from the CPU's")
+        want = engine.forward.func(qp_host, xb, **fkw).numpy()[: min(FAMILY_SERVE_BATCH, len(served) - lo)]
+        got = served[lo : lo + len(want)]
+        serve_err = max(serve_err, float(np.abs(got - want).max()))
+        if not (np.isfinite(got).all() and serve_err <= 1e-5):
+            raise AssertionError(f"serving {label}: served logits off the CPU's by {serve_err}")
+    print(f"serving {label} from its artifact, engine batch {FAMILY_SERVE_BATCH}: requests of "
+          f"{[len(r) for r in requests]} answered, logits within {serve_err:.3g} of the CPU plain path, the final "
+          f"stream identical; launches {launched}", flush=True)
+    return {"launches": launched, "max_abs_err": serve_err}
+
+
+def check_family_launches(label, n):
+    """The launch counts of a served DenseNet-40 or MobileNet-V2 (an
+    engine's build and its requests): DenseNet 39 K1 and 39 BN-act launches
+    a forward, over the int8 buffer in the table form (its 39 tables built
+    once, by the arithmetic kernel) and over the f32 one in the arithmetic
+    form; MobileNet-V2 50 K1 and 17 depthwise a forward; no tap gather."""
+    from alignq_tpu_torch.kernels import dwconv as DWm
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels import quantize as K2
+
+    if n.get(K1.TAP_GATHERS, 0):
+        raise AssertionError(f"{label}: a conv gathered its taps on the card: {n}")
+    k1 = n.get(K1.KERNEL, 0)
+    if label.startswith("densenet40 stage_int8"):
+        ok = k1 and k1 % 39 == 0 and n.get(K2.BN_ACT_TABLE) == k1 and n.get(K2.BN_ACT_ARITH) == 39
+        want = "39 K1 and 39 table launches a forward and 39 table builds"
+    elif label.startswith("densenet40"):
+        ok = k1 and k1 % 39 == 0 and n.get(K2.BN_ACT_ARITH) == k1 and not n.get(K2.BN_ACT_TABLE)
+        want = "39 K1 and 39 arithmetic BN-act launches a forward"
+    else:
+        ok = k1 and k1 * 17 == n.get(DWm.DW, 0) * 50
+        want = "50 K1 and 17 depthwise a forward"
+    if not ok:
+        raise AssertionError(f"{label}: launches {n}, expected {want}")
+
+
 def deploy_families(dev, card, repo, details, phase):
-    """Phases 11-14: DenseNet-40 (f32 and int8 stage buffers) and
+    """Phases 12-15: DenseNet-40 (f32 and int8 stage buffers) and
     MobileNet-V2 on the card. Returns (the batch-256 launch time rows, max
     abs error by kernel kind, each served artifact's launches and error)."""
-    import numpy as np
     import torch
 
     from alignq_tpu_torch.interop import init_preact_resnet_params
     from alignq_tpu_torch.kernels import _build
     from alignq_tpu_torch.kernels import qmatmul as K1
-    from alignq_tpu_torch.kernels import quantize as K2
     from alignq_tpu_torch.kernels.infer import convert_resnet20, resnet20_int8_stream
 
     phase("deploy families: every K1, depthwise and BN-act launch against its plain version")
-    from alignq_tpu_torch.kernels import dwconv as DWm
     from alignq_tpu_torch.kernels.artifact import save_int8_artifact
     from alignq_tpu_torch.kernels.convert import pack_qparams_int4
-    from alignq_tpu_torch.serve import engine_from_artifact
-
-    def final_stream(streams, qp, x, **kw):
-        """The last stream a graph's stream function gives (ResNet's is one)."""
-        if streams is resnet20_int8_stream:
-            return streams(qp, x, **kw)
-        return list(streams(qp, x, **kw))[-1]
 
     fam_launches, fam_err, details["family_mismatches"] = family_kernel_checks(dev)
 
@@ -690,56 +786,9 @@ def deploy_families(dev, card, repo, details, phase):
     for label, qp_cpu, meta, streams in served_cases:
         path = art_dir / f"{label.replace(' ', '_')}.npz"
         save_int8_artifact(str(path), qp_cpu, meta=meta)
-        zero_counts(_build.launches)
-        engine = engine_from_artifact(str(path), batch_size=FAMILY_SERVE_BATCH, device=dev)
-        outs = [f.result(timeout=300) for f in [engine.submit(r) for r in freqs]]
-        torch.cuda.synchronize()
-        launched = {k: v for k, v in _build.launches.items() if v}
-        engine.close()
-        if launched.get(K1.TAP_GATHERS, 0):
-            raise AssertionError(f"serving {label}: a conv gathered its taps on the card: {launched}")
-        # what was served, against the CPU's plain path at the engine's
-        # padded batch: the final stream bit for bit, the logits within 1e-5
-        fkw = {k: v for k, v in engine.forward.keywords.items() if k != "operands"}
-        qp_host = to_device(engine.params, "cpu")
-        images = np.concatenate(freqs)
-        padded = np.concatenate([images, np.zeros((-len(images) % FAMILY_SERVE_BATCH, 32, 32, 3), np.float32)])
-        served = np.concatenate(outs)
-        serve_err = 0.0
-        for lo in range(0, len(padded), FAMILY_SERVE_BATCH):
-            xb = torch.from_numpy(padded[lo : lo + FAMILY_SERVE_BATCH])
-            skw = {k: v for k, v in fkw.items() if k in ("act_bits", "act_impl", "stage_int8", "stream",
-                                                         "use_stage_kernel")}
-            with torch.inference_mode():
-                s_gpu = final_stream(streams, engine.params, xb.to(dev), operands=engine.forward.keywords["operands"],
-                                     **skw)
-            if not torch.equal(s_gpu.cpu(), final_stream(streams, qp_host, xb, **skw)):
-                raise AssertionError(f"serving {label}: the engine's final stream differs from the CPU's")
-            want = engine.forward.func(qp_host, xb, **fkw).numpy()[: min(FAMILY_SERVE_BATCH, len(served) - lo)]
-            got = served[lo : lo + len(want)]
-            serve_err = max(serve_err, float(np.abs(got - want).max()))
-            if not (np.isfinite(got).all() and serve_err <= 1e-5):
-                raise AssertionError(f"serving {label}: served logits off the CPU's by {serve_err}")
-        fam_serving[label] = {"launches": launched, "max_abs_err": serve_err}
-        print(f"serving {label} from its artifact, engine batch {FAMILY_SERVE_BATCH}: requests of "
-              f"{[len(r) for r in freqs]} answered, logits within {serve_err:.3g} of the CPU plain path, the final "
-              f"stream identical; launches {launched}", flush=True)
-    n_dn = fam_serving["densenet40 stage_int8"]["launches"]
-    n_f32 = fam_serving["densenet40 f32"]["launches"]
-    n_mb = fam_serving["mobilenetv2"]["launches"]
-    # the int8 buffer: 39 table launches a forward, and its 39 tables built
-    # once (arithmetic launches at the first forward); the f32 buffer: 39
-    # arithmetic launches a forward, no table
-    if not (n_dn.get(K1.KERNEL, 0) and n_dn[K1.KERNEL] % 39 == 0 and n_dn.get(K2.BN_ACT_TABLE) == n_dn[K1.KERNEL]
-            and n_dn.get(K2.BN_ACT_ARITH) == 39):
-        raise AssertionError(f"DenseNet-40 int8 serving: launches {n_dn}, expected 39 K1 and 39 table launches a "
-                             "forward and 39 table builds")
-    if not (n_f32.get(K1.KERNEL, 0) and n_f32[K1.KERNEL] % 39 == 0
-            and n_f32.get(K2.BN_ACT_ARITH) == n_f32[K1.KERNEL] and not n_f32.get(K2.BN_ACT_TABLE)):
-        raise AssertionError(f"DenseNet-40 f32 serving: launches {n_f32}, expected 39 K1 and 39 arithmetic BN-act "
-                             "launches a forward")
-    if not (n_mb.get(K1.KERNEL, 0) and n_mb[K1.KERNEL] * 17 == n_mb.get(DWm.DW, 0) * 50):
-        raise AssertionError(f"MobileNet-V2 serving: launches {n_mb}, expected 50 K1 and 17 depthwise a forward")
+        fam_serving[label] = serve_artifact(label, path, streams, dev, freqs)
+    for label in ("densenet40 f32", "densenet40 stage_int8", "mobilenetv2"):
+        check_family_launches(f"{label} serving", fam_serving[label]["launches"])
     details["family_serving"] = fam_serving
 
     phase("deploy families: times")
@@ -777,6 +826,169 @@ def deploy_families(dev, card, repo, details, phase):
     torch.cuda.empty_cache()
 
     return fam_rows, fam_err, fam_serving
+
+
+def calibrated(model, generator):
+    """The model with every StageRequant statistic drawn uniform in [2, 6]
+    from generator: the scale of a calibrated int8 buffer."""
+    from alignq_tpu_torch.nn.layers import StageRequant
+
+    for m in model.modules():
+        if isinstance(m, StageRequant):
+            m.amax.uniform_(2.0, 6.0, generator=generator)
+    return model
+
+
+# the families' QAT phase: (label, epochs, export_int8's arguments).
+# MobileNet-V2 takes the JAX package's from-scratch recipe (lr 0.01, 1
+# warmup epoch; it diverges at the default 0.04) and learns the synthetic
+# set slowly: 8 epochs at batch 64 (3 at batch 128 left it at chance,
+# where near-equal logits make the agreement a coin toss)
+FAMILY_QAT = (
+    ("densenet40 f32", 3, ["--model", "densenet40", "--deploy_exact", "--batch", "128"]),
+    ("densenet40 stage_int8", 3, ["--model", "densenet40", "--stage_int8", "--batch", "128"]),
+    ("mobilenetv2", 8, ["--model", "mobilenetv2", "--deploy_exact", "--lr", "0.01", "--warmup_epochs", "1",
+                        "--batch", "64"]),
+)
+FAMILY_QAT_ARGS = ["--dataset", "synthetic", "--bits", "8", "--variant", "int8", "--cdf_impl", "erf",
+                   "--print_freq", "1"]
+FAMILY_QAT_TIME_BATCH = 128
+
+
+def family_qat(dev, card, repo, phase):
+    """Phase 9, the QAT of DenseNet-40 (both stage buffers) and
+    MobileNet-V2: (a) float64 steps on the card against the CPU; (b) each
+    family trained at full width through export_int8.main on the synthetic
+    set; (c) exported, its artifact served on the card and held against
+    the CPU plain path; (d) the train step's times at batch 128 with ADMM,
+    and one run of alignq_tpu_torch.bench."""
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from alignq_tpu_torch import export_int8
+    from alignq_tpu_torch.kernels import _build
+    from alignq_tpu_torch.kernels import infer_densenet as D
+    from alignq_tpu_torch.kernels import infer_mobilenet as M
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.models.densenet import DenseNet
+    from alignq_tpu_torch.models.mobilenetv2 import mobile_v2
+    from alignq_tpu_torch.models.registry import build_model
+    from alignq_tpu_torch.train import TrainConfig, create_train_state, make_train_step
+    from alignq_tpu_torch.train.loop import true_f32
+
+    out = {}
+    phase("QAT of the families: (a) float64 steps, the card against the CPU")
+    # W4A4, as phase 8(a): at W8A8 the correction's bin phase (255 bins, a
+    # sawtooth of slope 2040 in the weight's CDF) grows a difference in the
+    # conv's summation order by orders of magnitude a step, on the CPU
+    # alone too, past 1e-9 in 3 steps of MobileNet-V2. The int8 buffer's
+    # statistics start where a calibrated net's are: ema's first update
+    # would seed them with the batch's max, which then sits on the clip
+    # bound to within an ulp, where the gradient is 0, 1/2 or 1.
+    cfg = TrainConfig(train_batch_size=8, bitW=4, abitW=4, admm=True, lr=0.02, lr_decay_steps=(1000,),
+                      correction_exclude=())
+    q = dict(variant="int8", deploy_exact=True, admm=True)
+    f64_cases = (
+        ("DenseNet depth 10 stage_int8 ema", 16, 9, lambda g: calibrated(DenseNet(
+            depth=10, w_bit=4, a_bit=4, stage_int8=True, stage_calib="ema", generator=g, **q), g)),
+        ("DenseNet depth 10 f32 buffer", 16, 9, lambda g: DenseNet(depth=10, w_bit=4, a_bit=4, generator=g, **q)),
+        ("MobileNet-V2", 16, 67, lambda g: mobile_v2(bitW=4, abitW=4, generator=g, **q)),
+    )
+    out["card_vs_cpu_f64_max_abs"] = {}
+    for label, hw, n_sites, build in f64_cases:
+        err = qat_card_vs_cpu(dev, build, cfg, hw, n_sites)
+        print(f"QAT families (a) {label}: 3 float64 steps, W4A4 ADMM + correction, batch 8 of {hw}x{hw}: card vs "
+              f"CPU max abs diff {err:.3g} (params, statistics and amax, duals)", flush=True)
+        if not err <= 1e-9:
+            raise AssertionError(f"QAT families (a) {label}: the card's float64 steps differ from the CPU's by {err}")
+        out["card_vs_cpu_f64_max_abs"][label] = err
+
+    requests = [torch.randn((n, 32, 32, 3), generator=torch.Generator().manual_seed(40 + n)).numpy()
+                for n in (1, 7, 16, 9)]
+    streams = {"densenet40 f32": D.densenet40_int8_buffers, "densenet40 stage_int8": D.densenet40_int8_buffers,
+               "mobilenetv2": M.mobilenetv2_int8_streams}
+    out["trained"] = {}
+    for label, epochs, args in FAMILY_QAT:
+        phase(f"QAT of the families: (b, c) {label}: train, export, serve")
+        job = repo / "chiprun_out" / f"qat_{label.replace(' ', '_')}"
+        shutil.rmtree(job, ignore_errors=True)
+        art = job / "net.npz"
+        zero_counts(_build.launches)
+        t0 = time.perf_counter()
+        rep = export_int8.main(FAMILY_QAT_ARGS + args + ["--epochs", str(epochs), "--job_dir", str(job),
+                                                         "--save", str(art)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        export_launches = {k: v for k, v in _build.launches.items() if v}
+        shutil.rmtree(job / "checkpoint")  # tens of MB a family: chiprun_out brings back 64 MiB
+        losses = [json.loads(line)["loss"] for line in (job / "run" / "train.jsonl").read_text().splitlines()]
+        print(f"QAT families (b) {label} W8A8 int8 deploy_exact erf, batch {args[args.index('--batch') + 1]}, "
+              f"{epochs} epochs: {len(losses)} steps, "
+              f"train + export {run_s:.1f} s; loss first {losses[0]:.4f} last {losses[-1]:.4f}, mean of the first "
+              f"and last quarter {np.mean(losses[: len(losses) // 4]):.4f} {np.mean(losses[-(len(losses) // 4):]):.4f}",
+              flush=True)
+        evals = len((job / "run" / "test.jsonl").read_text().splitlines())
+        if evals != epochs or rep["state"].step != len(losses) or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"QAT families (b) {label}: {rep['state'].step} steps, losses {losses[:3]}...")
+        q = max(1, len(losses) // 4)  # the mean loss of the last quarter of the steps below the first's
+        if not sum(losses[-q:]) < sum(losses[:q]):
+            raise AssertionError(f"QAT families (b) {label}: the loss did not fall ({losses[:q]} -> {losses[-q:]})")
+        print(f"QAT families (c) {label} export: fake-quant top-1 {rep['fq_top1']:.2f}, INT top-1 "
+              f"{rep['int_top1']:.2f}, delta {rep['delta']:+.2f} pts, prediction agreement {rep['agreement']:.2f}%; "
+              f"launches {export_launches}", flush=True)
+        if rep["agreement"] < 99.0:
+            raise AssertionError(f"QAT families (c) {label}: prediction agreement {rep['agreement']:.2f}% < 99.0%")
+        check_family_launches(f"{label} export", export_launches)
+        served = serve_artifact(f"QAT-trained {label}", art, streams[label], dev, requests)
+        check_family_launches(f"{label} trained, served", served["launches"])
+        k1_modes = {k: v for k, v in served["launches"].items() if k.startswith(K1.MODE.format(""))}
+        print(f"QAT families (c) {label} served: K1 by epilogue mode {k1_modes}", flush=True)
+        out["trained"][label] = dict(steps=len(losses), run_s=run_s, loss_first=losses[0], loss_last=losses[-1],
+                                     fq_top1=rep["fq_top1"], int_top1=rep["int_top1"], delta=rep["delta"],
+                                     agreement=rep["agreement"], export_launches=export_launches, served=served)
+        del rep
+        torch.cuda.empty_cache()
+
+    phase("QAT of the families: (d) step times")
+    true_f32()
+    out["step_times"] = {}
+    for label, target, extra in (
+        ("densenet40 f32", "densenet_40_quant", {}),
+        ("densenet40 stage_int8", "densenet_40_quant", {"stage_int8": True}),
+        ("mobilenetv2", "mobile_v2", {}),
+    ):
+        tcfg = TrainConfig(target_model=target, train_batch_size=FAMILY_QAT_TIME_BATCH, admm=True, variant="int8",
+                           deploy_exact=True, correction_exclude=(), **extra)
+        model = build_model(tcfg, torch.Generator().manual_seed(SEED)).to(dev)
+        state = create_train_state(torch.Generator().manual_seed(SEED), model, tcfg)
+        step = make_train_step(model, tcfg)
+        rng = np.random.RandomState(SEED)
+        x = torch.tensor(rng.randn(FAMILY_QAT_TIME_BATCH, 32, 32, 3), dtype=torch.float32, device=dev)
+        y = torch.tensor(rng.randint(0, 10, FAMILY_QAT_TIME_BATCH), device=dev)
+        # 10 steps timed and one profiled: a step takes 0.5-1 s, and the
+        # profiler's processing of a step's 25,000-40,000 launches ~20 s
+        ms = median_ms(lambda: step(state, x, y), runs=10, warmup=2)
+        print(f"QAT step {label} batch {FAMILY_QAT_TIME_BATCH} W8A8 erf ADMM: {ms:.3f} ms/step = "
+              f"{FAMILY_QAT_TIME_BATCH / ms * 1e3:.0f} images/s [{card}]", flush=True)
+        prof = profile_step(lambda: step(state, x, y), card, f"QAT step {label} batch {FAMILY_QAT_TIME_BATCH} ADMM",
+                            iters=1)
+        out["step_times"][label] = {"ms_per_step": ms, "images_per_s": FAMILY_QAT_TIME_BATCH / ms * 1e3,
+                                    "profile": prof}
+        del model, state, step, x, y
+        torch.cuda.empty_cache()
+
+    phase("the port's bench")
+    proc = subprocess.run([sys.executable, "-m", "alignq_tpu_torch.bench"], cwd=repo, capture_output=True, text=True,
+                          timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"alignq_tpu_torch.bench: exit {proc.returncode}, output {lines}, {proc.stderr[-2000:]}")
+    out["bench"] = json.loads(lines[0])
+    print(f"bench: {lines[0]} [{card}]", flush=True)
+    return out
 
 
 def main() -> int:
@@ -1096,7 +1308,10 @@ def main() -> int:
     phase("QAT on the card")
     details["qat"] = qat_on_the_card(dev, repo, serve_and_check, reqs, slice_kw)
 
-    # 9. times
+    # 9. the QAT of DenseNet-40 and MobileNet-V2: train, export, serve
+    details["family_qat"] = family_qat(dev, card, repo, phase)
+
+    # 10. times
     phase("times")
     details["forward"] = {}
     for batch in (BATCH, SERVE_BATCH):
@@ -1170,16 +1385,16 @@ def main() -> int:
               f"bound {b_ms:.4f} ({b_by}) [{card}]", flush=True)
     details["kernels"] = rows
 
-    # 10. QAT step times and where a step's device time goes
+    # 11. QAT step times and where a step's device time goes
     phase("QAT times")
     details["qat_times"] = qat_times(dev, card)
 
 
-    # 11-14. the CIFAR deploy families: DenseNet-40 (f32 and int8 stage
+    # 12-15. the CIFAR deploy families: DenseNet-40 (f32 and int8 stage
     # buffers) and MobileNet-V2
     fam_rows, fam_err, fam_serving = deploy_families(dev, card, repo, details, phase)
 
-    # 15. the kernels line, the card line, the final line
+    # 16. the kernels line, the card line, the final line
     phase("done")
 
     def summed(r, ms_key, plain_key, bound_key, weight):

@@ -170,7 +170,7 @@ def test_registry_refusals(tmp_path):
         engine_from_artifact(bogus, device="cpu")
     unported = str(tmp_path / "r50.npz")
     jart.save_int8_artifact(unported, {"w": np.zeros(1)}, meta={"model": "resnet50"})
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1, ImageNet ResNets and domain adaptation"):
         engine_from_artifact(unported, device="cpu")
     packed_dn = str(tmp_path / "dn.npz")
     jart.save_int8_artifact(packed_dn, {"w": np.zeros(1)}, meta={"model": "densenet40", "packed_int4": 1})

@@ -184,7 +184,7 @@ def test_site_names_and_deploy_tree_round_trip():
 
 def test_unported_methods_raise():
     for method in ("uniform", "lsq", "apot"):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="Baseline quantizers"):
             TNet(num_units=(1, 1, 1), method=method)
     with pytest.raises(ValueError):
         TNet(num_units=(1, 1, 1), stream_int8=True)

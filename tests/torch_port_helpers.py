@@ -106,3 +106,99 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def site_duals(names, b):
+    """(alter_d, gamma) B x B numpy duals of each ADMM site, by sorted name."""
+    out = {}
+    for i, n in enumerate(sorted(names)):
+        r = np.random.RandomState(100 + i)
+        out[n] = (r.rand(b, b), r.rand(b, b))
+    return out
+
+
+def flax_train_step(jm, params, stats, x, y, jit=False):
+    """One JAX train forward with every ADMM site collected and the
+    gradient of CE + the sites' ADMM losses (site_duals): (loss, logits,
+    grads, new batch_stats, {site: D}) as numpy. Eager unless jit: under
+    jit XLA contracts multiply-adds, which moves a residual sum that is an
+    exact zero under a relu (PreActResNet) off its tie."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from alignq_tpu.admm.loss import admm_loss
+    from alignq_tpu.train.state import flatten_site_names
+
+    def loss_fn(p):
+        logits, nv = jm.apply({"params": p, "batch_stats": stats}, jnp.asarray(x), train=True, compute_corr=True,
+                              mutable=["batch_stats", "admm_d"])
+        ce = jnp.mean(optax.softmax_cross_entropy_with_integer_labels(logits, jnp.asarray(y)))
+        ds = flatten_site_names(nv.get("admm_d", {}))
+        duals = site_duals(ds, x.shape[0])
+        trans = 0.0
+        for n in sorted(ds):
+            trans = trans + admm_loss(ds[n], jnp.asarray(duals[n][0]), jnp.asarray(duals[n][1]))
+        return ce + trans, (logits, nv["batch_stats"], ds)
+
+    step = jax.value_and_grad(loss_fn, has_aux=True)
+    (loss, (logits, new_stats, ds)), grads = (jax.jit(step) if jit else step)(jax.tree.map(jnp.asarray, params))
+    return jax.device_get((loss, logits, grads, new_stats, ds))
+
+
+def port_train_step(tm, x, y):
+    """The port's counterpart of flax_train_step on its model: (loss,
+    logits, {name: grad}, {site: D}) as tensors."""
+    from alignq_tpu_torch.admm.loss import admm_loss
+
+    sink = {}
+    logits = tm(torch.tensor(x), train=True, sink=sink)
+    duals = site_duals(sink, x.shape[0])
+    loss = torch.nn.functional.cross_entropy(logits, torch.tensor(y))
+    for n in sorted(sink):
+        loss = loss + admm_loss(sink[n], torch.tensor(duals[n][0]), torch.tensor(duals[n][1]))
+    named = dict(tm.named_parameters())
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    return loss, logits, grads, sink
+
+
+def assert_train_step_matches(want, got, tm, tol):
+    """flax_train_step's results against port_train_step's, and the new
+    statistics (BatchNorm's, StageRequant's amax) against tm's buffers."""
+    loss, logits, grads, new_stats, ds = want
+    loss_t, logits_t, grads_t, sink = got
+    assert sorted(sink) == sorted(ds)
+    np.testing.assert_allclose(float(loss_t.detach()), float(loss), **tol)
+    np.testing.assert_allclose(logits_t.detach().numpy(), np.asarray(logits), **tol)
+    for n in ds:
+        np.testing.assert_allclose(sink[n].detach().numpy(), np.asarray(ds[n]), **tol, err_msg=n)
+    want_g = flat_names(grads)
+    assert set(want_g) == set(grads_t)
+    for n, g in grads_t.items():
+        np.testing.assert_allclose(g.numpy(), to_port_layout(n, want_g[n]), **tol, err_msg=n)
+    want_s = flat_names(new_stats)
+    assert set(want_s) == {n for n, _ in tm.named_buffers()}
+    for n, s in tm.named_buffers():
+        np.testing.assert_allclose(s.numpy(), want_s[n], **tol, err_msg=n)
+
+
+def assert_qparams_match(jq, tq):
+    """A qparams tree converted by the JAX package against the port's, leaf
+    by leaf in JAX's order: weight codes within one code on under 1e-3 of
+    them (the CDF's mean and std reduce in another order:
+    tests/test_torch_convert.py), f32 leaves within an f32 rounding."""
+    import jax
+
+    from alignq_tpu_torch.kernels.artifact import _leaves
+
+    jl_all = jax.tree.leaves(jq)
+    tl_all = [leaf for _, leaf in _leaves(tq)]
+    assert len(jl_all) == len(tl_all)
+    for jl, tl in zip(jl_all, tl_all):
+        jl, tl = np.asarray(jl), (tl.detach().cpu().numpy() if torch.is_tensor(tl) else np.asarray(tl))
+        assert jl.shape == tl.shape and jl.dtype == tl.dtype
+        if jl.dtype == np.int8:
+            assert np.abs(jl.astype(int) - tl.astype(int)).max() <= 1
+            assert (jl != tl).mean() < 1e-3
+        else:
+            np.testing.assert_allclose(tl, jl, rtol=2e-6, atol=1e-7)
