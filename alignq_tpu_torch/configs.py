@@ -8,7 +8,8 @@ hyperparameters:
 
 The three domain-adaptation presets (DANN and DSAN on Office-31, DANN on
 the digits) wait for the domain-adaptation drivers, ROADMAP queue 1,
-ImageNet ResNets and domain adaptation.
+Domain adaptation. Their trunk, the ImageNet-layout ResNet-18/34/50
+(models/resnet_imagenet.py), is ported, with its INT8 serving graph.
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@
 // CUDA. It reads the int8 codes x (B, H, W, C) in place and writes the
 // (B*Ho*Wo, N8) result: out[m, n] = epilogue(sum_k A[m, k] * W[n, k]) with
 // A[m, (dy, dx, c)] = x[b, oy*s + dy - pad, ox*s + dx - pad, c] (zero off the
-// image), ksize 3 (pad 1) or 1 (pad 0), stride 1 or 2. The GEMM form
+// image), ksize 3 (pad 1), 1 (pad 0) or 7 (pad 3: the ImageNet ResNets' stem
+// over the image's channels padded to 4), stride 1 or 2. The GEMM form
 // (x (M, Kp) @ W^T) is the 1x1 stride-1 conv over the (1, 1, M, Kp) view.
 //
 // What bounds it on an H100, at the serving graph's shapes: bytes for most
@@ -24,17 +25,22 @@
 // What the design does about it:
 // - A CTA's output tile is a band of TR x TW output pixels of one image.
 //   Its input band with the halo is copied into shared memory once, by
-//   cp.async, zero-filled at the pad border; the 9 taps are offsets into
-//   that buffer (a table per k-word), so no input byte is fetched 9 times.
+//   cp.async, zero-filled at the pad border; the 9 (or 49) taps are offsets
+//   into that buffer (a table per k-word), so no input byte is fetched
+//   once for each tap. The 7x7 stem's band, for a one-row tile of TW
+//   outputs at stride 2, is 7 x (2*TW + 5) pixels of 4 bytes, each k-word
+//   one tap of one pixel.
 // - The packed weight (N8, Kp) is resident in shared memory for the whole
-//   kernel where it fits (every ResNet conv: at most 128 x 288 or 64 x 576
-//   bytes). Where it does not, K streams in chunks, weight chunk beside
+//   kernel where it fits (every CIFAR ResNet conv: at most 128 x 288 or
+//   64 x 576 bytes). Where it does not, K streams in chunks, weight chunk beside
 //   input chunk: a 1x1 conv (and the GEMM) in chunks of 128 channels; a 3x3
-//   conv (DenseNet's convs over 200 and more channels) in chunks of CC
-//   channels, each with its 9 taps: the band of the chunk's channels with
-//   its halo, and the weight's (tap, channel) columns of those channels.
-//   The last chunk may be narrower; its K is zero-padded to 32 by
-//   zero-filled weight columns.
+//   conv (DenseNet's convs over 200 and more channels, the ImageNet
+//   ResNets' from 128 channels) in chunks of CC channels, each with its 9
+//   taps: the band of the chunk's channels with its halo, and the weight's
+//   (tap, channel) columns of those channels. The last chunk may be
+//   narrower; its K is zero-padded to 32 by zero-filled weight columns.
+//   Where K streams, each warp keeps the accumulators of one 32-row group
+//   of the tile over the chunks (the plan sizes the tile so).
 // - Output widths above 256 (MobileNet's 384-1280) split N into n_blocks
 //   blocks of NB <= 256 columns, a grid dimension (blockIdx.y): each block
 //   keeps its own weight rows, and reads the input bands again (from L2).
@@ -190,18 +196,18 @@ __device__ __forceinline__ TileOrigin tile_origin(const Plan& p, int tile) {
 // Issue the cp.async loads of stage (tile, chunk) into buf: the input band
 // of the tile's channels [c0, c0 + CC) and, where the weight streams, the
 // chunk's columns of the N block's rows [n0, n0 + nbr): for a 1x1 conv K
-// bytes [c0, c0 + KC); for a 3x3 conv each tap's channels [c0, c0 + cc),
+// bytes [c0, c0 + KC); for a KS x KS conv each tap's channels [c0, c0 + cc),
 // tap after tap, then zeros to the chunk's depth (a multiple of 32).
 template <int KS>
 __device__ void issue_stage(const Plan& p, const int8_t* __restrict__ x,
                             const int8_t* __restrict__ wt, unsigned char* buf, int tile,
                             int chunk, int n0, int nbr) {
   const TileOrigin o = tile_origin(p, tile);
-  // KS 3: the band with its halo, every input pixel; KS 1: the strided
-  // sample of the pixels the tile reads
-  const int ls = KS == 3 ? 1 : p.stride;
-  const int iy0 = o.oy0 * p.stride - (KS == 3 ? p.pad : 0);
-  const int ix0 = o.ox0 * p.stride - (KS == 3 ? p.pad : 0);
+  // KS 3 and 7: the band with its halo, every input pixel; KS 1: the
+  // strided sample of the pixels the tile reads
+  const int ls = KS > 1 ? 1 : p.stride;
+  const int iy0 = o.oy0 * p.stride - (KS > 1 ? p.pad : 0);
+  const int ix0 = o.ox0 * p.stride - (KS > 1 ? p.pad : 0);
   const int c0 = chunk * p.CC;
   const int cc = min(p.CC, p.C - c0);  // channels of x in this chunk
   const int nv = cc / p.vec, nv_log2 = log2_or_neg(nv);
@@ -233,17 +239,18 @@ __device__ void issue_stage(const Plan& p, const int8_t* __restrict__ x,
       cp_async(wbuf + n * p.WP + q * 16, wt + static_cast<size_t>(n0 + n) * p.Kp + c0 + q * 16, 16, 16);
     }
   } else {
-    const int per_row = 9 * nv;
+    constexpr int TAPS = KS * KS;
+    const int per_row = TAPS * nv;
     for (int i = threadIdx.x; i < nbr * per_row; i += blockDim.x) {
       const int n = i / per_row, rr = i - n * per_row, tap = rr / nv, v = rr - tap * nv;
       cp_async(wbuf + n * p.WP + tap * cc + v * p.vec,
                wt + static_cast<size_t>(n0 + n) * p.Kp + tap * p.C + c0 + v * p.vec, p.vec, p.vec);
     }
     const int kc = chunk == p.n_chunks - 1 ? p.KCL : p.KC;
-    const int nz = (kc - 9 * cc) / 4;  // zero words of the padded tail
+    const int nz = (kc - TAPS * cc) / 4;  // zero words of the padded tail
     for (int i = threadIdx.x; i < nbr * nz; i += blockDim.x) {
       const int n = i / nz, q = i - n * nz;
-      cp_async(wbuf + n * p.WP + 9 * cc + 4 * q, wt, 4, 0);
+      cp_async(wbuf + n * p.WP + TAPS * cc + 4 * q, wt, 4, 0);
     }
   }
 }
@@ -254,7 +261,7 @@ k1_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
                const float* __restrict__ scale, const float* __restrict__ bias,
                void* __restrict__ out, const Plan p, const ActArgs act_args) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int* koff = reinterpret_cast<int*>(smem);          // KS 3: A byte offset of each k-word
+  int* koff = reinterpret_cast<int*>(smem);          // KS > 1: A byte offset of each k-word
   unsigned char* wres = smem + p.koff_bytes;          // the resident weight
   unsigned char* stages = wres + p.w_bytes;           // the ring of stage buffers
 
@@ -264,7 +271,7 @@ k1_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
   const int wm = warp % p.warps_m, wn = warp / p.warps_m;
   const int n_base = wn * WARP_COLS;
   const int mgroups = p.TR * p.TW / WARP_ROWS;
-  const int ps = KS == 3 ? p.stride : 1;  // pixel step of one output pixel in the band
+  const int ps = KS > 1 ? p.stride : 1;  // pixel step of one output pixel in the band
   const int tw_log2 = log2_or_neg(p.TW);
   const int n0 = blockIdx.y * p.NB;         // this CTA's N block
   const int nbr = min(p.NB, p.N8 - n0);     // its columns (a multiple of 8)
@@ -272,7 +279,7 @@ k1_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
   // resident) follows that of a full chunk
   const int last_words = p.n_chunks > 1 ? p.KC / 4 : 0;
 
-  if (KS == 3) {
+  if (KS > 1) {
     // word q of a chunk of cc channels holds k = 4q..4q+3: tap k / cc,
     // channels k % cc.. (cc % 4 == 0, so a word never straddles taps). The
     // zero-weight tail repeats the last real word, so that its lanes share
@@ -282,7 +289,8 @@ k1_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
       const bool last = q >= last_words;
       const int cc = last ? ccl : p.CC;
       const int k = 4 * (last ? q - last_words : q), tap = k / cc, c = k - tap * cc;
-      koff[q] = tap < 9 ? (tap / 3) * p.RP + (tap % 3) * p.P + c : 2 * p.RP + 2 * p.P + cc - 4;
+      koff[q] = tap < KS * KS ? (tap / KS) * p.RP + (tap % KS) * p.P + c
+                              : (KS - 1) * p.RP + (KS - 1) * p.P + cc - 4;
     }
   }
   if (p.n_chunks == 1) {  // the N block's weight rows, resident for the kernel
@@ -347,7 +355,7 @@ k1_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
       for (int ks = 0; ks < nk; ++ks) {
         // A fragment (16 x 32, row-major): rows g and g+8, k-words t and 4+t
         int o0, o1;
-        if (KS == 3) {
+        if (KS > 1) {
           o0 = kt[ks * 8 + t];
           o1 = kt[ks * 8 + 4 + t];
         } else {
@@ -494,5 +502,6 @@ extern "C" int k1_conv_launch(const void* x, const void* wt, const void* scale,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p.ksize == 3) return dispatch<3>(mode, x, wt, scale, bias, out, p, a, s);
   if (p.ksize == 1) return dispatch<1>(mode, x, wt, scale, bias, out, p, a, s);
+  if (p.ksize == 7) return dispatch<7>(mode, x, wt, scale, bias, out, p, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,7 +7,7 @@ INT graph on the test set with its operands laid out once
 (`kernels/deploy_registry.py`: on the card K1's convs, the depthwise
 kernel, the BN-act passes and, with --stage_kernel, K3), then reports
 fake-quant top-1, INT top-1, their delta and the two forwards' prediction
-agreement.
+agreement, with the logit margins of the images where they disagree.
 
     python -m alignq_tpu_torch.export_int8 --dataset synthetic --epochs 2 \\
         --deploy_exact --cdf_impl poly --stage_kernel
@@ -69,25 +69,41 @@ def export_and_compare(model: torch.nn.Module, loader, family: str, meta: Dict[s
     `meta` (an artifact's meta: bits, act_impl, stream, stage_int8,
     use_stage_kernel) describes, and run both on every batch of loader, on
     the model's device. Returns ({'fq_top1', 'int_top1', 'delta',
-    'agreement'} in percent, qparams)."""
+    'agreement'} in percent, 'disagree_margins': for each image where the
+    two predictions differ, (the fake-quant logit of its own top class less
+    that of the INT graph's, the INT graph's logit of its top class less
+    that of the fake-quant's), 'median_margin': the median over the set of
+    the fake-quant top-1 less top-2 logit, 'max_logit_gap' and
+    'median_logit_gap': the largest and the median over the set of an
+    image's largest |INT logit - fake-quant logit|; qparams)."""
     dev = next(model.parameters()).device
     fam = DEPLOY_FAMILIES[family]
     qparams = fam.convert(*deploy_tree(model), meta)
     eval_qp = augment_int_cutpoints(qparams, meta["act_bits"]) if meta["act_impl"] == "bins_int" else qparams
     int_forward = functools.partial(fam.forward(meta), operands=fam.operands(eval_qp, meta))
     correct = fq_correct = agree = total = 0
+    disagree, margins, gaps = [], [], []
     with torch.no_grad():
         for xb, yb in loader:
             x = torch.from_numpy(np.ascontiguousarray(xb)).to(dev)
-            pred_i8 = int_forward(eval_qp, x).argmax(-1).cpu().numpy()
-            pred_fq = model(x, train=False).argmax(-1).cpu().numpy()
+            l_i8 = int_forward(eval_qp, x).double().cpu().numpy()
+            l_fq = model(x, train=False).double().cpu().numpy()
+            pred_i8, pred_fq = l_i8.argmax(-1), l_fq.argmax(-1)
             y = np.asarray(yb)
             correct += int((pred_i8 == y).sum())
             fq_correct += int((pred_fq == y).sum())
             agree += int((pred_i8 == pred_fq).sum())
             total += len(y)
+            top2 = np.sort(l_fq, axis=-1)[:, -2:]
+            margins += (top2[:, 1] - top2[:, 0]).tolist()
+            gaps += np.abs(l_i8 - l_fq).max(-1).tolist()
+            for i in np.flatnonzero(pred_i8 != pred_fq):
+                disagree.append((float(l_fq[i, pred_fq[i]] - l_fq[i, pred_i8[i]]),
+                                 float(l_i8[i, pred_i8[i]] - l_i8[i, pred_fq[i]])))
     out = {"fq_top1": 100 * fq_correct / total, "int_top1": 100 * correct / total,
-           "delta": 100 * (fq_correct - correct) / total, "agreement": 100 * agree / total}
+           "delta": 100 * (fq_correct - correct) / total, "agreement": 100 * agree / total,
+           "disagree_margins": disagree, "median_margin": float(np.median(margins)),
+           "max_logit_gap": float(np.max(gaps)), "median_logit_gap": float(np.median(gaps))}
     return out, qparams
 
 
@@ -134,6 +150,8 @@ def main(argv=None) -> dict:
     p.add_argument("--job_dir", default=None)
     p.add_argument("--resume", action="store_true", help="export the run trained in --job_dir")
     p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the init, the data order and the synthetic set (TrainConfig.seed)")
     a = p.parse_args(argv)
 
     from alignq_tpu_torch.data.registry import get_data
@@ -164,7 +182,7 @@ def main(argv=None) -> dict:
     cfg = TrainConfig(
         target_model=target, method="ours", bitW=a.bits, abitW=a.bits, variant=a.variant, dataset=a.dataset,
         data_dir=a.data_dir, num_epochs=a.epochs, train_batch_size=a.batch, eval_batch_size=a.batch,
-        print_freq=a.print_freq,
+        print_freq=a.print_freq, seed=a.seed,
         correction_exclude=exclude, deploy_exact=a.deploy_exact, cdf_impl=a.cdf_impl,
         stream_int8=(a.stream == "int8"), stage_int8=a.stage_int8, stage_calib=a.stage_calib, admm=a.admm,
         mxu_bf16=a.mxu_bf16, **({"lr": a.lr} if a.lr is not None else {}),
@@ -189,6 +207,10 @@ def main(argv=None) -> dict:
     print(f"INT8 top1: {report['int_top1']:.2f}  fake-quant top1: {report['fq_top1']:.2f}  "
           f"prediction agreement: {report['agreement']:.2f}%")
     print(f"deployment accuracy delta (fake-quant - int8): {report['delta']:+.2f} pts")
+    if report["disagree_margins"]:
+        print(f"logit margins (fake-quant, INT) of the {len(report['disagree_margins'])} images that disagree: "
+              f"{report['disagree_margins']}; median fake-quant top-1 less top-2 margin {report['median_margin']:.4g}; "
+              f"largest INT - fake-quant logit gap {report['max_logit_gap']:.4g} (median {report['median_logit_gap']:.4g})")
     if a.save:
         from alignq_tpu_torch.kernels.artifact import save_int8_artifact
         from alignq_tpu_torch.kernels.convert import pack_qparams_int4

@@ -6,15 +6,17 @@ The JAX package keeps a PreActResNet as a flax tree (`conv0/kernel` HWIO,
 as a tree of QConvInt8 triples (DenseNet's of QConvPre and BNAffine).
 Given either as numpy arrays, these functions return the port's tensors in
 the same structure. `init_*_params` draw fresh random trees of each CIFAR
-family with the shapes and key names of the JAX models' `init`.
+family and of the ImageNet ResNet trunks with the shapes and key names of
+the JAX models' `init`.
 
 Training state crosses too: a flax tree of any of the four CIFAR families
-loads into the port's QAT model (`load_flax_tree`; conv kernels OIHW,
-MobileNet's depthwise HWIO (3, 3, 1, C) as (C, 1, 3, 3), StageRequant's
-`amax` among the statistics), JAX's ADMM duals become the port's, and
-`deploy_tree` gives a trained model back as the flax-layout tree that the
-family's converter (`convert_preact_resnet`, `convert_densenet40`,
-`convert_mobilenetv2`) folds.
+or of an ImageNet ResNet trunk loads into the port's QAT model
+(`load_flax_tree`; conv kernels OIHW, MobileNet's depthwise HWIO (3, 3, 1,
+C) as (C, 1, 3, 3), StageRequant's `amax` among the statistics), JAX's
+ADMM duals become the port's, and `deploy_tree` gives a trained model back
+as the flax-layout tree that the family's converter
+(`convert_preact_resnet`, `convert_densenet40`, `convert_mobilenetv2`,
+`convert_resnet_imagenet`) folds.
 """
 
 from __future__ import annotations
@@ -228,6 +230,26 @@ def init_mobilenetv2_params(
     return params_from_numpy(params, stats, device)
 
 
+def init_resnet_imagenet_params(
+    arch: str, generator: torch.Generator, device
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A deploy tree with the shapes and key names of the JAX package's
+    `resnet{18,34,50}_quant(...).init` (models/resnet_imagenet.py
+    ResNetFeature): `conv1`, `bn1`, `layer{s}_{b}/{conv1,bn1,conv2,bn2,
+    conv3,bn3,downsample_conv,downsample_bn}`; conv kernels U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) as the JAX QConv's init, BN scale 1, bias 0, mean 0,
+    var 1. The port's model of the arch, drawn on the CPU from `generator`,
+    given as its flax tree (deploy_tree), then moved to `device`."""
+    from alignq_tpu_torch.models import resnet_imagenet
+
+    builders = {"resnet18": resnet_imagenet.resnet18_quant, "resnet34": resnet_imagenet.resnet34_quant,
+                "resnet50": resnet_imagenet.resnet50_quant}
+    if arch not in builders:
+        raise ValueError(f"unknown ImageNet ResNet {arch!r}; have {sorted(builders)}")
+    params, stats = deploy_tree(builders[arch](generator=generator))
+    return params_from_numpy(params, stats, device)
+
+
 def _flat(tree, prefix=""):
     """A nested dict -> {'a.b.c': leaf}."""
     out = {}
@@ -241,7 +263,9 @@ def _flat(tree, prefix=""):
 
 
 def _is_conv_kernel(name: str, ndim: int) -> bool:
-    return name.endswith("kernel") and ndim == 4
+    """A 4-D leaf laid out HWIO in flax: a conv kernel, or LLSQ's per
+    output channel `alpha_w` ((1, 1, 1, Cout); the port's (Cout, 1, 1, 1))."""
+    return ndim == 4 and (name.endswith("kernel") or name.endswith("alpha_w"))
 
 
 @torch.no_grad()
@@ -250,7 +274,8 @@ def load_flax_tree(model: torch.nn.Module, params: Dict[str, Any], batch_stats: 
     depthwise one (k, k, 1, C)) into the port's model of the same
     structure, in the model's dtype and device (conv kernels OIHW, a
     depthwise one (C, 1, k, k)). Every parameter and statistic must be
-    given, and nothing else."""
+    given, and nothing else. The baselines' parameters (`lsq_step_w`,
+    `wgt_alpha`, LLSQ's `alpha_w` and `alpha`, ...) cross as the rest."""
     given = {**_flat(params), **_flat(batch_stats)}
     own = {**dict(model.named_parameters()), **dict(model.named_buffers())}
     if set(given) != set(own):

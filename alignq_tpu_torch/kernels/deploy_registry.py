@@ -19,10 +19,12 @@ Contract per family:
   kernels.
 - `input_shape(meta)` is the engine's fixed request shape.
 
-The ImageNet, domain-adaptation and digit families are in the table, as
-in the JAX package, but not ported: their template raises
-NotImplementedError (ROADMAP.md queue 1, ImageNet ResNets and domain
-adaptation).
+The ImageNet-layout trunks (resnet18, resnet34, resnet50) serve the pooled
+feature, as the JAX package's family does; their meta's `arch` (else its
+`model`) picks the trunk, and `image_size` (224 where the meta has none)
+the request shape. The domain-adaptation and digit families are in the
+table, as in the JAX package, but not ported: every entry raises
+NotImplementedError (ROADMAP.md queue 1, Domain adaptation).
 """
 
 from __future__ import annotations
@@ -37,6 +39,10 @@ import torch
 
 def _meta_int(meta: Dict[str, Any], key: str, default: int) -> int:
     return int(np.asarray(meta[key])) if key in meta else default
+
+
+def _meta_str(meta: Dict[str, Any], key: str, default: str) -> str:
+    return str(np.asarray(meta[key])) if key in meta else default
 
 
 def _act_kwargs(meta: Dict[str, Any]) -> Dict[str, Any]:
@@ -160,14 +166,51 @@ def _cifar_shape(meta):
     return (32, 32, 3)
 
 
+# ------------------------------------------------------------ ImageNet nets
+
+
+def _imagenet_arch(meta) -> str:
+    return _meta_str(meta, "arch", _meta_str(meta, "model", "resnet50"))
+
+
+def _imagenet_convert(params, batch_stats, meta):
+    from alignq_tpu_torch.kernels.infer_resnet_imagenet import convert_resnet_imagenet
+
+    return convert_resnet_imagenet(params, batch_stats, **_bits(meta))
+
+
+def _imagenet_template(meta, device):
+    from alignq_tpu_torch.interop import init_resnet_imagenet_params
+
+    return _imagenet_convert(*init_resnet_imagenet_params(_imagenet_arch(meta), _seed(), device), meta)
+
+
+def _imagenet_forward(meta):
+    from alignq_tpu_torch.kernels.infer_resnet_imagenet import resnet_imagenet_int8_forward
+
+    kw = _act_kwargs(meta)
+    kw.pop("stream", None)
+    return functools.partial(resnet_imagenet_int8_forward, **kw)
+
+
+def _imagenet_operands(qparams, meta):
+    from alignq_tpu_torch.kernels.infer_resnet_imagenet import pack_resnet_imagenet_operands
+
+    return pack_resnet_imagenet_operands(qparams)
+
+
+def _imagenet_shape(meta):
+    s = _meta_int(meta, "image_size", 224)
+    return (s, s, 3)
+
+
 # ------------------------------------------ families the port does not serve
 
 
 def _not_ported(name: str):
     def refuse(*_):
         raise NotImplementedError(
-            f"deploy family {name!r} is not ported to alignq_tpu_torch yet (ROADMAP.md queue 1, ImageNet ResNets "
-            "and domain adaptation)"
+            f"deploy family {name!r} is not ported to alignq_tpu_torch yet (ROADMAP.md queue 1, Domain adaptation)"
         )
 
     return refuse
@@ -187,5 +230,7 @@ DEPLOY_FAMILIES: Dict[str, DeployFamily] = {
                                _densenet_operands, _cifar_shape),
     "mobilenetv2": DeployFamily("mobilenetv2", _mobilenet_convert, _mobilenet_template, _mobilenet_forward,
                                 _mobilenet_operands, _cifar_shape),
-    **{name: _unported(name) for name in ("resnet18", "resnet34", "resnet50", "dann", "dsan", "mdd", "digit_dann")},
+    **{name: DeployFamily(name, _imagenet_convert, _imagenet_template, _imagenet_forward, _imagenet_operands,
+                          _imagenet_shape) for name in ("resnet18", "resnet34", "resnet50")},
+    **{name: _unported(name) for name in ("dann", "dsan", "mdd", "digit_dann")},
 }

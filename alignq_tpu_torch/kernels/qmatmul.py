@@ -53,6 +53,7 @@ CODES = KERNEL + ":codes"
 F32 = KERNEL + ":f32"
 REQUANT = KERNEL + ":requant"
 MODE = KERNEL + ":mode:{}"  # and of each epilogue mode: MODE.format("poly")
+FORM = KERNEL + ":ks{}"  # and of each kernel size: FORM.format(7), the ImageNet stem
 TAP_GATHERS = "gather_taps:cuda"  # counter key of tap gathers of CUDA tensors
 
 
@@ -213,7 +214,7 @@ class ConvPlan(NamedTuple):
 
     A tile is TR x TW output pixels of one image; tiles run (b, ty, tx)
     over tiles_y x tiles_x a image. Its input band, HR x HC pixels (the
-    halo included for ksize 3; the strided sample for ksize 1), sits in
+    halo included for ksize 3 and 7; the strided sample for ksize 1), sits in
     shared memory at a pixel pitch P and a row pitch RP; a stage carries CC
     channels, KC bytes of K, n_chunks stages a tile (1 where the weight is
     resident: then CC = C, KC = Kp); the last stage KCL bytes of K. WP: the
@@ -292,20 +293,49 @@ def _band_bytes(hr: int, hc: int, width: int, step: int):
     return p, rp, _round_up(hr * rp, 16)
 
 
+KSIZES = {3: 1, 1: 0, 7: 3}  # the kernel sizes K1 takes, each with its one padding
+
+
+def _tile(ho: int, wo: int, bm: int, warps_m_max: int):
+    """(TR, TW) of a tile of about bm output pixels: bands of whole output
+    rows (TW the width rounded up to 8), TR*TW a multiple of 32; an image
+    wider than bm (the GEMM view, the stem) in one-row tiles of one 32-row
+    group a warp."""
+    tw = _round_up(wo, 8)
+    if tw >= bm:
+        return 1, 32 * min(bm // 32, warps_m_max)
+    return _round_up(min(max(bm // tw, 1), ho), 32 // math.gcd(tw, 32)), tw
+
+
+def _streamed_tile(ho: int, wo: int, warps_m_max: int):
+    """(TR, TW) of a tile where K streams: each warp keeps one 32-row group
+    of accumulators over the chunks, so a tile holds at most warps_m_max
+    groups. Bands of whole rows where one fits, else one-row tiles of as
+    few groups as cover a row."""
+    tw = _round_up(wo, 8)
+    step = 32 // math.gcd(tw, 32)
+    tr = min(32 * warps_m_max // tw // step * step, _round_up(ho, step))
+    if tr == 0:
+        return 1, 32 * min(warps_m_max, -(-wo // 32))
+    return tr, tw
+
+
 @functools.lru_cache(maxsize=None)
 def conv_plan(b: int, h: int, w: int, c: int, ksize: int, stride: int, pad: int, n8: int, kp: int) -> ConvPlan:
     """The tiling of one K1 launch over x (b, h, w, c) int8 and a packed
-    weight (n8, kp). N splits into the fewest blocks of at most N_MAX
-    columns. Tiles are bands of whole output rows (TW the output width
-    rounded up to 8) of ~128 pixels where a block has <= 32 columns and ~64
-    above; an image wider than that (the GEMM view) is cut into one-row
-    tiles. The weight is resident where the CTA fits SMEM_BUDGET with two
-    stage buffers; else K streams: a 1x1 conv (the GEMM form) in chunks of
-    K_CHUNK channels, a 3x3 conv in chunks of the most channels (a multiple
-    of 32) that fit, each with its 9 taps. Then as many stage buffers as
-    fit, up to 4."""
-    if (ksize, pad) not in ((3, 1), (1, 0)) or stride not in (1, 2):
-        raise ValueError(f"K1 takes 3x3 pad 1 or 1x1 pad 0 at stride 1 or 2, got {ksize}x{ksize} "
+    weight (n8, kp): 3x3 pad 1, 1x1 pad 0 or 7x7 pad 3 (the ImageNet stem),
+    stride 1 or 2. N splits into the fewest blocks of at most N_MAX columns
+    (fewer where a streamed 3x3 chunk of the weight would not fit). Tiles
+    are bands of whole output rows of ~128 pixels where a block has <= 32
+    columns and ~64 above (_tile). The weight is resident where the CTA
+    fits SMEM_BUDGET with two stage buffers; else K streams, over tiles of
+    at most one 32-row group a warp (_streamed_tile where the first tile
+    has more): a 1x1 conv (the GEMM form) in
+    chunks of K_CHUNK channels, a larger kernel in chunks of the most
+    channels (a multiple of 32) that fit, each with its taps. Then as many
+    stage buffers as fit, up to 4."""
+    if KSIZES.get(ksize) != pad or stride not in (1, 2):
+        raise ValueError(f"K1 takes 3x3 pad 1, 1x1 pad 0 or 7x7 pad 3 at stride 1 or 2, got {ksize}x{ksize} "
                          f"pad {pad} stride {stride}")
     if c % C_MULT or kp % K_MULT or n8 % N_MULT or n8 <= 0:
         raise ValueError(f"C={c}, Kp={kp}, N8={n8} out of K1's range")
@@ -314,53 +344,62 @@ def conv_plan(b: int, h: int, w: int, c: int, ksize: int, stride: int, pad: int,
     ho, wo = conv_out_hw(h, w, ksize, stride, pad)
     if b * ho * wo >= 2**31:
         raise ValueError(f"{b * ho * wo} output rows: K1 indexes them with 32-bit ints")
-    n_blocks = -(-n8 // N_MAX)
+    for nb_max in (N_MAX, 128, 64, 32):
+        plan = _plan_n_blocks(b, h, w, c, ksize, stride, pad, n8, kp, ho, wo, nb_max)
+        if plan is not None:
+            return plan
+    raise ValueError(f"a {ksize}x{ksize} conv over {c} channels to {n8} does not fit K1's shared memory")
+
+
+def _plan_n_blocks(b, h, w, c, ksize, stride, pad, n8, kp, ho, wo, nb_max) -> Optional[ConvPlan]:
+    """conv_plan with N in blocks of at most nb_max columns, or None where
+    it does not fit."""
+    n_blocks = -(-n8 // nb_max)
     nb = _round_up(-(-n8 // n_blocks), N_MULT)
     warps_n = -(-nb // 32)
     warps_m_max = max(1, 8 // warps_n)
-    bm = 128 if nb <= 32 else 64
-    tw = _round_up(wo, 8)
-    if tw >= bm:  # a wide image: one-row tiles, one 32-row group a warp
-        tr, tw = 1, 32 * min(bm // 32, warps_m_max)
-    else:
-        tr = _round_up(min(max(bm // tw, 1), ho), 32 // math.gcd(tw, 32))
-    mgroups = tr * tw // 32
-    warps_m = min(mgroups, warps_m_max)
-    ps = stride if ksize == 3 else 1
-    hr, hc = (tr - 1) * ps + ksize, (tw - 1) * ps + ksize
+    ps = stride if ksize > 1 else 1  # pixel step of one output pixel in the band
+    taps = ksize * ksize
 
-    width = c if ksize == 3 else kp  # bytes a band pixel holds
-    p, rp, a_bytes = _band_bytes(hr, hc, width, ps)
+    def band(tr, tw, width):
+        hr, hc = (tr - 1) * ps + ksize, (tw - 1) * ps + ksize
+        return (hr, hc, *_band_bytes(hr, hc, width, ps))
+
+    tr, tw = _tile(ho, wo, 128 if nb <= 32 else 64, warps_m_max)
+    width = c if ksize > 1 else kp  # bytes a band pixel holds
+    hr, hc, p, rp, a_bytes = band(tr, tw, width)
     kc, cc, n_chunks, kcl, wp = kp, c, 1, kp, kp + 16
-    koff_bytes = _round_up(kp, 16) if ksize == 3 else 0
+    koff_bytes = _round_up(kp, 16) if ksize > 1 else 0
     w_bytes, stage = nb * wp, a_bytes
     loads = [c]
     if koff_bytes + w_bytes + 2 * stage > SMEM_BUDGET:
-        if mgroups != warps_m:
-            raise ValueError(f"a {ksize}x{ksize} conv over {c} channels to {n8} does not fit K1's shared memory")
+        if tr * tw > 32 * warps_m_max:
+            tr, tw = _streamed_tile(ho, wo, warps_m_max)
         if ksize == 1:
             kc = cc = K_CHUNK
             n_chunks = -(-kp // kc)
             kcl = kp - (n_chunks - 1) * kc
-            p, rp, a_bytes = _band_bytes(hr, hc, kc, 1)
+            hr, hc, p, rp, a_bytes = band(tr, tw, kc)
             koff_bytes, wp = 0, kc + 16
             loads = [kc, c % kc or kc]
         else:
             def fits(cc_):
-                kcl_ = _round_up(9 * (c - (-(-c // cc_) - 1) * cc_), K_MULT)
-                band = _band_bytes(hr, hc, cc_, ps)[2]
-                return _round_up(9 * cc_ + kcl_, 16) + 2 * (band + nb * (9 * cc_ + 16)) <= SMEM_BUDGET
+                kcl_ = _round_up(taps * (c - (-(-c // cc_) - 1) * cc_), K_MULT)
+                return _round_up(taps * cc_ + kcl_, 16) + 2 * (band(tr, tw, cc_)[4] + nb * (taps * cc_ + 16)) \
+                    <= SMEM_BUDGET
 
             cc = next((m for m in range(c // 32 * 32, 0, -32) if fits(m)), 0)
             if cc == 0:
-                raise ValueError(f"a 3x3 conv over {c} channels to {n8} does not fit K1's shared memory")
-            kc, n_chunks = 9 * cc, -(-c // cc)
+                return None
+            kc, n_chunks = taps * cc, -(-c // cc)
             ccl = c - (n_chunks - 1) * cc
-            kcl = _round_up(9 * ccl, K_MULT)
-            p, rp, a_bytes = _band_bytes(hr, hc, cc, ps)
+            kcl = _round_up(taps * ccl, K_MULT)
+            hr, hc, p, rp, a_bytes = band(tr, tw, cc)
             koff_bytes, wp = _round_up(kc + kcl, 16), kc + 16
             loads = [c, cc, ccl]
         w_bytes, stage = 0, a_bytes + nb * wp
+    mgroups = tr * tw // 32
+    warps_m = min(mgroups, warps_m_max)
     n_stages = next(n for n in (4, 3, 2) if koff_bytes + w_bytes + n * stage <= SMEM_BUDGET)
     smem = koff_bytes + w_bytes + n_stages * stage
     vec = next(v for v in (16, 8, 4) if all(s % v == 0 for s in (p, rp, *loads)))
@@ -421,6 +460,7 @@ def _run_k1(x, op: K1Weights, ksize, stride, padding, mode: str, act: Optional[A
         _build.launches[KERNEL] += 1
         _build.launches[f"{KERNEL}:{_FAMILY.get(mode, 'codes')}"] += 1
         _build.launches[MODE.format(mode)] += 1
+        _build.launches[FORM.format(ksize)] += 1
     return out if n8 == op.n else out[:, : op.n]
 
 
@@ -537,8 +577,8 @@ def int8_conv_packed(x: torch.Tensor, op: K1Weights, stride: int = 1, padding: i
     epilogue ('f32', or 'relu'), or a stage buffer's int8 requant of it
     ('requant': clip(rint((acc * scale) * inv), +-127), inv packed as the
     bias), (B, Ho, Wo, N). K1 reading x in place on a CUDA tensor (3x3 pad
-    1 or 1x1 pad 0, stride 1 or 2); on a CPU tensor its plain version,
-    int8_conv_reference."""
+    1, 1x1 pad 0 or 7x7 pad 3, stride 1 or 2); on a CPU tensor its plain
+    version, int8_conv_reference."""
     if mode not in _FAMILY:
         raise ValueError(f"unknown mode {mode!r}")
     return _conv(x, op, stride, padding, mode)

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from alignq_tpu_torch.nn.layers import BatchNorm, QConv, QDense, QuantAct, StageRequant, _check_method
+from alignq_tpu_torch.nn.layers import BatchNorm, QConv, QDense, QuantAct, StageRequant
 from alignq_tpu_torch.quant.ste import requant_ste
 
 Sink = Optional[Dict[str, torch.Tensor]]
@@ -43,9 +43,10 @@ class _PreActConv(nn.Module):
         super().__init__()
         self.bn1 = BatchNorm(in_planes)
         self.act_q0 = QuantAct(a_bit=q["a_bit"], act_range=q["act_range"], method=q["method"], variant=q["variant"],
-                               admm=q["admm"], cdf_impl=q["cdf_impl"])
-        self.conv1 = QConv(in_planes, out_planes, ksize, 1, ksize // 2, w_bit=q["w_bit"], method=q["method"],
-                           variant=q["variant"], mxu_dtype=q["mxu_dtype"], init="he_fan_out", generator=generator)
+                               admm=q["admm"], cdf_impl=q["cdf_impl"], generator=generator)
+        self.conv1 = QConv(in_planes, out_planes, ksize, 1, ksize // 2, w_bit=q["w_bit"], a_bit=q["a_bit"],
+                           method=q["method"], variant=q["variant"], mxu_dtype=q["mxu_dtype"], init="he_fan_out",
+                           generator=generator)
 
     def pre_act_conv(self, x: torch.Tensor, train: bool, sink: Sink) -> torch.Tensor:
         return self.conv1(torch.relu(self.act_q0(self.bn1(x, train), sink)))
@@ -92,7 +93,6 @@ class DenseNet(nn.Module):
                  admm: bool = False, cdf_impl: str = "erf", mxu_dtype=None, deploy_exact: bool = False,
                  stage_int8: bool = False, stage_calib: str = "max", generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_method(method)
         if (depth - 4) % 3:
             raise ValueError(f"DenseNet depth must be 3n+4, got {depth}")
         self.depth, self.deploy_exact, self.stage_int8 = depth, deploy_exact, stage_int8
@@ -101,7 +101,8 @@ class DenseNet(nn.Module):
         st = dict(stage_int8=stage_int8, stage_calib=stage_calib, generator=generator)
         n = (depth - 4) // 3
         planes = 2 * growth_rate
-        self.conv1 = QConv(3, planes, 3, 1, 1, w_bit=w_bit, method=method, variant=variant, mxu_dtype=mxu_dtype,
+        self.conv1 = QConv(3, planes, 3, 1, 1, w_bit=w_bit, a_bit=a_bit, method=method, variant=variant,
+                           mxu_dtype=mxu_dtype,
                            init="he_fan_out", generator=generator)
         if stage_int8:
             self.requant_stem = StageRequant(planes, calib=stage_calib)
@@ -119,7 +120,7 @@ class DenseNet(nn.Module):
             self.stages.append(names)
         self.bn = BatchNorm(planes)
         self.act_q0 = QuantAct(a_bit=a_bit, act_range=act_range, method=method, variant=variant, admm=admm,
-                               cdf_impl=cdf_impl)
+                               cdf_impl=cdf_impl, generator=generator)
         self.fc = QDense(planes, num_classes, generator=generator)
         for name, m in self.named_modules():
             if isinstance(m, QuantAct):

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from alignq_tpu_torch.kernels.infer_mobilenet import CFG  # (expansion, out_planes, num_blocks, stride)
-from alignq_tpu_torch.nn.layers import BatchNorm, QConv, QDense, QuantAct, _check_method
+from alignq_tpu_torch.nn.layers import BatchNorm, QConv, QDense, QuantAct
 from alignq_tpu_torch.quant.ste import requant_grid_ste, requant_ste
 
 Sink = Optional[Dict[str, torch.Tensor]]
@@ -53,12 +53,13 @@ class InvertedResidual(nn.Module):
         planes = expansion * in_planes
 
         def conv(cin, cout, k, s=1, groups=1):
-            return QConv(cin, cout, k, s, k // 2, w_bit=q["w_bit"], method=q["method"], variant=q["variant"],
+            return QConv(cin, cout, k, s, k // 2, w_bit=q["w_bit"], a_bit=q["a_bit"], method=q["method"],
+                         variant=q["variant"],
                          mxu_dtype=q["mxu_dtype"], groups=groups, generator=generator)
 
         def act():
             return QuantAct(a_bit=q["a_bit"], act_range=q["act_range"], method=q["method"], variant=q["variant"],
-                            admm=q["admm"], cdf_impl=q["cdf_impl"])
+                            admm=q["admm"], cdf_impl=q["cdf_impl"], generator=generator)
 
         self.conv1, self.bn1, self.act_q1 = conv(in_planes, planes, 1), BatchNorm(planes), act()
         self.conv2, self.bn2, self.act_q2 = conv(planes, planes, 3, stride, planes), BatchNorm(planes), act()
@@ -88,16 +89,16 @@ class MobileNetV2(nn.Module):
                  variant: str = "b", act_range: float = 2.0, admm: bool = False, cdf_impl: str = "erf",
                  mxu_dtype=None, deploy_exact: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_method(method)
         self.deploy_exact, self.act_range = deploy_exact, act_range
         q = dict(w_bit=w_bit, a_bit=a_bit, method=method, variant=variant, act_range=act_range, admm=admm,
                  cdf_impl=cdf_impl, mxu_dtype=mxu_dtype)
         self.requant_g = 2 ** (a_bit - 1) - 1
-        self.conv1 = QConv(3, 32, 3, 1, 1, w_bit=w_bit, method=method, variant=variant, mxu_dtype=mxu_dtype,
+        self.conv1 = QConv(3, 32, 3, 1, 1, w_bit=w_bit, a_bit=a_bit, method=method, variant=variant,
+                           mxu_dtype=mxu_dtype,
                            generator=generator)
         self.bn1 = BatchNorm(32)
         self.act_q1 = QuantAct(a_bit=a_bit, act_range=act_range, method=method, variant=variant, admm=admm,
-                               cdf_impl=cdf_impl)
+                               cdf_impl=cdf_impl, generator=generator)
         # the stream's grid multiplier entering each block: 1 after the stem
         # or a stride-2 block (bare act codes), 2 after a stride-1 block (the
         # residual sum a3 + relu(sc), codes in [-g, 2g])
@@ -109,11 +110,12 @@ class MobileNetV2(nn.Module):
                     requant_g=self.requant_g, generator=generator))
                 m_in, cin, self.num_blocks = (2 if s == 1 else 1), out_planes, self.num_blocks + 1
         self.head_requant_m = m_in if deploy_exact and m_in > 1 else None
-        self.conv2 = QConv(cin, 1280, 1, 1, 0, w_bit=w_bit, method=method, variant=variant, mxu_dtype=mxu_dtype,
+        self.conv2 = QConv(cin, 1280, 1, 1, 0, w_bit=w_bit, a_bit=a_bit, method=method, variant=variant,
+                           mxu_dtype=mxu_dtype,
                            generator=generator)
         self.bn2 = BatchNorm(1280)
         self.act_q2 = QuantAct(a_bit=a_bit, act_range=act_range, method=method, variant=variant, admm=admm,
-                               cdf_impl=cdf_impl)
+                               cdf_impl=cdf_impl, generator=generator)
         self.linear = QDense(1280, num_classes, generator=generator)
         for name, m in self.named_modules():
             if isinstance(m, QuantAct):

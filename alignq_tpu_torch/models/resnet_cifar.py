@@ -1,9 +1,11 @@
 """PreAct ResNet-20/56 for CIFAR, quantized, with the optional ADMM
 correlation sites (port of alignq_tpu/models/resnet_cifar.py).
 
-Orderings ported: 'ours' (conv -> bn -> act_q -> relu, method 'ours') and
-'none' (no act sites, method 'fp'). The 'after' ordering serves only the
-baseline quantizers (ROADMAP queue 1, Baseline quantizers).
+Each method takes the reference's topology for it (ORDERING): 'ours'
+(conv -> bn -> act_q -> relu; methods 'ours' and 'uniform_admm'), 'after'
+(conv -> bn -> relu -> act_q; 'uniform', 'dorefa', 'llsq', 'bwn',
+'bwnf') and 'none' (no act sites: 'lsq' and 'apot' quantize the input
+inside each conv; 'fp').
 
 The model takes NHWC images, as the JAX model, the data loaders and the
 INT graph do, and runs NCHW inside. Submodules carry flax's names (`conv0`,
@@ -21,19 +23,38 @@ import torch
 from torch import nn
 
 from alignq_tpu_torch.kernels.infer import residual_multipliers
-from alignq_tpu_torch.nn.layers import BatchNorm, QConv, QDense, QuantAct, _check_method
+from alignq_tpu_torch.nn.layers import BatchNorm, QConv, QDense, QuantAct
 from alignq_tpu_torch.quant.ste import requant_grid_ste, requant_ste
 
-ORDERING = {"ours": "ours", "fp": "none"}
+# method -> topology family (the reference's arch dispatch)
+ORDERING = {
+    "ours": "ours",
+    "uniform_admm": "ours",  # the ablation keeps the 'ours' topology
+    "uniform": "after",
+    "dorefa": "after",
+    "llsq": "after",
+    "bwn": "after",
+    "bwnf": "after",
+    "apot": "none",
+    "lsq": "none",
+    "fp": "none",
+}
+
+
+def _ordering(method: str) -> str:
+    if method not in ORDERING:
+        raise ValueError(f"unknown quant method {method!r}; have {sorted(ORDERING)}")
+    return ORDERING[method]
 
 Sink = Optional[Dict[str, torch.Tensor]]
 
 
 class PreActBlock(nn.Module):
-    """One PreAct block. requant_m (deploy-exact QAT): fake-quantize the
-    conv0/skip input on the INT graph's m * act_scale grid with its exact
-    integer rounding; the identity shortcut stays unrequantized, as the INT
-    graph adds the full-resolution residual codes."""
+    """One PreAct block in its method's ordering. requant_m (deploy-exact
+    QAT): fake-quantize the conv0/skip input on the INT graph's m *
+    act_scale grid with its exact integer rounding; the identity shortcut
+    stays unrequantized, as the INT graph adds the full-resolution residual
+    codes."""
 
     def __init__(self, in_planes: int, out_planes: int, stride: int = 1, w_bit: int = 8, a_bit: int = 8,
                  method: str = "ours", variant: str = "b", act_range: float = 2.0, admm: bool = False,
@@ -42,46 +63,51 @@ class PreActBlock(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.stride, self.act_range, self.requant_m, self.requant_g = stride, act_range, requant_m, requant_g
-        self.ordering = ORDERING[method]
+        self.ordering = _ordering(method)
 
         def conv(cin, k, s, p):
-            return QConv(cin, out_planes, k, s, p, w_bit=w_bit, method=method, variant=variant,
+            return QConv(cin, out_planes, k, s, p, w_bit=w_bit, a_bit=a_bit, method=method, variant=variant,
                          channelwise=channelwise, mxu_dtype=mxu_dtype, generator=generator)
 
         def act():
             return QuantAct(a_bit=a_bit, act_range=act_range, method=method, variant=variant, admm=admm,
-                            cdf_impl=cdf_impl, corr_eps=corr_eps)
+                            cdf_impl=cdf_impl, corr_eps=corr_eps, generator=generator)
 
         self.conv0 = conv(in_planes, 3, stride, 1)
         self.bn0 = BatchNorm(out_planes)
         self.conv1 = conv(out_planes, 3, 1, 1)
         self.bn1 = BatchNorm(out_planes)
-        if self.ordering == "ours":
-            self.act_q0 = act()
-            self.act_q1 = act()
         if stride != 1:
             self.skip_conv = conv(in_planes, 1, stride, 0)
             self.skip_bn = BatchNorm(out_planes)
-            if self.ordering == "ours":
+        if self.ordering != "none":
+            self.act_q0 = act()
+            self.act_q1 = act()
+            if stride != 1:
                 self.act_skip_q = act()
 
     def forward(self, x: torch.Tensor, train: bool = False, sink: Sink = None) -> torch.Tensor:
-        ours = self.ordering == "ours"
         xq = x
         if self.requant_m is not None:
             xq = requant_grid_ste(x, self.act_range / self.requant_g, self.requant_m, self.requant_g)
         if self.stride != 1:
             shortcut = self.skip_bn(self.skip_conv(xq), train)
-            if ours:
+            if self.ordering != "none":
                 shortcut = self.act_skip_q(shortcut, sink)
         else:
             shortcut = x
         out = self.bn0(self.conv0(xq), train)
-        if ours:
-            out = self.act_q0(out, sink)
-        out = self.bn1(self.conv1(torch.relu(out)), train)
-        if ours:
-            out = self.act_q1(out, sink)
+        if self.ordering == "ours":  # conv -> bn -> act_q -> relu
+            out = torch.relu(self.act_q0(out, sink))
+        elif self.ordering == "after":  # conv -> bn -> relu -> act_q
+            out = self.act_q0(torch.relu(out))
+        else:
+            out = torch.relu(out)
+        out = self.bn1(self.conv1(out), train)
+        if self.ordering == "ours":
+            return torch.relu(self.act_q1(out, sink) + shortcut)
+        if self.ordering == "after":
+            return self.act_q1(torch.relu(out + shortcut))
         return torch.relu(out + shortcut)
 
 
@@ -103,21 +129,23 @@ class PreActResNet(nn.Module):
                  block_bits: Optional[Sequence[int]] = None, mxu_dtype=None, deploy_exact: bool = False,
                  stream_int8: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_method(method)
         if stream_int8 and not deploy_exact:
             raise ValueError("stream_int8 models the INT graph's requantized stream: it needs deploy_exact")
-        self.ordering = ORDERING[method]
+        self.ordering = _ordering(method)
         self.act_range, self.deploy_exact, self.stream_int8 = act_range, deploy_exact, stream_int8
         strides = [1] * num_units[0] + [2] + [1] * (num_units[1] - 1) + [2] + [1] * (num_units[2] - 1)
         channels = [16] * num_units[0] + [32] * num_units[1] + [64] * num_units[2]
         self.requant_g = 2 ** (a_bit - 1) - 1 if deploy_exact else 127
         self.requant_ms = residual_multipliers([s != 1 for s in strides]) if deploy_exact else [None] * len(strides)
-        self.conv0 = QConv(3, 16, 3, 1, 1, w_bit=w_bit, method=method, variant=variant, channelwise=channelwise,
-                           mxu_dtype=mxu_dtype, generator=generator)
+        self.conv0 = QConv(3, 16, 3, 1, 1, w_bit=w_bit, a_bit=a_bit, method=method, variant=variant,
+                           channelwise=channelwise, mxu_dtype=mxu_dtype, generator=generator)
         self.bn = BatchNorm(16)
         if self.ordering == "ours":
             self.act_q0 = QuantAct(a_bit=a_bit, act_range=act_range, method=method, variant=variant, admm=admm,
-                                   cdf_impl=cdf_impl, corr_eps=corr_eps)
+                                   cdf_impl=cdf_impl, corr_eps=corr_eps, generator=generator)
+        elif self.ordering == "after":  # the stem's act site takes no ADMM
+            self.act_q0 = QuantAct(a_bit=a_bit, act_range=act_range, method=method, variant=variant,
+                                   cdf_impl=cdf_impl, generator=generator)
         cin = 16
         self.num_blocks = len(strides)
         for i, (stride, channel) in enumerate(zip(strides, channels)):
@@ -144,8 +172,11 @@ class PreActResNet(nn.Module):
             x = requant_ste(x, 3.0 / 127.0, 127)  # the INT graph's S_IMG stem input
         out = self.bn(self.conv0(x.permute(0, 3, 1, 2).contiguous()), train)
         if self.ordering == "ours":
-            out = self.act_q0(out, sink)
-        out = torch.relu(out)
+            out = torch.relu(self.act_q0(out, sink))
+        elif self.ordering == "after":
+            out = self.act_q0(torch.relu(out))
+        else:
+            out = torch.relu(out)
         for i in range(self.num_blocks):
             out = getattr(self, f"layers_{i}")(out, train, sink)
             if self.stream_int8 and i + 1 < self.num_blocks:

@@ -7,9 +7,13 @@ names are flax's (`kernel`, `bias`, `scale`; BatchNorm's `mean`, `var`),
 so a state_dict key `layers_0.conv0.kernel` is the flax path
 `layers_0/conv0/kernel`.
 
-Methods 'ours' (AlignQ CDF alignment) and 'fp' (identity) are ported; the
-baseline quantizers wait for their ROADMAP queue 1 item, "Baseline
-quantizers".
+Every method of the JAX package: 'ours' (AlignQ CDF alignment), the
+baselines 'uniform', 'uniform_admm', 'dorefa', 'bwn', 'bwnf', 'lsq', 'apot'
+and 'llsq' (quant/baselines.py), and 'fp' (identity). The baselines'
+learnable parameters carry flax's names and inits: QConv's `lsq_step_w`,
+`lsq_step_a`, `wgt_alpha`, `act_alpha` and `alpha_w` (per output channel,
+(Cout, 1, 1, 1) beside the OIHW kernel; JAX's (1, 1, 1, Cout)), QuantAct's
+`alpha` (LLSQ).
 
 The f32 convs and the head must run true f32: the JAX package pins
 Precision.HIGHEST because reduced-precision passes cost 6.6 points of W4A4
@@ -28,17 +32,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from alignq_tpu_torch.admm.correlation import corr_discrepancy
+from alignq_tpu_torch.quant import baselines as B
 from alignq_tpu_torch.quant.fake_quant import act_cdf, quantize_act, quantize_weight
-from alignq_tpu_torch.quant.ste import requant_ste
+from alignq_tpu_torch.quant.ste import requant_ste, uniform_quantize
 
-METHODS = ("ours", "fp")
-
-
-def _check_method(method: str) -> None:
-    if method not in METHODS:
-        raise NotImplementedError(
-            f"quant method {method!r} is not ported: see ROADMAP queue 1, Baseline quantizers"
-        )
+CONV_METHODS = ("ours", "uniform", "uniform_admm", "dorefa", "bwn", "bwnf", "lsq", "apot", "llsq", "fp")
 
 
 def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -87,17 +85,25 @@ class QConv(nn.Module):
     feature_group_count: groups == in_features == features is a depthwise
     conv. The weight quantizer's statistics stay per tensor.
 
+    method: the weight quantizer (CONV_METHODS). 'lsq' and 'apot' also
+    quantize the conv's input activation at a_bit, with their own
+    parameters (the reference's 'none' ordering); APoT's input uses the
+    weight's bits, as the JAX package does. An unknown method raises
+    ValueError.
+
     mxu_dtype (torch.bfloat16): both conv operands in bf16 and the output
     cast back to f32, the opt-in fast path; None runs true f32 (f64 at
     f64)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3, stride: int = 1, padding: int = 0,
                  w_bit: int = 8, method: str = "ours", variant: str = "b", channelwise: bool = False,
-                 mxu_dtype=None, groups: int = 1, init: str = "torch", generator: Optional[torch.Generator] = None):
+                 mxu_dtype=None, groups: int = 1, init: str = "torch", generator: Optional[torch.Generator] = None,
+                 a_bit: int = 8):
         super().__init__()
-        _check_method(method)
+        if method not in CONV_METHODS:
+            raise ValueError(f"unknown quant method {method!r}")
         self.stride, self.padding, self.groups = stride, padding, groups
-        self.w_bit, self.method, self.variant, self.channelwise = w_bit, method, variant, channelwise
+        self.w_bit, self.a_bit, self.method, self.variant, self.channelwise = w_bit, a_bit, method, variant, channelwise
         self.mxu_dtype = mxu_dtype
         shape = (features, in_features // groups, kernel_size, kernel_size)
         if init == "he_fan_out":
@@ -107,12 +113,53 @@ class QConv(nn.Module):
         else:
             kernel = _uniform(shape, 1.0 / math.sqrt(shape[1] * kernel_size * kernel_size), generator)
         self.kernel = nn.Parameter(kernel)
+        if method == "lsq":
+            if w_bit < 32:
+                self.lsq_step_w = nn.Parameter(B.lsq_init_step(kernel, w_bit, is_activation=False))
+            if a_bit < 32:
+                self.lsq_step_a = nn.Parameter(torch.ones(()))
+        elif method == "apot":
+            if w_bit < 32:
+                self.wgt_alpha = nn.Parameter(torch.tensor(3.0))
+            if a_bit < 32:
+                self.act_alpha = nn.Parameter(torch.tensor(8.0))
+        elif method == "llsq" and w_bit < 32:
+            # flax's variance_scaling(2, fan_out, truncated_normal) of a
+            # (1, 1, 1, Cout) shape: std sqrt(2 / Cout) / 0.8796..., cut at 2 std
+            std = math.sqrt(2.0 / features) / 0.87962566103423978
+            alpha = torch.empty((features, 1, 1, 1), dtype=torch.float64)
+            torch.nn.init.trunc_normal_(alpha, 0.0, std, -2 * std, 2 * std, generator=generator)
+            self.alpha_w = nn.Parameter(alpha.float())
+
+    def _weight(self) -> torch.Tensor:
+        w, m, bits = self.kernel, self.method, self.w_bit
+        if m == "ours":
+            return quantize_weight(w, bits, variant=self.variant, channelwise=self.channelwise, channel_axis=0).wq
+        if m == "uniform":
+            return B.uniform_weight(w, bits)
+        if m == "uniform_admm":  # the ablation's raw grid, no 1-bit rescale
+            return uniform_quantize(w, bits)
+        if m == "dorefa":
+            return B.dorefa_weight(w, bits)
+        if m == "bwn":
+            return B.bwn_weight(w, bits)
+        if m == "bwnf":
+            return B.bwnf_weight(w, bits)
+        if m == "lsq" and bits < 32:
+            return B.lsq_quantize(w, self.lsq_step_w, bits, is_activation=False)
+        if m == "apot" and bits < 32:
+            return B.apot_weight(w, self.wgt_alpha, bits)
+        if m == "llsq" and bits < 32:
+            return B.llsq_weight_quant(w, self.alpha_w, bits, True)
+        return w
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.kernel
-        if self.method == "ours":
-            w = quantize_weight(w, self.w_bit, variant=self.variant, channelwise=self.channelwise,
-                                channel_axis=0).wq
+        w = self._weight()
+        if self.a_bit < 32:
+            if self.method == "lsq":
+                x = B.lsq_quantize(x, self.lsq_step_a, self.a_bit, is_activation=True)
+            elif self.method == "apot":
+                x = B.apot_act_quant(x, self.act_alpha, self.w_bit - 1, self.w_bit > 2)
         if self.mxu_dtype is not None:
             return F.conv2d(x.to(self.mxu_dtype), w.to(self.mxu_dtype), stride=self.stride,
                             padding=self.padding, groups=self.groups).float()
@@ -126,7 +173,6 @@ class QDense(nn.Module):
     def __init__(self, in_features: int, features: int, w_bit: int = 32, method: str = "fp", variant: str = "b",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_method(method)
         self.w_bit, self.method, self.variant = w_bit, method, variant
         bound = 1.0 / math.sqrt(in_features)
         self.kernel = nn.Parameter(_uniform((in_features, features), bound, generator))
@@ -203,23 +249,56 @@ class QuantAct(nn.Module):
     With admm on, a sink (a dict) given to forward receives this site's
     B x B discrepancy D under `site` (its flax path, `layers_0/act_q0/d`;
     set by the model), and the train step builds the trans loss from it:
-    eval, which passes no sink, stays loss-free. (The JAX package's
-    alignment-only `stage='align'` serves the domain-adaptation drivers,
-    ROADMAP queue 1, ImageNet ResNets and domain adaptation.)"""
+    eval, which passes no sink, stays loss-free.
+
+    method: 'ours' (CDF alignment), 'uniform' and 'dorefa' (clip to [0, 1],
+    then the uniform grid), 'bwn' and 'bwnf' (the unclipped uniform grid),
+    'uniform_admm' (the unclipped grid, with an ADMM D of the identity
+    transform, which is 0), 'llsq' (learned scale `alpha`, U[0, 1) at init)
+    and 'fp' (identity). Another method raises ValueError where the JAX
+    package's does: in forward, past the 32-bit short cut.
+
+    stage 'align' (with 'ours'): at a_bit == 32 the activation still goes
+    through the CDF transform, unrounded, the alignment-only FP32 stage of
+    the domain-adaptation presets; any other stage keeps the identity."""
 
     def __init__(self, a_bit: int = 8, act_range: float = 2.0, method: str = "ours", variant: str = "b",
-                 admm: bool = False, cdf_impl: str = "erf", corr_eps: float = 1e-5):
+                 admm: bool = False, cdf_impl: str = "erf", corr_eps: float = 1e-5, stage: str = "quant",
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_method(method)
         self.a_bit, self.act_range, self.method, self.variant = a_bit, act_range, method, variant
-        self.admm, self.cdf_impl, self.corr_eps = admm, cdf_impl, corr_eps
+        self.admm, self.cdf_impl, self.corr_eps, self.stage = admm, cdf_impl, corr_eps, stage
         self.site = "d"
+        if method == "llsq" and a_bit < 32:
+            self.alpha = nn.Parameter(torch.rand((), generator=generator, dtype=torch.float64).float())
+
+    def _cdf(self, x: torch.Tensor) -> torch.Tensor:
+        return act_cdf(x, act_range=self.act_range, variant=self.variant, impl=self.cdf_impl)
 
     def forward(self, x: torch.Tensor, sink: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        if self.method == "fp" or self.a_bit == 32:
+        corr = self.admm and sink is not None
+        if self.a_bit == 32 and not corr:
+            return self._cdf(x) if self.stage == "align" and self.method == "ours" else x
+        b = x.shape[0]
+        if self.method == "ours":
+            if corr and self.a_bit < 32:
+                sink[self.site] = corr_discrepancy(x.reshape(b, -1), self._cdf(x).reshape(b, -1), eps=self.corr_eps)
+            if self.a_bit == 32:
+                return self._cdf(x) if self.stage == "align" else x
+            return quantize_act(x, self.a_bit, act_range=self.act_range, variant=self.variant, impl=self.cdf_impl)
+        if self.method in ("uniform", "dorefa"):
+            return B.uniform_act(x, self.a_bit)
+        if self.method in ("bwn", "bwnf"):
+            return uniform_quantize(x, self.a_bit)
+        if self.method == "uniform_admm":
+            if corr and self.a_bit < 32:
+                xf = x.reshape(b, -1)
+                sink[self.site] = corr_discrepancy(xf, xf, eps=self.corr_eps)
+            return uniform_quantize(x, self.a_bit)
+        if self.method == "llsq":
+            if self.a_bit == 32:
+                return x
+            return B.llsq_act_quant(x, B.quan_alpha(self.alpha, 32), self.a_bit, False)
+        if self.method == "fp":
             return x
-        if self.admm and sink is not None:
-            b = x.shape[0]
-            c = act_cdf(x, act_range=self.act_range, variant=self.variant, impl=self.cdf_impl)
-            sink[self.site] = corr_discrepancy(x.reshape(b, -1), c.reshape(b, -1), eps=self.corr_eps)
-        return quantize_act(x, self.a_bit, act_range=self.act_range, variant=self.variant, impl=self.cdf_impl)
+        raise ValueError(f"unknown act quant method {self.method!r}")

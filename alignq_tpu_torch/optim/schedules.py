@@ -1,6 +1,6 @@
 """Learning-rate schedules (port of alignq_tpu/optim/schedules.py;
 dann_schedule waits for the domain-adaptation drivers, ROADMAP queue 1,
-ImageNet ResNets and domain adaptation)."""
+Domain adaptation)."""
 
 from __future__ import annotations
 

@@ -7,7 +7,8 @@
 - the model is a frozen INT8 graph: built from trained params
   (build_int8_resnet20_engine) or loaded from an artifact of any CIFAR
   deploy family (engine_from_artifact: resnet20, resnet56, densenet40,
-  mobilenetv2), with its weights laid out for the kernels once.
+  mobilenetv2) or ImageNet-layout trunk (resnet18, resnet34, resnet50:
+  the pooled feature), with its weights laid out for the kernels once.
 
 Sharded serving over a mesh is not ported yet: passing one raises.
 """

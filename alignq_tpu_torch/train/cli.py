@@ -5,7 +5,9 @@ same flags, plus --device).
         --method ours --bitW 8 --abitW 8 --lr 0.04 --train_batch_size 128
 
 Trains any of the four CIFAR families (--target_model resnet20_quant,
-resnet56_quant, densenet_40_quant, mobile_v2). Runs on the CUDA card
+resnet56_quant, densenet_40_quant, mobile_v2) with any quantizer method
+(--method ours, or a baseline: uniform, dorefa, lsq, apot, llsq, bwn,
+bwnf, uniform_admm; or fp). Runs on the CUDA card
 unless given --device cpu. --pretrained JOB_DIR warm-starts from another
 run's latest checkpoint. --mesh and --multihost raise: they wait for
 ROADMAP queue 1, Distribution.
@@ -25,7 +27,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="AlignQ trainer (PyTorch/CUDA)")
     d = TrainConfig()
     p.add_argument("--target_model", default=d.target_model)
-    p.add_argument("--method", default=d.method)
+    p.add_argument("--method", default=d.method,
+                   help="ours | uniform | dorefa | lsq | apot | llsq | bwn | bwnf | uniform_admm | fp")
     p.add_argument("--bitW", type=int, default=d.bitW)
     p.add_argument("--abitW", type=int, default=d.abitW)
     p.add_argument("--act_range", type=float, default=d.act_range)

@@ -4,8 +4,9 @@ port keeps under the working directory and the temporary directory).
 
 Fields the port does not act on yet raise where they are used:
 mesh_shape > 1 and corr_mode/grad_compression across devices (ROADMAP
-queue 1, Distribution), methods other than 'ours' and 'fp' (ROADMAP queue
-1, Baseline quantizers).
+queue 1, Distribution). `method` takes every value of the JAX package's
+(ours, uniform, dorefa, lsq, apot, llsq, bwn, bwnf, uniform_admm, fp); the
+PDF correction runs for 'ours' only.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Sequence
 class TrainConfig:
     # model
     target_model: str = "resnet20_quant"
-    method: str = "ours"
+    method: str = "ours"  # ours | uniform | dorefa | lsq | apot | llsq | bwn | bwnf | uniform_admm | fp
     bitW: int = 8
     abitW: int = 8
     act_range: float = 2.0

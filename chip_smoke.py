@@ -11,7 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
  3. K1 (csrc/qmatmul.cu) against its plain version. Its GEMM form at the
     path's gathered-matrix shapes of batches 2048 and 256, plus a ragged M
     with K=27; then its conv form on NHWC codes read in place, at every
-    path conv (the stem's 3 channels, 3x3 at stride 1 and 2, the 1x1
+    path conv (the stem over the image's 3 channels as they lie, 3x3 at
+    stride 1 and 2, the 1x1
     stride-2 skips, fuse_skip's merged convs) of batches 2048 (poly and erf
     codes), 256 and a ragged 3 (int32, f32, relu and every codes mode).
     int32 bit-identical; f32 bit-identical but for at most 1e-6 of the
@@ -52,7 +53,8 @@ Phases, in order; any failure raises and the script exits non-zero:
         from one seed: params, BatchNorm statistics and duals within 1e-9;
     (b) the training CLI (train.cli.main) on the card: ResNet-20 W8A8
         int8 deploy_exact poly ADMM on the synthetic set, batch 64, 2
-        epochs (64 steps); every loss finite and the last below the first;
+        epochs (64 steps), under cuDNN's deterministic algorithms (so is
+        (c)'s export); every loss finite and the last below the first;
     (c) the launch counts zeroed, export_int8 of (b)'s net with
         --stage_kernel (fake-quant and INT top-1, delta, prediction
         agreement, at least 99.0%), the counts read; then an engine serves
@@ -69,10 +71,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     (b) each family trained at full width through export_int8.main on the
         synthetic set: W8A8, the int8 grid, deploy_exact, erf; DenseNet-40
         3 epochs at batch 128, MobileNet-V2 8 at batch 64, lr 0.01 with 1
-        warmup epoch; every loss finite, the last quarter's mean below the
+        warmup epoch, under cuDNN's deterministic algorithms (as phase
+        8(b, c)); every loss finite, the last quarter's mean below the
         first's;
     (c) exported (fake-quant and INT top-1, delta, prediction agreement of
-        at least 99.0%) and its artifact served by engine_from_artifact at
+        at least 99.0%, the logit margins of the images where the two
+        disagree) and its artifact served by engine_from_artifact at
         engine batch 16, held against the CPU plain path as in phase 14;
         the launches of the export and of serving: K1, the BN-act form of
         the buffer (DenseNet) or the depthwise kernel (MobileNet-V2), no
@@ -89,7 +93,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     launch's host cost is in it) beside its plain version, its bound
     (conv_bound for K1: the input read once) and, for K1, torch._int_mm's
     time on the pre-gathered (M, Kp) matrix, taken the same way (timed
-    only; no one PyTorch call computes K2 or K3);
+    only; no one PyTorch call computes K2 or K3); beside the stem, the
+    pad pass that zero-pads its 3-channel image to the 4 channels K1
+    reads (glue, timed the same way);
 11. QAT train-step times (CUDA events, median of 20 after warm-up, TF32
     asserted off): ResNet-20 W8A8 erf with ADMM at batch 128, and erf and
     poly without ADMM at batch 1024; the batch-128 step's device busy
@@ -124,19 +130,62 @@ Phases, in order; any failure raises and the script exits non-zero:
     timed as in phase 9 (torch._int_mm on the gathered taps for K1,
     F.conv2d with groups=C on f32 for the depthwise conv, none for either
     BN-act form);
-16. one JSON line of the kernels (K1 and K3: times summed over the
+16. the ImageNet-layout trunks, ResNet-18 and ResNet-50 at 224x224 from
+    seeded random weights: the K1 launches of each trunk's forward at
+    batches 256 and 3 (erf and poly codes, and A4 bins at batch 3)
+    recorded and every distinct one held against its plain version as in
+    phase 12 (the 7x7 stride-2 stem form, the 1x1 convs over 1024 and 2048
+    channels, the streamed 3x3 convs among them); no tap gathered;
+17. each trunk at batch 2 on the card against the CPU plain path, on
+    qparams converted on the CPU: every stage's codes (block inputs, last
+    act sites, the integer stream) and the f32 stream bit for bit, the
+    features within 1e-5 of the largest;
+18. serving, the trunks' main path: the launch counts zeroed, each trunk
+    saved by the port as an artifact and served by engine_from_artifact
+    at engine batch 16 (requests of 16 and 3 images: the engine's warm-up
+    forward and two batches), the counts read (20 K1 launches a ResNet-18
+    forward, 53 a ResNet-50 one, one of each forward's counted under the
+    7x7 form, every one in a codes or the f32 mode, no tap gathered), and
+    what was served held against the CPU plain path as in phase 14;
+19. times: each trunk's int8 erf forward at batch 256 (CUDA events; device
+    busy, idle share and launches under torch.profiler), and each distinct
+    K1 launch of it (cold L2, graph_ms) beside its plain version, its
+    conv_bound and torch._int_mm on the gathered taps; beside the 7x7
+    stem, the pad pass of its 3-channel image to 4 channels;
+20. the baselines' QAT: three float64 ResNet-20 steps of each of the ten
+    methods (two of uniform_admm, whose third turns NaN in the JAX package
+    too) (W4A4, ADMM where the method has sites, BatchNorm affine
+    drawn), and the trunks' float64 forward and backward (ResNet-18 at
+    64x64, ResNet-50 at 224x224, batch 2, W4A4 ADMM), on the card against
+    the CPU within 1e-9; then the ResNet-50 trunk's f32 W8A8 ADMM forward
+    and backward at batch 28 (the DANN preset's) and the ResNet-20 W4A4
+    step of each of the ten methods at batch 128;
+21. one JSON line of the kernels (K1 and K3: times summed over the
     launches of one slice-route forward at the serving batch; K2: over one
     launch at each act-site size of that batch; K1 on DenseNet-40 and
     MobileNet-V2, the depthwise kernel and the BN-act kernel's two forms
     (table on the int8 buffer, arithmetic on the f32 one): over one
-    batch-256 forward of their graph, launches from phase 14), the card
-    line, and the final JSON line.
+    batch-256 forward of their graph, launches from phase 14; K1 on
+    ResNet-50 and ResNet-18 at 224x224 and its 7x7 stem form alone: over
+    one batch-256 forward, launches from phase 18, the stem's from its own
+    counter), the card line, and the final JSON line.
 
 Exits with code 2 and prints no result where CUDA is not available. Writes
 the per-shape details to chiprun_out/chip_smoke.json.
+
+    python3 chip_smoke.py --agreement-study
+
+runs only phase 9(b, c)'s training and export again, without the gate:
+MobileNet-V2 three times with cuDNN's default (run-to-run) algorithms,
+and every family under its deterministic ones at seed 1. Each run prints
+its top-1s, agreement, the logit margins of the images where the INT
+graph and the fake-quant eval disagree, and the largest and median gap
+between their logits, one JSON line each.
 """
 
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -184,12 +233,14 @@ def conv_shapes(batch):
 
 
 def conv_bound(b, h, w, cin, ksize, stride, n, out_bytes):
-    """The conv's least time: its input read once (every pixel for a 3x3,
-    the strided sample for a 1x1), the weight and epilogue vectors, the
-    (M, N) output of out_bytes an element; 2*M*K*N operations."""
+    """The conv's least time: its input read once (every pixel for a 3x3
+    or 7x7, the strided sample for a 1x1), the weight and epilogue vectors,
+    the (M, N) output of out_bytes an element; 2*M*K*N operations (cin the
+    input's channels as the conv's caller gives them: a stem's 3, which
+    the wrapper's pad pass widens to the 4 K1 reads)."""
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     m = b * ho * wo
-    x_bytes = b * h * w * cin if ksize == 3 else m * cin
+    x_bytes = b * h * w * cin if ksize > 1 else m * cin
     return bound(x_bytes + ksize * ksize * cin * n + 8 * n + out_bytes * m * n, 2 * m * ksize * ksize * cin * n)
 
 
@@ -259,6 +310,24 @@ def bound(bytes_moved, ops, peak_ops=PEAK_INT8_OPS_PER_S):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms (and no autotuning) for a training
+    run whose result a gate reads, restored after: cuDNN's run-to-run order
+    otherwise swings a few-epoch synthetic run's accuracy, and with it the
+    prediction agreement on near-tied logits (MobileNet-V2 at 92.77% top-1
+    and 98.63% agreement against 99.80% and 100.00% in another run of one
+    tree); deterministic runs of a tree repeat step for step."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
 def zero_counts(launches):
     for k in list(launches):
         launches[k] = 0
@@ -274,7 +343,8 @@ def qat_card_vs_cpu(dev, build, cfg, hw, n_sites, steps=3):
     the correction per cfg, batch 8 of hw x hw images, in float64 on the
     card and on the CPU from one seed; returns the largest difference of
     the params, the statistics (BatchNorm's, StageRequant's amax) and the
-    duals. Raises unless the model has n_sites ADMM sites."""
+    duals (NaN where either side has a NaN). Raises unless the model has
+    n_sites ADMM sites."""
     import numpy as np
     import torch
 
@@ -298,7 +368,8 @@ def qat_card_vs_cpu(dev, build, cfg, hw, n_sites, steps=3):
         pairs += [(s.alter_d, card.admm_duals[k].alter_d), (s.gamma, card.admm_duals[k].gamma)]
     if len(cpu.admm_duals) != n_sites or card.step != steps:
         raise AssertionError(f"QAT f64 steps: {len(cpu.admm_duals)} ADMM sites, {card.step} steps")
-    return max(float((a.detach() - b.detach().cpu()).abs().max()) for a, b in pairs)
+    diffs = [float((a.detach() - b.detach().cpu()).abs().max()) for a, b in pairs]
+    return float("nan") if any(math.isnan(d) for d in diffs) else max(diffs)
 
 
 def qat_on_the_card(dev, repo, serve_and_check, reqs, slice_kw):
@@ -335,7 +406,8 @@ def qat_on_the_card(dev, repo, serve_and_check, reqs, slice_kw):
     job = repo / "chiprun_out" / "qat_job"
     shutil.rmtree(job, ignore_errors=True)
     t0 = time.perf_counter()
-    result = cli.main(QAT_JOB_ARGS + ["--job_dir", str(job)])
+    with deterministic_cudnn():
+        result = cli.main(QAT_JOB_ARGS + ["--job_dir", str(job)])
     train_s = time.perf_counter() - t0
     losses = [json.loads(line)["loss"] for line in (job / "run" / "train.jsonl").read_text().splitlines()]
     print(f"QAT (b) CLI ResNet-20 W8A8 int8 deploy_exact poly ADMM, batch 64, 2 epochs: {len(losses)} steps in "
@@ -349,9 +421,10 @@ def qat_on_the_card(dev, repo, serve_and_check, reqs, slice_kw):
 
     # (c) export (b)'s net and serve it: the QAT path's kernels
     zero_counts(_build.launches)
-    rep = export_int8.main(["--dataset", "synthetic", "--bits", "8", "--variant", "int8", "--cdf_impl", "poly",
-                            "--deploy_exact", "--admm", "--epochs", "2", "--batch", "64", "--job_dir", str(job),
-                            "--resume", "--stage_kernel"])
+    with deterministic_cudnn():
+        rep = export_int8.main(["--dataset", "synthetic", "--bits", "8", "--variant", "int8", "--cdf_impl", "poly",
+                                "--deploy_exact", "--admm", "--epochs", "2", "--batch", "64", "--job_dir", str(job),
+                                "--resume", "--stage_kernel"])
     torch.cuda.synchronize()
     export_launches = {k: v for k, v in _build.launches.items() if v}
     print(f"QAT (c) export: fake-quant top-1 {rep['fq_top1']:.2f}, INT top-1 {rep['int_top1']:.2f}, delta "
@@ -456,17 +529,27 @@ def family_configs():
 
 def record_launches(fn):
     """Run fn with every K1, depthwise and BN-act (both forms) launch
-    recorded: a list of (kind, operands) in launch order. The wrappers
+    recorded: a list of (kind, operands) in launch order; a K1 launch's
+    operands end with the channels of the conv's input as its caller gave
+    them (a stem's 3, before the wrapper pads them to 4). The wrappers
     count as always."""
     from alignq_tpu_torch.kernels import dwconv as DWm
     from alignq_tpu_torch.kernels import qmatmul as K1
     from alignq_tpu_torch.kernels import quantize as K2
 
     rec = []
-    saved = (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch)
+    saved = (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv)
+    conv_c = [None]  # the input channels of the conv in flight
+
+    def conv(x, op, *a, **kw):
+        conv_c[0] = x.shape[-1]
+        try:
+            return saved[4](x, op, *a, **kw)
+        finally:
+            conv_c[0] = None
 
     def k1(x, op, plan, out, mode, act=None):
-        rec.append(("K1", (x, op, plan, mode, act)))
+        rec.append(("K1", (x, op, plan, mode, act, conv_c[0] or x.shape[-1])))
         saved[0](x, op, plan, out, mode, act)
 
     def dw(x, op, plan, impl, act, out):
@@ -481,11 +564,11 @@ def record_launches(fn):
         rec.append(("bn_table", (x, c_live, table, None, table.act, out.shape[-1])))
         saved[3](x, c_live, table, out)
 
-    K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch = k1, dw, bn, bn_table
+    K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv = k1, dw, bn, bn_table, conv
     try:
         fn()
     finally:
-        K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch = saved
+        K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv = saved
     return rec
 
 
@@ -494,7 +577,7 @@ def launch_key(kind, args):
     act = args[4]
     tail = (act.impl, act.relu) if act is not None else ()
     if kind == "K1":
-        x, op, plan, mode, _ = args
+        x, op, plan, mode = args[:4]
         return (kind, tuple(x.shape), tuple(op.wt.shape), plan.ksize, plan.stride, mode, *tail)
     if kind == "dw":
         return (kind, tuple(args[0].shape), args[2].stride, args[3], *tail)
@@ -528,7 +611,7 @@ def check_launch(kind, args):
 
     key = launch_key(kind, args)
     if kind == "K1":
-        x, op, plan, mode, act = args
+        x, op, plan, mode, act, _ = args
         if act is not None:
             got, want = K1.int8_conv_codes(x, op, plan.stride, plan.pad, act), \
                 K1.int8_conv_reference(x, op, plan.stride, plan.pad, act.impl, act)
@@ -560,29 +643,37 @@ def check_launch(kind, args):
 
 
 def time_launch(kind, args):
-    """(ms, plain_ms, bound_ms, bound_by, library_ms) of one launch at its
-    recorded operands: the raw launch's device time from a cold L2
+    """(ms, plain_ms, bound_ms, bound_by, library_ms, pad_ms) of one launch
+    at its recorded operands: the raw launch's device time from a cold L2
     (graph_ms), its plain version, its bound (each input read once, each
-    output written once), and one PyTorch call of the same product where
-    there is one, also by graph_ms (K1: torch._int_mm on the gathered taps;
+    output written once; a K1 conv's input at the channels its caller gave),
+    one PyTorch call of the same product where there is one, also by
+    graph_ms (K1: torch._int_mm on the gathered taps;
     depthwise: F.conv2d with groups=C on f32, TF32 off; the BN-act pass,
-    either form: none). Both BN-act forms are read against the same bound:
-    the live prefix read, the codes written, BN_ACT_OPS an element."""
+    either form: none), and the time of the wrapper's pad pass where a K1
+    conv's caller gave fewer channels than K1 reads (else None). Both
+    BN-act forms are read against the same bound: the live prefix read,
+    the codes written, BN_ACT_OPS an element."""
     import torch
 
     from alignq_tpu_torch.kernels import dwconv as DWm
     from alignq_tpu_torch.kernels import qmatmul as K1
     from alignq_tpu_torch.kernels import quantize as K2
 
+    pad_ms = None
     if kind == "K1":
-        x, op, plan, mode, act = args
+        x, op, plan, mode, act, xc = args
         out_dtype = torch.float32 if mode == "f32" else torch.int8
         out = torch.empty((plan.B * plan.Ho * plan.Wo, op.wt.shape[0]), device=x.device, dtype=out_dtype)
         ms = graph_ms(lambda: K1._k1_launch(x, op, plan, out, mode, act))
         impl = act.impl if act is not None else mode
         plain_ms = median_ms(lambda: K1.int8_conv_reference(x, op, plan.stride, plan.pad, impl, act), runs=3, warmup=1)
         b, h, w, c = x.shape
-        b_ms, b_by = conv_bound(b, h, w, c, plan.ksize, plan.stride, op.n, 4 if mode == "f32" else 1)
+        b_ms, b_by = conv_bound(b, h, w, xc, plan.ksize, plan.stride, op.n, 4 if mode == "f32" else 1)
+        if xc != c:
+            x_in = x[..., :xc].contiguous()  # the caller's input, before the pad pass
+            pad_ms = graph_ms(lambda: K1._conv_input(x_in, op))
+            del x_in
         cols = K1.gather_taps(x, plan.ksize, plan.stride, plan.pad, K1.K_MULT)
         wmat = op.wt.t().contiguous()
         lib_ms = graph_ms(lambda: torch._int_mm(cols, wmat))
@@ -614,7 +705,7 @@ def time_launch(kind, args):
         b_ms, b_by = bound(m * c_live * x.element_size() + 8 * c_live + m * c_out,
                            BN_ACT_OPS.get(act.impl, 4) * m * c_live, PEAK_F32_OPS_PER_S)
         lib_ms = None
-    return ms, plain_ms, b_ms, b_by, lib_ms
+    return ms, plain_ms, b_ms, b_by, lib_ms, pad_ms
 
 
 def family_kernel_checks(dev, batches=(256, 3)):
@@ -645,13 +736,14 @@ def family_kernel_checks(dev, batches=(256, 3)):
     return out, err, counts
 
 
-def serve_artifact(label, path, streams, dev, requests):
+def serve_artifact(label, path, streams, dev, requests, feature=False):
     """Serve an artifact through serve.engine_from_artifact on the card at
     engine batch FAMILY_SERVE_BATCH, the launch counts zeroed before the
     engine is built and read after its requests, and hold what was served
     against the CPU's plain path at the engine's padded batch: the final
     stream (a graph's last stage buffer or block stream, `streams` its
-    stream function) bit for bit, the logits within 1e-5. Returns
+    stream function) bit for bit, the logits within 1e-5 (feature: a
+    trunk's pooled feature, within 1e-5 of its largest). Returns
     {'launches', 'max_abs_err'}; raises if a conv gathered its taps."""
     import numpy as np
     import torch
@@ -662,10 +754,12 @@ def serve_artifact(label, path, streams, dev, requests):
     from alignq_tpu_torch.serve import engine_from_artifact
 
     def final_stream(qp, x, **kw):
-        """The last stream of the graph (ResNet's stream function gives one)."""
+        """The last stream of the graph (ResNet's stream function gives one;
+        an ImageNet trunk's stages are dicts, its stream under 'out')."""
         if streams is resnet20_int8_stream:
             return streams(qp, x, **kw)
-        return list(streams(qp, x, **kw))[-1]
+        last = list(streams(qp, x, **kw))[-1]
+        return last["out"] if isinstance(last, dict) else last
 
     zero_counts(_build.launches)
     engine = engine_from_artifact(str(path), batch_size=FAMILY_SERVE_BATCH, device=dev)
@@ -679,7 +773,7 @@ def serve_artifact(label, path, streams, dev, requests):
     skw = {k: v for k, v in fkw.items() if k in ("act_bits", "act_impl", "stage_int8", "stream", "use_stage_kernel")}
     qp_host = to_device(engine.params, "cpu")
     images = np.concatenate(requests)
-    padded = np.concatenate([images, np.zeros((-len(images) % FAMILY_SERVE_BATCH, 32, 32, 3), np.float32)])
+    padded = np.concatenate([images, np.zeros((-len(images) % FAMILY_SERVE_BATCH, *engine.input_shape), np.float32)])
     served = np.concatenate(outs)
     serve_err = 0.0
     for lo in range(0, len(padded), FAMILY_SERVE_BATCH):
@@ -690,9 +784,12 @@ def serve_artifact(label, path, streams, dev, requests):
             raise AssertionError(f"serving {label}: the engine's final stream differs from the CPU's")
         want = engine.forward.func(qp_host, xb, **fkw).numpy()[: min(FAMILY_SERVE_BATCH, len(served) - lo)]
         got = served[lo : lo + len(want)]
-        serve_err = max(serve_err, float(np.abs(got - want).max()))
+        # logits within 1e-5; a trunk's pooled feature (a sum over the map in
+        # the card's order) within 1e-5 of its largest
+        err = float(np.abs(got - want).max()) / (max(1.0, float(np.abs(want).max())) if feature else 1.0)
+        serve_err = max(serve_err, err)
         if not (np.isfinite(got).all() and serve_err <= 1e-5):
-            raise AssertionError(f"serving {label}: served logits off the CPU's by {serve_err}")
+            raise AssertionError(f"serving {label}: served results off the CPU's by {serve_err}")
     print(f"serving {label} from its artifact, engine batch {FAMILY_SERVE_BATCH}: requests of "
           f"{[len(r) for r in requests]} answered, logits within {serve_err:.3g} of the CPU plain path, the final "
           f"stream identical; launches {launched}", flush=True)
@@ -817,15 +914,288 @@ def deploy_families(dev, card, repo, details, phase):
         if batch != SERVE_BATCH:
             continue
         for key, ((kind, args), count) in launches.items():
-            ms, plain_ms, b_ms, b_by, lib_ms = time_launch(kind, args)
+            ms, plain_ms, b_ms, b_by, lib_ms, pad_ms = time_launch(kind, args)
             fam_rows.append(dict(family=label, kind=kind, shape=str(key), launches=count, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+                                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, pad_pass_ms=pad_ms))
             print(f"time {label} {key} x{count}: {ms:.4f} ms, plain {plain_ms:.3f}, bound {b_ms:.4f} ({b_by}), "
-                  f"library {'none' if lib_ms is None else f'{lib_ms:.4f}'} [{card}]", flush=True)
+                  f"library {'none' if lib_ms is None else f'{lib_ms:.4f}'}"
+                  f"{'' if pad_ms is None else f', the pad pass before it {pad_ms:.4f}'} [{card}]", flush=True)
     details["family_times"] = {"forwards": fam_times, "launches": fam_rows}
     torch.cuda.empty_cache()
 
     return fam_rows, fam_err, fam_serving
+
+
+# ------------------------------------------------- the ImageNet-layout trunks
+
+TRUNKS = ("resnet18", "resnet50")
+TRUNK_SIZE = 224  # ImageNet's input, the trunks' published width
+TRUNK_QAT_BATCH = 28  # the DANN preset's batch (alignq_tpu/configs.py)
+# (arch, batch, act_bits, act_impl) of every forward whose K1 launches are
+# recorded and each held against its plain version: both trunks at the
+# serving batch 256 and a ragged 3 on both A8 maps, and the A4 bins map
+TRUNK_CHECKS = [(a, b, 8, impl) for a in TRUNKS for b in (SERVE_BATCH, 3) for impl in ("erf", "poly")] + [
+    (a, 3, 4, "bins") for a in TRUNKS]
+
+
+def affine_bn(model, generator):
+    """The model with every BatchNorm's scale drawn in [0.7, 1.3] and bias
+    N(0, 0.2) from generator: at a zero bias, uniform-grid weights and
+    codes make a conv output equal its channel's batch mean, and the BN
+    output is then an ulp either side of 0 by the summation order, under
+    a relu (the CUDA and CPU reductions take opposite branches)."""
+    import torch
+
+    from alignq_tpu_torch.nn.layers import BatchNorm
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.scale.uniform_(0.7, 1.3, generator=generator)
+                m.bias.normal_(0.0, 0.2, generator=generator)
+    return model
+
+
+def trunk_card_vs_cpu(dev, arch, hw, batch=2):
+    """A float64 train forward and backward of the arch's trunk, W4A4 with
+    ADMM, on the card and on the CPU from one seed: the largest difference
+    of the feature, every parameter gradient (of the feature against a
+    fixed cotangent plus the sites' ADMM losses), the BatchNorm statistics
+    and the sites' D."""
+    import numpy as np
+    import torch
+
+    from alignq_tpu_torch.admm.loss import admm_loss
+    from alignq_tpu_torch.models import resnet_imagenet as RI
+
+    res = {}
+    for where in ("cpu", dev):
+        gen = torch.Generator().manual_seed(SEED)
+        model = affine_bn(getattr(RI, f"{arch}_quant")(4, 4, admm=True, generator=gen), gen).double().to(where)
+        rng = np.random.RandomState(SEED)
+        x = torch.tensor(rng.randn(batch, hw, hw, 3)).to(where)
+        g = torch.tensor(rng.randn(batch, model.features)).to(where)
+        sink = {}
+        feat = model(x, train=True, sink=sink)
+        loss = (feat * g).sum()
+        for n in sorted(sink):
+            loss = loss + admm_loss(sink[n], torch.full_like(sink[n], 0.3), torch.full_like(sink[n], 0.1))
+        named = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(named.values()))
+        res[str(where)] = [feat, *grads, *[b for _, b in model.named_buffers()], *[sink[n] for n in sorted(sink)]]
+    cpu, card = res["cpu"], res[str(dev)]
+    return max(float((a.detach() - b.detach().cpu()).abs().max() / max(1.0, float(a.detach().abs().max())))
+               for a, b in zip(cpu, card)), len(sink)
+
+
+def imagenet_trunks(dev, card, repo, details, phase):
+    """Phases 16-19, the ImageNet-layout trunks ResNet-18 and ResNet-50 at
+    224x224: every distinct K1 launch against its plain version; the
+    full-width forwards on the card against the CPU; serving from the
+    port's artifacts (the main path of this part, its launches counted);
+    times. Returns (the batch-256 launch rows, K1's max abs error, each
+    served trunk's launches and error)."""
+    import numpy as np
+    import torch
+
+    from alignq_tpu_torch.kernels import _build
+    from alignq_tpu_torch.kernels import infer_resnet_imagenet as RI
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels.artifact import save_int8_artifact
+
+    phase("ImageNet trunks: every K1 launch against its plain version")
+    launches_by, err, diffs = {}, 0.0, {}
+    for arch, batch, bits, impl in TRUNK_CHECKS:
+        _, (qp, x) = RI.build_resnet_imagenet_int8(arch, batch, device=dev, image_size=TRUNK_SIZE, act_bits=bits)
+        ops = RI.pack_resnet_imagenet_operands(qp)
+        zero_counts(_build.launches)
+        with torch.inference_mode():
+            rec = record_launches(lambda: RI.resnet_imagenet_int8_forward(qp, x, bits, impl, ops))
+        torch.cuda.synchronize()
+        gathers = _build.launches[K1.TAP_GATHERS]
+        launches = distinct_launches(rec)
+        n_diff = 0
+        for key, ((kind, args), _) in launches.items():
+            diff, _, e = check_launch(kind, args)
+            err, n_diff = max(err, e), n_diff + diff
+            diffs[f"{arch} batch {batch} A{bits} {impl} {key}"] = diff
+        stems = [k for k in launches if k[3] == 7]
+        print(f"{arch} {TRUNK_SIZE}x{TRUNK_SIZE} batch {batch} A{bits} {impl}: {len(rec)} K1 launches, "
+              f"{len(launches)} distinct ({len(stems)} of the 7x7 stem form), each held against its plain version: "
+              f"{n_diff} differing elements; tap gathers in the forward {gathers}", flush=True)
+        if gathers or len(stems) != 1 or any(kind != "K1" for kind, _ in rec):
+            raise AssertionError(f"{arch}: gathers {gathers}, stem launches {stems}")
+        launches_by[arch, batch, bits, impl] = launches
+        del qp, x, ops, rec
+    details["trunk_mismatches"] = diffs
+    torch.cuda.empty_cache()
+
+    phase("ImageNet trunks: full-width forwards on the card against the CPU")
+    for arch in TRUNKS:
+        _, (qp_cpu, x_cpu) = RI.build_resnet_imagenet_int8(arch, 2, device="cpu", image_size=TRUNK_SIZE)
+        qp_gpu = to_device(qp_cpu, dev)
+        with torch.inference_mode():
+            got = [{k: v.cpu() for k, v in st.items()} for st in RI.resnet_imagenet_int8_streams(qp_gpu, x_cpu.to(dev))]
+            f_gpu = RI.resnet_imagenet_int8_forward(qp_gpu, x_cpu.to(dev)).cpu()
+        want = list(RI.resnet_imagenet_int8_streams(qp_cpu, x_cpu))
+        for i, (g_, w_) in enumerate(zip(got, want)):
+            for k in w_:
+                if not torch.equal(g_[k], w_[k]):
+                    raise AssertionError(f"{arch} stage {i} {k}: the card's differs from the CPU's")
+        f_cpu = RI.resnet_imagenet_int8_forward(qp_cpu, x_cpu)
+        ferr = float((f_gpu - f_cpu).abs().max()) / float(f_cpu.abs().max())
+        if not (torch.isfinite(f_gpu).all() and ferr <= 1e-5 and f_gpu.shape == f_cpu.shape):
+            raise AssertionError(f"{arch}: features off the CPU's by {ferr} of the largest")
+        print(f"forward {arch} {TRUNK_SIZE}x{TRUNK_SIZE} batch 2: every stage's codes and stream ({len(got)} stages) "
+              f"identical to the CPU's, features within {ferr:.3g} of the largest", flush=True)
+
+    phase("ImageNet trunks: serving from artifacts (the main path)")
+    art_dir = repo / "chiprun_out" / "artifacts"
+    art_dir.mkdir(parents=True, exist_ok=True)
+    # the block inputs' scale is the batch's max, so a request's answer
+    # depends on its batch: requests that fill the engine's batches in order
+    # (the last one padded), as the check below batches the images
+    reqs = [torch.randn((n, TRUNK_SIZE, TRUNK_SIZE, 3), generator=torch.Generator().manual_seed(60 + i)).numpy()
+            for i, n in enumerate((FAMILY_SERVE_BATCH, 3))]
+    serving = {}
+    for arch in TRUNKS:
+        _, (qp_cpu, _) = RI.build_resnet_imagenet_int8(arch, 1, device="cpu", image_size=TRUNK_SIZE)
+        path = art_dir / f"{arch}.npz"
+        save_int8_artifact(str(path), qp_cpu, meta={"model": arch, "act_bits": 8, "weight_bits": 8,
+                                                    "act_impl": "erf", "image_size": TRUNK_SIZE})
+        serving[arch] = serve_artifact(arch, path, RI.resnet_imagenet_int8_streams, dev, reqs, feature=True)
+        n = serving[arch]["launches"]
+        per_fwd = {"resnet18": 20, "resnet50": 53}[arch]
+        if not (n.get(K1.KERNEL, 0) and n[K1.KERNEL] == per_fwd * n.get(K1.FORM.format(7), 0)
+                and not n.get(K1.TAP_GATHERS, 0) and n.get(K1.CODES, 0) + n.get(K1.F32, 0) == n[K1.KERNEL]):
+            raise AssertionError(f"serving {arch}: launches {n}, expected {per_fwd} K1 a forward, one of them "
+                                 "the 7x7 stem, and no tap gather")
+    details["trunk_serving"] = serving
+
+    phase("ImageNet trunks: times")
+    fwd_times, rows = {}, []
+    for arch in TRUNKS:
+        _, (qp, x) = RI.build_resnet_imagenet_int8(arch, SERVE_BATCH, device=dev, image_size=TRUNK_SIZE)
+        ops = RI.pack_resnet_imagenet_operands(qp)
+        with torch.inference_mode():
+            ms = median_ms(lambda: RI.resnet_imagenet_int8_forward(qp, x, operands=ops))
+            zero_counts(_build.launches)
+            RI.resnet_imagenet_int8_forward(qp, x, operands=ops)
+            torch.cuda.synchronize()
+            per_fwd = {k: v for k, v in _build.launches.items() if v}
+            prof = profile_step(lambda: RI.resnet_imagenet_int8_forward(qp, x, operands=ops), card,
+                                f"{arch} int8 forward batch {SERVE_BATCH} {TRUNK_SIZE}x{TRUNK_SIZE}")
+        fwd_times[arch] = {"ms": ms, "images_per_s": SERVE_BATCH / ms * 1e3, "launches_per_forward": per_fwd,
+                           "profile": prof}
+        print(f"forward {arch} int8 erf batch {SERVE_BATCH} {TRUNK_SIZE}x{TRUNK_SIZE}: {ms:.4f} ms = "
+              f"{SERVE_BATCH / ms * 1e3:.0f} images/s; launches a forward {per_fwd} [{card}]", flush=True)
+        del qp, x, ops
+        for key, ((kind, args), count) in launches_by[arch, SERVE_BATCH, 8, "erf"].items():
+            t_ms, plain_ms, b_ms, b_by, lib_ms, pad_ms = time_launch(kind, args)
+            plan, op, xc = args[2], args[1], args[5]
+            rows.append(dict(family=arch, kind=kind, shape=str(key), ksize=plan.ksize, M=plan.B * plan.Ho * plan.Wo,
+                             K=plan.ksize ** 2 * xc, N=op.n, tile=f"{plan.TR}x{plan.TW}", chunks=plan.n_chunks,
+                             n_blocks=plan.n_blocks, launches=count, ms=t_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib_ms, pad_pass_ms=pad_ms))
+            print(f"time {arch} K1 {key} x{count} (tile {plan.TR}x{plan.TW}, {plan.n_chunks} K chunks, "
+                  f"{plan.n_blocks} N blocks): {t_ms:.4f} ms, plain {plain_ms:.3f}, bound {b_ms:.4f} ({b_by}), "
+                  f"torch._int_mm {lib_ms:.4f}{'' if pad_ms is None else f', the pad pass before it {pad_ms:.4f}'} "
+                  f"[{card}]", flush=True)
+        torch.cuda.empty_cache()
+    details["trunk_times"] = {"forwards": fwd_times, "launches": rows}
+    return rows, err, serving
+
+
+def baseline_qat(dev, card, details, phase):
+    """Phase 20, the QAT of the baselines and the trunk: (a) three float64
+    ResNet-20 steps of each of the ten methods, W4A4 (ADMM where the
+    method has sites), batch 8 of 16x16 images, BatchNorm affine drawn;
+    (b) the trunks' float64 forward and backward (ResNet-18 at 64x64,
+    ResNet-50 at 224x224, batch 2, W4A4 ADMM), each on the card against the
+    CPU within 1e-9; (c) the ResNet-50 trunk's f32 W8A8 ADMM forward and
+    backward at the DANN preset's batch 28, and the ResNet-20 W4A4 step of
+    each of the ten methods at batch 128 (CUDA events, median of 5), TF32
+    off."""
+    import numpy as np
+    import torch
+
+    from alignq_tpu_torch.admm.loss import admm_loss
+    from alignq_tpu_torch.models import resnet_imagenet as RIM
+    from alignq_tpu_torch.models.registry import build_model
+    from alignq_tpu_torch.models.resnet_cifar import ORDERING, PreActResNet
+    from alignq_tpu_torch.train import TrainConfig, create_train_state, make_train_step
+    from alignq_tpu_torch.train.loop import true_f32
+
+    out = {"f64_ten_methods": {}, "f64_trunks": {}, "step_ms": {}}
+    phase("QAT of the baselines: (a) float64 ResNet-20 steps of each method, the card against the CPU")
+    for method in ORDERING:
+        admm = ORDERING[method] == "ours"
+        cfg = TrainConfig(method=method, train_batch_size=8, bitW=4, abitW=4, admm=admm, lr=0.02,
+                          lr_decay_steps=(1000,))
+        # uniform_admm's D is identically 0: once a site's dual Z shrinks to
+        # exactly 0 (its third step here), the constraint term is sqrt(0) and
+        # its gradient NaN, in the JAX package too (ROADMAP, known
+        # differences of the reference): its two finite steps are compared
+        steps = 2 if method == "uniform_admm" else 3
+        err = qat_card_vs_cpu(dev, lambda g, m=method, a=admm: affine_bn(
+            PreActResNet(num_units=(3, 3, 3), w_bit=4, a_bit=4, method=m, admm=a, generator=g), g), cfg, 16,
+            21 if admm else 0, steps)
+        print(f"QAT (a) ResNet-20 {method} W4A4{' ADMM' if admm else ''}: {steps} float64 steps, card vs CPU max "
+              f"abs diff {err:.3g}", flush=True)
+        if not err <= 1e-9:
+            raise AssertionError(f"QAT (a) {method}: the card's float64 steps differ from the CPU's by {err}")
+        out["f64_ten_methods"][method] = err
+
+    phase("QAT of the baselines: (b) the trunks' float64 forward and backward, the card against the CPU")
+    for arch, hw in (("resnet18", 64), ("resnet50", TRUNK_SIZE)):
+        err, n_sites = trunk_card_vs_cpu(dev, arch, hw)
+        print(f"QAT (b) {arch} trunk {hw}x{hw} batch 2 W4A4 ADMM ({n_sites} sites): float64 forward and backward, "
+              f"card vs CPU max diff {err:.3g} of each tensor's largest (feature, gradients, statistics, D)",
+              flush=True)
+        if not err <= 1e-9:
+            raise AssertionError(f"QAT (b) {arch}: the card's float64 values differ from the CPU's by {err}")
+        out["f64_trunks"][arch] = err
+
+    phase("QAT of the baselines: (c) times")
+    true_f32()
+    gen = torch.Generator().manual_seed(SEED)
+    model = RIM.resnet50_quant(8, 8, admm=True, generator=gen).to(dev)
+    rng = np.random.RandomState(SEED)
+    x = torch.tensor(rng.randn(TRUNK_QAT_BATCH, TRUNK_SIZE, TRUNK_SIZE, 3), dtype=torch.float32, device=dev)
+    params = list(model.parameters())
+
+    def trunk_step():
+        sink = {}
+        feat = model(x, train=True, sink=sink)
+        loss = feat.square().mean()
+        for n in sorted(sink):
+            loss = loss + admm_loss(sink[n], torch.zeros_like(sink[n]), torch.zeros_like(sink[n]))
+        torch.autograd.grad(loss, params)
+
+    ms = median_ms(trunk_step, runs=10, warmup=2)
+    prof = profile_step(trunk_step, card, f"ResNet-50 trunk W8A8 ADMM forward+backward batch {TRUNK_QAT_BATCH}",
+                        iters=2)
+    out["resnet50_trunk_fwd_bwd"] = {"ms": ms, "images_per_s": TRUNK_QAT_BATCH / ms * 1e3, "profile": prof}
+    print(f"QAT (c) ResNet-50 trunk W8A8 erf ADMM forward+backward, batch {TRUNK_QAT_BATCH} at {TRUNK_SIZE}x"
+          f"{TRUNK_SIZE}: {ms:.3f} ms = {TRUNK_QAT_BATCH / ms * 1e3:.1f} images/s [{card}]", flush=True)
+    del model, x, params
+    torch.cuda.empty_cache()
+    for method in ORDERING:
+        # W4A4: APoT's levels exist for 2-6 bits (at W8 its 7-bit table is
+        # empty, and its weights NaN, in the JAX package too)
+        cfg = TrainConfig(method=method, train_batch_size=128, bitW=4, abitW=4, admm=ORDERING[method] == "ours")
+        model = build_model(cfg, torch.Generator().manual_seed(SEED)).to(dev)
+        state = create_train_state(torch.Generator().manual_seed(SEED), model, cfg)
+        step = make_train_step(model, cfg)
+        xb = torch.tensor(rng.randn(128, 32, 32, 3), dtype=torch.float32, device=dev)
+        yb = torch.tensor(rng.randint(0, 10, 128), device=dev)
+        ms = median_ms(lambda: step(state, xb, yb), runs=5, warmup=2)
+        out["step_ms"][method] = ms
+        print(f"QAT (c) ResNet-20 {method} W4A4{' ADMM' if cfg.admm else ''} step, batch 128: {ms:.3f} ms = "
+              f"{128 / ms * 1e3:.0f} images/s [{card}]", flush=True)
+        del model, state, step
+    details["baseline_qat"] = out
+    return out
 
 
 def calibrated(model, generator):
@@ -918,8 +1288,9 @@ def family_qat(dev, card, repo, phase):
         art = job / "net.npz"
         zero_counts(_build.launches)
         t0 = time.perf_counter()
-        rep = export_int8.main(FAMILY_QAT_ARGS + args + ["--epochs", str(epochs), "--job_dir", str(job),
-                                                         "--save", str(art)])
+        with deterministic_cudnn():
+            rep = export_int8.main(FAMILY_QAT_ARGS + args + ["--epochs", str(epochs), "--job_dir", str(job),
+                                                             "--save", str(art)])
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         export_launches = {k: v for k, v in _build.launches.items() if v}
@@ -937,8 +1308,11 @@ def family_qat(dev, card, repo, phase):
         if not sum(losses[-q:]) < sum(losses[:q]):
             raise AssertionError(f"QAT families (b) {label}: the loss did not fall ({losses[:q]} -> {losses[-q:]})")
         print(f"QAT families (c) {label} export: fake-quant top-1 {rep['fq_top1']:.2f}, INT top-1 "
-              f"{rep['int_top1']:.2f}, delta {rep['delta']:+.2f} pts, prediction agreement {rep['agreement']:.2f}%; "
-              f"launches {export_launches}", flush=True)
+              f"{rep['int_top1']:.2f}, delta {rep['delta']:+.2f} pts, prediction agreement {rep['agreement']:.2f}% "
+              f"(logit margins (fake-quant, INT) where they disagree {rep['disagree_margins']}, median fake-quant "
+              f"top-1 less top-2 {rep['median_margin']:.4g}, INT - fake-quant logit gap largest "
+              f"{rep['max_logit_gap']:.4g} median {rep['median_logit_gap']:.4g}); launches {export_launches}",
+              flush=True)
         if rep["agreement"] < 99.0:
             raise AssertionError(f"QAT families (c) {label}: prediction agreement {rep['agreement']:.2f}% < 99.0%")
         check_family_launches(f"{label} export", export_launches)
@@ -948,7 +1322,10 @@ def family_qat(dev, card, repo, phase):
         print(f"QAT families (c) {label} served: K1 by epilogue mode {k1_modes}", flush=True)
         out["trained"][label] = dict(steps=len(losses), run_s=run_s, loss_first=losses[0], loss_last=losses[-1],
                                      fq_top1=rep["fq_top1"], int_top1=rep["int_top1"], delta=rep["delta"],
-                                     agreement=rep["agreement"], export_launches=export_launches, served=served)
+                                     agreement=rep["agreement"], disagree_margins=rep["disagree_margins"],
+                                     median_margin=rep["median_margin"], max_logit_gap=rep["max_logit_gap"],
+                                     median_logit_gap=rep["median_logit_gap"], export_launches=export_launches,
+                                     served=served)
         del rep
         torch.cuda.empty_cache()
 
@@ -989,6 +1366,35 @@ def family_qat(dev, card, repo, phase):
     out["bench"] = json.loads(lines[0])
     print(f"bench: {lines[0]} [{card}]", flush=True)
     return out
+
+
+def agreement_study(repo, card):
+    """python3 chip_smoke.py --agreement-study: phase 9(b, c)'s training and
+    export without the gate, MobileNet-V2 three times under cuDNN's default
+    algorithms (which vary run to run) at seed 0, and each family under the
+    deterministic ones at seed 1; one JSON line a run: top-1s, agreement,
+    the logit margins where the INT graph and the fake-quant eval
+    disagree, and the gap between their logits."""
+    import shutil
+
+    from alignq_tpu_torch import export_int8
+
+    runs = [("mobilenetv2", 0, False)] * 3 + [("mobilenetv2", 1, True), ("densenet40 f32", 1, True),
+                                             ("densenet40 stage_int8", 1, True)]
+    family = {label: (epochs, args) for label, epochs, args in FAMILY_QAT}
+    for label, seed, deterministic in runs:
+        epochs, args = family[label]
+        job = repo / "chiprun_out" / f"study_{label.replace(' ', '_')}"
+        shutil.rmtree(job, ignore_errors=True)
+        with deterministic_cudnn() if deterministic else contextlib.nullcontext():
+            rep = export_int8.main(FAMILY_QAT_ARGS + args + ["--epochs", str(epochs), "--job_dir", str(job),
+                                                             "--seed", str(seed)])
+        shutil.rmtree(job)
+        print(json.dumps({"family": label, "seed": seed, "cudnn_deterministic": deterministic,
+                          "fq_top1": rep["fq_top1"], "int_top1": rep["int_top1"], "agreement": rep["agreement"],
+                          "disagree_margins": rep["disagree_margins"], "median_margin": rep["median_margin"],
+                          "max_logit_gap": rep["max_logit_gap"], "median_logit_gap": rep["median_logit_gap"],
+                          "card": card}), flush=True)
 
 
 def main() -> int:
@@ -1040,6 +1446,11 @@ def main() -> int:
     print(f"build: {sorted(reports)} built in {build_s:.1f} s", flush=True)
     details["build_s"] = build_s
     details["ptxas"] = reports
+    if sys.argv[1:] == ["--agreement-study"]:
+        agreement_study(repo, card)
+        return 0
+    if sys.argv[1:]:
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -1339,6 +1750,7 @@ def main() -> int:
         code_ms = {impl: graph_ms(lambda: K1._k1_launch(xc, op, plan, out_c, impl, maps[impl]))
                    for impl in ("poly", "erf")}
         f32_ms = graph_ms(lambda: K1._k1_launch(xc, op, plan, out_f, "f32"))
+        pad_ms = graph_ms(lambda: K1._conv_input(x, op)) if x.shape[-1] != op.cin else None
         plain_code_ms = {impl: median_ms(lambda: K1.int8_conv_reference(x, op, stride, pad, impl,
                                                                            K1.act_map(impl, 127, dev)), runs=5)
                          for impl in ("poly", "erf")}
@@ -1354,12 +1766,14 @@ def main() -> int:
             batch=batch, shape=name, M=m, K=ksize * ksize * cin, N=n, slice_launches=slice_n, erf_launches=erf_n,
             tile=f"{plan.TR}x{plan.TW}", poly_ms=code_ms["poly"], erf_ms=code_ms["erf"], f32_ms=f32_ms,
             plain_poly_ms=plain_code_ms["poly"], plain_erf_ms=plain_code_ms["erf"],
-            bound_ms=bc_ms, bound_f32_ms=bf_ms, bound_by=bc_by, library_ms=lib_ms,
+            bound_ms=bc_ms, bound_f32_ms=bf_ms, bound_by=bc_by, library_ms=lib_ms, pad_pass_ms=pad_ms,
         ))
         print(f"time K1 conv {name} batch {b} M={m} K={ksize * ksize * cin} N={n} (tile {plan.TR}x{plan.TW}): "
               f"codes poly {code_ms['poly']:.4f} ms, erf {code_ms['erf']:.4f} (plain {plain_code_ms['poly']:.3f}, "
               f"{plain_code_ms['erf']:.3f}; bound {bc_ms:.4f} {bc_by}); f32 {f32_ms:.4f} (bound {bf_ms:.4f}); "
-              f"torch._int_mm on the gathered matrix {lib_ms:.4f} [{card}]", flush=True)
+              f"torch._int_mm on the gathered matrix {lib_ms:.4f}"
+              f"{'' if pad_ms is None else f'; the pad pass before it {pad_ms:.4f}'} "
+              f"[{card}]", flush=True)
     for batch, name, x in k2_inputs:
         if batch is None:
             continue
@@ -1394,7 +1808,11 @@ def main() -> int:
     # buffers) and MobileNet-V2
     fam_rows, fam_err, fam_serving = deploy_families(dev, card, repo, details, phase)
 
-    # 16. the kernels line, the card line, the final line
+    # 16-19. the ImageNet-layout trunks at 224x224; 20. the baselines' QAT
+    trunk_rows, trunk_err, trunk_serving = imagenet_trunks(dev, card, repo, details, phase)
+    baseline_qat(dev, card, details, phase)
+
+    # 21. the kernels line, the card line, the final line
     phase("done")
 
     def summed(r, ms_key, plain_key, bound_key, weight):
@@ -1460,6 +1878,25 @@ def main() -> int:
                         "launches": fam_serving[label]["launches"].get(counter, 0), "max_abs_err": fam_err[kind],
                         **family_sum(label, kind)})
         print(f"{kname} over one batch-{SERVE_BATCH} {label} forward: {json.dumps(kernels[-1])} [{card}]", flush=True)
+    def trunk_sum(rows_):
+        """One batch-256 forward's launches of the rows given."""
+        t_bytes = sum(x["bound_ms"] * x["launches"] for x in rows_ if x["bound_by"] == "bytes")
+        t_ops = sum(x["bound_ms"] * x["launches"] for x in rows_ if x["bound_by"] == "operations")
+        return {"ms": sum(x["ms"] * x["launches"] for x in rows_),
+                "plain_ms": sum(x["plain_ms"] * x["launches"] for x in rows_), "bound_ms": t_bytes + t_ops,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": sum(x["library_ms"] * x["launches"] for x in rows_)}
+
+    for kname, arch, stem_only in ((K1.KERNEL + "@resnet50", "resnet50", False),
+                                   (K1.KERNEL + "@resnet18", "resnet18", False),
+                                   (K1.KERNEL + ":7x7 stem@resnet50", "resnet50", True)):
+        launched = trunk_serving[arch]["launches"].get(K1.FORM.format(7) if stem_only else K1.KERNEL, 0)
+        rows_ = [x for x in trunk_rows if x["family"] == arch and (x["ksize"] == 7 or not stem_only)]
+        kernels.append({"name": kname, "route": "cuda", "source": "alignq_tpu_torch/csrc/qmatmul.cu",
+                        "replaces": "alignq_tpu/kernels/qmatmul.py:45", "launches": launched,
+                        "max_abs_err": trunk_err, **trunk_sum(rows_)})
+        print(f"{kname} over one batch-{SERVE_BATCH} {TRUNK_SIZE}x{TRUNK_SIZE} forward: {json.dumps(kernels[-1])} "
+              f"[{card}]", flush=True)
     out_dir = repo / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))

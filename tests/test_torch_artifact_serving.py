@@ -168,9 +168,9 @@ def test_registry_refusals(tmp_path):
     jart.save_int8_artifact(bogus, {"w": np.zeros(1)}, meta={"model": "vgg"})
     with pytest.raises(ValueError, match="deploy registry"):
         engine_from_artifact(bogus, device="cpu")
-    unported = str(tmp_path / "r50.npz")
-    jart.save_int8_artifact(unported, {"w": np.zeros(1)}, meta={"model": "resnet50"})
-    with pytest.raises(NotImplementedError, match="queue 1, ImageNet ResNets and domain adaptation"):
+    unported = str(tmp_path / "dann.npz")
+    jart.save_int8_artifact(unported, {"w": np.zeros(1)}, meta={"model": "dann"})
+    with pytest.raises(NotImplementedError, match="queue 1, Domain adaptation"):
         engine_from_artifact(unported, device="cpu")
     packed_dn = str(tmp_path / "dn.npz")
     jart.save_int8_artifact(packed_dn, {"w": np.zeros(1)}, meta={"model": "densenet40", "packed_int4": 1})
@@ -178,7 +178,8 @@ def test_registry_refusals(tmp_path):
         engine_from_artifact(packed_dn, device="cpu")
     with pytest.raises(NotImplementedError):
         engine_from_artifact(bogus, device="cpu", mesh=object())
-    assert {"resnet20", "resnet56", "densenet40", "mobilenetv2"} < set(DEPLOY_FAMILIES)
+    assert {"resnet20", "resnet56", "densenet40", "mobilenetv2", "resnet18", "resnet34",
+            "resnet50"} < set(DEPLOY_FAMILIES)
 
 
 def test_bins_int_artifact_without_act_bits_refused_at_load(tmp_path):

@@ -16,6 +16,7 @@ from alignq_tpu_torch.kernels import quantize as K2
 from alignq_tpu_torch.kernels.qmatmul import (
     CODES,
     F32,
+    FORM,
     REQUANT,
     TAP_GATHERS,
     act_map,
@@ -341,6 +342,50 @@ def test_conv_new_forms_vs_plain(cuda, form):
         _assert_codes_close(got, want)
         if act.relu:
             assert int(got.min()) >= 0
+
+
+# K1's forms for the ImageNet-layout ResNet-18/34/50 trunks: (B, H, W, Cin,
+# ksize, stride, N) -- the 7x7 stride-2 stem over the image's 3 channels
+# (padded to 4; and over 4 channels), 1x1 convs over 1024 and 2048
+# channels and to 2048 (K streamed over one-group-a-warp tiles, N blocks),
+# the 1x1 stride-2 downsamples, and 3x3 convs of 128 channels and up (K
+# streamed, N in blocks of 128) down to 7x7 maps; and 3x3 convs over
+# images of 3 (the CIFAR stem), 2 and 1 channels, padded to 4
+IMAGENET_K1_FORMS = [
+    (2, 224, 224, 3, 7, 2, 64), (3, 64, 64, 3, 7, 2, 64), (1, 30, 37, 3, 7, 2, 64), (2, 20, 21, 4, 7, 2, 64),
+    (2, 32, 32, 3, 3, 1, 16), (3, 9, 13, 2, 3, 2, 8), (1, 17, 10, 1, 3, 1, 24),
+    (3, 56, 56, 256, 1, 1, 64), (2, 56, 56, 256, 1, 2, 512), (3, 14, 14, 1024, 1, 1, 256),
+    (2, 14, 14, 1024, 1, 2, 2048), (3, 7, 7, 2048, 1, 1, 512), (2, 7, 7, 512, 1, 1, 2048),
+    (3, 28, 28, 128, 3, 2, 256), (2, 14, 14, 256, 3, 1, 256), (3, 7, 7, 512, 3, 1, 512),
+    (2, 14, 14, 512, 3, 2, 512),
+]
+
+
+@pytest.mark.parametrize("form", IMAGENET_K1_FORMS)
+def test_conv_imagenet_forms_vs_plain(cuda, form):
+    """K1's 7x7 stem form and the trunks' wide 1x1 and streamed 3x3 forms
+    against the plain version: int32 identical, f32 and the trunk's act
+    codes (erf and poly, relu'd and not) within the plain version's double
+    rounding; the kernel's launches gather no taps."""
+    b, h, w, cin, ksize, stride, n = form
+    pad = ksize // 2
+    rng = np.random.RandomState(cin + n + b + ksize)
+    x = _i8(rng, (b, h, w, cin), 0 if cin > 3 else -127, 128).to(cuda)
+    kern = _i8(rng, (ksize, ksize, cin, n)).to(cuda)
+    k = ksize * ksize * cin
+    s = torch.from_numpy(((rng.rand(n) * 2 - 0.4) * 2 / (np.sqrt(k) * 73.3**2)).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy((rng.randn(n) * 0.5).astype(np.float32)).to(cuda)
+    op = pack_conv_weights(kern, s, bias)
+    gathers, form = _build.launches[TAP_GATHERS], _build.launches[FORM.format(ksize)]
+    got = {"int32": int8_conv_packed(x, op, stride, pad, "int32"), "f32": int8_conv_packed(x, op, stride, pad, "f32")}
+    acts = (act_map("erf", 127, cuda, relu=True), act_map("poly", 127, cuda), act_map("erf", 127, cuda))
+    codes = [int8_conv_codes(x, op, stride, pad, act) for act in acts]
+    torch.cuda.synchronize()
+    assert _build.launches[TAP_GATHERS] == gathers and _build.launches[FORM.format(ksize)] == form + 5
+    assert torch.equal(got["int32"], int8_conv_reference(x, op, stride, pad, "int32"))
+    _assert_f32_close(got["f32"], int8_conv_reference(x, op, stride, pad, "f32"))
+    for act, c in zip(acts, codes):
+        _assert_codes_close(c, int8_conv_reference(x, op, stride, pad, act.impl, act))
 
 
 @pytest.mark.parametrize("c,hw,stride,batch", [(32, 32, 1, 3), (96, 32, 1, 2), (144, 32, 2, 2), (192, 16, 2, 3),

@@ -19,6 +19,7 @@ from alignq_tpu_torch.kernels import infer_densenet as TD
 from alignq_tpu_torch.kernels import infer_mobilenet as TM
 from alignq_tpu_torch.kernels import qmatmul as K1
 from alignq_tpu_torch.kernels import quantize as K2
+from torch_port_helpers import emulate_k1 as _emulate_k1
 from torch_port_helpers import one_torch_thread  # noqa: F401  (fixture)
 
 
@@ -27,89 +28,6 @@ def _i8(rng, shape, lo=-127, hi=128):
 
 
 # ------------------------------------------------------------ K1's new forms
-
-
-def _emulate_k1(x: torch.Tensor, op: K1.K1Weights, plan: K1.ConvPlan) -> np.ndarray:
-    """csrc/qmatmul.cu's index math in numpy, int32 mode: for each N block
-    and tile, each stage's band and (where K streams) weight chunk filled as
-    issue_stage fills them, over stale bytes; the K loop's fragment words
-    through the k-word tables; the tile's accumulators written to its
-    output rows. Returns the (M, N8) output (-2**40 where nothing wrote)."""
-    p = plan
-    xn, wt = x.numpy(), op.wt.numpy()
-    out = np.full((p.B * p.Ho * p.Wo, p.N8), -(2**40), np.int64)
-    ps = p.stride if p.ksize == 3 else 1
-    ls = 1 if p.ksize == 3 else p.stride
-    ccl = p.C - (p.n_chunks - 1) * p.CC
-    last_words = p.KC // 4 if p.n_chunks > 1 else 0
-    koff = []
-    for q in range(last_words + p.KCL // 4 if p.ksize == 3 else 0):
-        last = q >= last_words
-        cc = ccl if last else p.CC
-        tap, c = divmod(4 * (q - last_words if last else q), cc)
-        koff.append((tap // 3) * p.RP + (tap % 3) * p.P + c if tap < 9 else 2 * p.RP + 2 * p.P + cc - 4)
-    assert 4 * len(koff) <= p.koff_bytes
-    koff = np.array(koff)
-    rng = np.random.RandomState(0)
-    i = np.arange(p.TR * p.TW)
-    ro, co = i // p.TW, i % p.TW
-    base = ro * ps * p.RP + co * ps * p.P
-    for nb in range(p.n_blocks):
-        n0 = nb * p.NB
-        nbr = min(p.NB, p.N8 - n0)
-        assert nbr > 0 and nbr % 8 == 0 and 32 * p.warps_n >= nbr and p.warps_m * p.warps_n <= 8
-        if p.n_chunks == 1:
-            wres = rng.randint(-128, 128, max(p.w_bytes, 1)).astype(np.int8)
-            for n in range(nbr):
-                wres[n * p.WP : n * p.WP + p.Kp] = wt[n0 + n]
-        for tile in range(p.n_tiles):
-            tx, rest = tile % p.tiles_x, tile // p.tiles_x
-            b, oy0, ox0 = rest // p.tiles_y, (rest % p.tiles_y) * p.TR, tx * p.TW
-            iy0 = oy0 * p.stride - (p.pad if p.ksize == 3 else 0)
-            ix0 = ox0 * p.stride - (p.pad if p.ksize == 3 else 0)
-            acc = np.zeros((p.TR * p.TW, nbr), np.int64)
-            for chunk in range(p.n_chunks):
-                buf = rng.randint(-128, 128, p.stage_bytes).astype(np.int8)  # stale bytes
-                c0 = chunk * p.CC
-                cc = min(p.CC, p.C - c0)
-                assert cc % p.vec == 0 and p.P % p.vec == 0 and p.RP % p.vec == 0
-                for r in range(p.HR):
-                    for cp in range(p.HC):
-                        iy, ix = iy0 + r * ls, ix0 + cp * ls
-                        inside = 0 <= iy < p.H and 0 <= ix < p.W
-                        at = r * p.RP + cp * p.P
-                        assert at + cc <= p.a_bytes
-                        buf[at : at + cc] = xn[b, iy, ix, c0 : c0 + cc] if inside else 0
-                last = chunk == p.n_chunks - 1
-                kc = p.KCL if last else p.KC
-                if p.n_chunks == 1:
-                    wm = wres
-                else:
-                    wm = buf[p.a_bytes :]
-                    for n in range(nbr):
-                        row = n * p.WP
-                        if p.ksize == 1:
-                            wm[row : row + kc] = wt[n0 + n, c0 : c0 + kc]
-                        else:
-                            for tap in range(9):
-                                wm[row + tap * cc : row + (tap + 1) * cc] = wt[n0 + n, tap * p.C + c0 : tap * p.C + c0 + cc]
-                            wm[row + 9 * cc : row + kc] = 0
-                    assert p.a_bytes + nbr * p.WP <= p.stage_bytes
-                kt = koff[last_words:] if last and p.n_chunks > 1 else koff
-                words = np.arange(kc // 4)
-                offs = kt[words] if p.ksize == 3 else 4 * words
-                a_idx = base[:, None, None] + offs[None, :, None] + np.arange(4)[None, None, :]
-                assert a_idx.max() < p.a_bytes
-                a = buf[a_idx.reshape(len(base), -1)].astype(np.int64)
-                w = wm[np.arange(nbr)[:, None] * p.WP + np.arange(kc)[None, :]].astype(np.int64)
-                acc += a @ w.T
-            oy, ox = oy0 + ro, ox0 + co
-            ok = (oy < p.Ho) & (ox < p.Wo)
-            rows = (b * p.Ho + oy[ok]) * p.Wo + ox[ok]
-            assert (out[rows, n0 : n0 + nbr] == -(2**40)).all()  # each output once
-            out[rows, n0 : n0 + nbr] = acc[ok]
-    assert (out != -(2**40)).all()  # every output written
-    return out
 
 
 # (B, H, W, Cin, ksize, stride, N): the forms the two graphs add to K1 --

@@ -65,7 +65,12 @@ def test_export_and_serve_on_the_cpu(case, tmp_path):
     if family == "densenet40":
         meta["depth"] = 10
     report, qparams = export_int8.export_and_compare(result["state"].model, data.loader_test, family, meta)
-    assert set(report) == {"fq_top1", "int_top1", "delta", "agreement"} and 0 <= report["agreement"] <= 100
+    assert set(report) == {"fq_top1", "int_top1", "delta", "agreement", "disagree_margins", "median_margin",
+                           "max_logit_gap", "median_logit_gap"}
+    assert 0 <= report["agreement"] <= 100 and report["median_margin"] >= 0
+    assert 0 <= report["median_logit_gap"] <= report["max_logit_gap"]
+    assert len(report["disagree_margins"]) == round((100 - report["agreement"]) * 32 / 100)  # of 32 images
+    assert all(f >= 0 and i >= 0 for f, i in report["disagree_margins"])
     if cfg.stage_int8:
         assert all(float(b["out_scale"].min()) > 1e-6 / 127 for s in qparams["stages"] for b in s["blocks"])
     path = tmp_path / "net.npz"

@@ -183,9 +183,15 @@ def test_site_names_and_deploy_tree_round_trip():
 
 
 def test_unported_methods_raise():
+    """Every method of the JAX package is ported (tests/test_torch_baselines.py);
+    a method JAX raises on raises here too."""
     for method in ("uniform", "lsq", "apot"):
-        with pytest.raises(NotImplementedError, match="Baseline quantizers"):
+        TNet(num_units=(1, 1, 1), method=method)
+    for method in ("awq", "ours2"):
+        with pytest.raises(ValueError, match="unknown quant method"):
             TNet(num_units=(1, 1, 1), method=method)
+        with jax.enable_x64(True), pytest.raises(KeyError):  # JAX's ORDERING lookup
+            JNet(num_units=(1, 1, 1), method=method).init(jax.random.PRNGKey(0), jnp.zeros((1, HW, HW, 3)))
     with pytest.raises(ValueError):
         TNet(num_units=(1, 1, 1), stream_int8=True)
 

@@ -340,6 +340,8 @@ def test_conv_plan_rejects():
         conv_plan(1, 8, 8, 16, 3, 1, 1, 16, 128)  # a depth that is not 9 x 16 padded
     with pytest.raises(ValueError):
         conv_plan(1, 8, 8, 6, 3, 1, 1, 16, 64)  # channels not a multiple of 4
+    with pytest.raises(ValueError):
+        conv_plan(1, 224, 224, 3, 7, 2, 3, 64, 160)  # an image's 3 channels: the wrapper pads them to 4
 
 
 def test_gather_counter_ignores_cpu():

@@ -53,6 +53,30 @@ def random_like(trees, seed):
     return draw(shapes), draw(stat_shapes)
 
 
+def affine_bn_tree(params, seed=5):
+    """A flax-layout params tree with every BatchNorm scale drawn in [0.7,
+    1.3] and bias N(0, 0.2) with numpy. At flax's init (bias 0) uniform
+    weight and act grids make a conv output equal its channel's batch
+    mean, so the BN output is an ulp either side of 0 by the mean's
+    summation order, under a relu, and two libraries branch apart."""
+    rng = np.random.RandomState(seed)
+
+    def draw(tree, bn):
+        out = {}
+        for k, v in sorted(tree.items()):
+            if isinstance(v, dict):
+                out[k] = draw(v, "bn" in k)
+            elif bn and k == "scale":
+                out[k] = rng.uniform(0.7, 1.3, np.shape(v))
+            elif bn and k == "bias":
+                out[k] = rng.randn(*np.shape(v)) * 0.2
+            else:
+                out[k] = v
+        return out
+
+    return draw(params, False)
+
+
 def f64_tree(tree):
     """A nested dict with every floating leaf as float64 numpy."""
     if isinstance(tree, dict):
@@ -73,9 +97,10 @@ def flat_names(tree, prefix=""):
 
 
 def to_port_layout(name, a):
-    """A flax leaf in the port's layout: conv kernels HWIO -> OIHW."""
+    """A flax leaf in the port's layout: conv kernels (and LLSQ's alpha_w)
+    HWIO -> OIHW."""
     a = np.asarray(a)
-    return a.transpose(3, 2, 0, 1) if name.endswith("kernel") and a.ndim == 4 else a
+    return a.transpose(3, 2, 0, 1) if (name.endswith("kernel") or name.endswith("alpha_w")) and a.ndim == 4 else a
 
 
 def write_tiny_cifar10(data_dir, per_batch=16, n_test=64, seed=0):
@@ -202,3 +227,92 @@ def assert_qparams_match(jq, tq):
             assert (jl != tl).mean() < 1e-3
         else:
             np.testing.assert_allclose(tl, jl, rtol=2e-6, atol=1e-7)
+
+
+def emulate_k1(x, op, plan) -> np.ndarray:
+    """csrc/qmatmul.cu's index math in numpy, int32 mode: for each N block
+    and tile, each stage's band and (where K streams) weight chunk filled as
+    issue_stage fills them, over stale bytes; the K loop's fragment words
+    through the k-word tables; the tile's accumulators written to its
+    output rows. Returns the (M, N8) output (-2**40 where nothing wrote).
+    Where K streams, each warp must hold one 32-row group of the tile (its
+    accumulators persist over the chunks)."""
+    p = plan
+    xn, wt = x.numpy(), op.wt.numpy()
+    out = np.full((p.B * p.Ho * p.Wo, p.N8), -(2**40), np.int64)
+    ps = p.stride if p.ksize > 1 else 1
+    ls = 1 if p.ksize > 1 else p.stride
+    ks, taps = p.ksize, p.ksize * p.ksize
+    if p.n_chunks > 1:
+        assert p.TR * p.TW == 32 * p.warps_m
+    ccl = p.C - (p.n_chunks - 1) * p.CC
+    last_words = p.KC // 4 if p.n_chunks > 1 else 0
+    koff = []
+    for q in range(last_words + p.KCL // 4 if ks > 1 else 0):
+        last = q >= last_words
+        cc = ccl if last else p.CC
+        tap, c = divmod(4 * (q - last_words if last else q), cc)
+        koff.append((tap // ks) * p.RP + (tap % ks) * p.P + c if tap < taps else (ks - 1) * (p.RP + p.P) + cc - 4)
+    assert 4 * len(koff) <= p.koff_bytes
+    koff = np.array(koff)
+    rng = np.random.RandomState(0)
+    i = np.arange(p.TR * p.TW)
+    ro, co = i // p.TW, i % p.TW
+    base = ro * ps * p.RP + co * ps * p.P
+    for nb in range(p.n_blocks):
+        n0 = nb * p.NB
+        nbr = min(p.NB, p.N8 - n0)
+        assert nbr > 0 and nbr % 8 == 0 and 32 * p.warps_n >= nbr and p.warps_m * p.warps_n <= 8
+        if p.n_chunks == 1:
+            wres = rng.randint(-128, 128, max(p.w_bytes, 1)).astype(np.int8)
+            for n in range(nbr):
+                wres[n * p.WP : n * p.WP + p.Kp] = wt[n0 + n]
+        for tile in range(p.n_tiles):
+            tx, rest = tile % p.tiles_x, tile // p.tiles_x
+            b, oy0, ox0 = rest // p.tiles_y, (rest % p.tiles_y) * p.TR, tx * p.TW
+            iy0 = oy0 * p.stride - (p.pad if ks > 1 else 0)
+            ix0 = ox0 * p.stride - (p.pad if ks > 1 else 0)
+            acc = np.zeros((p.TR * p.TW, nbr), np.int64)
+            for chunk in range(p.n_chunks):
+                buf = rng.randint(-128, 128, p.stage_bytes).astype(np.int8)  # stale bytes
+                c0 = chunk * p.CC
+                cc = min(p.CC, p.C - c0)
+                assert cc % p.vec == 0 and p.P % p.vec == 0 and p.RP % p.vec == 0
+                for r in range(p.HR):
+                    for cp in range(p.HC):
+                        iy, ix = iy0 + r * ls, ix0 + cp * ls
+                        inside = 0 <= iy < p.H and 0 <= ix < p.W
+                        at = r * p.RP + cp * p.P
+                        assert at + cc <= p.a_bytes
+                        buf[at : at + cc] = xn[b, iy, ix, c0 : c0 + cc] if inside else 0
+                last = chunk == p.n_chunks - 1
+                kc = p.KCL if last else p.KC
+                if p.n_chunks == 1:
+                    wm = wres
+                else:
+                    wm = buf[p.a_bytes :]
+                    for n in range(nbr):
+                        row = n * p.WP
+                        if p.ksize == 1:
+                            wm[row : row + kc] = wt[n0 + n, c0 : c0 + kc]
+                        else:
+                            for tap in range(taps):
+                                src = tap * p.C + c0
+                                wm[row + tap * cc : row + (tap + 1) * cc] = wt[n0 + n, src : src + cc]
+                            wm[row + taps * cc : row + kc] = 0
+                    assert p.a_bytes + nbr * p.WP <= p.stage_bytes
+                kt = koff[last_words:] if last and p.n_chunks > 1 else koff
+                words = np.arange(kc // 4)
+                offs = kt[words] if ks > 1 else 4 * words
+                a_idx = base[:, None, None] + offs[None, :, None] + np.arange(4)[None, None, :]
+                assert a_idx.max() < p.a_bytes
+                a = buf[a_idx.reshape(len(base), -1)].astype(np.int64)
+                w = wm[np.arange(nbr)[:, None] * p.WP + np.arange(kc)[None, :]].astype(np.int64)
+                acc += a @ w.T
+            oy, ox = oy0 + ro, ox0 + co
+            ok = (oy < p.Ho) & (ox < p.Wo)
+            rows = (b * p.Ho + oy[ok]) * p.Wo + ox[ok]
+            assert (out[rows, n0 : n0 + nbr] == -(2**40)).all()  # each output once
+            out[rows, n0 : n0 + nbr] = acc[ok]
+    assert (out != -(2**40)).all()  # every output written
+    return out
