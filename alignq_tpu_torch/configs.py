@@ -6,10 +6,9 @@ hyperparameters:
     cfg = configs.resnet20_cifar10_w8a8(num_epochs=3)
     fit(cfg, get_data(cfg.dataset, cfg.data_dir, cfg.train_batch_size, cfg.eval_batch_size))
 
-The three domain-adaptation presets (DANN and DSAN on Office-31, DANN on
-the digits) wait for the domain-adaptation drivers, ROADMAP queue 1,
-Domain adaptation. Their trunk, the ImageNet-layout ResNet-18/34/50
-(models/resnet_imagenet.py), is ported, with its INT8 serving graph.
+and of the domain-adaptation drivers (alignq_tpu/configs.py:105-148):
+DANN and DSAN on Office-31 and DANN on the digits, as DAConfigs for
+train/da.py's fit_dann and fit_dsan.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 from alignq_tpu_torch.train.config import TrainConfig
+from alignq_tpu_torch.train.da import DAConfig
 
 
 def resnet20_cifar10_w8a8(**over) -> TrainConfig:
@@ -77,6 +77,42 @@ def mobilenetv2_svhn_w8a8(**over) -> TrainConfig:
                                correction_exclude=(), warmup_epochs=2.0, **over)
 
 
+def dann_office_d2w_w8a8_admm(**over) -> DAConfig:
+    """ResNet-50 DANN on Office-31 dslr -> webcam with ADMM (reference
+    README.md:48): lr .001, batch 28, 200 epochs, wd 5e-4
+    (cdf_alignment_admm/dann_office/utils/options_office.py)."""
+    return dataclasses.replace(
+        DAConfig(target_model="resnet50_dann", method="ours", bitW=8, abitW=8, admm=True, lr=1e-3,
+                 train_batch_size=28, eval_batch_size=28, num_epochs=200, weight_decay=5e-4, num_classes=31,
+                 src_data="dslr", tgt_data="webcam", correction_exclude=("feature/conv1",)),
+        **over,
+    )
+
+
+def dsan_office_a2w_w4a4(**over) -> DAConfig:
+    """ResNet-50 DSAN on Office-31 amazon -> webcam, 4-bit: lr .01, batch
+    32, param .3, the 256-wide bottleneck
+    (cdf_alignment/dsan_office/utils/options_office.py:64-99)."""
+    return dataclasses.replace(
+        DAConfig(target_model="resnet50_dsan", method="ours", bitW=4, abitW=4, lr=0.01, train_batch_size=32,
+                 eval_batch_size=32, num_epochs=200, weight_decay=5e-4, num_classes=31, param=0.3,
+                 bottle_neck=True, src_data="amazon", tgt_data="webcam",
+                 correction_exclude=("feature_layers/conv1",)),
+        **over,
+    )
+
+
+def dann_digits_mnist2mnistm(**over) -> DAConfig:
+    """The digit DANN's defaults: 28x28, plain SGD (the digit driver's
+    torch SGD has no PDF correction)."""
+    return dataclasses.replace(
+        DAConfig(target_model="mnist_model_quant", method="ours", bitW=8, abitW=8, lr=0.01, train_batch_size=128,
+                 eval_batch_size=128, num_epochs=100, num_classes=10, img_size=28, src_data="mnist",
+                 tgt_data="mnistm", use_correction=False),
+        **over,
+    )
+
+
 ALL = {
     "resnet20_cifar10_w8a8": resnet20_cifar10_w8a8,
     "resnet20_cifar10_w8a8_fast_deploy": resnet20_cifar10_w8a8_fast_deploy,
@@ -85,4 +121,7 @@ ALL = {
     "densenet40_cifar10": densenet40_cifar10,
     "resnet20_svhn_w8a8": resnet20_svhn_w8a8,
     "mobilenetv2_svhn_w8a8": mobilenetv2_svhn_w8a8,
+    "dann_office_d2w_w8a8_admm": dann_office_d2w_w8a8_admm,
+    "dsan_office_a2w_w4a4": dsan_office_a2w_w4a4,
+    "dann_digits_mnist2mnistm": dann_digits_mnist2mnistm,
 }

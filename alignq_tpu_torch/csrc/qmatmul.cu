@@ -8,8 +8,10 @@
 // CUDA. It reads the int8 codes x (B, H, W, C) in place and writes the
 // (B*Ho*Wo, N8) result: out[m, n] = epilogue(sum_k A[m, k] * W[n, k]) with
 // A[m, (dy, dx, c)] = x[b, oy*s + dy - pad, ox*s + dx - pad, c] (zero off the
-// image), ksize 3 (pad 1), 1 (pad 0) or 7 (pad 3: the ImageNet ResNets' stem
-// over the image's channels padded to 4), stride 1 or 2. The GEMM form
+// image), ksize 3 (pad 1), 1 (pad 0), 7 (pad 3: the ImageNet ResNets' stem
+// over the image's channels padded to 4) or 5 (pad 0: the digit DANN's
+// VALID convs, conv1 over the image's channels padded to 4), stride 1 or 2.
+// The GEMM form
 // (x (M, Kp) @ W^T) is the 1x1 stride-1 conv over the (1, 1, M, Kp) view.
 //
 // What bounds it on an H100, at the serving graph's shapes: bytes for most
@@ -29,7 +31,10 @@
 //   into that buffer (a table per k-word), so no input byte is fetched
 //   once for each tap. The 7x7 stem's band, for a one-row tile of TW
 //   outputs at stride 2, is 7 x (2*TW + 5) pixels of 4 bytes, each k-word
-//   one tap of one pixel.
+//   one tap of one pixel. With pad 0 (the 5x5 form) the band has no halo:
+//   it starts at the tile's first input pixel, and the rows and columns a
+//   ragged tile reaches past the image are zero-filled like a pad border;
+//   no output that lands reads them.
 // - The packed weight (N8, Kp) is resident in shared memory for the whole
 //   kernel where it fits (every CIFAR ResNet conv: at most 128 x 288 or
 //   64 x 576 bytes). Where it does not, K streams in chunks, weight chunk beside
@@ -203,8 +208,8 @@ __device__ void issue_stage(const Plan& p, const int8_t* __restrict__ x,
                             const int8_t* __restrict__ wt, unsigned char* buf, int tile,
                             int chunk, int n0, int nbr) {
   const TileOrigin o = tile_origin(p, tile);
-  // KS 3 and 7: the band with its halo, every input pixel; KS 1: the
-  // strided sample of the pixels the tile reads
+  // KS 3, 5 and 7: the band (with its halo where pad > 0), every input
+  // pixel; KS 1: the strided sample of the pixels the tile reads
   const int ls = KS > 1 ? 1 : p.stride;
   const int iy0 = o.oy0 * p.stride - (KS > 1 ? p.pad : 0);
   const int ix0 = o.ox0 * p.stride - (KS > 1 ? p.pad : 0);
@@ -503,5 +508,6 @@ extern "C" int k1_conv_launch(const void* x, const void* wt, const void* scale,
   if (p.ksize == 3) return dispatch<3>(mode, x, wt, scale, bias, out, p, a, s);
   if (p.ksize == 1) return dispatch<1>(mode, x, wt, scale, bias, out, p, a, s);
   if (p.ksize == 7) return dispatch<7>(mode, x, wt, scale, bias, out, p, a, s);
+  if (p.ksize == 5) return dispatch<5>(mode, x, wt, scale, bias, out, p, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

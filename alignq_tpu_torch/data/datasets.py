@@ -1,12 +1,14 @@
 """Raw dataset loading (port of alignq_tpu/data/datasets.py: CIFAR-10's
-python pickles, SVHN's .mat files and the synthetic set). Numpy only; the port keeps its own
+python pickles, SVHN's .mat files, MNIST's idx files and the synthetic set). Numpy only; the port keeps its own
 copy so that it imports nothing of the JAX package. The same seed gives the
 same arrays as the JAX package's `synthetic`."""
 
 from __future__ import annotations
 
+import gzip
 import os
 import pickle
+import struct
 from typing import Optional, Tuple
 
 import numpy as np
@@ -52,6 +54,33 @@ def load_svhn(data_dir: str) -> Optional[Arrays]:
         return np.transpose(m["X"], (3, 0, 1, 2)), m["y"].reshape(-1).astype(np.int32) % 10  # HWCN -> NHWC
 
     return (*read(tr), *read(te))
+
+
+def _read_idx(path: str) -> np.ndarray:
+    """An idx file (optionally gzipped) as a uint8 array of its shape."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        ndim = struct.unpack(">I", f.read(4))[0] & 0xFF
+        shape = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        return np.frombuffer(f.read(), np.uint8).reshape(shape)
+
+
+def load_mnist(data_dir: str, prefix: str = "") -> Optional[Arrays]:
+    """MNIST's idx files (optionally gzipped, under data_dir/prefix or
+    data_dir/MNIST/raw) -> uint8 NHW1, int32 labels; None where any is
+    absent."""
+    names = {"train_x": "train-images-idx3-ubyte", "train_y": "train-labels-idx1-ubyte",
+             "test_x": "t10k-images-idx3-ubyte", "test_y": "t10k-labels-idx1-ubyte"}
+    found = {}
+    for k, n in names.items():
+        cands = [os.path.join(data_dir, prefix, n), os.path.join(data_dir, prefix, n + ".gz"),
+                 os.path.join(data_dir, "MNIST", "raw", n), os.path.join(data_dir, "MNIST", "raw", n + ".gz")]
+        hit = next((c for c in cands if os.path.isfile(c)), None)
+        if hit is None:
+            return None
+        found[k] = hit
+    return (_read_idx(found["train_x"])[..., None], _read_idx(found["train_y"]).astype(np.int32),
+            _read_idx(found["test_x"])[..., None], _read_idx(found["test_y"]).astype(np.int32))
 
 
 def synthetic(n_train: int = 2048, n_test: int = 512, shape: Tuple[int, int, int] = (32, 32, 3),

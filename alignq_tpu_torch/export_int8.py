@@ -26,7 +26,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,12 +63,14 @@ def int_forward_kwargs(bits: int, cdf_impl: str, deploy_act_impl: str, stream: s
     return kw
 
 
-def export_and_compare(model: torch.nn.Module, loader, family: str, meta: Dict[str, Any]
-                       ) -> Tuple[Dict[str, float], Any]:
+def export_and_compare(model: torch.nn.Module, loader, family: str, meta: Dict[str, Any],
+                       fake_quant: Optional[Callable] = None) -> Tuple[Dict[str, float], Any]:
     """Fold the trained model into the INT graph of the deploy family that
     `meta` (an artifact's meta: bits, act_impl, stream, stage_int8,
     use_stage_kernel) describes, and run both on every batch of loader, on
-    the model's device. Returns ({'fq_top1', 'int_top1', 'delta',
+    the model's device. fake_quant(model, x): the model's eval logits
+    (default model(x, train=False); a domain-adaptation net's class
+    logits). Returns ({'fq_top1', 'int_top1', 'delta',
     'agreement'} in percent, 'disagree_margins': for each image where the
     two predictions differ, (the fake-quant logit of its own top class less
     that of the INT graph's, the INT graph's logit of its top class less
@@ -87,7 +89,7 @@ def export_and_compare(model: torch.nn.Module, loader, family: str, meta: Dict[s
         for xb, yb in loader:
             x = torch.from_numpy(np.ascontiguousarray(xb)).to(dev)
             l_i8 = int_forward(eval_qp, x).double().cpu().numpy()
-            l_fq = model(x, train=False).double().cpu().numpy()
+            l_fq = (model(x, train=False) if fake_quant is None else fake_quant(model, x)).double().cpu().numpy()
             pred_i8, pred_fq = l_i8.argmax(-1), l_fq.argmax(-1)
             y = np.asarray(yb)
             correct += int((pred_i8 == y).sum())

@@ -6,17 +6,21 @@ The JAX package keeps a PreActResNet as a flax tree (`conv0/kernel` HWIO,
 as a tree of QConvInt8 triples (DenseNet's of QConvPre and BNAffine).
 Given either as numpy arrays, these functions return the port's tensors in
 the same structure. `init_*_params` draw fresh random trees of each CIFAR
-family and of the ImageNet ResNet trunks with the shapes and key names of
-the JAX models' `init`.
+family, of the ImageNet ResNet trunks and of the domain-adaptation nets
+(DANN, DSAN, MDD, the digit DANN) with the shapes and key names of the JAX
+models' `init`.
 
-Training state crosses too: a flax tree of any of the four CIFAR families
-or of an ImageNet ResNet trunk loads into the port's QAT model
+Training state crosses too: a flax tree of any of the four CIFAR families,
+of an ImageNet ResNet trunk or of a domain-adaptation net (its heads'
+QDense kernels (in, out) and 1-D BatchNorms as they are) loads into the
+port's QAT model
 (`load_flax_tree`; conv kernels OIHW, MobileNet's depthwise HWIO (3, 3, 1,
 C) as (C, 1, 3, 3), StageRequant's `amax` among the statistics), JAX's
 ADMM duals become the port's, and `deploy_tree` gives a trained model back
 as the flax-layout tree that the family's converter
 (`convert_preact_resnet`, `convert_densenet40`, `convert_mobilenetv2`,
-`convert_resnet_imagenet`) folds.
+`convert_resnet_imagenet`, `convert_dann`, `convert_dsan`, `convert_mdd`,
+`convert_mnist_dann`) folds.
 """
 
 from __future__ import annotations
@@ -248,6 +252,42 @@ def init_resnet_imagenet_params(
         raise ValueError(f"unknown ImageNet ResNet {arch!r}; have {sorted(builders)}")
     params, stats = deploy_tree(builders[arch](generator=generator))
     return params_from_numpy(params, stats, device)
+
+
+def init_da_params(
+    task: str, generator: torch.Generator, device, arch: str = "resnet50", num_classes: int = 31,
+    bottle_neck: bool = True,
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A deploy tree with the shapes and key names of the JAX package's
+    DANN (`feature`, `class_classifier`, `domain_classifier`), DSAN
+    (`feature_layers`, `bottle` with bottle_neck, `cls_fc`) or MDDNet
+    (`base_network`, `bottleneck_fc`, `bottleneck_bn`, `classifier` and
+    `classifier_adv` of `fc0`, `fc1`; 1024 wide) `init`, task 'dann' |
+    'dsan' | 'mdd': the port's model, drawn on the CPU from `generator`,
+    as its flax tree, moved to `device`."""
+    from alignq_tpu_torch.models import DANN, DSAN, MDDNet
+
+    if task == "dann":
+        model = DANN(arch=arch, num_classes=num_classes, generator=generator)
+    elif task == "dsan":
+        model = DSAN(arch=arch, num_classes=num_classes, bottle_neck=bottle_neck, generator=generator)
+    elif task == "mdd":
+        model = MDDNet(arch=arch, num_classes=num_classes, generator=generator)
+    else:
+        raise ValueError(f"unknown domain-adaptation task {task!r}; have ['dann', 'dsan', 'mdd']")
+    return params_from_numpy(*deploy_tree(model), device)
+
+
+def init_mnist_dann_params(
+    generator: torch.Generator, device, img_size: int = 28
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A deploy tree with the shapes and key names of the JAX package's
+    `mnist_model_quant(...).init` (`conv1`, `conv1_bn`, `conv2`, `conv2_bn`,
+    `classifier/{fc0,bn0,fc1,bn1,fc2}`, `discriminator/{fc0,bn0,fc1}`),
+    drawn as init_da_params'."""
+    from alignq_tpu_torch.models import MNISTModelQuant
+
+    return params_from_numpy(*deploy_tree(MNISTModelQuant(img_size=img_size, generator=generator)), device)
 
 
 def _flat(tree, prefix=""):

@@ -1,5 +1,6 @@
 """The INT8 serving graphs' modules (`infer`, `infer_densenet`,
-`infer_mobilenet`, the artifacts and the deploy registry) and their
+`infer_mobilenet`, `infer_resnet_imagenet`, `infer_digit`, the artifacts
+and the deploy registry) and their
 hand-written CUDA kernels: K1, the implicit-GEMM int8 conv
 `qmatmul.int8_conv_packed` (with the act-code epilogue
 `qmatmul.int8_conv_codes`; `int8_matmul_dequant` is its GEMM form) and its

@@ -22,9 +22,14 @@ Contract per family:
 The ImageNet-layout trunks (resnet18, resnet34, resnet50) serve the pooled
 feature, as the JAX package's family does; their meta's `arch` (else its
 `model`) picks the trunk, and `image_size` (224 where the meta has none)
-the request shape. The domain-adaptation and digit families are in the
-table, as in the JAX package, but not ported: every entry raises
-NotImplementedError (ROADMAP.md queue 1, Domain adaptation).
+the request shape.
+
+The domain-adaptation families (dann, dsan, mdd) store {'trunk': the
+trunk's qparams, 'heads': the f32 heads} and serve class logits; their
+meta's `arch` (resnet50 where it has none) picks the trunk, `num_classes`
+(31), `bottle_neck` (DSAN's, 1) and `image_size` (64) the rest. The digit
+DANN (digit_dann) stores convert_mnist_dann's tree and serves class
+logits at `img_size` (28).
 """
 
 from __future__ import annotations
@@ -204,21 +209,93 @@ def _imagenet_shape(meta):
     return (s, s, 3)
 
 
-# ------------------------------------------ families the port does not serve
+# --------------------------------------------- domain-adaptation nets
 
 
-def _not_ported(name: str):
-    def refuse(*_):
-        raise NotImplementedError(
-            f"deploy family {name!r} is not ported to alignq_tpu_torch yet (ROADMAP.md queue 1, Domain adaptation)"
-        )
+def _da_convert(task: str):
+    def convert(params, batch_stats, meta):
+        from alignq_tpu_torch.kernels import infer_resnet_imagenet as RI
 
-    return refuse
+        fn = {"dann": RI.convert_dann, "dsan": RI.convert_dsan, "mdd": RI.convert_mdd}[task]
+        trunk, heads = fn(params, batch_stats, **_bits(meta))
+        return {"trunk": trunk, "heads": heads}
+
+    return convert
 
 
-def _unported(name: str) -> DeployFamily:
-    refuse = _not_ported(name)
-    return DeployFamily(name, refuse, refuse, refuse, refuse, refuse)
+def _da_template(task: str):
+    def template(meta, device):
+        from alignq_tpu_torch.interop import init_da_params
+
+        tree = init_da_params(task, _seed(), device, arch=_meta_str(meta, "arch", "resnet50"),
+                              num_classes=_meta_int(meta, "num_classes", 31),
+                              bottle_neck=bool(_meta_int(meta, "bottle_neck", 1)))
+        return _da_convert(task)(*tree, meta)
+
+    return template
+
+
+def _da_forward(task: str):
+    def forward(meta):
+        from alignq_tpu_torch.kernels import infer_resnet_imagenet as RI
+
+        kw = _act_kwargs(meta)
+        kw.pop("stream", None)
+        raw = {"dann": RI.dann_int8_forward, "dsan": RI.dsan_int8_forward, "mdd": RI.mdd_int8_forward}[task]
+
+        def fwd(params, x, operands=None):
+            out = raw(params["trunk"], params["heads"], x, operands=operands, **kw)
+            return out[0] if task == "dann" else out  # DANN's class logits
+
+        return fwd
+
+    return forward
+
+
+def _da_operands(qparams, meta):
+    from alignq_tpu_torch.kernels.infer_resnet_imagenet import pack_resnet_imagenet_operands
+
+    return pack_resnet_imagenet_operands(qparams["trunk"])
+
+
+def _da_shape(meta):
+    s = _meta_int(meta, "image_size", 64)
+    return (s, s, 3)
+
+
+def _digit_convert(params, batch_stats, meta):
+    from alignq_tpu_torch.kernels.infer_digit import convert_mnist_dann
+
+    return convert_mnist_dann(params, batch_stats, **_bits(meta))
+
+
+def _digit_template(meta, device):
+    from alignq_tpu_torch.interop import init_mnist_dann_params
+
+    return _digit_convert(*init_mnist_dann_params(_seed(), device, _meta_int(meta, "img_size", 28)), meta)
+
+
+def _digit_forward(meta):
+    from alignq_tpu_torch.kernels.infer_digit import mnist_dann_int8_forward
+
+    kw = _act_kwargs(meta)
+    kw.pop("stream", None)
+
+    def fwd(params, x, operands=None):
+        return mnist_dann_int8_forward(params, x, operands=operands, **kw)[0]  # class logits
+
+    return fwd
+
+
+def _digit_operands(qparams, meta):
+    from alignq_tpu_torch.kernels.infer_digit import pack_mnist_dann_operands
+
+    return pack_mnist_dann_operands(qparams)
+
+
+def _digit_shape(meta):
+    s = _meta_int(meta, "img_size", 28)
+    return (s, s, 3)
 
 
 DEPLOY_FAMILIES: Dict[str, DeployFamily] = {
@@ -232,5 +309,8 @@ DEPLOY_FAMILIES: Dict[str, DeployFamily] = {
                                 _mobilenet_operands, _cifar_shape),
     **{name: DeployFamily(name, _imagenet_convert, _imagenet_template, _imagenet_forward, _imagenet_operands,
                           _imagenet_shape) for name in ("resnet18", "resnet34", "resnet50")},
-    **{name: _unported(name) for name in ("dann", "dsan", "mdd", "digit_dann")},
+    **{task: DeployFamily(task, _da_convert(task), _da_template(task), _da_forward(task), _da_operands, _da_shape)
+       for task in ("dann", "dsan", "mdd")},
+    "digit_dann": DeployFamily("digit_dann", _digit_convert, _digit_template, _digit_forward, _digit_operands,
+                               _digit_shape),
 }

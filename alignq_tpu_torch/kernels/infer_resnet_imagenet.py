@@ -18,6 +18,10 @@ as the JAX package runs it under jit.
   (q.scale * s_in), an (N,) f32 product made on the device, so K1's
   `acc * scale + bias` stays one rounding.
 - Returns the pooled penultimate feature (no head).
+- The domain-adaptation nets serve on this trunk (dann_int8_forward,
+  dsan_int8_forward, mdd_int8_forward, each with its converter): the trunk
+  in INT8, its heads f32 products outside any kernel (torch.matmul, TF32
+  off), as JAX computes them outside any Pallas kernel.
 
 Rounding rules of jitted JAX, held here: `max|x| / 127` divides by a
 constant, so it is a multiply by the f32 reciprocal; `x / s` divides by a
@@ -39,6 +43,8 @@ from alignq_tpu_torch.kernels.convert import fold_conv_bn
 from alignq_tpu_torch.kernels.infer import S_IMG, _act_g, _linear_q
 from alignq_tpu_torch.kernels.qmatmul import K1Weights, act_map, int8_conv_codes, int8_conv_packed, pack_conv_weights
 from alignq_tpu_torch.quant.cdf import fma_f32
+
+Heads = Dict[str, Any]
 
 IMPLS = ("erf", "poly", "bins")  # the trunk's act maps ('bins' for A4/A2)
 
@@ -184,6 +190,76 @@ def resnet_imagenet_int8_forward(
     if out.dtype == torch.int16:
         return _spatial_mean(out.to(torch.float32)) * _f32(2.0 / _act_g(act_bits))
     return _spatial_mean(out)
+
+
+def _dense(x: torch.Tensor, head: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return torch.matmul(x, head["kernel"]) + head["bias"]
+
+
+def dann_int8_forward(qparams: Dict[str, Any], heads: Heads, x: torch.Tensor, act_bits: int = 8,
+                      act_impl: str = "erf", operands: Optional[Dict[str, Any]] = None):
+    """A trained DANN: the INT8 trunk, then the f32 class and domain heads
+    on its feature (the GRL is the identity at inference). Returns (class
+    logits, domain logits)."""
+    feat = resnet_imagenet_int8_forward(qparams, x, act_bits, act_impl, operands)
+    return _dense(feat, heads["class_classifier"]), _dense(feat, heads["domain_classifier"])
+
+
+def convert_dann(params: Dict[str, Any], batch_stats: Dict[str, Any], weight_bits: int = 8, act_bits: int = 8):
+    """A trained DANN's flax-layout tree -> (the trunk's qparams, the f32
+    heads)."""
+    qparams = convert_resnet_imagenet(params["feature"], batch_stats.get("feature", {}), weight_bits, act_bits)
+    return qparams, {k: dict(params[k]) for k in ("class_classifier", "domain_classifier")}
+
+
+def dsan_int8_forward(qparams: Dict[str, Any], heads: Heads, x: torch.Tensor, act_bits: int = 8,
+                      act_impl: str = "erf", operands: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """A trained DSAN: the INT8 trunk, the f32 bottleneck where it was
+    trained with one, the class head. Returns class logits (LMMD is
+    training-only)."""
+    feat = resnet_imagenet_int8_forward(qparams, x, act_bits, act_impl, operands)
+    if "bottle" in heads:
+        feat = _dense(feat, heads["bottle"])
+    return _dense(feat, heads["cls_fc"])
+
+
+def convert_dsan(params: Dict[str, Any], batch_stats: Dict[str, Any], weight_bits: int = 8, act_bits: int = 8):
+    """A trained DSAN's tree -> (the trunk's qparams, {'cls_fc'[, 'bottle']})."""
+    qparams = convert_resnet_imagenet(params["feature_layers"], batch_stats.get("feature_layers", {}), weight_bits,
+                                      act_bits)
+    heads = {"cls_fc": dict(params["cls_fc"])}
+    if "bottle" in params:
+        heads["bottle"] = dict(params["bottle"])
+    return qparams, heads
+
+
+def mdd_int8_forward(qparams: Dict[str, Any], heads: Heads, x: torch.Tensor, act_bits: int = 8,
+                     act_impl: str = "erf", operands: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """A trained MDD net: the INT8 trunk, the f32 bottleneck (fc -> its
+    BatchNorm's statistics -> relu) where it has one, the class MLP (fc0 ->
+    relu -> fc1). Returns class logits (the adversarial head and the
+    dropouts are training-only)."""
+    feat = resnet_imagenet_int8_forward(qparams, x, act_bits, act_impl, operands)
+    if "bottleneck_fc" in heads:
+        bn = heads["bottleneck_bn"]
+        feat = (_dense(feat, heads["bottleneck_fc"]) - bn["mean"]) * torch.rsqrt(bn["var"] + _f32(1e-5))
+        feat = torch.relu(fma_f32(feat, bn["scale"], bn["bias"]))
+    cls = heads["classifier"]
+    return _dense(torch.relu(_dense(feat, cls["fc0"])), cls["fc1"])
+
+
+def convert_mdd(params: Dict[str, Any], batch_stats: Dict[str, Any], weight_bits: int = 8, act_bits: int = 8):
+    """A trained MDDNet's tree -> (the trunk's qparams, the bottleneck fc
+    and its BatchNorm's scale, bias, mean and var where it has one, and the
+    class MLP; the adversarial head is dropped)."""
+    qparams = convert_resnet_imagenet(params["base_network"], batch_stats.get("base_network", {}), weight_bits,
+                                      act_bits)
+    heads: Dict[str, Any] = {"classifier": {k: dict(params["classifier"][k]) for k in ("fc0", "fc1")}}
+    if "bottleneck_fc" in params:
+        heads["bottleneck_fc"] = dict(params["bottleneck_fc"])
+        p, s = params["bottleneck_bn"], batch_stats["bottleneck_bn"]
+        heads["bottleneck_bn"] = {"scale": p["scale"], "bias": p["bias"], "mean": s["mean"], "var": s["var"]}
+    return qparams, heads
 
 
 def build_resnet_imagenet_int8(arch: str, batch: int, device=None, seed: int = 0, image_size: int = 224,

@@ -53,7 +53,7 @@ CODES = KERNEL + ":codes"
 F32 = KERNEL + ":f32"
 REQUANT = KERNEL + ":requant"
 MODE = KERNEL + ":mode:{}"  # and of each epilogue mode: MODE.format("poly")
-FORM = KERNEL + ":ks{}"  # and of each kernel size: FORM.format(7), the ImageNet stem
+FORM = KERNEL + ":ks{}"  # and of each kernel size: FORM.format(7) the ImageNet stem, 5 the digit convs
 TAP_GATHERS = "gather_taps:cuda"  # counter key of tap gathers of CUDA tensors
 
 
@@ -214,7 +214,8 @@ class ConvPlan(NamedTuple):
 
     A tile is TR x TW output pixels of one image; tiles run (b, ty, tx)
     over tiles_y x tiles_x a image. Its input band, HR x HC pixels (the
-    halo included for ksize 3 and 7; the strided sample for ksize 1), sits in
+    halo included for ksize 3 and 7; the window's reach for the VALID 5x5;
+    the strided sample for ksize 1), sits in
     shared memory at a pixel pitch P and a row pitch RP; a stage carries CC
     channels, KC bytes of K, n_chunks stages a tile (1 where the weight is
     resident: then CC = C, KC = Kp); the last stage KCL bytes of K. WP: the
@@ -293,7 +294,7 @@ def _band_bytes(hr: int, hc: int, width: int, step: int):
     return p, rp, _round_up(hr * rp, 16)
 
 
-KSIZES = {3: 1, 1: 0, 7: 3}  # the kernel sizes K1 takes, each with its one padding
+KSIZES = {3: 1, 1: 0, 7: 3, 5: 0}  # the kernel sizes K1 takes, each with its one padding (5: the digit net's VALID)
 
 
 def _tile(ho: int, wo: int, bm: int, warps_m_max: int):
@@ -323,7 +324,9 @@ def _streamed_tile(ho: int, wo: int, warps_m_max: int):
 @functools.lru_cache(maxsize=None)
 def conv_plan(b: int, h: int, w: int, c: int, ksize: int, stride: int, pad: int, n8: int, kp: int) -> ConvPlan:
     """The tiling of one K1 launch over x (b, h, w, c) int8 and a packed
-    weight (n8, kp): 3x3 pad 1, 1x1 pad 0 or 7x7 pad 3 (the ImageNet stem),
+    weight (n8, kp): 3x3 pad 1, 1x1 pad 0, 7x7 pad 3 (the ImageNet stem) or
+    5x5 pad 0 (the digit DANN's VALID convs: a band with no halo, its rows
+    past the image zero-filled and never read by an output that lands),
     stride 1 or 2. N splits into the fewest blocks of at most N_MAX columns
     (fewer where a streamed 3x3 chunk of the weight would not fit). Tiles
     are bands of whole output rows of ~128 pixels where a block has <= 32
@@ -335,7 +338,7 @@ def conv_plan(b: int, h: int, w: int, c: int, ksize: int, stride: int, pad: int,
     channels (a multiple of 32) that fit, each with its taps. Then as many
     stage buffers as fit, up to 4."""
     if KSIZES.get(ksize) != pad or stride not in (1, 2):
-        raise ValueError(f"K1 takes 3x3 pad 1, 1x1 pad 0 or 7x7 pad 3 at stride 1 or 2, got {ksize}x{ksize} "
+        raise ValueError(f"K1 takes 3x3 pad 1, 1x1 pad 0, 7x7 pad 3 or 5x5 pad 0 at stride 1 or 2, got {ksize}x{ksize} "
                          f"pad {pad} stride {stride}")
     if c % C_MULT or kp % K_MULT or n8 % N_MULT or n8 <= 0:
         raise ValueError(f"C={c}, Kp={kp}, N8={n8} out of K1's range")
@@ -577,7 +580,7 @@ def int8_conv_packed(x: torch.Tensor, op: K1Weights, stride: int = 1, padding: i
     epilogue ('f32', or 'relu'), or a stage buffer's int8 requant of it
     ('requant': clip(rint((acc * scale) * inv), +-127), inv packed as the
     bias), (B, Ho, Wo, N). K1 reading x in place on a CUDA tensor (3x3 pad
-    1, 1x1 pad 0 or 7x7 pad 3, stride 1 or 2); on a CPU tensor its plain
+    1, 1x1 pad 0, 7x7 pad 3 or 5x5 pad 0, stride 1 or 2); on a CPU tensor its plain
     version, int8_conv_reference."""
     if mode not in _FAMILY:
         raise ValueError(f"unknown mode {mode!r}")

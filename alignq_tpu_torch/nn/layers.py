@@ -80,8 +80,10 @@ class BatchNorm(nn.Module):
 
 
 class QConv(nn.Module):
-    """Quantized 2-D convolution (no bias), NCHW in and out, kernel OIHW
-    ((features, in_features // groups, k, k)). groups is flax's
+    """Quantized 2-D convolution, NCHW in and out, kernel OIHW
+    ((features, in_features // groups, k, k)); with use_bias a `bias` (the
+    digit DANN's convs), U(-1/sqrt(fan_in), 1/sqrt(fan_in)) as flax's,
+    added after the conv. groups is flax's
     feature_group_count: groups == in_features == features is a depthwise
     conv. The weight quantizer's statistics stay per tensor.
 
@@ -98,7 +100,7 @@ class QConv(nn.Module):
     def __init__(self, in_features: int, features: int, kernel_size: int = 3, stride: int = 1, padding: int = 0,
                  w_bit: int = 8, method: str = "ours", variant: str = "b", channelwise: bool = False,
                  mxu_dtype=None, groups: int = 1, init: str = "torch", generator: Optional[torch.Generator] = None,
-                 a_bit: int = 8):
+                 a_bit: int = 8, use_bias: bool = False):
         super().__init__()
         if method not in CONV_METHODS:
             raise ValueError(f"unknown quant method {method!r}")
@@ -113,6 +115,10 @@ class QConv(nn.Module):
         else:
             kernel = _uniform(shape, 1.0 / math.sqrt(shape[1] * kernel_size * kernel_size), generator)
         self.kernel = nn.Parameter(kernel)
+        self.use_bias = use_bias
+        if use_bias:
+            self.bias = nn.Parameter(_uniform((features,), 1.0 / math.sqrt(shape[1] * kernel_size * kernel_size),
+                                              generator))
         if method == "lsq":
             if w_bit < 32:
                 self.lsq_step_w = nn.Parameter(B.lsq_init_step(kernel, w_bit, is_activation=False))
@@ -161,9 +167,11 @@ class QConv(nn.Module):
             elif self.method == "apot":
                 x = B.apot_act_quant(x, self.act_alpha, self.w_bit - 1, self.w_bit > 2)
         if self.mxu_dtype is not None:
-            return F.conv2d(x.to(self.mxu_dtype), w.to(self.mxu_dtype), stride=self.stride,
-                            padding=self.padding, groups=self.groups).float()
-        return F.conv2d(x, w, stride=self.stride, padding=self.padding, groups=self.groups)
+            y = F.conv2d(x.to(self.mxu_dtype), w.to(self.mxu_dtype), stride=self.stride, padding=self.padding,
+                         groups=self.groups).float()
+        else:
+            y = F.conv2d(x, w, stride=self.stride, padding=self.padding, groups=self.groups)
+        return y + self.bias.reshape(1, -1, 1, 1) if self.use_bias else y
 
 
 class QDense(nn.Module):

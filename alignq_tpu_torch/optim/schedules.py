@@ -1,10 +1,10 @@
-"""Learning-rate schedules (port of alignq_tpu/optim/schedules.py;
-dann_schedule waits for the domain-adaptation drivers, ROADMAP queue 1,
-Domain adaptation)."""
+"""Learning-rate schedules (port of alignq_tpu/optim/schedules.py)."""
 
 from __future__ import annotations
 
 from typing import Callable, Sequence
+
+import torch
 
 MAX_STEP = 2**31 - 1  # the JAX step counter is int32; a later boundary is never reached
 
@@ -27,5 +27,25 @@ def multistep_schedule(base_lr: float, milestones_epochs: Sequence[int], gamma: 
         if warmup_steps > 0:
             lr = lr * min(1.0, (step + 1) / warmup_steps)
         return lr
+
+    return schedule
+
+
+def dann_lr(base_lr: float, p, alpha: float = 10.0, beta: float = 0.75) -> float:
+    """base_lr / (1 + alpha p)^beta: in Python's double for a host p (as
+    the JAX function computes it), in p's dtype for a 0-d tensor p, with a
+    true division (torch's `scalar / tensor` multiplies by a rounded
+    reciprocal)."""
+    den = (1.0 + alpha * p) ** beta
+    return float(torch.tensor(base_lr, dtype=den.dtype) / den) if torch.is_tensor(den) else base_lr / den
+
+
+def dann_schedule(base_lr: float, total_steps: int, alpha: float = 10.0, beta: float = 0.75) -> Callable[[int], float]:
+    """dann_lr at p = step / total_steps, in f32 at any precision: JAX
+    divides its int32 step count into an f32 p even under x64. The per-step
+    form of the reference's per-epoch DANN schedule."""
+
+    def schedule(step: int) -> float:
+        return dann_lr(base_lr, torch.tensor(step, dtype=torch.float32) / max(total_steps, 1), alpha, beta)
 
     return schedule

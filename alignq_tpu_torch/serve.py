@@ -7,8 +7,10 @@
 - the model is a frozen INT8 graph: built from trained params
   (build_int8_resnet20_engine) or loaded from an artifact of any CIFAR
   deploy family (engine_from_artifact: resnet20, resnet56, densenet40,
-  mobilenetv2) or ImageNet-layout trunk (resnet18, resnet34, resnet50:
-  the pooled feature), with its weights laid out for the kernels once.
+  mobilenetv2), ImageNet-layout trunk (resnet18, resnet34, resnet50:
+  the pooled feature) or domain-adaptation net (dann, dsan, mdd,
+  digit_dann: class logits), with its weights laid out for the kernels
+  once.
 
 Sharded serving over a mesh is not ported yet: passing one raises.
 """
@@ -177,9 +179,9 @@ def build_int8_resnet20_engine(
 def engine_from_artifact(
     path: str, batch_size: int = 256, mesh: Any = None, device=None
 ) -> BatchedInferenceEngine:
-    """Serve a frozen INT artifact (alignq_tpu_torch/export_int8.py --save,
-    or the JAX package's tools/export_int8.py --save) on `device` (default
-    the CUDA card).
+    """Serve a frozen INT artifact (alignq_tpu_torch/export_int8.py or
+    export_da_int8.py --save, or the JAX package's tools/export_int8.py or
+    tools/export_da_int8.py --save) on `device` (default the CUDA card).
 
     The artifact's meta records the family and the deploy graph its weights
     were trained for; the deploy registry (kernels/deploy_registry.py)

@@ -36,15 +36,17 @@ class TrainState:
 
 
 @torch.no_grad()
-def admm_sites(model: nn.Module, batch_size: int, input_shape) -> list:
+def admm_sites(model: nn.Module, batch_size: int, input_shape, **forward_kw) -> list:
     """The names of the model's ADMM sites, from one corr-collecting train
     forward at the train batch size (D is batch x batch) run on a copy of
     the model on the meta device: shapes only, and the model's BatchNorm
-    statistics untouched."""
+    statistics untouched. forward_kw: the forward's other arguments (a
+    dropout's rng)."""
     dtype = next(model.parameters()).dtype
     meta = copy.deepcopy(model).to("meta")
     sink: Dict[str, torch.Tensor] = {}
-    meta(torch.zeros((batch_size,) + tuple(input_shape[1:]), dtype=dtype, device="meta"), train=True, sink=sink)
+    meta(torch.zeros((batch_size,) + tuple(input_shape[1:]), dtype=dtype, device="meta"), train=True, sink=sink,
+         **forward_kw)
     return sorted(sink)
 
 

@@ -82,7 +82,7 @@ Phases, in order; any failure raises and the script exits non-zero:
         the buffer (DenseNet) or the depthwise kernel (MobileNet-V2), no
         tap gathered;
     (d) each family's train step at batch 128 with ADMM (CUDA events,
-        median of 10; device busy, idle share and launches of one step
+        median of 5; device busy, idle share and launches of one step
         under torch.profiler), and one run of `python -m
         alignq_tpu_torch.bench`, its line printed;
 10. times from CUDA events (median of 20 after warm-up): the forward at
@@ -160,7 +160,38 @@ Phases, in order; any failure raises and the script exits non-zero:
     the CPU within 1e-9; then the ResNet-50 trunk's f32 W8A8 ADMM forward
     and backward at batch 28 (the DANN preset's) and the ResNet-20 W4A4
     step of each of the ten methods at batch 128;
-21. one JSON line of the kernels (K1 and K3: times summed over the
+21. domain adaptation, (a): three float64 train steps of the digit DANN,
+    and of DANN, DSAN and MDD on ResNet-18 at 32x32 (W4A4, ADMM, batch 4;
+    the dropouts' masks from the same CPU generators), on the card against
+    the CPU within 1e-9 (params, BatchNorm statistics, duals);
+22. the digit DANN: (b) trained at full width through export_da_int8
+    (W8A8, erf, the int8 grid, 28x28 at batch 128, lr .01, 5 epochs of the
+    synthetic mnist -> mnistm pair) under cuDNN's deterministic
+    algorithms; (c) its INT graph against its fake-quant eval on the target
+    test set, at least DA_AGREEMENT_GATE (99.0%) agreement, every K1 launch
+    of the export in the 5x5 form; (d) its artifact served by
+    engine_from_artifact at engine batch 16 (requests of 16 and 3): 2 K1
+    launches of the 5x5 form (counter `int8_matmul_dequant:ks5`, relu'd erf
+    codes) a forward, held to the CPU plain path as in phase 14, and an
+    engine at batch 256 timed (one-image latency, a backlog's images/s,
+    host clock); then the
+    trained graph's launches at batches 3, 256 and 2048 each held against
+    its plain version, timed at 256 and 2048 beside the plain version,
+    conv_bound (pad 0) and torch._int_mm on the gathered taps, and the
+    forward's time;
+23. the DA nets on ResNet-50 at 224x224: the preset
+    dann_office_d2w_w8a8_admm (W8A8 ADMM, 31 classes, batch 28), the
+    preset dsan_office_a2w_w4a4 (W4A4, bottleneck 256, batch 32) and an MDD
+    net (W8A8 ADMM, batch 28), each 3 timed steps (CUDA events), the two
+    presets' one more under torch.profiler (idle share, launches), on
+    seeded images; folded
+    on the CPU by its family's converter; the 53 K1 launches of its INT
+    forward at batch 4 each held against its plain version; DANN's class
+    and domain logits on the card within 1e-5 of the CPU's; its artifact
+    served at engine batch 4 (requests of 4 and 1: 53 K1 launches a
+    forward, one the 7x7 stem) and held to the CPU plain path; DANN's
+    engine at batch 16 timed as the digit net's;
+24. one JSON line of the kernels (K1 and K3: times summed over the
     launches of one slice-route forward at the serving batch; K2: over one
     launch at each act-site size of that batch; K1 on DenseNet-40 and
     MobileNet-V2, the depthwise kernel and the BN-act kernel's two forms
@@ -168,7 +199,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     batch-256 forward of their graph, launches from phase 14; K1 on
     ResNet-50 and ResNet-18 at 224x224 and its 7x7 stem form alone: over
     one batch-256 forward, launches from phase 18, the stem's from its own
-    counter), the card line, and the final JSON line.
+    counter; K1's 5x5 form: over one batch-256 digit forward, launches from
+    phase 22's serving, its error the largest of phases 22 and 23's K1
+    checks), the card line, and the final JSON line.
 
 Exits with code 2 and prints no result where CUDA is not available. Writes
 the per-shape details to chiprun_out/chip_smoke.json.
@@ -186,9 +219,11 @@ between their logits, one JSON line each.
 import contextlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -232,13 +267,15 @@ def conv_shapes(batch):
     }
 
 
-def conv_bound(b, h, w, cin, ksize, stride, n, out_bytes):
-    """The conv's least time: its input read once (every pixel for a 3x3
-    or 7x7, the strided sample for a 1x1), the weight and epilogue vectors,
-    the (M, N) output of out_bytes an element; 2*M*K*N operations (cin the
-    input's channels as the conv's caller gives them: a stem's 3, which
-    the wrapper's pad pass widens to the 4 K1 reads)."""
-    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+def conv_bound(b, h, w, cin, ksize, stride, n, out_bytes, pad=None):
+    """The conv's least time: its input read once (every pixel for a 3x3,
+    5x5 or 7x7, the strided sample for a 1x1), the weight and epilogue
+    vectors, the (M, N) output of out_bytes an element; 2*M*K*N operations
+    (cin the input's channels as the conv's caller gives them: a stem's 3,
+    which the wrapper's pad pass widens to the 4 K1 reads). pad: ksize // 2
+    (a 'same' conv) where None; the digit convs' 0."""
+    pad = ksize // 2 if pad is None else pad
+    ho, wo = (h + 2 * pad - ksize) // stride + 1, (w + 2 * pad - ksize) // stride + 1
     m = b * ho * wo
     x_bytes = b * h * w * cin if ksize > 1 else m * cin
     return bound(x_bytes + ksize * ksize * cin * n + 8 * n + out_bytes * m * n, 2 * m * ksize * ksize * cin * n)
@@ -669,7 +706,7 @@ def time_launch(kind, args):
         impl = act.impl if act is not None else mode
         plain_ms = median_ms(lambda: K1.int8_conv_reference(x, op, plan.stride, plan.pad, impl, act), runs=3, warmup=1)
         b, h, w, c = x.shape
-        b_ms, b_by = conv_bound(b, h, w, xc, plan.ksize, plan.stride, op.n, 4 if mode == "f32" else 1)
+        b_ms, b_by = conv_bound(b, h, w, xc, plan.ksize, plan.stride, op.n, 4 if mode == "f32" else 1, plan.pad)
         if xc != c:
             x_in = x[..., :xc].contiguous()  # the caller's input, before the pad pass
             pad_ms = graph_ms(lambda: K1._conv_input(x_in, op))
@@ -736,9 +773,9 @@ def family_kernel_checks(dev, batches=(256, 3)):
     return out, err, counts
 
 
-def serve_artifact(label, path, streams, dev, requests, feature=False):
+def serve_artifact(label, path, streams, dev, requests, feature=False, batch=FAMILY_SERVE_BATCH):
     """Serve an artifact through serve.engine_from_artifact on the card at
-    engine batch FAMILY_SERVE_BATCH, the launch counts zeroed before the
+    engine batch `batch`, the launch counts zeroed before the
     engine is built and read after its requests, and hold what was served
     against the CPU's plain path at the engine's padded batch: the final
     stream (a graph's last stage buffer or block stream, `streams` its
@@ -762,7 +799,7 @@ def serve_artifact(label, path, streams, dev, requests, feature=False):
         return last["out"] if isinstance(last, dict) else last
 
     zero_counts(_build.launches)
-    engine = engine_from_artifact(str(path), batch_size=FAMILY_SERVE_BATCH, device=dev)
+    engine = engine_from_artifact(str(path), batch_size=batch, device=dev)
     outs = [f.result(timeout=300) for f in [engine.submit(r) for r in requests]]
     torch.cuda.synchronize()
     launched = {k: v for k, v in _build.launches.items() if v}
@@ -773,16 +810,16 @@ def serve_artifact(label, path, streams, dev, requests, feature=False):
     skw = {k: v for k, v in fkw.items() if k in ("act_bits", "act_impl", "stage_int8", "stream", "use_stage_kernel")}
     qp_host = to_device(engine.params, "cpu")
     images = np.concatenate(requests)
-    padded = np.concatenate([images, np.zeros((-len(images) % FAMILY_SERVE_BATCH, *engine.input_shape), np.float32)])
+    padded = np.concatenate([images, np.zeros((-len(images) % batch, *engine.input_shape), np.float32)])
     served = np.concatenate(outs)
     serve_err = 0.0
-    for lo in range(0, len(padded), FAMILY_SERVE_BATCH):
-        xb = torch.from_numpy(padded[lo : lo + FAMILY_SERVE_BATCH])
+    for lo in range(0, len(padded), batch):
+        xb = torch.from_numpy(padded[lo : lo + batch])
         with torch.inference_mode():
             s_gpu = final_stream(engine.params, xb.to(dev), operands=engine.forward.keywords["operands"], **skw)
         if not torch.equal(s_gpu.cpu(), final_stream(qp_host, xb, **skw)):
             raise AssertionError(f"serving {label}: the engine's final stream differs from the CPU's")
-        want = engine.forward.func(qp_host, xb, **fkw).numpy()[: min(FAMILY_SERVE_BATCH, len(served) - lo)]
+        want = engine.forward.func(qp_host, xb, **fkw).numpy()[: min(batch, len(served) - lo)]
         got = served[lo : lo + len(want)]
         # logits within 1e-5; a trunk's pooled feature (a sum over the map in
         # the card's order) within 1e-5 of its largest
@@ -790,7 +827,7 @@ def serve_artifact(label, path, streams, dev, requests, feature=False):
         serve_err = max(serve_err, err)
         if not (np.isfinite(got).all() and serve_err <= 1e-5):
             raise AssertionError(f"serving {label}: served results off the CPU's by {serve_err}")
-    print(f"serving {label} from its artifact, engine batch {FAMILY_SERVE_BATCH}: requests of "
+    print(f"serving {label} from its artifact, engine batch {batch}: requests of "
           f"{[len(r) for r in requests]} answered, logits within {serve_err:.3g} of the CPU plain path, the final "
           f"stream identical; launches {launched}", flush=True)
     return {"launches": launched, "max_abs_err": serve_err}
@@ -1345,9 +1382,9 @@ def family_qat(dev, card, repo, phase):
         rng = np.random.RandomState(SEED)
         x = torch.tensor(rng.randn(FAMILY_QAT_TIME_BATCH, 32, 32, 3), dtype=torch.float32, device=dev)
         y = torch.tensor(rng.randint(0, 10, FAMILY_QAT_TIME_BATCH), device=dev)
-        # 10 steps timed and one profiled: a step takes 0.5-1 s, and the
+        # 5 steps timed and one profiled: a step takes 0.5-1 s, and the
         # profiler's processing of a step's 25,000-40,000 launches ~20 s
-        ms = median_ms(lambda: step(state, x, y), runs=10, warmup=2)
+        ms = median_ms(lambda: step(state, x, y), runs=5, warmup=2)
         print(f"QAT step {label} batch {FAMILY_QAT_TIME_BATCH} W8A8 erf ADMM: {ms:.3f} ms/step = "
               f"{FAMILY_QAT_TIME_BATCH / ms * 1e3:.0f} images/s [{card}]", flush=True)
         prof = profile_step(lambda: step(state, x, y), card, f"QAT step {label} batch {FAMILY_QAT_TIME_BATCH} ADMM",
@@ -1395,6 +1432,357 @@ def agreement_study(repo, card):
                           "disagree_margins": rep["disagree_margins"], "median_margin": rep["median_margin"],
                           "max_logit_gap": rep["max_logit_gap"], "median_logit_gap": rep["median_logit_gap"],
                           "card": card}), flush=True)
+
+
+# ------------------------------------------------------ domain adaptation
+
+DA_F64_CASES = ("digit", "dann", "dsan", "mdd")
+# the digit DANN trained and gated in phase 22: W8A8 erf on the int8 grid,
+# 28x28 at the preset's batch 128 and lr .01, 5 epochs (70 steps) of the
+# synthetic mnist -> mnistm pair; the JAX package's tools/export_da_int8.py
+# on the same arguments reaches 100.00% agreement on the CPU
+DA_EXPORT_ARGS = ["--task", "digit", "--bits", "8", "--epochs", "5", "--batch", "128", "--lr", "0.01", "--seed", "0"]
+DA_AGREEMENT_GATE = 99.0
+DIGIT_TIME_BATCHES = (256, 2048)  # the 5x5 form's timed batches
+DA_SERVE_BATCH = 4  # the engine batch of the DA trunks' serving (the CPU holds each batch to its plain path)
+
+
+def engine_times(path, dev, batch, card, label):
+    """An engine of the artifact at `batch` on the card, timed on the host
+    clock: one-image requests (median and max of RUNS), then a backlog of
+    32 full batches (images/s)."""
+    import numpy as np
+
+    from alignq_tpu_torch.serve import engine_from_artifact
+
+    engine = engine_from_artifact(str(path), batch_size=batch, device=dev)
+    x = np.random.RandomState(SEED).uniform(-1, 1, (batch, *engine.input_shape)).astype(np.float32)
+    lat = []
+    for _ in range(RUNS):
+        t0 = time.perf_counter()
+        engine.submit(x[:1]).result(timeout=300)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    for f in [engine.submit(x) for _ in range(32)]:
+        f.result(timeout=300)
+    backlog_s = time.perf_counter() - t0
+    engine.close()
+    out = {"engine_batch": batch, "one_image_ms_p50": statistics.median(lat), "one_image_ms_max": max(lat),
+           "backlog_images_per_s": 32 * batch / backlog_s}
+    print(f"serving times {label}, engine batch {batch}: one-image request {out['one_image_ms_p50']:.2f} ms median "
+          f"({out['one_image_ms_max']:.2f} max); 32 x {batch} images {out['backlog_images_per_s']:.0f} images/s "
+          f"[{card}]", flush=True)
+    return out
+
+
+def da_f64_case(case, gen):
+    """(model, DAConfig, image side, step maker, head prefixes, ramps) of
+    one float64 card-vs-CPU case: W4A4 with ADMM, batch 4, ResNet-18 trunks
+    at 32x32, the BatchNorm affine drawn."""
+    import torch
+
+    from alignq_tpu_torch.models import DANN, DSAN, MDDNet, MNISTModelQuant
+    from alignq_tpu_torch.train import da as TDA
+
+    q = dict(w_bit=4, a_bit=4, admm=True, generator=gen)
+    model, hw, step, heads, excl = {
+        "digit": (lambda: MNISTModelQuant(**q), 28, TDA.make_dann_train_step, TDA.DANN_HEADS, ()),
+        "dann": (lambda: DANN("resnet18", 5, **q), 32, TDA.make_dann_train_step, TDA.DANN_HEADS, ("feature/conv1",)),
+        "dsan": (lambda: DSAN("resnet18", 5, **q), 32, TDA.make_dsan_train_step, TDA.DSAN_HEADS,
+                 ("feature_layers/conv1",)),
+        "mdd": (lambda: MDDNet("resnet18", 5, 32, 32, **q), 32, TDA.make_mdd_train_step, TDA.MDD_HEADS,
+                ("base_network/conv1",)),
+    }[case]
+    cfg = TDA.DAConfig(train_batch_size=4, bitW=4, abitW=4, admm=True, lr=0.01,
+                       num_classes=10 if case == "digit" else 5, correction_exclude=excl,
+                       use_correction=case != "digit")
+    ramps = [0.0, 0.46, 0.76] if case == "dsan" else [TDA.grl_alpha(p, torch.float64) for p in (0.0, 0.3, 0.6)]
+    return affine_bn(model(), gen), cfg, hw, step, heads, ramps
+
+def da_card_vs_cpu(dev, case, steps=3):
+    """`steps` float64 DA train steps on the card and on the CPU from one
+    seed (the dropouts' masks from the same CPU generators on both):
+    the largest difference of the params, the BatchNorm statistics and the
+    duals."""
+    import numpy as np
+    import torch
+
+    from alignq_tpu_torch.train import da as TDA
+
+    states = {}
+    for where in ("cpu", dev):
+        gen = torch.Generator().manual_seed(SEED)
+        model, cfg, hw, make_step, heads, ramps = da_f64_case(case, gen)
+        model = model.double().to(where)
+        state = TDA.create_da_state(gen, model, cfg, (1, hw, hw, 3), 10, heads)
+        step = make_step(model, cfg)
+        rng = np.random.RandomState(SEED)
+        for r in ramps[:steps]:
+            xs, xt = (torch.tensor(rng.randn(4, hw, hw, 3)).to(where) for _ in range(2))
+            step(state, xs, torch.tensor(rng.randint(0, cfg.num_classes, 4)).to(where), xt, r)
+        states[str(where)] = state
+    cpu, card = states["cpu"], states[str(dev)]
+    pairs = [(cpu.params[k], card.params[k]) for k in cpu.params]
+    pairs += [(cpu.batch_stats[k], card.batch_stats[k]) for k in cpu.batch_stats]
+    for k, s in cpu.admm_duals.items():
+        pairs += [(s.alter_d, card.admm_duals[k].alter_d), (s.gamma, card.admm_duals[k].gamma)]
+    if not cpu.admm_duals or card.step != steps:
+        raise AssertionError(f"DA f64 {case}: {len(cpu.admm_duals)} ADMM sites, {card.step} steps")
+    diffs = [float((a.detach() - b.detach().cpu()).abs().max()) for a, b in pairs]
+    return float("nan") if any(math.isnan(d) for d in diffs) else max(diffs)
+
+
+def digit_kernel_checks(qp, dev, card):
+    """The digit graph's K1 launches at batches 3, 256 and 2048 (seeded
+    images in [-1, 1]) recorded, every distinct one held against its plain
+    version; at 256 and 2048 each timed (time_launch). Returns (the time
+    rows, max abs error, differing elements)."""
+    import torch
+
+    from alignq_tpu_torch.kernels import infer_digit as DG
+
+    ops = DG.pack_mnist_dann_operands(qp)
+    rows, err, n_diff = [], 0.0, 0
+    for batch in (3, *DIGIT_TIME_BATCHES):
+        x = torch.rand((batch, 28, 28, 3), generator=torch.Generator().manual_seed(batch)).to(dev) * 2 - 1
+        with torch.inference_mode():
+            rec = record_launches(lambda: DG.mnist_dann_int8_forward(qp, x, operands=ops))
+        launches = distinct_launches(rec)
+        if len(rec) != 2 or any(k[3] != 5 for k in launches):
+            raise AssertionError(f"digit forward batch {batch}: launches {list(launches)}, expected two 5x5 ones")
+        for key, ((kind, args), count) in launches.items():
+            diff, _, e = check_launch(kind, args)
+            err, n_diff = max(err, e), n_diff + diff
+            if batch not in DIGIT_TIME_BATCHES:
+                continue
+            t_ms, plain_ms, b_ms, b_by, lib_ms, pad_ms = time_launch(kind, args)
+            plan, op, xc = args[2], args[1], args[5]
+            rows.append(dict(family="digit_dann", batch=batch, shape=str(key), M=plan.B * plan.Ho * plan.Wo,
+                             K=25 * xc, N=op.n, tile=f"{plan.TR}x{plan.TW}", launches=count, ms=t_ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, pad_pass_ms=pad_ms))
+            print(f"time digit K1 5x5 {key} batch {batch} (tile {plan.TR}x{plan.TW}): {t_ms:.4f} ms, plain "
+                  f"{plain_ms:.3f}, bound {b_ms:.4f} ({b_by}), torch._int_mm {lib_ms:.4f}"
+                  f"{'' if pad_ms is None else f', the pad pass before it {pad_ms:.4f}'} [{card}]", flush=True)
+        print(f"digit forward batch {batch}: 2 K1 launches of the 5x5 form, each held against its plain version: "
+              f"{n_diff} differing elements so far", flush=True)
+    return rows, err, n_diff
+
+
+def da_digit(dev, card, repo, details, phase):
+    """Phase 22, the digit DANN: (b) trained at full width through
+    export_da_int8 under cuDNN's deterministic algorithms, (c) its INT
+    graph gated against its fake-quant eval, (d) its artifact served on the
+    card (2 launches of K1's 5x5 form a forward) and held to the CPU plain
+    path; then its K1 launches checked and timed. Returns (time rows,
+    K1's max abs error, the served launches and error)."""
+    import torch
+
+    from alignq_tpu_torch import export_da_int8
+    from alignq_tpu_torch.kernels import _build
+    from alignq_tpu_torch.kernels import infer_digit as DG
+    from alignq_tpu_torch.kernels import qmatmul as K1
+
+    phase("DA (b, c): the digit DANN trained and exported on the card")
+    job = repo / "chiprun_out" / "da_job"
+    art = repo / "chiprun_out" / "artifacts" / "digit_dann.npz"
+    art.parent.mkdir(parents=True, exist_ok=True)
+    zero_counts(_build.launches)
+    t0 = time.perf_counter()
+    with deterministic_cudnn():
+        rep = export_da_int8.main(DA_EXPORT_ARGS + ["--job_dir", str(job), "--save", str(art)])
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    n = {k: v for k, v in _build.launches.items() if v}
+    print(f"DA (b, c) digit DANN W8A8 erf batch 128, 5 epochs ({rep['state'].step} steps) in {export_s:.1f} s: target "
+          f"fake-quant top-1 {rep['fq_top1']:.2f}, INT top-1 {rep['int_top1']:.2f}, delta {rep['delta']:+.2f} pts, "
+          f"prediction agreement {rep['agreement']:.2f}% (gate {DA_AGREEMENT_GATE}), disagreeing margins "
+          f"{rep['disagree_margins']}, median margin {rep['median_margin']:.4g}, logit gap max "
+          f"{rep['max_logit_gap']:.4g} median {rep['median_logit_gap']:.4g}; launches {n} [{card}]", flush=True)
+    ks5 = n.get(K1.FORM.format(5), 0)
+    if not (ks5 and ks5 % 2 == 0 and n.get(K1.KERNEL) == ks5 and not n.get(K1.TAP_GATHERS, 0)):
+        raise AssertionError(f"DA (c): launches {n}: expected K1 in its 5x5 form only, two a forward, no tap gather")
+    if rep["agreement"] < DA_AGREEMENT_GATE:
+        raise AssertionError(f"DA (c): prediction agreement {rep['agreement']:.2f}% is below {DA_AGREEMENT_GATE}%")
+    out = {k: rep[k] for k in ("fq_top1", "int_top1", "delta", "agreement", "disagree_margins", "median_margin",
+                               "max_logit_gap", "median_logit_gap", "best_tgt_top1")}
+    out.update(export_s=export_s, steps=rep["state"].step, export_launches=n)
+
+    phase("DA (d): the digit DANN served from its artifact")
+    reqs = [(torch.rand((k, 28, 28, 3), generator=torch.Generator().manual_seed(70 + k)) * 2 - 1).numpy()
+            for k in (FAMILY_SERVE_BATCH, 3)]
+    served = serve_artifact("digit_dann", art, DG.mnist_dann_int8_codes, dev, reqs)
+    n = served["launches"]
+    # the engine's warm-up forward and the two requests' batches
+    if not (n.get(K1.FORM.format(5)) == 2 * 3 == n.get(K1.KERNEL) and n.get(K1.MODE.format("erf")) == 6):
+        raise AssertionError(f"serving digit_dann: launches {n}, expected 2 K1 launches of the 5x5 form (erf codes) "
+                             "a forward over 3 forwards")
+    out["serving"] = served
+    out["serving_times"] = engine_times(art, dev, SERVE_BATCH, card, "digit_dann")
+
+    phase("DA: the digit DANN's K1 launches against their plain version, and times")
+    qp = rep["qparams"]
+    rows, err, n_diff = digit_kernel_checks(qp, dev, card)
+    with torch.inference_mode():
+        ops = DG.pack_mnist_dann_operands(qp)
+        for batch in DIGIT_TIME_BATCHES:
+            x = torch.rand((batch, 28, 28, 3), device=dev) * 2 - 1
+            ms = median_ms(lambda: DG.mnist_dann_int8_forward(qp, x, operands=ops))
+            out[f"forward_ms_batch_{batch}"] = ms
+            print(f"forward digit_dann int8 erf batch {batch}: {ms:.4f} ms = {batch / ms * 1e3:.0f} images/s "
+                  f"[{card}]", flush=True)
+    out.update(kernel_rows=rows, k1_max_abs_err=err, k1_differing=n_diff)
+    details["da_digit"] = out
+    return rows, err, served
+
+
+def da_trunk_configs():
+    """(task, preset or None, model builder, step maker, head prefixes,
+    engine requests) of phase 23: the DANN preset on ResNet-50 (W8A8 ADMM,
+    batch 28), the DSAN preset (W4A4, bottleneck 256, batch 32), and an
+    MDD net (W8A8 ADMM, batch 28) in brief."""
+    from alignq_tpu_torch import configs
+    from alignq_tpu_torch.models import mddnet, resnet50_dann, resnet50_dsan
+    from alignq_tpu_torch.train import da as TDA
+
+    return [
+        ("dann", configs.dann_office_d2w_w8a8_admm(), lambda c, g: resnet50_dann(8, 8, admm=True, generator=g),
+         TDA.make_dann_train_step, TDA.DANN_HEADS),
+        ("dsan", configs.dsan_office_a2w_w4a4(), lambda c, g: resnet50_dsan(4, 4, bottle_neck=True, generator=g),
+         TDA.make_dsan_train_step, TDA.DSAN_HEADS),
+        ("mdd", TDA.DAConfig(train_batch_size=28, admm=True, correction_exclude=("base_network/conv1",)),
+         lambda c, g: mddnet(8, 8, admm=True, num_classes=31, generator=g), TDA.make_mdd_train_step,
+         TDA.MDD_HEADS),
+    ]
+
+
+def da_trunks(dev, card, repo, details, phase):
+    """Phase 23, the DA nets on the ImageNet-layout ResNet-50 at 224x224:
+    each trained 3 timed steps at its batch (seeded images on the card;
+    then one step under torch.profiler), converted on the CPU, every K1
+    launch of its INT forward at batch 4 held against its plain version,
+    DANN's class and domain logits on the card against the CPU, and its
+    artifact served at engine batch DA_SERVE_BATCH and held to the CPU
+    plain path. Returns {task: served launches and error}, K1's max abs
+    error."""
+    import torch
+
+    from alignq_tpu_torch.interop import deploy_tree
+    from alignq_tpu_torch.kernels import infer_resnet_imagenet as RI
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels.artifact import save_int8_artifact
+    from alignq_tpu_torch.kernels.deploy_registry import DEPLOY_FAMILIES
+    from alignq_tpu_torch.train import da as TDA
+    from alignq_tpu_torch.train.loop import true_f32
+
+    true_f32()
+    out, serving, k1_err = {}, {}, 0.0
+    tmp = tempfile.mkdtemp()
+    for task, cfg, build, make_step, heads in da_trunk_configs():
+        phase(f"DA (e, f): {task} on ResNet-50 at {TRUNK_SIZE}x{TRUNK_SIZE}, batch {cfg.train_batch_size}")
+        gen = torch.Generator().manual_seed(SEED)
+        model = build(cfg, gen).to(dev)
+        b = cfg.train_batch_size
+        state = TDA.create_da_state(gen, model, cfg, (1, TRUNK_SIZE, TRUNK_SIZE, 3), 1000, heads)
+        step = make_step(model, cfg)
+        dg = torch.Generator(device=dev).manual_seed(SEED)
+        xs, xt = (torch.randn((b, TRUNK_SIZE, TRUNK_SIZE, 3), generator=dg, device=dev) for _ in range(2))
+        ys = torch.randint(0, 31, (b,), generator=dg, device=dev)
+        ramp = 0.5
+        step_ms, losses = [], []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, m = step(state, xs, ys, xt, ramp)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+        # the presets' steps profiled (~20 s each to process ~40,000 launches); MDD's, in brief, not
+        label = f"{task} ResNet-50 QAT step batch {b} {TRUNK_SIZE}x{TRUNK_SIZE}"
+        prof = None if task == "mdd" else profile_step(lambda: step(state, xs, ys, xt, ramp), card, label, iters=1)
+        print(f"DA {task} ResNet-50 W{cfg.bitW}A{cfg.abitW}{' ADMM' if cfg.admm else ''} step, batch {b} at "
+              f"{TRUNK_SIZE}x{TRUNK_SIZE}: {[round(t, 3) for t in step_ms]} ms (median "
+              f"{statistics.median(step_ms):.3f} = {b / statistics.median(step_ms) * 1e3:.1f} images/s); losses "
+              f"{[round(v, 4) for v in losses]} [{card}]", flush=True)
+        if not all(math.isfinite(v) for v in losses) or state.step < 3:
+            raise AssertionError(f"DA {task}: losses {losses}, {state.step} steps")
+        meta = {"model": task, "arch": "resnet50", "weight_bits": cfg.bitW, "act_bits": cfg.abitW, "act_impl": "erf",
+                "image_size": TRUNK_SIZE, "num_classes": 31, **({"bottle_neck": 1} if task == "dsan" else {})}
+        fam = DEPLOY_FAMILIES[task]
+        params, stats = deploy_tree(model)
+        qp_cpu = fam.convert(to_device(params, "cpu"), to_device(stats, "cpu"), meta)
+        del model, state, step, xs, xt, params, stats
+        torch.cuda.empty_cache()
+        qp = to_device(qp_cpu, dev)
+        fwd = fam.forward(meta)
+        ops = fam.operands(qp, meta)
+        x4 = torch.randn((4, TRUNK_SIZE, TRUNK_SIZE, 3), generator=torch.Generator().manual_seed(80))
+        with torch.inference_mode():
+            rec = record_launches(lambda: fwd(qp, x4.to(dev), operands=ops))
+        launches = distinct_launches(rec)
+        n_diff = 0
+        for key, ((kind, args), _) in launches.items():
+            diff, _, e = check_launch(kind, args)
+            k1_err, n_diff = max(k1_err, e), n_diff + diff
+        print(f"DA {task} INT forward batch 4: {len(rec)} K1 launches, {len(launches)} distinct, each held against "
+              f"its plain version: {n_diff} differing elements", flush=True)
+        if len(rec) != 53:
+            raise AssertionError(f"DA {task}: {len(rec)} K1 launches a forward, expected ResNet-50's 53")
+        rec_out = {"step_ms": step_ms, "losses": losses, "profile": prof, "k1_distinct": len(launches),
+                   "k1_differing": n_diff}
+        if task == "dann":
+            with torch.inference_mode():
+                got = [t.cpu() for t in RI.dann_int8_forward(qp["trunk"], qp["heads"], x4[:2].to(dev),
+                                                             operands=ops)]
+            want = RI.dann_int8_forward(qp_cpu["trunk"], qp_cpu["heads"], x4[:2])
+            err = max(float((g_ - w_).abs().max()) / max(1.0, float(w_.abs().max())) for g_, w_ in zip(got, want))
+            print(f"DA dann INT forward batch 2: class and domain logits on the card within {err:.3g} of the CPU's",
+                  flush=True)
+            if not err <= 1e-5:
+                raise AssertionError(f"DA dann: logits off the CPU's by {err}")
+            rec_out["card_vs_cpu_logits"] = err
+        # a ResNet-50 artifact is ~25 MB: a temporary file, deleted once served
+        path = Path(tmp) / f"{task}_resnet50.npz"
+        save_int8_artifact(str(path), qp_cpu, meta=meta)
+        reqs = [torch.randn((k, TRUNK_SIZE, TRUNK_SIZE, 3), generator=torch.Generator().manual_seed(90 + k)).numpy()
+                for k in (DA_SERVE_BATCH, 1)]
+
+        def streams(p, x, operands=None, **kw):
+            return RI.resnet_imagenet_int8_streams(p["trunk"], x, operands=operands, **kw)
+
+        served = serve_artifact(f"{task} resnet50", path, streams, dev, reqs, batch=DA_SERVE_BATCH)
+        n = served["launches"]
+        if not (n.get(K1.KERNEL) == 53 * 3 and n.get(K1.FORM.format(7)) == 3 and not n.get(K1.TAP_GATHERS, 0)):
+            raise AssertionError(f"serving {task}: launches {n}, expected 53 K1 a forward (one the 7x7 stem) over 3")
+        serving[task] = served
+        rec_out["serving"] = served
+        if task == "dann":
+            rec_out["serving_times"] = engine_times(path, dev, FAMILY_SERVE_BATCH, card, "dann resnet50")
+        out[task] = rec_out
+        del qp, ops, qp_cpu
+        path.unlink()
+        torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    details["da_trunks"] = out
+    return serving, k1_err
+
+
+def da_phase(dev, card, repo, details, phase):
+    """Phases 21-23: domain adaptation. (a) float64 card-vs-CPU steps,
+    then the digit DANN (phase 22) and the trunk nets (phase 23)."""
+    phase("DA (a): float64 DA train steps, the card against the CPU")
+    f64 = {}
+    for case in DA_F64_CASES:
+        err = da_card_vs_cpu(dev, case)
+        print(f"DA (a) {case} W4A4 ADMM batch 4: 3 float64 steps, card vs CPU max abs diff {err:.3g} (params, "
+              "BatchNorm statistics, duals)", flush=True)
+        if not err <= 1e-9:
+            raise AssertionError(f"DA (a) {case}: the card's float64 steps differ from the CPU's by {err}")
+        f64[case] = err
+    details["da_f64"] = f64
+    digit_rows, digit_err, digit_served = da_digit(dev, card, repo, details, phase)
+    trunk_served, trunk_err = da_trunks(dev, card, repo, details, phase)
+    return digit_rows, digit_err, digit_served, trunk_served, trunk_err
 
 
 def main() -> int:
@@ -1812,7 +2200,10 @@ def main() -> int:
     trunk_rows, trunk_err, trunk_serving = imagenet_trunks(dev, card, repo, details, phase)
     baseline_qat(dev, card, details, phase)
 
-    # 21. the kernels line, the card line, the final line
+    # 21-23. domain adaptation
+    digit_rows, digit_err, digit_served, _, da_trunk_err = da_phase(dev, card, repo, details, phase)
+
+    # 24. the kernels line, the card line, the final line
     phase("done")
 
     def summed(r, ms_key, plain_key, bound_key, weight):
@@ -1897,6 +2288,13 @@ def main() -> int:
                         "max_abs_err": trunk_err, **trunk_sum(rows_)})
         print(f"{kname} over one batch-{SERVE_BATCH} {TRUNK_SIZE}x{TRUNK_SIZE} forward: {json.dumps(kernels[-1])} "
               f"[{card}]", flush=True)
+    r5 = [x for x in digit_rows if x["batch"] == SERVE_BATCH]
+    kernels.append({"name": K1.KERNEL + ":5x5@digit_dann", "route": "cuda",
+                    "source": "alignq_tpu_torch/csrc/qmatmul.cu", "replaces": "alignq_tpu/kernels/qmatmul.py:45",
+                    "launches": digit_served["launches"].get(K1.FORM.format(5), 0),
+                    "max_abs_err": max(digit_err, da_trunk_err), **trunk_sum(r5)})
+    print(f"{kernels[-1]['name']} over one batch-{SERVE_BATCH} digit forward: {json.dumps(kernels[-1])} [{card}]",
+          flush=True)
     out_dir = repo / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))

@@ -168,18 +168,20 @@ def test_registry_refusals(tmp_path):
     jart.save_int8_artifact(bogus, {"w": np.zeros(1)}, meta={"model": "vgg"})
     with pytest.raises(ValueError, match="deploy registry"):
         engine_from_artifact(bogus, device="cpu")
-    unported = str(tmp_path / "dann.npz")
-    jart.save_int8_artifact(unported, {"w": np.zeros(1)}, meta={"model": "dann"})
-    with pytest.raises(NotImplementedError, match="queue 1, Domain adaptation"):
-        engine_from_artifact(unported, device="cpu")
+    # the domain-adaptation families serve (tests/test_torch_da_deploy.py): an
+    # artifact of theirs without their trees is refused at load, by the key missing
+    da = str(tmp_path / "dann.npz")
+    jart.save_int8_artifact(da, {"w": np.zeros(1)}, meta={"model": "dann", "arch": "resnet18"})
+    with pytest.raises(KeyError, match="trunk"):
+        engine_from_artifact(da, device="cpu")
     packed_dn = str(tmp_path / "dn.npz")
     jart.save_int8_artifact(packed_dn, {"w": np.zeros(1)}, meta={"model": "densenet40", "packed_int4": 1})
     with pytest.raises(ValueError, match="int4"):
         engine_from_artifact(packed_dn, device="cpu")
     with pytest.raises(NotImplementedError):
         engine_from_artifact(bogus, device="cpu", mesh=object())
-    assert {"resnet20", "resnet56", "densenet40", "mobilenetv2", "resnet18", "resnet34",
-            "resnet50"} < set(DEPLOY_FAMILIES)
+    assert {"resnet20", "resnet56", "densenet40", "mobilenetv2", "resnet18", "resnet34", "resnet50", "dann",
+            "dsan", "mdd", "digit_dann"} == set(DEPLOY_FAMILIES)
 
 
 def test_bins_int_artifact_without_act_bits_refused_at_load(tmp_path):

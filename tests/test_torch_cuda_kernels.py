@@ -388,6 +388,32 @@ def test_conv_imagenet_forms_vs_plain(cuda, form):
         _assert_codes_close(c, int8_conv_reference(x, op, stride, pad, act.impl, act))
 
 
+@pytest.mark.parametrize("batch", [256, 3])
+@pytest.mark.parametrize("h,cin,n", [(28, 3, 32), (12, 32, 48)])
+def test_conv_digit_forms_vs_plain(cuda, batch, h, cin, n):
+    """K1's 5x5 pad-0 form at the digit DANN's two convs (conv1 over the
+    image's 3 channels, padded to 4 by the wrapper): int32 identical, f32
+    and the relu'd erf and poly codes within the plain version's double
+    rounding; 5 launches counted under the 5x5 form, no tap gathered."""
+    rng = np.random.RandomState(batch + cin)
+    x = _i8(rng, (batch, h, h, cin), -127 if cin == 3 else 0, 128).to(cuda)
+    kern = _i8(rng, (5, 5, cin, n)).to(cuda)
+    s = torch.from_numpy(((rng.rand(n) * 2 - 0.4) * 2 / (np.sqrt(25 * cin) * 73.3**2)).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy((rng.randn(n) * 0.5).astype(np.float32)).to(cuda)
+    op = pack_conv_weights(kern, s, bias)
+    gathers, form = _build.launches[TAP_GATHERS], _build.launches[FORM.format(5)]
+    got = {"int32": int8_conv_packed(x, op, 1, 0, "int32"), "f32": int8_conv_packed(x, op, 1, 0, "f32")}
+    acts = (act_map("erf", 127, cuda, relu=True), act_map("poly", 127, cuda, relu=True), act_map("erf", 127, cuda))
+    codes = [int8_conv_codes(x, op, 1, 0, act) for act in acts]
+    torch.cuda.synchronize()
+    assert _build.launches[TAP_GATHERS] == gathers and _build.launches[FORM.format(5)] == form + 5
+    assert got["int32"].shape == (batch, h - 4, h - 4, n)
+    assert torch.equal(got["int32"], int8_conv_reference(x, op, 1, 0, "int32"))
+    _assert_f32_close(got["f32"], int8_conv_reference(x, op, 1, 0, "f32"))
+    for act, c in zip(acts, codes):
+        _assert_codes_close(c, int8_conv_reference(x, op, 1, 0, act.impl, act))
+
+
 @pytest.mark.parametrize("c,hw,stride,batch", [(32, 32, 1, 3), (96, 32, 1, 2), (144, 32, 2, 2), (192, 16, 2, 3),
                                                (384, 8, 1, 2), (576, 8, 2, 3), (960, 4, 1, 2), (16, 5, 2, 1),
                                                (4, 8, 1, 1), (4, 9, 2, 2), (100, 11, 1, 1), (20, 7, 2, 1),

@@ -458,7 +458,9 @@ def test_jax_saved_artifact_served_by_the_port(tmp_path, arch):
 def test_imagenet_families_in_the_registry():
     """Each trunk family converts the port's own tree into the template's
     structure, takes its request shape from the meta (224 by default) and
-    refuses nothing; the domain-adaptation families still raise."""
+    refuses nothing; the domain-adaptation families on the trunk serve
+    from the same meta keys (arch, image_size) with the trunk's template
+    under 'trunk'."""
     meta = {"model": "resnet34", "image_size": 96}
     fam = DEPLOY_FAMILIES["resnet34"]
     assert fam.input_shape(meta) == (96, 96, 3) and fam.input_shape({"model": "resnet50"}) == (224, 224, 3)
@@ -466,6 +468,8 @@ def test_imagenet_families_in_the_registry():
     assert len(tq["layers"]) == 16 and "downsample" in tq["layers"][3] and "conv3" not in tq["layers"][0]
     ops = fam.operands(tq, meta)
     assert ops["conv1"].ksize == 7 and ops["conv1"].cin == 4
-    for name in ("dann", "dsan", "mdd", "digit_dann"):
-        with pytest.raises(NotImplementedError, match="Domain adaptation"):
-            DEPLOY_FAMILIES[name].template(meta, "cpu")
+    da = DEPLOY_FAMILIES["dann"]
+    tda = da.template({"model": "dann", "arch": "resnet34", "image_size": 96}, "cpu")
+    assert da.input_shape(meta) == (96, 96, 3) and len(tda["trunk"]["layers"]) == 16
+    assert sorted(tda["heads"]) == ["class_classifier", "domain_classifier"]
+    assert tda["heads"]["class_classifier"]["kernel"].shape == (512, 31)

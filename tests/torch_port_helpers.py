@@ -316,3 +316,45 @@ def emulate_k1(x, op, plan) -> np.ndarray:
             out[rows, n0 : n0 + nbr] = acc[ok]
     assert (out != -(2**40)).all()  # every output written
     return out
+
+
+def record_dropout_masks(masks):
+    """A flax method interceptor that runs every train-mode nn.Dropout as
+    flax does (one make_rng, bernoulli(keep) over the broadcast shape) and
+    appends its mask, as numpy, to `masks` in call order. The rng must be
+    concrete (JAX run eagerly)."""
+    import flax.linen as fnn
+    import jax
+
+    def interceptor(next_fun, args, kwargs, context):
+        mod = context.module
+        if not (isinstance(mod, fnn.Dropout) and context.method_name == "__call__"):
+            return next_fun(*args, **kwargs)
+        det = fnn.module.merge_param("deterministic", mod.deterministic, kwargs.get("deterministic"))
+        if det or mod.rate in (0.0, 1.0):
+            return next_fun(*args, **kwargs)
+        x = args[0]
+        rng = mod.make_rng(mod.rng_collection)
+        shape = [1 if d in mod.broadcast_dims else n for d, n in enumerate(x.shape)]
+        masks.append(np.asarray(jax.random.bernoulli(rng, 1.0 - mod.rate, shape)))
+        return next_fun(*args, **{**kwargs, "rng": rng})
+
+    return fnn.intercept_methods(interceptor)
+
+
+def port_masks(masks):
+    """JAX's recorded dropout masks in the port's layout (an NHWC
+    channel mask (B, 1, 1, C) as NCHW (B, C, 1, 1)), as an iterator of
+    bool tensors: the rng a port train step takes."""
+    return iter([torch.from_numpy(np.array(m.transpose(0, 3, 1, 2) if m.ndim == 4 else m)) for m in masks])
+
+
+def flax_da_init(jm, hw, *init_args, seed=0):
+    """f64 (params with every BatchNorm affine drawn, batch_stats) of a
+    flax DA model, its init jitted."""
+    import jax
+    import jax.numpy as jnp
+
+    init = jax.jit(lambda k, x: jm.init(k, x, *init_args, train=False))
+    v = init(jax.random.PRNGKey(seed), jnp.zeros((1, hw, hw, 3)))
+    return affine_bn_tree(f64_tree(jax.device_get(v["params"]))), f64_tree(jax.device_get(v["batch_stats"]))
