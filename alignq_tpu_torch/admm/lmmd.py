@@ -9,6 +9,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from alignq_tpu_torch.dist import collectives as C
+
 
 def gaussian_kernel(source: torch.Tensor, target: torch.Tensor, kernel_mul: float = 2.0, kernel_num: int = 5,
                     fix_sigma: Optional[float] = None) -> torch.Tensor:
@@ -51,7 +53,10 @@ def lmmd(source: torch.Tensor, target: torch.Tensor, s_label: torch.Tensor, t_so
          num_classes: int = 31, kernel_mul: float = 2.0, kernel_num: int = 5,
          fix_sigma: Optional[float] = None) -> torch.Tensor:
     """The class-conditional MMD of source and target features; the weights
-    carry no gradient, and a NaN loss is 0."""
+    carry no gradient, and a NaN loss is 0. Under a data-parallel step in
+    gather mode (dist/collectives.py) every input is the global batch's
+    (each rank's rows gathered), and every rank computes the same loss."""
+    source, target, s_label, t_soft = (C.gather_rows(t) for t in (source, target, s_label, t_soft))
     b = source.shape[0]
     with torch.no_grad():
         w_ss, w_tt, w_st = _class_weights(s_label, t_soft.detach(), num_classes)

@@ -1,6 +1,6 @@
 """Vectorized numpy batch augmentation (port of alignq_tpu/data/augment.py
-and of the numpy path of data/native_augment.py; the native C++ kernel
-through a binding of the port's own waits for ROADMAP queue 1, Data).
+and of the numpy path of data/native_augment.py; the native C++ kernel's
+binding is the port's data/native_augment.py).
 
 RandomCrop(32, padding=4) + RandomHorizontalFlip + Normalize, drawing
 from the loader's RandomState in the JAX package's order (crop offsets,

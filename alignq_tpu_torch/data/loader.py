@@ -1,7 +1,12 @@
 """Batch loaders with deterministic shuffling and background prefetch
 (port of alignq_tpu/data/loader.py). Drop-remainder batches keep shapes
 static, which the ADMM B x B duals need; each epoch's shuffle is seeded by
-(seed, epoch), so a resumed run sees the same batches."""
+(seed, epoch), so a resumed run sees the same batches.
+
+A consumer that feeds a CUDA card sets `pin_memory`: the prefetch worker
+then hands out each batch as CPU tensors in pinned memory (the same
+values), and `to_tensor` copies them to the card without blocking the
+host."""
 
 from __future__ import annotations
 
@@ -10,6 +15,15 @@ import threading
 from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
+import torch
+
+
+def to_tensor(x, dev: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A numpy array or CPU tensor on `dev` (a floating one in `dtype`,
+    where given); a copy from pinned memory does not block the host."""
+    t = x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x))
+    t = t.to(dev, non_blocking=t.is_pinned())
+    return t.to(dtype) if dtype is not None and t.is_floating_point() else t
 
 
 class ArrayLoader:
@@ -38,6 +52,7 @@ class ArrayLoader:
         self.transform_fn = transform_fn
         self.seed = seed
         self.prefetch = prefetch
+        self.pin_memory = False
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -58,6 +73,9 @@ class ArrayLoader:
                 xb = self.augment_fn(xb, rng)
             if self.transform_fn is not None:
                 xb = self.transform_fn(xb)
+            if self.pin_memory:
+                xb = torch.from_numpy(np.ascontiguousarray(xb)).pin_memory()
+                yb = torch.from_numpy(np.ascontiguousarray(yb)).pin_memory()
             yield xb, yb
 
     def __iter__(self):

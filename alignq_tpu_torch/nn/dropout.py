@@ -7,6 +7,9 @@ the CPU (the masks are then the same on every device, so that a card's
 steps can be held to the CPU's), or an iterator of ready boolean masks,
 taken in call order (the parity tests hand in JAX's masks this way).
 JAX's masks come from jax.random, which the port does not reproduce.
+Under a data-parallel step in gather mode (dist/collectives.py) each rank
+draws the global batch's mask and keeps its own rows, so that the masks
+are the 1-process run's.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import Iterator, Sequence, Union
 import numpy as np
 import torch
 from torch import nn
+
+from alignq_tpu_torch.dist import collectives as C
 
 Rng = Union[torch.Generator, Iterator[torch.Tensor]]
 
@@ -42,6 +47,9 @@ class Dropout(nn.Module):
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
         shape = [1 if d in self.broadcast_dims else n for d, n in enumerate(x.shape)]
+        per_row = 0 not in self.broadcast_dims
+        if per_row:  # the global batch's mask under a data-parallel gather step; this rank keeps its rows
+            shape[0] = C.global_rows(shape[0])
         if rng is None:
             raise ValueError("a train-mode dropout needs an rng")
         if isinstance(rng, torch.Generator):
@@ -50,4 +58,5 @@ class Dropout(nn.Module):
             mask = next(rng)
             if list(mask.shape) != shape:
                 raise ValueError(f"a dropout mask of shape {tuple(mask.shape)}, the site takes {shape}")
+        mask = C.local_rows(mask) if per_row else mask
         return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))

@@ -19,6 +19,10 @@ The f32 convs and the head must run true f32: the JAX package pins
 Precision.HIGHEST because reduced-precision passes cost 6.6 points of W4A4
 train-vs-deploy agreement. On CUDA that means TF32 off for cuDNN and
 matmul, which the trainer's entry point sets (train/loop.py fit).
+
+Under a data-parallel step in gather mode (dist/collectives.py
+batch_axis) the batch couplings are global: BatchNorm's sums, StageRequant's
+batch statistic, QuantAct's D over every rank's rows.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from alignq_tpu_torch.admm.correlation import corr_discrepancy
+from alignq_tpu_torch.dist import collectives as C
 from alignq_tpu_torch.quant import baselines as B
 from alignq_tpu_torch.quant.fake_quant import act_cdf, quantize_act, quantize_weight
 from alignq_tpu_torch.quant.ste import requant_ste, uniform_quantize
@@ -66,8 +71,14 @@ class BatchNorm(nn.Module):
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if train:
             dims = (0,) + tuple(range(2, x.ndim))
-            mean = x.mean(dim=dims)
-            var = torch.maximum(x.new_zeros(()), (x * x).mean(dim=dims) - mean * mean)
+            if C.current_axis() is None:
+                mean = x.mean(dim=dims)
+                var = torch.maximum(x.new_zeros(()), (x * x).mean(dim=dims) - mean * mean)
+            else:  # the global batch's: one sum over the ranks of [sum x, sum x^2]
+                n = C.global_rows(x.numel() // x.shape[1])
+                sums = C.batch_sum(torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims)])) / n
+                mean = sums[0]
+                var = torch.maximum(x.new_zeros(()), sums[1] - mean * mean)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -239,9 +250,9 @@ class StageRequant(nn.Module):
             with torch.no_grad():
                 absx = x.detach().abs()
                 if self.calib == "ema_p999":
-                    stat = _percentile_by_channel(absx, 99.9)
+                    stat = _percentile_by_channel(C.gather_rows(absx), 99.9)
                 else:
-                    stat = absx.amax(dim=(0,) + tuple(range(2, x.ndim)))
+                    stat = C.batch_max(absx.amax(dim=(0,) + tuple(range(2, x.ndim))))
                 if self.calib == "max":
                     self.amax.copy_(torch.maximum(self.amax, stat))
                 else:
@@ -290,7 +301,8 @@ class QuantAct(nn.Module):
         b = x.shape[0]
         if self.method == "ours":
             if corr and self.a_bit < 32:
-                sink[self.site] = corr_discrepancy(x.reshape(b, -1), self._cdf(x).reshape(b, -1), eps=self.corr_eps)
+                sink[self.site] = corr_discrepancy(C.gather_rows(x.reshape(b, -1)),
+                                                   C.gather_rows(self._cdf(x).reshape(b, -1)), eps=self.corr_eps)
             if self.a_bit == 32:
                 return self._cdf(x) if self.stage == "align" else x
             return quantize_act(x, self.a_bit, act_range=self.act_range, variant=self.variant, impl=self.cdf_impl)
@@ -300,7 +312,7 @@ class QuantAct(nn.Module):
             return uniform_quantize(x, self.a_bit)
         if self.method == "uniform_admm":
             if corr and self.a_bit < 32:
-                xf = x.reshape(b, -1)
+                xf = C.gather_rows(x.reshape(b, -1))
                 sink[self.site] = corr_discrepancy(xf, xf, eps=self.corr_eps)
             return uniform_quantize(x, self.a_bit)
         if self.method == "llsq":

@@ -28,6 +28,7 @@ import itertools
 import numpy as np
 import torch
 
+from alignq_tpu_torch.dist import collectives as C
 from alignq_tpu_torch.quant.cdf import _clip
 from alignq_tpu_torch.quant.ste import round_ste, uniform_quantize
 
@@ -98,14 +99,15 @@ def _grad_scale(x: torch.Tensor, scale: float) -> torch.Tensor:
 def lsq_quantize(x: torch.Tensor, s: torch.Tensor, bits: int, *, is_activation: bool) -> torch.Tensor:
     """Learned-step-size quantization; the step's gradient is scaled by
     1/sqrt(numel * Qp), numel that of x (the whole batch for an
-    activation)."""
+    activation: the global batch under a data-parallel gather step)."""
     if bits == 32:
         return x
     if is_activation:
         qn, qp = 0, 2**bits - 1
     else:
         qn, qp = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
-    scale = _grad_scale(s, 1.0 / float(np.sqrt(x.numel() * qp)))
+    numel = C.global_rows(x.numel()) if is_activation else x.numel()  # the rows scale with the batch
+    scale = _grad_scale(s, 1.0 / float(np.sqrt(numel * qp)))
     y = _clip(x / scale, float(qn), float(qp))
     return round_ste(y) * scale
 
@@ -252,11 +254,15 @@ def _llsq_round(x, alpha, pwr, lo):
     return torch.clamp(torch.round(x / alpha), lo, pwr - 1) * alpha
 
 
-def _octave(x, a, pwr, lo, dims):
+def _octave(x, a, pwr, lo, dims, axis=None):
     """-1, 0 or 1: which of a/2, a, 2a reconstructs x with the least summed
-    squared error over dims (a tie to the first)."""
-    errs = [torch.sum((x - _llsq_round(x, s, pwr, lo)) ** 2, dim=dims) for s in (a / 2, a, a * 2)]
-    return torch.argmin(torch.stack(errs), dim=0) - 1
+    squared error over dims (a tie to the first); with a data-parallel
+    axis, the errors summed over its ranks (x a batch: the global batch's
+    octave)."""
+    errs = torch.stack([torch.sum((x - _llsq_round(x, s, pwr, lo)) ** 2, dim=dims) for s in (a / 2, a, a * 2)])
+    if axis is not None:
+        errs = C.batch_sum(errs, axis)
+    return torch.argmin(errs, dim=0) - 1
 
 
 class _LLSQWeight(torch.autograd.Function):
@@ -291,6 +297,7 @@ class _LLSQAct(torch.autograd.Function):
         pwr = 2 ** (bit - 1)
         ctx.save_for_backward(a, alpha)
         ctx.bit, ctx.signed = bit, signed
+        ctx.axis = C.current_axis()  # the backward runs on autograd's threads
         return _llsq_round(a, alpha, pwr, -pwr if signed else 0)
 
     @staticmethod
@@ -298,7 +305,7 @@ class _LLSQAct(torch.autograd.Function):
         x, alpha = ctx.saved_tensors
         pwr = 2 ** (ctx.bit - 1)
         lo = -pwr if ctx.signed else 0
-        d = _octave(x, alpha, pwr, lo, tuple(range(x.ndim)))
+        d = _octave(x, alpha, pwr, lo, tuple(range(x.ndim)), ctx.axis)
         if ctx.signed:
             mask = (x >= -pwr * alpha) & (x <= (pwr - 1) * alpha)
         else:

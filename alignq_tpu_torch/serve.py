@@ -12,7 +12,8 @@
   digit_dann: class logits), with its weights laid out for the kernels
   once.
 
-Sharded serving over a mesh is not ported yet: passing one raises.
+Serving over a mesh (data- and tensor-parallel) waits for ROADMAP queue 1
+item 3, mesh serving: passing one raises.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ class BatchedInferenceEngine:
     ):
         """forward(params, x) -> logits, with params already on `device`."""
         if mesh is not None:
-            raise NotImplementedError("sharded serving over a mesh is not ported yet")
+            raise NotImplementedError("serving over a mesh waits for ROADMAP queue 1 item 3, mesh serving")
         self.device = resolve_device(device)
         self.forward = forward
         self.params = params
@@ -164,7 +165,7 @@ def build_int8_resnet20_engine(
     )
 
     if mesh is not None:
-        raise NotImplementedError("sharded serving over a mesh is not ported yet")
+        raise NotImplementedError("serving over a mesh waits for ROADMAP queue 1 item 3, mesh serving")
     dev = resolve_device(device)
     qparams = convert_resnet20(*params_from_numpy(params, batch_stats, dev))
     # the kernels' weight layouts, made once here rather than per request
@@ -195,7 +196,7 @@ def engine_from_artifact(
     from alignq_tpu_torch.kernels.deploy_registry import DEPLOY_FAMILIES
 
     if mesh is not None:
-        raise NotImplementedError("sharded serving over a mesh is not ported yet")
+        raise NotImplementedError("serving over a mesh waits for ROADMAP queue 1 item 3, mesh serving")
     dev = resolve_device(device)
     with np.load(path) as raw:  # the meta first: it picks the template
         meta0 = {k.split("/", 1)[1]: raw[k] for k in raw.files if k.startswith("__meta__/")}

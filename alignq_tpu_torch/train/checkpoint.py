@@ -2,7 +2,13 @@
 alignq_tpu/train/checkpoint.py): parameters, BatchNorm statistics, the
 optimizer's momentum traces and step count, the ADMM duals and the step,
 so the duals survive a restart. One file per saved epoch under
-job_dir/checkpoint; the max_to_keep best by eval top-1 are kept."""
+job_dir/checkpoint; the max_to_keep best by eval top-1 are kept.
+
+Over a data-parallel mesh save and restore are collective: every rank
+calls them, rank 0 writes (after a barrier the others read). Local-mode
+duals (each rank's (B/N, B/N) of every site) are gathered to the JAX
+package's (N, B/N, B/N) layout, so that a checkpoint describes itself; it
+restores on the same N, each rank taking its own."""
 
 from __future__ import annotations
 
@@ -11,17 +17,35 @@ import os
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from alignq_tpu_torch.admm.state import ADMMSiteState
 from alignq_tpu_torch.train.state import TrainState
 
 
 class CheckpointManager:
-    def __init__(self, job_dir: str, max_to_keep: int = 3):
+    """mesh: the run's data-parallel mesh (None: one process);
+    local_duals: the duals are each rank's own (corr_mode 'local')."""
+
+    def __init__(self, job_dir: str, max_to_keep: int = 3, mesh=None, local_duals: bool = False):
         self.dir = os.path.abspath(os.path.join(job_dir, "checkpoint"))
         os.makedirs(self.dir, exist_ok=True)
         self.max_to_keep = max_to_keep
         self._index = os.path.join(self.dir, "index.json")
+        self.axis = mesh.batch_axis() if mesh is not None else None
+        self.local_duals = local_duals and self.axis is not None
+
+    def _gather_duals(self, duals) -> dict:
+        """Each site's (B/N, B/N) pair of every rank, as (N, B/N, B/N)."""
+        out = {}
+        for k in sorted(duals):
+            pair = []
+            for t in (duals[k].alter_d, duals[k].gamma):
+                g = t.new_empty((self.axis.size * t.shape[0],) + tuple(t.shape[1:]))
+                dist.all_gather_into_tensor(g, t.contiguous(), group=self.axis.group)
+                pair.append(g.view((self.axis.size,) + tuple(t.shape)).cpu())
+            out[k] = {"alter_d": pair[0], "gamma": pair[1]}
+        return out
 
     def _path(self, epoch: int) -> str:
         return os.path.join(self.dir, f"epoch_{epoch}.pt")
@@ -33,12 +57,19 @@ class CheckpointManager:
             return {int(k): v for k, v in json.load(f).items()}
 
     def save(self, epoch: int, state: TrainState, metrics: Optional[dict] = None) -> None:
+        duals = (self._gather_duals(state.admm_duals) if self.local_duals else
+                 {k: {"alter_d": s.alter_d.cpu(), "gamma": s.gamma.cpu()} for k, s in state.admm_duals.items()})
+        if self.axis is None or self.axis.rank == 0:
+            self._write(epoch, state, duals, metrics)
+        if self.axis is not None:
+            dist.barrier(group=self.axis.group)
+
+    def _write(self, epoch: int, state: TrainState, duals: dict, metrics: Optional[dict]) -> None:
         payload = {
             "params": {k: v.detach().cpu() for k, v in state.params.items()},
             "batch_stats": {k: v.detach().cpu() for k, v in state.batch_stats.items()},
             "opt_state": {"trace": {k: v.cpu() for k, v in state.tx.trace.items()}, "count": state.tx.count},
-            "admm_duals": {k: {"alter_d": s.alter_d.cpu(), "gamma": s.gamma.cpu()}
-                           for k, s in state.admm_duals.items()},
+            "admm_duals": duals,
             "step": state.step,
         }
         tmp = self._path(epoch) + ".tmp"
@@ -80,8 +111,14 @@ class CheckpointManager:
         dev = next(state.model.parameters()).device
         state.tx.load_state_dict({"trace": {k: v.to(dev) for k, v in payload["opt_state"]["trace"].items()},
                                   "count": payload["opt_state"]["count"]})
-        state.admm_duals = {k: ADMMSiteState(v["alter_d"].to(dev), v["gamma"].to(dev))
-                            for k, v in payload["admm_duals"].items()}
+        duals = payload["admm_duals"]
+        if self.local_duals:
+            n = {v["alter_d"].shape[0] for v in duals.values()}
+            if duals and (n != {self.axis.size} or next(iter(duals.values()))["alter_d"].ndim != 3):
+                raise ValueError(f"checkpoint {self._path(epoch)} holds no local duals of {self.axis.size} ranks")
+            duals = {k: {"alter_d": v["alter_d"][self.axis.rank], "gamma": v["gamma"][self.axis.rank]}
+                     for k, v in duals.items()}
+        state.admm_duals = {k: ADMMSiteState(v["alter_d"].to(dev), v["gamma"].to(dev)) for k, v in duals.items()}
         state.step = int(payload["step"])
         return state, int(epoch)
 

@@ -6,19 +6,20 @@ same flags, plus --device).
     python -m alignq_tpu_torch.train.cli_da --task digit --src_data mnist --tgt_data mnistm
     python -m alignq_tpu_torch.train.cli_da --task mdd --src_data amazon --tgt_data webcam --bitW 8
 
-Runs on the CUDA card unless given --device cpu. --mesh larger than one
-device, --multihost and the flags of distributed runs raise: they wait for
-ROADMAP queue 1, Distribution.
+Runs on the CUDA card unless given --device cpu. Data-parallel runs take
+the training CLI's flags (train/cli.py: one process per device under
+torchrun, --mesh N --multihost), in gather mode only.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import math
 
 import torch
 
+from alignq_tpu_torch.dist import multihost
+from alignq_tpu_torch.train.cli import add_dist_args, join_world
 from alignq_tpu_torch.train.da import DAConfig, fit_dann, fit_dsan, fit_mdd
 
 
@@ -52,19 +53,10 @@ def main(argv=None) -> dict:
     p.add_argument("--job_dir", default=d.job_dir)
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--max_steps", type=int, default=None)
-    p.add_argument("--mesh", type=int, nargs="+", default=None, metavar="N",
-                   help="device mesh shape (more than one device: ROADMAP queue 1, Distribution)")
-    p.add_argument("--corr_mode", choices=("gather", "local"), default=d.corr_mode)
-    p.add_argument("--grad_compression", choices=("f32", "bf16", "int8_gather"), default=d.grad_compression)
-    p.add_argument("--multihost", action="store_true", help="not ported: ROADMAP queue 1, Distribution")
-    p.add_argument("--coordinator", default=None, metavar="HOST:PORT")
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+    add_dist_args(p, d)
     p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     a = p.parse_args(argv)
-
-    if a.multihost or a.coordinator or (a.mesh is not None and math.prod(a.mesh) > 1):
-        raise NotImplementedError("distributed domain-adaptation training waits for ROADMAP queue 1, Distribution")
+    join_world(a)
     num_classes = a.num_classes or (10 if a.task == "digit" else 31)
     field_names = {f.name for f in dataclasses.fields(DAConfig)}
     overrides = {k: v for k, v in vars(a).items() if k in field_names and k != "num_classes"}
@@ -107,7 +99,9 @@ def main(argv=None) -> dict:
             model = DSAN(arch=a.arch, num_classes=num_classes, bottle_neck=a.bottle_neck, stage=a.stage,
                          cdf_impl=a.cdf_impl, **q)
             result = fit_dsan(cfg, loaders, model, a.max_steps, a.device)
-    print(f"best_tgt_top1={result['best_tgt_top1']:.3f}")
+    if multihost.is_primary():
+        print(f"best_tgt_top1={result['best_tgt_top1']:.3f}")
+    multihost.shutdown()
     return result
 
 

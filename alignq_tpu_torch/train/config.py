@@ -2,9 +2,11 @@
 same fields and defaults, but for the data and job directories, which the
 port keeps under the working directory and the temporary directory).
 
-Fields the port does not act on yet raise where they are used:
-mesh_shape > 1 and corr_mode/grad_compression across devices (ROADMAP
-queue 1, Distribution). `method` takes every value of the JAX package's
+mesh_shape larger than one device trains data-parallel over
+torch.distributed (train/loop.py) in corr_mode 'gather' or 'local', the
+latter with grad_compression; a 'model' axis raises where it is used
+(ROADMAP queue 1 item 3, tensor parallelism). `method` takes every value
+of the JAX package's
 (ours, uniform, dorefa, lsq, apot, llsq, bwn, bwnf, uniform_admm, fp); the
 PDF correction runs for 'ours' only.
 """

@@ -191,7 +191,42 @@ Phases, in order; any failure raises and the script exits non-zero:
     served at engine batch 4 (requests of 4 and 1: 53 K1 launches a
     forward, one the 7x7 stem) and held to the CPU plain path; DANN's
     engine at batch 16 timed as the digit net's;
-24. one JSON line of the kernels (K1 and K3: times summed over the
+24. data-parallel training over torch.distributed, one process a device
+    (no new kernel). The machine has one card, and NCCL refuses two ranks
+    on one card, so:
+    (a) NCCL at world size 1 on the card: 3 float64 steps of a depth-8
+        PreAct W4A4 with ADMM in gather mode and in local mode with each
+        compression (f32, bf16, int8_gather), the f32 ones against the
+        plain (non-distributed) step, the compressed ones against the same
+        world-1 step on the CPU through a gloo group: within 1e-12;
+    (b) two gloo ranks sharing the card (subprocesses of this script,
+        `--dp-rank`): 4 float64 ResNet-20 W8A8 ADMM gather steps at global
+        batch 16 against one process on the card, a local int8_gather
+        step against the same two ranks on the CPU, and a DANN gather pair
+        (ResNet-18 trunk at 32x32, W4A4 ADMM, batch 4, 2 steps) against one
+        process: params, statistics and duals within 1e-9;
+    (c) `python -m torch.distributed.run --nproc_per_node 2 -m
+        alignq_tpu_torch.train.cli --mesh 2 --multihost --dist_backend gloo
+        --deterministic` on the synthetic set (phase 8(b)'s job: ResNet-20
+        W8A8 int8 deploy_exact poly ADMM, batch 64, 2 epochs), then
+        export_int8 --stage_kernel from rank 0's checkpoint (agreement at
+        least 99.0%) and engine_from_artifact serving it, held to the CPU
+        plain path; K1 in poly codes mode only, K3, no tap gather;
+    (d) the ResNet-20 W8A8 ADMM f32 step at 64 images a rank (global 128
+        over two gloo ranks, or one NCCL rank), gather and local: ms a step
+        (host clock, median of 3) and the collectives' ms in one more step
+        (torch.profiler:
+        gloo's work, NCCL's kernels); for the gloo ranks, that time split
+        into transfer and waiting for the other rank: one step with every
+        collective timed alone (synchronized, host clock), and one more
+        with a barrier before each, whose times are the transfer alone;
+        labelled with the transport and the card: one card, not a
+        multi-card figure;
+    (e) the native augment library (native/augment.cpp, built by g++ into
+        the run's temporary directory, so that no later run's batches
+        change) against numpy's path at batch 2048: the same draws, values
+        within 1e-5, host ms of each;
+25. one JSON line of the kernels (K1 and K3: times summed over the
     launches of one slice-route forward at the serving batch; K2: over one
     launch at each act-site size of that batch; K1 on DenseNet-40 and
     MobileNet-V2, the depthwise kernel and the BN-act kernel's two forms
@@ -206,6 +241,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 Exits with code 2 and prints no result where CUDA is not available. Writes
 the per-shape details to chiprun_out/chip_smoke.json.
 
+    python3 chip_smoke.py --dp-rank RANK N PORT DEVICE OUT CASES
+
+is one rank of phase 24(b, d), started by the script itself.
+
+    python3 chip_smoke.py --gather-backward-ab
+
+times the data-parallel gather step over two gloo ranks on the card with
+the row gather's backward as an all-reduce of all rows (its earlier form)
+and as the reduce-scatter it is, four runs in the order ABBA.
+
     python3 chip_smoke.py --agreement-study
 
 runs only phase 9(b, c)'s training and export again, without the gate:
@@ -219,6 +264,7 @@ between their logits, one JSON line each.
 import contextlib
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -1785,10 +1831,499 @@ def da_phase(dev, card, repo, details, phase):
     return digit_rows, digit_err, digit_served, trunk_served, trunk_err
 
 
+# ------------------------------------------------ data-parallel training
+
+DP_STEPS = 4  # phase 24(b)'s float64 ResNet-20 gather steps
+DP_BATCH = 16  # their global batch, 32x32 images
+DP_TIME_BATCH = 128  # the global batch of the timed steps (phase 24(d))
+DP_JOB_ARGS = QAT_JOB_ARGS + ["--deterministic"]
+
+
+def dp_resnet20(dev, bits=8, num_units=(3, 3, 3), batch=DP_BATCH, mode="gather", compression="f32", admm=True,
+                dtype="float64"):
+    """(model, state, config, batches) of the data-parallel phases: a
+    PreActResNet (ResNet-20 by default) with ADMM and the correction,
+    weights, duals and DP_STEPS batches of 32x32 images from SEED."""
+    import numpy as np
+    import torch
+
+    from alignq_tpu_torch.models.resnet_cifar import PreActResNet
+    from alignq_tpu_torch.train import TrainConfig, create_train_state
+
+    gen = torch.Generator().manual_seed(SEED)
+    cfg = TrainConfig(train_batch_size=batch, bitW=bits, abitW=bits, admm=admm, lr=0.02, lr_decay_steps=(1000,),
+                      corr_mode=mode, grad_compression=compression)
+    model = PreActResNet(num_units=num_units, w_bit=bits, a_bit=bits, admm=admm, generator=gen)
+    model = model.to(getattr(torch, dtype)).to(dev)
+    state = create_train_state(gen, model, cfg, input_shape=(1, 32, 32, 3), steps_per_epoch=10_000)
+    rng = np.random.RandomState(SEED)
+    batches = [(torch.tensor(rng.randn(batch, 32, 32, 3), dtype=getattr(torch, dtype)),
+                torch.tensor(rng.randint(0, 10, batch))) for _ in range(DP_STEPS)]
+    return model, state, cfg, batches
+
+
+def dp_dann(dev):
+    """The DANN gather pair's (model, state, config, step maker, batches):
+    da_f64_case('dann') (ResNet-18 trunk at 32x32, W4A4 ADMM, batch 4),
+    two steps."""
+    import numpy as np
+    import torch
+
+    from alignq_tpu_torch.train import da as TDA
+
+    gen = torch.Generator().manual_seed(SEED)
+    model, cfg, hw, make_step, heads, ramps = da_f64_case("dann", gen)
+    model = model.double().to(dev)
+    state = TDA.create_da_state(gen, model, cfg, (1, hw, hw, 3), 10, heads)
+    rng = np.random.RandomState(SEED)
+    batches = [(torch.tensor(rng.randn(4, hw, hw, 3)), torch.tensor(rng.randint(0, cfg.num_classes, 4)),
+                torch.tensor(rng.randn(4, hw, hw, 3)), r) for r in ramps[:2]]
+    return model, state, cfg, make_step, batches
+
+
+def state_tensors(state) -> dict:
+    """A train state's params, statistics and duals, on the CPU."""
+    out = {f"p:{k}": v.detach().cpu() for k, v in state.params.items()}
+    out.update({f"b:{k}": v.detach().cpu() for k, v in state.batch_stats.items()})
+    for k, s in state.admm_duals.items():
+        out[f"a:{k}"], out[f"g:{k}"] = s.alter_d.cpu(), s.gamma.cpu()
+    return out
+
+
+def max_diff(a: dict, b: dict) -> float:
+    if set(a) != set(b):
+        raise AssertionError(f"states of other tensors: {sorted(set(a) ^ set(b))[:4]}")
+    d = [float((a[k].double() - b[k].double()).abs().max()) for k in a]
+    return float("nan") if any(math.isnan(x) for x in d) else max(d)
+
+
+def rows_of(t, rank, n):
+    b = t.shape[0] // n
+    return t[rank * b:(rank + 1) * b]
+
+
+def comm_share(fn, iters=3):
+    """(ms a call, collectives' ms in one call): host clock around iters
+    calls, each synchronized (median); the collectives' time from
+    torch.profiler over one more (processing a trace of a step's ~12,000
+    launches takes seconds): gloo's work on its threads (events 'gloo:*')
+    and NCCL's kernels on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    comm_us = 0.0
+    for e in prof.key_averages():
+        if e.key.startswith("gloo:"):
+            comm_us += e.cpu_time_total
+        elif "nccl" in e.key.lower() and not e.key.startswith(("c10d::", "nccl:")):
+            comm_us += getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+    return statistics.median(times), comm_us / 1e3
+
+
+@contextlib.contextmanager
+def timed_collectives(log: list, barrier: bool):
+    """Within the block, every collective that the port's steps issue
+    (torch.distributed's all_reduce, all_gather_into_tensor and
+    reduce_scatter_tensor) is timed alone on the host clock, the card
+    synchronized before and after it, and (its name, its ms) appended to
+    `log`. With `barrier`, a barrier of its group comes first, so that
+    both ranks enter it together and its time is the transfer without the
+    wait for the other rank."""
+    import torch
+    import torch.distributed as dist
+
+    def timed(name, f):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            if barrier:
+                dist.barrier(group=kwargs.get("group"))
+            t0 = time.perf_counter()
+            out = f(*args, **kwargs)
+            torch.cuda.synchronize()
+            log.append((name, (time.perf_counter() - t0) * 1e3))
+            return out
+        return call
+
+    saved = {name: getattr(dist, name) for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")}
+    for name, f in saved.items():
+        setattr(dist, name, timed(name, f))
+    try:
+        yield log
+    finally:
+        for name, f in saved.items():
+            setattr(dist, name, f)
+
+
+COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce")
+
+
+def split_collectives(step) -> dict:
+    """The collectives of one data-parallel step, timed alone: 'in_calls_ms'
+    (each call's own time) and 'transfer_ms' (a barrier before each), from
+    the median of 3 steps each, every step started by the ranks together;
+    the count of calls and each op's calls and transfer ms."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    for label, barrier in (("in_calls", False), ("transfer", True)):
+        logs = []
+        for _ in range(3):
+            dist.barrier()
+            with timed_collectives([], barrier) as log:
+                step()
+            logs.append(log)
+        log = sorted(logs, key=lambda g: sum(ms for _, ms in g))[1]
+        out[f"{label}_ms"] = torch.tensor(sum(ms for _, ms in log))
+    out["calls"] = torch.tensor(len(log))
+    for op in COLLECTIVES:
+        out[f"transfer_ms:{op}"] = torch.tensor(sum(ms for name, ms in log if name == op))
+        out[f"calls:{op}"] = torch.tensor(sum(name == op for name, _ in log))
+    return out
+
+
+def allreduce_row_grad(ctx, g):
+    """The row gather's backward in its earlier form, for the comparison of
+    --gather-backward-ab: an all-reduce of all N*b rows' gradients, of
+    which each rank keeps its own (now a reduce-scatter)."""
+    import torch.distributed as dist
+
+    g = g.contiguous().clone()
+    dist.all_reduce(g, group=ctx.axis.group)
+    r = ctx.axis.rank * ctx.rows
+    return g[r:r + ctx.rows], None
+
+
+def gather_backward_ab(repo, card) -> None:
+    """python3 chip_smoke.py --gather-backward-ab: the ResNet-20 W8A8 ADMM
+    f32 gather step at DP_TIME_BATCH over two gloo ranks sharing the card,
+    the row gather's backward an all-reduce of all rows (its earlier form)
+    or a reduce-scatter, run in the order all-reduce, reduce-scatter,
+    reduce-scatter, all-reduce: ms a step (host clock, median of 5) and the
+    transfer by op. One JSON line a run."""
+    tmp = Path(tempfile.mkdtemp(prefix="alignq_ab_"))
+    try:
+        for variant in ("allreduce", "reducescatter", "reducescatter", "allreduce"):
+            ranks = run_dp_ranks(repo, 2, [("cuda:0", f"rowgrad_{variant}")], tmp)[0]
+            rows = [{"ms_per_step": float(r["rowgrad"]["ms"]), "transfer_ms": float(r["rowgrad"]["transfer_ms"]),
+                     "by_op": {op: [int(r["rowgrad"][f"calls:{op}"]), float(r["rowgrad"][f"transfer_ms:{op}"])]
+                               for op in COLLECTIVES}} for r in ranks]
+            print(json.dumps({"row_gather_backward": variant, "card": card, "ranks": rows}), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dp_rank_main(argv) -> int:
+    """python3 chip_smoke.py --dp-rank RANK N PORT DEVICE OUT CASES: one
+    gloo rank of phase 24(b, d), its results saved to OUT ({rank} filled
+    in). CASES, comma-separated: gather (DP_STEPS float64 ResNet-20 W8A8
+    ADMM steps), local (one local int8_gather step of a depth-8 PreAct
+    W4A4), dann (the DANN pair), times (gather and local f32 steps at
+    DP_TIME_BATCH), rowgrad_allreduce or rowgrad_reducescatter (the
+    gather step of --gather-backward-ab)."""
+    import torch
+    import torch.distributed as dist
+
+    from alignq_tpu_torch.dist import make_mesh, multihost
+    from alignq_tpu_torch.dist.corr import create_local_duals
+    from alignq_tpu_torch.train import make_train_step
+
+    rank, n, port, device, out_path, cases = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4], argv[5]
+    dev = multihost.initialize(f"127.0.0.1:{port}", n, rank, device=device, backend="gloo", timeout_s=600)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh((n,), ("data",))
+    res = {}
+    for case in cases.split(","):
+        if case == "gather":
+            model, state, cfg, batches = dp_resnet20(dev)
+            step = make_train_step(model, cfg, mesh)
+            for x, y in batches:
+                step(state, rows_of(x, rank, n).to(dev), rows_of(y, rank, n).to(dev))
+            res["gather"] = state_tensors(state)
+        elif case == "local":
+            model, state, cfg, batches = dp_resnet20(dev, 4, (1, 1, 1), 8, "local", "int8_gather")
+            state.admm_duals = create_local_duals(torch.Generator().manual_seed(SEED + 1), sorted(state.admm_duals),
+                                                  cfg, n, rank, torch.float64, dev)
+            x, y = batches[0]
+            make_train_step(model, cfg, mesh)(state, rows_of(x, rank, n).to(dev), rows_of(y, rank, n).to(dev))
+            res["local"] = state_tensors(state)
+        elif case == "dann":
+            model, state, cfg, make_step, batches = dp_dann(dev)
+            import dataclasses
+
+            step = make_step(model, dataclasses.replace(cfg, mesh_shape=(n,), mesh_axes=("data",)), mesh)
+            for xs, ys, xt, r in batches:
+                step(state, *(rows_of(t, rank, n).to(dev) for t in (xs, ys, xt)), r)
+            res["dann"] = state_tensors(state)
+        elif case == "times":
+            for mode in ("gather", "local"):
+                model, state, cfg, batches = dp_resnet20(dev, 8, (3, 3, 3), DP_TIME_BATCH, mode, dtype="float32")
+                if mode == "local":
+                    state.admm_duals = create_local_duals(torch.Generator().manual_seed(SEED + 1),
+                                                          sorted(state.admm_duals), cfg, n, rank, device=dev)
+                step = make_train_step(model, cfg, mesh)
+                x, y = (rows_of(t, rank, n).to(dev) for t in batches[0])
+                ms, comm = comm_share(lambda: step(state, x, y))
+                res[f"times_{mode}"] = {"ms": torch.tensor(ms), "comm_ms": torch.tensor(comm),
+                                        **split_collectives(lambda: step(state, x, y))}
+        elif case in ("rowgrad_allreduce", "rowgrad_reducescatter"):
+            if case == "rowgrad_allreduce":
+                from alignq_tpu_torch.dist import collectives
+
+                collectives._GatherRows.backward = staticmethod(allreduce_row_grad)
+            model, state, cfg, batches = dp_resnet20(dev, 8, (3, 3, 3), DP_TIME_BATCH, "gather", dtype="float32")
+            step = make_train_step(model, cfg, mesh)
+            x, y = (rows_of(t, rank, n).to(dev) for t in batches[0])
+            step(state, x, y)
+            ts = []
+            for _ in range(5):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, x, y)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            res["rowgrad"] = {"ms": torch.tensor(statistics.median(ts)), **split_collectives(lambda: step(state, x, y))}
+    torch.save(res, out_path.format(rank=rank))
+    multihost.shutdown()
+    return 0
+
+
+def run_dp_ranks(repo, n, groups, out_dir, timeout=600):
+    """For each (device, cases) of `groups`, n ranks of dp_rank_main, all
+    started at once (subprocesses of this interpreter, never forked: CUDA
+    is initialized here); returns each group's ranks' results."""
+    import torch
+
+    from alignq_tpu_torch.entry import free_port
+
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    runs = []
+    for i, (device, cases) in enumerate(groups):
+        port, out = str(free_port()), str(out_dir / f"dp_{i}_{{rank}}.pt")
+        runs.append((device, cases, out, [subprocess.Popen(
+            [sys.executable, str(repo / "chip_smoke.py"), "--dp-rank", str(r), str(n), port, device, out, cases],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(n)]))
+    try:
+        for device, cases, _, procs in runs:
+            for r, p in enumerate(procs):
+                log, _ = p.communicate(timeout=timeout)
+                if p.returncode != 0:
+                    raise AssertionError(f"data-parallel rank {r} ({device}, {cases}) exited {p.returncode}:\n"
+                                         f"{log[-4000:]}")
+    finally:
+        for *_, procs in runs:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return [[torch.load(out.format(rank=r), weights_only=True) for r in range(n)] for _, _, out, _ in runs]
+
+
+def dp_phase(dev, card, repo, details, phase):
+    """Phase 24: data-parallel training over torch.distributed (one
+    process a device). The machine has one card, and NCCL refuses two
+    ranks on one card, so the cross-rank equalities run two gloo ranks
+    sharing it; NCCL runs at world size 1, which still runs every
+    wrapper."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from alignq_tpu_torch import export_int8
+    from alignq_tpu_torch.data import native_augment
+    from alignq_tpu_torch.data import datasets
+    from alignq_tpu_torch.data.augment import augment_normalize as numpy_augment
+    from alignq_tpu_torch.data.augment import normalize
+    from alignq_tpu_torch.dist import make_mesh, multihost
+    from alignq_tpu_torch.dist.corr import create_local_duals
+    from alignq_tpu_torch.dist.mesh import Mesh
+    from alignq_tpu_torch.entry import free_port
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels import stage_kernel as K3
+    from alignq_tpu_torch.kernels.infer import resnet20_int8_stream
+    from alignq_tpu_torch.train import make_train_step
+
+    out = {}
+    out_dir = repo / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="alignq_dp_"))  # the ranks' states and the job: too large to bring back
+
+    # (a) NCCL at world size 1 on the card
+    phase("data parallel (a): NCCL at world size 1, float64 steps against the plain step")
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    mesh = make_mesh((1,), ("data",))
+    gloo = Mesh(("data",), (1,), dist.new_group(backend="gloo"), 0)
+    errs = {}
+    for mode, compression in (("gather", "f32"), ("local", "f32"), ("local", "bf16"), ("local", "int8_gather")):
+        finals = {}
+        for label, where, m in (("plain", dev, None), ("nccl", dev, mesh), ("gloo cpu", "cpu", gloo)):
+            if m is None and compression != "f32":
+                continue
+            model, state, cfg, batches = dp_resnet20(where, 4, (1, 1, 1), 8, mode, compression)
+            step = make_train_step(model, cfg, m)
+            for x, y in batches[:3]:
+                step(state, x.to(where), y.to(where))
+            finals[label] = state_tensors(state)
+        ref = "plain" if compression == "f32" else "gloo cpu"
+        errs[f"{mode}/{compression}"] = max_diff(finals["nccl"], finals[ref])
+        print(f"data parallel (a) {mode} {compression}, 3 float64 steps at world size 1 through NCCL: max abs diff "
+              f"{errs[f'{mode}/{compression}']:.3g} against the {ref} step", flush=True)
+    if not all(e <= 1e-12 for e in errs.values()):
+        raise AssertionError(f"data parallel (a): world-1 steps off their reference: {errs}")
+    out["world1_nccl_max_abs"] = errs
+    times = {}
+    for mode in ("gather", "local"):
+        model, state, cfg, batches = dp_resnet20(dev, 8, (3, 3, 3), DP_TIME_BATCH // 2, mode, dtype="float32")
+        step = make_train_step(model, cfg, mesh)
+        x, y = (t.to(dev) for t in batches[0])
+        ms, comm = comm_share(lambda: step(state, x, y))
+        times[f"nccl world 1, {mode}"] = {"ms_per_step": ms, "comm_ms": comm, "comm_share": comm / ms}
+    multihost.shutdown()
+
+    # (b) two gloo ranks sharing the card
+    phase("data parallel (b): two gloo ranks sharing the card against one process")
+    ranks, cpu_ranks = run_dp_ranks(repo, 2, [("cuda:0", "gather,local,dann,times"), ("cpu", "local")], tmp)
+    model, state, cfg, batches = dp_resnet20(dev)
+    step = make_train_step(model, cfg)
+    for x, y in batches:
+        step(state, x.to(dev), y.to(dev))
+    one = state_tensors(state)
+    model, state, cfg, make_step, dbatches = dp_dann(dev)
+    dstep = make_step(model, cfg)
+    for xs, ys, xt, r in dbatches:
+        dstep(state, xs.to(dev), ys.to(dev), xt.to(dev), r)
+    dann_one = state_tensors(state)
+    b_err = {"resnet20 gather vs one process": max(max_diff(r["gather"], one) for r in ranks),
+             "local int8_gather card vs CPU": max(max_diff(r["local"], c["local"]) for r, c in zip(ranks, cpu_ranks)),
+             "dann gather vs one process": max(max_diff(r["dann"], dann_one) for r in ranks)}
+    print(f"data parallel (b), 2 gloo ranks on one card: ResNet-20 W8A8 ADMM, {DP_STEPS} float64 gather steps at "
+          f"global batch {DP_BATCH}, against one process on the card: {b_err['resnet20 gather vs one process']:.3g}; "
+          f"a local int8_gather step, the card's ranks against the CPU's: "
+          f"{b_err['local int8_gather card vs CPU']:.3g}; the DANN pair (ResNet-18 trunk, 32x32, W4A4 ADMM, 2 steps) "
+          f"against one process: {b_err['dann gather vs one process']:.3g} (max abs, params, statistics, duals)",
+          flush=True)
+    if not all(e <= 1e-9 for e in b_err.values()):
+        raise AssertionError(f"data parallel (b): {b_err}")
+    out["two_rank_max_abs"] = b_err
+
+    # (c) torchrun: the training CLI over two ranks, export, serve
+    phase("data parallel (c): torchrun of the training CLI over 2 gloo ranks, export, serve through K1/K3")
+    job = tmp / "dp_job"
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    port = str(free_port())
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2", "--master_addr",
+                           "127.0.0.1", "--master_port", port, "-m", "alignq_tpu_torch.train.cli", "--mesh", "2",
+                           "--multihost", "--dist_backend", "gloo", *DP_JOB_ARGS, "--job_dir", str(job)], env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=900)
+    train_s = time.perf_counter() - t0
+    (out_dir / "dp_job.log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        raise AssertionError(f"data parallel (c): torchrun exited {proc.returncode}:\n{proc.stdout[-4000:]}")
+    losses = [json.loads(line)["loss"] for line in (job / "run" / "train.jsonl").read_text().splitlines()]
+    if len(losses) != 64 or not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"data parallel (c): {len(losses)} steps, losses {losses[:2]} ... {losses[-2:]}")
+    if not (job / "logger.p1.log").is_file():
+        raise AssertionError("data parallel (c): rank 1 kept no log of its own")
+    path = tmp / "dp_resnet20.npz"
+    from alignq_tpu_torch.kernels import _build
+
+    zero_counts(_build.launches)
+    with deterministic_cudnn():
+        rep = export_int8.main(["--dataset", "synthetic", "--bits", "8", "--variant", "int8", "--cdf_impl", "poly",
+                                "--deploy_exact", "--admm", "--epochs", "2", "--batch", "64", "--job_dir", str(job),
+                                "--resume", "--stage_kernel", "--save", str(path)])
+    torch.cuda.synchronize()
+    export_launches = {k: v for k, v in _build.launches.items() if v}
+    print(f"data parallel (c) torchrun --nproc_per_node 2 of train.cli --mesh 2 --multihost (gloo, one card): "
+          f"{len(losses)} steps in {train_s:.1f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; export from rank 0's "
+          f"checkpoint: fake-quant top-1 {rep['fq_top1']:.2f}, INT top-1 {rep['int_top1']:.2f}, prediction "
+          f"agreement {rep['agreement']:.2f}%; launches {export_launches}", flush=True)
+    if rep["state"].step != 64 or rep["agreement"] < 99.0:
+        raise AssertionError(f"data parallel (c): step {rep['state'].step}, agreement {rep['agreement']:.2f}%")
+    images = normalize(datasets.synthetic(seed=0)[2][:40], datasets.CIFAR10_MEAN, datasets.CIFAR10_STD)
+    served = serve_artifact("the 2-rank trained ResNet-20", path, resnet20_int8_stream, dev,
+                            [images[:1], images[1:8], images[8:24], images[24:40]])
+    poly = K1.MODE.format("poly")
+    for label, counts in (("export", export_launches), ("serving", served["launches"])):
+        if not (counts.get(K1.KERNEL, 0) > 0 and counts.get(poly, 0) == counts[K1.KERNEL]
+                and counts.get(K3.KERNEL, 0) > 0 and not counts.get(K1.TAP_GATHERS, 0)):
+            raise AssertionError(f"data parallel (c) {label}: launches {counts}")
+    out["torchrun"] = {"train_s": train_s, "loss_first": losses[0], "loss_last": losses[-1], "fq_top1": rep["fq_top1"],
+                       "int_top1": rep["int_top1"], "agreement": rep["agreement"], "serving": served}
+
+    # (d) times
+    phase("data parallel (d): step times per rank and the collectives' share")
+    for r, res in enumerate(ranks):
+        for mode in ("gather", "local"):
+            t = res[f"times_{mode}"]
+            times[f"gloo 2 ranks on one card, {mode}, rank {r}"] = {
+                "ms_per_step": float(t["ms"]), "comm_ms": float(t["comm_ms"]),
+                "comm_share": float(t["comm_ms"]) / float(t["ms"]), "calls": int(t["calls"]),
+                "in_calls_ms": float(t["in_calls_ms"]), "transfer_ms": float(t["transfer_ms"]),
+                "wait_ms": float(t["in_calls_ms"]) - float(t["transfer_ms"]),
+                "transfer_by_op": {op: [int(t[f"calls:{op}"]), float(t[f"transfer_ms:{op}"])] for op in COLLECTIVES}}
+    for k, v in times.items():
+        split = (f"; timed alone (median of 3 steps): {v['calls']} collectives, {v['in_calls_ms']:.2f} ms in the "
+                 f"calls, of which transfer {v['transfer_ms']:.2f} (a barrier before each; [calls, ms] by op "
+                 f"{v['transfer_by_op']}) and waiting for the other rank {v['wait_ms']:.2f}" if "calls" in v else "")
+        print(f"data parallel (d) ResNet-20 W8A8 ADMM f32 step, {DP_TIME_BATCH // 2} images a rank, {k}: "
+              f"{v['ms_per_step']:.2f} ms a step, in gloo calls or NCCL kernels {v['comm_ms']:.2f} ms "
+              f"({v['comm_share']:.3f}){split} [{card}; one card: not a multi-card figure]", flush=True)
+    out["times"] = times
+
+    # (e) the native augment library against numpy
+    phase("data parallel (e): the native augment library against numpy's path")
+    lib = native_augment.build(tmp)  # the run's own directory: the checkout's build directory stays as it was
+    x = np.random.RandomState(SEED).randint(0, 256, (2048, 32, 32, 3)).astype(np.uint8)
+    r_np, r_nat = np.random.RandomState(1), np.random.RandomState(1)
+    want = numpy_augment(x, r_np, datasets.CIFAR10_MEAN, datasets.CIFAR10_STD)
+    got = native_augment.augment_normalize(x, r_nat, datasets.CIFAR10_MEAN, datasets.CIFAR10_STD, library=lib)
+    err = float(np.abs(got - want).max())
+    same_draws = all(np.array_equal(a, b) for a, b in zip(r_np.get_state(), r_nat.get_state()))
+    host = {}
+    for label, fn in (("native", lambda: native_augment.augment_normalize(x, np.random.RandomState(1),
+                                                                          datasets.CIFAR10_MEAN, datasets.CIFAR10_STD,
+                                                                          library=lib)),
+                      ("numpy", lambda: numpy_augment(x, np.random.RandomState(1), datasets.CIFAR10_MEAN,
+                                                      datasets.CIFAR10_STD))):
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        host[label] = statistics.median(ts)
+    print(f"data parallel (e) native augment ({lib.name}) at batch 2048: {host['native']:.2f} ms, numpy "
+          f"{host['numpy']:.2f} ms (host clock, median of 5); max abs diff {err:.3g}, the same draws: {same_draws}",
+          flush=True)
+    if not (same_draws and err <= 1e-5):
+        raise AssertionError(f"data parallel (e): draws equal {same_draws}, max abs diff {err}")
+    out["native_augment"] = {"native_ms": host["native"], "numpy_ms": host["numpy"], "max_abs_err": err}
+    details["data_parallel"] = out
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
 
+    if sys.argv[1:2] == ["--dp-rank"]:
+        return dp_rank_main(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
@@ -1834,6 +2369,9 @@ def main() -> int:
     print(f"build: {sorted(reports)} built in {build_s:.1f} s", flush=True)
     details["build_s"] = build_s
     details["ptxas"] = reports
+    if sys.argv[1:] == ["--gather-backward-ab"]:
+        gather_backward_ab(repo, card)
+        return 0
     if sys.argv[1:] == ["--agreement-study"]:
         agreement_study(repo, card)
         return 0
@@ -2203,7 +2741,10 @@ def main() -> int:
     # 21-23. domain adaptation
     digit_rows, digit_err, digit_served, _, da_trunk_err = da_phase(dev, card, repo, details, phase)
 
-    # 24. the kernels line, the card line, the final line
+    # 24. data-parallel training
+    dp_phase(dev, card, repo, details, phase)
+
+    # 25. the kernels line, the card line, the final line
     phase("done")
 
     def summed(r, ms_key, plain_key, bound_key, weight):

@@ -81,8 +81,8 @@ def test_cli_da_runs_each_task(tmp_path, task):
 
 
 def test_cli_da_refuses_meshes_and_asks_for_the_card(tmp_path):
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        cli_da.main(["--task", "digit", "--device", "cpu", "--mesh", "2"])
+    with pytest.raises(ValueError, match="does not cover"):
+        cli_da.main(["--task", "digit", "--device", "cpu", "--mesh", "2", "--job_dir", str(tmp_path)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli_da.main(["--task", "digit", "--max_steps", "1", "--job_dir", str(tmp_path)])

@@ -276,8 +276,9 @@ def test_cli_trains_on_the_cpu(tmp_path):
 
 
 def test_entry_points_default_to_the_card():
-    """Without a card the trainer raises unless given device='cpu'; the
-    unported options raise and name their queue item."""
+    """Without a card the trainer raises unless given device='cpu'; a mesh
+    that the world does not cover raises, and a 'model' axis names the
+    queue item it waits for."""
     from alignq_tpu_torch.data.registry import get_data
     from alignq_tpu_torch.train.loop import fit
 
@@ -286,7 +287,9 @@ def test_entry_points_default_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fit(cfg, data, max_steps=1)
-    with pytest.raises(NotImplementedError, match="Distribution"):
+    with pytest.raises(ValueError, match="does not cover"):
         fit(TConfig(mesh_shape=(2,)), data, device="cpu")
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        tsteps.make_train_step(TNet(num_units=(1, 1, 1)), cfg, axis_name="data")
+    from alignq_tpu_torch.dist.mesh import Mesh
+
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        tsteps.make_train_step(TNet(num_units=(1, 1, 1)), cfg, mesh=Mesh(("data", "model"), (1, 2), None, 0))

@@ -1,5 +1,7 @@
 """Shared inputs of the tests/test_torch_*.py files."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -358,3 +360,270 @@ def flax_da_init(jm, hw, *init_args, seed=0):
     init = jax.jit(lambda k, x: jm.init(k, x, *init_args, train=False))
     v = init(jax.random.PRNGKey(seed), jnp.zeros((1, hw, hw, 3)))
     return affine_bn_tree(f64_tree(jax.device_get(v["params"]))), f64_tree(jax.device_get(v["batch_stats"]))
+
+
+# ------------------------------------------------- data-parallel test ranks
+#
+# The data-parallel tests run the port's ranks as subprocesses joined over
+# gloo on the CPU (torch only: no JAX in a rank), as tests/test_multihost.py
+# runs JAX's. A rank runs dist_worker() on a JSON spec and writes its
+# results to spec["out"] (an .npz, "{rank}" filled in).
+
+TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
+REPO_DIR = os.path.dirname(TESTS_DIR)
+
+
+def run_ranks(n, spec, tmp_path, timeout=240):
+    """Run `n` ranks of dist_worker on `spec` (one process when n == 1);
+    returns each rank's output. A rank that fails or outlasts `timeout`
+    fails the test, and every rank is stopped."""
+    import json
+    import subprocess
+    import sys
+
+    from alignq_tpu_torch.entry import free_port
+
+    path = str(tmp_path / f"spec_{spec['kind']}_{n}_{free_port()}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    env = {**os.environ, "PYTHONPATH": REPO_DIR, "OMP_NUM_THREADS": "1", "ALIGNQ_DIST_TIMEOUT": str(timeout)}
+    env.pop("XLA_FLAGS", None)
+    code = f"import sys; sys.path.insert(0, {TESTS_DIR!r}); import torch_port_helpers as h; h.dist_worker()"
+    port = str(free_port())
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(n), port, path], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            out, _ = p.communicate(timeout=timeout)
+            outs.append(out)
+            assert p.returncode == 0, f"rank {r} of {n} exited {p.returncode}:\n{out}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def tiny_images(n=32, hw=8, seed=0, classes=10):
+    """Seeded numpy images (n, hw, hw, 3) f32 and labels."""
+    r = np.random.RandomState(seed)
+    return r.randn(n, hw, hw, 3).astype(np.float32), r.randint(0, classes, n)
+
+
+def state_arrays(state):
+    """A train state as flat numpy arrays: p: params, b: statistics,
+    a:/g: each site's duals, t: momentum traces, and the step."""
+    out = {f"p:{k}": v.detach().cpu().numpy() for k, v in state.params.items()}
+    out.update({f"b:{k}": v.detach().cpu().numpy() for k, v in state.batch_stats.items()})
+    for k, s in state.admm_duals.items():
+        out[f"a:{k}"], out[f"g:{k}"] = s.alter_d.cpu().numpy(), s.gamma.cpu().numpy()
+    out.update({f"t:{k}": v.detach().cpu().numpy() for k, v in state.tx.trace.items()})
+    out["step"] = np.array(state.step)
+    return out
+
+
+def load_state_arrays(state, arrays, rank=None):
+    """state_arrays' p:, b:, a: and g: entries into `state` in place (a
+    local-mode rank takes its own [rank] of (N, B/N, B/N) duals)."""
+    from alignq_tpu_torch.admm.state import ADMMSiteState
+
+    with torch.no_grad():
+        for table, tag in ((state.params, "p"), (state.batch_stats, "b")):
+            for k, v in table.items():
+                v.copy_(torch.from_numpy(np.array(arrays[f"{tag}:{k}"])))
+    duals = {}
+    for k in [key[2:] for key in arrays if key.startswith("a:")]:
+        a, g = np.array(arrays[f"a:{k}"]), np.array(arrays[f"g:{k}"])
+        if rank is not None:
+            a, g = a[rank], g[rank]
+        dt = next(state.model.parameters()).dtype
+        duals[k] = ADMMSiteState(torch.from_numpy(a).to(dt), torch.from_numpy(g).to(dt))
+    if duals:
+        state.admm_duals = duals
+
+
+def _preact(spec, gen):
+    from alignq_tpu_torch.models.resnet_cifar import PreActResNet
+
+    return PreActResNet(num_units=(1, 1, 1), w_bit=spec["bits"], a_bit=spec["bits"], admm=spec["admm"],
+                        method=spec.get("method", "ours"), generator=gen).double()
+
+
+def _cfg(spec, n, **kw):
+    from alignq_tpu_torch.train.config import TrainConfig
+
+    base = dict(bitW=spec["bits"], abitW=spec["bits"], admm=spec["admm"], method=spec.get("method", "ours"),
+                train_batch_size=8, eval_batch_size=8, num_epochs=1, lr=0.02, print_freq=1,
+                job_dir=spec.get("job", "job"),
+                mesh_shape=(n,), mesh_axes=("data",), corr_mode=spec.get("mode", "gather"),
+                grad_compression=spec.get("compression", "f32"), seed=3, lr_decay_steps=(1000,))
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+def _worker_fit(rank, n, spec):
+    """A classification fit of a depth-8 PreActResNet in float64 on 8x8
+    images; with spec['restore'] it then restores the checkpoint just
+    written into a fresh state and returns that one too (r: keys)."""
+    from alignq_tpu_torch.data.loader import ArrayLoader, Data
+    from alignq_tpu_torch.train.loop import fit
+
+    x, y = tiny_images(32 if not spec.get("restore") else 16)
+    data = Data(ArrayLoader(x, y, 8, shuffle=True, seed=1, prefetch=0), ArrayLoader(x[:16], y[:16], 8, prefetch=0))
+    cfg = _cfg(spec, n)
+    res = fit(cfg, data, model=_preact(spec, torch.Generator().manual_seed(5)), max_steps=spec["steps"],
+              device="cpu")
+    out = state_arrays(res["state"])
+    out["top1"] = np.array(res["best_top1"])
+    if spec.get("restore"):
+        from alignq_tpu_torch.dist import make_mesh
+        from alignq_tpu_torch.dist.corr import create_local_duals
+        from alignq_tpu_torch.train.checkpoint import CheckpointManager
+        from alignq_tpu_torch.train.state import create_train_state
+
+        model = _preact(spec, torch.Generator().manual_seed(11))
+        fresh = create_train_state(torch.Generator().manual_seed(12), model, cfg, input_shape=(1, 8, 8, 3))
+        mesh = make_mesh((n,), ("data",))
+        fresh.admm_duals = create_local_duals(torch.Generator().manual_seed(13), sorted(fresh.admm_duals), cfg, n,
+                                              mesh.rank, torch.float64)
+        mgr = CheckpointManager(cfg.job_dir, mesh=mesh, local_duals=cfg.corr_mode == "local")
+        restored, epoch = mgr.restore(fresh)
+        out.update({f"r{k}": v for k, v in state_arrays(restored).items()})
+        out["epoch"] = np.array(epoch)
+    return out
+
+
+def build_model_spec(m):
+    """The float64 model a JSON model spec names: {'kind': 'preact',
+    'bits', 'admm', 'method'} (a depth-8 PreActResNet) or {'kind':
+    'densenet', 'bits', 'admm', 'stage_int8', 'calib'} (a depth-10
+    DenseNet, deploy_exact on the int8 grid)."""
+    gen = torch.Generator().manual_seed(5)
+    if m["kind"] == "preact":
+        return _preact(m, gen)
+    from alignq_tpu_torch.models.densenet import DenseNet
+
+    return DenseNet(depth=10, w_bit=m["bits"], a_bit=m["bits"], admm=m["admm"], variant="int8", deploy_exact=True,
+                    stage_int8=m["stage_int8"], stage_calib=m["calib"], generator=gen).double()
+
+
+def _worker_steps(rank, n, spec):
+    """From a state given as arrays (spec['state']: p:, b:, and the duals
+    a:, g: of gather mode, (B, B), and la:, lg: of local mode, (N, B/N,
+    B/N)), one train step of each (corr_mode, grad_compression) case on
+    this rank's rows of spec['batch']; returns each case's state and
+    metrics, keyed 'mode/compression/'."""
+    from alignq_tpu_torch.dist import make_mesh
+    from alignq_tpu_torch.train.state import create_train_state
+    from alignq_tpu_torch.train.steps import make_train_step
+
+    arrays, batch = dict(np.load(spec["state"])), np.load(spec["batch"])
+    x, y = batch["x"], batch["y"]
+    b = len(y)
+    rows = slice(rank * b // n, (rank + 1) * b // n)
+    out = {}
+    for mode, compression in spec["cases"]:
+        local = mode == "local"
+        model = build_model_spec(spec["model"])
+        cfg = _cfg(spec["model"], n, train_batch_size=b, corr_mode=mode, grad_compression=compression, lr=spec["lr"],
+                   correction_exclude=tuple(spec["correction_exclude"]), admm=False)
+        state = create_train_state(torch.Generator().manual_seed(0), model, cfg, input_shape=(1,) + x.shape[1:],
+                                   steps_per_epoch=10_000)
+        given = {k: v for k, v in arrays.items() if k[:2] in ("p:", "b:")}
+        for k, v in arrays.items():
+            if k[:3] in ("la:", "lg:") and local:
+                given[k[1:]] = v
+            elif k[:2] in ("a:", "g:") and not local:
+                given[k] = v
+        load_state_arrays(state, given, rank if local else None)
+        mesh = make_mesh((n,), ("data",)) if n > 1 else None
+        step = make_train_step(model, _cfg(spec["model"], n, train_batch_size=b, corr_mode=mode, lr=spec["lr"],
+                                           grad_compression=compression,
+                                           correction_exclude=tuple(spec["correction_exclude"])), mesh)
+        state, m = step(state, torch.from_numpy(x[rows]).double(), torch.from_numpy(y[rows]))
+        tag = f"{mode}/{compression}/"
+        out.update({tag + k: v for k, v in state_arrays(state).items()})
+        out.update({tag + "m:" + k: v.detach().double().numpy() for k, v in m.items()})
+    return out
+
+
+def _worker_means(rank, n, spec):
+    """compressed_tree_pmean of this rank's leaves (spec['inputs'], each
+    leaf (N, ...) with this rank's at [rank]) in each mode, and the int8
+    codes a rank sends (c:), from the scale every rank shares."""
+    from alignq_tpu_torch.dist.collectives import compressed_pmean, compressed_tree_pmean
+
+    leaves = np.load(spec["inputs"])
+    tree = {k: torch.from_numpy(np.array(leaves[k][rank])) for k in leaves.files}
+    out = {}
+    for mode in ("f32", "bf16", "int8_gather"):
+        out.update({f"{mode}/{k}": v.numpy() for k, v in compressed_tree_pmean(tree, None, mode).items()})
+        out[f"{mode}/zero"] = compressed_pmean(tree["zero"], None, mode).numpy()  # one leaf alone
+    for k, x in tree.items():
+        amax = torch.tensor(float(np.abs(leaves[k]).max()), dtype=x.dtype)
+        scale = torch.clamp_min(amax * (1.0 / 127.0), 1e-30)
+        out[f"c:{k}"] = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8).numpy()
+    try:
+        compressed_tree_pmean(tree, None, "int3")
+    except ValueError:
+        out["refused"] = np.array(1)
+    return out
+
+
+def _worker_da(rank, n, spec):
+    """A gather-mode DA fit in float64: the digit DANN (28x28 synthetic
+    mnist -> mnistm, batch 8; its channel dropout drawn for the global
+    batch) or DSAN on a ResNet-18 trunk (32x32 synthetic Office-31 pair,
+    batch 4, LMMD over both domains)."""
+    from alignq_tpu_torch.train.da import DAConfig, fit_dann, fit_dsan
+
+    bits, admm = spec["bits"], spec["admm"]
+    gen = torch.Generator().manual_seed(7)
+    q = dict(w_bit=bits, a_bit=bits, admm=admm, generator=gen)
+    base = dict(bitW=bits, abitW=bits, admm=admm, num_epochs=1, job_dir=spec["job"], correction_exclude=(),
+                mesh_shape=(n,), mesh_axes=("data",), seed=2)
+    if spec["task"] == "digit":
+        from alignq_tpu_torch.data.digits import get_digit_domain
+        from alignq_tpu_torch.models import MNISTModelQuant
+
+        loaders = {key: get_digit_domain(dom, spec["job"] + "/none", 8, train=train, seed=1)
+                   for key, dom, train in (("src_train", "mnist", True), ("tgt_train", "mnistm", True),
+                                           ("src_test", "mnist", False), ("tgt_test", "mnistm", False))}
+        cfg = DAConfig(train_batch_size=8, eval_batch_size=8, num_classes=10, lr=0.01, use_correction=False, **base)
+        res = fit_dann(cfg, loaders, MNISTModelQuant(**q).double(), max_steps=spec["steps"], device="cpu")
+    else:
+        from alignq_tpu_torch.data.office import get_office_pair
+        from alignq_tpu_torch.models import DSAN
+
+        loaders = get_office_pair(spec["job"] + "/none", "amazon", "webcam", 4, 32, seed=1, image_size=32)
+        cfg = DAConfig(train_batch_size=4, eval_batch_size=32, num_classes=31, **base)
+        res = fit_dsan(cfg, loaders, DSAN(arch="resnet18", num_classes=31, **q).double(), max_steps=spec["steps"],
+                       device="cpu")
+    out = state_arrays(res["state"])
+    out["top1"] = np.array(res["best_tgt_top1"])
+    return out
+
+
+WORKERS = {"fit": _worker_fit, "steps": _worker_steps, "means": _worker_means, "da": _worker_da}
+
+
+def dist_worker():
+    """A rank of run_ranks: argv rank, n, port, spec path. Joins the gloo
+    group (n > 1), runs the spec's kind, saves what it returns."""
+    import json
+    import sys
+
+    rank, n, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    with open(sys.argv[4]) as f:
+        spec = json.load(f)
+    torch.set_num_threads(1)
+    from alignq_tpu_torch.dist import multihost
+
+    if n > 1:
+        multihost.initialize(f"127.0.0.1:{port}", n, rank, device="cpu")
+    out = WORKERS[spec["kind"]](rank, n, spec)
+    if out:
+        np.savez(spec["out"].format(rank=rank), **out)
+    multihost.shutdown()
