@@ -3,10 +3,8 @@
 Rounding rule of the port: every `a * b + c` of an f32 epilogue is ONE
 rounding, as the JAX package's jitted graph evaluates it (XLA contracts
 `a * b + c` into a fused multiply-add). CUDA code uses `__fmaf_rn`; the
-plain PyTorch code evaluates in float64 and casts once to float32
-(`fma_f32`). The f64 product of two f32 values is exact, so the only
-difference from a true FMA is a double rounding at f32 midpoints, which
-is rare (counted by chip_smoke.py).
+plain PyTorch code evaluates in float64, rounds the sum to odd and casts
+once to float32 (`fma_f32`): the correctly rounded f32 FMA.
 
 Likewise XLA turns a division by a compile-time constant into a multiply
 by its reciprocal, so `z / sqrt2` is evaluated here as `z * (1/sqrt2)`.
@@ -89,12 +87,31 @@ def erf_f32(x: torch.Tensor) -> torch.Tensor:
     return xc * p / q
 
 
+def _f64(v):
+    return v.double() if torch.is_tensor(v) else v
+
+
 def fma_f32(a, b, c) -> torch.Tensor:
-    """f32 `a * b + c` with one rounding (float64 evaluation cast to f32)."""
-    a64 = a.double() if torch.is_tensor(a) else a
-    b64 = b.double() if torch.is_tensor(b) else b
-    c64 = c.double() if torch.is_tensor(c) else c
-    return (a64 * b64 + c64).float()
+    """f32 `a * b + c` of f32 operands, rounded once, as `__fmaf_rn` and
+    XLA's contracted multiply-add round it.
+
+    The float64 product of two f32 values is exact. The float64 add is
+    not: its error comes from TwoSum, and where the add was inexact the
+    sum is rounded to odd (moved one float64 ulp toward the error where its
+    last mantissa bit is even). The cast to f32 then rounds the exact
+    result correctly: 53 bits hold 2 * 24 + 2, so no f32 midpoint lies
+    between the odd-rounded sum and the exact one. Subnormal f32 results
+    included."""
+    c64 = _f64(c)
+    p = _f64(a) * _f64(b)
+    s = p + c64
+    with torch.no_grad():  # the nudge is a constant of the graph: the gradient is that of a * b + c
+        p, c64, s0 = (v.detach() if torch.is_tensor(v) else v for v in (p, c64, s))
+        t = s0 - p
+        err = (p - (s0 - t)) + (c64 - t)
+        nudge = (err != 0) & ((s0.view(torch.int64) & 1) == 0) & torch.isfinite(s0)
+        odd = torch.where(nudge, torch.nextafter(s0, torch.where(err > 0, math.inf, -math.inf).to(s0.dtype)), s0)
+    return (s + (odd - s0)).float() if s.requires_grad else odd.float()
 
 
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
