@@ -32,6 +32,20 @@ alike (the trans loss of a gathered D) comes back N times, and the
 gradient mean's / N cancels it: the mean of the ranks' gradients is the
 gradient of the 1-process loss.
 
+The model axis (tensor parallelism). A column-parallel layer holds its
+slice of the output channels; three helpers carry its values across the
+axis: `enter_shard` (a replicated input: the identity forward, the ranks'
+gradients summed backward, as each rank's is the part its slice
+contributed), `gather_channels` (the slices' outputs concatenated in rank
+order; backward this rank's slice, since every model rank computes the
+same gradient after the gather) and, for the quantizer's statistics of a
+sliced weight under `model_shard`, `whole_mean_std` and `shard_whole`
+(the statistics of the gathered whole tensor, the bits one process
+computes: at W8 the PDF correction's sawtooth turns a summation-order
+difference into a different update; the gradient of the mean and std
+summed over the ranks, as they feed every slice) and `shard_numel`.
+Each is the identity without a model axis.
+
 The active axis is read in a forward only. Autograd runs a backward on
 threads of its own, where the step's axis is not set, so a custom
 autograd Function keeps the axis its forward read in ctx (as the sum and
@@ -61,8 +75,9 @@ MODES = ("f32", "bf16", "int8_gather")
 
 @dataclasses.dataclass(frozen=True)
 class BatchAxis:
-    """The data axis a step's batch is split over: its process group, this
-    rank's coordinate and the axis size."""
+    """An axis of the mesh: its process group, this rank's coordinate and
+    the axis size. The data axis a step's batch is split over, or the
+    model axis a tensor's channels are split over."""
 
     group: Any
     rank: int
@@ -70,6 +85,7 @@ class BatchAxis:
 
 
 _AXIS: contextvars.ContextVar = contextvars.ContextVar("alignq_batch_axis", default=None)
+_SHARD: contextvars.ContextVar = contextvars.ContextVar("alignq_model_shard", default=None)
 
 
 @contextlib.contextmanager
@@ -121,6 +137,130 @@ class _GatherRows(torch.autograd.Function):
         out = g.new_empty((ctx.rows,) + tuple(g.shape[1:]))
         dist.reduce_scatter_tensor(out, g.contiguous(), group=ctx.axis.group)
         return out, None
+
+
+class _EnterShard(torch.autograd.Function):
+    """A replicated value entering a computation split over the model axis:
+    the identity forward; backward, the sum of the ranks' gradients (each
+    rank's holds the part its slice contributed)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.axis.group)
+        return g, None
+
+
+class _GatherChannels(torch.autograd.Function):
+    """Every model rank's slice of dimension `dim`, concatenated in rank
+    order; backward, this rank's slice of the gradient (every model rank
+    computes the same gradient downstream of the gather)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.width = axis, dim, x.shape[dim]
+        return gather_slices(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.axis.rank * ctx.width
+        return g.narrow(ctx.dim, r, ctx.width).contiguous(), None, None
+
+
+def gather_slices(x: torch.Tensor, axis: BatchAxis, dim: int) -> torch.Tensor:
+    """The ranks' slices of x along `dim`, concatenated in rank order (no
+    gradient); the identity on an axis of one."""
+    if axis.size == 1:
+        return x
+    dim %= x.ndim
+    out = x.new_empty((axis.size * x.numel(),))
+    dist.all_gather_into_tensor(out, x.contiguous().reshape(-1), group=axis.group)
+    parts = out.view((axis.size,) + tuple(x.shape))
+    return torch.cat(parts.unbind(0), dim=dim)
+
+
+@contextlib.contextmanager
+def model_shard(axis: Optional[BatchAxis], dim: int = 0):
+    """Within the block the tensor being quantized is this rank's slice,
+    along `dim`, of a tensor split over the model axis `axis` (None: a
+    whole tensor): its per-tensor statistics (whole_mean_std,
+    shard_whole, shard_numel) are the whole tensor's."""
+    token = _SHARD.set(None if axis is None else (axis, dim))
+    try:
+        yield axis
+    finally:
+        _SHARD.reset(token)
+
+
+def _shard():
+    """(model axis, split dim) of the slice being quantized, or None. A
+    forward's read only, as current_axis."""
+    if torch._C._current_autograd_node() is not None:
+        raise RuntimeError("the model shard was read in a backward: keep the axis the forward read in ctx")
+    return _SHARD.get()
+
+
+@torch.no_grad()
+def shard_whole(x: torch.Tensor) -> torch.Tensor:
+    """The whole tensor from every rank's slice x (no gradient); x itself
+    for a whole tensor."""
+    shard = _shard()
+    return x if shard is None else gather_slices(x.detach(), shard[0], shard[1])
+
+
+class _WholeMeanStd(torch.autograd.Function):
+    """(mean, std) (ddof 1) of the whole tensor from this rank's slice:
+    forward, torch's mean and std of the gathered whole tensor (the bits
+    one process computes); backward, the ranks' gradients of the two
+    (each the part its slice's computation contributed) summed in one
+    all-reduce, then the slice's share: g_mean / n + g_std (x - mean) /
+    ((n - 1) std)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        whole = gather_slices(x.detach(), axis, dim)
+        mean, std = whole.mean(), whole.std(correction=1)
+        ctx.save_for_backward(x, mean, std)
+        ctx.axis, ctx.n = axis, whole.numel()
+        return mean, std
+
+    @staticmethod
+    def backward(ctx, g_mean, g_std):
+        x, mean, std = ctx.saved_tensors
+        g = torch.stack([g_mean, g_std])
+        dist.all_reduce(g, group=ctx.axis.group)
+        return g[0] / ctx.n + g[1] * (x - mean) / ((ctx.n - 1) * std), None, None
+
+
+def whole_mean_std(x: torch.Tensor):
+    """The whole tensor's (mean, std) (ddof 1) from this rank's slice x
+    under model_shard (differentiable); None for a whole tensor."""
+    shard = _shard()
+    return None if shard is None else _WholeMeanStd.apply(x, *shard)
+
+
+def shard_numel(n: int) -> int:
+    """The whole tensor's element count from a slice's."""
+    shard = _shard()
+    return n if shard is None else n * shard[0].size
+
+
+def enter_shard(x: torch.Tensor, axis: Optional[BatchAxis]) -> torch.Tensor:
+    """A replicated x taken into a computation on this rank's slice of the
+    model axis (the input of a column-parallel layer, a scalar parameter
+    of a sliced weight's quantizer); the identity without one."""
+    return x if axis is None or axis.size == 1 else _EnterShard.apply(x, axis)
+
+
+def gather_channels(x: torch.Tensor, axis: Optional[BatchAxis], dim: int = 1) -> torch.Tensor:
+    """The whole output of a column-parallel layer from this rank's slice
+    of dimension `dim` (differentiable); x without an axis."""
+    return x if axis is None or axis.size == 1 else _GatherChannels.apply(x, axis, dim)
 
 
 def batch_sum(x: torch.Tensor, axis: Optional[BatchAxis] = None) -> torch.Tensor:

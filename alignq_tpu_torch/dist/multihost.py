@@ -14,8 +14,10 @@
 - data: every process builds the same global batch from its seeded
   loader and keeps its contiguous rows [p*B/N, (p+1)*B/N)
   (`local_batch_slice`, which dist/sharding.py shard_batch applies on a
-  mesh) and moves only those to its device. There is no global array to
-  assemble.
+  mesh) and moves only those to its device (`place_batch_multihost`).
+  The global batch, where one is wanted, is those rows all-gathered in
+  global order (`global_batch_from_local`): the port's form of JAX's
+  global array.
 - observability: `is_primary()` gates the log file, the metric writers and
   the config dump; checkpoints are collective (every rank calls save and
   restore, rank 0 writes; train/checkpoint.py).
@@ -110,11 +112,19 @@ def is_primary() -> bool:
     return process_index() == 0
 
 
-def _tree_map(f, tree):
+def active() -> bool:
+    """True when this run spans more than one process."""
+    return process_count() > 1
+
+
+def tree_map(f, tree):
+    """f over the leaves of dicts, lists, tuples and NamedTuples."""
     if isinstance(tree, dict):
-        return {k: _tree_map(f, v) for k, v in tree.items()}
+        return {k: tree_map(f, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(f, v) for v in tree))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(f, v) for v in tree)
+        return type(tree)(tree_map(f, v) for v in tree)
     return f(tree)
 
 
@@ -132,4 +142,25 @@ def local_batch_slice(batch: Any, num_processes: Optional[int] = None, process_i
         bl = b // n
         return x[p * bl:(p + 1) * bl]
 
-    return _tree_map(f, batch)
+    return tree_map(f, batch)
+
+
+def global_batch_from_local(local_batch: Any, mesh) -> Any:
+    """The global batch from every data rank's local rows (tensors in
+    tuples, lists or dicts), in global row order: an all-gather over the
+    mesh's data group, so every rank holds it (the port's form of JAX's
+    global array; a mesh of one device returns the rows). Each data rank's
+    rows must be its contiguous slice, as local_batch_slice cuts them."""
+    from alignq_tpu_torch.dist.collectives import gather_rows
+
+    axis = mesh.batch_axis()
+    return local_batch if axis is None else tree_map(lambda x: gather_rows(torch.as_tensor(x), axis), local_batch)
+
+
+def place_batch_multihost(batch: Any, mesh, device=None) -> Any:
+    """A host-identical global batch placed for a step over the mesh: this
+    process's contiguous rows on its data axis moved to `device` (default
+    this rank's, initialize's), as tensors; nothing else moves."""
+    dev = torch.device(device) if device is not None else (_DEVICE or torch.device("cpu"))
+    rows = local_batch_slice(batch, mesh.n_data, mesh.rank)
+    return tree_map(lambda x: torch.as_tensor(x).to(dev), rows)

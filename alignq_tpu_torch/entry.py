@@ -1,6 +1,7 @@
 """Entry points of the port (the JAX package's __graft_entry__.py):
 `entry` gives a forward and its arguments; `dryrun_multichip` runs one
-ADMM QAT step data-parallel over n ranks.
+ADMM QAT step over a ('data', 'model') mesh of n ranks, then one
+data-parallel step in local mode.
 
     python -m alignq_tpu_torch.entry --dryrun 2 --device cpu
 """
@@ -43,14 +44,15 @@ def free_port() -> int:
 
 
 def dryrun_multichip(n_devices: int, device=None, backend=None, timeout_s: float = 600.0) -> None:
-    """One full ADMM W4A4 QAT train step of ResNet-20 over an
-    (n_devices,) data mesh, on 16x16 images, in each corr mode ('gather',
-    then 'local' with per-rank duals): n_devices ranks, each a
-    subprocess of this interpreter joined over torch.distributed. On the
-    cards (device None) NCCL, one card a rank, unless backend='gloo';
-    device='cpu' runs gloo on the CPU. Raises if a rank fails or outlasts
-    timeout_s. The JAX package's model-parallel half (a 'model' axis of
-    2) waits for tensor parallelism (ROADMAP queue 1 item 3)."""
+    """One full ADMM W4A4 QAT train step of ResNet-20 on 16x16 images in
+    each corr mode, as the JAX package's: 'gather' over a (n/2, 2)
+    ('data', 'model') mesh where n_devices is even and above 1 (the
+    kernels column-parallel over the model axis; else (n, 1)), then
+    'local' with per-rank duals over an (n,) data mesh (local mode takes
+    no model axis). n_devices ranks, each a subprocess of this
+    interpreter joined over torch.distributed. On the cards (device None)
+    NCCL, one card a rank, unless backend='gloo'; device='cpu' runs gloo
+    on the CPU. Raises if a rank fails or outlasts timeout_s."""
     port = free_port()
     root = str(Path(__file__).resolve().parents[1])
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep)}
@@ -81,20 +83,22 @@ def _dryrun_rank(rank: int, n: int, port: int, device, backend) -> None:
     """One rank of dryrun_multichip."""
     from alignq_tpu_torch.dist import make_mesh, multihost
     from alignq_tpu_torch.dist.corr import create_local_duals, make_local_corr_train_step
+    from alignq_tpu_torch.dist.sharding import shard_model
     from alignq_tpu_torch.models.resnet_cifar import resnet20_quant
     from alignq_tpu_torch.train import TrainConfig, create_train_state, make_train_step
 
     dev = multihost.initialize(f"127.0.0.1:{port}", n, rank, device=device, backend=backend, timeout_s=300)
-    mesh = make_mesh((n,), ("data",))
-    batch = max(n * 4, 8)
-    cfg = TrainConfig(train_batch_size=batch, eval_batch_size=batch, bitW=4, abitW=4, admm=True, num_epochs=1,
-                      mesh_shape=(n,), mesh_axes=("data",))
+    model_par = 2 if n % 2 == 0 and n > 1 else 1
+    data_par = n // model_par
+    batch = max(data_par * 4, 8)
     g = torch.Generator().manual_seed(1)
     # random, not zeros: the corr standardization divides by per-feature std
     x = torch.randn((batch, 16, 16, 3), generator=g)
     y = torch.randint(0, 10, (batch,), generator=g)
-    rows = slice(rank * batch // n, (rank + 1) * batch // n)
-    for mode, seed in (("gather", 0), ("local", 3)):
+    for mode, seed, shape in (("gather", 0, (data_par, model_par)), ("local", 3, (n, 1))):
+        mesh = make_mesh(shape, ("data", "model"))
+        cfg = TrainConfig(train_batch_size=batch, eval_batch_size=batch, bitW=4, abitW=4, admm=True, num_epochs=1,
+                          mesh_shape=shape, mesh_axes=("data", "model"), corr_mode=mode)
         gen = torch.Generator().manual_seed(seed)
         model = resnet20_quant(bitW=4, abitW=4, method="ours", admm=True, generator=gen).to(dev)
         state = create_train_state(gen, model, cfg, input_shape=(1, 16, 16, 3), steps_per_epoch=10)
@@ -103,13 +107,16 @@ def _dryrun_rank(rank: int, n: int, port: int, device, backend) -> None:
                                                   cfg, n, mesh.rank, device=dev)
             step = make_local_corr_train_step(model, cfg, mesh)
         else:
+            state.tx.shards = {k: (v.axis, v.dim) for k, v in shard_model(model, mesh).items()}
             step = make_train_step(model, cfg, mesh)
+        b = batch // shape[0]
+        rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
         _, metrics = step(state, x[rows].to(dev), y[rows].to(dev))
         loss = float(metrics["loss"])
         if not torch.isfinite(torch.tensor(loss)):
             raise RuntimeError(f"dryrun_multichip: non-finite loss in {mode} mode")
         if rank == 0:
-            print(f"dryrun_multichip ok ({mode} corr): mesh=({n}x1) loss={loss:.4f}", flush=True)
+            print(f"dryrun_multichip ok ({mode} corr): mesh=({shape[0]}x{shape[1]}) loss={loss:.4f}", flush=True)
     multihost.shutdown()
 
 

@@ -31,6 +31,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from alignq_tpu_torch.dist.sharding import whole_model
 from alignq_tpu_torch.interop import deploy_tree
 from alignq_tpu_torch.kernels.deploy_registry import DEPLOY_FAMILIES
 from alignq_tpu_torch.kernels.infer import augment_int_cutpoints
@@ -77,7 +78,10 @@ def export_and_compare(model: torch.nn.Module, loader, family: str, meta: Dict[s
     that of the fake-quant's), 'median_margin': the median over the set of
     the fake-quant top-1 less top-2 logit, 'max_logit_gap' and
     'median_logit_gap': the largest and the median over the set of an
-    image's largest |INT logit - fake-quant logit|; qparams)."""
+    image's largest |INT logit - fake-quant logit|; qparams). A
+    column-parallel model (a tensor-parallel fit's) is folded whole:
+    every model rank calls this, and each gets the whole network's."""
+    model = whole_model(model)
     dev = next(model.parameters()).device
     fam = DEPLOY_FAMILIES[family]
     qparams = fam.convert(*deploy_tree(model), meta)

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from alignq_tpu_torch.device import resolve_device
+from alignq_tpu_torch.dist import collectives as C
 from alignq_tpu_torch.kernels.convert import fold_conv_bn
 from alignq_tpu_torch.kernels.infer import S_IMG, _act_g, _linear_q
 from alignq_tpu_torch.kernels.qmatmul import K1Weights, act_map, int8_conv_codes, int8_conv_packed, pack_conv_weights
@@ -60,8 +61,9 @@ _RECIP_127 = _f32(1.0 / 127.0)
 def _dynamic_q(x: torch.Tensor):
     """Per-tensor dynamic symmetric int8 of a generic f32 stream: (codes,
     scale). s = max(max|x| * f32(1/127), 1e-12); codes = clip(round(x /
-    s), +-127), a true division."""
-    s = torch.clamp_min(x.abs().amax() * _RECIP_127, _f32(1e-12))
+    s), +-127), a true division. max|x| is the global batch's: under a
+    mesh's data axis (serve.py) a MAX over its ranks."""
+    s = torch.clamp_min(C.batch_max(x.abs().amax()) * _RECIP_127, _f32(1e-12))
     return torch.clamp(torch.round(x / s), -127.0, 127.0).to(torch.int8), s
 
 
@@ -69,9 +71,10 @@ def _dynamic_q_codes(k: torch.Tensor, act_scale: float):
     """_dynamic_q of a grid-aligned code stream (value = K * act_scale) in
     exact integer arithmetic: codes = floor((254 K + K_max) / (2 K_max)),
     round half up of 127 K / K_max, clipped; scale = K_max * f32(act_scale
-    / 127). K_max = max(max|K|, 1) stays on the device."""
+    / 127). K_max = max(max|K|, 1) stays on the device; the global
+    batch's, as _dynamic_q's."""
     k = k.to(torch.int32)
-    kmax = torch.clamp_min(k.abs().amax(), 1)
+    kmax = torch.clamp_min(C.batch_max(k.abs().amax()), 1)
     c = torch.div(2 * 127 * k + kmax, 2 * kmax, rounding_mode="floor")
     return torch.clamp(c, -127, 127).to(torch.int8), kmax.to(torch.float32) * _f32(act_scale / 127.0)
 

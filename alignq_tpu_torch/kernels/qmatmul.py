@@ -22,8 +22,14 @@ The plain conv gathers its taps (`gather_taps`) into an (M, K) matrix; the
 kernel never does. Every gather of a CUDA tensor is counted under
 TAP_GATHERS, so a run can show that the card's forward gathered nothing.
 
+Column-parallel serving: a K1Weights cut to this rank's slice of N over
+a mesh's model axis (shard_k1weights; dist/sharding.py shard_operands)
+makes every entry point gather its output's channels over that axis,
+the ranks' slices in rank order (int32, f32 or int8 alike), so the
+caller sees the whole output. Each rank's K1 writes its slice only.
+
 Epilogue `acc * scale + bias` is one f32 rounding: `__fmaf_rn` in CUDA,
-`fma_f32` (float64 evaluation, one cast) in the plain version.
+`fma_f32` (float64 evaluation, rounded once to f32) in the plain version.
 """
 
 from __future__ import annotations
@@ -31,10 +37,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
+from alignq_tpu_torch.dist.collectives import gather_slices
 from alignq_tpu_torch.kernels import _build
 from alignq_tpu_torch.kernels.quantize import act_codes, int_bin_codes
 from alignq_tpu_torch.quant.cdf import erf_grid_boundaries, fma_f32
@@ -131,7 +138,10 @@ class K1Weights(NamedTuple):
     operand); scale and bias are (N8,) f32, zero-padded; n is the true N.
     As a conv weight (pack_conv_weights), K runs (dy, dx, c) over ksize x
     ksize taps of cin channels (the input's channels zero-padded to a
-    multiple of 4); a GEMM weight is a 1x1 conv over cin = Kp channels."""
+    multiple of 4); a GEMM weight is a 1x1 conv over cin = Kp channels.
+    shard: the model axis where these are this rank's contiguous slice of
+    a column-parallel weight's N (shard_k1weights); the entry points then
+    gather the output's channels over it."""
 
     wt: torch.Tensor
     scale: torch.Tensor
@@ -139,6 +149,7 @@ class K1Weights(NamedTuple):
     n: int
     ksize: int
     cin: int
+    shard: Optional[Any] = None
 
 
 def pack_k1_weights(w: torch.Tensor, scale=None, bias=None) -> K1Weights:
@@ -167,13 +178,37 @@ def pack_conv_weights(kernel_hwio: torch.Tensor, scale=None, bias=None) -> K1Wei
     return pack_k1_weights(kernel_matrix(k), scale, bias)._replace(ksize=kh, cin=cp)
 
 
+def shard_k1weights(op: K1Weights, axis) -> K1Weights:
+    """This rank's contiguous slice of a packed weight's N over the model
+    axis (rows of wt, scale and bias), padded to its own N8; the weight
+    itself where N does not divide by the axis size."""
+    if axis is None or axis.size == 1 or op.n % axis.size:
+        return op
+    w = op.n // axis.size
+    rows = slice(axis.rank * w, (axis.rank + 1) * w)
+    pad = _round_up(w, N_MULT) - w
+
+    def part(t):
+        t = t[rows]
+        return torch.nn.functional.pad(t, (0, 0, 0, pad) if t.ndim == 2 else (0, pad)).contiguous()
+
+    return op._replace(wt=part(op.wt), scale=part(op.scale), bias=part(op.bias), n=w, shard=axis)
+
+
+def _gather_n(y: torch.Tensor, op: K1Weights) -> torch.Tensor:
+    """A column-parallel weight's whole output from this rank's slice of
+    its last dim (the model ranks' slices in rank order)."""
+    return y if op.shard is None else gather_slices(y, op.shard, -1)
+
+
 class ActMap(NamedTuple):
     """An act site's code map as K1's codes epilogue takes it. impl: 'poly'
     | 'erf' | 'bins' | 'bins_int'; g: the grid's largest code. bins: bnd,
     the (g,) f32 erf-grid boundaries. bins_int: sgn (N8,) and t1, t2
     (g, N8) int32 per-column cutpoints (kernels/infer.py
-    act_int_cutpoints), zero-padded to the packed weight's width. Fields a
-    map does not use are None. relu: the codes take max(code, 0)."""
+    act_int_cutpoints), zero-padded to the packed weight's width, and n,
+    their true width. Fields a map does not use are None. relu: the codes
+    take max(code, 0)."""
 
     impl: str
     g: int
@@ -182,6 +217,7 @@ class ActMap(NamedTuple):
     t1: Optional[torch.Tensor] = None
     t2: Optional[torch.Tensor] = None
     relu: bool = False
+    n: Optional[int] = None
 
 
 @functools.lru_cache(maxsize=None)
@@ -206,7 +242,21 @@ def pack_act_cutpoints(cut, n8: int) -> ActMap:
     def pad(t):
         return torch.nn.functional.pad(t.to(torch.int32), (0, n8 - n)).contiguous()
 
-    return ActMap("bins_int", int(cut["t1"].shape[0]), sgn=pad(cut["sgn"]), t1=pad(cut["t1"]), t2=pad(cut["t2"]))
+    return ActMap("bins_int", int(cut["t1"].shape[0]), sgn=pad(cut["sgn"]), t1=pad(cut["t1"]), t2=pad(cut["t2"]),
+                  n=n)
+
+
+def shard_act_cutpoints(act: ActMap, axis) -> ActMap:
+    """A bins_int site's cutpoints cut as its conv's weight is by
+    shard_k1weights (this rank's contiguous slice of the n true columns,
+    padded to the slice's N8); the map itself where n does not divide by
+    the axis size, or where it has no columns (poly, erf, bins)."""
+    if act.n is None or axis is None or axis.size == 1 or act.n % axis.size:
+        return act
+    w = act.n // axis.size
+    cols = slice(axis.rank * w, (axis.rank + 1) * w)
+    cut = {"sgn": act.sgn[cols], "t1": act.t1[:, cols], "t2": act.t2[:, cols]}
+    return pack_act_cutpoints(cut, _round_up(w, N_MULT))
 
 
 class ConvPlan(NamedTuple):
@@ -525,9 +575,9 @@ def _gemm(x: torch.Tensor, op: K1Weights, mode: str, act: Optional[ActMap] = Non
     K1 as a 1x1 stride-1 conv over the (1, 1, M, Kp) view."""
     x = _chain(x, op)
     if x.device.type == "cpu":
-        return _packed_reference(x, op, mode, act)
+        return _gather_n(_packed_reference(x, op, mode, act), op)
     m, kp = x.shape
-    return _run_k1(x.reshape(1, 1, m, kp), op, 1, 1, 0, mode, act)
+    return _gather_n(_run_k1(x.reshape(1, 1, m, kp), op, 1, 1, 0, mode, act), op)
 
 
 def int8_matmul_packed(x: torch.Tensor, op: K1Weights, mode: str = "f32") -> torch.Tensor:
@@ -565,12 +615,15 @@ def int8_conv_reference(x: torch.Tensor, op: K1Weights, stride: int, padding: in
 
 
 def _conv(x, op: K1Weights, stride, padding, mode, act=None) -> torch.Tensor:
+    """The conv entry points' one site: K1 (or its plain version on a CPU
+    tensor) on this rank's weight, then, for a column-parallel weight, its
+    output's channels gathered over the model axis in rank order."""
     x = _conv_input(x, op)
     if x.device.type == "cpu":
-        return int8_conv_reference(x, op, stride, padding, mode, act)
+        return _gather_n(int8_conv_reference(x, op, stride, padding, mode, act), op)
     b, h, w, _ = x.shape
     ho, wo = conv_out_hw(h, w, op.ksize, stride, padding)
-    return _run_k1(x, op, op.ksize, stride, padding, mode, act).reshape(b, ho, wo, -1)
+    return _gather_n(_run_k1(x, op, op.ksize, stride, padding, mode, act).reshape(b, ho, wo, -1), op)
 
 
 def int8_conv_packed(x: torch.Tensor, op: K1Weights, stride: int = 1, padding: int = 1,

@@ -23,6 +23,15 @@ matmul, which the trainer's entry point sets (train/loop.py fit).
 Under a data-parallel step in gather mode (dist/collectives.py
 batch_axis) the batch couplings are global: BatchNorm's sums, StageRequant's
 batch statistic, QuantAct's D over every rank's rows.
+
+Column-parallel (dist/sharding.py shard_model): a QConv or QDense whose
+`shard` is a model axis holds its rank's slice of the output channels as
+its kernel. Its weight quantizer takes the whole tensor's statistics,
+its input and the quantizer's scalar parameters enter the slice's
+computation (dist/collectives.py enter_shard), and its output's channels
+are gathered right after the conv or the matmul, so that everything
+after it (bias, BatchNorm, the act sites, ADMM, the head) is replicated
+over the model axis.
 """
 
 from __future__ import annotations
@@ -147,28 +156,35 @@ class QConv(nn.Module):
             alpha = torch.empty((features, 1, 1, 1), dtype=torch.float64)
             torch.nn.init.trunc_normal_(alpha, 0.0, std, -2 * std, 2 * std, generator=generator)
             self.alpha_w = nn.Parameter(alpha.float())
+        self.shard = None  # the model axis of a column-parallel layer (dist/sharding.py shard_model)
 
     def _weight(self) -> torch.Tensor:
-        w, m, bits = self.kernel, self.method, self.w_bit
-        if m == "ours":
-            return quantize_weight(w, bits, variant=self.variant, channelwise=self.channelwise, channel_axis=0).wq
-        if m == "uniform":
-            return B.uniform_weight(w, bits)
-        if m == "uniform_admm":  # the ablation's raw grid, no 1-bit rescale
-            return uniform_quantize(w, bits)
-        if m == "dorefa":
-            return B.dorefa_weight(w, bits)
-        if m == "bwn":
-            return B.bwn_weight(w, bits)
-        if m == "bwnf":
-            return B.bwnf_weight(w, bits)
-        if m == "lsq" and bits < 32:
-            return B.lsq_quantize(w, self.lsq_step_w, bits, is_activation=False)
-        if m == "apot" and bits < 32:
-            return B.apot_weight(w, self.wgt_alpha, bits)
-        if m == "llsq" and bits < 32:
-            return B.llsq_weight_quant(w, self.alpha_w, bits, True)
-        return w
+        """The quantized kernel (this rank's slice of it where sharded: the
+        statistics the whole tensor's, the quantizer's own parameters
+        entering the slice's computation)."""
+        w, m, bits, shard = self.kernel, self.method, self.w_bit, self.shard
+        with C.model_shard(shard, 0):
+            if m == "ours":
+                return quantize_weight(w, bits, variant=self.variant, channelwise=self.channelwise,
+                                       channel_axis=0).wq
+            if m == "uniform":
+                return B.uniform_weight(w, bits)
+            if m == "uniform_admm":  # the ablation's raw grid, no 1-bit rescale
+                return uniform_quantize(w, bits)
+            if m == "dorefa":
+                return B.dorefa_weight(w, bits)
+            if m == "bwn":
+                return B.bwn_weight(w, bits)
+            if m == "bwnf":
+                return B.bwnf_weight(w, bits)
+            if m == "lsq" and bits < 32:
+                return B.lsq_quantize(w, C.enter_shard(self.lsq_step_w, shard), bits, is_activation=False)
+            if m == "apot" and bits < 32:
+                return B.apot_weight(w, C.enter_shard(self.wgt_alpha, shard), bits)
+            if m == "llsq" and bits < 32:
+                rows = None if shard is None else slice(shard.rank * w.shape[0], (shard.rank + 1) * w.shape[0])
+                return B.llsq_weight_quant(w, C.enter_shard(self.alpha_w, shard), bits, True, rows)
+            return w
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self._weight()
@@ -177,11 +193,19 @@ class QConv(nn.Module):
                 x = B.lsq_quantize(x, self.lsq_step_a, self.a_bit, is_activation=True)
             elif self.method == "apot":
                 x = B.apot_act_quant(x, self.act_alpha, self.w_bit - 1, self.w_bit > 2)
+        groups = self.groups
+        if self.shard is not None:  # column-parallel: this rank's output channels
+            x = C.enter_shard(x, self.shard)
+            if groups > 1:  # a grouped conv's slice reads its groups' input channels
+                groups //= self.shard.size
+                cin = x.shape[1] // self.shard.size
+                x = x[:, self.shard.rank * cin:(self.shard.rank + 1) * cin]
         if self.mxu_dtype is not None:
             y = F.conv2d(x.to(self.mxu_dtype), w.to(self.mxu_dtype), stride=self.stride, padding=self.padding,
-                         groups=self.groups).float()
+                         groups=groups).float()
         else:
-            y = F.conv2d(x, w, stride=self.stride, padding=self.padding, groups=self.groups)
+            y = F.conv2d(x, w, stride=self.stride, padding=self.padding, groups=groups)
+        y = C.gather_channels(y, self.shard, 1)
         return y + self.bias.reshape(1, -1, 1, 1) if self.use_bias else y
 
 
@@ -196,12 +220,15 @@ class QDense(nn.Module):
         bound = 1.0 / math.sqrt(in_features)
         self.kernel = nn.Parameter(_uniform((in_features, features), bound, generator))
         self.bias = nn.Parameter(_uniform((features,), bound, generator))
+        self.shard = None  # as QConv's: the kernel's output columns split over it
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.kernel
         if self.method == "ours" and self.w_bit < 32:
-            w = quantize_weight(w, self.w_bit, variant=self.variant).wq
-        return torch.matmul(x, w) + self.bias
+            with C.model_shard(self.shard, 1):
+                w = quantize_weight(w, self.w_bit, variant=self.variant).wq
+        y = torch.matmul(C.enter_shard(x, self.shard), w)
+        return C.gather_channels(y, self.shard, -1) + self.bias
 
 
 CALIBS = ("max", "ema", "ema_p999")

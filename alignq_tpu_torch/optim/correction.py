@@ -6,7 +6,9 @@ alignq_tpu/optim/correction.py):
     u        <- u * sigma'(T(c)) * pdf(w)                       (on masked leaves)
 
 with c = 2*Phi(w) - 1 and pdf = 2*phi(w) under w's own N(mean(w), std(w))
-fit, recomputed from the live (pre-update) weights. This is the paper's
+fit, recomputed from the live (pre-update) weights: the whole tensor's
+statistics where w is a rank's slice of a column-parallel weight (the
+optimizer enters its model axis, quant/cdf.py tensor_stats). This is the paper's
 intended rule, applied after momentum (optim/factory.py).
 """
 

@@ -17,6 +17,7 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
+from alignq_tpu_torch.dist.collectives import model_shard
 from alignq_tpu_torch.optim.correction import correction_factor
 
 Schedule = Callable[[int], float]
@@ -39,6 +40,10 @@ class AlignQSGD:
         self.use_correction = use_correction and w_bit < 32
         self.channelwise, self.channel_axis = channelwise, channel_axis
         self.lr_mult = lr_mult or {}
+        # {name: (model axis, split dim)} of the leaves that are a rank's
+        # slice of a column-parallel weight (dist/sharding.py
+        # shard_model): their correction takes the whole tensor's statistics
+        self.shards: Dict[str, tuple] = {}
         self.trace: Dict[str, torch.Tensor] = {}
         self.count = 0
 
@@ -62,7 +67,9 @@ class AlignQSGD:
                 u = u if t is None else u + self.momentum * t
                 self.trace[name] = u
             if self._corrected(name, p):
-                u = u * correction_factor(p, self.w_bit, self.lam, self.lam2, self.channelwise, self.channel_axis)
+                with model_shard(*self.shards.get(name, (None, 0))):
+                    u = u * correction_factor(p, self.w_bit, self.lam, self.lam2, self.channelwise,
+                                              self.channel_axis)
             if name in self.lr_mult:
                 u = u * self.lr_mult[name]
             updates[name] = u

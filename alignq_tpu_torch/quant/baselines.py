@@ -24,15 +24,23 @@ from __future__ import annotations
 
 import functools
 import itertools
+from typing import Optional
 
 import numpy as np
 import torch
 
 from alignq_tpu_torch.dist import collectives as C
-from alignq_tpu_torch.quant.cdf import _clip
+from alignq_tpu_torch.quant.cdf import _clip, tensor_stats
 from alignq_tpu_torch.quant.ste import round_ste, uniform_quantize
 
 # ----------------------------------------------------------------- uniform
+
+
+def _mean_abs(w: torch.Tensor) -> torch.Tensor:
+    """mean|w|, detached: the whole tensor's where w is a rank's slice of
+    one split over the model axis."""
+    with torch.no_grad():
+        return C.shard_whole(w).abs().mean()
 
 
 def uniform_weight(w: torch.Tensor, w_bit: int) -> torch.Tensor:
@@ -40,7 +48,7 @@ def uniform_weight(w: torch.Tensor, w_bit: int) -> torch.Tensor:
     if w_bit == 32:
         return w
     if w_bit == 1:
-        e = w.abs().mean().detach()
+        e = _mean_abs(w)
         return uniform_quantize(w / e, 1) * e
     return uniform_quantize(w, w_bit)
 
@@ -59,10 +67,10 @@ def dorefa_weight(w: torch.Tensor, w_bit: int) -> torch.Tensor:
     if w_bit == 32:
         return w
     if w_bit == 1:
-        e = w.abs().mean().detach()
+        e = _mean_abs(w)
         return uniform_quantize(w / e, 1) * e
     t = torch.tanh(w)
-    max_w = t.abs().max().detach()
+    max_w = C.shard_whole(t.detach()).abs().max()
     u = t / (2.0 * max_w) + 0.5
     return max_w * (2.0 * uniform_quantize(u, w_bit) - 1.0)
 
@@ -76,7 +84,7 @@ def bwn_weight(w: torch.Tensor, w_bit: int) -> torch.Tensor:
     """Binary-Weight-Net: a per-tensor alpha = mean|w| (detached)."""
     if w_bit == 32:
         return w
-    return w.abs().mean().detach() * uniform_quantize(w, w_bit)
+    return _mean_abs(w) * uniform_quantize(w, w_bit)
 
 
 def bwnf_weight(w: torch.Tensor, w_bit: int) -> torch.Tensor:
@@ -106,7 +114,8 @@ def lsq_quantize(x: torch.Tensor, s: torch.Tensor, bits: int, *, is_activation: 
         qn, qp = 0, 2**bits - 1
     else:
         qn, qp = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
-    numel = C.global_rows(x.numel()) if is_activation else x.numel()  # the rows scale with the batch
+    # the rows scale with the batch; a weight's numel is the whole tensor's
+    numel = C.global_rows(x.numel()) if is_activation else C.shard_numel(x.numel())
     scale = _grad_scale(s, 1.0 / float(np.sqrt(numel * qp)))
     y = _clip(x / scale, float(qn), float(qp))
     return round_ste(y) * scale
@@ -212,8 +221,8 @@ def apot_weight(w: torch.Tensor, alpha: torch.Tensor, w_bit: int) -> torch.Tenso
     then project on w_bit - 1 bits, the power levels from w_bit 3 up."""
     if w_bit == 32:
         return w
-    mean = w.mean().detach()
-    std = w.std(correction=1).detach()
+    with torch.no_grad():
+        mean, std = tensor_stats(w)
     return apot_weight_quant((w - mean) / std, alpha, w_bit - 1, w_bit > 2)
 
 
@@ -267,11 +276,13 @@ def _octave(x, a, pwr, lo, dims, axis=None):
 
 class _LLSQWeight(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w, alpha, bit, per_channel):
+    def forward(ctx, w, alpha, bit, per_channel, rows):
         pwr = 2 ** (bit - 1)
         a = quan_alpha(alpha, 16)
+        if rows is not None:
+            a = a[rows]
         ctx.save_for_backward(w, a)
-        ctx.bit, ctx.per_channel = bit, per_channel
+        ctx.bit, ctx.per_channel, ctx.rows, ctx.alpha_shape = bit, per_channel, rows, alpha.shape
         return _llsq_round(w, a, pwr, -pwr)
 
     @staticmethod
@@ -282,13 +293,21 @@ class _LLSQWeight(torch.autograd.Function):
         pwr = 2 ** (ctx.bit - 1)
         dims = tuple(range(1, w.ndim)) if ctx.per_channel else tuple(range(w.ndim))
         d = _octave(w, a, pwr, -pwr, dims)
-        return g, -(a**2) * d.to(a.dtype).reshape(a.shape), None, None
+        ga = -(a**2) * d.to(a.dtype).reshape(a.shape)
+        if ctx.rows is not None:  # alpha's rows this slice uses
+            ga, part = a.new_zeros(ctx.alpha_shape), ga
+            ga[ctx.rows] = part
+        return g, ga, None, None, None
 
 
-def llsq_weight_quant(w: torch.Tensor, alpha: torch.Tensor, bit: int, per_channel: bool) -> torch.Tensor:
+def llsq_weight_quant(w: torch.Tensor, alpha: torch.Tensor, bit: int, per_channel: bool,
+                      rows: Optional[slice] = None) -> torch.Tensor:
     """LLSQ's weight rounding with alpha 16-bit-quantized on the fly; alpha
-    per output channel, (Cout, 1, 1, 1) for an OIHW kernel."""
-    return _LLSQWeight.apply(w, alpha, bit, per_channel)
+    per output channel, (Cout, 1, 1, 1) for an OIHW kernel. rows: w is
+    these output channels of the kernel (a column-parallel rank's slice),
+    alpha whole: its 16-bit grid is set by the whole alpha's max, and its
+    gradient is nonzero on the rows only."""
+    return _LLSQWeight.apply(w, alpha, bit, per_channel, rows)
 
 
 class _LLSQAct(torch.autograd.Function):

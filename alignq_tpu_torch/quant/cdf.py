@@ -3,8 +3,9 @@
 Rounding rule of the port: every `a * b + c` of an f32 epilogue is ONE
 rounding, as the JAX package's jitted graph evaluates it (XLA contracts
 `a * b + c` into a fused multiply-add). CUDA code uses `__fmaf_rn`; the
-plain PyTorch code evaluates in float64, rounds the sum to odd and casts
-once to float32 (`fma_f32`): the correctly rounded f32 FMA.
+plain PyTorch code evaluates in float64 and casts once to float32,
+rounding the sum to odd first where the cast would round twice
+(`fma_f32`): the correctly rounded f32 FMA.
 
 Likewise XLA turns a division by a compile-time constant into a multiply
 by its reciprocal, so `z / sqrt2` is evaluated here as `z * (1/sqrt2)`.
@@ -23,6 +24,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from alignq_tpu_torch.dist import collectives as C
 
 _SQRT2 = math.sqrt(2.0)
 _INV_SQRT2 = 1.0 / _SQRT2
@@ -73,17 +76,45 @@ _ERF_Q = tuple(float(np.float32(c)) for c in (
 ))
 
 
+def _horner_cast(u64: torch.Tensor, coefs):
+    """The f32 Horner chain acc = acc * u + c over coefs (f32 constants),
+    each step a float64 evaluation cast to f32, and the mask of elements
+    where some cast might have rounded twice (there fma_f32's chain must
+    be taken instead). No synchronisation. Only midpoints are checked:
+    over u in [0, 3.75^2] erf's chains stay above 2e-5 in magnitude, far
+    from f32's subnormals (the first Q step is the least: -1.18e-7 u +
+    2.35e-5)."""
+    acc = torch.full(u64.shape, coefs[0], dtype=torch.float32, device=u64.device)
+    flag = torch.zeros(u64.shape, dtype=torch.bool, device=u64.device)
+    for c in coefs[1:]:
+        s = acc.double() * u64 + c
+        acc = s.float()
+        flag.logical_or_(torch.bitwise_and(s.view(torch.int64), _LOW29) == _HALF29)
+    return acc, flag
+
+
+def _horner_fma(u: torch.Tensor, coefs) -> torch.Tensor:
+    """The same chain, each step fma_f32."""
+    acc = torch.full(u.shape, coefs[0], dtype=torch.float32, device=u.device)
+    for c in coefs[1:]:
+        acc = fma_f32(acc, u, c)
+    return acc
+
+
+@torch.no_grad()
 def erf_f32(x: torch.Tensor) -> torch.Tensor:
     """erf on f32 tensors, evaluated as the JAX package's XLA graph does
-    (values only: differentiate through `erf`)."""
+    (values only: differentiate through `erf`). Each Horner step rounds
+    once, as fma_f32's; its checks are made once for both chains, and the
+    few elements they flag are evaluated again step by step by fma_f32."""
     xc = torch.clamp(x, -_ERF_CLAMP, _ERF_CLAMP)
     x2 = xc * xc
-    p = torch.full_like(x2, _ERF_P[0])
-    for c in _ERF_P[1:]:
-        p = fma_f32(p, x2, c)
-    q = torch.full_like(x2, _ERF_Q[0])
-    for c in _ERF_Q[1:]:
-        q = fma_f32(q, x2, c)
+    x64 = x2.double()  # an f32 value in float64
+    p, flag_p = _horner_cast(x64, _ERF_P)
+    q, flag_q = _horner_cast(x64, _ERF_Q)
+    if x.device.type != "meta" and bool(flag_p.logical_or_(flag_q).any()):
+        at = flag_p.nonzero(as_tuple=True)
+        p[at], q[at] = _horner_fma(x64[at], _ERF_P), _horner_fma(x64[at], _ERF_Q)
     return xc * p / q
 
 
@@ -91,27 +122,68 @@ def _f64(v):
     return v.double() if torch.is_tensor(v) else v
 
 
+_LOW29 = (1 << 29) - 1  # the float64 mantissa bits below an f32's 24
+_HALF29 = 1 << 28  # those bits at an f32 rounding midpoint
+_F32_MIN_BITS = 0x00800000  # the bits of f32's smallest normal, 2^-126
+
+
+def _double_rounding_candidates(s: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Where the f32 cast r of a float64 sum s might round the exact sum
+    otherwise (fma_f32): s an f32 rounding midpoint, or r nonzero
+    subnormal or 2^-126. A bool mask, no host synchronisation."""
+    mid = torch.bitwise_and(s.view(torch.int64), _LOW29) == _HALF29
+    # |r|'s bits less one, as unsigned, below those of f32's smallest normal
+    low = torch.bitwise_and(r.view(torch.int32), 0x7FFFFFFF).sub_(1).bitwise_and_(0x7FFFFFFF)
+    return mid.logical_or_(low < _F32_MIN_BITS)
+
+
+def _at(v, shape, at):
+    """The elements of v, broadcast to `shape`, at the coordinates `at`."""
+    return v.detach().expand(shape)[at] if torch.is_tensor(v) else v
+
+
 def fma_f32(a, b, c) -> torch.Tensor:
     """f32 `a * b + c` of f32 operands, rounded once, as `__fmaf_rn` and
     XLA's contracted multiply-add round it.
 
-    The float64 product of two f32 values is exact. The float64 add is
-    not: its error comes from TwoSum, and where the add was inexact the
-    sum is rounded to odd (moved one float64 ulp toward the error where its
-    last mantissa bit is even). The cast to f32 then rounds the exact
-    result correctly: 53 bits hold 2 * 24 + 2, so no f32 midpoint lies
-    between the odd-rounded sum and the exact one. Subnormal f32 results
-    included."""
+    The float64 product of two f32 values is exact; the float64 sum s of
+    it and c is not, and its cast r to f32 rounds the exact result
+    otherwise only where s is an f32 rounding midpoint (the 29 mantissa
+    bits below f32's 24 read 1 then zeros) or r is subnormal or 2^-126 (a
+    zero r is right: a nonzero exact sum below 2^-149 in magnitude is
+    exact in float64, since its terms' lowest bits lie above 2^-198). At those few
+    elements the add's error comes from TwoSum and s is rounded to odd
+    (moved one float64 ulp toward the error where its last bit is even),
+    whose cast rounds the exact result correctly: 53 bits hold 2 * 24 + 2,
+    so no f32 midpoint lies between the odd-rounded sum and the exact one.
+    The gradient is that of a * b + c."""
     c64 = _f64(c)
     p = _f64(a) * _f64(b)
     s = p + c64
-    with torch.no_grad():  # the nudge is a constant of the graph: the gradient is that of a * b + c
-        p, c64, s0 = (v.detach() if torch.is_tensor(v) else v for v in (p, c64, s))
-        t = s0 - p
-        err = (p - (s0 - t)) + (c64 - t)
-        nudge = (err != 0) & ((s0.view(torch.int64) & 1) == 0) & torch.isfinite(s0)
-        odd = torch.where(nudge, torch.nextafter(s0, torch.where(err > 0, math.inf, -math.inf).to(s0.dtype)), s0)
-    return (s + (odd - s0)).float() if s.requires_grad else odd.float()
+    if s.ndim == 0:
+        return fma_f32(*(v.reshape(1) if torch.is_tensor(v) else v for v in (a, b, c))).reshape(())
+    r = s.float()
+    if r.device.type == "meta":  # shapes only (train/state.py admm_sites)
+        return r
+    with torch.no_grad():
+        s0 = s.detach()
+        cand = _double_rounding_candidates(s0, r.detach())
+        if not bool(cand.any()):
+            return r
+        idx = cand.reshape(-1).nonzero().squeeze(1)
+        at = torch.unravel_index(idx, s0.shape)
+        ps, ss, cs = _at(p, s0.shape, at), s0[at], _at(c64, s0.shape, at)
+        t = ss - ps
+        err = (ps - (ss - t)) + (cs - t)
+        # |err| > 0 is false where err is NaN (an infinite sum): no nudge there
+        nudge = (err.abs() > 0) & ((ss.view(torch.int64) & 1) == 0)
+        fixed = torch.where(nudge, torch.nextafter(ss, err * math.inf), ss).float()
+        if not r.requires_grad:
+            r[at] = fixed
+            return r
+        delta = torch.zeros_like(r)
+        delta[at] = fixed - r.detach()[at]
+    return r + delta
 
 
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -205,8 +277,13 @@ def gaussian_pdf2(x: torch.Tensor, mean, std) -> torch.Tensor:
 
 
 def tensor_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor (mean, std) with Bessel correction (ddof=1)."""
-    return x.mean(), x.std(correction=1)
+    """Per-tensor (mean, std) with Bessel correction (ddof=1). Of the whole
+    tensor where x is a rank's slice of one split over the model axis
+    (dist/collectives.py model_shard, whole_mean_std): torch's mean and
+    std of the gathered whole tensor, bit for bit one process's, their
+    gradients summed over the ranks."""
+    stats = C.whole_mean_std(x)
+    return (x.mean(), x.std(correction=1)) if stats is None else stats
 
 
 def channel_stats(x: torch.Tensor, axis: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -4,11 +4,14 @@ optimizer's momentum traces and step count, the ADMM duals and the step,
 so the duals survive a restart. One file per saved epoch under
 job_dir/checkpoint; the max_to_keep best by eval top-1 are kept.
 
-Over a data-parallel mesh save and restore are collective: every rank
-calls them, rank 0 writes (after a barrier the others read). Local-mode
-duals (each rank's (B/N, B/N) of every site) are gathered to the JAX
-package's (N, B/N, B/N) layout, so that a checkpoint describes itself; it
-restores on the same N, each rank taking its own."""
+Over a mesh save and restore are collective: every rank calls them,
+global rank 0 writes (after a barrier the others read). Local-mode duals
+(each rank's (B/N, B/N) of every site) are gathered to the JAX package's
+(N, B/N, B/N) layout, so that a checkpoint describes itself; it restores
+on the same N, each rank taking its own. A column-parallel parameter and
+its momentum trace are written whole, gathered over the model axis, and
+restored as this rank's slice of the whole tensor: a tensor-parallel
+checkpoint restores into one process, and the other way round."""
 
 from __future__ import annotations
 
@@ -20,11 +23,12 @@ import torch
 import torch.distributed as dist
 
 from alignq_tpu_torch.admm.state import ADMMSiteState
+from alignq_tpu_torch.dist.sharding import local_slice, param_shards, whole
 from alignq_tpu_torch.train.state import TrainState
 
 
 class CheckpointManager:
-    """mesh: the run's data-parallel mesh (None: one process);
+    """mesh: the run's mesh (None: one process);
     local_duals: the duals are each rank's own (corr_mode 'local')."""
 
     def __init__(self, job_dir: str, max_to_keep: int = 3, mesh=None, local_duals: bool = False):
@@ -59,16 +63,20 @@ class CheckpointManager:
     def save(self, epoch: int, state: TrainState, metrics: Optional[dict] = None) -> None:
         duals = (self._gather_duals(state.admm_duals) if self.local_duals else
                  {k: {"alter_d": s.alter_d.cpu(), "gamma": s.gamma.cpu()} for k, s in state.admm_duals.items()})
-        if self.axis is None or self.axis.rank == 0:
-            self._write(epoch, state, duals, metrics)
-        if self.axis is not None:
-            dist.barrier(group=self.axis.group)
+        shards = param_shards(state.model)
+        params = {k: whole(v, shards.get(k)).detach().cpu() for k, v in state.params.items()}
+        trace = {k: whole(v, shards.get(k)).detach().cpu() for k, v in state.tx.trace.items()}
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            self._write(epoch, state, params, trace, duals, metrics)
+        if dist.is_initialized():
+            dist.barrier()
 
-    def _write(self, epoch: int, state: TrainState, duals: dict, metrics: Optional[dict]) -> None:
+    def _write(self, epoch: int, state: TrainState, params: dict, trace: dict, duals: dict,
+               metrics: Optional[dict]) -> None:
         payload = {
-            "params": {k: v.detach().cpu() for k, v in state.params.items()},
+            "params": params,
             "batch_stats": {k: v.detach().cpu() for k, v in state.batch_stats.items()},
-            "opt_state": {"trace": {k: v.cpu() for k, v in state.tx.trace.items()}, "count": state.tx.count},
+            "opt_state": {"trace": trace, "count": state.tx.count},
             "admm_duals": duals,
             "step": state.step,
         }
@@ -102,14 +110,19 @@ class CheckpointManager:
         if epoch is None:
             return state, 0
         payload = self.load(epoch)
+        shards = param_shards(state.model)
+
+        def mine(k, v):  # this rank's slice of a whole tensor it holds a slice of
+            return local_slice(v, shards[k].dim, shards[k].axis) if k in shards else v
+
         with torch.no_grad():
             for table, saved in ((state.params, payload["params"]), (state.batch_stats, payload["batch_stats"])):
                 if set(table) != set(saved):
                     raise ValueError(f"checkpoint {self._path(epoch)} holds another model")
                 for k, v in table.items():
-                    v.copy_(saved[k])
+                    v.copy_(mine(k, saved[k]))
         dev = next(state.model.parameters()).device
-        state.tx.load_state_dict({"trace": {k: v.to(dev) for k, v in payload["opt_state"]["trace"].items()},
+        state.tx.load_state_dict({"trace": {k: mine(k, v).to(dev) for k, v in payload["opt_state"]["trace"].items()},
                                   "count": payload["opt_state"]["count"]})
         duals = payload["admm_duals"]
         if self.local_duals:

@@ -22,8 +22,9 @@ world the --mesh's data axis:
 NCCL on the cards, one a rank; --dist_backend gloo lets ranks share a card,
 and --device cpu runs gloo on the CPU. --coordinator, --num_processes and
 --process_id (or ALIGNQ_COORDINATOR, ALIGNQ_NUM_PROCESSES,
-ALIGNQ_PROCESS_ID) launch without torchrun. A 'model' axis (--mesh 4 2)
-waits for tensor parallelism (ROADMAP queue 1 item 3).
+ALIGNQ_PROCESS_ID) launch without torchrun. A 'model' axis (--mesh 4 2:
+8 ranks, 4 data-parallel groups of 2 that split each divisible kernel's
+output channels) trains tensor-parallel in gather mode.
 """
 
 from __future__ import annotations
@@ -108,8 +109,8 @@ def add_dist_args(p: argparse.ArgumentParser, d) -> None:
     """The flags of data-parallel and multi-process runs (the JAX
     package's, and --dist_backend)."""
     p.add_argument("--mesh", type=int, nargs="+", default=None, metavar="N",
-                   help="device mesh shape, e.g. --mesh 8 (data-parallel: one process a device); a 'model' axis "
-                        "(--mesh 4 2) waits for tensor parallelism (ROADMAP queue 1 item 3)")
+                   help="device mesh shape, one process a device: --mesh 8 (data-parallel), --mesh 4 2 (a 'model' "
+                        "axis of 2: tensor-parallel kernels, corr_mode gather)")
     p.add_argument("--corr_mode", choices=("gather", "local"), default=d.corr_mode,
                    help="ADMM corr under DP: 'gather' = exact global-batch (rows all-gathered), 'local' = "
                         "per-shard block-diagonal duals")

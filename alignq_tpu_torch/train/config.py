@@ -4,9 +4,9 @@ port keeps under the working directory and the temporary directory).
 
 mesh_shape larger than one device trains data-parallel over
 torch.distributed (train/loop.py) in corr_mode 'gather' or 'local', the
-latter with grad_compression; a 'model' axis raises where it is used
-(ROADMAP queue 1 item 3, tensor parallelism). `method` takes every value
-of the JAX package's
+latter with grad_compression; a 'model' axis splits the kernels' output
+channels besides (tensor parallelism, gather mode only). `method` takes
+every value of the JAX package's
 (ours, uniform, dorefa, lsq, apot, llsq, bwn, bwnf, uniform_admm, fp); the
 PDF correction runs for 'ours' only.
 """

@@ -7,8 +7,10 @@ first): each rank takes its rows of the global batch that every rank's
 seeded loader yields alike, the step runs in cfg.corr_mode
 (train/steps.py), eval reduces its meters over the ranks, rank 0 alone
 writes the log file, the metrics and the config, and checkpoints are
-collective (train/checkpoint.py). A 'model' axis larger than 1 waits for
-tensor parallelism (ROADMAP queue 1 item 3)."""
+collective (train/checkpoint.py). A 'model' axis larger than 1 trains
+tensor-parallel besides: each rank holds its slice of every divisible
+kernel's output channels (dist/sharding.py shard_model), and checkpoints
+hold the whole tensors."""
 
 from __future__ import annotations
 
@@ -68,13 +70,15 @@ def evaluate(eval_step, state, loader, device, mesh=None) -> dict:
     return {k: meter.avg for k, meter in meters.items()}
 
 
-def _build_distributed(cfg: TrainConfig, model, state):
-    """The mesh, the state (local mode: this rank's duals) and the step of
-    a data-parallel run. JAX's refusals come first and need no process
-    group: a train batch the data axis does not divide, a 'local' mode
-    with a model axis."""
+def _build_distributed(cfg: TrainConfig, model, state, eval_model=None):
+    """The mesh, the state (local mode: this rank's duals; a model axis:
+    this rank's slices, the optimizer told which) and the step of a
+    distributed run. JAX's refusals come first and need no process group:
+    a train batch the data axis does not divide, a 'local' mode with a
+    model axis. eval_model: an f32 twin of the model, placed alike."""
     from alignq_tpu_torch.dist import make_mesh
     from alignq_tpu_torch.dist.corr import create_local_duals
+    from alignq_tpu_torch.dist.sharding import shard_model
 
     shape = tuple(cfg.mesh_shape)
     n_data = shape[0]
@@ -83,6 +87,9 @@ def _build_distributed(cfg: TrainConfig, model, state):
     check_mesh(math.prod(shape[1:]), cfg.corr_mode)
     mesh = make_mesh(shape, tuple(cfg.mesh_axes))
     replicated({**state.params, **state.batch_stats}, mesh)
+    state.tx.shards = {k: (v.axis, v.dim) for k, v in shard_model(model, mesh).items()}
+    if eval_model is not None and eval_model is not model:
+        shard_model(eval_model, mesh)
     if cfg.corr_mode == "local" and cfg.admm:
         p = next(model.parameters())
         state.admm_duals = create_local_duals(torch.Generator().manual_seed(cfg.seed + 1), sorted(state.admm_duals),
@@ -140,7 +147,7 @@ def fit(cfg: TrainConfig, data: Data, model=None, resume: bool = False, max_step
         state = load_pretrained(state, pretrained_dir)
     mesh = None
     if math.prod(cfg.mesh_shape) > 1:
-        mesh, state, train_step = _build_distributed(cfg, model, state)
+        mesh, state, train_step = _build_distributed(cfg, model, state, eval_model)
         logger.info(f"mesh {mesh.shape} rank {mesh.rank} corr_mode={cfg.corr_mode} "
                     f"grad_compression={cfg.grad_compression}")
         if cfg.corr_mode == "gather" and cfg.grad_compression != "f32":

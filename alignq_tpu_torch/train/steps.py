@@ -19,6 +19,13 @@ rank's rows):
   `amax`, the mean otherwise. The classification models have no dropout,
   so no stream is folded with the rank.
 Either way the metrics are averaged over the ranks.
+
+Over a ('data', 'model') mesh (gather mode only, as JAX's) the model's
+column-parallel layers hold their slices (dist/sharding.py shard_model)
+and gather their outputs: the step above runs unchanged on every rank,
+its data-axis reductions over the data group (the ranks of one model
+coordinate), and the gradients of the replicated tensors are then taken
+from the first model rank (align_replicated_grads).
 """
 
 from __future__ import annotations
@@ -43,17 +50,36 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
 
 
 def check_mesh(n_model: int, corr_mode: str) -> None:
-    """JAX's refusals of a mesh the data-parallel steps cannot take, and a
-    'model' axis (of n_model devices), which waits for tensor
-    parallelism."""
+    """JAX's refusals of a mesh the steps cannot take: an unknown corr
+    mode, and 'local' with a 'model' axis (of n_model devices)."""
     if corr_mode not in ("gather", "local"):
         raise ValueError(f"unknown corr_mode {corr_mode!r}")
-    if n_model > 1:
-        if corr_mode != "gather":
-            raise ValueError("tensor-parallel training (model axis > 1) requires corr_mode='gather'; 'local' shards "
-                             "corr duals over the data axis only")
-        raise NotImplementedError("tensor-parallel training (a 'model' axis larger than 1) waits for ROADMAP queue 1 "
-                                  "item 3, tensor parallelism")
+    if n_model > 1 and corr_mode != "gather":
+        raise ValueError("tensor-parallel training (model axis > 1) requires corr_mode='gather'; 'local' shards "
+                         "corr duals over the data axis only")
+
+
+@torch.no_grad()
+def align_replicated_grads(grads: Dict[str, torch.Tensor], shards, mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """The gradients of the tensors replicated over the model axis (every
+    one but the column-parallel slices in `shards`) set to the first model
+    rank's, one broadcast a dtype within the model group. Each model rank
+    computed them itself; on the card the conv algorithms' run-to-run
+    order could otherwise make the copies drift apart over steps."""
+    axis = mesh.model_axis()
+    if axis is None:
+        return grads
+    names = [k for k in grads if k not in shards]
+    by_dtype: Dict[torch.dtype, list] = {}
+    for k in names:
+        by_dtype.setdefault(grads[k].dtype, []).append(k)
+    out = dict(grads)
+    for keys in by_dtype.values():
+        flat = torch.cat([grads[k].reshape(-1) for k in keys])
+        dist.broadcast(flat, src=dist.get_global_rank(axis.group, 0), group=axis.group)
+        for k, part in zip(keys, torch.split(flat, [grads[k].numel() for k in keys])):
+            out[k] = part.reshape(grads[k].shape)
+    return out
 
 
 @torch.no_grad()
@@ -86,7 +112,9 @@ def make_train_step(model: nn.Module, cfg: TrainConfig, mesh: Optional[Mesh] = N
     """train_step(state, images, labels) -> (state, metrics), for a state
     that holds `model`; metrics are 0-dim tensors (loss, ce, trans,
     accuracy). mesh: a data-parallel mesh (images and labels this rank's
-    rows), run in cfg.corr_mode; None or one device: the plain step."""
+    rows), run in cfg.corr_mode, with a model axis where `model` was
+    placed on it (dist/sharding.py shard_model, and the optimizer's
+    `shards`); None or one device: the plain step."""
     check_mesh(mesh.n_model if mesh is not None else 1, cfg.corr_mode)
     admm_cfg = ADMMConfig(mu=cfg.admm_mu, rho=cfg.admm_rho)
     use_admm = cfg.admm
@@ -112,6 +140,8 @@ def make_train_step(model: nn.Module, cfg: TrainConfig, mesh: Optional[Mesh] = N
             grads = compressed_tree_pmean(grads, axis.group, "f32" if gather else cfg.grad_compression)
             if not gather:
                 combine_batch_stats(model, axis.group)
+        if mesh is not None:
+            grads = align_replicated_grads(grads, state.tx.shards, mesh)
         state.tx.step(params, grads)
         if use_admm:
             for name, d in sink.items():

@@ -77,13 +77,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     (c) exported (fake-quant and INT top-1, delta, prediction agreement of
         at least 99.0%, the logit margins of the images where the two
         disagree) and its artifact served by engine_from_artifact at
-        engine batch 16, held against the CPU plain path as in phase 14;
+        engine batch 8, held against the CPU plain path as in phase 14;
         the launches of the export and of serving: K1, the BN-act form of
         the buffer (DenseNet) or the depthwise kernel (MobileNet-V2), no
         tap gathered;
     (d) each family's train step at batch 128 with ADMM (CUDA events,
-        median of 5; device busy, idle share and launches of one step
-        under torch.profiler), and one run of `python -m
+        median of 3), and one run of `python -m
         alignq_tpu_torch.bench`, its line printed;
 10. times from CUDA events (median of 20 after warm-up): the forward at
     batches 2048 and 256 on both routes, and each kernel at each path
@@ -96,7 +95,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     only; no one PyTorch call computes K2 or K3); beside the stem, the
     pad pass that zero-pads its 3-channel image to the 4 channels K1
     reads (glue, timed the same way);
-11. QAT train-step times (CUDA events, median of 20 after warm-up, TF32
+11. QAT train-step times (CUDA events, median of 5 after warm-up, TF32
     asserted off): ResNet-20 W8A8 erf with ADMM at batch 128, and erf and
     poly without ADMM at batch 1024; the batch-128 step's device busy
     time, idle share and five largest kernels from torch.profiler;
@@ -117,7 +116,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     MobileNet block stream bit for bit, logits within 1e-5;
 14. serving from artifacts: ResNet-20 W4A4 int4-packed, ResNet-56,
     DenseNet-40 (both buffers) and MobileNet-V2 saved by the port, served
-    by serve.engine_from_artifact at engine batch 16 with the counts zeroed
+    by serve.engine_from_artifact at engine batch 8 with the counts zeroed
     before and read after; each engine's final stream bit for bit and its
     logits within 1e-5 of the CPU plain path; 39 K1 and 39 BN-act launches
     a DenseNet forward (table form over the int8 buffer, its 39 tables
@@ -142,7 +141,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     features within 1e-5 of the largest;
 18. serving, the trunks' main path: the launch counts zeroed, each trunk
     saved by the port as an artifact and served by engine_from_artifact
-    at engine batch 16 (requests of 16 and 3 images: the engine's warm-up
+    at engine batch 4 (requests of 4 and 3 images: the engine's warm-up
     forward and two batches), the counts read (20 K1 launches a ResNet-18
     forward, 53 a ResNet-50 one, one of each forward's counted under the
     7x7 form, every one in a codes or the f32 mode, no tap gathered), and
@@ -170,7 +169,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     algorithms; (c) its INT graph against its fake-quant eval on the target
     test set, at least DA_AGREEMENT_GATE (99.0%) agreement, every K1 launch
     of the export in the 5x5 form; (d) its artifact served by
-    engine_from_artifact at engine batch 16 (requests of 16 and 3): 2 K1
+    engine_from_artifact at engine batch 8 (requests of 8 and 3): 2 K1
     launches of the 5x5 form (counter `int8_matmul_dequant:ks5`, relu'd erf
     codes) a forward, held to the CPU plain path as in phase 14, and an
     engine at batch 256 timed (one-image latency, a backlog's images/s,
@@ -182,13 +181,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 23. the DA nets on ResNet-50 at 224x224: the preset
     dann_office_d2w_w8a8_admm (W8A8 ADMM, 31 classes, batch 28), the
     preset dsan_office_a2w_w4a4 (W4A4, bottleneck 256, batch 32) and an MDD
-    net (W8A8 ADMM, batch 28), each 3 timed steps (CUDA events), the two
-    presets' one more under torch.profiler (idle share, launches), on
+    net (W8A8 ADMM, batch 28), each 3 timed steps (CUDA events), on
     seeded images; folded
     on the CPU by its family's converter; the 53 K1 launches of its INT
     forward at batch 4 each held against its plain version; DANN's class
     and domain logits on the card within 1e-5 of the CPU's; its artifact
-    served at engine batch 4 (requests of 4 and 1: 53 K1 launches a
+    served at engine batch 2 (requests of 2 and 1: 53 K1 launches a
     forward, one the 7x7 stem) and held to the CPU plain path; DANN's
     engine at batch 16 timed as the digit net's;
 24. data-parallel training over torch.distributed, one process a device
@@ -226,7 +224,28 @@ Phases, in order; any failure raises and the script exits non-zero:
         the run's temporary directory, so that no later run's batches
         change) against numpy's path at batch 2048: the same draws, values
         within 1e-5, host ms of each;
-25. one JSON line of the kernels (K1 and K3: times summed over the
+25. tensor parallelism and mesh serving, gloo ranks sharing the card:
+    (a) K1's f32 epilogue (__fmaf_rn) against the plain fma_f32 on
+        acc * scale + bias operands at, above and below f32 midpoints, bit
+        for bit (and how many the earlier float64 add and cast would
+        round otherwise);
+    (b) ResNet-20 W8A8 ADMM, DP_STEPS float64 gather steps at global batch
+        DP_BATCH, the kernels column-parallel, on meshes (1, 2) and (2, 2):
+        the whole network within 1e-9 of one process, the replicated
+        tensors bit-identical across the model ranks, each split kernel
+        Cout / n_model channels on its rank;
+    (c) engines from artifacts over meshes (1, 2), (2, 1) and (2, 2):
+        ResNet-20 on the slice route (K1 and K3) and the erf route,
+        DenseNet-40 with the int8 stage buffer, the ResNet-18 trunk at
+        224x224; rank 0's logits bit for bit the one-process engine's,
+        each rank's K1 launches counted with the channels they wrote
+        (half a rank's at n_model 2), its K3 launches and tap gathers;
+    (d) times, one card with gloo through the host (not multi-card
+        figures): the f32 TP step at DP_TIME_BATCH on (1, 2), ms a rank
+        and its collectives by op and group (a barrier before each), and
+        served images/s of the slice route at engine batch 256 on each
+        mesh and in one process;
+26. one JSON line of the kernels (K1 and K3: times summed over the
     launches of one slice-route forward at the serving batch; K2: over one
     launch at each act-site size of that batch; K1 on DenseNet-40 and
     MobileNet-V2, the depthwise kernel and the BN-act kernel's two forms
@@ -243,7 +262,22 @@ the per-shape details to chiprun_out/chip_smoke.json.
 
     python3 chip_smoke.py --dp-rank RANK N PORT DEVICE OUT CASES
 
-is one rank of phase 24(b, d), started by the script itself.
+is one rank of phase 24(b, d), started by the script itself;
+
+    python3 chip_smoke.py --tp-rank RANK N PORT SPEC
+
+one rank of phase 25, likewise.
+
+    python3 chip_smoke.py --tp-only
+
+builds the kernels and runs phase 25 alone.
+
+    python3 chip_smoke.py --fma-ab
+
+times fma_f32's repair on the card: the ResNet-50 int8 forward at batch
+256 and the ResNet-20 W8A8 erf ADMM QAT step at 128, with the repaired
+fma_f32 and with its earlier form (float64 evaluation, one cast), in the
+order ABBA, in one process.
 
     python3 chip_smoke.py --gather-backward-ab
 
@@ -270,6 +304,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -530,7 +565,7 @@ def qat_on_the_card(dev, repo, serve_and_check, reqs, slice_kw):
 
 
 def qat_times(dev, card):
-    """Phase 11: a ResNet-20 QAT train step, CUDA events (median of 20 after
+    """Phase 11: a ResNet-20 QAT train step, CUDA events (median of 5 after
     warm-up), TF32 off: batch 128 W8A8 erf ADMM (TrainConfig's default,
     the reference's configuration) and batch 1024 W8A8 erf and poly, ADMM
     off; then the batch-128 ADMM step under torch.profiler: device busy,
@@ -555,13 +590,13 @@ def qat_times(dev, card):
         rng = np.random.RandomState(SEED)
         x = torch.tensor(rng.randn(batch, 32, 32, 3), dtype=torch.float32, device=dev)
         y = torch.tensor(rng.randint(0, 10, batch), device=dev)
-        ms = median_ms(lambda: step(state, x, y))
+        ms = median_ms(lambda: step(state, x, y), runs=5, warmup=1)
         key = f"batch {batch} W8A8 {impl} admm={admm}"
         out[key] = {"ms_per_step": ms, "images_per_s": batch / ms * 1e3,
                     "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
         print(f"QAT step {key}: {ms:.3f} ms/step = {batch / ms * 1e3:.0f} images/s [{card}]", flush=True)
         if batch == 128:
-            out["profile_batch_128_admm"] = profile_step(lambda: step(state, x, y), card)
+            out["profile_batch_128_admm"] = profile_step(lambda: step(state, x, y), card, iters=1)
         del model, state, step, x, y
         torch.cuda.empty_cache()
     return out
@@ -582,7 +617,7 @@ def profile_step(fn, card, label="QAT step batch 128 ADMM", iters=5):
 
 # ---------------------------------------------- the CIFAR deploy families
 
-FAMILY_SERVE_BATCH = 16  # the engine batch of the families' serving phase
+FAMILY_SERVE_BATCH = 8  # the engine batch of the families' serving phase
 FAMILY_TIME_BATCHES = (256, 1024)
 # f32 operations of one BN-act code on the CUDA cores (csrc/quantize.cu
 # bn_act_code: the BN multiply-add at 2, then act_codes.cuh's map: erf 3
@@ -943,7 +978,7 @@ def deploy_families(dev, card, repo, details, phase):
     art_dir = repo / "chiprun_out" / "artifacts"
     art_dir.mkdir(parents=True, exist_ok=True)
     freqs = [torch.randn((n, 32, 32, 3), generator=torch.Generator().manual_seed(20 + n)).numpy()
-             for n in (1, 5, 16, 10)]
+             for n in (1, 5, 8, 6)]
     p20, s20 = init_preact_resnet_params(20, torch.Generator().manual_seed(SEED + 1), "cpu")
     p56, s56 = init_preact_resnet_params(56, torch.Generator().manual_seed(SEED + 1), "cpu")
     fam = {label: (build, streams, kw) for label, build, _, streams, _, kw in family_configs()}
@@ -1014,6 +1049,9 @@ def deploy_families(dev, card, repo, details, phase):
 TRUNKS = ("resnet18", "resnet50")
 TRUNK_SIZE = 224  # ImageNet's input, the trunks' published width
 TRUNK_QAT_BATCH = 28  # the DANN preset's batch (alignq_tpu/configs.py)
+# the trunks' serving engine batch: each served batch is held against the
+# plain path on the host, ~10 s an image of ResNet-50 at 224x224 there
+TRUNK_SERVE_BATCH = 4
 # (arch, batch, act_bits, act_impl) of every forward whose K1 launches are
 # recorded and each held against its plain version: both trunks at the
 # serving batch 256 and a ragged 3 on both A8 maps, and the A4 bins map
@@ -1139,14 +1177,15 @@ def imagenet_trunks(dev, card, repo, details, phase):
     # depends on its batch: requests that fill the engine's batches in order
     # (the last one padded), as the check below batches the images
     reqs = [torch.randn((n, TRUNK_SIZE, TRUNK_SIZE, 3), generator=torch.Generator().manual_seed(60 + i)).numpy()
-            for i, n in enumerate((FAMILY_SERVE_BATCH, 3))]
+            for i, n in enumerate((TRUNK_SERVE_BATCH, 3))]
     serving = {}
     for arch in TRUNKS:
         _, (qp_cpu, _) = RI.build_resnet_imagenet_int8(arch, 1, device="cpu", image_size=TRUNK_SIZE)
         path = art_dir / f"{arch}.npz"
         save_int8_artifact(str(path), qp_cpu, meta={"model": arch, "act_bits": 8, "weight_bits": 8,
                                                     "act_impl": "erf", "image_size": TRUNK_SIZE})
-        serving[arch] = serve_artifact(arch, path, RI.resnet_imagenet_int8_streams, dev, reqs, feature=True)
+        serving[arch] = serve_artifact(arch, path, RI.resnet_imagenet_int8_streams, dev, reqs, feature=True,
+                                       batch=TRUNK_SERVE_BATCH)
         n = serving[arch]["launches"]
         per_fwd = {"resnet18": 20, "resnet50": 53}[arch]
         if not (n.get(K1.KERNEL, 0) and n[K1.KERNEL] == per_fwd * n.get(K1.FORM.format(7), 0)
@@ -1197,7 +1236,7 @@ def baseline_qat(dev, card, details, phase):
     ResNet-50 at 224x224, batch 2, W4A4 ADMM), each on the card against the
     CPU within 1e-9; (c) the ResNet-50 trunk's f32 W8A8 ADMM forward and
     backward at the DANN preset's batch 28, and the ResNet-20 W4A4 step of
-    each of the ten methods at batch 128 (CUDA events, median of 5), TF32
+    each of the ten methods at batch 128 (CUDA events, median of 3), TF32
     off."""
     import numpy as np
     import torch
@@ -1272,7 +1311,7 @@ def baseline_qat(dev, card, details, phase):
         step = make_train_step(model, cfg)
         xb = torch.tensor(rng.randn(128, 32, 32, 3), dtype=torch.float32, device=dev)
         yb = torch.tensor(rng.randint(0, 10, 128), device=dev)
-        ms = median_ms(lambda: step(state, xb, yb), runs=5, warmup=2)
+        ms = median_ms(lambda: step(state, xb, yb), runs=3, warmup=1)
         out["step_ms"][method] = ms
         print(f"QAT (c) ResNet-20 {method} W4A4{' ADMM' if cfg.admm else ''} step, batch 128: {ms:.3f} ms = "
               f"{128 / ms * 1e3:.0f} images/s [{card}]", flush=True)
@@ -1360,7 +1399,7 @@ def family_qat(dev, card, repo, phase):
         out["card_vs_cpu_f64_max_abs"][label] = err
 
     requests = [torch.randn((n, 32, 32, 3), generator=torch.Generator().manual_seed(40 + n)).numpy()
-                for n in (1, 7, 16, 9)]
+                for n in (1, 7, 8, 5)]
     streams = {"densenet40 f32": D.densenet40_int8_buffers, "densenet40 stage_int8": D.densenet40_int8_buffers,
                "mobilenetv2": M.mobilenetv2_int8_streams}
     out["trained"] = {}
@@ -1428,15 +1467,12 @@ def family_qat(dev, card, repo, phase):
         rng = np.random.RandomState(SEED)
         x = torch.tensor(rng.randn(FAMILY_QAT_TIME_BATCH, 32, 32, 3), dtype=torch.float32, device=dev)
         y = torch.tensor(rng.randint(0, 10, FAMILY_QAT_TIME_BATCH), device=dev)
-        # 5 steps timed and one profiled: a step takes 0.5-1 s, and the
-        # profiler's processing of a step's 25,000-40,000 launches ~20 s
-        ms = median_ms(lambda: step(state, x, y), runs=5, warmup=2)
+        # 3 steps timed, none profiled: the profiler's processing of a
+        # step's 30,000-70,000 launches takes ~25 s (phase 11 profiles one)
+        ms = median_ms(lambda: step(state, x, y), runs=3, warmup=1)
         print(f"QAT step {label} batch {FAMILY_QAT_TIME_BATCH} W8A8 erf ADMM: {ms:.3f} ms/step = "
               f"{FAMILY_QAT_TIME_BATCH / ms * 1e3:.0f} images/s [{card}]", flush=True)
-        prof = profile_step(lambda: step(state, x, y), card, f"QAT step {label} batch {FAMILY_QAT_TIME_BATCH} ADMM",
-                            iters=1)
-        out["step_times"][label] = {"ms_per_step": ms, "images_per_s": FAMILY_QAT_TIME_BATCH / ms * 1e3,
-                                    "profile": prof}
+        out["step_times"][label] = {"ms_per_step": ms, "images_per_s": FAMILY_QAT_TIME_BATCH / ms * 1e3}
         del model, state, step, x, y
         torch.cuda.empty_cache()
 
@@ -1490,7 +1526,7 @@ DA_F64_CASES = ("digit", "dann", "dsan", "mdd")
 DA_EXPORT_ARGS = ["--task", "digit", "--bits", "8", "--epochs", "5", "--batch", "128", "--lr", "0.01", "--seed", "0"]
 DA_AGREEMENT_GATE = 99.0
 DIGIT_TIME_BATCHES = (256, 2048)  # the 5x5 form's timed batches
-DA_SERVE_BATCH = 4  # the engine batch of the DA trunks' serving (the CPU holds each batch to its plain path)
+DA_SERVE_BATCH = 2  # the engine batch of the DA trunks' serving (the CPU holds each batch to its plain path)
 
 
 def engine_times(path, dev, batch, card, label):
@@ -1703,9 +1739,9 @@ def da_trunk_configs():
 
 def da_trunks(dev, card, repo, details, phase):
     """Phase 23, the DA nets on the ImageNet-layout ResNet-50 at 224x224:
-    each trained 3 timed steps at its batch (seeded images on the card;
-    then one step under torch.profiler), converted on the CPU, every K1
-    launch of its INT forward at batch 4 held against its plain version,
+    each trained 3 timed steps at its batch (seeded images on the card),
+    converted on the CPU, every K1 launch of its INT forward at batch 4
+    held against its plain version,
     DANN's class and domain logits on the card against the CPU, and its
     artifact served at engine batch DA_SERVE_BATCH and held to the CPU
     plain path. Returns {task: served launches and error}, K1's max abs
@@ -1743,9 +1779,6 @@ def da_trunks(dev, card, repo, details, phase):
             end.synchronize()
             step_ms.append(start.elapsed_time(end))
             losses.append(float(m["loss"]))
-        # the presets' steps profiled (~20 s each to process ~40,000 launches); MDD's, in brief, not
-        label = f"{task} ResNet-50 QAT step batch {b} {TRUNK_SIZE}x{TRUNK_SIZE}"
-        prof = None if task == "mdd" else profile_step(lambda: step(state, xs, ys, xt, ramp), card, label, iters=1)
         print(f"DA {task} ResNet-50 W{cfg.bitW}A{cfg.abitW}{' ADMM' if cfg.admm else ''} step, batch {b} at "
               f"{TRUNK_SIZE}x{TRUNK_SIZE}: {[round(t, 3) for t in step_ms]} ms (median "
               f"{statistics.median(step_ms):.3f} = {b / statistics.median(step_ms) * 1e3:.1f} images/s); losses "
@@ -1774,7 +1807,7 @@ def da_trunks(dev, card, repo, details, phase):
               f"its plain version: {n_diff} differing elements", flush=True)
         if len(rec) != 53:
             raise AssertionError(f"DA {task}: {len(rec)} K1 launches a forward, expected ResNet-50's 53")
-        rec_out = {"step_ms": step_ms, "losses": losses, "profile": prof, "k1_distinct": len(launches),
+        rec_out = {"step_ms": step_ms, "losses": losses, "k1_distinct": len(launches),
                    "k1_differing": n_diff}
         if task == "dann":
             with torch.inference_mode():
@@ -1933,30 +1966,33 @@ def comm_share(fn, iters=3):
 
 
 @contextlib.contextmanager
-def timed_collectives(log: list, barrier: bool):
+def timed_collectives(log: list, barrier: bool, labels=None):
     """Within the block, every collective that the port's steps issue
-    (torch.distributed's all_reduce, all_gather_into_tensor and
-    reduce_scatter_tensor) is timed alone on the host clock, the card
-    synchronized before and after it, and (its name, its ms) appended to
-    `log`. With `barrier`, a barrier of its group comes first, so that
-    both ranks enter it together and its time is the transfer without the
-    wait for the other rank."""
+    (torch.distributed's all_reduce, all_gather_into_tensor,
+    reduce_scatter_tensor and broadcast) is timed alone on the host clock,
+    the card synchronized before and after it, and (its name, its ms)
+    appended to `log`; labels: {id(process group): label}, a collective on
+    a labelled group named 'name:label'. With `barrier`, a barrier of its
+    group comes first, so that both ranks enter it together and its time
+    is the transfer without the wait for the other rank."""
     import torch
     import torch.distributed as dist
 
     def timed(name, f):
         def call(*args, **kwargs):
             torch.cuda.synchronize()
+            group = kwargs.get("group")
             if barrier:
-                dist.barrier(group=kwargs.get("group"))
+                dist.barrier(group=group)
             t0 = time.perf_counter()
             out = f(*args, **kwargs)
             torch.cuda.synchronize()
-            log.append((name, (time.perf_counter() - t0) * 1e3))
+            label = (labels or {}).get(id(group))
+            log.append((f"{name}:{label}" if label else name, (time.perf_counter() - t0) * 1e3))
             return out
         return call
 
-    saved = {name: getattr(dist, name) for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")}
+    saved = {name: getattr(dist, name) for name in COLLECTIVES + ("broadcast",)}
     for name, f in saved.items():
         setattr(dist, name, timed(name, f))
     try:
@@ -1969,11 +2005,12 @@ def timed_collectives(log: list, barrier: bool):
 COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce")
 
 
-def split_collectives(step) -> dict:
-    """The collectives of one data-parallel step, timed alone: 'in_calls_ms'
+def split_collectives(step, labels=None) -> dict:
+    """The collectives of one distributed step, timed alone: 'in_calls_ms'
     (each call's own time) and 'transfer_ms' (a barrier before each), from
     the median of 3 steps each, every step started by the ranks together;
-    the count of calls and each op's calls and transfer ms."""
+    the count of calls and each op's calls and transfer ms (labels: as
+    timed_collectives', each labelled group's ops counted apart)."""
     import torch
     import torch.distributed as dist
 
@@ -1982,13 +2019,13 @@ def split_collectives(step) -> dict:
         logs = []
         for _ in range(3):
             dist.barrier()
-            with timed_collectives([], barrier) as log:
+            with timed_collectives([], barrier, labels) as log:
                 step()
             logs.append(log)
         log = sorted(logs, key=lambda g: sum(ms for _, ms in g))[1]
         out[f"{label}_ms"] = torch.tensor(sum(ms for _, ms in log))
     out["calls"] = torch.tensor(len(log))
-    for op in COLLECTIVES:
+    for op in sorted({name for name, _ in log} | set(COLLECTIVES)):
         out[f"transfer_ms:{op}"] = torch.tensor(sum(ms for name, ms in log if name == op))
         out[f"calls:{op}"] = torch.tensor(sum(name == op for name, _ in log))
     return out
@@ -2258,7 +2295,7 @@ def dp_phase(dev, card, repo, details, phase):
         raise AssertionError(f"data parallel (c): step {rep['state'].step}, agreement {rep['agreement']:.2f}%")
     images = normalize(datasets.synthetic(seed=0)[2][:40], datasets.CIFAR10_MEAN, datasets.CIFAR10_STD)
     served = serve_artifact("the 2-rank trained ResNet-20", path, resnet20_int8_stream, dev,
-                            [images[:1], images[1:8], images[8:24], images[24:40]])
+                            [images[:1], images[1:8], images[8:24], images[24:40]], batch=16)
     poly = K1.MODE.format("poly")
     for label, counts in (("export", export_launches), ("serving", served["launches"])):
         if not (counts.get(K1.KERNEL, 0) > 0 and counts.get(poly, 0) == counts[K1.KERNEL]
@@ -2318,12 +2355,439 @@ def dp_phase(dev, card, repo, details, phase):
     shutil.rmtree(tmp, ignore_errors=True)
 
 
+TP_FIT_MESHES = ((1, 2), (2, 2))  # phase 25(b)'s meshes, (data, model)
+TP_SERVE = (("resnet20 slice route", 8), ("resnet20 erf route", 8), ("densenet40 stage_int8", 4),
+            ("resnet18 trunk 224", 4))  # phase 25(c)'s nets and engine batches
+TP_SERVE_REQUESTS = 2  # full engine batches a net's requests
+TP_RATE_BATCH = 256  # the engine batch of the served images/s (the slice route)
+TP_RATE_BATCHES = 8
+
+
+def _n_counter(K1):
+    """Wrap K1's launch site (qmatmul._run_k1) so that each launch adds its
+    weight's N (the output channels it writes) to the returned dict's
+    'n'; returns (counter, undo)."""
+    seen = {"n": 0}
+    run = K1._run_k1
+
+    def counted(x, op, *args, **kwargs):
+        seen["n"] += op.n
+        return run(x, op, *args, **kwargs)
+
+    K1._run_k1 = counted
+    return seen, lambda: setattr(K1, "_run_k1", run)
+
+
+def tp_rank_main(argv) -> int:
+    """python3 chip_smoke.py --tp-rank RANK N PORT SPEC: one gloo rank of
+    phase 25 sharing the card, its results saved to the spec's out
+    ({rank} filled in). The spec (JSON): 'fit', a mesh (data, model) for
+    DP_STEPS float64 ResNet-20 W8A8 ADMM gather steps at global batch
+    DP_BATCH with the kernels column-parallel; 'times', a mesh for the f32
+    step at DP_TIME_BATCH (ms a step, the collectives by op and group);
+    'serve', meshes over which each artifact of 'artifacts' ([path,
+    batch]) is served through engine_from_artifact, rank 0 submitting the
+    requests of 'requests' (an .npz, 'i/j'), each rank counting its K1
+    launches and the N they write; 'rate', [path, batch, n]: rank 0's
+    images/s over n full batches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from alignq_tpu_torch.dist import make_mesh, multihost
+    from alignq_tpu_torch.dist.sharding import shard_model, whole_model
+    from alignq_tpu_torch.kernels import _build
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.serve import engine_from_artifact
+    from alignq_tpu_torch.train import make_train_step
+
+    rank, n, port = int(argv[0]), int(argv[1]), argv[2]
+    with open(argv[3]) as f:
+        spec = json.load(f)
+    dev = multihost.initialize(f"127.0.0.1:{port}", n, rank, backend="gloo", timeout_s=600)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    res = {}
+
+    def placed(shape, **kw):
+        mesh = make_mesh(tuple(shape), ("data", "model"))
+        model, state, cfg, batches = dp_resnet20(dev, **kw)
+        state.tx.shards = {k: (v.axis, v.dim) for k, v in shard_model(model, mesh).items()}
+        return mesh, model, state, cfg, batches
+
+    if "fit" in spec:
+        mesh, model, state, cfg, batches = placed(spec["fit"])
+        step = make_train_step(model, cfg, mesh)
+        for x, y in batches:
+            step(state, rows_of(x, mesh.rank, mesh.n_data).to(dev), rows_of(y, mesh.rank, mesh.n_data).to(dev))
+        shards = state.tx.shards
+        out = state_tensors(state)
+        out.update({f"t:{k}": v.detach().cpu() for k, v in state.tx.trace.items()})
+        res["fit"] = {"state": out, "sharded": sorted(shards),
+                      "whole": {f"p:{k}": v.detach().cpu() for k, v in whole_model(model).named_parameters()}}
+    if "times" in spec:
+        mesh, model, state, cfg, batches = placed(spec["times"], batch=DP_TIME_BATCH, dtype="float32")
+        step = make_train_step(model, cfg, mesh)
+        x, y = (rows_of(t, mesh.rank, mesh.n_data).to(dev) for t in batches[0])
+        step(state, x, y)
+        ts = []
+        for _ in range(3):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, x, y)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        labels = {id(mesh.model_group): "model", id(mesh.group): "data"}
+        res["times"] = {"ms": torch.tensor(statistics.median(ts)),
+                        **split_collectives(lambda: step(state, x, y), labels)}
+    reqs = np.load(spec["requests"]) if "requests" in spec else None
+    for shape in spec.get("serve", []):
+        mesh = make_mesh(tuple(shape), ("data", "model"))
+        for i, (path, batch) in enumerate(spec["artifacts"]):
+            zero_counts(_build.launches)
+            seen, undo = _n_counter(K1)
+            try:
+                engine = engine_from_artifact(path, batch, mesh=mesh)
+                outs = ([engine.submit(reqs[f"{i}/{j}"]).result(timeout=300) for j in range(TP_SERVE_REQUESTS)]
+                        if rank == 0 else [])
+                engine.close()
+            finally:
+                undo()
+            torch.cuda.synchronize()
+            res[f"serve/{shape[0]}x{shape[1]}/{i}"] = {
+                "logits": [torch.from_numpy(o) for o in outs], "k1": _build.launches.get(K1.KERNEL, 0),
+                "k3": _build.launches.get("stage_identity_blocks", 0), "k1_n": seen["n"],
+                "taps": _build.launches.get(K1.TAP_GATHERS, 0)}
+    if "rate" in spec:
+        path, batch, nb = spec["rate"]
+        for shape in spec["serve"]:
+            mesh = make_mesh(tuple(shape), ("data", "model"))
+            engine = engine_from_artifact(path, batch, mesh=mesh)
+            if rank == 0:
+                x = np.random.RandomState(SEED).randn(batch, 32, 32, 3).astype(np.float32)
+                engine.submit(x).result(timeout=300)
+                t0 = time.perf_counter()
+                for f in [engine.submit(x) for _ in range(nb)]:
+                    f.result(timeout=300)
+                res[f"rate/{shape[0]}x{shape[1]}"] = torch.tensor(nb * batch / (time.perf_counter() - t0))
+            engine.close()
+    torch.save(res, spec["out"].format(rank=rank))
+    multihost.shutdown()
+    return 0
+
+
+def run_tp_ranks(repo, n, spec, out_dir, timeout=600):
+    """n ranks of tp_rank_main on `spec`, started at once (subprocesses of
+    this interpreter); returns each rank's results. Every rank is stopped
+    when one fails or outlasts the timeout."""
+    import torch
+
+    from alignq_tpu_torch.entry import free_port
+
+    path = out_dir / f"tp_spec_{n}.json"
+    spec = dict(spec, out=str(out_dir / f"tp_{n}_{{rank}}.pt"))
+    path.write_text(json.dumps(spec))
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    port = str(free_port())
+    procs = [subprocess.Popen([sys.executable, str(repo / "chip_smoke.py"), "--tp-rank", str(r), str(n), port,
+                               str(path)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    try:
+        for r, p in enumerate(procs):
+            log, _ = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"tensor-parallel rank {r} of {n} exited {p.returncode}:\n{log[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [torch.load(spec["out"].format(rank=r), weights_only=True) for r in range(n)]
+
+
+def fma_on_the_card(dev):
+    """Phase 25(a): K1's f32 epilogue (__fmaf_rn) against the plain version
+    (quant/cdf.py fma_f32) on acc * scale + bias operands at, just above
+    and just below f32 rounding midpoints: acc = 4096 + i, scale = 2^-12
+    (1 + j 2^-12) with i j odd make acc * scale an f32 midpoint; bias 0,
+    +-2^-60, +-2^-70, +-2^-40. Returns (mismatches, the elements where a
+    float64 add and one cast would round otherwise, elements)."""
+    import numpy as np
+    import torch
+
+    from alignq_tpu_torch.kernels import qmatmul as K1
+
+    iv = [i for i in range(1, 95, 2)]
+    jv = [j for j in range(1, 120, 2)]
+    dcs = (0.0, 2.0**-60, -(2.0**-60), 2.0**-70, -(2.0**-70), 2.0**-40, -(2.0**-40))
+    x = np.zeros((len(iv), 64), np.int8)
+    x[:, :32] = 127
+    x[:, 32] = np.array(iv) + 32  # acc = 32 * 127 + 32 + i = 4096 + i against all-ones weights
+    scale = np.repeat(np.array([2.0**-12 * (1 + j * 2.0**-12) for j in jv], np.float32), len(dcs))
+    bias = np.tile(np.array(dcs, np.float32), len(jv))
+    w = np.ones((64, scale.size), np.int8)
+    xt, wt = torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev)
+    st, bt = torch.from_numpy(scale).to(dev), torch.from_numpy(bias).to(dev)
+    got = K1.int8_matmul_dequant(xt, wt, st, bt).cpu()
+    want = K1.int8_matmul_dequant_reference(xt.cpu(), wt.cpu(), st.cpu(), bt.cpu())
+    acc = (x.astype(np.float64) @ w.astype(np.float64))
+    twice = torch.from_numpy((acc * scale.astype(np.float64) + bias.astype(np.float64)).astype(np.float32))
+    mism = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    return mism, int((twice.view(torch.int32) != want.view(torch.int32)).sum()), want.numel()
+
+
+def tp_artifacts(out_dir):
+    """Phase 25(c)'s artifacts, from seeded random weights: [(label, path,
+    batch, image size)]."""
+    from alignq_tpu_torch.kernels import infer_resnet_imagenet as RI
+    from alignq_tpu_torch.kernels.artifact import save_int8_artifact
+    from alignq_tpu_torch.kernels.infer import build_resnet20_int8
+    from alignq_tpu_torch.kernels.infer_densenet import build_densenet40_int8
+
+    _, (r20, _) = build_resnet20_int8(1, device="cpu", seed=SEED)
+    _, (dn, _) = build_densenet40_int8(1, device="cpu", seed=SEED, stage_int8=True)
+    _, (trunk, _) = RI.build_resnet_imagenet_int8("resnet18", 1, device="cpu", image_size=TRUNK_SIZE)
+    metas = [(r20, {"model": "resnet20", "act_impl": "poly", "stream": "int16", "use_stage_kernel": 1}, 32),
+             (r20, {"model": "resnet20", "act_impl": "erf", "stream": "int16"}, 32),
+             (dn, {"model": "densenet40", "act_impl": "erf", "stage_int8": 1, "depth": 40}, 32),
+             (trunk, {"model": "resnet18", "act_impl": "erf", "image_size": TRUNK_SIZE}, TRUNK_SIZE)]
+    out = []
+    for (label, batch), (qp, meta, hw) in zip(TP_SERVE, metas):
+        path = out_dir / f"tp_{len(out)}.npz"
+        save_int8_artifact(str(path), qp, meta={"act_bits": 8, "weight_bits": 8, **meta})
+        out.append((label, path, batch, hw))
+    return out
+
+
+def tp_phase(dev, card, repo, details, phase):
+    """Phase 25: tensor parallelism and mesh serving, gloo ranks sharing
+    the one card (NCCL refuses two ranks on one card): (a) the fma_f32
+    repair against K1's epilogue; (b) ResNet-20 W8A8 ADMM float64 gather
+    fits on meshes (1, 2) and (2, 2) against one process; (c) serving over
+    meshes (1, 2), (2, 1) and (2, 2) against the one-process engine, bit
+    for bit; (d) times, one card with gloo through the host."""
+    import numpy as np
+    import torch
+
+    from alignq_tpu_torch.kernels import _build
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.serve import engine_from_artifact
+    from alignq_tpu_torch.train import make_train_step
+
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix="alignq_tp_"))
+
+    phase("tensor parallel (a): K1's f32 epilogue against the repaired fma_f32 at f32 midpoints")
+    mism, twice, total = fma_on_the_card(dev)
+    print(f"tensor parallel (a): K1's acc * scale + bias (__fmaf_rn) against the plain fma_f32 on {total} "
+          f"midpoint-adjacent operands: {mism} differ; a float64 add and one cast would round {twice} of them "
+          f"otherwise", flush=True)
+    if mism or not twice:
+        raise AssertionError(f"tensor parallel (a): {mism} of {total} differ, {twice} double-rounding cases reached")
+    out["fma"] = {"mismatches": mism, "double_rounding_cases": twice, "operands": total}
+
+    arts = tp_artifacts(tmp)
+    rng = np.random.RandomState(SEED)
+    reqs = {f"{i}/{j}": rng.randn(batch, hw, hw, 3).astype(np.float32)
+            for i, (_, _, batch, hw) in enumerate(arts) for j in range(TP_SERVE_REQUESTS)}
+    np.savez(tmp / "reqs.npz", **reqs)
+    common = {"artifacts": [[str(p), b] for _, p, b, _ in arts], "requests": str(tmp / "reqs.npz")}
+
+    phase("tensor parallel (b, c): 4 gloo ranks on the card, a (2, 2) fit and (2, 2) serving; one process beside")
+    t0 = time.perf_counter()
+    box = {}
+    runner = threading.Thread(target=lambda: box.update(r4=run_tp_ranks(
+        repo, 4, dict(common, fit=[2, 2], serve=[[2, 2]]), tmp)), daemon=True)
+    runner.start()
+    # the references, in this process meanwhile: the one-process fit and engines
+    model, state, cfg, batches = dp_resnet20(dev)
+    step = make_train_step(model, cfg)
+    for x, y in batches:
+        step(state, x.to(dev), y.to(dev))
+    one = state_tensors(state)
+    one.update({f"t:{k}": v.detach().cpu() for k, v in state.tx.trace.items()})
+    ref = {}
+    for i, (label, path, batch, _) in enumerate(arts):
+        zero_counts(_build.launches)
+        seen, undo = _n_counter(K1)
+        try:
+            engine = engine_from_artifact(str(path), batch)
+            logits = [engine.submit(reqs[f"{i}/{j}"]).result(timeout=300) for j in range(TP_SERVE_REQUESTS)]
+            engine.close()
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        ref[i] = {"logits": logits, "k1": _build.launches.get(K1.KERNEL, 0),
+                  "k3": _build.launches.get("stage_identity_blocks", 0), "k1_n": seen["n"]}
+    runner.join()
+    if "r4" not in box:
+        raise AssertionError("tensor parallel: the 4-rank run failed (its error above)")
+    t4 = time.perf_counter() - t0
+    phase("tensor parallel (b, c, d): 2 gloo ranks on the card, a (1, 2) fit, (1, 2) and (2, 1) serving, times")
+    t0 = time.perf_counter()
+    r2 = run_tp_ranks(repo, 2, dict(common, fit=[1, 2], times=[1, 2], serve=[[1, 2], [2, 1]],
+                                    rate=[str(arts[0][1]), TP_RATE_BATCH, TP_RATE_BATCHES]), tmp)
+    t2 = time.perf_counter() - t0
+
+    # (b) the fits against one process
+    fits = {}
+    for shape, ranks in (((1, 2), r2), ((2, 2), box["r4"])):
+        sharded = set(ranks[0]["fit"]["sharded"])
+        err = 0.0
+        for r, res in enumerate(ranks):
+            st, whole = res["fit"]["state"], res["fit"]["whole"]
+            err = max(err, max_diff(whole, {k: v for k, v in one.items() if k.startswith("p:")}),
+                      max_diff({k: v for k, v in st.items() if k[:2] in ("b:", "a:", "g:")},
+                               {k: v for k, v in one.items() if k[:2] in ("b:", "a:", "g:")}))
+            for name in sharded:
+                if st[f"p:{name}"].shape[0 if st[f"p:{name}"].ndim == 4 else 1] * shape[1] != \
+                        one[f"p:{name}"].shape[0 if one[f"p:{name}"].ndim == 4 else 1]:
+                    raise AssertionError(f"tensor parallel (b) {shape}: rank {r}'s {name} is not its Cout/n_model")
+        same = all(torch.equal(ranks[d * shape[1] + m]["fit"]["state"][k], v)
+                   for d in range(shape[0]) for m in range(1, shape[1])
+                   for k, v in ranks[d * shape[1]]["fit"]["state"].items() if k[2:] not in sharded)
+        fits[f"{shape[0]}x{shape[1]}"] = {"max_abs_vs_one_process": err, "replicated_bit_identical": same,
+                                          "sharded_kernels": len(sharded)}
+        print(f"tensor parallel (b) mesh {shape}: ResNet-20 W8A8 ADMM, {DP_STEPS} float64 gather steps at global "
+              f"batch {DP_BATCH}, {len(sharded)} kernels split over the model axis: the whole network within "
+              f"{err:.3g} of one process (params, statistics, duals); replicated tensors bit-identical across "
+              f"the model ranks: {same}", flush=True)
+        if not (err <= 1e-9 and same and len(sharded) == 22):
+            raise AssertionError(f"tensor parallel (b) {shape}: {fits}")
+    out["fits"] = fits
+
+    # (c) serving against one process
+    serving = {}
+    for shape, ranks in (((1, 2), r2), ((2, 1), r2), ((2, 2), box["r4"])):
+        key = f"{shape[0]}x{shape[1]}"
+        for i, (label, _, batch, _) in enumerate(arts):
+            per_rank = [res[f"serve/{key}/{i}"] for res in ranks]
+            same = all(np.array_equal(a.numpy(), b) for a, b in zip(per_rank[0]["logits"], ref[i]["logits"]))
+            k1 = [p["k1"] for p in per_rank]
+            k1_n = [p["k1_n"] for p in per_rank]
+            ok = (same and len(per_rank[0]["logits"]) == TP_SERVE_REQUESTS and all(c == ref[i]["k1"] for c in k1)
+                  and all(c * shape[1] == ref[i]["k1_n"] for c in k1_n) and not any(p["taps"] for p in per_rank)
+                  and all(p["k3"] == ref[i]["k3"] for p in per_rank))
+            serving[f"{key} {label}"] = {"bit_identical": same, "k1_launches_per_rank": k1,
+                                         "k1_channels_per_rank": k1_n, "one_process_k1": ref[i]["k1"],
+                                         "one_process_k1_channels": ref[i]["k1_n"],
+                                         "k3_launches_per_rank": [p["k3"] for p in per_rank]}
+            print(f"tensor parallel (c) mesh {shape} {label}, engine batch {batch}: {TP_SERVE_REQUESTS} batches bit "
+                  f"for bit against the one-process engine: {same}; K1 launches a rank {k1} (one process "
+                  f"{ref[i]['k1']}), the channels they wrote {k1_n} (one process {ref[i]['k1_n']}), K3 "
+                  f"{[p['k3'] for p in per_rank]}", flush=True)
+            if not ok:
+                raise AssertionError(f"tensor parallel (c) {key} {label}: {serving[f'{key} {label}']}")
+    out["serving"] = serving
+
+    # (d) times: one card, gloo through the host
+    t = r2[0]["times"]
+    rates = {k: float(v) for k, v in r2[0].items() if k.startswith("rate/")}
+    engine = engine_from_artifact(str(arts[0][1]), TP_RATE_BATCH)
+    x = np.random.RandomState(SEED).randn(TP_RATE_BATCH, 32, 32, 3).astype(np.float32)
+    engine.submit(x).result(timeout=300)
+    t0 = time.perf_counter()
+    for f in [engine.submit(x) for _ in range(TP_RATE_BATCHES)]:
+        f.result(timeout=300)
+    rates["rate/one process"] = TP_RATE_BATCHES * TP_RATE_BATCH / (time.perf_counter() - t0)
+    engine.close()
+    by_op = {k.split(":", 1)[1]: [int(t[f"calls:{k.split(':', 1)[1]}"]), float(v)]
+             for k, v in t.items() if k.startswith("transfer_ms:") and int(t[f"calls:{k.split(':', 1)[1]}"])}
+    times = {f"tp step rank {r}": {"ms": float(res["times"]["ms"]), "transfer_ms": float(res["times"]["transfer_ms"]),
+                                   "in_calls_ms": float(res["times"]["in_calls_ms"])} for r, res in enumerate(r2)}
+    out["times"] = {"steps": times, "transfer_by_op_rank0": by_op, "served_images_per_s": rates,
+                    "wall_s": {"4 ranks": t4, "2 ranks": t2}}
+    for k, v in times.items():
+        print(f"tensor parallel (d) ResNet-20 W8A8 ADMM f32 step at {DP_TIME_BATCH} images, mesh (1, 2), {k}: "
+              f"{v['ms']:.2f} ms a step; its collectives timed alone {v['in_calls_ms']:.2f} ms, of which transfer "
+              f"{v['transfer_ms']:.2f} [{card}; one card, gloo through the host: not a multi-card figure]",
+              flush=True)
+    print(f"tensor parallel (d) rank 0's collectives by op and group ([calls, transfer ms]): {by_op}", flush=True)
+    print(f"tensor parallel (d) served images/s, ResNet-20 slice route at engine batch {TP_RATE_BATCH} "
+          f"({TP_RATE_BATCHES} batches, host clock): {rates} [{card}; one card, gloo through the host]", flush=True)
+    details["tensor_parallel"] = out
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def fma_ab(card) -> None:
+    """python3 chip_smoke.py --fma-ab: the fma_f32 repair's cost on the card,
+    the repaired fma_f32 against its earlier form (float64 evaluation, one
+    cast) patched into every module that imports it (and quant/cdf.py's
+    erf_f32, whose Horner steps take it), in the order new,
+    old, old, new: the ResNet-50 int8 forward at batch 256 (224x224, CUDA
+    events, median of 20) and the ResNet-20 W8A8 erf ADMM QAT step at
+    batch 128 (CUDA events, median of 5). One JSON line."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from alignq_tpu_torch.kernels import infer_resnet_imagenet as RI
+    from alignq_tpu_torch.models.registry import build_model
+    from alignq_tpu_torch.quant import cdf
+    from alignq_tpu_torch.train import TrainConfig, create_train_state, make_train_step
+    from alignq_tpu_torch.train.loop import true_f32
+
+    repaired = cdf.fma_f32
+
+    repaired_erf = cdf.erf_f32
+
+    def earlier(a, b, c):
+        a64, b64, c64 = (v.double() if torch.is_tensor(v) else v for v in (a, b, c))
+        return (a64 * b64 + c64).float()
+
+    def earlier_erf(x):  # its Horner steps through the earlier form
+        xc = torch.clamp(x, -cdf._ERF_CLAMP, cdf._ERF_CLAMP)
+        x2 = xc * xc
+        p = torch.full_like(x2, cdf._ERF_P[0])
+        for c in cdf._ERF_P[1:]:
+            p = earlier(p, x2, c)
+        q = torch.full_like(x2, cdf._ERF_Q[0])
+        for c in cdf._ERF_Q[1:]:
+            q = earlier(q, x2, c)
+        return xc * p / q
+
+    mods = [cdf] + [importlib.import_module(f"alignq_tpu_torch.kernels.{m}")
+                    for m in ("dwconv", "qmatmul", "infer_digit", "infer_resnet_imagenet", "quantize", "stage_kernel")]
+    dev = torch.device("cuda")
+    fwd, (qp, x) = RI.build_resnet_imagenet_int8("resnet50", SERVE_BATCH, device=dev, image_size=TRUNK_SIZE)
+    ops = RI.pack_resnet_imagenet_operands(qp)
+    true_f32()
+    cfg = TrainConfig(train_batch_size=128, bitW=8, abitW=8, admm=True, cdf_impl="erf")  # phase 11's step
+    model = build_model(cfg, torch.Generator().manual_seed(SEED)).to(dev)
+    state = create_train_state(torch.Generator().manual_seed(SEED), model, cfg)
+    step = make_train_step(model, cfg)
+    rng = np.random.RandomState(SEED)
+    xb = torch.tensor(rng.randn(128, 32, 32, 3), dtype=torch.float32, device=dev)
+    yb = torch.tensor(rng.randint(0, 10, 128), device=dev)
+    rows = []
+    for label in ("repaired", "earlier", "earlier", "repaired"):
+        for m in mods:
+            m.fma_f32 = repaired if label == "repaired" else earlier
+        cdf.erf_f32 = repaired_erf if label == "repaired" else earlier_erf
+        with torch.inference_mode():
+            f_ms = median_ms(lambda: fwd(qp, x, operands=ops))
+        s_ms = median_ms(lambda: step(state, xb, yb), runs=5, warmup=2)
+        rows.append({"fma_f32": label, "resnet50_forward_ms": f_ms, "resnet20_qat_step_ms": s_ms})
+        print(f"fma A/B {label}: ResNet-50 int8 forward at {SERVE_BATCH} ({TRUNK_SIZE}x{TRUNK_SIZE}) {f_ms:.3f} ms; "
+              f"ResNet-20 W8A8 erf ADMM QAT step at 128 {s_ms:.2f} ms [{card}]", flush=True)
+    for m in mods:
+        m.fma_f32 = repaired
+    cdf.erf_f32 = repaired_erf
+    print(json.dumps({"fma_ab": rows, "card": card}), flush=True)
+
+
+def main() -> int:
+    import numpy as np
+    import torch
 def main() -> int:
     import numpy as np
     import torch
 
     if sys.argv[1:2] == ["--dp-rank"]:
         return dp_rank_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--tp-rank"]:
+        return tp_rank_main(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
@@ -2374,6 +2838,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--agreement-study"]:
         agreement_study(repo, card)
+        return 0
+    if sys.argv[1:] == ["--fma-ab"]:
+        fma_ab(card)
+        return 0
+    if sys.argv[1:] == ["--tp-only"]:
+        tp_phase(dev, card, repo, details, phase)
         return 0
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -2744,7 +3214,10 @@ def main() -> int:
     # 24. data-parallel training
     dp_phase(dev, card, repo, details, phase)
 
-    # 25. the kernels line, the card line, the final line
+    # 25. tensor parallelism and mesh serving
+    tp_phase(dev, card, repo, details, phase)
+
+    # 26. the kernels line, the card line, the final line
     phase("done")
 
     def summed(r, ms_key, plain_key, bound_key, weight):

@@ -178,8 +178,25 @@ def test_registry_refusals(tmp_path):
     jart.save_int8_artifact(packed_dn, {"w": np.zeros(1)}, meta={"model": "densenet40", "packed_int4": 1})
     with pytest.raises(ValueError, match="int4"):
         engine_from_artifact(packed_dn, device="cpu")
-    with pytest.raises(NotImplementedError):
-        engine_from_artifact(bogus, device="cpu", mesh=object())
+    # a mesh: a one-device mesh serves as the plain engine (meshes of ranks:
+    # tests/test_torch_tp_serve.py)
+    from alignq_tpu_torch import interop
+    from alignq_tpu_torch.dist import make_mesh
+    from alignq_tpu_torch.kernels.infer import convert_preact_resnet
+
+    params, stats = random_preact_tree(20, seed=8)
+    tq = convert_preact_resnet(*interop.params_from_numpy(params, stats, "cpu"))
+    path = str(tmp_path / "r20.npz")
+    tart.save_int8_artifact(path, tq, meta={"model": "resnet20", "act_impl": "poly", "stream": "int16"})
+    x = np.random.RandomState(9).randn(2, 32, 32, 3).astype(np.float32)
+    outs = []
+    for mesh in (None, make_mesh((1, 1))):
+        engine = engine_from_artifact(path, batch_size=2, mesh=mesh, device="cpu")
+        try:
+            outs.append(engine.submit(x).result(timeout=120))
+        finally:
+            engine.close()
+    np.testing.assert_array_equal(outs[1], outs[0])
     assert {"resnet20", "resnet56", "densenet40", "mobilenetv2", "resnet18", "resnet34", "resnet50", "dann",
             "dsan", "mdd", "digit_dann"} == set(DEPLOY_FAMILIES)
 

@@ -10,12 +10,12 @@ as tests/test_multihost.py runs JAX's.
   LLSQ methods (W4A4) likewise. Rank 0 alone writes the metrics, the log
   file and the config; rank 1 its warnings file;
 - JAX's refusals: a train batch the data axis does not divide, 'local'
-  with a model axis; a 'model' axis names the item it waits for;
+  with a model axis; a 'model' axis in gather mode builds its step;
 - the CLI's mesh flags (tests/test_train_dist.py's cases);
 - a local-mode checkpoint (int8_gather) written collectively restores on
   both ranks to the state each trained, its duals in JAX's (N, B/N, B/N)
   layout;
-- dryrun_multichip(2) on the CPU.
+- dryrun_multichip(2) on the CPU: a (1, 2) gather step, a (2,) local one.
 """
 
 import json
@@ -91,9 +91,9 @@ def test_jax_refusals_and_the_model_axis(tmp_path):
                       corr_mode="local")
     with pytest.raises(ValueError, match="tensor-parallel"):
         fit(cfg, data, device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        fit(TrainConfig(train_batch_size=16, job_dir=str(tmp_path), mesh_shape=(2, 4), mesh_axes=("data", "model")),
-            data, device="cpu")
+    # a 'model' axis in gather mode trains (tests/test_torch_tp_train.py): the step builds
+    assert callable(make_train_step(PreActResNet(num_units=(1, 1, 1)), TrainConfig(),
+                                    Mesh(("data", "model"), (2, 4), None, 0)))
     with pytest.raises(ValueError, match="corr_mode"):
         make_train_step(PreActResNet(num_units=(1, 1, 1)), TrainConfig(corr_mode="ring"),
                         Mesh(("data",), (2,), None, 0))
@@ -135,4 +135,4 @@ def test_dryrun_multichip_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     dryrun_multichip(2, device="cpu")
     out = capsys.readouterr().out
-    assert "ok (gather corr): mesh=(2x1)" in out and "ok (local corr): mesh=(2x1)" in out
+    assert "ok (gather corr): mesh=(1x2)" in out and "ok (local corr): mesh=(2x1)" in out

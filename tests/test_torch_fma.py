@@ -114,3 +114,17 @@ def test_gradient_is_that_of_the_multiply_add():
     assert y.dtype == torch.float32 and y[0].item() == 1 + 2.0**-11 + 2.0**-23
     y.sum().backward()
     assert torch.equal(a.grad, b.detach()) and torch.equal(b.grad, a.detach()) and torch.equal(c.grad, torch.ones(2))
+
+
+def test_erf_f32_recomputes_flagged_elements(monkeypatch):
+    """erf_f32 casts its Horner steps from float64 and evaluates the
+    elements flagged as possible double roundings again by fma_f32: with
+    every element flagged the result is the same, and jax.lax.erf's bit
+    for bit."""
+    from alignq_tpu_torch.quant import cdf
+
+    x = torch.from_numpy(np.random.RandomState(1).randn(4096).astype(np.float32) * 2)
+    want = np.asarray(jax.jit(jax.lax.erf)(x.numpy()))
+    _assert_bits(cdf.erf_f32(x).numpy(), want)
+    monkeypatch.setattr(cdf, "_double_rounding_candidates", lambda s, r: torch.ones_like(s, dtype=torch.bool))
+    _assert_bits(cdf.erf_f32(x).numpy(), want)

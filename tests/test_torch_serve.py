@@ -103,9 +103,13 @@ def test_submit_validates():
 
 
 def test_mesh_not_ported():
+    """Mesh serving is ported (tests/test_torch_tp_serve.py); JAX's refusal
+    stays: an engine batch the mesh's data axis does not divide."""
+    from alignq_tpu_torch.dist.mesh import Mesh
+
     params, stats = _tree()
-    with pytest.raises(NotImplementedError):
-        build_int8_resnet20_engine(params, stats, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="divisible"):
+        build_int8_resnet20_engine(params, stats, batch_size=12, mesh=Mesh(("data",), (8,), None, 0), device="cpu")
 
 
 def test_default_device_needs_cuda():

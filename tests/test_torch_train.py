@@ -277,8 +277,8 @@ def test_cli_trains_on_the_cpu(tmp_path):
 
 def test_entry_points_default_to_the_card():
     """Without a card the trainer raises unless given device='cpu'; a mesh
-    that the world does not cover raises, and a 'model' axis names the
-    queue item it waits for."""
+    that the world does not cover raises, and a 'model' axis takes gather
+    mode only (JAX's refusal of 'local')."""
     from alignq_tpu_torch.data.registry import get_data
     from alignq_tpu_torch.train.loop import fit
 
@@ -291,5 +291,7 @@ def test_entry_points_default_to_the_card():
         fit(TConfig(mesh_shape=(2,)), data, device="cpu")
     from alignq_tpu_torch.dist.mesh import Mesh
 
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        tsteps.make_train_step(TNet(num_units=(1, 1, 1)), cfg, mesh=Mesh(("data", "model"), (1, 2), None, 0))
+    mesh = Mesh(("data", "model"), (1, 2), None, 0)
+    with pytest.raises(ValueError, match="tensor-parallel"):
+        tsteps.make_train_step(TNet(num_units=(1, 1, 1)), TConfig(corr_mode="local"), mesh=mesh)
+    assert callable(tsteps.make_train_step(TNet(num_units=(1, 1, 1)), cfg, mesh=mesh))

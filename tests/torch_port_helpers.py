@@ -606,7 +606,135 @@ def _worker_da(rank, n, spec):
     return out
 
 
-WORKERS = {"fit": _worker_fit, "steps": _worker_steps, "means": _worker_means, "da": _worker_da}
+def _tp_restored(case, n, mesh_shape):
+    """A fresh float64 state (another init) of a case's model on a mesh
+    (placed as fit places it; (1, 1): one process) with the case's job's
+    latest checkpoint restored into it."""
+    from alignq_tpu_torch.train.checkpoint import CheckpointManager
+    from alignq_tpu_torch.train.loop import _build_distributed
+    from alignq_tpu_torch.train.state import create_train_state
+
+    cfg = _cfg(case, n, job_dir=case["job"], mesh_shape=tuple(mesh_shape), mesh_axes=("data", "model"))
+    model = _preact(case, torch.Generator().manual_seed(11))
+    state = create_train_state(torch.Generator().manual_seed(12), model, cfg, input_shape=(1, 8, 8, 3))
+    mesh = _build_distributed(cfg, model, state)[0] if np.prod(mesh_shape) > 1 else None
+    state, epoch = CheckpointManager(cfg.job_dir, mesh=mesh).restore(state)
+    return state
+
+
+def _worker_tp_fit(rank, n, spec):
+    """Each of spec['cases'] (a dict: tag, mesh (n_data, n_model), bits,
+    admm, method, steps, job) a float64 fit of a depth-8 PreActResNet on
+    8x8 images over that mesh of the n ranks ((1, 1): one process); keyed
+    'tag/': the state's arrays (this rank's slices), 'w:' the whole
+    network's parameters (whole_model), 'sharded' the sliced names. A
+    case's 'restore' mesh: a fresh state on it restores the checkpoint of
+    job 'restore_job' ('r:' keys, whole)."""
+    from alignq_tpu_torch.data.loader import ArrayLoader, Data
+    from alignq_tpu_torch.dist.sharding import param_shards, whole_model
+    from alignq_tpu_torch.train.loop import fit
+
+    out = {}
+    for case in spec["cases"]:
+        tag = case["tag"] + "/"
+        if "steps" in case:
+            x, y = tiny_images(32)
+            data = Data(ArrayLoader(x, y, 8, shuffle=True, seed=1, prefetch=0),
+                        ArrayLoader(x[:16], y[:16], 8, prefetch=0))
+            cfg = _cfg(case, n, job_dir=case["job"], mesh_shape=tuple(case["mesh"]), mesh_axes=("data", "model"))
+            res = fit(cfg, data, model=_preact(case, torch.Generator().manual_seed(5)), max_steps=case["steps"],
+                      device="cpu")
+            st = res["state"]
+            out.update({tag + k: v for k, v in state_arrays(st).items()})
+            out.update({tag + "w:" + k: v.detach().numpy() for k, v in whole_model(st.model).named_parameters()})
+            out[tag + "sharded"] = np.array(sorted(param_shards(st.model)) or [""])
+        if "restore" in case:
+            restored = _tp_restored(dict(case, job=case["restore_job"]), n, case["restore"])
+            out.update({tag + "r:" + k: v.detach().numpy()
+                        for k, v in whole_model(restored.model).named_parameters()})
+            out[tag + "r:step"] = np.array(restored.step)
+    return out
+
+
+def _worker_tp_units(rank, n, spec):
+    """Over a (1, n) mesh: (q:) quantize_weight of each of spec['shapes']
+    (HWIO; the port's OIHW) at W4 f64 on this rank's output-channel slice
+    under model_shard; (g:) a column-parallel QConv for each method of
+    spec['methods'] and a QDense, forward and backward on spec's fixed
+    input and cotangent: the output, the input's gradient and each
+    parameter's gradient (the kernel's this rank's slice); (m:) the
+    multihost helpers on a (n, 1) mesh: place_batch_multihost and
+    global_batch_from_local of a row-identifying batch."""
+    from alignq_tpu_torch.dist import collectives as C
+    from alignq_tpu_torch.dist import make_mesh, multihost
+    from alignq_tpu_torch.dist.sharding import shard_model
+    from alignq_tpu_torch.nn.layers import QConv, QDense
+    from alignq_tpu_torch.quant.fake_quant import quantize_weight
+
+    out = {}
+    mesh = make_mesh((1, n), ("data", "model"))
+    axis = mesh.model_axis()
+    w_all = np.load(spec["weights"])
+    for i, shape in enumerate(spec["shapes"]):
+        w = torch.from_numpy(np.array(w_all[str(i)])).permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
+        cw = w.shape[0] // n
+        with C.model_shard(axis):
+            out[f"q:{i}"] = quantize_weight(w[rank * cw:(rank + 1) * cw], 4).wq.numpy()
+    for method in spec["methods"]:
+        for kind in ("conv", "dense"):
+            if kind == "dense" and method != "ours":
+                continue
+            gen = torch.Generator().manual_seed(3)
+            layer = (QConv(8, 8, 3, padding=1, w_bit=4, a_bit=4, method=method, generator=gen) if kind == "conv"
+                     else QDense(32, 8, w_bit=4, method="ours", generator=gen)).double()
+            shard_model(layer, mesh)
+            x = torch.from_numpy(np.array(w_all[f"x:{kind}"])).requires_grad_(True)
+            y = layer(x)
+            y.backward(torch.from_numpy(np.array(w_all[f"ct:{kind}"])))
+            tag = f"g:{method}:{kind}:"
+            out[tag + "y"] = y.detach().numpy()
+            out[tag + "dx"] = x.grad.numpy()
+            out.update({tag + k: p.grad.numpy() for k, p in layer.named_parameters()})
+    dmesh = make_mesh((n, 1), ("data", "model"))
+    batch = (np.arange(16, dtype=np.float32).reshape(16, 1) * 10.0, np.arange(16, dtype=np.int64))
+    xs, ys = multihost.place_batch_multihost(batch, dmesh, "cpu")
+    out["m:rows"] = ys.numpy()
+    gx, gy = multihost.global_batch_from_local((xs, ys), dmesh)
+    out["m:gx"], out["m:gy"] = gx.numpy(), gy.numpy()
+    out["m:active"] = np.array(multihost.active())
+    return out
+
+
+def _worker_serve(rank, n, spec):
+    """For each mesh shape of spec['meshes'] and each (artifact, engine
+    batch) of spec['artifacts']: engine_from_artifact over that mesh on
+    the CPU; rank 0 submits each of spec['requests'] (one engine batch of
+    images each, one after another) and keeps the logits ('shape/i/j'),
+    the other ranks serve until it closes. Each rank also keeps its mesh
+    coordinates and its data and model groups' members ('shape/layout',
+    'shape/groups')."""
+    from alignq_tpu_torch.dist import make_mesh
+    from alignq_tpu_torch.serve import engine_from_artifact
+
+    reqs = np.load(spec["requests"])
+    out = {}
+    for shape in spec["meshes"]:
+        mesh = make_mesh(tuple(shape), ("data", "model"))
+        groups = [torch.distributed.get_process_group_ranks(g) if g is not None else []
+                  for g in (mesh.group, mesh.model_group)]
+        out[f"{shape[0]}x{shape[1]}/layout"] = np.array([mesh.data_rank, mesh.model_rank])
+        out[f"{shape[0]}x{shape[1]}/groups"] = np.array([r for g in groups for r in g])
+        for i, (path, batch) in enumerate(spec["artifacts"]):
+            engine = engine_from_artifact(path, batch, mesh=mesh, device="cpu")
+            if rank == 0:
+                for j in range(spec["n_requests"]):
+                    out[f"{shape[0]}x{shape[1]}/{i}/{j}"] = engine.submit(reqs[f"{i}/{j}"]).result(timeout=300)
+            engine.close()
+    return out
+
+
+WORKERS = {"fit": _worker_fit, "steps": _worker_steps, "means": _worker_means, "da": _worker_da,
+           "tp_fit": _worker_tp_fit, "tp_units": _worker_tp_units, "serve": _worker_serve}
 
 
 def dist_worker():
