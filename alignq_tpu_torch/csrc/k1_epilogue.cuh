@@ -1,0 +1,82 @@
+// K1's epilogue, shared by its two forms (qmatmul.cu's mma.sync kernel and
+// qmatmul_sm90.cu's wgmma kernel), so that both map an int32 accumulator
+// to the same f32 value or act code by the same instructions: on the card
+// the two forms agree bit for bit in every mode.
+//
+// Modes (kernels/qmatmul.py _MODE): the raw int32 accumulator; f32
+// `acc * scale + bias`, ONE rounding (__fmaf_rn), with or without relu; the
+// act-site codes of the serving graph (act_codes.cuh's poly, erf and bins
+// maps of the f32 value, or bins_int's integer compare chains straight on
+// the accumulator), relu'd or not; and the stage buffer's int8 requant
+// clip(rint((acc * scale) * inv), +-127), inv in the bias vector.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "act_codes.cuh"
+
+namespace k1 {
+
+struct ActArgs {
+  const float* bnd;  // BINS: the g f32 erf-grid boundaries
+  const int* sgn;    // BINS_INT: (N8,) sign of each column's scale
+  const int* t1;     // BINS_INT: (g, N8) cutpoints of code >= k
+  const int* t2;     // BINS_INT: (g, N8) cutpoints of code <= -k
+  int g;             // the grid's largest code
+  int relu;          // codes modes: max(code, 0)
+};
+
+// Epilogue modes (the wrapper's kernels/qmatmul.py _MODE)
+enum Mode { INT32 = 0, F32 = 1, RELU = 2, POLY = 3, ERF = 4, BINS = 5, BINS_INT = 6, REQUANT = 7 };
+
+// The act code of one accumulator in column col (codes modes only)
+template <int MODE>
+__device__ __forceinline__ int site_code(int acc, float s, float b, int col,
+                                         const ActArgs& a, int ld) {
+  // int -> f32 rounds to nearest, as the JAX graph's astype does
+  if (MODE == REQUANT)
+    return static_cast<int>(fminf(fmaxf(rintf(__fmul_rn(__fmul_rn(static_cast<float>(acc), s), b)), -127.f), 127.f));
+  int code;
+  if (MODE == BINS_INT) {
+    code = act::bins_int_code(acc, col, a.sgn, a.t1, a.t2, a.g, ld);
+  } else {
+    const float h = __fmaf_rn(static_cast<float>(acc), s, b);
+    const float gf = static_cast<float>(a.g);
+    if (MODE == POLY) code = act::poly_code(h, gf);
+    else if (MODE == ERF) code = act::erf_code(h, gf);
+    else code = act::bins_code(h, a.bnd, a.g);
+  }
+  return a.relu ? max(code, 0) : code;
+}
+
+__device__ __forceinline__ uint16_t pack2(int c0, int c1) {
+  return static_cast<uint16_t>((c0 & 0xff) | (c1 & 0xff) << 8);
+}
+
+// Row `row` of out (M, ld), columns col and col + 1, from the two
+// accumulators a0 and a1 of those columns: s0, s1 and c0, c1 their scales
+// and biases (unread in modes INT32 and BINS_INT)
+template <int MODE>
+__device__ __forceinline__ void store2(void* __restrict__ out, size_t row, int col, int ld, int a0, int a1,
+                                       float s0, float s1, float c0, float c1, const ActArgs& act) {
+  const size_t at = row * ld + col;
+  if (MODE >= POLY) {
+    static_cast<uint16_t*>(out)[at >> 1] = pack2(site_code<MODE>(a0, s0, c0, col, act, ld),
+                                                 site_code<MODE>(a1, s1, c1, col + 1, act, ld));
+  } else if (MODE == INT32) {
+    *reinterpret_cast<int2*>(static_cast<int*>(out) + at) = make_int2(a0, a1);
+  } else {
+    // int -> f32 rounds to nearest, as the JAX graph's astype does
+    float y0 = __fmaf_rn(static_cast<float>(a0), s0, c0);
+    float y1 = __fmaf_rn(static_cast<float>(a1), s1, c1);
+    if (MODE == RELU) {
+      y0 = fmaxf(y0, 0.f);
+      y1 = fmaxf(y1, 0.f);
+    }
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + at) = make_float2(y0, y1);
+  }
+}
+
+}  // namespace k1

@@ -13,6 +13,10 @@
 // VALID convs, conv1 over the image's channels padded to 4), stride 1 or 2.
 // The GEMM form
 // (x (M, Kp) @ W^T) is the 1x1 stride-1 conv over the (1, 1, M, Kp) view.
+// The 3x3 and 1x1 convs over C % 32 == 0 channels to N8 % 64 == 0 columns
+// run in K1's Hopper form instead (qmatmul_sm90.cu, chosen by
+// kernels/qmatmul.py k1_plan); the two forms share their epilogue
+// (k1_epilogue.cuh) and agree bit for bit.
 //
 // What bounds it on an H100, at the serving graph's shapes: bytes for most
 // convs. With the input read once, a 3x3 conv does 2*9*C*N operations for
@@ -89,7 +93,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "act_codes.cuh"
+#include "k1_epilogue.cuh"
 
 namespace {
 
@@ -114,17 +118,8 @@ struct Plan {
 };
 constexpr int PLAN_INTS = sizeof(Plan) / sizeof(int);
 
-struct ActArgs {
-  const float* bnd;  // BINS: the g f32 erf-grid boundaries
-  const int* sgn;    // BINS_INT: (N8,) sign of each column's scale
-  const int* t1;     // BINS_INT: (g, N8) cutpoints of code >= k
-  const int* t2;     // BINS_INT: (g, N8) cutpoints of code <= -k
-  int g;             // the grid's largest code
-  int relu;          // codes modes: max(code, 0)
-};
-
-// Epilogue modes (the wrapper's kernels/qmatmul.py _MODE)
-enum Mode { INT32 = 0, F32 = 1, RELU = 2, POLY = 3, ERF = 4, BINS = 5, BINS_INT = 6, REQUANT = 7 };
+using k1::ActArgs;
+using namespace k1;  // the epilogue modes
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                        uint32_t b1) {
@@ -162,30 +157,6 @@ __device__ __forceinline__ int log2_or_neg(int d) { return (d & (d - 1)) == 0 ? 
 
 __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The act code of one accumulator in column col (codes modes only)
-template <int MODE>
-__device__ __forceinline__ int site_code(int acc, float s, float b, int col,
-                                         const ActArgs& a, int ld) {
-  // int -> f32 rounds to nearest, as the JAX graph's astype does
-  if (MODE == REQUANT)
-    return static_cast<int>(fminf(fmaxf(rintf(__fmul_rn(__fmul_rn(static_cast<float>(acc), s), b)), -127.f), 127.f));
-  int code;
-  if (MODE == BINS_INT) {
-    code = act::bins_int_code(acc, col, a.sgn, a.t1, a.t2, a.g, ld);
-  } else {
-    const float h = __fmaf_rn(static_cast<float>(acc), s, b);
-    const float gf = static_cast<float>(a.g);
-    if (MODE == POLY) code = act::poly_code(h, gf);
-    else if (MODE == ERF) code = act::erf_code(h, gf);
-    else code = act::bins_code(h, a.bnd, a.g);
-  }
-  return a.relu ? max(code, 0) : code;
-}
-
-__device__ __forceinline__ uint16_t pack2(int c0, int c1) {
-  return static_cast<uint16_t>((c0 & 0xff) | (c1 & 0xff) << 8);
 }
 
 struct TileOrigin {
@@ -410,23 +381,8 @@ k1_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             if (rows[mi][h] < 0) continue;
-            const size_t at = static_cast<size_t>(rows[mi][h]) * p.N8 + col;
-            const int a0 = acc[mi][j][2 * h], a1 = acc[mi][j][2 * h + 1];
-            if (MODE >= POLY) {
-              static_cast<uint16_t*>(out)[at >> 1] = pack2(site_code<MODE>(a0, s0, c0, col, act_args, p.N8),
-                                                           site_code<MODE>(a1, s1, c1, col + 1, act_args, p.N8));
-            } else if (MODE == INT32) {
-              *reinterpret_cast<int2*>(static_cast<int*>(out) + at) = make_int2(a0, a1);
-            } else {
-              // int -> f32 rounds to nearest, as the JAX graph's astype does
-              float y0 = __fmaf_rn(static_cast<float>(a0), s0, c0);
-              float y1 = __fmaf_rn(static_cast<float>(a1), s1, c1);
-              if (MODE == RELU) {
-                y0 = fmaxf(y0, 0.f);
-                y1 = fmaxf(y1, 0.f);
-              }
-              *reinterpret_cast<float2*>(static_cast<float*>(out) + at) = make_float2(y0, y1);
-            }
+            store2<MODE>(out, rows[mi][h], col, p.N8, acc[mi][j][2 * h], acc[mi][j][2 * h + 1], s0, s1, c0, c1,
+                         act_args);
           }
       }
     }

@@ -3,10 +3,15 @@
 Port of alignq_tpu/kernels/qmatmul.py, and of the int8 convs that the JAX
 serving graph leaves to XLA (alignq_tpu/kernels/infer.py _int8_conv_acc):
 PyTorch has no int8 conv on CUDA. On a CUDA tensor the wrappers launch
-csrc/qmatmul.cu, an implicit-GEMM NHWC conv on the s8 tensor cores
-(`mma.sync` m16n8k32) that reads the codes in place; on a CPU tensor they
-run the plain PyTorch version beside them, which the tests hold against
-the JAX reference.
+an implicit-GEMM NHWC conv on the s8 tensor cores that reads the codes in
+place, in one of two forms that the planner (`k1_plan`) chooses by a
+written rule over the shape: csrc/qmatmul_sm90.cu (`wgmma` m64nNk32,
+TMA-fed weight chunks, tiles of 64-256 output rows) for every 3x3 and 1x1
+conv over C % 32 == 0 channels to N8 % 64 == 0 columns (`sm90_plan`),
+csrc/qmatmul.cu (`mma.sync` m16n8k32) for every other shape.
+The two forms share their epilogue code (csrc/k1_epilogue.cuh) and agree
+bit for bit. On a CPU tensor the wrappers run the plain PyTorch version
+beside them, which the tests hold against the JAX reference.
 
 The conv entry points are `int8_conv_packed` (int32, f32 or a stage
 buffer's int8 requant epilogue) and `int8_conv_codes` (act codes, relu'd
@@ -34,11 +39,14 @@ Epilogue `acc * scale + bias` is one f32 rounding: `__fmaf_rn` in CUDA,
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
-from typing import Any, NamedTuple, Optional
+import weakref
+from typing import Any, NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from alignq_tpu_torch.dist.collectives import gather_slices
@@ -61,6 +69,7 @@ F32 = KERNEL + ":f32"
 REQUANT = KERNEL + ":requant"
 MODE = KERNEL + ":mode:{}"  # and of each epilogue mode: MODE.format("poly")
 FORM = KERNEL + ":ks{}"  # and of each kernel size: FORM.format(7) the ImageNet stem, 5 the digit convs
+SM90 = FORM.format("sm90")  # and of every launch of the Hopper form (csrc/qmatmul_sm90.cu)
 TAP_GATHERS = "gather_taps:cuda"  # counter key of tap gathers of CUDA tensors
 
 
@@ -463,8 +472,265 @@ def _plan_n_blocks(b, h, w, c, ksize, stride, pad, n8, kp, ho, wo, nb_max) -> Op
     )
 
 
+# ---------------------------------------------------------- the Hopper form
+
+SM90_SMEM = 227 * 1024  # dynamic shared memory an sm_90 block may take
+SM90_MAX_STAGES = 6  # csrc/qmatmul_sm90.cu MAX_STAGES: the mbarriers' room
+# channels a stage may carry, the first that divides C and whose ring of 2
+# stages fits: a 3x3's K chunk is 576 or 288 bytes, a 1x1's 256 down to 32
+# (fewer, larger stages ran faster on the card: PERF.md's K1 findings)
+SM90_CC = {3: (64, 32), 1: (256, 128, 64, 32)}
+# work items (tile, N block) a tile height must give for a launch to take
+# it: half the H100's 132 SMs. Tiles of 256 rows ran fastest at batch 256
+# and lost to 128 and 64 at the trunks' batches 4 and 3 (PERF.md, K1's
+# Hopper form: chip_smoke.py --k1-ab)
+SM90_MIN_ITEMS = 66
+
+
+class Sm90Plan(NamedTuple):
+    """One launch's plan in K1's Hopper form, in the order of
+    csrc/qmatmul_sm90.cu's Plan.
+
+    The M = B*Ho*Wo output rows, in (b, oy, ox) order, run in n_tiles tiles
+    of TM = 64 * n_wg consecutive rows (n_wg warpgroups, one m64 wgmma tile
+    each), N in n_blocks blocks of NB columns; a work item is (tile, N
+    block), n_items of them. A stage carries CC channels of the input, K
+    bytes KC (KCL in the last of the n_chunks chunks): the weight chunk in
+    n_boxes TMA boxes of SWZ bytes of K by NB rows (w_bytes, swizzled SWZ),
+    then the band (a_bytes): for a 3x3, HR rows of the zero-padded batch
+    (Hp rows an image) by HC = W + 2 pixels at a pixel pitch P and a row
+    pitch RP; for a 1x1, the tile's TM input pixels at P. koff_words: the
+    3x3's k-word table; smem: the bytes the launch asks for."""
+
+    B: int
+    H: int
+    W: int
+    C: int
+    Ho: int
+    Wo: int
+    stride: int
+    pad: int
+    ksize: int
+    N8: int
+    Kp: int
+    M: int
+    TM: int
+    n_tiles: int
+    NB: int
+    n_blocks: int
+    n_items: int
+    HR: int
+    HC: int
+    Hp: int
+    P: int
+    RP: int
+    CC: int
+    n_chunks: int
+    KC: int
+    KCL: int
+    SWZ: int
+    n_boxes: int
+    w_bytes: int
+    a_bytes: int
+    stage_bytes: int
+    n_stages: int
+    koff_words: int
+    smem: int
+    n_wg: int
+
+
+def _sm90_pitch(cc: int, step: int) -> int:
+    """Bytes a band pixel takes: lane t of a fragment load reads 8 bytes
+    of its row, rows g of a half warp are pixels `step` apart, so that
+    (step * P) % 64 == 32 puts its 4 rows' 32 bytes on distinct banks."""
+    p = cc
+    while (step * p) % 64 != 32:
+        p += 16
+    return p
+
+
+def _sm90_band_rows(b: int, ho: int, wo: int, hp: int, stride: int, tm: int) -> int:
+    """The most rows of the zero-padded batch (hp rows an image) that one
+    tile of tm consecutive output pixels reaches, less the kernel's."""
+    m0 = np.arange(0, b * ho * wo, tm, dtype=np.int64)
+    m1 = np.minimum(m0 + tm, b * ho * wo) - 1
+
+    def row(m):
+        return m // (ho * wo) * hp + m % (ho * wo) // wo * stride
+
+    return int((row(m1) - row(m0)).max())
+
+
 @functools.lru_cache(maxsize=None)
-def _plan_ints(plan: ConvPlan):
+def sm90_plan(b: int, h: int, w: int, c: int, ksize: int, stride: int, pad: int, n8: int,
+              kp: int, n_wg: Optional[int] = None) -> Optional[Sm90Plan]:
+    """The Hopper form's plan of one launch, or None where the form does
+    not take the shape: a 3x3 pad 1 or 1x1 pad 0 conv at stride 1 or 2 over
+    C % 32 == 0 channels to N8 % 64 == 0 columns (the weight unpadded in
+    K). N blocks of 128 columns (64 where N8 is not a multiple of 128);
+    tiles of 256 rows (4 warpgroups) where they give SM90_MIN_ITEMS work
+    items or more, else of 128, else of 64: the most rows a tile that
+    still spreads the launch over the card; K in chunks of the first of
+    SM90_CC's channel counts that divides C and whose ring of 2 stages
+    (each its weight columns and its band) fits SM90_SMEM; then as many
+    stages as fit, up to 4. n_wg, where given, sets the warpgroups (tiles
+    of 64 n_wg rows) instead."""
+    if ksize not in (1, 3) or KSIZES[ksize] != pad or stride not in (1, 2):
+        return None
+    if c % 32 or n8 % 64 or kp != ksize * ksize * c:
+        return None
+    nb = 128 if n8 % 128 == 0 else 64
+    fits = []
+    for wgs in (4, 2, 1) if n_wg is None else (n_wg,):
+        plan = next((p for cc in SM90_CC[ksize] if c % cc == 0
+                     for p in [_sm90_layout(b, h, w, c, ksize, stride, pad, n8, cc, nb, wgs)] if p is not None), None)
+        if plan is not None:
+            fits.append(plan)
+    return next((p for p in fits if p.n_items >= SM90_MIN_ITEMS), fits[-1] if fits else None)
+
+
+def _sm90_layout(b, h, w, c, ksize, stride, pad, n8, cc, nb, n_wg) -> Optional[Sm90Plan]:
+    """sm90_plan at a given chunk of cc channels, N block of nb columns and
+    n_wg warpgroups, with as many stages as fit SM90_SMEM (up to 4), or
+    None where 2 do not fit or the output has no rows."""
+    ho, wo = conv_out_hw(h, w, ksize, stride, pad)
+    m = b * ho * wo
+    if m <= 0 or m >= 2**31:
+        return None
+    n_chunks = -(-c // cc)
+    kc, kcl = ksize * ksize * cc, ksize * ksize * (c - (n_chunks - 1) * cc)
+    swz = next(s for s in (128, 64, 32) if kc % s == 0)
+    n_boxes = kc // swz
+    w_bytes = n_boxes * nb * swz
+    hp, hc = h + 2 * pad, w + 2 * pad
+    p = _sm90_pitch(cc, stride if ksize > 1 else 1)
+    koff_words = kc // 8 if ksize > 1 else 0
+    fixed = 1024 + 8 * SM90_MAX_STAGES + 4 * koff_words  # the stages' alignment, the mbarriers, the table
+    tm = 64 * n_wg
+    if ksize > 1:
+        hr = _sm90_band_rows(b, ho, wo, hp, stride, tm) + ksize
+        rp = hc * p
+    else:
+        hr, rp = tm, p
+    a_bytes = hr * rp
+    stage = _round_up(w_bytes + a_bytes, 1024)
+    n_stages = max((n for n in range(2, 5) if fixed + n * stage <= SM90_SMEM), default=0)
+    if not n_stages:
+        return None
+    n_tiles = -(-m // tm)
+    return Sm90Plan(
+        b, h, w, c, ho, wo, stride, pad, ksize, n8, ksize * ksize * c, m, tm, n_tiles, nb, n8 // nb,
+        n_tiles * (n8 // nb), hr, hc, hp, p, rp, cc, n_chunks, kc, kcl, swz, n_boxes, w_bytes, a_bytes, stage,
+        n_stages, koff_words, fixed + n_stages * stage, n_wg,
+    )
+
+
+_MMA_ONLY = False  # set only by _mma_form
+
+
+@contextlib.contextmanager
+def _mma_form():
+    """Every launch planned inside takes the mma.sync form. For the A/B
+    timing of the two forms (chip_smoke.py --k1-ab); the main path never
+    calls it."""
+    global _MMA_ONLY
+    saved, _MMA_ONLY = _MMA_ONLY, True
+    try:
+        yield
+    finally:
+        _MMA_ONLY = saved
+
+
+def k1_plan(b: int, h: int, w: int, c: int, ksize: int, stride: int, pad: int, n8: int,
+            kp: int) -> Union[ConvPlan, Sm90Plan]:
+    """The plan of one K1 launch. The planner's rule: the Hopper form
+    (sm90_plan) wherever it takes the shape, every 3x3 and 1x1 conv over
+    C % 32 == 0 channels to N8 % 64 == 0 columns; else the mma.sync form
+    (conv_plan): the 7x7 stem, the 5x5 VALID convs, the narrower 3x3s and
+    1x1s (DenseNet-40's, ResNet-20's first stages). chip_smoke.py --k1-ab
+    timed both forms at every launch the Hopper form takes in the trunks
+    (batches 256, 4, 3), MobileNet-V2 (256, 8) and ResNet-20 (2048, 256):
+    the Hopper form was the faster at nearly all of them; the exceptions,
+    erf-epilogue 1x1s a few microseconds slower that no rule over the
+    shape separates from their neighbours, are listed in PERF.md (K1's
+    Hopper form)."""
+    p90 = None if _MMA_ONLY else sm90_plan(b, h, w, c, ksize, stride, pad, n8, kp)
+    return conv_plan(b, h, w, c, ksize, stride, pad, n8, kp) if p90 is None else p90
+
+
+@functools.lru_cache(maxsize=None)
+def _sm90_k_order(ksize: int, c: int, cc: int) -> np.ndarray:
+    """The re-packed weight's columns as indices into the packed (dy, dx, c)
+    ones: the chunks of cc channels in turn, each tap's channels of a chunk
+    contiguous (tap-major, as the k-word table reads the band); then within
+    each 32-byte K step, wgmma's position kappa takes k(kappa) = 8(kappa//4)
+    + kappa%4 for kappa < 16 and 8((kappa-16)//4) + 4 + kappa%4 above, so
+    that lane t's A registers a0 and a2 (positions 4t.. and 16+4t..) hold
+    the 8 contiguous band bytes k = 8t..8t+7 of each row."""
+    taps = ksize * ksize
+    order = np.concatenate([
+        (np.arange(taps)[:, None] * c + c0 + np.arange(min(cc, c - c0))[None, :]).reshape(-1)
+        for c0 in range(0, c, cc)
+    ])
+    kappa = np.arange(32)
+    k_of = np.where(kappa < 16, 8 * (kappa // 4) + kappa % 4, 8 * ((kappa - 16) // 4) + 4 + kappa % 4)
+    return order.reshape(-1, 32)[:, k_of].reshape(-1)
+
+
+# id(wt), ksize, C, CC -> [a weak reference to wt, its re-packed copy, the
+# copy's tensor maps by (SWZ, NB)]: an entry goes with its weight
+_SM90_WEIGHTS: dict = {}
+
+
+def _sm90_entry(wt: torch.Tensor, plan: Sm90Plan) -> list:
+    key = (id(wt), plan.ksize, plan.C, plan.CC)
+    hit = _SM90_WEIGHTS.get(key)
+    if hit is None or hit[0]() is not wt:
+        order = torch.from_numpy(_sm90_k_order(plan.ksize, plan.C, plan.CC)).to(wt.device)
+        hit = [weakref.ref(wt, lambda _, k=key: _SM90_WEIGHTS.pop(k, None)), wt.index_select(1, order).contiguous(), {}]
+        _SM90_WEIGHTS[key] = hit
+    return hit
+
+
+def _sm90_weight(wt: torch.Tensor, plan: Sm90Plan) -> torch.Tensor:
+    """wt (N8, Kp) re-packed in the Hopper form's K order (_sm90_k_order),
+    made once per weight tensor and kept while it lives."""
+    return _sm90_entry(wt, plan)[1]
+
+
+def _sm90_map(wt: torch.Tensor, plan: Sm90Plan):
+    """The bytes of the tensor map of _sm90_weight(wt, plan) in plan's
+    boxes, encoded once and kept beside the re-packed copy."""
+    _, packed, maps = _sm90_entry(wt, plan)
+    wmap = maps.get((plan.SWZ, plan.NB))
+    if wmap is None:
+        lib = _sm90_lib()
+        wmap = ctypes.create_string_buffer(lib.k1_sm90_map_bytes())
+        with _build.on_device(wt.device):
+            err = lib.k1_sm90_weight_map(packed.data_ptr(), plan.Kp, plan.N8, plan.SWZ, plan.NB, wmap)
+        _build.check(err, "qmatmul_sm90.cu k1_sm90_weight_map")
+        maps[plan.SWZ, plan.NB] = wmap
+    return wmap
+
+
+def _sm90_lib() -> ctypes.CDLL:
+    lib = _build.load("qmatmul_sm90")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.k1_sm90_launch.argtypes = [p, p, p, p, p, ctypes.POINTER(i), i, p, p, p, p, i, i, p]
+        lib.k1_sm90_launch.restype = i
+        lib.k1_sm90_weight_map.argtypes = [p, i, i, i, i, p]
+        lib.k1_sm90_weight_map.restype = i
+        lib.k1_sm90_map_bytes.restype = i
+        lib.k1_sm90_plan_ints.restype = i
+        if lib.k1_sm90_plan_ints() != len(Sm90Plan._fields):
+            raise RuntimeError("csrc/qmatmul_sm90.cu's Plan does not match Sm90Plan")
+        lib._argtypes_set = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_ints(plan):
     return (ctypes.c_int * len(plan))(*plan)
 
 
@@ -505,7 +771,7 @@ def _run_k1(x, op: K1Weights, ksize, stride, padding, mode: str, act: Optional[A
     if x.data_ptr() % 16 or op.wt.data_ptr() % 16:
         raise ValueError("K1 needs 16-byte aligned operands")
     n8, kp = op.wt.shape
-    plan = conv_plan(*x.shape, ksize, stride, padding, n8, kp)
+    plan = k1_plan(*x.shape, ksize, stride, padding, n8, kp)
     dtype = {"int32": torch.int32, "f32": torch.float32, "relu": torch.float32}.get(mode, torch.int8)
     out = torch.empty((plan.B * plan.Ho * plan.Wo, n8), device=x.device, dtype=dtype)
     if out.shape[0]:
@@ -514,29 +780,36 @@ def _run_k1(x, op: K1Weights, ksize, stride, padding, mode: str, act: Optional[A
         _build.launches[f"{KERNEL}:{_FAMILY.get(mode, 'codes')}"] += 1
         _build.launches[MODE.format(mode)] += 1
         _build.launches[FORM.format(ksize)] += 1
+        if isinstance(plan, Sm90Plan):
+            _build.launches[SM90] += 1
     return out if n8 == op.n else out[:, : op.n]
 
 
-def _k1_launch(x, op: K1Weights, plan: ConvPlan, out, mode: str, act: Optional[ActMap] = None) -> None:
-    """One launch of csrc/qmatmul.cu on checked operands: x NHWC int8,
-    op's wt (N8, Kp) int8 and scale/bias (N8,) f32 (unread in modes
-    'int32' and 'bins_int'; in 'requant' the bias holds the reciprocal of
-    the output's scale), out (B*Ho*Wo, N8) of the mode's type; act, the
-    map of a codes mode. Counts nothing (the wrapper does)."""
-    lib = _lib()
+def _k1_launch(x, op: K1Weights, plan, out, mode: str, act: Optional[ActMap] = None) -> None:
+    """One launch of K1 on checked operands, in the form of its plan
+    (ConvPlan: csrc/qmatmul.cu; Sm90Plan: csrc/qmatmul_sm90.cu on the
+    tensor map of the weight re-packed for it): x NHWC int8, op's wt (N8, Kp) int8 and
+    scale/bias (N8,) f32 (unread in modes 'int32' and 'bins_int'; in
+    'requant' the bias holds the reciprocal of the output's scale), out
+    (B*Ho*Wo, N8) of the mode's type; act, the map of a codes mode. Counts
+    nothing (the wrapper does). A launch that fails raises."""
+    sm90 = isinstance(plan, Sm90Plan)
+    lib = _sm90_lib() if sm90 else _lib()
+    launch = lib.k1_sm90_launch if sm90 else lib.k1_conv_launch
+    wt = _sm90_map(op.wt, plan) if sm90 else op.wt.data_ptr()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     bnd, sgn, t1, t2 = (None,) * 4 if act is None else act[2:6]
     with _build.on_device(x.device):
-        err = lib.k1_conv_launch(
-            x.data_ptr(), op.wt.data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(), out.data_ptr(),
+        err = launch(
+            x.data_ptr(), wt, op.scale.data_ptr(), op.bias.data_ptr(), out.data_ptr(),
             _plan_ints(plan), _MODE[mode], ptr(bnd), ptr(sgn), ptr(t1), ptr(t2),
             0 if act is None else act.g, int(act is not None and act.relu),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _build.check(err, "qmatmul.cu k1_conv_kernel")
+    _build.check(err, "qmatmul_sm90.cu k1_sm90_kernel" if sm90 else "qmatmul.cu k1_conv_kernel")
 
 
 def requant_int8(value: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:

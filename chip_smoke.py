@@ -6,8 +6,8 @@
 Phases, in order; any failure raises and the script exits non-zero:
  1. the card's name and power limit; TF32 off for matmul and cuDNN;
  2. build the CUDA kernels from alignq_tpu_torch/csrc (qmatmul.cu,
-    quantize.cu, stage_kernel.cu, dwconv.cu: one nvcc each, all started
-    together);
+    qmatmul_sm90.cu, quantize.cu, stage_kernel.cu, dwconv.cu: one nvcc
+    each, all started together);
  3. K1 (csrc/qmatmul.cu) against its plain version. Its GEMM form at the
     path's gathered-matrix shapes of batches 2048 and 256, plus a ragged M
     with K=27; then its conv form on NHWC codes read in place, at every
@@ -86,7 +86,8 @@ Phases, in order; any failure raises and the script exits non-zero:
         alignq_tpu_torch.bench`, its line printed;
 10. times from CUDA events (median of 20 after warm-up): the forward at
     batches 2048 and 256 on both routes, and each kernel at each path
-    shape of batches 2048 and 256 (its device time from a cold L2,
+    shape of batches 2048 and 256 (K1 in the form the planner gives it;
+    its device time from a cold L2,
     utils/cuda_timing.py graph_ms: 20 launches captured in a CUDA graph,
     each after a read that evicts the L2, and replayed, so that no
     launch's host cost is in it) beside its plain version, its bound
@@ -134,7 +135,16 @@ Phases, in order; any failure raises and the script exits non-zero:
     batches 256 and 3 (erf and poly codes, and A4 bins at batch 3)
     recorded and every distinct one held against its plain version as in
     phase 12 (the 7x7 stride-2 stem form, the 1x1 convs over 1024 and 2048
-    channels, the streamed 3x3 convs among them); no tap gathered;
+    channels, the streamed 3x3 convs among them); no tap gathered; each
+    forward's launches in K1's Hopper form (csrc/qmatmul_sm90.cu) counted:
+    SM90_PER_FORWARD, 19 of ResNet-18's 20 and 52 of ResNet-50's 53 (all
+    but the 7x7 stem);
+    (b) every distinct launch of (a) in the Hopper form held against the
+    mma.sync form (csrc/qmatmul.cu) on its operands, bit for bit, in the
+    modes int32, f32, relu, requant and the erf, poly and A4 bins codes,
+    relu'd and not; and one streamed 3x3's weight cut to N/2 (each rank's
+    slice at a model axis of 2) in both forms, each slice equal to its
+    columns of the whole;
 17. each trunk at batch 2 on the card against the CPU plain path, on
     qparams converted on the CPU: every stage's codes (block inputs, last
     act sites, the integer stream) and the f32 stream bit for bit, the
@@ -144,13 +154,17 @@ Phases, in order; any failure raises and the script exits non-zero:
     at engine batch 4 (requests of 4 and 3 images: the engine's warm-up
     forward and two batches), the counts read (20 K1 launches a ResNet-18
     forward, 53 a ResNet-50 one, one of each forward's counted under the
-    7x7 form, every one in a codes or the f32 mode, no tap gathered), and
+    7x7 form and SM90_PER_FORWARD under the Hopper form (counter
+    `int8_matmul_dequant:kssm90`), every one in a codes or the f32 mode, no
+    tap gathered), and
     what was served held against the CPU plain path as in phase 14;
 19. times: each trunk's int8 erf forward at batch 256 (CUDA events; device
     busy, idle share and launches under torch.profiler), and each distinct
-    K1 launch of it (cold L2, graph_ms) beside its plain version, its
-    conv_bound and torch._int_mm on the gathered taps; beside the 7x7
-    stem, the pad pass of its 3-channel image to 4 channels;
+    K1 launch of it (cold L2, graph_ms) in the form the planner gave it
+    (and, for one in the Hopper form, the mma.sync form's time beside it)
+    beside its plain version, its conv_bound and torch._int_mm on the
+    gathered taps; beside the 7x7 stem, the pad pass of its 3-channel image
+    to 4 channels;
 20. the baselines' QAT: three float64 ResNet-20 steps of each of the ten
     methods (two of uniform_admm, whose third turns NaN in the JAX package
     too) (W4A4, ADMM where the method has sites, BatchNorm affine
@@ -251,9 +265,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     MobileNet-V2, the depthwise kernel and the BN-act kernel's two forms
     (table on the int8 buffer, arithmetic on the f32 one): over one
     batch-256 forward of their graph, launches from phase 14; K1 on
-    ResNet-50 and ResNet-18 at 224x224 and its 7x7 stem form alone: over
-    one batch-256 forward, launches from phase 18, the stem's from its own
-    counter; K1's 5x5 form: over one batch-256 digit forward, launches from
+    ResNet-50 and ResNet-18 at 224x224 (both forms) and its 7x7 stem form
+    alone: over one batch-256 forward, launches from phase 18, the stem's
+    from its own counter; K1's Hopper form: over one batch-256 forward of
+    each trunk, its launches over both trunks' served forwards (phase 18);
+    K1's 5x5 form: over one batch-256 digit forward, launches from
     phase 22's serving, its error the largest of phases 22 and 23's K1
     checks), the card line, and the final JSON line.
 
@@ -278,6 +294,19 @@ times fma_f32's repair on the card: the ResNet-50 int8 forward at batch
 256 and the ResNet-20 W8A8 erf ADMM QAT step at 128, with the repaired
 fma_f32 and with its earlier form (float64 evaluation, one cast), in the
 order ABBA, in one process.
+
+    python3 chip_smoke.py --k1-ab
+
+times K1's two forms on the card in one process: each distinct launch
+whose shape the Hopper form takes, in a forward of ResNet-18 and ResNet-50
+(224x224) at batches 256, 4 and 3, MobileNet-V2 and DenseNet-40 at 256 and
+8, and ResNet-20 at 2048 and 256 (graph_ms, cold L2), in the mma.sync form
+and in the Hopper form at tiles of 256, 128 and 64 rows, in the order
+mma.sync, 256, 128, 64, 64, 128, 256, mma.sync, beside the form and tile
+the planner's rule gives it; each forward's K1 sum all in mma.sync, by the
+rule and at the fastest option, and the whole forward in mma.sync and by
+the rule, ABBA (mma.sync everywhere under qmatmul._mma_form); one JSON
+line.
 
     python3 chip_smoke.py --gather-backward-ab
 
@@ -1057,6 +1086,11 @@ TRUNK_SERVE_BATCH = 4
 # serving batch 256 and a ragged 3 on both A8 maps, and the A4 bins map
 TRUNK_CHECKS = [(a, b, 8, impl) for a in TRUNKS for b in (SERVE_BATCH, 3) for impl in ("erf", "poly")] + [
     (a, 3, 4, "bins") for a in TRUNKS]
+# K1 launches a trunk forward takes in the Hopper form (csrc/qmatmul_sm90.cu)
+# by the planner's rule (qmatmul.k1_plan): every 1x1 and 3x3 conv of the
+# trunks, all but the 7x7 stem (tests/test_torch_k1_sm90.py holds the rule
+# to these counts)
+SM90_PER_FORWARD = {"resnet18": 19, "resnet50": 52}
 
 
 def affine_bn(model, generator):
@@ -1109,6 +1143,90 @@ def trunk_card_vs_cpu(dev, arch, hw, batch=2):
                for a, b in zip(cpu, card)), len(sink)
 
 
+def k1_out(plan, op, mode):
+    """A new output of a K1 launch of `plan` in `mode` (as _run_k1 makes it)."""
+    import torch
+
+    dtype = {"int32": torch.int32, "f32": torch.float32, "relu": torch.float32}.get(mode, torch.int8)
+    return torch.empty((plan.B * plan.Ho * plan.Wo, op.wt.shape[0]), device=op.wt.device, dtype=dtype)
+
+
+def mma_plan(x, op, plan):
+    """The mma.sync form's plan (csrc/qmatmul.cu) of a launch planned in either form."""
+    from alignq_tpu_torch.kernels import qmatmul as K1
+
+    return K1.conv_plan(*x.shape, plan.ksize, plan.stride, plan.pad, *op.wt.shape)
+
+
+def form_pair(x, op, p90, modes):
+    """K1's Hopper form (plan p90) against its mma.sync form on the same
+    operands in each (mode, act) of modes, by the raw launches (uncounted):
+    the outputs must be bit for bit equal. Returns the int32 output of the
+    Hopper form."""
+    import torch
+
+    from alignq_tpu_torch.kernels import qmatmul as K1
+
+    pm = mma_plan(x, op, p90)
+    got32 = None
+    for mode, act in modes:
+        a, b = k1_out(p90, op, mode), k1_out(pm, op, mode)
+        K1._k1_launch(x, op, p90, a, mode, act)
+        K1._k1_launch(x, op, pm, b, mode, act)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"K1's two forms differ: x {tuple(x.shape)} weight {tuple(op.wt.shape)} "
+                                 f"ksize {p90.ksize} stride {p90.stride} mode {mode} "
+                                 f"{act.impl if act is not None else ''}: {int((a != b).sum())} elements")
+        got32 = a if mode == "int32" else got32
+    return got32
+
+
+def k1_form_pairs(launches_by, dev):
+    """Phase 16(b): every distinct trunk launch planned in the Hopper form
+    (batches 256 and 3) against the mma.sync form in every mode the trunks
+    use and the rest but bins_int (int32, f32, relu, requant; erf and poly
+    codes, relu'd and not; the A4 bins map, relu'd and not), bit for bit;
+    then one streamed 3x3's weight cut to N/2 columns (each rank's slice
+    of a model axis of 2, the column-parallel site's) in both forms, each
+    slice equal to its columns of the whole. Returns the count of
+    comparisons."""
+    import types
+
+    from alignq_tpu_torch.kernels import qmatmul as K1
+
+    maps = [K1.act_map("erf", 127, dev, relu=True), K1.act_map("erf", 127, dev), K1.act_map("poly", 127, dev),
+            K1.act_map("poly", 127, dev, relu=True), K1.act_map("bins", 7, dev, relu=True),
+            K1.act_map("bins", 7, dev)]
+    modes = [("int32", None), ("f32", None), ("relu", None), ("requant", None)] + [(m.impl, m) for m in maps]
+    seen = {}
+    for launches in launches_by.values():
+        for (kind, args), _ in launches.values():
+            x, op, plan = args[:3]
+            if isinstance(plan, K1.Sm90Plan):
+                seen.setdefault((tuple(x.shape), tuple(op.wt.shape), plan.ksize, plan.stride), (x, op, plan))
+    for x, op, plan in seen.values():
+        form_pair(x, op, plan, modes)
+    n = len(seen) * len(modes)
+    # the column-parallel slices of the first 3x3 at the serving batch whose
+    # weight streams and whose half N the form takes (N8 % 128 == 0)
+    x, op, plan = next((x, op, p) for (xs, ws, ks, _), (x, op, p) in seen.items()
+                       if ks == 3 and xs[0] == SERVE_BATCH and ws[0] % 128 == 0 and mma_plan(x, op, p).n_chunks > 1)
+    whole = form_pair(x, op, plan, modes[:1])
+    for rank in range(2):
+        part = K1.shard_k1weights(op, types.SimpleNamespace(size=2, rank=rank))
+        p90 = K1.sm90_plan(*x.shape, 3, plan.stride, 1, *part.wt.shape)
+        got = form_pair(x, part, p90, modes)
+        w = part.n
+        if not (got[:, :w] == whole[:, rank * w:(rank + 1) * w]).all():
+            raise AssertionError(f"K1's N/2 slice {rank} differs from its columns of the whole")
+        n += len(modes)
+    print(f"K1's two forms: {len(seen)} distinct launches in the Hopper form at batches {SERVE_BATCH} and 3, "
+          f"{len(modes)} modes each, and the N/2 slices of x {tuple(x.shape)} weight {tuple(op.wt.shape)} "
+          f"(N {op.n} -> {op.n // 2}): {n} comparisons, every output bit for bit equal", flush=True)
+    return n
+
+
 def imagenet_trunks(dev, card, repo, details, phase):
     """Phases 16-19, the ImageNet-layout trunks ResNet-18 and ResNet-50 at
     224x224: every distinct K1 launch against its plain version; the
@@ -1125,7 +1243,7 @@ def imagenet_trunks(dev, card, repo, details, phase):
     from alignq_tpu_torch.kernels.artifact import save_int8_artifact
 
     phase("ImageNet trunks: every K1 launch against its plain version")
-    launches_by, err, diffs = {}, 0.0, {}
+    launches_by, err, err_sm90, diffs, check_err = {}, 0.0, 0.0, {}, {}
     for arch, batch, bits, impl in TRUNK_CHECKS:
         _, (qp, x) = RI.build_resnet_imagenet_int8(arch, batch, device=dev, image_size=TRUNK_SIZE, act_bits=bits)
         ops = RI.pack_resnet_imagenet_operands(qp)
@@ -1139,16 +1257,27 @@ def imagenet_trunks(dev, card, repo, details, phase):
         for key, ((kind, args), _) in launches.items():
             diff, _, e = check_launch(kind, args)
             err, n_diff = max(err, e), n_diff + diff
+            check_err[id(args)] = e
             diffs[f"{arch} batch {batch} A{bits} {impl} {key}"] = diff
         stems = [k for k in launches if k[3] == 7]
-        print(f"{arch} {TRUNK_SIZE}x{TRUNK_SIZE} batch {batch} A{bits} {impl}: {len(rec)} K1 launches, "
-              f"{len(launches)} distinct ({len(stems)} of the 7x7 stem form), each held against its plain version: "
-              f"{n_diff} differing elements; tap gathers in the forward {gathers}", flush=True)
-        if gathers or len(stems) != 1 or any(kind != "K1" for kind, _ in rec):
-            raise AssertionError(f"{arch}: gathers {gathers}, stem launches {stems}")
+        n_sm90 = sum(isinstance(args[2], K1.Sm90Plan) for _, args in rec)
+        for (kind, args), _ in launches.values():
+            if isinstance(args[2], K1.Sm90Plan):
+                err_sm90 = max(err_sm90, check_err[id(args)])
+        print(f"{arch} {TRUNK_SIZE}x{TRUNK_SIZE} batch {batch} A{bits} {impl}: {len(rec)} K1 launches "
+              f"({n_sm90} in the Hopper form), {len(launches)} distinct ({len(stems)} of the 7x7 stem form), each "
+              f"held against its plain version: {n_diff} differing elements; tap gathers in the forward {gathers}",
+              flush=True)
+        if gathers or len(stems) != 1 or any(kind != "K1" for kind, _ in rec) or n_sm90 != SM90_PER_FORWARD[arch]:
+            raise AssertionError(f"{arch}: gathers {gathers}, stem launches {stems}, {n_sm90} launches in the "
+                                 f"Hopper form (expected {SM90_PER_FORWARD[arch]})")
         launches_by[arch, batch, bits, impl] = launches
         del qp, x, ops, rec
     details["trunk_mismatches"] = diffs
+    torch.cuda.empty_cache()
+
+    phase("ImageNet trunks: K1's Hopper form against its mma.sync form, bit for bit")
+    details["k1_form_pairs"] = k1_form_pairs(launches_by, dev)
     torch.cuda.empty_cache()
 
     phase("ImageNet trunks: full-width forwards on the card against the CPU")
@@ -1188,10 +1317,14 @@ def imagenet_trunks(dev, card, repo, details, phase):
                                        batch=TRUNK_SERVE_BATCH)
         n = serving[arch]["launches"]
         per_fwd = {"resnet18": 20, "resnet50": 53}[arch]
-        if not (n.get(K1.KERNEL, 0) and n[K1.KERNEL] == per_fwd * n.get(K1.FORM.format(7), 0)
+        forwards = n.get(K1.FORM.format(7), 0)
+        if not (n.get(K1.KERNEL, 0) and n[K1.KERNEL] == per_fwd * forwards
+                and n.get(K1.SM90, 0) == SM90_PER_FORWARD[arch] * forwards
                 and not n.get(K1.TAP_GATHERS, 0) and n.get(K1.CODES, 0) + n.get(K1.F32, 0) == n[K1.KERNEL]):
             raise AssertionError(f"serving {arch}: launches {n}, expected {per_fwd} K1 a forward, one of them "
-                                 "the 7x7 stem, and no tap gather")
+                                 f"the 7x7 stem and {SM90_PER_FORWARD[arch]} in the Hopper form, and no tap gather")
+        print(f"serving {arch}: {forwards} forwards, {n[K1.KERNEL]} K1 launches, {n[K1.SM90]} of them in the "
+              f"Hopper form ({SM90_PER_FORWARD[arch]} a forward)", flush=True)
     details["trunk_serving"] = serving
 
     phase("ImageNet trunks: times")
@@ -1214,18 +1347,25 @@ def imagenet_trunks(dev, card, repo, details, phase):
         del qp, x, ops
         for key, ((kind, args), count) in launches_by[arch, SERVE_BATCH, 8, "erf"].items():
             t_ms, plain_ms, b_ms, b_by, lib_ms, pad_ms = time_launch(kind, args)
-            plan, op, xc = args[2], args[1], args[5]
+            x, op, plan, mode, act, xc = args
+            sm90 = isinstance(plan, K1.Sm90Plan)
+            tile = f"{plan.TM} rows" if sm90 else f"{plan.TR}x{plan.TW}"
+            mma_ms = None
+            if sm90:  # the mma.sync form's time beside it, on the same operands
+                pm, out = mma_plan(x, op, plan), k1_out(plan, op, mode)
+                mma_ms = graph_ms(lambda: K1._k1_launch(x, op, pm, out, mode, act))
             rows.append(dict(family=arch, kind=kind, shape=str(key), ksize=plan.ksize, M=plan.B * plan.Ho * plan.Wo,
-                             K=plan.ksize ** 2 * xc, N=op.n, tile=f"{plan.TR}x{plan.TW}", chunks=plan.n_chunks,
-                             n_blocks=plan.n_blocks, launches=count, ms=t_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib_ms, pad_pass_ms=pad_ms))
-            print(f"time {arch} K1 {key} x{count} (tile {plan.TR}x{plan.TW}, {plan.n_chunks} K chunks, "
-                  f"{plan.n_blocks} N blocks): {t_ms:.4f} ms, plain {plain_ms:.3f}, bound {b_ms:.4f} ({b_by}), "
-                  f"torch._int_mm {lib_ms:.4f}{'' if pad_ms is None else f', the pad pass before it {pad_ms:.4f}'} "
-                  f"[{card}]", flush=True)
+                             K=plan.ksize ** 2 * xc, N=op.n, form="sm90" if sm90 else "mma", tile=tile,
+                             chunks=plan.n_chunks, n_blocks=plan.n_blocks, launches=count, ms=t_ms, mma_ms=mma_ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, pad_pass_ms=pad_ms))
+            print(f"time {arch} K1 {key} x{count} ({'Hopper' if sm90 else 'mma.sync'} form, tile {tile}, "
+                  f"{plan.n_chunks} K chunks, {plan.n_blocks} N blocks): {t_ms:.4f} ms"
+                  f"{'' if mma_ms is None else f' (the mma.sync form {mma_ms:.4f})'}, plain {plain_ms:.3f}, "
+                  f"bound {b_ms:.4f} ({b_by}), torch._int_mm {lib_ms:.4f}"
+                  f"{'' if pad_ms is None else f', the pad pass before it {pad_ms:.4f}'} [{card}]", flush=True)
         torch.cuda.empty_cache()
     details["trunk_times"] = {"forwards": fwd_times, "launches": rows}
-    return rows, err, serving
+    return rows, (err, err_sm90), serving
 
 
 def baseline_qat(dev, card, details, phase):
@@ -2777,9 +2917,148 @@ def fma_ab(card) -> None:
     print(json.dumps({"fma_ab": rows, "card": card}), flush=True)
 
 
-def main() -> int:
-    import numpy as np
+AB_WGS = (4, 2, 1)  # the Hopper form's warpgroups a CTA that --k1-ab times: tiles of 256, 128, 64 rows
+
+
+def k1_ab_nets(dev):
+    """(label, batch, build, forward) of each graph that --k1-ab times: the
+    trunks (224x224, erf) at batch 256, at their serving engine's 4 and a
+    ragged 3; MobileNet-V2 and DenseNet-40 at 256 and their serving
+    engine's 8; ResNet-20 on its default erf route at 2048 and 256. build()
+    gives (operands, input) and forward(operands, input) runs the graph."""
+    from alignq_tpu_torch.kernels import infer as R20
+    from alignq_tpu_torch.kernels import infer_resnet_imagenet as RI
+
+    def trunk(arch, batch):
+        def build():
+            _, (qp, x) = RI.build_resnet_imagenet_int8(arch, batch, device=dev, image_size=TRUNK_SIZE)
+            return (qp, RI.pack_resnet_imagenet_operands(qp)), x
+        return arch, batch, build, lambda o, x: RI.resnet_imagenet_int8_forward(o[0], x, operands=o[1])
+
+    def family(label, build_fn, fwd_fn, pack, kw, batch):
+        def build():
+            _, (qp, x) = build_fn(batch, device=dev, **kw)
+            return (qp, pack(qp, **kw)), x
+        return label, batch, build, lambda o, x: fwd_fn(o[0], x, operands=o[1], **kw)
+
+    def resnet20(batch):
+        def build():
+            _, (qp, x) = R20.build_resnet20_int8(batch, device=dev)
+            return (qp, R20.pack_int8_operands(qp)), x
+        return "resnet20", batch, build, lambda o, x: R20.resnet20_int8_forward(o[0], x, operands=o[1])
+
+    nets = [trunk(arch, b) for b in (SERVE_BATCH, TRUNK_SERVE_BATCH, 3) for arch in TRUNKS]
+    nets += [family(label, build, fwd, pack, kw, b) for b in (SERVE_BATCH, FAMILY_SERVE_BATCH)
+             for label, build, fwd, _, pack, kw in family_configs() if label in ("mobilenetv2", "densenet40 f32")]
+    return nets + [resnet20(b) for b in (BATCH, SERVE_BATCH)]
+
+
+def k1_ab(card) -> None:
+    """python3 chip_smoke.py --k1-ab: K1's two forms on the card, in one
+    process. For each graph of k1_ab_nets, each distinct K1 launch whose
+    shape sm90_plan takes is timed by graph_ms (cold L2) in the mma.sync
+    form and in the Hopper form at each tile of AB_WGS that fits, in the
+    order mma.sync, tiles 256 down to 64, tiles 64 up to 256, mma.sync;
+    beside its conv_bound and torch._int_mm on the gathered taps (at
+    batches of 256 and more: cuBLAS refuses some smaller shapes), and the
+    form and tile the planner's rule gives it. Then each graph's K1 sum
+    (its other launches timed once: the mma.sync form takes them either
+    way) all in mma.sync, by the rule, and at each launch's fastest
+    option; and the whole forward (CUDA events, median of 20) in the order
+    mma.sync, rule, rule, mma.sync (mma.sync under qmatmul._mma_form).
+    `hopper_slower_at` lists the launches the rule gives the Hopper form
+    where mma.sync was faster; `rule_misses` each launch where another
+    option was faster than the rule's by more than 3%. One JSON line."""
     import torch
+
+    from alignq_tpu_torch.kernels import qmatmul as K1
+
+    dev = torch.device("cuda")
+    rows, forwards, considered = [], {}, {}
+    for label, batch, build, fwd_fn in k1_ab_nets(dev):
+        ops, x = build()
+
+        def fwd():
+            return fwd_fn(ops, x)
+
+        with torch.inference_mode():
+            launches = distinct_launches(record_launches(fwd))
+            k1_sum = {"mma": 0.0, "rule": 0.0, "best": 0.0}
+            n_k1 = n_taken = 0
+            for key, ((kind, args), count) in launches.items():
+                if kind != "K1":
+                    continue
+                n_k1 += count
+                xk, op, plan, mode, act, xc = args
+                pm, out = mma_plan(xk, op, plan), k1_out(plan, op, mode)
+                geo = (*xk.shape, plan.ksize, plan.stride, plan.pad, *op.wt.shape)
+                tiles = {n: K1.sm90_plan(*geo, n_wg=n) for n in AB_WGS}
+                tiles = {n: p for n, p in tiles.items() if p is not None}
+                if not tiles:
+                    t0 = graph_ms(lambda: K1._k1_launch(xk, op, pm, out, mode, act))
+                    for form in k1_sum:
+                        k1_sum[form] += count * t0
+                    continue
+                n_taken += count
+                t_mma, t90 = [], {n: [] for n in tiles}
+                t_mma.append(graph_ms(lambda: K1._k1_launch(xk, op, pm, out, mode, act)))
+                for n in list(tiles) + list(tiles)[::-1]:
+                    t90[n].append(graph_ms(lambda: K1._k1_launch(xk, op, tiles[n], out, mode, act)))
+                t_mma.append(graph_ms(lambda: K1._k1_launch(xk, op, pm, out, mode, act)))
+                K1._k1_launch(xk, op, pm, out, mode, act)
+                for n, p in tiles.items():  # each option's output is the mma.sync form's, bit for bit
+                    got = k1_out(p, op, mode)
+                    K1._k1_launch(xk, op, p, got, mode, act)
+                    if not torch.equal(got, out):
+                        raise AssertionError(f"K1's Hopper form at {64 * n} rows differs from mma.sync at {key}")
+                b_ms, b_by = conv_bound(*xk.shape[:3], xc, plan.ksize, plan.stride, op.n,
+                                        4 if mode in ("f32", "relu") else 1, plan.pad)
+                lib_ms = None  # torch._int_mm has no cuBLAS kernel for some small-batch shapes: timed at 256 and up
+                if batch >= SERVE_BATCH:
+                    cols = K1.gather_taps(xk, plan.ksize, plan.stride, plan.pad, K1.K_MULT)
+                    wmat = op.wt.t().contiguous()
+                    lib_ms = graph_ms(lambda: torch._int_mm(cols, wmat))
+                    del cols, wmat
+                means = {"mma": statistics.mean(t_mma), **{f"sm90@{n}": statistics.mean(t) for n, t in t90.items()}}
+                rule = f"sm90@{plan.n_wg}" if isinstance(plan, K1.Sm90Plan) else "mma"
+                best = min(means, key=means.get)
+                k1_sum["mma"] += count * means["mma"]
+                k1_sum["rule"] += count * means[rule]
+                k1_sum["best"] += count * means[best]
+                rows.append(dict(net=label, batch=batch, shape=str(key), launches=count, rule=rule, best=best,
+                                 mma_ms=t_mma, sm90_ms={str(n): t for n, t in t90.items()}, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=lib_ms, M=tiles[next(iter(tiles))].M,
+                                 items={str(n): p.n_items for n, p in tiles.items()}))
+                print(f"k1 A/B {label} {key} x{count}: mma.sync {t_mma[0]:.4f} ms, "
+                      + ", ".join(f"Hopper {64 * n} rows {t[0]:.4f}" for n, t in t90.items())
+                      + f", back {', '.join(f'{t[1]:.4f}' for t in list(t90.values())[::-1])}, mma.sync "
+                      f"{t_mma[1]:.4f}; rule {rule}, fastest {best}; bound {b_ms:.4f} ({b_by}), torch._int_mm "
+                      f"{'not timed' if lib_ms is None else f'{lib_ms:.4f}'} [{card}]", flush=True)
+            fw = {"mma": [], "rule": []}
+            if n_taken:
+                for form in ("mma", "rule", "rule", "mma"):
+                    with K1._mma_form() if form == "mma" else contextlib.nullcontext():
+                        fw[form].append(median_ms(fwd))
+        considered[f"{label} {batch}"] = {"k1_launches": n_k1, "sm90_plan_takes": n_taken}
+        forwards[f"{label} {batch}"] = {"k1_sum_ms": k1_sum, "forward_ms": fw}
+        print(f"k1 A/B {label} batch {batch}: {n_taken} of {n_k1} K1 launches a forward in shapes sm90_plan takes; "
+              f"K1 summed over a forward {k1_sum} ms; the forward {fw} ms (order mma, rule, rule, mma) [{card}]",
+              flush=True)
+        del ops, x, launches
+        torch.cuda.empty_cache()
+
+    def mean(r, opt):
+        return statistics.mean(r["mma_ms"] if opt == "mma" else r["sm90_ms"][opt.split("@")[1]])
+
+    slower = [f"{r['net']} {r['batch']} {r['shape']}" for r in rows
+              if r["rule"] != "mma" and mean(r, r["rule"]) >= mean(r, "mma")]
+    misses = [dict(at=f"{r['net']} {r['batch']} {r['shape']}", rule=r["rule"], best=r["best"],
+                   ratio=mean(r, r["rule"]) / mean(r, r["best"]))
+              for r in rows if mean(r, r["rule"]) > 1.03 * mean(r, r["best"])]
+    print(json.dumps({"k1_ab": rows, "forwards": forwards, "considered": considered, "hopper_slower_at": slower,
+                      "rule_misses": misses, "card": card}), flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2841,6 +3120,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--fma-ab"]:
         fma_ab(card)
+        return 0
+    if sys.argv[1:] == ["--k1-ab"]:
+        k1_ab(card)
         return 0
     if sys.argv[1:] == ["--tp-only"]:
         tp_phase(dev, card, repo, details, phase)
@@ -3138,7 +3420,8 @@ def main() -> int:
     for (batch, name), (x, kern, cs, cb, op, stride, pad) in k1_ops.items():
         _, b, h, w, cin, ksize, _, n = next(key for key in conv_shapes(batch) if key[0] == name)
         xc = K1._conv_input(x, op)  # as the kernel takes it: the stem's channels padded to 4
-        plan = K1.conv_plan(*xc.shape, ksize, stride, pad, *op.wt.shape)
+        plan = K1.k1_plan(*xc.shape, ksize, stride, pad, *op.wt.shape)
+        tile = f"sm90 {plan.TM} rows" if isinstance(plan, K1.Sm90Plan) else f"{plan.TR}x{plan.TW}"
         m = plan.B * plan.Ho * plan.Wo
         out_c = torch.empty((m, op.wt.shape[0]), device=dev, dtype=torch.int8)
         out_f = torch.empty((m, op.wt.shape[0]), device=dev)
@@ -3160,11 +3443,11 @@ def main() -> int:
         slice_n, erf_n = conv_shapes(batch)[name, b, h, w, cin, ksize, stride, n]
         rows[K1.KERNEL].append(dict(
             batch=batch, shape=name, M=m, K=ksize * ksize * cin, N=n, slice_launches=slice_n, erf_launches=erf_n,
-            tile=f"{plan.TR}x{plan.TW}", poly_ms=code_ms["poly"], erf_ms=code_ms["erf"], f32_ms=f32_ms,
+            tile=tile, poly_ms=code_ms["poly"], erf_ms=code_ms["erf"], f32_ms=f32_ms,
             plain_poly_ms=plain_code_ms["poly"], plain_erf_ms=plain_code_ms["erf"],
             bound_ms=bc_ms, bound_f32_ms=bf_ms, bound_by=bc_by, library_ms=lib_ms, pad_pass_ms=pad_ms,
         ))
-        print(f"time K1 conv {name} batch {b} M={m} K={ksize * ksize * cin} N={n} (tile {plan.TR}x{plan.TW}): "
+        print(f"time K1 conv {name} batch {b} M={m} K={ksize * ksize * cin} N={n} (tile {tile}): "
               f"codes poly {code_ms['poly']:.4f} ms, erf {code_ms['erf']:.4f} (plain {plain_code_ms['poly']:.3f}, "
               f"{plain_code_ms['erf']:.3f}; bound {bc_ms:.4f} {bc_by}); f32 {f32_ms:.4f} (bound {bf_ms:.4f}); "
               f"torch._int_mm on the gathered matrix {lib_ms:.4f}"
@@ -3205,7 +3488,7 @@ def main() -> int:
     fam_rows, fam_err, fam_serving = deploy_families(dev, card, repo, details, phase)
 
     # 16-19. the ImageNet-layout trunks at 224x224; 20. the baselines' QAT
-    trunk_rows, trunk_err, trunk_serving = imagenet_trunks(dev, card, repo, details, phase)
+    trunk_rows, (trunk_err, sm90_err), trunk_serving = imagenet_trunks(dev, card, repo, details, phase)
     baseline_qat(dev, card, details, phase)
 
     # 21-23. domain adaptation
@@ -3302,6 +3585,14 @@ def main() -> int:
                         "max_abs_err": trunk_err, **trunk_sum(rows_)})
         print(f"{kname} over one batch-{SERVE_BATCH} {TRUNK_SIZE}x{TRUNK_SIZE} forward: {json.dumps(kernels[-1])} "
               f"[{card}]", flush=True)
+    # K1's Hopper form: its launches over both trunks' served forwards (phase
+    # 18), its times over one batch-256 forward of each trunk (phase 19)
+    kernels.append({"name": K1.SM90 + "@resnet50+resnet18", "route": "cuda",
+                    "source": "alignq_tpu_torch/csrc/qmatmul_sm90.cu", "replaces": "alignq_tpu/kernels/qmatmul.py:45",
+                    "launches": sum(trunk_serving[a]["launches"].get(K1.SM90, 0) for a in TRUNKS),
+                    "max_abs_err": sm90_err, **trunk_sum([x for x in trunk_rows if x["form"] == "sm90"])})
+    print(f"{kernels[-1]['name']} over one batch-{SERVE_BATCH} {TRUNK_SIZE}x{TRUNK_SIZE} forward of each trunk: "
+          f"{json.dumps(kernels[-1])} [{card}]", flush=True)
     r5 = [x for x in digit_rows if x["batch"] == SERVE_BATCH]
     kernels.append({"name": K1.KERNEL + ":5x5@digit_dann", "route": "cuda",
                     "source": "alignq_tpu_torch/csrc/qmatmul.cu", "replaces": "alignq_tpu/kernels/qmatmul.py:45",

@@ -7,6 +7,8 @@ port's dependencies:
     python -m pytest tests/test_torch_cuda_kernels.py -q
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,9 @@ from alignq_tpu_torch.kernels.qmatmul import (
     F32,
     FORM,
     REQUANT,
+    SM90,
     TAP_GATHERS,
+    _mma_form,
     act_map,
     int8_conv_codes,
     int8_conv_packed,
@@ -33,6 +37,7 @@ from alignq_tpu_torch.kernels.qmatmul import (
     pack_act_cutpoints,
     pack_conv_weights,
     pack_k1_weights,
+    sm90_plan,
 )
 from alignq_tpu_torch.kernels.stage_kernel import (
     stage_identity_blocks,
@@ -385,6 +390,46 @@ def test_conv_imagenet_forms_vs_plain(cuda, form):
     assert torch.equal(got["int32"], int8_conv_reference(x, op, stride, pad, "int32"))
     _assert_f32_close(got["f32"], int8_conv_reference(x, op, stride, pad, "f32"))
     for act, c in zip(acts, codes):
+        _assert_codes_close(c, int8_conv_reference(x, op, stride, pad, act.impl, act))
+
+
+# the IMAGENET_K1_FORMS that K1's Hopper form (csrc/qmatmul_sm90.cu) takes:
+# the 1x1 and 3x3 convs over C % 32 == 0 channels to N8 % 64 == 0 columns
+SM90_K1_FORMS = [f for f in IMAGENET_K1_FORMS
+                 if sm90_plan(*f[:4], f[4], f[5], f[4] // 2, f[6], f[4] ** 2 * f[3]) is not None]
+
+
+@pytest.mark.parametrize("form", SM90_K1_FORMS)
+def test_conv_sm90_form_vs_plain_and_mma_form(cuda, form):
+    """K1's Hopper form, which the planner gives these shapes, against the
+    plain version (int32 identical, f32 and the act codes within the plain
+    version's double rounding) and against the mma.sync form (_mma_form)
+    on the same operands, bit for bit in every mode; each launch counted
+    under the Hopper form."""
+    b, h, w, cin, ksize, stride, n = form
+    pad = ksize // 2
+    rng = np.random.RandomState(cin + n + b + ksize + 1)
+    x = _i8(rng, (b, h, w, cin), 0, 128).to(cuda)
+    kern = _i8(rng, (ksize, ksize, cin, n)).to(cuda)
+    k = ksize * ksize * cin
+    s = torch.from_numpy(((rng.rand(n) * 2 - 0.4) * 2 / (np.sqrt(k) * 73.3**2)).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy((rng.randn(n) * 0.5).astype(np.float32)).to(cuda)
+    op = pack_conv_weights(kern, s, bias)
+    acts = (act_map("erf", 127, cuda, relu=True), act_map("poly", 127, cuda), act_map("erf", 127, cuda),
+            act_map("bins", 7, cuda, relu=True))
+    got = {}
+    for form_ in ("sm90", "mma"):
+        before = _build.launches[SM90]
+        with _mma_form() if form_ == "mma" else contextlib.nullcontext():
+            got[form_] = [int8_conv_packed(x, op, stride, pad, mode) for mode in ("int32", "f32", "relu")] + [
+                int8_conv_codes(x, op, stride, pad, act) for act in acts]
+        torch.cuda.synchronize()
+        assert _build.launches[SM90] == before + (7 if form_ == "sm90" else 0)
+    for a, b_ in zip(got["sm90"], got["mma"]):
+        assert torch.equal(a, b_)
+    assert torch.equal(got["sm90"][0], int8_conv_reference(x, op, stride, pad, "int32"))
+    _assert_f32_close(got["sm90"][1], int8_conv_reference(x, op, stride, pad, "f32"))
+    for act, c in zip(acts, got["sm90"][3:]):
         _assert_codes_close(c, int8_conv_reference(x, op, stride, pad, act.impl, act))
 
 
