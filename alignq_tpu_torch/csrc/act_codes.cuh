@@ -24,6 +24,10 @@ __device__ __forceinline__ int round_clip(float c, float gf) {
 
 // ERF_SQRT2_POLY (alignq_tpu_torch/quant/cdf.py), each coefficient rounded
 // once to f32; tests/test_torch_stage_kernel.py checks these literals.
+// RN: rint(c * g) by one rounding conversion (F2I.RN), left for the caller
+// to clip (stage_kernel_sm90.cu clips in integers, relu included): g is
+// whole, so clipping before or after the conversion gives the same code.
+template <bool RN = false>
 __device__ __forceinline__ int poly_code(float h, float gf) {
   const float zc = fminf(fmaxf(h, -3.0f), 3.0f);
   const float u = __fmul_rn(zc, zc);
@@ -35,6 +39,7 @@ __device__ __forceinline__ int poly_code(float h, float gf) {
   acc = __fmaf_rn(acc, u, 0x1.45a8c8p-6f);
   acc = __fmaf_rn(acc, u, -0x1.10417ep-3f);
   acc = __fmaf_rn(acc, u, 0x1.98834cp-1f);
+  if constexpr (RN) return __float2int_rn(__fmul_rn(__fmul_rn(zc, acc), gf));
   return round_clip(__fmul_rn(zc, acc), gf);
 }
 

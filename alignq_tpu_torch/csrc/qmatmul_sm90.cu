@@ -73,11 +73,13 @@
 #include <string.h>
 
 #include "k1_epilogue.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
 using k1::ActArgs;
 using namespace k1;  // the epilogue modes
+using namespace sm90;
 
 constexpr int MAX_THREADS = 512;
 constexpr int MAX_STAGES = 6;
@@ -92,120 +94,17 @@ struct Plan {
 };
 constexpr int PLAN_INTS = sizeof(Plan) / sizeof(int);
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// ------------------------------------------------------------ copies
 
-// ------------------------------------------------------------ mbarriers
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-// one arrival that also expects `bytes` of asynchronous copies
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
 // one arrival once this thread's cp.async copies so far have landed
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// wait for the phase of the given parity to complete; a wait of seconds
-// means a lost arrival, and traps (the launch fails) rather than hang
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  const long long start = clock64();
-  uint32_t done;
-  do {
-    if (clock64() - start > (1ll << 34)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// ------------------------------------------------------------ copies
-
-// a TMA box of the weight's tensor map at (k, n) into dst, completing on bar
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int k, int n) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k), "r"(n)
-      : "memory");
 }
 
 // cp.async of 16 bytes; src_bytes 0 zero-fills the destination
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(src_bytes)
                : "memory");
-}
-
-// ------------------------------------------------------------ wgmma
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps a register that an in-flight wgmma reads or writes where it is
-// until this point (the compiler cannot see the asynchronous access)
-__device__ __forceinline__ void reg_fence(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
-__device__ __forceinline__ void reg_fence(int& r) { asm volatile("" : "+r"(r)::"memory"); }
-
-// The descriptor of a K-major operand in shared memory under a swz-byte
-// swizzle (128, 64 or 32): rows of swz bytes, 8-row core matrices 8 * swz
-// bytes apart (the stride byte offset); the leading byte offset is unused
-// for a swizzled K-major layout.
-__device__ __forceinline__ uint64_t make_desc(const void* p, int swz) {
-  const uint32_t addr = smem_u32(p);
-  const uint64_t layout = swz == 128 ? 1 : (swz == 64 ? 2 : 3);
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>((8 * swz) >> 4) << 32) | (layout << 62);
-}
-
-#define K1_D4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
-#define K1_D16(i) K1_D4(i), K1_D4(i + 4), K1_D4(i + 8), K1_D4(i + 12)
-
-// d (64 x NB int32, wgmma's accumulator layout) = A (64 x 32 s8, this
-// warp's 16 rows in a) * B (32 x NB s8, by desc), plus d where add != 0.
-// The first product of a tile starts the sums by add = 0: an accumulator
-// that another instruction writes would make ptxas serialize the wgmmas.
-template <int NB>
-__device__ __forceinline__ void wgmma_rs(int (&d)[NB / 2], const uint32_t (&a)[4], uint64_t desc, int add);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(int (&d)[32], const uint32_t (&a)[4], uint64_t desc, int add) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
-      : K1_D16(0), K1_D16(16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(int (&d)[64], const uint32_t (&a)[4], uint64_t desc, int add) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
-      : K1_D16(0), K1_D16(16), K1_D16(32), K1_D16(48)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add));
 }
 
 // ------------------------------------------------------------ the tiles
@@ -403,28 +302,6 @@ int sm_count() {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   return sms;
-}
-
-// ------------------------------------------------------------ tensor maps
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                             cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
 }
 
 template <int MODE, int KS, int NB>

@@ -6,8 +6,8 @@
 Phases, in order; any failure raises and the script exits non-zero:
  1. the card's name and power limit; TF32 off for matmul and cuDNN;
  2. build the CUDA kernels from alignq_tpu_torch/csrc (qmatmul.cu,
-    qmatmul_sm90.cu, quantize.cu, stage_kernel.cu, dwconv.cu: one nvcc
-    each, all started together);
+    qmatmul_sm90.cu, quantize.cu, stage_kernel.cu, stage_kernel_sm90.cu,
+    dwconv.cu: one nvcc each, all started together);
  3. K1 (csrc/qmatmul.cu) against its plain version. Its GEMM form at the
     path's gathered-matrix shapes of batches 2048 and 256, plus a ragged M
     with K=27; then its conv form on NHWC codes read in place, at every
@@ -24,22 +24,26 @@ Phases, in order; any failure raises and the script exits non-zero:
     cdf_quantize_int8 (csrc/quantize.cu) maps the act-site sizes of
     batches 2048 and 256 and a ragged n, and the counts are read; then each
     result is held against the plain version like K1's codes;
- 5. K3 (csrc/stage_kernel.cu) through its NHWC entry point against its
-    plain version at the three identity-block runs at batch 2048, 256 and
-    a ragged 3 (stages 1 and 3), and on the A4 grid (g=7):
-    the int16 stream bit-identical but for at most 1e-6 of the codes, each
-    one code away;
+ 5. K3 through its NHWC entry point, in the form the planner gives it
+    (its Hopper form, csrc/stage_kernel_sm90.cu, counted under
+    `stage_identity_blocks:sm90`), against its plain version and against
+    its mma.sync form (csrc/stage_kernel.cu, under stage_kernel._old_form)
+    at the three identity-block runs at batch 2048, 256 and a ragged 3, on
+    the A4 grid (g=7) and at one run of ResNet-56's 8 blocks at each of C =
+    16, 32 and 64 (seeded weights; the weights stream): the int16 stream
+    bit-identical, no differing code (the counts printed per run);
  6. forwards on the card against the same forwards on the CPU at batch 64,
     on qparams converted on the CPU: the slice's route (act_impl='poly',
     int16 stream, stage kernel and the K1 1x1 route), the default erf
     route, an A4 'bins' and a W4A4 'bins_int' forward. The final int16
-    stream bit for bit, every K1 launch in codes mode, and no tap gather
-    of a CUDA tensor;
+    stream bit for bit, every K1 launch in codes mode, every K3 launch
+    (3 a slice-route forward) in its Hopper form, and no tap gather of a
+    CUDA tensor;
  7. serving, the main path: the launch counts are zeroed, an engine is
     built with build_int8_resnet20_engine(batch_size=256) on the slice's
     route and answers requests of 1, 3, 100, 256 and 40 images, and the
     counts are read: 7 K1 launches, all in codes mode, to 3 K3 a forward,
-    and no tap gather.
+    every K3 launch in its Hopper form, and no tap gather.
     Then what was served is held against the CPU's plain path: each
     request's logits within 1e-4, and the int16 stream of the engine's
     forward at its padded batch of 256 bit for bit. Then the engine's
@@ -59,8 +63,8 @@ Phases, in order; any failure raises and the script exits non-zero:
         --stage_kernel (fake-quant and INT top-1, delta, prediction
         agreement, at least 99.0%), the counts read; then an engine serves
         that net on the slice's route, held against the CPU plain path as
-        in phase 7. Both runs launch K1 in the poly codes mode only, K3,
-        and gather no taps;
+        in phase 7. Both runs launch K1 in the poly codes mode only, K3
+        in its Hopper form only, and gather no taps;
  9. the QAT of DenseNet-40 (f32 and int8 stage buffers) and MobileNet-V2:
     (a) 3 float64 train steps, W4A4 with ADMM and the correction, batch
         8 of 16x16 images, on the card and on the CPU from one seed, of a
@@ -86,7 +90,8 @@ Phases, in order; any failure raises and the script exits non-zero:
         alignq_tpu_torch.bench`, its line printed;
 10. times from CUDA events (median of 20 after warm-up): the forward at
     batches 2048 and 256 on both routes, and each kernel at each path
-    shape of batches 2048 and 256 (K1 in the form the planner gives it;
+    shape of batches 2048 and 256 (K1 and K3 in the form the planner gives
+    them, K3's mma.sync form beside it;
     its device time from a cold L2,
     utils/cuda_timing.py graph_ms: 20 launches captured in a CUDA graph,
     each after a read that evicts the L2, and replayed, so that no
@@ -260,7 +265,8 @@ Phases, in order; any failure raises and the script exits non-zero:
         served images/s of the slice route at engine batch 256 on each
         mesh and in one process;
 26. one JSON line of the kernels (K1 and K3: times summed over the
-    launches of one slice-route forward at the serving batch; K2: over one
+    launches of one slice-route forward at the serving batch, K3 in its
+    Hopper form, its launches those of phase 7's main path; K2: over one
     launch at each act-site size of that batch; K1 on DenseNet-40 and
     MobileNet-V2, the depthwise kernel and the BN-act kernel's two forms
     (table on the int8 buffer, arithmetic on the f32 one): over one
@@ -308,6 +314,18 @@ rule and at the fastest option, and the whole forward in mma.sync and by
 the rule, ABBA (mma.sync everywhere under qmatmul._mma_form); one JSON
 line.
 
+    python3 chip_smoke.py --k3-ab
+
+times K3's two forms on the card in one process: each ResNet-20 stage run
+at batches 2048, 256, 8 and 3 (graph_ms, cold L2) in the mma.sync form and
+in the Hopper form at each images-a-CTA and warpgroup option, in the order
+mma.sync, the options, the options backwards, mma.sync, every option's
+stream bit for bit the mma.sync form's, beside the option the planner's
+rule gives and the bound; K3 summed over a forward each way, and the
+slice-route forward at 2048 and 256 ABBA (mma.sync under
+stage_kernel._old_form); one JSON line, also written to
+chiprun_out/k3_ab.json.
+
     python3 chip_smoke.py --gather-backward-ab
 
 times the data-parallel gather step over two gloo ranks on the card with
@@ -348,6 +366,8 @@ PEAK_F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 K2_OPS_PER_ELEMENT = 24
 BATCH = 2048  # bench.py's headline batch
 SERVE_BATCH = 256  # the engine's batch on the main path
+K3_DEEP_MS = tuple(range(2, 10))  # ResNet-56's stage-2 and stage-3 runs: 8 blocks, multipliers 2-9
+K3_DEEP_BATCH = 64  # phase 5's 8-block runs
 SEED = 0
 
 
@@ -455,6 +475,14 @@ def bound(bytes_moved, ops, peak_ops=PEAK_INT8_OPS_PER_S):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k3_bound(pixels, c, n_blocks):
+    """K3's bound over a run of n_blocks on pixels NHWC pixels of C
+    channels: the int16 stream read and written once and every conv's
+    weight, scale and bias read once, against 2 convs a block of 2*9*C*C
+    int8 operations a pixel."""
+    return bound(2 * 2 * c * pixels + n_blocks * 2 * (9 * c * c + 8 * c), n_blocks * 2 * 2 * pixels * 9 * c * c)
 
 
 @contextlib.contextmanager
@@ -585,9 +613,10 @@ def qat_on_the_card(dev, repo, serve_and_check, reqs, slice_kw):
     poly = K1.MODE.format("poly")
     for label, counts in (("export", export_launches), ("serving", served)):
         if not (counts.get(K1.KERNEL, 0) > 0 and counts.get(poly, 0) == counts[K1.KERNEL]
-                and counts.get(K3.KERNEL, 0) > 0 and not counts.get(K1.TAP_GATHERS, 0)):
+                and counts.get(K3.KERNEL, 0) > 0 and counts.get(K3.SM90, 0) == counts[K3.KERNEL]
+                and not counts.get(K1.TAP_GATHERS, 0)):
             raise AssertionError(f"QAT (c) {label}: launches {counts}: expected K1 in poly codes mode only, "
-                                 "K3, and no tap gather")
+                                 "K3 in its Hopper form, and no tap gather")
     out.update(fq_top1=rep["fq_top1"], int_top1=rep["int_top1"], delta=rep["delta"], agreement=rep["agreement"],
                export_launches=export_launches, serving_launches=served)
     return out
@@ -2439,7 +2468,8 @@ def dp_phase(dev, card, repo, details, phase):
     poly = K1.MODE.format("poly")
     for label, counts in (("export", export_launches), ("serving", served["launches"])):
         if not (counts.get(K1.KERNEL, 0) > 0 and counts.get(poly, 0) == counts[K1.KERNEL]
-                and counts.get(K3.KERNEL, 0) > 0 and not counts.get(K1.TAP_GATHERS, 0)):
+                and counts.get(K3.KERNEL, 0) > 0 and counts.get(K3.SM90, 0) == counts[K3.KERNEL]
+                and not counts.get(K1.TAP_GATHERS, 0)):
             raise AssertionError(f"data parallel (c) {label}: launches {counts}")
     out["torchrun"] = {"train_s": train_s, "loss_first": losses[0], "loss_last": losses[-1], "fq_top1": rep["fq_top1"],
                        "int_top1": rep["int_top1"], "agreement": rep["agreement"], "serving": served}
@@ -3059,6 +3089,126 @@ def k1_ab(card) -> None:
                       "rule_misses": misses, "card": card}), flush=True)
 
 
+K3_AB_BATCHES = (BATCH, SERVE_BATCH, 8, 3)  # --k3-ab's batches: the bench's, the engine's, a serving batch, ragged
+
+
+def k3_options(batch, hw, c, n_blocks):
+    """{label: plan} of every Hopper-form plan --k3-ab times for one run:
+    each image count of K3_IMGS whose group holds no more pixels than a
+    32x32 image (two 32x32 images a CTA ran slower at every batch and
+    warpgroup count tried: PERF.md) and 1, 2 and 4 warpgroups, where they
+    fit."""
+    from alignq_tpu_torch.kernels import stage_kernel as K3
+
+    opts = {}
+    for imgs in (i for i in K3.K3_IMGS if i * hw * hw <= 1024):
+        for n_wg in (1, 2, 4):
+            plan = K3.k3_plan(batch, hw, hw, c, n_blocks, imgs=imgs, n_wg=n_wg)
+            if plan is not None:
+                opts[f"{imgs}i{n_wg}w"] = plan
+    return opts
+
+
+def k3_ab(card, ptxas: str = "") -> None:
+    """python3 chip_smoke.py --k3-ab: K3's two forms on the card, in one
+    process. For each ResNet-20 stage run (seeded weights from
+    build_resnet20_int8, a random stream) at each batch of K3_AB_BATCHES,
+    the mma.sync form (stage_kernel.cu) and every Hopper-form option of
+    k3_options are timed by graph_ms (cold L2) in the order mma.sync, the
+    options, the options backwards, mma.sync, beside k3_bound and the
+    option the planner's rule gives; every option's stream must equal the
+    mma.sync form's bit for bit. Then, at batches 2048 and 256, K3 summed
+    over a slice-route forward in each form (the rule's option) and the
+    whole slice-route forward (CUDA events, median of 20) in the order
+    mma.sync, rule, rule, mma.sync (mma.sync under stage_kernel._old_form).
+    `hopper_slower_at` lists the runs where the rule's option lost to
+    mma.sync; `rule_misses` each run where another option beat the rule's
+    by more than 3%. One JSON line, after the Hopper form's register and
+    spill report where this call built it."""
+    import torch
+
+    from alignq_tpu_torch.kernels import stage_kernel as K3
+    from alignq_tpu_torch.kernels.infer import build_resnet20_int8, pack_int8_operands, resnet20_int8_forward
+
+    for ln in ptxas.splitlines():
+        if "Compiling entry" in ln or "registers" in ln or "spill" in ln or "C75" in ln:
+            print("ptxas:", ln.strip(), flush=True)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    _, (qp, _) = build_resnet20_int8(1, device=dev)
+    layers = qp["layers"]
+    runs = [("stage1 blocks 0-2", layers[0:3], (1, 2, 3), 32), ("stage2 blocks 4-5", layers[4:6], (2, 3), 16),
+            ("stage3 blocks 7-8", layers[7:9], (2, 3), 8)]
+    rows, sums = [], {}
+    for batch in K3_AB_BATCHES:
+        sums[batch] = {"mma": 0.0, "rule": 0.0, "best": 0.0, "bound": 0.0}
+        for name, blocks, ms, hw in runs:
+            wt, scale, bias = K3.pack_block_weights(blocks)
+            c = wt.shape[2]
+            x = torch.randint(0, 4 * 127, (batch, hw, hw, c), generator=gen, device=dev, dtype=torch.int16)
+            opts = k3_options(batch, hw, c, len(ms))
+            rule = K3.k3_plan(batch, hw, hw, c, len(ms))
+            rule_key = next(k for k, p in opts.items() if p == rule)
+            old = torch.empty_like(x)
+            K3._stage_launch(x, old, wt, scale, bias, ms, 127)
+            outs = {}
+            for key, plan in opts.items():
+                outs[key] = torch.empty_like(x)
+                K3._stage_launch(x, outs[key], wt, scale, bias, ms, 127, plan)
+            torch.cuda.synchronize()
+            for key, got in outs.items():
+                if not torch.equal(got, old):
+                    raise AssertionError(f"K3's Hopper form {key} differs from mma.sync at {name} batch {batch}")
+            out = outs.pop(rule_key)
+            del outs
+            t_old, t90 = [], {k: [] for k in opts}
+            t_old.append(graph_ms(lambda: K3._stage_launch(x, old, wt, scale, bias, ms, 127)))
+            for key in list(opts) + list(opts)[::-1]:
+                t90[key].append(graph_ms(lambda: K3._stage_launch(x, out, wt, scale, bias, ms, 127, opts[key])))
+            t_old.append(graph_ms(lambda: K3._stage_launch(x, old, wt, scale, bias, ms, 127)))
+            means = {"mma": statistics.mean(t_old), **{k: statistics.mean(t) for k, t in t90.items()}}
+            best = min(means, key=means.get)
+            b_ms, b_by = k3_bound(x.numel() // c, c, len(ms))
+            for key, v in (("mma", means["mma"]), ("rule", means[rule_key]), ("best", means[best]), ("bound", b_ms)):
+                sums[batch][key] += v
+            rows.append(dict(batch=batch, run=name, C=c, HW=hw, mma_ms=t_old, sm90_ms=t90, rule=rule_key, best=best,
+                             bound_ms=b_ms, bound_by=b_by))
+            print(f"k3 A/B {name} C={c} batch {batch}: mma.sync {t_old[0]:.4f} / {t_old[1]:.4f} ms; "
+                  + ", ".join(f"{k} {t[0]:.4f} / {t[1]:.4f}" for k, t in t90.items())
+                  + f"; rule {rule_key}, fastest {best}; bound {b_ms:.4f} ({b_by}) [{card}]", flush=True)
+            del x, old, out
+        print(f"k3 A/B batch {batch}: K3 summed over the three runs of a slice-route forward {sums[batch]} ms "
+              f"[{card}]", flush=True)
+    slice_kw = dict(act_impl="poly", stream="int16", use_stage_kernel=True, use_pallas_1x1=True)
+    forwards = {}
+    for batch in (BATCH, SERVE_BATCH):
+        _, (qp_b, x_b) = build_resnet20_int8(batch, device=dev)
+        ops_b = pack_int8_operands(qp_b)
+        fw = {"mma": [], "rule": []}
+        with torch.inference_mode():
+            for form in ("mma", "rule", "rule", "mma"):
+                with K3._old_form() if form == "mma" else contextlib.nullcontext():
+                    fw[form].append(median_ms(lambda: resnet20_int8_forward(qp_b, x_b, operands=ops_b, **slice_kw)))
+        forwards[batch] = fw
+        print(f"k3 A/B slice-route forward batch {batch}: {fw} ms (order mma, rule, rule, mma) [{card}]", flush=True)
+        del qp_b, x_b, ops_b
+
+    def mean(r, opt):
+        return statistics.mean(r["mma_ms"] if opt == "mma" else r["sm90_ms"][opt])
+
+    slower = [f"{r['run']} batch {r['batch']}" for r in rows if mean(r, r["rule"]) >= mean(r, "mma")]
+    misses = [dict(at=f"{r['run']} batch {r['batch']}", rule=r["rule"], best=r["best"],
+                   ratio=mean(r, r["rule"]) / mean(r, r["best"]))
+              for r in rows if mean(r, r["rule"]) > 1.03 * mean(r, r["best"])]
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    line = {"k3_ab": rows, "k3_per_forward": sums, "forwards": forwards, "hopper_slower_at": slower,
+            "rule_misses": misses, "card": card}
+    (out_dir / "k3_ab.json").write_text(json.dumps(line, indent=1))
+    print(json.dumps(line), flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3123,6 +3273,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--k1-ab"]:
         k1_ab(card)
+        return 0
+    if sys.argv[1:] == ["--k3-ab"]:
+        k3_ab(card, reports.get("stage_kernel_sm90", ""))
         return 0
     if sys.argv[1:] == ["--tp-only"]:
         tp_phase(dev, card, repo, details, phase)
@@ -3245,37 +3398,51 @@ def main() -> int:
         print(f"K2 {name} batch {batch} n={x.numel()}: codes differ on {diff} of {x.numel()}", flush=True)
     del k2_out
 
-    # 5. K3 against its plain version (the path's runs at batch 2048 and
-    # 256, and g=7)
-    phase("K3 against its plain version")
+    # 5. K3 against its plain version and its two forms against each other
+    # (the path's runs at batch 2048, 256 and 3, g=7, and 8-block runs)
+    phase("K3 against its plain version, both forms")
     _, (qp, _) = build_resnet20_int8(1, device=dev)
     layers = qp["layers"]
-    k3_runs = [(batch, "stage1 blocks 0-2", layers[0:3], (1, 2, 3), 32, 127) for batch in (BATCH, SERVE_BATCH)]
-    k3_runs += [(batch, "stage2 blocks 4-5", layers[4:6], (2, 3), 16, 127) for batch in (BATCH, SERVE_BATCH)]
-    k3_runs += [(batch, "stage3 blocks 7-8", layers[7:9], (2, 3), 8, 127) for batch in (BATCH, SERVE_BATCH)]
-    k3_runs += [(3, "stage1 blocks 0-2", layers[0:3], (1, 2, 3), 32, 127), (3, "stage3 blocks 7-8", layers[7:9],
-                                                                             (2, 3), 8, 127)]
-    k3_runs += [(64, "stage1 A4 grid", layers[0:1], (2,), 32, 7)]
+    k3_runs = [(batch, name, K3.pack_block_weights(blocks), ms, hw, 127) for batch in (BATCH, SERVE_BATCH, 3)
+               for name, blocks, ms, hw in (("stage1 blocks 0-2", layers[0:3], (1, 2, 3), 32),
+                                            ("stage2 blocks 4-5", layers[4:6], (2, 3), 16),
+                                            ("stage3 blocks 7-8", layers[7:9], (2, 3), 8))]
+    k3_runs.append((64, "stage1 A4 grid", K3.pack_block_weights(layers[0:1]), (2,), 32, 7))
+    for c, hw in ((16, 32), (32, 16), (64, 8)):  # ResNet-56's runs of 8 blocks: the weights stream
+        n = len(K3_DEEP_MS)
+        wt = torch.randint(-20, 20, (n, 2, c, 9 * c), generator=gen, device=dev, dtype=torch.int8)
+        scale = torch.rand((n, 2, c), generator=gen, device=dev) * 1e-3
+        bias = (torch.rand((n, 2, c), generator=gen, device=dev) - 0.5) * 0.1
+        k3_runs.append((K3_DEEP_BATCH, f"8 blocks C={c}", (wt, scale, bias), K3_DEEP_MS, hw, 127))
     k3_err = 0
     k3_ops = {}
-    for batch, name, blocks, ms, hw, g in k3_runs:
-        wt, scale, bias = K3.pack_block_weights(blocks)
+    k3_diffs = {}
+    for batch, name, (wt, scale, bias), ms, hw, g in k3_runs:
         c = wt.shape[2]
         # the NHWC stream, the forward's own layout
         stream = torch.randint(0, 4 * g, (batch, hw, hw, c), generator=gen, device=dev, dtype=torch.int16)
+        before = dict(_build.launches)
         got = K3.stage_identity_blocks_nhwc(stream, wt, scale, bias, ms, g=g)
+        sm90 = _build.launches[K3.SM90] - before.get(K3.SM90, 0)
+        with K3._old_form():
+            old = K3.stage_identity_blocks_nhwc(stream, wt, scale, bias, ms, g=g)
         want = K3.stage_identity_blocks_nhwc_reference(stream, wt, scale, bias, ms, g)
         torch.cuda.synchronize()
-        diff = int((got != want).sum())
+        diff, diff_old = int((got != want).sum()), int((got != old).sum())
         err = int((got.int() - want.int()).abs().max())
-        if diff > 1e-6 * got.numel() or err > 1:
-            raise AssertionError(f"K3 {name} batch {batch}: {diff} of {got.numel()} stream codes differ, "
-                                 f"by up to {err}")
+        k3_diffs[f"{name} batch {batch}"] = {"vs_plain": diff, "vs_old_form": diff_old, "old_vs_plain":
+                                             int((old != want).sum()), "codes": got.numel()}
+        print(f"K3 {name} C={c} {hw}x{hw} batch {batch} ms={ms} g={g} ({'Hopper' if sm90 else 'mma.sync'} form): "
+              f"stream differs from the plain version's on {diff} of {got.numel()} codes, from the mma.sync "
+              f"form's on {diff_old}", flush=True)
+        if diff or diff_old or k3_diffs[f"{name} batch {batch}"]["old_vs_plain"]:
+            raise AssertionError(f"K3 {name} batch {batch}: streams differ: {k3_diffs[f'{name} batch {batch}']}")
+        if sm90 != 1:
+            raise AssertionError(f"K3 {name} batch {batch}: the planner gave it the mma.sync form")
         k3_err = max(k3_err, err)
-        print(f"K3 {name} C={c} {hw}x{hw} batch {batch} ms={ms} g={g}: stream differs on {diff} of "
-              f"{got.numel()} (max abs {err})", flush=True)
         if g == 127 and batch in (BATCH, SERVE_BATCH):
             k3_ops[batch, name] = (stream, wt, scale, bias, ms, hw)
+    details["k3_differing_codes"] = k3_diffs
 
     # 6. forwards on the card against the CPU, on qparams converted once on
     # the CPU (so both sides hold the same weight codes)
@@ -3283,7 +3450,7 @@ def main() -> int:
     slice_kw = dict(act_impl="poly", stream="int16", use_stage_kernel=True, use_pallas_1x1=True)
     _, (_, x_cpu) = build_resnet20_int8(64, device="cpu")
     params, stats = init_preact_resnet_params(20, torch.Generator().manual_seed(SEED + 1), "cpu")
-    keys = (K1.KERNEL, K1.CODES, K1.F32, K3.KERNEL, K1.TAP_GATHERS)
+    keys = (K1.KERNEL, K1.CODES, K1.F32, K3.KERNEL, K3.SM90, K1.TAP_GATHERS)
     for label, (wbits, abits), kw, k1_per_fwd, k3_per_fwd in (
         ("slice poly+K3+K1", (8, 8), slice_kw, 7, 3),
         ("default erf/int16", (8, 8), {}, 21, 0),
@@ -3306,7 +3473,8 @@ def main() -> int:
         lerr = float((l_gpu - l_cpu).abs().max())
         if not (torch.isfinite(l_gpu).all() and lerr <= 1e-4 and l_gpu.shape == (64, 10)):
             raise AssertionError(f"{label}: logits off by {lerr}")
-        want = {K1.KERNEL: k1_per_fwd, K1.CODES: k1_per_fwd, K1.F32: 0, K3.KERNEL: k3_per_fwd, K1.TAP_GATHERS: 0}
+        want = {K1.KERNEL: k1_per_fwd, K1.CODES: k1_per_fwd, K1.F32: 0, K3.KERNEL: k3_per_fwd, K3.SM90: k3_per_fwd,
+                K1.TAP_GATHERS: 0}
         if counts != want:
             raise AssertionError(f"{label}: launches per forward {counts}, expected {want}")
         print(f"forward {label} batch 64: int16 stream identical to CPU, logits max abs {lerr:.3g}, "
@@ -3360,6 +3528,8 @@ def main() -> int:
         raise AssertionError(f"the main path did not launch every kernel: {main_launches}")
     if main_launches[K1.KERNEL] * 3 != main_launches[K3.KERNEL] * 7:
         raise AssertionError(f"main-path launches {main_launches} are not 7 K1 : 3 K3 per forward")
+    if main_launches.get(K3.SM90, 0) != main_launches[K3.KERNEL]:
+        raise AssertionError(f"main path: K3 launches not all in the Hopper form: {main_launches}")
     if main_launches.get(K1.CODES, 0) != main_launches[K1.KERNEL] or main_launches.get(K1.F32, 0):
         raise AssertionError(f"main path: K1 launches not all in codes mode: {main_launches}")
     if main_launches.get(K1.TAP_GATHERS, 0):
@@ -3468,14 +3638,16 @@ def main() -> int:
     for (batch, name), (stream, wt, scale, bias, ms_, hw) in k3_ops.items():
         mt, c = stream.numel() // stream.shape[-1], stream.shape[-1]
         out = torch.empty_like(stream)
-        ms = graph_ms(lambda: K3._stage_launch(stream, out, wt, scale, bias, ms_, 127))
+        plan = K3.k3_plan(batch, hw, hw, c, len(ms_))  # the planner's form (the Hopper form at every path run)
+        ms = graph_ms(lambda: K3._stage_launch(stream, out, wt, scale, bias, ms_, 127, plan))
+        old_ms = graph_ms(lambda: K3._stage_launch(stream, out, wt, scale, bias, ms_, 127))
         plain_ms = median_ms(lambda: K3.stage_identity_blocks_nhwc_reference(stream, wt, scale, bias, ms_, 127))
-        nb = len(ms_)
-        b_ms, b_by = bound(2 * 2 * c * mt + nb * 2 * (9 * c * c + 8 * c), nb * 2 * 2 * mt * 9 * c * c)
-        rows[K3.KERNEL].append(dict(batch=batch, shape=name, C=c, HW=hw, ms=ms, plain_ms=plain_ms,
-                                    bound_ms=b_ms, bound_by=b_by, library_ms=None))
-        print(f"time K3 {name} C={c} {hw}x{hw} batch {batch}: {ms:.4f} ms, plain {plain_ms:.3f}, "
-              f"bound {b_ms:.4f} ({b_by}) [{card}]", flush=True)
+        b_ms, b_by = k3_bound(mt, c, len(ms_))
+        form = "mma.sync" if plan is None else f"sm90 {plan.imgs} images {plan.n_wg} warpgroups"
+        rows[K3.KERNEL].append(dict(batch=batch, shape=name, C=c, HW=hw, form=form, ms=ms, mma_sync_ms=old_ms,
+                                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        print(f"time K3 {name} C={c} {hw}x{hw} batch {batch} ({form}): {ms:.4f} ms (the mma.sync form "
+              f"{old_ms:.4f}), plain {plain_ms:.3f}, bound {b_ms:.4f} ({b_by}) [{card}]", flush=True)
     details["kernels"] = rows
 
     # 11. QAT step times and where a step's device time goes
@@ -3533,8 +3705,8 @@ def main() -> int:
          main_launches[K1.KERNEL]),
         (K2.KERNEL, "alignq_tpu_torch/csrc/quantize.cu", "alignq_tpu/kernels/quantize.py:57", k2_err,
          k2_launches[K2.KERNEL]),
-        (K3.KERNEL, "alignq_tpu_torch/csrc/stage_kernel.cu", "alignq_tpu/kernels/stage_kernel.py:171", k3_err,
-         main_launches[K3.KERNEL]),
+        (K3.KERNEL, "alignq_tpu_torch/csrc/stage_kernel_sm90.cu", "alignq_tpu/kernels/stage_kernel.py:171", k3_err,
+         main_launches[K3.SM90]),
     ]
     kernels = [{"name": kname, "route": "cuda", "source": src, "replaces": replaces, "launches": launches,
                 "max_abs_err": err, **per_forward[SERVE_BATCH][kname]}

@@ -15,6 +15,7 @@ import torch
 
 from alignq_tpu_torch.kernels import _build
 from alignq_tpu_torch.kernels import quantize as K2
+from alignq_tpu_torch.kernels import stage_kernel as K3
 from alignq_tpu_torch.kernels.qmatmul import (
     CODES,
     F32,
@@ -181,9 +182,7 @@ def test_stage_kernel_vs_plain(cuda, c, h, w, batch, ms, g):
     torch.cuda.synchronize()
     assert _build.launches["stage_identity_blocks"] == before + 1
     want = stage_identity_blocks_reference(stream, wt, scale, bias, ms, g, w, h)
-    diff = got != want
-    assert diff.sum().item() <= 1e-6 * got.numel()
-    assert ((got.int() - want.int()).abs() <= 1).all()
+    assert torch.equal(got, want)
 
 
 def test_forward_cuda_vs_cpu(cuda):
@@ -199,8 +198,9 @@ def test_forward_cuda_vs_cpu(cuda):
     before = dict(_build.launches)
     got = resnet20_int8_stream(qp_gpu, x_gpu, operands=ops, **kw)
     torch.cuda.synchronize()
-    counts = {k: _build.launches[k] - before.get(k, 0) for k in ("int8_matmul_dequant", CODES, F32, "stage_identity_blocks")}
-    assert counts == {"int8_matmul_dequant": 7, CODES: 7, F32: 0, "stage_identity_blocks": 3}
+    counts = {k: _build.launches[k] - before.get(k, 0)
+              for k in ("int8_matmul_dequant", CODES, F32, "stage_identity_blocks", K3.SM90)}
+    assert counts == {"int8_matmul_dequant": 7, CODES: 7, F32: 0, "stage_identity_blocks": 3, K3.SM90: 3}
     assert _build.launches[TAP_GATHERS] == before.get(TAP_GATHERS, 0)  # no conv gathered its taps
     assert torch.equal(got.cpu(), want)
 
@@ -303,9 +303,49 @@ def test_stage_kernel_nhwc_vs_plain(cuda, c, hw, ms, batch):
     assert _build.launches["stage_identity_blocks"] == before + 1
     want = stage_identity_blocks_nhwc_reference(x, wt, scale, bias, ms, 127)
     assert got.shape == x.shape
-    diff = got != want
-    assert diff.sum().item() <= 1e-6 * got.numel()
-    assert ((got.int() - want.int()).abs() <= 1).all()
+    assert torch.equal(got, want)
+
+
+# K3's Hopper form (csrc/stage_kernel_sm90.cu) at the three widths, with one
+# and several images a CTA, 1 to 4 warpgroups, a ragged last group, and a
+# run of ResNet-56's 8 blocks (the weights stream through the slots):
+# (C, H, batch, ms, imgs, n_wg), imgs and n_wg None where the planner's
+STAGE_SM90_FORMS = [
+    (16, 32, 3, (1, 2, 3), None, None), (16, 32, 2, (2, 3), 1, 1), (16, 16, 5, (2,), 2, 4),
+    (32, 16, 8, (2, 3), None, None), (32, 16, 5, (2, 3), 2, 2), (32, 8, 3, (9,), 4, 4),
+    (64, 8, 9, (2, 3), None, None), (64, 8, 9, (2, 3), 4, 2), (64, 8, 3, (1,), 2, 1),
+    (64, 8, 6, tuple(range(2, 10)), None, None), (16, 32, 2, tuple(range(2, 10)), None, None),
+]
+
+
+@pytest.mark.parametrize("form", STAGE_SM90_FORMS)
+def test_stage_kernel_sm90_vs_plain_and_mma_form(cuda, form):
+    """The Hopper form's stream equals the plain version's and the mma.sync
+    form's bit for bit; the planner gives it the shape, and its launch is
+    counted under stage_identity_blocks and stage_identity_blocks:sm90."""
+    c, hw, batch, ms, imgs, n_wg = form
+    rng = np.random.RandomState(c + hw + batch + len(ms))
+    n = len(ms)
+    wt = _i8(rng, (n, 2, c, 9 * c), -20, 20).to(cuda)
+    scale = torch.from_numpy(rng.rand(n, 2, c).astype(np.float32) * 1e-3).to(cuda)
+    bias = torch.from_numpy((rng.rand(n, 2, c).astype(np.float32) - 0.5) * 0.1).to(cuda)
+    x = torch.from_numpy(rng.randint(0, 4 * 127, (batch, hw, hw, c)).astype(np.int16)).to(cuda)
+    want = stage_identity_blocks_nhwc_reference(x, wt, scale, bias, ms, 127)
+    with K3._old_form():
+        old = stage_identity_blocks_nhwc(x, wt, scale, bias, ms)
+    if imgs is None:
+        before = dict(_build.launches)
+        got = stage_identity_blocks_nhwc(x, wt, scale, bias, ms)
+        counted = {k: _build.launches[k] - before.get(k, 0) for k in (K3.KERNEL, K3.SM90)}
+        assert counted == {K3.KERNEL: 1, K3.SM90: 1}
+    else:
+        plan = K3.k3_plan(batch, hw, hw, c, n, imgs=imgs, n_wg=n_wg)
+        assert plan is not None
+        got = torch.empty_like(x)
+        K3._stage_launch(x.contiguous(), got, wt.contiguous(), scale, bias, ms, 127, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(old, want)
 
 
 # K1's forms for DenseNet-40 and MobileNet-V2: (B, H, W, Cin, ksize,
