@@ -1,7 +1,8 @@
-// K1's epilogue, shared by its two forms (qmatmul.cu's mma.sync kernel and
-// qmatmul_sm90.cu's wgmma kernel), so that both map an int32 accumulator
-// to the same f32 value or act code by the same instructions: on the card
-// the two forms agree bit for bit in every mode.
+// K1's epilogue, shared by its three forms (qmatmul.cu's mma.sync kernel,
+// qmatmul_sm90.cu's and qmatmul_sm90n.cu's wgmma kernels), so that all map
+// an int32 accumulator to the same f32 value or act code by the same
+// instructions (site_code, word_value): on the card the forms agree bit for
+// bit in every mode.
 //
 // Modes (kernels/qmatmul.py _MODE): the raw int32 accumulator; f32
 // `acc * scale + bias`, ONE rounding (__fmaf_rn), with or without relu; the
@@ -55,6 +56,21 @@ __device__ __forceinline__ uint16_t pack2(int c0, int c1) {
   return static_cast<uint16_t>((c0 & 0xff) | (c1 & 0xff) << 8);
 }
 
+// The f32 epilogue value of one accumulator (modes F32 and RELU)
+template <int MODE>
+__device__ __forceinline__ float f32_value(int acc, float s, float b) {
+  // int -> f32 rounds to nearest, as the JAX graph's astype does
+  const float y = __fmaf_rn(static_cast<float>(acc), s, b);
+  return MODE == RELU ? fmaxf(y, 0.f) : y;
+}
+
+// The 32-bit word of one element in the modes with 4-byte elements: the
+// accumulator itself (INT32) or its f32 value's bits (F32, RELU)
+template <int MODE>
+__device__ __forceinline__ uint32_t word_value(int acc, float s, float b) {
+  return MODE == INT32 ? static_cast<uint32_t>(acc) : __float_as_uint(f32_value<MODE>(acc, s, b));
+}
+
 // Row `row` of out (M, ld), columns col and col + 1, from the two
 // accumulators a0 and a1 of those columns: s0, s1 and c0, c1 their scales
 // and biases (unread in modes INT32 and BINS_INT)
@@ -65,17 +81,9 @@ __device__ __forceinline__ void store2(void* __restrict__ out, size_t row, int c
   if (MODE >= POLY) {
     static_cast<uint16_t*>(out)[at >> 1] = pack2(site_code<MODE>(a0, s0, c0, col, act, ld),
                                                  site_code<MODE>(a1, s1, c1, col + 1, act, ld));
-  } else if (MODE == INT32) {
-    *reinterpret_cast<int2*>(static_cast<int*>(out) + at) = make_int2(a0, a1);
   } else {
-    // int -> f32 rounds to nearest, as the JAX graph's astype does
-    float y0 = __fmaf_rn(static_cast<float>(a0), s0, c0);
-    float y1 = __fmaf_rn(static_cast<float>(a1), s1, c1);
-    if (MODE == RELU) {
-      y0 = fmaxf(y0, 0.f);
-      y1 = fmaxf(y1, 0.f);
-    }
-    *reinterpret_cast<float2*>(static_cast<float*>(out) + at) = make_float2(y0, y1);
+    *reinterpret_cast<uint2*>(static_cast<int*>(out) + at) =
+        make_uint2(word_value<MODE>(a0, s0, c0), word_value<MODE>(a1, s1, c1));
   }
 }
 

@@ -14,9 +14,10 @@
 // The GEMM form
 // (x (M, Kp) @ W^T) is the 1x1 stride-1 conv over the (1, 1, M, Kp) view.
 // The 3x3 and 1x1 convs over C % 32 == 0 channels to N8 % 64 == 0 columns
-// run in K1's Hopper form instead (qmatmul_sm90.cu, chosen by
-// kernels/qmatmul.py k1_plan); the two forms share their epilogue
-// (k1_epilogue.cuh) and agree bit for bit.
+// run in K1's Hopper form instead (qmatmul_sm90.cu), and most of the
+// narrower stride-1 3x3s and 1x1s in its narrow Hopper form
+// (qmatmul_sm90n.cu), chosen by kernels/qmatmul.py k1_plan; the forms share
+// their epilogue (k1_epilogue.cuh) and agree bit for bit.
 //
 // What bounds it on an H100, at the serving graph's shapes: bytes for most
 // convs. With the input read once, a 3x3 conv does 2*9*C*N operations for

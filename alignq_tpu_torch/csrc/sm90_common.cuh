@@ -1,8 +1,9 @@
 // The Hopper primitives K1's and K3's sm_90a forms share (qmatmul_sm90.cu,
-// stage_kernel_sm90.cu): mbarriers, TMA's 2-D box load, wgmma with A from
-// registers and B by a shared-memory descriptor under a 32-, 64- or
-// 128-byte swizzle, and the driver's tensor-map encoder, reached through
-// cudaGetDriverEntryPoint so that no source links -lcuda.
+// qmatmul_sm90n.cu, stage_kernel_sm90.cu): mbarriers, TMA's 2-D box load,
+// wgmma with A from registers or by a descriptor and B by a shared-memory
+// descriptor under a 32-, 64- or 128-byte swizzle (A's without one), and
+// the CUDA driver's tensor-map encoder, reached through cudaGetDriverEntryPoint
+// so that no source links -lcuda.
 
 #pragma once
 
@@ -82,6 +83,16 @@ __device__ __forceinline__ uint64_t make_desc(const void* p, int swz) {
          (static_cast<uint64_t>((8 * swz) >> 4) << 32) | (layout << 62);
 }
 
+// The descriptor of a K-major operand in shared memory without swizzle:
+// core matrices of 8 rows by 16 bytes, each 128 contiguous bytes, the next
+// 8 rows 128 bytes on (the stride byte offset), the K step's second 16
+// bytes lbo bytes on (the leading byte offset)
+__device__ __forceinline__ uint64_t make_desc_plain(const void* p, uint32_t lbo) {
+  const uint32_t addr = smem_u32(p);
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>(128 >> 4) << 32);
+}
+
 #define SM90_D4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
 #define SM90_D16(i) SM90_D4(i), SM90_D4(i + 4), SM90_D4(i + 8), SM90_D4(i + 12)
 
@@ -138,6 +149,45 @@ __device__ __forceinline__ void wgmma_rs<128>(int (&d)[64], const uint32_t (&a)[
       "}, {%64, %65, %66, %67}, %68, p;\n}\n"
       : SM90_D16(0), SM90_D16(16), SM90_D16(32), SM90_D16(48)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add));
+}
+
+// d (64 x NB int32) = A (64 x 32 s8, by descriptor da) * B (32 x NB s8, by
+// descriptor db), plus d where add != 0, for NB = 16, 32 and 64 (K1's
+// narrow form)
+template <int NB>
+__device__ __forceinline__ void wgmma_ss(int (&d)[NB / 2], uint64_t da, uint64_t db, int add);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(int (&d)[8], uint64_t da, uint64_t db, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n"
+      : SM90_D4(0), SM90_D4(4)
+      : "l"(da), "l"(db), "r"(add));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(int (&d)[16], uint64_t da, uint64_t db, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      : SM90_D16(0)
+      : "l"(da), "l"(db), "r"(add));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(int (&d)[32], uint64_t da, uint64_t db, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : SM90_D16(0), SM90_D16(16)
+      : "l"(da), "l"(db), "r"(add));
 }
 
 // ------------------------------------------------------------ tensor maps

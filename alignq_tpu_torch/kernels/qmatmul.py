@@ -4,13 +4,16 @@ Port of alignq_tpu/kernels/qmatmul.py, and of the int8 convs that the JAX
 serving graph leaves to XLA (alignq_tpu/kernels/infer.py _int8_conv_acc):
 PyTorch has no int8 conv on CUDA. On a CUDA tensor the wrappers launch
 an implicit-GEMM NHWC conv on the s8 tensor cores that reads the codes in
-place, in one of two forms that the planner (`k1_plan`) chooses by a
+place, in one of three forms that the planner (`k1_plan`) chooses by a
 written rule over the shape: csrc/qmatmul_sm90.cu (`wgmma` m64nNk32,
 TMA-fed weight chunks, tiles of 64-256 output rows) for every 3x3 and 1x1
-conv over C % 32 == 0 channels to N8 % 64 == 0 columns (`sm90_plan`),
+conv over C % 32 == 0 channels to N8 % 64 == 0 columns (`sm90_plan`);
+csrc/qmatmul_sm90n.cu (`wgmma` at N = 16-64, A and B by descriptors, the
+weight resident) for the narrower stride-1 3x3s and 1x1s over C % 16 == 0
+channels where `narrow_takes` gives it them (`narrow_plan`);
 csrc/qmatmul.cu (`mma.sync` m16n8k32) for every other shape.
-The two forms share their epilogue code (csrc/k1_epilogue.cuh) and agree
-bit for bit. On a CPU tensor the wrappers run the plain PyTorch version
+The forms share their epilogue code (csrc/k1_epilogue.cuh) and agree bit
+for bit. On a CPU tensor the wrappers run the plain PyTorch version
 beside them, which the tests hold against the JAX reference.
 
 The conv entry points are `int8_conv_packed` (int32, f32 or a stage
@@ -625,13 +628,264 @@ def _sm90_layout(b, h, w, c, ksize, stride, pad, n8, cc, nb, n_wg) -> Optional[S
     )
 
 
+# ---------------------------------------------------- the narrow Hopper form
+
+NARROW = FORM.format("sm90n")  # and of every launch of the narrow Hopper form (csrc/qmatmul_sm90n.cu)
+NARROW_MAX_STAGES = 4  # csrc/qmatmul_sm90n.cu MAX_STAGES: the mbarriers' room
+
+
+class NarrowPlan(NamedTuple):
+    """One launch's plan in K1's narrow Hopper form, in the order of
+    csrc/qmatmul_sm90n.cu's Plan.
+
+    The kernel runs MP rows in n_tiles tiles of TM = 64 * MG * WM
+    consecutive rows: a 1x1 conv's M = B*Ho*Wo output pixels, a 3x3's
+    positions of the zero-padded batch (Hp = H + 2 rows of HC = W + 2 pixels
+    an image; the halo's positions are computed and dropped). N runs in
+    n_blocks blocks of NB (16, 32 or 64) columns (the last zero-padded past
+    N8); a work item is (tile, N block). A CTA is n_wg = WM * WK
+    warpgroups: WM over the rows, each holding MG m64 row groups, and WK
+    over the tile's K steps. The weight's K runs in n_chunks chunks of CC
+    channels (G groups of 16), KCP = 32 * steps bytes each (_narrow_k_order);
+    the whole re-packed N block, KT = n_chunks * KCP bytes a row, is
+    resident (w_bytes, in n_boxes TMA boxes of SWZ bytes of K by NB rows).
+    A stage carries one chunk's band (a_bytes): group q of its NPIX pixels
+    at q * GS + 16 i. The *_off fields place the shared-memory regions from
+    the 1024-byte aligned weight; smem: the bytes the launch asks for."""
+
+    B: int
+    H: int
+    W: int
+    C: int
+    Ho: int
+    Wo: int
+    stride: int
+    pad: int
+    ksize: int
+    N8: int
+    Kp: int
+    M: int
+    MP: int
+    TM: int
+    n_tiles: int
+    NB: int
+    n_blocks: int
+    n_items: int
+    MG: int
+    WM: int
+    WK: int
+    n_wg: int
+    Hp: int
+    HC: int
+    NPIX: int
+    GS: int
+    CC: int
+    G: int
+    n_chunks: int
+    KCP: int
+    KT: int
+    SWZ: int
+    n_boxes: int
+    w_bytes: int
+    a_bytes: int
+    stage_bytes: int
+    n_stages: int
+    steps: int
+    stage_off: int
+    acc_off: int
+    sb_off: int
+    tab_off: int
+    bar_off: int
+    smem: int
+
+
+def _narrow_nb(n8: int):
+    """(NB, n_blocks): one block of 16 or 32 columns where N8 fits, else
+    blocks of 64 (wgmma's n of each)."""
+    if n8 <= 32:
+        return (16 if n8 <= 16 else 32), 1
+    return 64, -(-n8 // 64)
+
+
+def _mg_max(nb: int) -> int:
+    """Row groups a warpgroup may hold: 32 accumulators a thread."""
+    return max(1, 64 // nb)
+
+
+def _narrow_steps(ksize: int, g: int) -> list:
+    """A chunk's K steps of g groups of 16 channels, as (first, second):
+    each 16 bytes of the step as (group, tap), None for zero columns: the
+    group pairs (2j, 2j + 1) tap after tap, then the odd group's taps two at
+    a time (its last tap against zeros)."""
+    taps = ksize * ksize
+    steps = [((2 * j, t), (2 * j + 1, t)) for j in range(g // 2) for t in range(taps)]
+    if g % 2:
+        steps += [((g - 1, t), (g - 1, t + 1) if t + 1 < taps else None) for t in range(0, taps, 2)]
+    return steps
+
+
+def _narrow_layout(b, h, w, c, ksize, stride, pad, n8, cc, mg, wm, wk) -> Optional[NarrowPlan]:
+    """narrow_plan at a given chunk of cc channels and (MG, WM, WK), with
+    as many stages as fit SM90_SMEM (up to 4), or None where 2 do not fit,
+    the output has no rows or a warpgroup would have no K step."""
+    ho, wo = conv_out_hw(h, w, ksize, stride, pad)
+    m = b * ho * wo
+    nb, n_blocks = _narrow_nb(n8)
+    if m <= 0 or mg not in (1, _mg_max(nb)) or c % cc or cc % 16:
+        return None
+    hp, hc = (h + 2, w + 2) if ksize == 3 else (h, w)
+    mp = b * hp * hc if ksize == 3 else m
+    if mp >= 2**31:
+        return None
+    g = cc // 16
+    steps = len(_narrow_steps(ksize, g))
+    n_chunks = c // cc
+    kcp = 32 * steps
+    kt = n_chunks * kcp
+    if n_chunks * steps < wk or 128 * wm * wk > 512:
+        return None
+    swz = next(s for s in (128, 64, 32) if kt % s == 0)
+    w_bytes = nb * kt
+    tm = 64 * mg * wm
+    # the band: the tile's rows and the taps' reach past them, and a pixel
+    # the zero columns' second half may read; odd, so that a copy's 16-byte
+    # pieces of one pixel's groups fall on different banks
+    npix = tm + (2 * hc + 2 if ksize == 3 else 0) + 1
+    npix += 1 - npix % 2
+    gs = 16 * npix
+    a_bytes = g * gs
+    stage_bytes = _round_up(a_bytes, 128)
+    acc_bytes = wk * tm * (nb + 8) * 4  # each K share's int32 sums, rows padded (csrc acc_pitch)
+    stage_off = _round_up(w_bytes, 128)
+    fixed = 1024 + stage_off + acc_bytes + 8 * nb + 8 * steps + 8 * (NARROW_MAX_STAGES + 1)
+    n_stages = max((n for n in range(2, NARROW_MAX_STAGES + 1) if fixed + n * stage_bytes <= SM90_SMEM), default=0)
+    if not n_stages:
+        return None
+    acc_off = stage_off + n_stages * stage_bytes
+    sb_off = acc_off + acc_bytes  # the N block's scales and biases, f32
+    tab_off = sb_off + 8 * nb
+    bar_off = tab_off + 8 * steps
+    n_tiles = -(-mp // tm)
+    return NarrowPlan(
+        b, h, w, c, ho, wo, stride, pad, ksize, n8, _round_up(ksize * ksize * c, K_MULT), m, mp, tm, n_tiles, nb,
+        n_blocks, n_tiles * n_blocks, mg, wm, wk, wm * wk, hp, hc, npix, gs, cc, g, n_chunks, kcp, kt, swz, kt // swz,
+        w_bytes, a_bytes, stage_bytes, n_stages, steps, stage_off, acc_off, sb_off, tab_off, bar_off,
+        1024 + bar_off + 8 * (NARROW_MAX_STAGES + 1),
+    )
+
+
+def narrow_options(n8: int) -> list:
+    """The (MG, WM, WK) a narrow launch may take, tallest tiles first: MG at
+    its most (256 rows a warpgroup at N = 16) on 2 or 1 warpgroups, then
+    one m64 group a warpgroup on 2 or 1 warpgroups over rows, or on 2 or 4
+    that split K."""
+    mgm = _mg_max(_narrow_nb(n8)[0])
+    return list(dict.fromkeys([(mgm, 2, 1), (mgm, 1, 1), (1, 2, 1), (1, 1, 1), (1, 1, 2), (1, 1, 4)]))
+
+
+# Where chip_smoke.py --k1-ab timed both forms (PERF.md, K1's narrow form): a launch
+# runs TILES_TALL 64-row tiles or more (ResNet-20's stage-1 conv at 2048 and
+# 256, DenseNet-40's 32x32 stage at 256) on tall tiles, TILES_WIDE or more
+# (its 16x16 stage at 256) on 2 warpgroups of 64 rows; fewer on 4
+# warpgroups that split K where K has DEEP_STEPS steps or more (the 8x8
+# stage, and every deep stage at batch 8); at SMALL_ITEMS work items or
+# fewer (MobileNet-V2's and the transitions' 1x1s at batch 8) K split over
+# 4 from 12 steps, over 2 from 2; else on 2 warpgroups of 64 rows.
+TILES_TALL, TILES_WIDE, DEEP_STEPS, SMALL_ITEMS = 3000, 600, 48, 64
+# The 1x1s whose N is over 64 columns (N blocks) and those to N8 % 16 != 0
+# ran slower than mma.sync above these many output rows
+BLOCKS_ROWS, ODD_N_ROWS = 4096, 8192
+
+
+def _narrow_rows(b, h, w, ksize, stride, pad):
+    """The rows the narrow form runs: a 3x3's padded positions, a 1x1's outputs."""
+    ho, wo = conv_out_hw(h, w, ksize, stride, pad)
+    return b * (h + 2) * (w + 2) if ksize == 3 else b * ho * wo
+
+
+def _narrow_option(b, h, w, c, ksize, stride, pad, n8) -> tuple:
+    """narrow_plan's (MG, WM, WK) by its rule: tall tiles (MG at its most)
+    from TILES_TALL 64-row tiles (for a 3x3 under 10 K steps and a 1x1 to 16
+    columns one warpgroup of them, else two; a 1x1 from 1,000), 2
+    warpgroups of 64 rows from TILES_WIDE; under that K split over 4 where
+    K has DEEP_STEPS steps or more, and at SMALL_ITEMS work items or fewer
+    over 4 from 12 steps or 2 from 2; else 2 warpgroups of 64 rows."""
+    tiles = -(-_narrow_rows(b, h, w, ksize, stride, pad) // 64)
+    steps = _round_up(ksize * ksize * c, K_MULT) // 32
+    nb, n_blocks = _narrow_nb(n8)
+    mgm = _mg_max(nb)
+    if tiles >= TILES_TALL or ksize == 1 and tiles >= 1000:
+        return (mgm, 1, 1) if (ksize == 3 and steps < 10) or (ksize == 1 and nb == 16) else (mgm, 2, 1)
+    if tiles >= TILES_WIDE:
+        return 1, 2, 1
+    if steps >= DEEP_STEPS:
+        return 1, 1, 4
+    if tiles * n_blocks <= SMALL_ITEMS:
+        return 1, 1, 4 if steps >= 12 else 2 if steps >= 2 else 1
+    return 1, 2, 1
+
+
+def narrow_takes(b: int, h: int, w: int, c: int, ksize: int, stride: int, pad: int, n8: int) -> bool:
+    """The planner's rule for the narrow form, among the shapes narrow_plan
+    takes: every one but those chip_smoke.py --k1-ab measured slower than
+    mma.sync by more than 3% (PERF.md, K1's narrow form): the 3x3s to more than 16
+    columns (ResNet-20's block-3 conv1, 1.07x at 2048 and 1.15x at 256);
+    the tall 3x3s of 10-15 K steps (DenseNet-40's 32x32 conv over 48
+    channels at 256, 1.04x in f32); the 3x3s on TILES_WIDE tiles of
+    DEEP_STEPS to 59 K steps (its 16x16 convs over 176-208 channels at
+    256, 1.00-1.05x);
+    the 1x1s to N blocks above BLOCKS_ROWS
+    output rows (DenseNet-40's transitions at 256, 1.3-1.4x; MobileNet-V2's
+    8x8 ones to 96, 1.15-1.2x), to N8 % 16 != 0 above ODD_N_ROWS
+    (MobileNet-V2's 1x1s to 24 at 256, 1.07-1.3x) and to 16 columns on tall
+    tiles (its 32x32 ones at 256, 1.04x)."""
+    rows = _narrow_rows(b, h, w, ksize, stride, pad)
+    tiles = -(-rows // 64)
+    steps = _round_up(ksize * ksize * c, K_MULT) // 32
+    if ksize == 3:
+        return n8 <= 16 and not (tiles >= TILES_TALL and 10 <= steps < 16 or
+                                 TILES_WIDE <= tiles < TILES_TALL and DEEP_STEPS <= steps < 60)
+    if n8 > 64:
+        return rows <= BLOCKS_ROWS
+    if n8 % 16:
+        return rows <= ODD_N_ROWS
+    return not (n8 <= 16 and tiles >= TILES_TALL)
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_plan(b: int, h: int, w: int, c: int, ksize: int, stride: int, pad: int, n8: int, kp: int,
+                option: Optional[tuple] = None) -> Optional[NarrowPlan]:
+    """The narrow Hopper form's plan of one launch, or None where the form
+    does not take the shape: a 3x3 pad 1 conv at stride 1 or a 1x1 pad 0
+    conv at stride 1 or 2, over C % 16 == 0 channels, any N8 (a stride-2
+    3x3's rows are no one stride in the band, which A's descriptor needs).
+    N in one block of 16 or 32 columns, else blocks of 64; (MG, WM, WK) by
+    _narrow_option's rule, or option where given (for A/B runs). K in
+    chunks of the most channels (a multiple of 16 that divides C) whose ring
+    of 3 stages fits SM90_SMEM beside the weight, in at most 8 chunks; else
+    the most whose ring of 2 fits."""
+    if ksize not in (1, 3) or KSIZES[ksize] != pad or stride not in (1, 2) or ksize == 3 and stride != 1:
+        return None
+    if c % 16 or n8 % N_MULT or n8 <= 0 or kp != _round_up(ksize * ksize * c, K_MULT):
+        return None
+    if option is None:
+        option = _narrow_option(b, h, w, c, ksize, stride, pad, n8)
+    chunks = [cc for cc in range(c, 0, -16) if c % cc == 0]
+    for least, most_chunks in ((3, 8), (2, c // 16)):
+        for cc in chunks:
+            p = _narrow_layout(b, h, w, c, ksize, stride, pad, n8, cc, *option) if c // cc <= most_chunks else None
+            if p is not None and p.n_stages >= least:
+                return p
+    return None
+
+
 _MMA_ONLY = False  # set only by _mma_form
 
 
 @contextlib.contextmanager
 def _mma_form():
     """Every launch planned inside takes the mma.sync form. For the A/B
-    timing of the two forms (chip_smoke.py --k1-ab); the main path never
+    timing of the forms (chip_smoke.py --k1-ab); the main path never
     calls it."""
     global _MMA_ONLY
     saved, _MMA_ONLY = _MMA_ONLY, True
@@ -642,20 +896,25 @@ def _mma_form():
 
 
 def k1_plan(b: int, h: int, w: int, c: int, ksize: int, stride: int, pad: int, n8: int,
-            kp: int) -> Union[ConvPlan, Sm90Plan]:
+            kp: int) -> Union[ConvPlan, Sm90Plan, NarrowPlan]:
     """The plan of one K1 launch. The planner's rule: the Hopper form
     (sm90_plan) wherever it takes the shape, every 3x3 and 1x1 conv over
-    C % 32 == 0 channels to N8 % 64 == 0 columns; else the mma.sync form
-    (conv_plan): the 7x7 stem, the 5x5 VALID convs, the narrower 3x3s and
-    1x1s (DenseNet-40's, ResNet-20's first stages). chip_smoke.py --k1-ab
-    timed both forms at every launch the Hopper form takes in the trunks
-    (batches 256, 4, 3), MobileNet-V2 (256, 8) and ResNet-20 (2048, 256):
-    the Hopper form was the faster at nearly all of them; the exceptions,
-    erf-epilogue 1x1s a few microseconds slower that no rule over the
-    shape separates from their neighbours, are listed in PERF.md (K1's
-    Hopper form)."""
-    p90 = None if _MMA_ONLY else sm90_plan(b, h, w, c, ksize, stride, pad, n8, kp)
-    return conv_plan(b, h, w, c, ksize, stride, pad, n8, kp) if p90 is None else p90
+    C % 32 == 0 channels to N8 % 64 == 0 columns; else the narrow Hopper
+    form (narrow_plan), the stride-1 3x3s and the 1x1s over C % 16 == 0
+    channels, where narrow_takes gives it the shape (every one but those it
+    measured slower: ResNet-20's stage-1 conv and block-3 skip, DenseNet-40's
+    growth convs, the transitions and MobileNet-V2's narrow 1x1s at small
+    batches); else the mma.sync form (conv_plan): the 7x7 stem, the 5x5
+    VALID convs, the 4-channel first convs, the narrow stride-2 3x3s, the
+    1x1s over 24 channels and the shapes narrow_takes leaves. chip_smoke.py
+    --k1-ab timed the forms at every launch the Hopper forms take (PERF.md,
+    K1's Hopper forms)."""
+    if _MMA_ONLY:
+        return conv_plan(b, h, w, c, ksize, stride, pad, n8, kp)
+    plan = sm90_plan(b, h, w, c, ksize, stride, pad, n8, kp)
+    if plan is None and narrow_takes(b, h, w, c, ksize, stride, pad, n8):
+        plan = narrow_plan(b, h, w, c, ksize, stride, pad, n8, kp)
+    return conv_plan(b, h, w, c, ksize, stride, pad, n8, kp) if plan is None else plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -730,6 +989,81 @@ def _sm90_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def _narrow_k_order(ksize: int, c: int, cc: int) -> np.ndarray:
+    """The narrow form's re-packed weight columns as indices into the packed
+    (dy, dx, c) ones, -1 for a zero column: the chunks of cc channels in
+    turn, each's K steps in _narrow_steps' order, each 16 bytes of a step
+    the 16 channels of one group at one tap (A's first and second core
+    matrices)."""
+    order = []
+    for c0 in range(0, c, cc):
+        for step in _narrow_steps(ksize, cc // 16):
+            for half in step:
+                if half is None:
+                    order.append(np.full(16, -1))
+                else:
+                    q, t = half
+                    order.append(t * c + c0 + 16 * q + np.arange(16))
+    return np.concatenate(order)
+
+
+# id(wt), ksize, C, CC, rows -> [a weak reference to wt, its re-packed
+# copy, the copy's tensor maps by (SWZ, NB)]: an entry goes with its weight
+_NARROW_WEIGHTS: dict = {}
+
+
+def _narrow_entry(wt: torch.Tensor, plan: NarrowPlan) -> list:
+    rows = plan.NB * plan.n_blocks
+    key = (id(wt), plan.ksize, plan.C, plan.CC, rows)
+    hit = _NARROW_WEIGHTS.get(key)
+    if hit is None or hit[0]() is not wt:
+        order = torch.from_numpy(_narrow_k_order(plan.ksize, plan.C, plan.CC)).to(wt.device)
+        ext = torch.nn.functional.pad(wt, (0, 1, 0, rows - wt.shape[0]))  # a zero column, the padded rows
+        packed = ext.index_select(1, torch.where(order < 0, wt.shape[1], order)).contiguous()
+        hit = [weakref.ref(wt, lambda _, k=key: _NARROW_WEIGHTS.pop(k, None)), packed, {}]
+        _NARROW_WEIGHTS[key] = hit
+    return hit
+
+
+def _narrow_weight(wt: torch.Tensor, plan: NarrowPlan) -> torch.Tensor:
+    """wt (N8, Kp) re-packed in the narrow form's K order (_narrow_k_order),
+    (n_blocks * NB, KT) with zero rows past N8, made once per weight tensor
+    and kept while it lives."""
+    return _narrow_entry(wt, plan)[1]
+
+
+def _narrow_map(wt: torch.Tensor, plan: NarrowPlan):
+    """The bytes of the tensor map of _narrow_weight(wt, plan) in plan's
+    boxes, encoded once and kept beside the re-packed copy."""
+    _, packed, maps = _narrow_entry(wt, plan)
+    wmap = maps.get((plan.SWZ, plan.NB))
+    if wmap is None:
+        lib = _narrow_lib()
+        wmap = ctypes.create_string_buffer(lib.k1_narrow_map_bytes())
+        with _build.on_device(wt.device):
+            err = lib.k1_narrow_weight_map(packed.data_ptr(), plan.KT, packed.shape[0], plan.SWZ, plan.NB, wmap)
+        _build.check(err, "qmatmul_sm90n.cu k1_narrow_weight_map")
+        maps[plan.SWZ, plan.NB] = wmap
+    return wmap
+
+
+def _narrow_lib() -> ctypes.CDLL:
+    lib = _build.load("qmatmul_sm90n")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.k1_narrow_launch.argtypes = [p, p, p, p, p, ctypes.POINTER(i), i, p, p, p, p, i, i, p]
+        lib.k1_narrow_launch.restype = i
+        lib.k1_narrow_weight_map.argtypes = [p, i, i, i, i, p]
+        lib.k1_narrow_weight_map.restype = i
+        lib.k1_narrow_map_bytes.restype = i
+        lib.k1_narrow_plan_ints.restype = i
+        if lib.k1_narrow_plan_ints() != len(NarrowPlan._fields):
+            raise RuntimeError("csrc/qmatmul_sm90n.cu's Plan does not match NarrowPlan")
+        lib._argtypes_set = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def _plan_ints(plan):
     return (ctypes.c_int * len(plan))(*plan)
 
@@ -782,21 +1116,26 @@ def _run_k1(x, op: K1Weights, ksize, stride, padding, mode: str, act: Optional[A
         _build.launches[FORM.format(ksize)] += 1
         if isinstance(plan, Sm90Plan):
             _build.launches[SM90] += 1
+        elif isinstance(plan, NarrowPlan):
+            _build.launches[NARROW] += 1
     return out if n8 == op.n else out[:, : op.n]
 
 
 def _k1_launch(x, op: K1Weights, plan, out, mode: str, act: Optional[ActMap] = None) -> None:
     """One launch of K1 on checked operands, in the form of its plan
-    (ConvPlan: csrc/qmatmul.cu; Sm90Plan: csrc/qmatmul_sm90.cu on the
-    tensor map of the weight re-packed for it): x NHWC int8, op's wt (N8, Kp) int8 and
+    (ConvPlan: csrc/qmatmul.cu; Sm90Plan: csrc/qmatmul_sm90.cu, NarrowPlan:
+    csrc/qmatmul_sm90n.cu, each on the tensor map of the weight re-packed
+    for it): x NHWC int8, op's wt (N8, Kp) int8 and
     scale/bias (N8,) f32 (unread in modes 'int32' and 'bins_int'; in
     'requant' the bias holds the reciprocal of the output's scale), out
     (B*Ho*Wo, N8) of the mode's type; act, the map of a codes mode. Counts
     nothing (the wrapper does). A launch that fails raises."""
-    sm90 = isinstance(plan, Sm90Plan)
-    lib = _sm90_lib() if sm90 else _lib()
-    launch = lib.k1_sm90_launch if sm90 else lib.k1_conv_launch
-    wt = _sm90_map(op.wt, plan) if sm90 else op.wt.data_ptr()
+    if isinstance(plan, Sm90Plan):
+        what, launch, wt = "qmatmul_sm90.cu k1_sm90_kernel", _sm90_lib().k1_sm90_launch, _sm90_map(op.wt, plan)
+    elif isinstance(plan, NarrowPlan):
+        what, launch, wt = "qmatmul_sm90n.cu k1_narrow_kernel", _narrow_lib().k1_narrow_launch, _narrow_map(op.wt, plan)
+    else:
+        what, launch, wt = "qmatmul.cu k1_conv_kernel", _lib().k1_conv_launch, op.wt.data_ptr()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -809,7 +1148,7 @@ def _k1_launch(x, op: K1Weights, plan, out, mode: str, act: Optional[ActMap] = N
             0 if act is None else act.g, int(act is not None and act.relu),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _build.check(err, "qmatmul_sm90.cu k1_sm90_kernel" if sm90 else "qmatmul.cu k1_conv_kernel")
+    _build.check(err, what)
 
 
 def requant_int8(value: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,8 @@
 Phases, in order; any failure raises and the script exits non-zero:
  1. the card's name and power limit; TF32 off for matmul and cuDNN;
  2. build the CUDA kernels from alignq_tpu_torch/csrc (qmatmul.cu,
-    qmatmul_sm90.cu, quantize.cu, stage_kernel.cu, stage_kernel_sm90.cu,
-    dwconv.cu: one nvcc each, all started together);
+    qmatmul_sm90.cu, qmatmul_sm90n.cu, quantize.cu, stage_kernel.cu,
+    stage_kernel_sm90.cu, dwconv.cu: one nvcc each, all started together);
  3. K1 (csrc/qmatmul.cu) against its plain version. Its GEMM form at the
     path's gathered-matrix shapes of batches 2048 and 256, plus a ragged M
     with K=27; then its conv form on NHWC codes read in place, at every
@@ -19,7 +19,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     elements, each one ulp away (the plain float64 evaluation can round
     twice at an f32 midpoint); act codes identical but for at most 1e-6 of
     the codes, each one code away; the counts of differing elements are
-    printed;
+    printed. Each conv in the form the rule gives it: NARROW_R20 (the
+    stage-1 conv, block 3's skip) in K1's narrow Hopper form
+    (csrc/qmatmul_sm90n.cu), each of those also held against the mma.sync
+    form on its operands, bit for bit, in every mode checked;
  4. K2's path, its entry point: the launch counts are zeroed,
     cdf_quantize_int8 (csrc/quantize.cu) maps the act-site sizes of
     batches 2048 and 256 and a ragged n, and the counts are read; then each
@@ -36,21 +39,23 @@ Phases, in order; any failure raises and the script exits non-zero:
     on qparams converted on the CPU: the slice's route (act_impl='poly',
     int16 stream, stage kernel and the K1 1x1 route), the default erf
     route, an A4 'bins' and a W4A4 'bins_int' forward. The final int16
-    stream bit for bit, every K1 launch in codes mode, every K3 launch
-    (3 a slice-route forward) in its Hopper form, and no tap gather of a
-    CUDA tensor;
+    stream bit for bit, every K1 launch in codes mode (1 of the slice
+    route's 7 and 7 of the others' 21 in the narrow Hopper form,
+    NARROW_PER_FORWARD), every K3 launch (3 a slice-route forward) in its
+    Hopper form, and no tap gather of a CUDA tensor;
  7. serving, the main path: the launch counts are zeroed, an engine is
     built with build_int8_resnet20_engine(batch_size=256) on the slice's
     route and answers requests of 1, 3, 100, 256 and 40 images, and the
-    counts are read: 7 K1 launches, all in codes mode, to 3 K3 a forward,
-    every K3 launch in its Hopper form, and no tap gather.
+    counts are read: 7 K1 launches, all in codes mode, 1 of them in the
+    narrow Hopper form (counter `int8_matmul_dequant:kssm90n`), to 3 K3 a
+    forward, every K3 launch in its Hopper form, and no tap gather.
     Then what was served is held against the CPU's plain path: each
     request's logits within 1e-4, and the int16 stream of the engine's
     forward at its padded batch of 256 bit for bit. Then the engine's
     latency for one-image requests and its images/s on a backlog of 32
     full batches (host clock). Then the default erf route likewise, on
-    fewer requests: 21 K1 launches a forward, all in codes mode, and no
-    tap gather;
+    fewer requests: 21 K1 launches a forward, all in codes mode, 7 in
+    the narrow form, and no tap gather;
  8. the QAT half of the main path (train -> fold -> serve):
     (a) 3 train steps of a PreActResNet num_units=(1, 1, 1), W4A4, ADMM and
         the PDF correction, batch 8, in float64 on the card and on the CPU
@@ -116,7 +121,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     and int8 requant among them) held against its plain version on its
     recorded operands, like K1's in phase 3 (requant identical; the table
     form against the arithmetic's plain version, bn_act_codes_plain, on the
-    s, b and map its table was built from);
+    s, b and map its table was built from); K1's launches in the narrow
+    Hopper form counted (NARROW_PER_FORWARD: 30 and 38 of DenseNet-40's 39,
+    11 and 23 of MobileNet-V2's 50, at 256 and 3) and each distinct one
+    also held against the mma.sync form, bit for bit;
 13. the three graphs at batch 8 on the card against the CPU plain path, on
     qparams converted on the CPU: every DenseNet stage buffer and
     MobileNet block stream bit for bit, logits within 1e-5;
@@ -124,12 +132,13 @@ Phases, in order; any failure raises and the script exits non-zero:
     DenseNet-40 (both buffers) and MobileNet-V2 saved by the port, served
     by serve.engine_from_artifact at engine batch 8 with the counts zeroed
     before and read after; each engine's final stream bit for bit and its
-    logits within 1e-5 of the CPU plain path; 39 K1 and 39 BN-act launches
-    a DenseNet forward (table form over the int8 buffer, its 39 tables
-    built once; arithmetic over the f32 one), 50 K1 and 17 depthwise a
-    MobileNet one, no tap gathered;
-15. times: each graph's forward at batches 256 and 1024 (CUDA events),
-    its launches a forward and, at 256, its idle share under
+    logits within 1e-5 of the CPU plain path; 39 K1 (37 in the narrow
+    form) and 39 BN-act launches a DenseNet forward (table form over the
+    int8 buffer, its 39 tables built once; arithmetic over the f32 one),
+    50 K1 (22 in the narrow form) and 17 depthwise a MobileNet one, no tap
+    gathered;
+15. times: each graph's forward at batch 256 (CUDA events),
+    its launches a forward and its idle share under
     torch.profiler; each distinct launch at batch 256 beside its plain
     version, its bound and the library call of the same product, both
     timed as in phase 9 (torch._int_mm on the gathered taps for K1,
@@ -275,6 +284,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     alone: over one batch-256 forward, launches from phase 18, the stem's
     from its own counter; K1's Hopper form: over one batch-256 forward of
     each trunk, its launches over both trunks' served forwards (phase 18);
+    K1's narrow Hopper form: over one batch-256 slice-route forward's
+    launches in it, its launches those of phase 7's main path;
     K1's 5x5 form: over one batch-256 digit forward, launches from
     phase 22's serving, its error the largest of phases 22 and 23's K1
     checks), the card line, and the final JSON line.
@@ -303,16 +314,18 @@ order ABBA, in one process.
 
     python3 chip_smoke.py --k1-ab
 
-times K1's two forms on the card in one process: each distinct launch
-whose shape the Hopper form takes, in a forward of ResNet-18 and ResNet-50
-(224x224) at batches 256, 4 and 3, MobileNet-V2 and DenseNet-40 at 256 and
-8, and ResNet-20 at 2048 and 256 (graph_ms, cold L2), in the mma.sync form
-and in the Hopper form at tiles of 256, 128 and 64 rows, in the order
-mma.sync, 256, 128, 64, 64, 128, 256, mma.sync, beside the form and tile
-the planner's rule gives it; each forward's K1 sum all in mma.sync, by the
-rule and at the fastest option, and the whole forward in mma.sync and by
-the rule, ABBA (mma.sync everywhere under qmatmul._mma_form); one JSON
-line.
+times K1's forms on the card in one process: each distinct launch whose
+shape a Hopper form takes, in a forward of ResNet-18 and ResNet-50
+(224x224) at batches 256, 4 and 3, MobileNet-V2 and DenseNet-40 (both
+stage buffers) at 256 and 8, and ResNet-20 at 2048 and 256 (graph_ms, cold
+L2), in the mma.sync form and at each option of the Hopper form that takes
+it (the wide form's tiles of 256, 128 and 64 rows; the narrow form's row
+groups, warpgroups and K split), in the order mma.sync, the options, the
+options backwards, mma.sync, beside the form and option the planner's rule
+gives it; each forward's K1 sum all in mma.sync, by the rule and at the
+fastest option, and the whole forward in mma.sync and by the rule, ABBA
+(mma.sync everywhere under qmatmul._mma_form); one JSON line, also
+written to chiprun_out/k1_ab.json.
 
     python3 chip_smoke.py --k3-ab
 
@@ -676,7 +689,7 @@ def profile_step(fn, card, label="QAT step batch 128 ADMM", iters=5):
 # ---------------------------------------------- the CIFAR deploy families
 
 FAMILY_SERVE_BATCH = 8  # the engine batch of the families' serving phase
-FAMILY_TIME_BATCHES = (256, 1024)
+FAMILY_TIME_BATCHES = (256,)
 # f32 operations of one BN-act code on the CUDA cores (csrc/quantize.cu
 # bn_act_code: the BN multiply-add at 2, then act_codes.cuh's map: erf 3
 # multiplies, 2 clamps, 11 multiply-adds at 2, the divide, rint, 2 clamps,
@@ -890,6 +903,8 @@ def family_kernel_checks(dev, batches=(256, 3)):
     ({(label, batch): distinct launches}, max abs error by kind, counts)."""
     import torch
 
+    from alignq_tpu_torch.kernels import qmatmul as K1
+
     kinds = ("K1", "dw", "bn", "bn_table")
     out, err, counts = {}, dict.fromkeys(kinds, 0.0), {}
     for label, build, fwd, _, pack, kw in family_configs():
@@ -899,14 +914,23 @@ def family_kernel_checks(dev, batches=(256, 3)):
             with torch.inference_mode():
                 rec = record_launches(lambda: fwd(qp, x, operands=ops, **kw))
             launches = distinct_launches(rec)
+            n_pairs = 0
             for key, ((kind, args), _) in launches.items():
                 diff, numel, e = check_launch(kind, args)
                 err[kind] = max(err[kind], e)
                 counts[f"{label} batch {batch} {key}"] = diff
+                if kind == "K1" and isinstance(args[2], K1.NarrowPlan):  # and against the mma.sync form
+                    form_pair(args[0], args[1], args[2], [(args[3], args[4])])
+                    n_pairs += 1
             n_by = {k: sum(c for (kk, _), c in launches.values() if kk == k) for k in kinds}
+            n_narrow = sum(isinstance(args[2], K1.NarrowPlan) for kind, args in rec if kind == "K1")
+            if n_narrow != NARROW_PER_FORWARD[label.split()[0], batch]:
+                raise AssertionError(f"{label} batch {batch}: {n_narrow} K1 launches in the narrow form, expected "
+                                     f"{NARROW_PER_FORWARD[label.split()[0], batch]}")
             n_diff = sum(counts[f"{label} batch {batch} {k}"] for k in launches)
-            print(f"{label} batch {batch}: {len(rec)} launches ({n_by}), {len(launches)} distinct, each held against "
-                  f"its plain version: {n_diff} differing elements", flush=True)
+            print(f"{label} batch {batch}: {len(rec)} launches ({n_by}; K1 {n_narrow} in the narrow form), "
+                  f"{len(launches)} distinct, each held against its plain version: {n_diff} differing elements; "
+                  f"the {n_pairs} distinct narrow-form launches bit for bit the mma.sync form's", flush=True)
             out[label, batch] = launches
             del qp, x, ops
     return out, err, counts
@@ -972,12 +996,16 @@ def serve_artifact(label, path, streams, dev, requests, feature=False, batch=FAM
     return {"launches": launched, "max_abs_err": serve_err}
 
 
-def check_family_launches(label, n):
-    """The launch counts of a served DenseNet-40 or MobileNet-V2 (an
-    engine's build and its requests): DenseNet 39 K1 and 39 BN-act launches
-    a forward, over the int8 buffer in the table form (its 39 tables built
-    once, by the arithmetic kernel) and over the f32 one in the arithmetic
-    form; MobileNet-V2 50 K1 and 17 depthwise a forward; no tap gather."""
+def check_family_launches(label, n, batch=None):
+    """The launch counts of a served or exported DenseNet-40 or MobileNet-V2
+    (an engine's build and its requests, or an export's evaluation):
+    DenseNet 39 K1 and 39 BN-act launches a forward, over the int8 buffer
+    in the table form (its 39 tables built once, by the arithmetic kernel)
+    and over the f32 one in the arithmetic form; MobileNet-V2 50 K1 and 17
+    depthwise a forward; no tap gather. K1's launches in the narrow Hopper
+    form: where every forward ran at `batch`, NARROW_PER_FORWARD's count at
+    it (at the engine batch 8, 37 of DenseNet's and 22 of MobileNet's),
+    else some."""
     from alignq_tpu_torch.kernels import dwconv as DWm
     from alignq_tpu_torch.kernels import qmatmul as K1
     from alignq_tpu_torch.kernels import quantize as K2
@@ -985,6 +1013,12 @@ def check_family_launches(label, n):
     if n.get(K1.TAP_GATHERS, 0):
         raise AssertionError(f"{label}: a conv gathered its taps on the card: {n}")
     k1 = n.get(K1.KERNEL, 0)
+    if batch is not None:  # every forward at this batch: the rule's count of narrow-form launches
+        n_narrow = NARROW_PER_FORWARD[label.split()[0], batch]
+        if n.get(K1.NARROW, 0) * (39 if label.startswith("densenet40") else 50) != k1 * n_narrow:
+            raise AssertionError(f"{label}: launches {n}, expected {n_narrow} K1 a forward in the narrow form")
+    elif not 0 < n.get(K1.NARROW, 0) < k1:
+        raise AssertionError(f"{label}: launches {n}, expected some K1 launches in the narrow form")
     if label.startswith("densenet40 stage_int8"):
         ok = k1 and k1 % 39 == 0 and n.get(K2.BN_ACT_TABLE) == k1 and n.get(K2.BN_ACT_ARITH) == 39
         want = "39 K1 and 39 table launches a forward and 39 table builds"
@@ -1061,7 +1095,7 @@ def deploy_families(dev, card, repo, details, phase):
         save_int8_artifact(str(path), qp_cpu, meta=meta)
         fam_serving[label] = serve_artifact(label, path, streams, dev, freqs)
     for label in ("densenet40 f32", "densenet40 stage_int8", "mobilenetv2"):
-        check_family_launches(f"{label} serving", fam_serving[label]["launches"])
+        check_family_launches(f"{label} serving", fam_serving[label]["launches"], FAMILY_SERVE_BATCH)
     details["family_serving"] = fam_serving
 
     phase("deploy families: times")
@@ -1120,6 +1154,16 @@ TRUNK_CHECKS = [(a, b, 8, impl) for a in TRUNKS for b in (SERVE_BATCH, 3) for im
 # trunks, all but the 7x7 stem (tests/test_torch_k1_sm90.py holds the rule
 # to these counts)
 SM90_PER_FORWARD = {"resnet18": 19, "resnet50": 52}
+# K1 launches a forward takes in the narrow Hopper form (csrc/qmatmul_sm90n.cu)
+# by the planner's rule (qmatmul.k1_plan, narrow_takes): ResNet-20's block-3
+# skip on the slice route, with its 6 stage-1 convs on the erf route (its
+# block-3 conv0 and conv1 stay in mma.sync); of DenseNet-40's 36 growth
+# convs and 2 transitions and of MobileNet-V2's narrow 1x1s those the rule
+# gives it at each batch (tests/test_torch_k1_narrow.py holds the rule to
+# these counts)
+NARROW_PER_FORWARD = {"resnet20 slice": 1, "resnet20 erf": 7, ("densenet40", 256): 30, ("densenet40", 8): 37,
+                      ("densenet40", 3): 38, ("mobilenetv2", 256): 11, ("mobilenetv2", 8): 22, ("mobilenetv2", 3): 23}
+NARROW_R20 = {"stage1 conv", "block3 skip"}  # conv_shapes names
 
 
 def affine_bn(model, generator):
@@ -1188,10 +1232,10 @@ def mma_plan(x, op, plan):
 
 
 def form_pair(x, op, p90, modes):
-    """K1's Hopper form (plan p90) against its mma.sync form on the same
-    operands in each (mode, act) of modes, by the raw launches (uncounted):
-    the outputs must be bit for bit equal. Returns the int32 output of the
-    Hopper form."""
+    """K1's Hopper form or its narrow Hopper form (plan p90) against its
+    mma.sync form on the same operands in each (mode, act) of modes, by the
+    raw launches (uncounted): the outputs must be bit for bit equal. Returns
+    the int32 output of the Hopper form."""
     import torch
 
     from alignq_tpu_torch.kernels import qmatmul as K1
@@ -1204,7 +1248,7 @@ def form_pair(x, op, p90, modes):
         K1._k1_launch(x, op, pm, b, mode, act)
         torch.cuda.synchronize()
         if not torch.equal(a, b):
-            raise AssertionError(f"K1's two forms differ: x {tuple(x.shape)} weight {tuple(op.wt.shape)} "
+            raise AssertionError(f"K1's forms differ: x {tuple(x.shape)} weight {tuple(op.wt.shape)} "
                                  f"ksize {p90.ksize} stride {p90.stride} mode {mode} "
                                  f"{act.impl if act is not None else ''}: {int((a != b).sum())} elements")
         got32 = a if mode == "int32" else got32
@@ -1463,7 +1507,7 @@ def baseline_qat(dev, card, details, phase):
             loss = loss + admm_loss(sink[n], torch.zeros_like(sink[n]), torch.zeros_like(sink[n]))
         torch.autograd.grad(loss, params)
 
-    ms = median_ms(trunk_step, runs=10, warmup=2)
+    ms = median_ms(trunk_step, runs=3, warmup=1)
     prof = profile_step(trunk_step, card, f"ResNet-50 trunk W8A8 ADMM forward+backward batch {TRUNK_QAT_BATCH}",
                         iters=2)
     out["resnet50_trunk_fwd_bwd"] = {"ms": ms, "images_per_s": TRUNK_QAT_BATCH / ms * 1e3, "profile": prof}
@@ -1504,7 +1548,8 @@ def calibrated(model, generator):
 # MobileNet-V2 takes the JAX package's from-scratch recipe (lr 0.01, 1
 # warmup epoch; it diverges at the default 0.04) and learns the synthetic
 # set slowly: 8 epochs at batch 64 (3 at batch 128 left it at chance,
-# where near-equal logits make the agreement a coin toss)
+# where near-equal logits make the agreement a coin toss; 6 at batch 64
+# left it at 12% top-1 with 99.02% agreement)
 FAMILY_QAT = (
     ("densenet40 f32", 3, ["--model", "densenet40", "--deploy_exact", "--batch", "128"]),
     ("densenet40 stage_int8", 3, ["--model", "densenet40", "--stage_int8", "--batch", "128"]),
@@ -1608,7 +1653,7 @@ def family_qat(dev, card, repo, phase):
             raise AssertionError(f"QAT families (c) {label}: prediction agreement {rep['agreement']:.2f}% < 99.0%")
         check_family_launches(f"{label} export", export_launches)
         served = serve_artifact(f"QAT-trained {label}", art, streams[label], dev, requests)
-        check_family_launches(f"{label} trained, served", served["launches"])
+        check_family_launches(f"{label} trained, served", served["launches"], FAMILY_SERVE_BATCH)
         k1_modes = {k: v for k, v in served["launches"].items() if k.startswith(K1.MODE.format(""))}
         print(f"QAT families (c) {label} served: K1 by epilogue mode {k1_modes}", flush=True)
         out["trained"][label] = dict(steps=len(losses), run_s=run_s, loss_first=losses[0], loss_last=losses[-1],
@@ -2953,9 +2998,10 @@ AB_WGS = (4, 2, 1)  # the Hopper form's warpgroups a CTA that --k1-ab times: til
 def k1_ab_nets(dev):
     """(label, batch, build, forward) of each graph that --k1-ab times: the
     trunks (224x224, erf) at batch 256, at their serving engine's 4 and a
-    ragged 3; MobileNet-V2 and DenseNet-40 at 256 and their serving
-    engine's 8; ResNet-20 on its default erf route at 2048 and 256. build()
-    gives (operands, input) and forward(operands, input) runs the graph."""
+    ragged 3; MobileNet-V2 and DenseNet-40 (both stage buffers) at 256 and
+    their serving engine's 8; ResNet-20 on its default erf route at 2048
+    and 256. build() gives (operands, input) and forward(operands, input)
+    runs the graph."""
     from alignq_tpu_torch.kernels import infer as R20
     from alignq_tpu_torch.kernels import infer_resnet_imagenet as RI
 
@@ -2979,26 +3025,59 @@ def k1_ab_nets(dev):
 
     nets = [trunk(arch, b) for b in (SERVE_BATCH, TRUNK_SERVE_BATCH, 3) for arch in TRUNKS]
     nets += [family(label, build, fwd, pack, kw, b) for b in (SERVE_BATCH, FAMILY_SERVE_BATCH)
-             for label, build, fwd, _, pack, kw in family_configs() if label in ("mobilenetv2", "densenet40 f32")]
+             for label, build, fwd, _, pack, kw in family_configs()]
     return nets + [resnet20(b) for b in (BATCH, SERVE_BATCH)]
 
 
-def k1_ab(card) -> None:
-    """python3 chip_smoke.py --k1-ab: K1's two forms on the card, in one
-    process. For each graph of k1_ab_nets, each distinct K1 launch whose
-    shape sm90_plan takes is timed by graph_ms (cold L2) in the mma.sync
-    form and in the Hopper form at each tile of AB_WGS that fits, in the
-    order mma.sync, tiles 256 down to 64, tiles 64 up to 256, mma.sync;
-    beside its conv_bound and torch._int_mm on the gathered taps (at
-    batches of 256 and more: cuBLAS refuses some smaller shapes), and the
-    form and tile the planner's rule gives it. Then each graph's K1 sum
-    (its other launches timed once: the mma.sync form takes them either
-    way) all in mma.sync, by the rule, and at each launch's fastest
-    option; and the whole forward (CUDA events, median of 20) in the order
-    mma.sync, rule, rule, mma.sync (mma.sync under qmatmul._mma_form).
-    `hopper_slower_at` lists the launches the rule gives the Hopper form
-    where mma.sync was faster; `rule_misses` each launch where another
-    option was faster than the rule's by more than 3%. One JSON line."""
+def k1_options(geo):
+    """{option: plan} of the Hopper forms that --k1-ab times for one launch
+    shape geo (conv_plan's arguments): the wide form's tiles of AB_WGS
+    rows ('sm90@4' ...) where sm90_plan takes the shape, else the narrow
+    form's (MG, WM, WK) options ('narrow@4,2,1' ...) where narrow_plan
+    does."""
+    from alignq_tpu_torch.kernels import qmatmul as K1
+
+    if K1.sm90_plan(*geo) is not None:
+        plans = {f"sm90@{n}": K1.sm90_plan(*geo, n_wg=n) for n in AB_WGS}
+    else:
+        plans = {"narrow@" + ",".join(map(str, o)): K1.narrow_plan(*geo, option=o)
+                 for o in K1.narrow_options(geo[7])}
+    return {k: p for k, p in plans.items() if p is not None}
+
+
+def option_of(plan):
+    """The --k1-ab option name of a plan."""
+    from alignq_tpu_torch.kernels import qmatmul as K1
+
+    if isinstance(plan, K1.Sm90Plan):
+        return f"sm90@{plan.n_wg}"
+    if isinstance(plan, K1.NarrowPlan):
+        return f"narrow@{plan.MG},{plan.WM},{plan.WK}"
+    return "mma"
+
+
+def k1_ab(card, labels=None) -> None:
+    """python3 chip_smoke.py --k1-ab: K1's forms on the card, in one
+    process. For each graph of k1_ab_nets (those named in labels, where
+    given), each distinct K1 launch whose shape a Hopper form takes is
+    timed by graph_ms (cold L2) in the mma.sync form and at each option of
+    k1_options (the wide form's tiles of 256, 128 and 64 rows; the narrow
+    form's row groups, warpgroups and K split), in the order mma.sync, the
+    options, the options backwards, mma.sync, every option's output bit
+    for bit the mma.sync form's; beside its conv_bound and torch._int_mm on
+    the gathered taps (at batches of 256 and more: cuBLAS refuses some
+    smaller shapes), and the option the planner's rule gives it. Then each
+    graph's K1 sum (its other launches timed once: the mma.sync form takes
+    them either way) all in mma.sync, by the rule, and at each launch's
+    fastest option, with the rule's launches in each Hopper form; and the
+    whole forward (CUDA events, median of 20) in the order mma.sync, rule,
+    rule, mma.sync (mma.sync under qmatmul._mma_form).
+    `hopper_slower_at` lists the launches the rule gives a Hopper form
+    where mma.sync was faster, `narrow_lost_at` those where the narrow
+    form's best option was more than 3% slower than mma.sync;
+    `rule_misses` each launch where another option was faster than the
+    rule's by more than 3%. One JSON line, also written to
+    chiprun_out/k1_ab.json."""
     import torch
 
     from alignq_tpu_torch.kernels import qmatmul as K1
@@ -3006,6 +3085,8 @@ def k1_ab(card) -> None:
     dev = torch.device("cuda")
     rows, forwards, considered = [], {}, {}
     for label, batch, build, fwd_fn in k1_ab_nets(dev):
+        if labels is not None and label not in labels:
+            continue
         ops, x = build()
 
         def fwd():
@@ -3014,7 +3095,7 @@ def k1_ab(card) -> None:
         with torch.inference_mode():
             launches = distinct_launches(record_launches(fwd))
             k1_sum = {"mma": 0.0, "rule": 0.0, "best": 0.0}
-            n_k1 = n_taken = 0
+            n_k1, n_taken = 0, {"sm90": 0, "narrow": 0}
             for key, ((kind, args), count) in launches.items():
                 if kind != "K1":
                     continue
@@ -3022,14 +3103,15 @@ def k1_ab(card) -> None:
                 xk, op, plan, mode, act, xc = args
                 pm, out = mma_plan(xk, op, plan), k1_out(plan, op, mode)
                 geo = (*xk.shape, plan.ksize, plan.stride, plan.pad, *op.wt.shape)
-                tiles = {n: K1.sm90_plan(*geo, n_wg=n) for n in AB_WGS}
-                tiles = {n: p for n, p in tiles.items() if p is not None}
+                tiles = k1_options(geo)
                 if not tiles:
                     t0 = graph_ms(lambda: K1._k1_launch(xk, op, pm, out, mode, act))
                     for form in k1_sum:
                         k1_sum[form] += count * t0
                     continue
-                n_taken += count
+                rule = option_of(plan)
+                if rule != "mma":
+                    n_taken[rule.split("@")[0]] += count
                 t_mma, t90 = [], {n: [] for n in tiles}
                 t_mma.append(graph_ms(lambda: K1._k1_launch(xk, op, pm, out, mode, act)))
                 for n in list(tiles) + list(tiles)[::-1]:
@@ -3040,7 +3122,7 @@ def k1_ab(card) -> None:
                     got = k1_out(p, op, mode)
                     K1._k1_launch(xk, op, p, got, mode, act)
                     if not torch.equal(got, out):
-                        raise AssertionError(f"K1's Hopper form at {64 * n} rows differs from mma.sync at {key}")
+                        raise AssertionError(f"K1's Hopper form at {n} differs from mma.sync at {key}")
                 b_ms, b_by = conv_bound(*xk.shape[:3], xc, plan.ksize, plan.stride, op.n,
                                         4 if mode in ("f32", "relu") else 1, plan.pad)
                 lib_ms = None  # torch._int_mm has no cuBLAS kernel for some small-batch shapes: timed at 256 and up
@@ -3049,44 +3131,50 @@ def k1_ab(card) -> None:
                     wmat = op.wt.t().contiguous()
                     lib_ms = graph_ms(lambda: torch._int_mm(cols, wmat))
                     del cols, wmat
-                means = {"mma": statistics.mean(t_mma), **{f"sm90@{n}": statistics.mean(t) for n, t in t90.items()}}
-                rule = f"sm90@{plan.n_wg}" if isinstance(plan, K1.Sm90Plan) else "mma"
+                means = {"mma": statistics.mean(t_mma), **{n: statistics.mean(t) for n, t in t90.items()}}
                 best = min(means, key=means.get)
                 k1_sum["mma"] += count * means["mma"]
                 k1_sum["rule"] += count * means[rule]
                 k1_sum["best"] += count * means[best]
                 rows.append(dict(net=label, batch=batch, shape=str(key), launches=count, rule=rule, best=best,
-                                 mma_ms=t_mma, sm90_ms={str(n): t for n, t in t90.items()}, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=lib_ms, M=tiles[next(iter(tiles))].M,
-                                 items={str(n): p.n_items for n, p in tiles.items()}))
+                                 mma_ms=t_mma, hopper_ms=t90, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                                 M=tiles[next(iter(tiles))].M, items={n: p.n_items for n, p in tiles.items()}))
                 print(f"k1 A/B {label} {key} x{count}: mma.sync {t_mma[0]:.4f} ms, "
-                      + ", ".join(f"Hopper {64 * n} rows {t[0]:.4f}" for n, t in t90.items())
+                      + ", ".join(f"{n} {t[0]:.4f}" for n, t in t90.items())
                       + f", back {', '.join(f'{t[1]:.4f}' for t in list(t90.values())[::-1])}, mma.sync "
                       f"{t_mma[1]:.4f}; rule {rule}, fastest {best}; bound {b_ms:.4f} ({b_by}), torch._int_mm "
                       f"{'not timed' if lib_ms is None else f'{lib_ms:.4f}'} [{card}]", flush=True)
             fw = {"mma": [], "rule": []}
-            if n_taken:
+            if sum(n_taken.values()):
                 for form in ("mma", "rule", "rule", "mma"):
                     with K1._mma_form() if form == "mma" else contextlib.nullcontext():
                         fw[form].append(median_ms(fwd))
-        considered[f"{label} {batch}"] = {"k1_launches": n_k1, "sm90_plan_takes": n_taken}
+        considered[f"{label} {batch}"] = {"k1_launches": n_k1, "rule_takes": n_taken}
         forwards[f"{label} {batch}"] = {"k1_sum_ms": k1_sum, "forward_ms": fw}
-        print(f"k1 A/B {label} batch {batch}: {n_taken} of {n_k1} K1 launches a forward in shapes sm90_plan takes; "
-              f"K1 summed over a forward {k1_sum} ms; the forward {fw} ms (order mma, rule, rule, mma) [{card}]",
-              flush=True)
+        print(f"k1 A/B {label} batch {batch}: of {n_k1} K1 launches a forward the rule gives {n_taken} the Hopper "
+              f"forms; K1 summed over a forward {k1_sum} ms; the forward {fw} ms (order mma, rule, rule, mma) "
+              f"[{card}]", flush=True)
         del ops, x, launches
         torch.cuda.empty_cache()
 
     def mean(r, opt):
-        return statistics.mean(r["mma_ms"] if opt == "mma" else r["sm90_ms"][opt.split("@")[1]])
+        return statistics.mean(r["mma_ms"] if opt == "mma" else r["hopper_ms"][opt])
 
     slower = [f"{r['net']} {r['batch']} {r['shape']}" for r in rows
               if r["rule"] != "mma" and mean(r, r["rule"]) >= mean(r, "mma")]
+    lost = [dict(at=f"{r['net']} {r['batch']} {r['shape']}", mma_ms=mean(r, "mma"),
+                 narrow_ms=min(mean(r, o) for o in r["hopper_ms"]))
+            for r in rows if any(o.startswith("narrow") for o in r["hopper_ms"])
+            and min(mean(r, o) for o in r["hopper_ms"]) > 1.03 * mean(r, "mma")]
     misses = [dict(at=f"{r['net']} {r['batch']} {r['shape']}", rule=r["rule"], best=r["best"],
                    ratio=mean(r, r["rule"]) / mean(r, r["best"]))
               for r in rows if mean(r, r["rule"]) > 1.03 * mean(r, r["best"])]
-    print(json.dumps({"k1_ab": rows, "forwards": forwards, "considered": considered, "hopper_slower_at": slower,
-                      "rule_misses": misses, "card": card}), flush=True)
+    result = {"k1_ab": rows, "forwards": forwards, "considered": considered, "hopper_slower_at": slower,
+              "narrow_lost_at": lost, "rule_misses": misses, "card": card}
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "k1_ab.json").write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
 
 
 K3_AB_BATCHES = (BATCH, SERVE_BATCH, 8, 3)  # --k3-ab's batches: the bench's, the engine's, a serving batch, ragged
@@ -3339,6 +3427,7 @@ def main() -> int:
     # the conv form, on NHWC codes read in place, at every path conv of
     # batches 2048 (poly and erf) and 256 and a ragged batch 3 (every mode)
     conv_cases = [(b, *shape) for b in (BATCH, SERVE_BATCH, 3) for shape in conv_shapes(b)]
+    narrow_pairs = 0
     for batch, name, b, h, w, cin, ksize, stride, n in conv_cases:
         pad = 1 if ksize == 3 else 0
         x = i8((b, h, w, cin))
@@ -3372,12 +3461,26 @@ def main() -> int:
             k1_err = max(k1_err, float((got.int() - want.int()).abs().max()))
             code_counts[f"conv {impl} {name} batch {batch}"] = counts[impl]
             del got, want
-        print(f"K1 conv {name} batch {b} {h}x{w}x{cin} k{ksize} s{stride} N={n}: "
+        # the launch's form by the rule; a narrow-form launch also against the
+        # mma.sync form on the same operands, bit for bit, in each mode checked
+        xc = K1._conv_input(x, op)
+        plan = K1.k1_plan(*xc.shape, ksize, stride, pad, *op.wt.shape)
+        if (name in NARROW_R20) != isinstance(plan, K1.NarrowPlan):
+            raise AssertionError(f"K1 conv {name} batch {batch}: the rule gave it {type(plan).__name__}")
+        if isinstance(plan, K1.NarrowPlan):
+            modes = [(m, None) for m in ("int32", "f32", "relu")] * (batch != BATCH) + list(
+                (a.impl, a) for a in maps.values())
+            form_pair(xc, op, plan, modes)
+            narrow_pairs += len(modes)
+        print(f"K1 conv {name} batch {b} {h}x{w}x{cin} k{ksize} s{stride} N={n} ({option_of(plan)}): "
               f"{'int32 identical; ' if batch != BATCH else ''}differing elements {counts} of "
-              f"{b * ((h - 1) // stride + 1) * ((w - 1) // stride + 1) * n}", flush=True)
+              f"{b * ((h - 1) // stride + 1) * ((w - 1) // stride + 1) * n}"
+              f"{'; the mma.sync form bit for bit in each mode' if isinstance(plan, K1.NarrowPlan) else ''}",
+              flush=True)
         if batch in (BATCH, SERVE_BATCH) and conv_shapes(batch)[name, b, h, w, cin, ksize, stride, n] != (0, 0):
             k1_ops[batch, name] = (x, kern, cs, cb, op, stride, pad)
     details["k1_code_mismatches"] = code_counts
+    print(f"K1's narrow Hopper form: {narrow_pairs} launches, each bit for bit the mma.sync form's", flush=True)
 
     # 4. K2's path, its entry point, then its results against the plain version
     phase("K2: its entry point, against its plain version")
@@ -3450,12 +3553,13 @@ def main() -> int:
     slice_kw = dict(act_impl="poly", stream="int16", use_stage_kernel=True, use_pallas_1x1=True)
     _, (_, x_cpu) = build_resnet20_int8(64, device="cpu")
     params, stats = init_preact_resnet_params(20, torch.Generator().manual_seed(SEED + 1), "cpu")
-    keys = (K1.KERNEL, K1.CODES, K1.F32, K3.KERNEL, K3.SM90, K1.TAP_GATHERS)
-    for label, (wbits, abits), kw, k1_per_fwd, k3_per_fwd in (
-        ("slice poly+K3+K1", (8, 8), slice_kw, 7, 3),
-        ("default erf/int16", (8, 8), {}, 21, 0),
-        ("A4 bins", (8, 4), {"act_impl": "bins"}, 21, 0),
-        ("W4A4 bins_int", (4, 4), {"act_impl": "bins_int"}, 21, 0),
+    keys = (K1.KERNEL, K1.CODES, K1.F32, K1.NARROW, K3.KERNEL, K3.SM90, K1.TAP_GATHERS)
+    n_slice, n_erf = NARROW_PER_FORWARD["resnet20 slice"], NARROW_PER_FORWARD["resnet20 erf"]
+    for label, (wbits, abits), kw, k1_per_fwd, k3_per_fwd, narrow_per_fwd in (
+        ("slice poly+K3+K1", (8, 8), slice_kw, 7, 3, n_slice),
+        ("default erf/int16", (8, 8), {}, 21, 0, n_erf),
+        ("A4 bins", (8, 4), {"act_impl": "bins"}, 21, 0, n_erf),
+        ("W4A4 bins_int", (4, 4), {"act_impl": "bins_int"}, 21, 0, n_erf),
     ):
         qp_cpu = convert_resnet20(params, stats, weight_bits=wbits, act_bits=abits)
         if kw.get("act_impl") == "bins_int":
@@ -3473,8 +3577,8 @@ def main() -> int:
         lerr = float((l_gpu - l_cpu).abs().max())
         if not (torch.isfinite(l_gpu).all() and lerr <= 1e-4 and l_gpu.shape == (64, 10)):
             raise AssertionError(f"{label}: logits off by {lerr}")
-        want = {K1.KERNEL: k1_per_fwd, K1.CODES: k1_per_fwd, K1.F32: 0, K3.KERNEL: k3_per_fwd, K3.SM90: k3_per_fwd,
-                K1.TAP_GATHERS: 0}
+        want = {K1.KERNEL: k1_per_fwd, K1.CODES: k1_per_fwd, K1.F32: 0, K1.NARROW: narrow_per_fwd,
+                K3.KERNEL: k3_per_fwd, K3.SM90: k3_per_fwd, K1.TAP_GATHERS: 0}
         if counts != want:
             raise AssertionError(f"{label}: launches per forward {counts}, expected {want}")
         print(f"forward {label} batch 64: int16 stream identical to CPU, logits max abs {lerr:.3g}, "
@@ -3530,6 +3634,8 @@ def main() -> int:
         raise AssertionError(f"main-path launches {main_launches} are not 7 K1 : 3 K3 per forward")
     if main_launches.get(K3.SM90, 0) != main_launches[K3.KERNEL]:
         raise AssertionError(f"main path: K3 launches not all in the Hopper form: {main_launches}")
+    if main_launches.get(K1.NARROW, 0) * 7 != main_launches[K1.KERNEL] * n_slice:
+        raise AssertionError(f"main path: not {n_slice} of 7 K1 launches a forward in the narrow form: {main_launches}")
     if main_launches.get(K1.CODES, 0) != main_launches[K1.KERNEL] or main_launches.get(K1.F32, 0):
         raise AssertionError(f"main path: K1 launches not all in codes mode: {main_launches}")
     if main_launches.get(K1.TAP_GATHERS, 0):
@@ -3557,8 +3663,10 @@ def main() -> int:
     engine, _, erf_launches = serve_and_check("default erf route", {}, reqs[:3])
     engine.close()
     n_k1 = erf_launches.get(K1.KERNEL, 0)
-    if n_k1 == 0 or n_k1 % 21 or erf_launches.get(K1.CODES, 0) != n_k1 or erf_launches.get(K1.F32, 0):
-        raise AssertionError(f"erf route: launches {erf_launches}, expected 21 codes-mode K1 a forward")
+    if n_k1 == 0 or n_k1 % 21 or erf_launches.get(K1.CODES, 0) != n_k1 or erf_launches.get(K1.F32, 0) \
+            or erf_launches.get(K1.NARROW, 0) * 21 != n_k1 * n_erf:
+        raise AssertionError(f"erf route: launches {erf_launches}, expected 21 codes-mode K1 a forward, {n_erf} "
+                             "of them in the narrow form")
     if erf_launches.get(K1.TAP_GATHERS, 0):
         raise AssertionError(f"erf route: a conv gathered its taps on the card: {erf_launches}")
     details["serving"]["erf_route_launches"] = erf_launches
@@ -3591,7 +3699,7 @@ def main() -> int:
         _, b, h, w, cin, ksize, _, n = next(key for key in conv_shapes(batch) if key[0] == name)
         xc = K1._conv_input(x, op)  # as the kernel takes it: the stem's channels padded to 4
         plan = K1.k1_plan(*xc.shape, ksize, stride, pad, *op.wt.shape)
-        tile = f"sm90 {plan.TM} rows" if isinstance(plan, K1.Sm90Plan) else f"{plan.TR}x{plan.TW}"
+        tile = f"{plan.TM} rows" if isinstance(plan, (K1.Sm90Plan, K1.NarrowPlan)) else f"{plan.TR}x{plan.TW}"
         m = plan.B * plan.Ho * plan.Wo
         out_c = torch.empty((m, op.wt.shape[0]), device=dev, dtype=torch.int8)
         out_f = torch.empty((m, op.wt.shape[0]), device=dev)
@@ -3613,11 +3721,11 @@ def main() -> int:
         slice_n, erf_n = conv_shapes(batch)[name, b, h, w, cin, ksize, stride, n]
         rows[K1.KERNEL].append(dict(
             batch=batch, shape=name, M=m, K=ksize * ksize * cin, N=n, slice_launches=slice_n, erf_launches=erf_n,
-            tile=tile, poly_ms=code_ms["poly"], erf_ms=code_ms["erf"], f32_ms=f32_ms,
+            tile=tile, form=option_of(plan), poly_ms=code_ms["poly"], erf_ms=code_ms["erf"], f32_ms=f32_ms,
             plain_poly_ms=plain_code_ms["poly"], plain_erf_ms=plain_code_ms["erf"],
             bound_ms=bc_ms, bound_f32_ms=bf_ms, bound_by=bc_by, library_ms=lib_ms, pad_pass_ms=pad_ms,
         ))
-        print(f"time K1 conv {name} batch {b} M={m} K={ksize * ksize * cin} N={n} (tile {tile}): "
+        print(f"time K1 conv {name} batch {b} M={m} K={ksize * ksize * cin} N={n} ({option_of(plan)}, tile {tile}): "
               f"codes poly {code_ms['poly']:.4f} ms, erf {code_ms['erf']:.4f} (plain {plain_code_ms['poly']:.3f}, "
               f"{plain_code_ms['erf']:.3f}; bound {bc_ms:.4f} {bc_by}); f32 {f32_ms:.4f} (bound {bf_ms:.4f}); "
               f"torch._int_mm on the gathered matrix {lib_ms:.4f}"
@@ -3697,6 +3805,10 @@ def main() -> int:
             K3.KERNEL: summed([x for x in rows[K3.KERNEL] if x["batch"] == batch], "ms", "plain_ms", "bound_ms",
                               None),
         }
+        narrow = [x for x in r1 if x["form"].startswith("narrow")]
+        per_forward[batch][K1.NARROW] = summed(narrow, "poly_ms", "plain_poly_ms", "bound_ms", "slice_launches")
+        per_forward[batch][K1.NARROW + " (erf route)"] = summed(narrow, "erf_ms", "plain_erf_ms", "bound_ms",
+                                                               "erf_launches")
         for kname, v in per_forward[batch].items():
             print(f"{kname} over one batch-{batch} forward: {json.dumps(v)} [{card}]", flush=True)
     details["per_forward"] = per_forward
@@ -3707,6 +3819,8 @@ def main() -> int:
          k2_launches[K2.KERNEL]),
         (K3.KERNEL, "alignq_tpu_torch/csrc/stage_kernel_sm90.cu", "alignq_tpu/kernels/stage_kernel.py:171", k3_err,
          main_launches[K3.SM90]),
+        (K1.NARROW, "alignq_tpu_torch/csrc/qmatmul_sm90n.cu", "alignq_tpu/kernels/qmatmul.py:45", k1_err,
+         main_launches[K1.NARROW]),
     ]
     kernels = [{"name": kname, "route": "cuda", "source": src, "replaces": replaces, "launches": launches,
                 "max_abs_err": err, **per_forward[SERVE_BATCH][kname]}

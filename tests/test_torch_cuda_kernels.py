@@ -20,6 +20,7 @@ from alignq_tpu_torch.kernels.qmatmul import (
     CODES,
     F32,
     FORM,
+    NARROW,
     REQUANT,
     SM90,
     TAP_GATHERS,
@@ -35,6 +36,9 @@ from alignq_tpu_torch.kernels.qmatmul import (
     int8_matmul_int32,
     int8_matmul_int32_reference,
     int8_matmul_packed,
+    k1_plan,
+    narrow_options,
+    narrow_plan,
     pack_act_cutpoints,
     pack_conv_weights,
     pack_k1_weights,
@@ -471,6 +475,87 @@ def test_conv_sm90_form_vs_plain_and_mma_form(cuda, form):
     _assert_f32_close(got["sm90"][1], int8_conv_reference(x, op, stride, pad, "f32"))
     for act, c in zip(acts, got["sm90"][3:]):
         _assert_codes_close(c, int8_conv_reference(x, op, stride, pad, act.impl, act))
+
+
+# K1's narrow Hopper form (csrc/qmatmul_sm90n.cu): ResNet-20's stage-1 conv,
+# block-3 skip and block-3 conv1 (which the rule leaves to mma.sync),
+# DenseNet-40's growth convs over 48, 176 and 448 channels and its two
+# transitions, and a 1x1 over 80 channels to 40: (H, W, Cin, ksize, stride, N)
+NARROW_K1_FORMS = [
+    (32, 32, 16, 3, 1, 16), (32, 32, 16, 1, 2, 32), (16, 16, 32, 3, 1, 32), (32, 32, 48, 3, 1, 12),
+    (16, 16, 176, 3, 1, 12), (8, 8, 448, 3, 1, 12), (32, 32, 176, 1, 1, 168), (16, 16, 320, 1, 1, 312),
+    (7, 9, 80, 1, 1, 40),
+]
+
+
+@pytest.mark.parametrize("batch", [8, 3])
+@pytest.mark.parametrize("form", NARROW_K1_FORMS)
+def test_conv_narrow_form_vs_plain_and_mma_form(cuda, form, batch):
+    """K1's narrow Hopper form at its plan (narrow_plan; the planner's
+    rule may leave the shape to mma.sync) in every mode (int32, f32, relu,
+    requant, the erf, poly, bins and bins_int codes, relu'd and not) against
+    the mma.sync form on the same operands, 0 differing elements, by the
+    raw launches; where the rule gives it the narrow form, the entry points
+    again, each launch counted under the narrow form and held against the
+    plain version (int32 and requant identical, f32 and the codes within
+    the plain version's double rounding). Then each (MG, WM, WK) option
+    that --k1-ab times, bit for bit the rule's output in int32 and poly
+    codes."""
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels.convert import QConvInt8
+    from alignq_tpu_torch.kernels.infer import act_int_cutpoints
+
+    h, w, cin, ksize, stride, n = form
+    pad = ksize // 2
+    rng = np.random.RandomState(cin + n + batch + ksize + 2)
+    x = _i8(rng, (batch, h, w, cin), 0, 128).to(cuda)
+    kern = _i8(rng, (ksize, ksize, cin, n)).to(cuda)
+    k = ksize * ksize * cin
+    s = torch.from_numpy(((rng.rand(n) * 2 - 0.4) * 2 / (np.sqrt(k) * 73.3**2)).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy((rng.randn(n) * 0.5).astype(np.float32)).to(cuda)
+    op = pack_conv_weights(kern, s, bias)
+    rq = pack_conv_weights(kern, torch.full((n,), 1.3e-4, device=cuda), torch.full((n,), 1.0 / 0.37, device=cuda))
+    geo = (batch, h, w, cin, ksize, stride, pad, *op.wt.shape)
+    plan = narrow_plan(*geo)
+    assert plan is not None
+    mma = K1.conv_plan(*geo)
+    acts = (act_map("erf", 127, cuda, relu=True), act_map("poly", 127, cuda), act_map("erf", 127, cuda),
+            act_map("bins", 7, cuda, relu=True),
+            pack_act_cutpoints(act_int_cutpoints(QConvInt8(kern, s, bias), 4), op.wt.shape[0]))
+    modes = [(op, m, None) for m in ("int32", "f32", "relu")] + [(rq, "requant", None)] + [
+        (op, a.impl, a) for a in acts]
+    got = []
+    for op_, mode, act in modes:
+        a = torch.empty((plan.M, op.wt.shape[0]), device=cuda,
+                        dtype={"int32": torch.int32, "f32": torch.float32, "relu": torch.float32}.get(mode, torch.int8))
+        b_ = torch.empty_like(a)
+        K1._k1_launch(x, op_, plan, a, mode, act)
+        K1._k1_launch(x, op_, mma, b_, mode, act)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b_), mode
+        got.append(a[:, :n].reshape(batch, -1, (w - 1) // stride + 1, n))
+    assert torch.equal(got[0], int8_conv_reference(x, op, stride, pad, "int32"))
+    _assert_f32_close(got[1], int8_conv_reference(x, op, stride, pad, "f32"))
+    assert torch.equal(got[3], int8_conv_reference(x, rq, stride, pad, "requant"))
+    for act, c in zip(acts, got[4:]):
+        _assert_codes_close(c, int8_conv_reference(x, op, stride, pad, act.impl, act))
+    if k1_plan(*geo) == plan:  # the rule's form: through the entry points, counted
+        before = _build.launches[NARROW]
+        via = [int8_conv_packed(x, op_, stride, pad, mode) if act is None else int8_conv_codes(x, op_, stride, pad, act)
+               for op_, mode, act in modes]
+        torch.cuda.synchronize()
+        assert _build.launches[NARROW] == before + len(modes)
+        for a, b_ in zip(via, got):
+            assert torch.equal(a, b_)
+    for option in narrow_options(op.wt.shape[0]):
+        p = narrow_plan(*geo, option=option)
+        if p is None:
+            continue
+        for (op_, mode, act), want in ((modes[0], got[0]), (modes[5], got[5])):
+            out = torch.empty((p.M, op.wt.shape[0]), device=cuda, dtype=want.dtype)
+            K1._k1_launch(x, op_, p, out, mode, act)
+            torch.cuda.synchronize()
+            assert torch.equal(out[:, :n].reshape(want.shape), want), option
 
 
 @pytest.mark.parametrize("batch", [256, 3])

@@ -54,9 +54,15 @@ def test_the_rule_on_the_cifar_graphs(batch):
     """The CIFAR graphs' launches take the Hopper form where sm90_plan
     takes their shape: MobileNet-V2's 1x1s from 32 channels up (10 of its
     distinct shapes), ResNet-20's block-6 convs over 32 and 64 channels
-    (and the merged block-6 conv); no DenseNet-40 launch (its
-    growth of 12 channels breaks C % 32 and N8 % 64), no stem, no 5x5
-    digit conv. Each plan fits and writes every output once."""
+    (and the merged block-6 conv); no DenseNet-40 launch (its growth of 12
+    channels breaks C % 32 and N8 % 64: the narrow Hopper form takes
+    chip_smoke.NARROW_PER_FORWARD of its 39 at each batch,
+    tests/test_torch_k1_narrow.py holds which), no stem, no 5x5 digit
+    conv. Each plan fits and writes every output once."""
+    dense = _family_k1_shapes(batch)[:1] + _family_k1_shapes(batch)[2:40]
+    assert not any(isinstance(K1.k1_plan(*a), K1.Sm90Plan) for a in dense)
+    assert sum(isinstance(K1.k1_plan(*a), K1.NarrowPlan) for a in dense) == \
+        chip_smoke.NARROW_PER_FORWARD["densenet40", batch]
     shapes = set(_family_k1_shapes(batch))
     taken = {args for args in shapes if isinstance(K1.k1_plan(*args), K1.Sm90Plan)}
     assert {args for args in shapes if K1.sm90_plan(*args) is not None} == taken
