@@ -1,5 +1,6 @@
 // The act-site code map of the INT8 serving graph, as __device__ functions
-// shared by K1's codes epilogue (qmatmul.cu) and K3 (stage_kernel.cu):
+// shared by K1's codes epilogue (qmatmul.cu), K3 (stage_kernel.cu) and the
+// stem kernel (stem_sm90.cu, through the table form):
 // codes = clip(round(c(h) * g), +-g), the fused form of the TPU kernel
 // alignq_tpu/kernels/quantize.py:57 cdf_quantize_int8 (K2) at every act
 // site, with the poly, erf, bins and bins_int variants of
@@ -75,6 +76,82 @@ __device__ __forceinline__ int bins_code(float h, const float* __restrict__ bnd,
     code += (h >= tk) - (h <= -tk);
   }
   return code;
+}
+
+// The erf or poly code (IMPL: 4 erf, 3 poly, k1_epilogue.cuh's mode codes)
+// of h, relu'd or not, through the map's step table (kernels/quantize.py
+// act_table, ActTable): below lo the least code (0 relu'd, else -g), above
+// hi g; in [lo, hi] entry i = {base + g | w << 16, t} of h's bucket b_lo +
+// i, the bucket floor(h * 128 + 512) by one rounding, gives base + (h >=
+// t), except within w - 1 ulps above t (counted on t's side of 0), the
+// window where the f32 map is not monotone (a few ulps at some steps, so
+// the branch is rarely taken): there the map's own code. Equal to erf_code
+// / poly_code (relu'd) for every f32 (chip_smoke.py checks all 2^32
+// patterns on the card). An entry load and a handful of ALU operations.
+struct Table {
+  const int2* tab;  // (n,) entries
+  float lo, hi;
+  int b_lo, n;
+};
+constexpr int TABLE_MAX = 1024;  // entries a table holds at most
+
+// The map's own code, for h in a window: out of line, so that the rarely
+// taken branch costs the lookup's code nothing (registers, scheduling)
+template <int IMPL, bool RELU>
+__device__ __noinline__ int window_code(float h, int g) {
+  const float gf = static_cast<float>(g);
+  const int d = IMPL == 4 ? erf_code(h, gf) : poly_code(h, gf);
+  return RELU ? max(d, 0) : d;
+}
+
+// h's entry of the table (tab, b_lo, n): its bucket, clamped to the
+// table's (h outside [lo, hi], or NaN, takes an end entry whose code the
+// callers' selects override; no window reaches past [lo, hi]); the clamped
+// value is a whole number >= 0, so its truncation is its floor
+__device__ __forceinline__ int2 table_entry(float h, const int2* __restrict__ tab, int b_lo, int n) {
+  const float u = fminf(fmaxf(__fmaf_rn(h, 128.0f, 512.0f), static_cast<float>(b_lo)),
+                        static_cast<float>(b_lo + n - 1));
+  return tab[static_cast<int>(u) - b_lo];
+}
+
+// Whether h lies in entry e's window: within w - 1 ulps above its t
+__device__ __forceinline__ bool in_window(float h, int2 e) {
+  const int d = __int_as_float(e.y) >= 0.f ? __float_as_int(h) - e.y : e.y - __float_as_int(h);
+  return static_cast<unsigned>(d) < static_cast<unsigned>(e.x >> 16);
+}
+
+// The code of h by its entry e, the window aside
+template <bool RELU>
+__device__ __forceinline__ int table_step_code(float h, int2 e, float lo, float hi, int g) {
+  const int code = (e.x & 0xffff) - g + (h >= __int_as_float(e.y));
+  return h > hi ? g : (h < lo ? (RELU ? 0 : -g) : code);
+}
+
+template <int IMPL, bool RELU>
+__device__ __forceinline__ int table_code(float h, const int2* __restrict__ tab, float lo, float hi, int b_lo, int n,
+                                          int g) {
+  const int2 e = table_entry(h, tab, b_lo, n);
+  return in_window(h, e) ? window_code<IMPL, RELU>(h, g) : table_step_code<RELU>(h, e, lo, hi, g);
+}
+
+// table_code of four values at once: the four lookups first, then one
+// rarely taken branch for those in a window (so that the lookups' loads
+// are in flight together)
+template <int IMPL, bool RELU>
+__device__ __forceinline__ void table_code4(const float (&h)[4], int (&code)[4], const int2* __restrict__ tab,
+                                           float lo, float hi, int b_lo, int n, int g) {
+  int2 e[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) e[j] = table_entry(h[j], tab, b_lo, n);
+  unsigned in = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    code[j] = table_step_code<RELU>(h[j], e[j], lo, hi, g);
+    in |= static_cast<unsigned>(in_window(h[j], e[j])) << j;
+  }
+  if (in)
+    for (int j = 0; j < 4; ++j)
+      if ((in >> j) & 1) code[j] = window_code<IMPL, RELU>(h[j], g);
 }
 
 // Straight from the int32 accumulator of column `col`: a = acc * sgn, then

@@ -1,5 +1,6 @@
 // The Hopper primitives K1's and K3's sm_90a forms share (qmatmul_sm90.cu,
-// qmatmul_sm90n.cu, stage_kernel_sm90.cu): mbarriers, TMA's 2-D box load,
+// qmatmul_sm90n.cu, stage_kernel_sm90.cu, stem_sm90.cu): mbarriers, TMA's
+// 2-D and 3-D box loads and 1-D bulk copy,
 // wgmma with A from registers or by a descriptor and B by a shared-memory
 // descriptor under a 32-, 64- or 128-byte swizzle (A's without one), and
 // the CUDA driver's tensor-map encoder, reached through cudaGetDriverEntryPoint
@@ -57,6 +58,25 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
           "r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// a box of a 3-D map at (c0, c1, c2) into dst, completing on bar
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes of global memory into dst
+// (both 16-byte aligned), completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
 }
 
 // ------------------------------------------------------------ wgmma

@@ -4,28 +4,35 @@ depthwise form.
 The JAX serving graph of MobileNet-V2 runs its depthwise convs through
 XLA's conv_general_dilated with feature_group_count = C
 (alignq_tpu/kernels/infer_mobilenet.py:39-49); PyTorch has no int8 conv on
-CUDA. On a CUDA tensor `dw_conv` launches csrc/dwconv.cu, a tiled direct
-kernel (one channel a group gives an MMA nothing to contract over) whose
-tiling `dw_plan` chooses here; on a CPU tensor it runs the plain version
-beside it, `dw_conv_reference`, which sums the 9 taps in int32.
+CUDA. On a CUDA tensor `dw_conv` launches a tiled direct kernel (one
+channel a group gives an MMA nothing to contract over) in one of two
+forms that `device_plan` chooses by a written rule: csrc/dwconv_sm90.cu
+(bands by TMA into persistent CTAs, the erf and poly maps through their
+step tables; `dw_sm90_plan`) wherever C % 16 == 0, every MobileNet-V2
+depthwise conv; csrc/dwconv.cu (`dw_plan`) for the other shapes. The two
+agree bit for bit. On a CPU tensor it runs the plain version beside them,
+`dw_conv_reference`, which sums the 9 taps in int32.
 
 Its launches count under K1's family, DW = 'int8_matmul_dequant:dw', and
-not in K1's own total.
+not in K1's own total; those of the Hopper form under DW_SM90 too.
+`_old_form()` gives every launch csrc/dwconv.cu, for A/B runs only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 from alignq_tpu_torch.kernels import _build
-from alignq_tpu_torch.kernels.quantize import act_codes
+from alignq_tpu_torch.kernels.quantize import ActTable, act_codes, act_table
 from alignq_tpu_torch.quant.cdf import fma_f32
 
 DW = "int8_matmul_dequant:dw"  # launch-counter key
+DW_SM90 = DW + ":sm90"  # ... of the Hopper form's launches
 _MODE = {"int32": 0, "f32": 1, "poly": 3, "erf": 4, "bins": 5}
 CHUNK = 64  # most channels a CTA takes
 RUN = 8  # outputs a thread takes along x
@@ -144,6 +151,76 @@ def dw_plan(b: int, h: int, w: int, c: int, stride: int, sms: int) -> DwPlan:
                   q * tr * gx, smem)
 
 
+class DwSm90Plan(NamedTuple):
+    """One launch of the Hopper form (csrc/dwconv_sm90.cu's Plan): dw_plan's
+    tiling with the band as TMA writes its box, dense (P = CH, RP = HC *
+    CH); then the tiles the persistent CTAs walk, a band buffer's bytes
+    (two of them) and the offsets of the map's table and the mbarriers."""
+
+    B: int
+    H: int
+    W: int
+    C: int
+    Ho: int
+    Wo: int
+    stride: int
+    CH: int
+    n_chunks: int
+    TR: int
+    n_bands: int
+    RUN: int
+    GX: int
+    HR: int
+    HC: int
+    P: int
+    RP: int
+    vec: int
+    threads: int
+    smem: int
+    n_tiles: int
+    band_bytes: int
+    tab_off: int
+    bar_off: int
+
+
+_TABLE_BYTES = 1024 * 8  # csrc/act_codes.cuh TABLE_MAX entries of 8 bytes
+
+
+@functools.lru_cache(maxsize=None)
+def dw_sm90_plan(b: int, h: int, w: int, c: int, stride: int, sms: int) -> Optional[DwSm90Plan]:
+    """The Hopper form's plan of a depthwise launch over x (b, h, w, c) int8
+    on a card of `sms` SMs, or None where the form does not take it: C %
+    16 (a TMA box's channels are 16-byte multiples), or a box or shared
+    memory past its limits. The tiling is dw_plan's."""
+    p = dw_plan(b, h, w, c, stride, sms)
+    if c % 16 or p.CH % 16 or max(p.CH, p.HC, p.HR) > 256:
+        return None
+    rp = p.HC * p.CH
+    band = _round_up(p.HR * rp, 128)
+    tab_off = 2 * band
+    bar_off = tab_off + _TABLE_BYTES
+    smem = bar_off + 16 + 128  # and the base's alignment to 128 bytes
+    if smem > SMEM_MAX:
+        return None
+    return DwSm90Plan(*p[:15], p.CH, rp, p.vec, p.threads, smem, p.B * p.n_bands * p.n_chunks, band, tab_off, bar_off)
+
+
+_OLD_FORM = False  # set only by _old_form
+
+
+@contextlib.contextmanager
+def _old_form():
+    """Every depthwise launch inside takes csrc/dwconv.cu. For the A/B
+    timing of the forms (chip_smoke.py --stem-dw-ab) and the card tests;
+    the main path never calls it."""
+    global _OLD_FORM
+    saved, _OLD_FORM = _OLD_FORM, True
+    try:
+        yield
+    finally:
+        _OLD_FORM = saved
+
+
 def dw_conv_reference(x: torch.Tensor, op: DwWeights, stride: int, mode: str = "f32", act=None) -> torch.Tensor:
     """Plain depthwise conv: the 9 taps of the zero-padded x summed in
     int32 (exact), then the epilogue: int32, f32 acc * scale + bias rounded
@@ -209,6 +286,8 @@ def dw_conv(x: torch.Tensor, op: DwWeights, stride: int = 1, mode: str = "f32", 
     if out.numel():
         _dw_launch(x, op, plan, impl, act, out)
         _build.launches[DW] += 1
+        if isinstance(plan, DwSm90Plan):
+            _build.launches[DW_SM90] += 1
     return out
 
 
@@ -217,9 +296,14 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def device_plan(x: torch.Tensor, stride: int) -> DwPlan:
-    """dw_plan of x (a CUDA tensor) on its card."""
-    return dw_plan(*x.shape, stride, _sm_count(x.device.index))
+def device_plan(x: torch.Tensor, stride: int) -> Union[DwPlan, DwSm90Plan]:
+    """The plan of a launch over x (a CUDA tensor) on its card, by the
+    rule: the Hopper form (dw_sm90_plan) wherever it takes the shape (C %
+    16 == 0: every MobileNet-V2 depthwise conv, faster at batches 256 and 8
+    summed over a forward, PERF.md PR 15), else dwconv.cu's (dw_plan)."""
+    sms = _sm_count(x.device.index)
+    plan = None if _OLD_FORM else dw_sm90_plan(*x.shape, stride, sms)
+    return dw_plan(*x.shape, stride, sms) if plan is None else plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -227,15 +311,46 @@ def _plan_ints(plan: DwPlan):
     return (ctypes.c_int * len(plan))(*plan)
 
 
-def _dw_launch(x, op: DwWeights, plan: DwPlan, impl: str, act: Optional[object], out) -> None:
-    """One launch of csrc/dwconv.cu on checked operands, tiled by plan
-    (dw_plan of x). Counts nothing (the wrapper does)."""
-    lib = _lib()
+def _sm90_lib() -> ctypes.CDLL:
+    lib = _build.load("dwconv_sm90")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.dw_sm90_launch.argtypes = [p, p, p, p, p, ctypes.POINTER(i), i, p, f, f, i, i, p, i, i, p]
+        lib.dw_sm90_launch.restype = i
+        lib.dw_sm90_plan_ints.restype = i
+        if lib.dw_sm90_plan_ints() != len(DwSm90Plan._fields):
+            raise RuntimeError("csrc/dwconv_sm90.cu's Plan does not match DwSm90Plan")
+        lib._argtypes_set = True
+    return lib
+
+
+def _table_args(t: Optional[ActTable]) -> tuple:
+    """The map's table as the C entry takes it: entries, lo, hi, b_lo, n."""
+    if t is None:
+        return None, 0.0, 0.0, 0, 0
+    return t.entries.data_ptr(), t.lo, t.hi, t.b_lo, t.entries.shape[0]
+
+
+def _dw_launch(x, op: DwWeights, plan: Union[DwPlan, DwSm90Plan], impl: str, act: Optional[object], out) -> None:
+    """One launch of the form of plan on checked operands (DwPlan:
+    csrc/dwconv.cu; DwSm90Plan: csrc/dwconv_sm90.cu, with the map's step
+    table for erf and poly). Counts nothing (the wrapper does)."""
     bnd = None if act is None or act.bnd is None else act.bnd.data_ptr()
+    g, relu = (0, 0) if act is None else (act.g, int(act.relu))
+    if isinstance(plan, DwSm90Plan):
+        table = act_table(impl, g, x.device, bool(relu)) if impl in ("erf", "poly") else None
+        with _build.on_device(x.device):
+            err = _sm90_lib().dw_sm90_launch(
+                x.data_ptr(), op.w.data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(), out.data_ptr(),
+                _plan_ints(plan), _MODE[impl], *_table_args(table), bnd, g, relu,
+                torch.cuda.current_stream(x.device).cuda_stream,
+            )
+        _build.check(err, "dwconv_sm90.cu dw_sm90_kernel")
+        return
+    lib = _lib()
     with _build.on_device(x.device):
         err = lib.dw_conv_launch(
             x.data_ptr(), op.w.data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(), out.data_ptr(),
-            _plan_ints(plan), _MODE[impl], bnd, 0 if act is None else act.g, int(act is not None and act.relu),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            _plan_ints(plan), _MODE[impl], bnd, g, relu, torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(err, "dwconv.cu dw_conv_kernel")

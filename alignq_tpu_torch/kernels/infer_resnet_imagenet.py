@@ -2,14 +2,17 @@
 trunk half of alignq_tpu/kernels/infer_resnet_imagenet.py), value for value
 as the JAX package runs it under jit.
 
-- Every conv is kernel K1 (kernels/qmatmul.py) on NHWC int8 codes read in
-  place: the stem a 7x7 stride-2 conv over the image's channels padded to
-  4, the blocks' 1x1 and 3x3 convs, the 1x1 downsamples. Every act site is
-  K1's codes epilogue (K2's map), relu'd on the codes where the graph
-  applies relu; the downsample, which has no act site, takes K1's f32
-  epilogue.
-- The stem's relu'd codes go through the 3x3 stride-2 max pool (on an
-  exact f16 copy: codes are 0..127, and the -inf padding never wins).
+- The stem (the image's quantize, the 7x7 stride-2 conv1, its relu'd codes
+  and the 3x3 stride-2 max pool of the codes) is one kernel on the card,
+  kernels/stem.py stem_pool_codes (csrc/stem_sm90.cu, after a prep pass
+  that quantizes the image and pads its channels to 4); on the CPU, and
+  for shapes that kernel does not take, the chain it replaced: K1's 7x7
+  form, then the pool on an exact f16 copy of the codes.
+- Every other conv is kernel K1 (kernels/qmatmul.py) on NHWC int8 codes
+  read in place: the blocks' 1x1 and 3x3 convs, the 1x1 downsamples.
+  Every act site is K1's codes epilogue (K2's map), relu'd on the codes
+  where the graph applies relu; the downsample, which has no act site,
+  takes K1's f32 epilogue.
 - The residual stream starts as int16 codes and stays integer until the
   first downsample mixes in its f32 epilogue; block inputs are requantized
   per batch (per-tensor max scale, on the device): in exact integer
@@ -36,13 +39,13 @@ from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from alignq_tpu_torch.device import resolve_device
 from alignq_tpu_torch.dist import collectives as C
 from alignq_tpu_torch.kernels.convert import fold_conv_bn
-from alignq_tpu_torch.kernels.infer import S_IMG, _act_g, _linear_q
+from alignq_tpu_torch.kernels.infer import S_IMG, _act_g
 from alignq_tpu_torch.kernels.qmatmul import K1Weights, act_map, int8_conv_codes, int8_conv_packed, pack_conv_weights
+from alignq_tpu_torch.kernels.stem import stem_pool_codes
 from alignq_tpu_torch.quant.cdf import fma_f32
 
 Heads = Dict[str, Any]
@@ -146,9 +149,7 @@ def resnet_imagenet_int8_streams(
     bare = act_map(act_impl, g, x.device)
 
     # stem: conv1 7x7 s2 -> bn -> act_q0 -> relu -> max pool, on the codes
-    c = int8_conv_codes(_linear_q(x, S_IMG), ops["conv1"], 2, 3, relu)
-    pooled = F.max_pool2d(c.to(torch.float16).permute(0, 3, 1, 2), 3, 2, 1)
-    out_c, out_f = pooled.permute(0, 2, 3, 1).to(torch.int16), None
+    out_c, out_f = stem_pool_codes(x, ops["conv1"], relu), None
     yield {"out": out_c}
     for i, (blk, bops) in enumerate(zip(qparams["layers"], ops["layers"])):
         bottleneck = "conv3" in blk
@@ -185,8 +186,10 @@ def resnet_imagenet_int8_forward(
     operands: Optional[Dict[str, Any]] = None,
 ) -> torch.Tensor:
     """INT trunk: NHWC f32 images (B, S, S, 3) -> the pooled feature
-    (B, 512 or 2048), f32. On CUDA every conv is one K1 launch (ResNet-18:
-    20, ResNet-34: 36, ResNet-50: 53 a forward)."""
+    (B, 512 or 2048), f32. On CUDA the stem is one stem-kernel launch (and
+    its prep pass) and every other conv one K1 launch; both count under
+    K1's KERNEL key (ResNet-18: 20, ResNet-34: 36, ResNet-50: 53 a
+    forward)."""
     for stage in resnet_imagenet_int8_streams(qparams, x, act_bits, act_impl, operands):
         pass
     out = stage["out"]

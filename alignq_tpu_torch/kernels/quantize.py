@@ -29,6 +29,7 @@ table kernel of csrc/quantize.cu on a CUDA tensor,
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -292,3 +293,158 @@ def _bn_table_launch(x, c_live: int, table: BnActTable, out) -> None:
             x.shape[-1], c_live, out.shape[-1], torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(err, "quantize.cu bn_table_kernel")
+
+
+# The table form of the erf and poly code maps (csrc/act_codes.cuh
+# table_code): h's bucket floor(fl(h * ACT_TABLE_INV_W + ACT_TABLE_OFF)),
+# one f32 rounding, holds at most one step of the code, since the widest
+# grid's steps are >= 0.0098 apart (the erf map at g = 127) and a bucket is
+# 1/128 wide.
+ACT_TABLE_BUCKETS = 1024  # the buckets of h in [-4, 4): every step of both maps lies within |h| < 3
+ACT_TABLE_INV_W = 128.0
+ACT_TABLE_OFF = 512.0
+ACT_TABLE_SCAN = 4096  # ulps each side of a step searched for the map's non-monotone window
+
+
+class ActTable(NamedTuple):
+    """The erf or poly code map of grid g (relu'd: max(code, 0)) as a table
+    of its steps. Below lo the code is the least (0 relu'd, else -g), above
+    hi it is g; h in [lo, hi] lies in one of the buckets b_lo .. b_lo + n -
+    1, and entry i = (base + g | w << 16, t) of bucket b_lo + i gives the
+    code base + (h >= t) (t an f32 bit pattern, NaN where the bucket has no
+    step), except within w - 1 ulps above t (w = 0: nowhere), where the
+    f32 map is not monotone (a window of a few ulps at some steps) and the
+    code is the map's own. A window that runs on into the next bucket is
+    that bucket's too (its t the step's, its base one less)."""
+
+    impl: str
+    g: int
+    relu: bool
+    lo: float
+    hi: float
+    b_lo: int
+    entries: torch.Tensor  # (n, 2) int32
+
+
+def _f32_key(h: np.ndarray) -> np.ndarray:
+    """f32 -> int64 in the f32 order (-0.0 just below +0.0)."""
+    b = np.ascontiguousarray(h, np.float32).view(np.int32).astype(np.int64)
+    return np.where(b >= 0, b, -(b & 0x7FFFFFFF) - 1)
+
+
+def _f32_of_key(k) -> np.ndarray:
+    k = np.asarray(k, np.int64)
+    return np.where(k >= 0, k, (-(k + 1)) | -0x80000000).astype(np.int32).view(np.float32)
+
+
+def act_table_bucket(h: np.ndarray) -> np.ndarray:
+    """The bucket of each f32 h, as the device computes it: h * 128 + 512
+    is exact in float64, so its cast is the one rounding of __fmaf_rn."""
+    with np.errstate(over="ignore", invalid="ignore"):  # beyond f32's range: the end buckets
+        u = (np.asarray(h, np.float32).astype(np.float64) * ACT_TABLE_INV_W + ACT_TABLE_OFF).astype(np.float32)
+    return np.clip(np.floor(np.nan_to_num(u, nan=0.0)), 0, ACT_TABLE_BUCKETS - 1).astype(np.int64)
+
+
+def _map_codes(h: np.ndarray, impl: str, g: int) -> np.ndarray:
+    return act_codes(torch.from_numpy(np.ascontiguousarray(h, np.float32)), g, impl).numpy().astype(np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def act_table_steps(impl: str, g: int):
+    """(wa, wz) f32 arrays over the steps k = -g + 1 .. g of the map: wa
+    the first h whose code reaches k, wz the last one still below it (wz <
+    wa where the step is monotone; else [wa, wz] is its window). Each step
+    found by bisection over the f32 order, its window by a scan of
+    ACT_TABLE_SCAN ulps each side."""
+    if impl not in ("erf", "poly"):
+        raise ValueError(f"the table form maps erf or poly, got {impl!r}")
+    ks = np.arange(-g + 1, g + 1)
+    lo = np.full(ks.shape, _f32_key(np.float32([-8.0]))[0])
+    hi = np.full(ks.shape, _f32_key(np.float32([8.0]))[0])
+    if _map_codes(_f32_of_key(lo[:1]), impl, g)[0] != -g or _map_codes(_f32_of_key(hi[:1]), impl, g)[0] != g:
+        raise ValueError(f"the {impl} map of grid {g} does not span +-{g} on [-8, 8]")
+    while (hi - lo > 1).any():
+        mid = (lo + hi) // 2
+        ge = _map_codes(_f32_of_key(mid), impl, g) >= ks
+        hi, lo = np.where(ge, mid, hi), np.where(ge, lo, mid)
+    span = np.arange(-ACT_TABLE_SCAN, ACT_TABLE_SCAN + 1)
+    keys = hi[:, None] + span[None, :]
+    codes = _map_codes(_f32_of_key(keys.ravel()), impl, g).reshape(keys.shape)
+    if ((codes != ks[:, None]) & (codes != ks[:, None] - 1)).any():
+        raise ValueError(f"the {impl} map of grid {g} has steps closer than {ACT_TABLE_SCAN} ulps")
+    reached = codes >= ks[:, None]
+    first = reached.argmax(1)
+    last = reached.shape[1] - 1 - (~reached)[:, ::-1].argmax(1)
+    if (first == 0).any() or (last == reached.shape[1] - 1).any():
+        raise ValueError(f"a window of the {impl} map of grid {g} reaches past {ACT_TABLE_SCAN} ulps")
+    return _f32_of_key(hi + span[first]), _f32_of_key(hi + span[last])
+
+
+@functools.lru_cache(maxsize=None)
+def _act_table_arrays(impl: str, g: int, relu: bool):
+    wa, wz = act_table_steps(impl, g)
+    k0 = 1 if relu else -g + 1  # the first step the table holds
+    wa, wz = wa[k0 + g - 1:], wz[k0 + g - 1:]
+    lo, hi = wa[0], max(wz[-1], _f32_of_key(_f32_key(wa[-1:]) - 1)[0])  # hi: the last h below g
+    steps = act_table_bucket(wa)
+    b_lo, b_hi = int(act_table_bucket(lo[None])[0]), int(act_table_bucket(hi[None])[0])
+    if len(np.unique(steps)) != len(steps):
+        raise ValueError(f"two steps of the {impl} map of grid {g} share a bucket")
+    buckets = np.arange(b_lo, b_hi + 1)
+    base = (k0 - 1) + np.searchsorted(steps, buckets, side="left")  # the code below the bucket's own step
+    t = np.full(len(buckets), np.nan, np.float32)  # no h reaches a NaN
+    t[steps - b_lo] = wa
+    w = np.zeros(len(buckets), np.int64)
+    for a, z in zip(wa[wz >= wa], wz[wz >= wa]):  # irregular steps: every bucket the window touches
+        if (a < 0) != (z < 0):
+            raise ValueError(f"a window of the {impl} map of grid {g} spans 0")
+        ulps = int(_f32_key(z[None])[0] - _f32_key(a[None])[0])
+        first, last = int(act_table_bucket(a[None])[0]), int(act_table_bucket(z[None])[0])
+        w[first - b_lo] = ulps + 1
+        for b in range(first + 1, last + 1):  # the window's tail: the step's t, the code below it
+            if not np.isnan(t[b - b_lo]):
+                raise ValueError(f"a window of the {impl} map of grid {g} runs into another step's bucket")
+            t[b - b_lo], base[b - b_lo], w[b - b_lo] = a, base[b - b_lo] - 1, ulps + 1
+    entries = np.stack([(base + g) | (w << 16), t.view(np.int32).astype(np.int64)], 1).astype(np.int32)
+    return float(lo), float(hi), b_lo, entries
+
+
+@functools.lru_cache(maxsize=None)
+def act_table(impl: str, g: int, device: torch.device, relu: bool = True) -> ActTable:
+    """The table of the erf or poly map of grid g (relu'd or not) on a
+    device, built once a process from the plain map (act_codes,
+    act_table_steps)."""
+    lo, hi, b_lo, entries = _act_table_arrays(impl, int(g), bool(relu))
+    return ActTable(impl, int(g), bool(relu), lo, hi, b_lo, torch.from_numpy(entries.copy()).to(device))
+
+
+def act_table_window(h: np.ndarray, table: ActTable) -> np.ndarray:
+    """Whether each f32 h (in [lo, hi]) lies in its bucket's window: within
+    w - 1 ulps above the entry's t, counted on t's side of 0."""
+    e = table.entries.cpu().numpy()
+    i = np.clip(act_table_bucket(h) - table.b_lo, 0, len(e) - 1)
+    hb = np.asarray(h, np.float32).view(np.int32).astype(np.int64)
+    tb = e[i, 1].astype(np.int64)
+    d = np.where(e[i, 1].view(np.float32) >= 0, hb - tb, tb - hb)
+    return (d >= 0) & (d < (e[i, 0] >> 16))
+
+
+def act_codes_table_plain(h: torch.Tensor, table: ActTable) -> torch.Tensor:
+    """The table map in plain PyTorch: the least code below lo, g above
+    hi, else the bucket's base and step, and the map itself in a window
+    (csrc/act_codes.cuh table_code, which looks up a clamped bucket for
+    every h and selects)."""
+    e = table.entries.cpu().numpy()
+    hn = h.detach().cpu().numpy().astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        mid = (hn >= table.lo) & (hn <= table.hi)
+        codes = np.where(hn > table.hi, table.g, 0 if table.relu else -table.g).astype(np.int64)
+        hm = hn[mid]
+        i = act_table_bucket(hm) - table.b_lo
+        cm = (e[i, 0] & 0xFFFF) - table.g + (hm >= e[i, 1].view(np.float32))
+        window = act_table_window(hm, table)
+    if window.any():
+        direct = _map_codes(hm[window], table.impl, table.g)
+        cm[window] = np.maximum(direct, 0) if table.relu else direct
+    codes[mid] = cm
+    return torch.from_numpy(codes.astype(np.int8)).to(h.device)

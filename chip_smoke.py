@@ -7,7 +7,13 @@ Phases, in order; any failure raises and the script exits non-zero:
  1. the card's name and power limit; TF32 off for matmul and cuDNN;
  2. build the CUDA kernels from alignq_tpu_torch/csrc (qmatmul.cu,
     qmatmul_sm90.cu, qmatmul_sm90n.cu, quantize.cu, stage_kernel.cu,
-    stage_kernel_sm90.cu, dwconv.cu: one nvcc each, all started together);
+    stage_kernel_sm90.cu, dwconv.cu, stem_sm90.cu, dwconv_sm90.cu: one
+    nvcc each, all started together);
+    (b) the table form of the act-code map (csrc/act_codes.cuh table_code,
+    kernels/quantize.py act_table) against its direct map on the card,
+    over all 2^32 f32 bit patterns, for the erf and poly maps at each
+    served grid (TABLE_GRIDS: 127, 7, 1), relu'd and not: zero differences,
+    the count checked printed;
  3. K1 (csrc/qmatmul.cu) against its plain version. Its GEMM form at the
     path's gathered-matrix shapes of batches 2048 and 256, plus a ragged M
     with K=27; then its conv form on NHWC codes read in place, at every
@@ -91,7 +97,7 @@ Phases, in order; any failure raises and the script exits non-zero:
         the buffer (DenseNet) or the depthwise kernel (MobileNet-V2), no
         tap gathered;
     (d) each family's train step at batch 128 with ADMM (CUDA events,
-        median of 3), and one run of `python -m
+        median of 2), and one run of `python -m
         alignq_tpu_torch.bench`, its line printed;
 10. times from CUDA events (median of 20 after warm-up): the forward at
     batches 2048 and 256 on both routes, and each kernel at each path
@@ -106,7 +112,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     only; no one PyTorch call computes K2 or K3); beside the stem, the
     pad pass that zero-pads its 3-channel image to the 4 channels K1
     reads (glue, timed the same way);
-11. QAT train-step times (CUDA events, median of 5 after warm-up, TF32
+11. QAT train-step times (CUDA events, median of 3 after warm-up, TF32
     asserted off): ResNet-20 W8A8 erf with ADMM at batch 128, and erf and
     poly without ADMM at batch 1024; the batch-128 step's device busy
     time, idle share and five largest kernels from torch.profiler;
@@ -121,7 +127,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     and int8 requant among them) held against its plain version on its
     recorded operands, like K1's in phase 3 (requant identical; the table
     form against the arithmetic's plain version, bn_act_codes_plain, on the
-    s, b and map its table was built from); K1's launches in the narrow
+    s, b and map its table was built from); every depthwise launch in the
+    form's Hopper kernel (csrc/dwconv_sm90.cu), each distinct one also bit
+    for bit csrc/dwconv.cu's (dwconv._old_form); K1's launches in the narrow
     Hopper form counted (NARROW_PER_FORWARD: 30 and 38 of DenseNet-40's 39,
     11 and 23 of MobileNet-V2's 50, at 256 and 3) and each distinct one
     also held against the mma.sync form, bit for bit;
@@ -135,24 +143,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     logits within 1e-5 of the CPU plain path; 39 K1 (37 in the narrow
     form) and 39 BN-act launches a DenseNet forward (table form over the
     int8 buffer, its 39 tables built once; arithmetic over the f32 one),
-    50 K1 (22 in the narrow form) and 17 depthwise a MobileNet one, no tap
-    gathered;
-15. times: each graph's forward at batch 256 (CUDA events),
-    its launches a forward and its idle share under
-    torch.profiler; each distinct launch at batch 256 beside its plain
-    version, its bound and the library call of the same product, both
+    50 K1 (22 in the narrow form) and 17 depthwise a MobileNet one (all
+    under `int8_matmul_dequant:dw:sm90`), no tap gathered;
+15. times: each graph's forward at batch 256 (CUDA events, median of
+    FORWARD_RUNS), its launches a forward and its idle share under
+    torch.profiler (PROFILE_ITERS calls); each distinct launch at batch 256
+    (graph_ms of LAUNCH_RUNS replays) beside its plain version (one run),
+    its bound and the library call of the same product, both
     timed as in phase 9 (torch._int_mm on the gathered taps for K1,
     F.conv2d with groups=C on f32 for the depthwise conv, none for either
     BN-act form);
 16. the ImageNet-layout trunks, ResNet-18 and ResNet-50 at 224x224 from
-    seeded random weights: the K1 launches of each trunk's forward at
-    batches 256 and 3 (erf and poly codes, and A4 bins at batch 3)
-    recorded and every distinct one held against its plain version as in
-    phase 12 (the 7x7 stride-2 stem form, the 1x1 convs over 1024 and 2048
-    channels, the streamed 3x3 convs among them); no tap gathered; each
+    seeded random weights: the K1 and stem launches of each trunk's
+    forward at batches 256 and 3 (erf and poly codes, and A4 bins at batch
+    3) recorded and every distinct one held against its plain version as
+    in phase 12 (the 1x1 convs over 1024 and 2048 channels, the streamed
+    3x3 convs among them; the stem kernel, csrc/stem_sm90.cu, once a
+    forward, against stem.stem_reference and bit for bit against the chain
+    it replaced, stem._old_form); no tap gathered, no K1 7x7 launch; each
     forward's launches in K1's Hopper form (csrc/qmatmul_sm90.cu) counted:
     SM90_PER_FORWARD, 19 of ResNet-18's 20 and 52 of ResNet-50's 53 (all
-    but the 7x7 stem);
+    but the stem);
     (b) every distinct launch of (a) in the Hopper form held against the
     mma.sync form (csrc/qmatmul.cu) on its operands, bit for bit, in the
     modes int32, f32, relu, requant and the erf, poly and A4 bins codes,
@@ -167,18 +178,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     saved by the port as an artifact and served by engine_from_artifact
     at engine batch 4 (requests of 4 and 3 images: the engine's warm-up
     forward and two batches), the counts read (20 K1 launches a ResNet-18
-    forward, 53 a ResNet-50 one, one of each forward's counted under the
-    7x7 form and SM90_PER_FORWARD under the Hopper form (counter
-    `int8_matmul_dequant:kssm90`), every one in a codes or the f32 mode, no
-    tap gathered), and
+    forward, 53 a ResNet-50 one, one of each forward's the stem kernel
+    (counter `int8_matmul_dequant:stem_sm90`, its prep pass under
+    `:stem_sm90:prep`), none K1's 7x7 form, and SM90_PER_FORWARD under the
+    Hopper form (counter `int8_matmul_dequant:kssm90`), every one in a
+    codes or the f32 mode, no tap gathered), and
     what was served held against the CPU plain path as in phase 14;
 19. times: each trunk's int8 erf forward at batch 256 (CUDA events; device
     busy, idle share and launches under torch.profiler), and each distinct
     K1 launch of it (cold L2, graph_ms) in the form the planner gave it
     (and, for one in the Hopper form, the mma.sync form's time beside it)
     beside its plain version, its conv_bound and torch._int_mm on the
-    gathered taps; beside the 7x7 stem, the pad pass of its 3-channel image
-    to 4 channels;
+    gathered taps; the stem kernel's time with its prep pass's, against the
+    int8 image read and the pooled int16 codes written;
 20. the baselines' QAT: three float64 ResNet-20 steps of each of the ten
     methods (two of uniform_admm, whose third turns NaN in the JAX package
     too) (W4A4, ADMM where the method has sites, BatchNorm affine
@@ -215,7 +227,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     forward at batch 4 each held against its plain version; DANN's class
     and domain logits on the card within 1e-5 of the CPU's; its artifact
     served at engine batch 2 (requests of 2 and 1: 53 K1 launches a
-    forward, one the 7x7 stem) and held to the CPU plain path; DANN's
+    forward, one the stem kernel) and held to the CPU plain path; DANN's
     engine at batch 16 timed as the digit net's;
 24. data-parallel training over torch.distributed, one process a device
     (no new kernel). The machine has one card, and NCCL refuses two ranks
@@ -279,10 +291,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     launch at each act-site size of that batch; K1 on DenseNet-40 and
     MobileNet-V2, the depthwise kernel and the BN-act kernel's two forms
     (table on the int8 buffer, arithmetic on the f32 one): over one
-    batch-256 forward of their graph, launches from phase 14; K1 on
-    ResNet-50 and ResNet-18 at 224x224 (both forms) and its 7x7 stem form
-    alone: over one batch-256 forward, launches from phase 18, the stem's
-    from its own counter; K1's Hopper form: over one batch-256 forward of
+    batch-256 forward of their graph, launches from phase 14 (the
+    depthwise form's Hopper kernel's under its own counter); K1 on
+    ResNet-50 and ResNet-18 at 224x224 (both forms; the stem aside) and
+    the stem kernel (its time with its prep pass's, over one batch-256
+    ResNet-50 forward; its launches over both trunks' served forwards):
+    launches from phase 18; K1's Hopper form: over one batch-256 forward of
     each trunk, its launches over both trunks' served forwards (phase 18);
     K1's narrow Hopper form: over one batch-256 slice-route forward's
     launches in it, its launches those of phase 7's main path;
@@ -339,6 +353,17 @@ slice-route forward at 2048 and 256 ABBA (mma.sync under
 stage_kernel._old_form); one JSON line, also written to
 chiprun_out/k3_ab.json.
 
+    python3 chip_smoke.py --stem-dw-ab
+
+times the stem kernel and the depthwise form's Hopper kernel against the
+forms they replaced, in one process: ResNet-50's stem chain at 224x224 at
+batches 256 and 4 (the parent's _linear_q, pad pass, K1 7x7 form and f16
+pool chain, under stem._old_form, against the prep pass and the stem
+kernel), and each depthwise launch of a MobileNet-V2 forward at 256 and 8
+(csrc/dwconv.cu against csrc/dwconv_sm90.cu) and their sums, each in the
+order old, new, new, old (graph_ms, cold L2), the outputs bit for bit
+equal; one JSON line, also written to chiprun_out/stem_dw_ab.json.
+
     python3 chip_smoke.py --gather-backward-ab
 
 times the data-parallel gather step over two gloo ranks on the card with
@@ -377,6 +402,11 @@ PEAK_F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 # the divide, 6 multiply-adds at 2 each, 3 multiplies, the exp counted as 1,
 # the sign, rint and 2 compares)
 K2_OPS_PER_ELEMENT = 24
+# repetitions of the default run's timing phases (cut to keep the run
+# within its call, CHANGES.md): a launch's graph_ms runs, a plain
+# version's runs, a whole forward's CUDA-event runs, a profile's iterations
+LAUNCH_RUNS, PLAIN_RUNS, FORWARD_RUNS, PROFILE_ITERS = 10, 1, 10, 2
+ENGINE_RUNS, ENGINE_BACKLOG = 10, 16  # engine_times: one-image requests, full batches of the backlog
 BATCH = 2048  # bench.py's headline batch
 SERVE_BATCH = 256  # the engine's batch on the main path
 K3_DEEP_MS = tuple(range(2, 10))  # ResNet-56's stage-2 and stage-3 runs: 8 blocks, multipliers 2-9
@@ -636,7 +666,7 @@ def qat_on_the_card(dev, repo, serve_and_check, reqs, slice_kw):
 
 
 def qat_times(dev, card):
-    """Phase 11: a ResNet-20 QAT train step, CUDA events (median of 5 after
+    """Phase 11: a ResNet-20 QAT train step, CUDA events (median of 3 after
     warm-up), TF32 off: batch 128 W8A8 erf ADMM (TrainConfig's default,
     the reference's configuration) and batch 1024 W8A8 erf and poly, ADMM
     off; then the batch-128 ADMM step under torch.profiler: device busy,
@@ -661,7 +691,7 @@ def qat_times(dev, card):
         rng = np.random.RandomState(SEED)
         x = torch.tensor(rng.randn(batch, 32, 32, 3), dtype=torch.float32, device=dev)
         y = torch.tensor(rng.randint(0, 10, batch), device=dev)
-        ms = median_ms(lambda: step(state, x, y), runs=5, warmup=1)
+        ms = median_ms(lambda: step(state, x, y), runs=3, warmup=1)
         key = f"batch {batch} W8A8 {impl} admm={admm}"
         out[key] = {"ms_per_step": ms, "images_per_s": batch / ms * 1e3,
                     "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
@@ -717,18 +747,21 @@ def family_configs():
 
 
 def record_launches(fn):
-    """Run fn with every K1, depthwise and BN-act (both forms) launch
+    """Run fn with every K1, stem, depthwise and BN-act (both forms) launch
     recorded: a list of (kind, operands) in launch order; a K1 launch's
     operands end with the channels of the conv's input as its caller gave
-    them (a stem's 3, before the wrapper pads them to 4). The wrappers
-    count as always."""
+    them; a stem launch's are (the f32 image, the packed weight, the plan,
+    'codes', the map). The wrappers count as always."""
     from alignq_tpu_torch.kernels import dwconv as DWm
     from alignq_tpu_torch.kernels import qmatmul as K1
     from alignq_tpu_torch.kernels import quantize as K2
+    from alignq_tpu_torch.kernels import stem as ST
 
     rec = []
-    saved = (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv)
+    saved = (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv, ST._prep_launch,
+             ST._stem_launch)
     conv_c = [None]  # the input channels of the conv in flight
+    image = [None]  # the f32 image of the stem in flight
 
     def conv(x, op, *a, **kw):
         conv_c[0] = x.shape[-1]
@@ -753,11 +786,21 @@ def record_launches(fn):
         rec.append(("bn_table", (x, c_live, table, None, table.act, out.shape[-1])))
         saved[3](x, c_live, table, out)
 
-    K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv = k1, dw, bn, bn_table, conv
+    def prep(x, q):
+        image[0] = x
+        saved[5](x, q)
+
+    def stem(xq, op, act, plan, out):
+        rec.append(("stem", (image[0], op, plan, "codes", act)))
+        saved[6](xq, op, act, plan, out)
+
+    (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv, ST._prep_launch,
+     ST._stem_launch) = k1, dw, bn, bn_table, conv, prep, stem
     try:
         fn()
     finally:
-        K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv = saved
+        (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv, ST._prep_launch,
+         ST._stem_launch) = saved
     return rec
 
 
@@ -770,6 +813,8 @@ def launch_key(kind, args):
         return (kind, tuple(x.shape), tuple(op.wt.shape), plan.ksize, plan.stride, mode, *tail)
     if kind == "dw":
         return (kind, tuple(args[0].shape), args[2].stride, args[3], *tail)
+    if kind == "stem":
+        return (kind, tuple(args[0].shape), args[2].R, *tail)
     x, c_live, _, _, _, c_out = args
     return (kind, tuple(x.shape), str(x.dtype), c_live, c_out, *tail)
 
@@ -791,12 +836,17 @@ def check_launch(kind, args):
     operands: (differing elements, elements, max abs difference). int32
     and requant results must be identical; f32 within one ulp and codes
     within one code on at most 1e-6 of the elements (the plain version's
-    float64 evaluation can round twice at an f32 midpoint)."""
+    float64 evaluation can round twice at an f32 midpoint). The stem kernel
+    and the depthwise Hopper form also against the forms they replaced
+    (the stem's chain under stem._old_form, dwconv.cu under
+    dwconv._old_form), bit for bit."""
     import torch
 
     from alignq_tpu_torch.kernels import dwconv as DWm
     from alignq_tpu_torch.kernels import qmatmul as K1
     from alignq_tpu_torch.kernels import quantize as K2
+
+    from alignq_tpu_torch.kernels import stem as ST
 
     key = launch_key(kind, args)
     if kind == "K1":
@@ -810,6 +860,20 @@ def check_launch(kind, args):
     elif kind == "dw":
         x, op, plan, impl, act = args
         got, want = DWm.dw_conv(x, op, plan.stride, impl, act), DWm.dw_conv_reference(x, op, plan.stride, impl, act)
+        if isinstance(plan, DWm.DwSm90Plan):  # and bit for bit the form it replaced
+            with DWm._old_form():
+                old = DWm.dw_conv(x, op, plan.stride, impl, act)
+            if not torch.equal(got.view(torch.int32) if got.dtype == torch.float32 else got,
+                               old.view(torch.int32) if old.dtype == torch.float32 else old):
+                raise AssertionError(f"{key}: the depthwise Hopper form differs from dwconv.cu's")
+    elif kind == "stem":  # the kernel, bit for bit the chain it replaced, and its plain version
+        x, op, plan, _, act = args
+        got, want = ST.stem_pool_codes(x, op, act), ST.stem_reference(x, op, act)
+        with ST._old_form():
+            old = ST.stem_pool_codes(x, op, act)
+        if not torch.equal(got, old):
+            raise AssertionError(f"{key}: the stem kernel differs from the chain it replaced in "
+                                 f"{int((got != old).sum())} codes")
     elif kind == "bn":
         x, c_live, sv, bv, act, c_out = args
         got, want = K2.bn_act_codes(x, c_live, sv, bv, act, c_out), K2.bn_act_codes_plain(x, c_live, sv, bv, act, c_out)
@@ -833,7 +897,8 @@ def check_launch(kind, args):
 
 def time_launch(kind, args):
     """(ms, plain_ms, bound_ms, bound_by, library_ms, pad_ms) of one launch
-    at its recorded operands: the raw launch's device time from a cold L2
+    at its recorded operands (the stem kernel: its ms with its prep pass's,
+    pad_ms that pass's, no library call computing the same function): the raw launch's device time from a cold L2
     (graph_ms), its plain version, its bound (each input read once, each
     output written once; a K1 conv's input at the channels its caller gave),
     one PyTorch call of the same product where there is one, also by
@@ -849,23 +914,36 @@ def time_launch(kind, args):
     from alignq_tpu_torch.kernels import qmatmul as K1
     from alignq_tpu_torch.kernels import quantize as K2
 
+    from alignq_tpu_torch.kernels import stem as ST
+
     pad_ms = None
+    if kind == "stem":  # the kernel and its prep pass; the bound: the int8 image in, the pooled int16 out
+        x, op, plan, _, act = args
+        xq = ST.stem_prep(x)
+        out = torch.empty((plan.B, plan.Hp, plan.Wp, ST.N_OUT), device=x.device, dtype=torch.int16)
+        pad_ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: ST._prep_launch(x, xq))
+        ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: ST._stem_launch(xq, op, act, plan, out)) + pad_ms
+        plain_ms = median_ms(lambda: ST.stem_reference(x, op, act), runs=PLAIN_RUNS, warmup=0)
+        b_ms, b_by = bound(plan.B * plan.H * plan.W * 3 + out.numel() * 2,
+                           2 * plan.B * plan.Ho * plan.Wo * ST.N_OUT * 147)
+        return ms, plain_ms, b_ms, b_by, None, pad_ms
     if kind == "K1":
         x, op, plan, mode, act, xc = args
         out_dtype = torch.float32 if mode == "f32" else torch.int8
         out = torch.empty((plan.B * plan.Ho * plan.Wo, op.wt.shape[0]), device=x.device, dtype=out_dtype)
-        ms = graph_ms(lambda: K1._k1_launch(x, op, plan, out, mode, act))
+        ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: K1._k1_launch(x, op, plan, out, mode, act))
         impl = act.impl if act is not None else mode
-        plain_ms = median_ms(lambda: K1.int8_conv_reference(x, op, plan.stride, plan.pad, impl, act), runs=3, warmup=1)
+        plain_ms = median_ms(lambda: K1.int8_conv_reference(x, op, plan.stride, plan.pad, impl, act), runs=PLAIN_RUNS,
+                             warmup=0)
         b, h, w, c = x.shape
         b_ms, b_by = conv_bound(b, h, w, xc, plan.ksize, plan.stride, op.n, 4 if mode == "f32" else 1, plan.pad)
         if xc != c:
             x_in = x[..., :xc].contiguous()  # the caller's input, before the pad pass
-            pad_ms = graph_ms(lambda: K1._conv_input(x_in, op))
+            pad_ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: K1._conv_input(x_in, op))
             del x_in
         cols = K1.gather_taps(x, plan.ksize, plan.stride, plan.pad, K1.K_MULT)
         wmat = op.wt.t().contiguous()
-        lib_ms = graph_ms(lambda: torch._int_mm(cols, wmat))
+        lib_ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: torch._int_mm(cols, wmat))
         del cols
     elif kind == "dw":
         x, op, plan, impl, act = args
@@ -873,23 +951,25 @@ def time_launch(kind, args):
         stride = plan.stride
         dtype = torch.float32 if impl == "f32" else torch.int8
         out = torch.empty((b, plan.Ho, plan.Wo, c), device=x.device, dtype=dtype)
-        ms = graph_ms(lambda: DWm._dw_launch(x, op, plan, impl, act, out))
-        plain_ms = median_ms(lambda: DWm.dw_conv_reference(x, op, stride, impl, act), runs=3, warmup=1)
+        ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: DWm._dw_launch(x, op, plan, impl, act, out))
+        plain_ms = median_ms(lambda: DWm.dw_conv_reference(x, op, stride, impl, act), runs=PLAIN_RUNS, warmup=0)
         b_ms, b_by = bound(b * h * w * c + 17 * c + out.numel() * out.element_size(), DW_OPS * out.numel(),
                            PEAK_F32_OPS_PER_S)
         xf = x.permute(0, 3, 1, 2).float().contiguous()
         wf = op.w.t().reshape(c, 1, 3, 3).float().contiguous()
-        lib_ms = graph_ms(lambda: torch.nn.functional.conv2d(xf, wf, stride=stride, padding=1, groups=c))
+        lib_ms = graph_ms(runs=LAUNCH_RUNS,
+                          fn=lambda: torch.nn.functional.conv2d(xf, wf, stride=stride, padding=1, groups=c))
         del xf
     else:
         x, c_live, sv, bv, act, c_out = args
         out = torch.empty((*x.shape[:-1], c_out), device=x.device, dtype=torch.int8)
         if kind == "bn":
-            ms = graph_ms(lambda: K2._bn_act_launch(x, c_live, sv, bv, act, out))
-            plain_ms = median_ms(lambda: K2.bn_act_codes_plain(x, c_live, sv, bv, act, c_out), runs=3, warmup=1)
+            ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: K2._bn_act_launch(x, c_live, sv, bv, act, out))
+            plain_ms = median_ms(lambda: K2.bn_act_codes_plain(x, c_live, sv, bv, act, c_out), runs=PLAIN_RUNS,
+                                 warmup=0)
         else:
-            ms = graph_ms(lambda: K2._bn_table_launch(x, c_live, sv, out))
-            plain_ms = median_ms(lambda: K2.bn_act_codes_table_plain(x, c_live, sv, c_out), runs=3, warmup=1)
+            ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: K2._bn_table_launch(x, c_live, sv, out))
+            plain_ms = median_ms(lambda: K2.bn_act_codes_table_plain(x, c_live, sv, c_out), runs=PLAIN_RUNS, warmup=0)
         m = x.numel() // x.shape[-1]
         b_ms, b_by = bound(m * c_live * x.element_size() + 8 * c_live + m * c_out,
                            BN_ACT_OPS.get(act.impl, 4) * m * c_live, PEAK_F32_OPS_PER_S)
@@ -903,6 +983,7 @@ def family_kernel_checks(dev, batches=(256, 3)):
     ({(label, batch): distinct launches}, max abs error by kind, counts)."""
     import torch
 
+    from alignq_tpu_torch.kernels import dwconv as DWm
     from alignq_tpu_torch.kernels import qmatmul as K1
 
     kinds = ("K1", "dw", "bn", "bn_table")
@@ -924,11 +1005,16 @@ def family_kernel_checks(dev, batches=(256, 3)):
                     n_pairs += 1
             n_by = {k: sum(c for (kk, _), c in launches.values() if kk == k) for k in kinds}
             n_narrow = sum(isinstance(args[2], K1.NarrowPlan) for kind, args in rec if kind == "K1")
+            n_dw90 = sum(isinstance(args[2], DWm.DwSm90Plan) for kind, args in rec if kind == "dw")
+            if n_dw90 != n_by["dw"]:
+                raise AssertionError(f"{label} batch {batch}: {n_dw90} of {n_by['dw']} depthwise launches in the "
+                                     f"Hopper form, expected all")
             if n_narrow != NARROW_PER_FORWARD[label.split()[0], batch]:
                 raise AssertionError(f"{label} batch {batch}: {n_narrow} K1 launches in the narrow form, expected "
                                      f"{NARROW_PER_FORWARD[label.split()[0], batch]}")
             n_diff = sum(counts[f"{label} batch {batch} {k}"] for k in launches)
-            print(f"{label} batch {batch}: {len(rec)} launches ({n_by}; K1 {n_narrow} in the narrow form), "
+            print(f"{label} batch {batch}: {len(rec)} launches ({n_by}; K1 {n_narrow} in the narrow form, the "
+                  f"depthwise {n_dw90} in the Hopper form, each distinct one bit for bit dwconv.cu's), "
                   f"{len(launches)} distinct, each held against its plain version: {n_diff} differing elements; "
                   f"the {n_pairs} distinct narrow-form launches bit for bit the mma.sync form's", flush=True)
             out[label, batch] = launches
@@ -1026,8 +1112,8 @@ def check_family_launches(label, n, batch=None):
         ok = k1 and k1 % 39 == 0 and n.get(K2.BN_ACT_ARITH) == k1 and not n.get(K2.BN_ACT_TABLE)
         want = "39 K1 and 39 arithmetic BN-act launches a forward"
     else:
-        ok = k1 and k1 * 17 == n.get(DWm.DW, 0) * 50
-        want = "50 K1 and 17 depthwise a forward"
+        ok = k1 and k1 * 17 == n.get(DWm.DW, 0) * 50 and n.get(DWm.DW_SM90, 0) == n.get(DWm.DW, 0)
+        want = "50 K1 and 17 depthwise a forward, every depthwise one in the Hopper form"
     if not ok:
         raise AssertionError(f"{label}: launches {n}, expected {want}")
 
@@ -1105,13 +1191,14 @@ def deploy_families(dev, card, repo, details, phase):
             _, (qp_b, x_b) = build(batch, device=dev, **kw)
             ops_b = pack(qp_b, **kw)  # laid out once, as an engine does
             with torch.inference_mode():
-                fwd_ms = median_ms(lambda: fwd(qp_b, x_b, operands=ops_b, **kw))
+                fwd_ms = median_ms(lambda: fwd(qp_b, x_b, operands=ops_b, **kw), runs=FORWARD_RUNS)
                 zero_counts(_build.launches)
                 fwd(qp_b, x_b, operands=ops_b, **kw)
                 torch.cuda.synchronize()
                 per_fwd = {k: v for k, v in _build.launches.items() if v}
                 prof = profile_step(lambda: fwd(qp_b, x_b, operands=ops_b, **kw), card,
-                                    f"{label} forward batch {batch}") if batch == FAMILY_TIME_BATCHES[0] else None
+                                    f"{label} forward batch {batch}", iters=PROFILE_ITERS) \
+                    if batch == FAMILY_TIME_BATCHES[0] else None
             if per_fwd.get(K1.TAP_GATHERS, 0):
                 raise AssertionError(f"{label}: a conv gathered its taps on the card")
             fam_times[f"{label} batch {batch}"] = {"ms": fwd_ms, "images_per_s": batch / fwd_ms * 1e3,
@@ -1313,10 +1400,11 @@ def imagenet_trunks(dev, card, repo, details, phase):
     from alignq_tpu_torch.kernels import _build
     from alignq_tpu_torch.kernels import infer_resnet_imagenet as RI
     from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels import stem as ST
     from alignq_tpu_torch.kernels.artifact import save_int8_artifact
 
-    phase("ImageNet trunks: every K1 launch against its plain version")
-    launches_by, err, err_sm90, diffs, check_err = {}, 0.0, 0.0, {}, {}
+    phase("ImageNet trunks: every K1 and stem launch against its plain version")
+    launches_by, err, err_sm90, err_stem, diffs, check_err = {}, 0.0, 0.0, 0.0, {}, {}
     for arch, batch, bits, impl in TRUNK_CHECKS:
         _, (qp, x) = RI.build_resnet_imagenet_int8(arch, batch, device=dev, image_size=TRUNK_SIZE, act_bits=bits)
         ops = RI.pack_resnet_imagenet_operands(qp)
@@ -1332,18 +1420,23 @@ def imagenet_trunks(dev, card, repo, details, phase):
             err, n_diff = max(err, e), n_diff + diff
             check_err[id(args)] = e
             diffs[f"{arch} batch {batch} A{bits} {impl} {key}"] = diff
-        stems = [k for k in launches if k[3] == 7]
+        stems = sum(kind == "stem" for kind, _ in rec)
+        k1_stems = [k for k in launches if k[0] == "K1" and k[3] == 7]
         n_sm90 = sum(isinstance(args[2], K1.Sm90Plan) for _, args in rec)
         for (kind, args), _ in launches.values():
             if isinstance(args[2], K1.Sm90Plan):
                 err_sm90 = max(err_sm90, check_err[id(args)])
-        print(f"{arch} {TRUNK_SIZE}x{TRUNK_SIZE} batch {batch} A{bits} {impl}: {len(rec)} K1 launches "
-              f"({n_sm90} in the Hopper form), {len(launches)} distinct ({len(stems)} of the 7x7 stem form), each "
-              f"held against its plain version: {n_diff} differing elements; tap gathers in the forward {gathers}",
-              flush=True)
-        if gathers or len(stems) != 1 or any(kind != "K1" for kind, _ in rec) or n_sm90 != SM90_PER_FORWARD[arch]:
-            raise AssertionError(f"{arch}: gathers {gathers}, stem launches {stems}, {n_sm90} launches in the "
-                                 f"Hopper form (expected {SM90_PER_FORWARD[arch]})")
+            if kind == "stem":
+                err_stem = max(err_stem, check_err[id(args)])
+        print(f"{arch} {TRUNK_SIZE}x{TRUNK_SIZE} batch {batch} A{bits} {impl}: {len(rec)} launches ({stems} of the "
+              f"stem kernel, bit for bit the chain it replaced; {n_sm90} K1 in the Hopper form), {len(launches)} "
+              f"distinct, each held against its plain version: {n_diff} differing elements; tap gathers in the "
+              f"forward {gathers}", flush=True)
+        if (gathers or stems != 1 or k1_stems or any(kind not in ("K1", "stem") for kind, _ in rec)
+                or n_sm90 != SM90_PER_FORWARD[arch]):
+            raise AssertionError(f"{arch}: gathers {gathers}, {stems} stem-kernel launches, K1 7x7 launches "
+                                 f"{k1_stems}, {n_sm90} launches in the Hopper form (expected "
+                                 f"{SM90_PER_FORWARD[arch]})")
         launches_by[arch, batch, bits, impl] = launches
         del qp, x, ops, rec
     details["trunk_mismatches"] = diffs
@@ -1390,12 +1483,13 @@ def imagenet_trunks(dev, card, repo, details, phase):
                                        batch=TRUNK_SERVE_BATCH)
         n = serving[arch]["launches"]
         per_fwd = {"resnet18": 20, "resnet50": 53}[arch]
-        forwards = n.get(K1.FORM.format(7), 0)
-        if not (n.get(K1.KERNEL, 0) and n[K1.KERNEL] == per_fwd * forwards
-                and n.get(K1.SM90, 0) == SM90_PER_FORWARD[arch] * forwards
+        forwards = n.get(ST.STEM, 0)
+        if not (n.get(K1.KERNEL, 0) and n[K1.KERNEL] == per_fwd * forwards and n.get(ST.PREP, 0) == forwards
+                and n.get(K1.SM90, 0) == SM90_PER_FORWARD[arch] * forwards and not n.get(K1.FORM.format(7), 0)
                 and not n.get(K1.TAP_GATHERS, 0) and n.get(K1.CODES, 0) + n.get(K1.F32, 0) == n[K1.KERNEL]):
             raise AssertionError(f"serving {arch}: launches {n}, expected {per_fwd} K1 a forward, one of them "
-                                 f"the 7x7 stem and {SM90_PER_FORWARD[arch]} in the Hopper form, and no tap gather")
+                                 f"the stem kernel and {SM90_PER_FORWARD[arch]} in the Hopper form, and no tap "
+                                 f"gather")
         print(f"serving {arch}: {forwards} forwards, {n[K1.KERNEL]} K1 launches, {n[K1.SM90]} of them in the "
               f"Hopper form ({SM90_PER_FORWARD[arch]} a forward)", flush=True)
     details["trunk_serving"] = serving
@@ -1406,13 +1500,14 @@ def imagenet_trunks(dev, card, repo, details, phase):
         _, (qp, x) = RI.build_resnet_imagenet_int8(arch, SERVE_BATCH, device=dev, image_size=TRUNK_SIZE)
         ops = RI.pack_resnet_imagenet_operands(qp)
         with torch.inference_mode():
-            ms = median_ms(lambda: RI.resnet_imagenet_int8_forward(qp, x, operands=ops))
+            ms = median_ms(lambda: RI.resnet_imagenet_int8_forward(qp, x, operands=ops), runs=FORWARD_RUNS)
             zero_counts(_build.launches)
             RI.resnet_imagenet_int8_forward(qp, x, operands=ops)
             torch.cuda.synchronize()
             per_fwd = {k: v for k, v in _build.launches.items() if v}
             prof = profile_step(lambda: RI.resnet_imagenet_int8_forward(qp, x, operands=ops), card,
-                                f"{arch} int8 forward batch {SERVE_BATCH} {TRUNK_SIZE}x{TRUNK_SIZE}")
+                                f"{arch} int8 forward batch {SERVE_BATCH} {TRUNK_SIZE}x{TRUNK_SIZE}",
+                                iters=PROFILE_ITERS)
         fwd_times[arch] = {"ms": ms, "images_per_s": SERVE_BATCH / ms * 1e3, "launches_per_forward": per_fwd,
                            "profile": prof}
         print(f"forward {arch} int8 erf batch {SERVE_BATCH} {TRUNK_SIZE}x{TRUNK_SIZE}: {ms:.4f} ms = "
@@ -1420,13 +1515,23 @@ def imagenet_trunks(dev, card, repo, details, phase):
         del qp, x, ops
         for key, ((kind, args), count) in launches_by[arch, SERVE_BATCH, 8, "erf"].items():
             t_ms, plain_ms, b_ms, b_by, lib_ms, pad_ms = time_launch(kind, args)
+            if kind == "stem":
+                x, op, plan, _, act = args
+                rows.append(dict(family=arch, kind=kind, shape=str(key), ksize=7, M=plan.B * plan.Hp * plan.Wp,
+                                 K=147, N=op.n, form="stem_sm90", tile=f"{plan.R} pooled rows", chunks=None,
+                                 n_blocks=None, launches=count, ms=t_ms, mma_ms=None, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, pad_pass_ms=pad_ms))
+                print(f"time {arch} the stem kernel {key} x{count} (tiles of {plan.R} pooled rows): {t_ms:.4f} ms "
+                      f"with its prep pass's {pad_ms:.4f}, plain {plain_ms:.3f}, bound {b_ms:.4f} ({b_by}) [{card}]",
+                      flush=True)
+                continue
             x, op, plan, mode, act, xc = args
             sm90 = isinstance(plan, K1.Sm90Plan)
             tile = f"{plan.TM} rows" if sm90 else f"{plan.TR}x{plan.TW}"
             mma_ms = None
             if sm90:  # the mma.sync form's time beside it, on the same operands
                 pm, out = mma_plan(x, op, plan), k1_out(plan, op, mode)
-                mma_ms = graph_ms(lambda: K1._k1_launch(x, op, pm, out, mode, act))
+                mma_ms = graph_ms(lambda: K1._k1_launch(x, op, pm, out, mode, act), runs=LAUNCH_RUNS)
             rows.append(dict(family=arch, kind=kind, shape=str(key), ksize=plan.ksize, M=plan.B * plan.Ho * plan.Wo,
                              K=plan.ksize ** 2 * xc, N=op.n, form="sm90" if sm90 else "mma", tile=tile,
                              chunks=plan.n_chunks, n_blocks=plan.n_blocks, launches=count, ms=t_ms, mma_ms=mma_ms,
@@ -1438,7 +1543,7 @@ def imagenet_trunks(dev, card, repo, details, phase):
                   f"{'' if pad_ms is None else f', the pad pass before it {pad_ms:.4f}'} [{card}]", flush=True)
         torch.cuda.empty_cache()
     details["trunk_times"] = {"forwards": fwd_times, "launches": rows}
-    return rows, (err, err_sm90), serving
+    return rows, (err, err_sm90, err_stem), serving
 
 
 def baseline_qat(dev, card, details, phase):
@@ -1449,8 +1554,8 @@ def baseline_qat(dev, card, details, phase):
     ResNet-50 at 224x224, batch 2, W4A4 ADMM), each on the card against the
     CPU within 1e-9; (c) the ResNet-50 trunk's f32 W8A8 ADMM forward and
     backward at the DANN preset's batch 28, and the ResNet-20 W4A4 step of
-    each of the ten methods at batch 128 (CUDA events, median of 3), TF32
-    off."""
+    each of the ten methods at batch 128 (CUDA events, one step after a
+    warm-up one), TF32 off."""
     import numpy as np
     import torch
 
@@ -1507,9 +1612,9 @@ def baseline_qat(dev, card, details, phase):
             loss = loss + admm_loss(sink[n], torch.zeros_like(sink[n]), torch.zeros_like(sink[n]))
         torch.autograd.grad(loss, params)
 
-    ms = median_ms(trunk_step, runs=3, warmup=1)
+    ms = median_ms(trunk_step, runs=1, warmup=1)
     prof = profile_step(trunk_step, card, f"ResNet-50 trunk W8A8 ADMM forward+backward batch {TRUNK_QAT_BATCH}",
-                        iters=2)
+                        iters=1)
     out["resnet50_trunk_fwd_bwd"] = {"ms": ms, "images_per_s": TRUNK_QAT_BATCH / ms * 1e3, "profile": prof}
     print(f"QAT (c) ResNet-50 trunk W8A8 erf ADMM forward+backward, batch {TRUNK_QAT_BATCH} at {TRUNK_SIZE}x"
           f"{TRUNK_SIZE}: {ms:.3f} ms = {TRUNK_QAT_BATCH / ms * 1e3:.1f} images/s [{card}]", flush=True)
@@ -1524,7 +1629,7 @@ def baseline_qat(dev, card, details, phase):
         step = make_train_step(model, cfg)
         xb = torch.tensor(rng.randn(128, 32, 32, 3), dtype=torch.float32, device=dev)
         yb = torch.tensor(rng.randint(0, 10, 128), device=dev)
-        ms = median_ms(lambda: step(state, xb, yb), runs=3, warmup=1)
+        ms = median_ms(lambda: step(state, xb, yb), runs=1, warmup=1)
         out["step_ms"][method] = ms
         print(f"QAT (c) ResNet-20 {method} W4A4{' ADMM' if cfg.admm else ''} step, batch 128: {ms:.3f} ms = "
               f"{128 / ms * 1e3:.0f} images/s [{card}]", flush=True)
@@ -1681,9 +1786,9 @@ def family_qat(dev, card, repo, phase):
         rng = np.random.RandomState(SEED)
         x = torch.tensor(rng.randn(FAMILY_QAT_TIME_BATCH, 32, 32, 3), dtype=torch.float32, device=dev)
         y = torch.tensor(rng.randint(0, 10, FAMILY_QAT_TIME_BATCH), device=dev)
-        # 3 steps timed, none profiled: the profiler's processing of a
+        # 2 steps timed, none profiled: the profiler's processing of a
         # step's 30,000-70,000 launches takes ~25 s (phase 11 profiles one)
-        ms = median_ms(lambda: step(state, x, y), runs=3, warmup=1)
+        ms = median_ms(lambda: step(state, x, y), runs=2, warmup=1)
         print(f"QAT step {label} batch {FAMILY_QAT_TIME_BATCH} W8A8 erf ADMM: {ms:.3f} ms/step = "
               f"{FAMILY_QAT_TIME_BATCH / ms * 1e3:.0f} images/s [{card}]", flush=True)
         out["step_times"][label] = {"ms_per_step": ms, "images_per_s": FAMILY_QAT_TIME_BATCH / ms * 1e3}
@@ -1745,8 +1850,8 @@ DA_SERVE_BATCH = 2  # the engine batch of the DA trunks' serving (the CPU holds 
 
 def engine_times(path, dev, batch, card, label):
     """An engine of the artifact at `batch` on the card, timed on the host
-    clock: one-image requests (median and max of RUNS), then a backlog of
-    32 full batches (images/s)."""
+    clock: one-image requests (median and max of ENGINE_RUNS), then a
+    backlog of ENGINE_BACKLOG full batches (images/s)."""
     import numpy as np
 
     from alignq_tpu_torch.serve import engine_from_artifact
@@ -1754,19 +1859,20 @@ def engine_times(path, dev, batch, card, label):
     engine = engine_from_artifact(str(path), batch_size=batch, device=dev)
     x = np.random.RandomState(SEED).uniform(-1, 1, (batch, *engine.input_shape)).astype(np.float32)
     lat = []
-    for _ in range(RUNS):
+    for _ in range(ENGINE_RUNS):
         t0 = time.perf_counter()
         engine.submit(x[:1]).result(timeout=300)
         lat.append((time.perf_counter() - t0) * 1e3)
     t0 = time.perf_counter()
-    for f in [engine.submit(x) for _ in range(32)]:
+    for f in [engine.submit(x) for _ in range(ENGINE_BACKLOG)]:
         f.result(timeout=300)
     backlog_s = time.perf_counter() - t0
     engine.close()
     out = {"engine_batch": batch, "one_image_ms_p50": statistics.median(lat), "one_image_ms_max": max(lat),
-           "backlog_images_per_s": 32 * batch / backlog_s}
+           "backlog_images_per_s": ENGINE_BACKLOG * batch / backlog_s}
     print(f"serving times {label}, engine batch {batch}: one-image request {out['one_image_ms_p50']:.2f} ms median "
-          f"({out['one_image_ms_max']:.2f} max); 32 x {batch} images {out['backlog_images_per_s']:.0f} images/s "
+          f"({out['one_image_ms_max']:.2f} max); {ENGINE_BACKLOG} x {batch} images "
+          f"{out['backlog_images_per_s']:.0f} images/s "
           f"[{card}]", flush=True)
     return out
 
@@ -1965,6 +2071,7 @@ def da_trunks(dev, card, repo, details, phase):
     from alignq_tpu_torch.interop import deploy_tree
     from alignq_tpu_torch.kernels import infer_resnet_imagenet as RI
     from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels import stem as ST
     from alignq_tpu_torch.kernels.artifact import save_int8_artifact
     from alignq_tpu_torch.kernels.deploy_registry import DEPLOY_FAMILIES
     from alignq_tpu_torch.train import da as TDA
@@ -2017,10 +2124,13 @@ def da_trunks(dev, card, repo, details, phase):
         for key, ((kind, args), _) in launches.items():
             diff, _, e = check_launch(kind, args)
             k1_err, n_diff = max(k1_err, e), n_diff + diff
-        print(f"DA {task} INT forward batch 4: {len(rec)} K1 launches, {len(launches)} distinct, each held against "
-              f"its plain version: {n_diff} differing elements", flush=True)
-        if len(rec) != 53:
-            raise AssertionError(f"DA {task}: {len(rec)} K1 launches a forward, expected ResNet-50's 53")
+        n_stem = sum(kind == "stem" for kind, _ in rec)
+        print(f"DA {task} INT forward batch 4: {len(rec)} launches ({n_stem} of the stem kernel), {len(launches)} "
+              f"distinct, each held against its plain version (the stem also against its chain): {n_diff} "
+              f"differing elements", flush=True)
+        if len(rec) != 53 or n_stem != 1:
+            raise AssertionError(f"DA {task}: {len(rec)} launches a forward ({n_stem} of the stem kernel), expected "
+                                 f"ResNet-50's 53, one of them the stem kernel")
         rec_out = {"step_ms": step_ms, "losses": losses, "k1_distinct": len(launches),
                    "k1_differing": n_diff}
         if task == "dann":
@@ -2045,8 +2155,9 @@ def da_trunks(dev, card, repo, details, phase):
 
         served = serve_artifact(f"{task} resnet50", path, streams, dev, reqs, batch=DA_SERVE_BATCH)
         n = served["launches"]
-        if not (n.get(K1.KERNEL) == 53 * 3 and n.get(K1.FORM.format(7)) == 3 and not n.get(K1.TAP_GATHERS, 0)):
-            raise AssertionError(f"serving {task}: launches {n}, expected 53 K1 a forward (one the 7x7 stem) over 3")
+        if not (n.get(K1.KERNEL) == 53 * 3 and n.get(ST.STEM) == 3 and not n.get(K1.FORM.format(7), 0)
+                and not n.get(K1.TAP_GATHERS, 0)):
+            raise AssertionError(f"serving {task}: launches {n}, expected 53 K1 a forward (one the stem kernel) over 3")
         serving[task] = served
         rec_out["serving"] = served
         if task == "dann":
@@ -2575,22 +2686,33 @@ TP_SERVE = (("resnet20 slice route", 8), ("resnet20 erf route", 8), ("densenet40
             ("resnet18 trunk 224", 4))  # phase 25(c)'s nets and engine batches
 TP_SERVE_REQUESTS = 2  # full engine batches a net's requests
 TP_RATE_BATCH = 256  # the engine batch of the served images/s (the slice route)
-TP_RATE_BATCHES = 8
+TP_RATE_BATCHES = 4
 
 
 def _n_counter(K1):
-    """Wrap K1's launch site (qmatmul._run_k1) so that each launch adds its
-    weight's N (the output channels it writes) to the returned dict's
-    'n'; returns (counter, undo)."""
+    """Wrap K1's launch sites (qmatmul._run_k1, and the stem kernel's,
+    stem._stem_launch, which counts as K1's launch) so that each launch
+    adds its weight's N (the output channels it writes) to the returned
+    dict's 'n'; returns (counter, undo). A sharded stem weight (N/2 a rank)
+    is not the stem kernel's: it runs K1's 7x7 form, through _run_k1."""
+    from alignq_tpu_torch.kernels import stem as ST
+
     seen = {"n": 0}
-    run = K1._run_k1
+    run, run_stem = K1._run_k1, ST._stem_launch
 
     def counted(x, op, *args, **kwargs):
         seen["n"] += op.n
         return run(x, op, *args, **kwargs)
 
-    K1._run_k1 = counted
-    return seen, lambda: setattr(K1, "_run_k1", run)
+    def counted_stem(xq, op, *args, **kwargs):
+        seen["n"] += op.n
+        return run_stem(xq, op, *args, **kwargs)
+
+    def undo():
+        K1._run_k1, ST._stem_launch = run, run_stem
+
+    K1._run_k1, ST._stem_launch = counted, counted_stem
+    return seen, undo
 
 
 def tp_rank_main(argv) -> int:
@@ -3297,6 +3419,113 @@ def k3_ab(card, ptxas: str = "") -> None:
     print(json.dumps(line), flush=True)
 
 
+TABLE_GRIDS = (127, 7, 1)  # the grids of the served act maps: A8, A4, A2
+
+
+def act_table_checks(dev) -> dict:
+    """Phase 2(b): the table form of the erf and poly maps (act_codes.cuh
+    table_code, on kernels/quantize.py act_table's entries) against the
+    direct map on the card, over all 2^32 f32 bit patterns, at each grid of
+    TABLE_GRIDS, relu'd and not; any difference fails the run."""
+    import torch
+
+    from alignq_tpu_torch.kernels import stem as ST
+
+    out = {}
+    for impl in ("erf", "poly"):
+        for g in TABLE_GRIDS:
+            for relu in (True, False):
+                t0 = time.perf_counter()
+                n, first = ST.act_table_differences(impl, g, relu, dev)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                out[f"{impl} g={g} relu={relu}"] = {"patterns": 1 << 32, "differing": n, "first": first, "s": secs}
+                print(f"act table {impl} g={g}{' relu' if relu else ''}: {1 << 32} f32 patterns checked, {n} differing "
+                      f"from the direct map ({secs:.2f} s, the table's build included)", flush=True)
+                if n:
+                    raise AssertionError(f"the {impl} table of grid {g} (relu {relu}) differs from its map at {n} "
+                                         f"patterns, the least {first:#010x}")
+    return out
+
+
+def stem_dw_ab(card) -> None:
+    """python3 chip_smoke.py --stem-dw-ab: the stem kernel and the depthwise
+    Hopper form against the forms they replaced, in one process. The stem
+    of ResNet-50 at 224x224 at batches 256 and 4 (the erf map): the
+    parent's chain (_linear_q, the pad pass, K1's 7x7 form, the f16 pool
+    chain; stem._old_form) and the new one (the prep pass and the stem
+    kernel), each whole chain timed by graph_ms (cold L2) in the order old,
+    new, new, old, the outputs bit for bit equal. The depthwise form: each
+    launch of a MobileNet-V2 forward at batches 256 and 8 in dwconv.cu's
+    and the Hopper form's plans, ABBA, outputs equal, and the sums over the
+    forward. One JSON line, also written to chiprun_out/stem_dw_ab.json."""
+    import torch
+
+    from alignq_tpu_torch.kernels import dwconv as DWm
+    from alignq_tpu_torch.kernels import infer_mobilenet as M
+    from alignq_tpu_torch.kernels import infer_resnet_imagenet as RI
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels import stem as ST
+
+    dev = torch.device("cuda")
+    res = {"card": card, "stem": {}, "dw": {}}
+    for batch in (SERVE_BATCH, TRUNK_SERVE_BATCH):
+        _, (qp, x) = RI.build_resnet_imagenet_int8("resnet50", batch, device=dev, image_size=TRUNK_SIZE)
+        op = RI.pack_resnet_imagenet_operands(qp)["conv1"]
+        act = K1.act_map("erf", 127, dev, relu=True)
+
+        def old():
+            with ST._old_form():
+                return ST.stem_pool_codes(x, op, act)
+
+        def new():
+            return ST.stem_pool_codes(x, op, act)
+
+        if not torch.equal(old(), new()):
+            raise AssertionError(f"the stem kernel differs from the parent's chain at batch {batch}")
+        t = [graph_ms(f) for f in (old, new, new, old)]
+        row = {"old_ms": (t[0] + t[3]) / 2, "new_ms": (t[1] + t[2]) / 2, "runs": t}
+        res["stem"][batch] = row
+        print(f"stem-dw-ab: the stem chain of ResNet-50 at batch {batch}: parent {row['old_ms']:.4f} ms, new "
+              f"{row['new_ms']:.4f} ms (ABBA {', '.join(f'{v:.4f}' for v in t)}) [{card}]", flush=True)
+        del qp, x, op
+    sms = DWm._sm_count(dev.index)
+    for batch in (SERVE_BATCH, FAMILY_SERVE_BATCH):
+        _, (qp, x) = M.build_mobilenetv2_int8(batch, device=dev)
+        ops = M.pack_mobilenetv2_operands(qp)
+        with torch.inference_mode():
+            rec = record_launches(lambda: M.mobilenetv2_int8_forward(qp, x, operands=ops))
+        rows, old_sum, new_sum = [], 0.0, 0.0
+        for kind, args in rec:
+            if kind != "dw":
+                continue
+            xx, op, recorded, impl, act = args
+            stride = recorded.stride
+            p_old, p_new = DWm.dw_plan(*xx.shape, stride, sms), DWm.dw_sm90_plan(*xx.shape, stride, sms)
+            o1, o2 = (torch.empty((xx.shape[0], p_old.Ho, p_old.Wo, xx.shape[3]), dtype=torch.int8, device=dev)
+                      for _ in range(2))
+            DWm._dw_launch(xx, op, p_old, impl, act, o1)
+            DWm._dw_launch(xx, op, p_new, impl, act, o2)
+            if not torch.equal(o1, o2):
+                raise AssertionError(f"the depthwise Hopper form differs from dwconv.cu's at {tuple(xx.shape)}")
+            t = [graph_ms(lambda p_=p_: DWm._dw_launch(xx, op, p_, impl, act, o1))
+                 for p_ in (p_old, p_new, p_new, p_old)]
+            r = {"shape": list(xx.shape), "stride": stride, "old_ms": (t[0] + t[3]) / 2, "new_ms": (t[1] + t[2]) / 2,
+                 "runs": t}
+            rows.append(r)
+            old_sum, new_sum = old_sum + r["old_ms"], new_sum + r["new_ms"]
+            print(f"stem-dw-ab: depthwise {tuple(xx.shape)} s{stride} at batch {batch}: dwconv.cu {r['old_ms']:.4f} "
+                  f"ms, Hopper form {r['new_ms']:.4f} ms [{card}]", flush=True)
+        res["dw"][batch] = {"launches": rows, "old_ms": old_sum, "new_ms": new_sum}
+        print(f"stem-dw-ab: depthwise over a MobileNet-V2 forward at batch {batch} ({len(rows)} launches): dwconv.cu "
+              f"{old_sum:.4f} ms, Hopper form {new_sum:.4f} ms [{card}]", flush=True)
+        del qp, x, ops, rec
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "stem_dw_ab.json").write_text(json.dumps(res, indent=1))
+    print(json.dumps(res))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3315,6 +3544,7 @@ def main() -> int:
     from alignq_tpu_torch.kernels import qmatmul as K1
     from alignq_tpu_torch.kernels import quantize as K2
     from alignq_tpu_torch.kernels import stage_kernel as K3
+    from alignq_tpu_torch.kernels import stem as ST
     from alignq_tpu_torch.kernels.convert import QConvInt8
     from alignq_tpu_torch.kernels.infer import (
         act_int_cutpoints,
@@ -3368,6 +3598,9 @@ def main() -> int:
     if sys.argv[1:] == ["--tp-only"]:
         tp_phase(dev, card, repo, details, phase)
         return 0
+    if sys.argv[1:] == ["--stem-dw-ab"]:
+        stem_dw_ab(card)
+        return 0
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
 
@@ -3382,6 +3615,10 @@ def main() -> int:
         scales negative, as folded BN gives."""
         s = (torch.rand(n, generator=gen, device=dev) * 2 - 0.4) * 2 / (k**0.5 * 73.3**2)
         return s, torch.randn(n, generator=gen, device=dev) * 0.5
+
+    # 2(b). the table form of the act-code map against its direct map
+    phase("the act-code table form against its direct map, every f32 bit pattern")
+    details["act_table_checks"] = act_table_checks(dev)
 
     # 3. K1 against its plain version
     phase("K1 against its plain version")
@@ -3704,17 +3941,18 @@ def main() -> int:
         out_c = torch.empty((m, op.wt.shape[0]), device=dev, dtype=torch.int8)
         out_f = torch.empty((m, op.wt.shape[0]), device=dev)
         maps = {impl: K1.act_map(impl, 127, dev) for impl in ("poly", "erf")}
-        code_ms = {impl: graph_ms(lambda: K1._k1_launch(xc, op, plan, out_c, impl, maps[impl]))
+        code_ms = {impl: graph_ms(lambda: K1._k1_launch(xc, op, plan, out_c, impl, maps[impl]), runs=LAUNCH_RUNS)
                    for impl in ("poly", "erf")}
-        f32_ms = graph_ms(lambda: K1._k1_launch(xc, op, plan, out_f, "f32"))
-        pad_ms = graph_ms(lambda: K1._conv_input(x, op)) if x.shape[-1] != op.cin else None
+        f32_ms = graph_ms(lambda: K1._k1_launch(xc, op, plan, out_f, "f32"), runs=LAUNCH_RUNS)
+        pad_ms = graph_ms(lambda: K1._conv_input(x, op), runs=LAUNCH_RUNS) if x.shape[-1] != op.cin else None
         plain_code_ms = {impl: median_ms(lambda: K1.int8_conv_reference(x, op, stride, pad, impl,
-                                                                           K1.act_map(impl, 127, dev)), runs=5)
+                                                                           K1.act_map(impl, 127, dev)),
+                                         runs=PLAIN_RUNS, warmup=0)
                          for impl in ("poly", "erf")}
         # torch._int_mm on the pre-gathered (M, Kp) matrix: the raw int32 product
         cols = K1.gather_taps(xc, ksize, stride, pad, K1.K_MULT)
         wmat = op.wt[:n].t().contiguous()
-        lib_ms = graph_ms(lambda: torch._int_mm(cols, wmat))
+        lib_ms = graph_ms(lambda: torch._int_mm(cols, wmat), runs=LAUNCH_RUNS)
         del cols
         bc_ms, bc_by = conv_bound(b, h, w, cin, ksize, stride, n, 1)
         bf_ms, _ = conv_bound(b, h, w, cin, ksize, stride, n, 4)
@@ -3736,8 +3974,8 @@ def main() -> int:
             continue
         n = x.numel()
         out = torch.empty(x.shape, device=dev, dtype=torch.int8)
-        ms = graph_ms(lambda: K2._k2_launch(x, out))
-        plain_ms = median_ms(lambda: K2.cdf_quantize_int8_plain(x), runs=5)
+        ms = graph_ms(lambda: K2._k2_launch(x, out), runs=LAUNCH_RUNS)
+        plain_ms = median_ms(lambda: K2.cdf_quantize_int8_plain(x), runs=PLAIN_RUNS, warmup=0)
         b_ms, b_by = bound(5 * n, K2_OPS_PER_ELEMENT * n, PEAK_F32_OPS_PER_S)
         rows[K2.KERNEL].append(dict(batch=batch, shape=name, n=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                     bound_by=b_by, library_ms=None))
@@ -3747,9 +3985,10 @@ def main() -> int:
         mt, c = stream.numel() // stream.shape[-1], stream.shape[-1]
         out = torch.empty_like(stream)
         plan = K3.k3_plan(batch, hw, hw, c, len(ms_))  # the planner's form (the Hopper form at every path run)
-        ms = graph_ms(lambda: K3._stage_launch(stream, out, wt, scale, bias, ms_, 127, plan))
-        old_ms = graph_ms(lambda: K3._stage_launch(stream, out, wt, scale, bias, ms_, 127))
-        plain_ms = median_ms(lambda: K3.stage_identity_blocks_nhwc_reference(stream, wt, scale, bias, ms_, 127))
+        ms = graph_ms(lambda: K3._stage_launch(stream, out, wt, scale, bias, ms_, 127, plan), runs=LAUNCH_RUNS)
+        old_ms = graph_ms(lambda: K3._stage_launch(stream, out, wt, scale, bias, ms_, 127), runs=LAUNCH_RUNS)
+        plain_ms = median_ms(lambda: K3.stage_identity_blocks_nhwc_reference(stream, wt, scale, bias, ms_, 127),
+                             runs=PLAIN_RUNS, warmup=0)
         b_ms, b_by = k3_bound(mt, c, len(ms_))
         form = "mma.sync" if plan is None else f"sm90 {plan.imgs} images {plan.n_wg} warpgroups"
         rows[K3.KERNEL].append(dict(batch=batch, shape=name, C=c, HW=hw, form=form, ms=ms, mma_sync_ms=old_ms,
@@ -3768,7 +4007,7 @@ def main() -> int:
     fam_rows, fam_err, fam_serving = deploy_families(dev, card, repo, details, phase)
 
     # 16-19. the ImageNet-layout trunks at 224x224; 20. the baselines' QAT
-    trunk_rows, (trunk_err, sm90_err), trunk_serving = imagenet_trunks(dev, card, repo, details, phase)
+    trunk_rows, (trunk_err, sm90_err, stem_err), trunk_serving = imagenet_trunks(dev, card, repo, details, phase)
     baseline_qat(dev, card, details, phase)
 
     # 21-23. domain adaptation
@@ -3841,8 +4080,8 @@ def main() -> int:
          "densenet40 stage_int8", "K1", K1.KERNEL),
         (K1.KERNEL + "@mobilenetv2", "alignq_tpu_torch/csrc/qmatmul.cu", "alignq_tpu/kernels/qmatmul.py:45",
          "mobilenetv2", "K1", K1.KERNEL),
-        (DWm.DW, "alignq_tpu_torch/csrc/dwconv.cu", "alignq_tpu/kernels/infer_mobilenet.py:39", "mobilenetv2", "dw",
-         DWm.DW),
+        (DWm.DW_SM90, "alignq_tpu_torch/csrc/dwconv_sm90.cu", "alignq_tpu/kernels/infer_mobilenet.py:39", "mobilenetv2",
+         "dw", DWm.DW_SM90),
         (K2.BN_ACT_TABLE, "alignq_tpu_torch/csrc/quantize.cu", "alignq_tpu/kernels/infer_densenet.py:125",
          "densenet40 stage_int8", "bn_table", K2.BN_ACT_TABLE),
         (K2.BN_ACT_ARITH, "alignq_tpu_torch/csrc/quantize.cu", "alignq_tpu/kernels/infer_densenet.py:125",
@@ -3853,24 +4092,34 @@ def main() -> int:
                         **family_sum(label, kind)})
         print(f"{kname} over one batch-{SERVE_BATCH} {label} forward: {json.dumps(kernels[-1])} [{card}]", flush=True)
     def trunk_sum(rows_):
-        """One batch-256 forward's launches of the rows given."""
+        """One batch-256 forward's launches of the rows given (no library
+        time where a row has none)."""
         t_bytes = sum(x["bound_ms"] * x["launches"] for x in rows_ if x["bound_by"] == "bytes")
         t_ops = sum(x["bound_ms"] * x["launches"] for x in rows_ if x["bound_by"] == "operations")
+        lib = [x["library_ms"] for x in rows_]
         return {"ms": sum(x["ms"] * x["launches"] for x in rows_),
                 "plain_ms": sum(x["plain_ms"] * x["launches"] for x in rows_), "bound_ms": t_bytes + t_ops,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": sum(x["library_ms"] * x["launches"] for x in rows_)}
+                "library_ms": None if None in lib else sum(x["library_ms"] * x["launches"] for x in rows_)}
 
-    for kname, arch, stem_only in ((K1.KERNEL + "@resnet50", "resnet50", False),
-                                   (K1.KERNEL + "@resnet18", "resnet18", False),
-                                   (K1.KERNEL + ":7x7 stem@resnet50", "resnet50", True)):
-        launched = trunk_serving[arch]["launches"].get(K1.FORM.format(7) if stem_only else K1.KERNEL, 0)
-        rows_ = [x for x in trunk_rows if x["family"] == arch and (x["ksize"] == 7 or not stem_only)]
+    # K1 on each trunk: its launches but the stem, which the stem kernel takes
+    for kname, arch in ((K1.KERNEL + "@resnet50", "resnet50"), (K1.KERNEL + "@resnet18", "resnet18")):
+        n = trunk_serving[arch]["launches"]
+        rows_ = [x for x in trunk_rows if x["family"] == arch and x["kind"] == "K1"]
         kernels.append({"name": kname, "route": "cuda", "source": "alignq_tpu_torch/csrc/qmatmul.cu",
-                        "replaces": "alignq_tpu/kernels/qmatmul.py:45", "launches": launched,
-                        "max_abs_err": trunk_err, **trunk_sum(rows_)})
+                        "replaces": "alignq_tpu/kernels/qmatmul.py:45",
+                        "launches": n.get(K1.KERNEL, 0) - n.get(ST.STEM, 0), "max_abs_err": trunk_err,
+                        **trunk_sum(rows_)})
         print(f"{kname} over one batch-{SERVE_BATCH} {TRUNK_SIZE}x{TRUNK_SIZE} forward: {json.dumps(kernels[-1])} "
               f"[{card}]", flush=True)
+    # the stem kernel (its time with its prep pass's): its launches over both trunks' served forwards
+    kernels.append({"name": ST.STEM + "@resnet50+resnet18", "route": "cuda",
+                    "source": "alignq_tpu_torch/csrc/stem_sm90.cu", "replaces": "alignq_tpu/kernels/qmatmul.py:45",
+                    "launches": sum(trunk_serving[a]["launches"].get(ST.STEM, 0) for a in TRUNKS),
+                    "max_abs_err": stem_err,
+                    **trunk_sum([x for x in trunk_rows if x["family"] == "resnet50" and x["kind"] == "stem"])})
+    print(f"{kernels[-1]['name']} over one batch-{SERVE_BATCH} {TRUNK_SIZE}x{TRUNK_SIZE} ResNet-50 forward: "
+          f"{json.dumps(kernels[-1])} [{card}]", flush=True)
     # K1's Hopper form: its launches over both trunks' served forwards (phase
     # 18), its times over one batch-256 forward of each trunk (phase 19)
     kernels.append({"name": K1.SM90 + "@resnet50+resnet18", "route": "cuda",

@@ -629,6 +629,103 @@ def test_dw_conv_wide_image(cuda):
     assert torch.equal(got, dwconv.dw_conv_reference(x, op, 1, "int32"))
 
 
+# MobileNet-V2's depthwise shapes (b, hw, c, stride) at the batches it serves
+DW_SM90_SHAPES = [(b, hw, c, s) for b in (256, 8, 3) for hw, c, s in (
+    (32, 32, 1), (32, 96, 1), (32, 144, 1), (32, 144, 2), (16, 192, 1), (16, 192, 2), (8, 384, 1), (8, 576, 1),
+    (8, 576, 2), (4, 960, 1))]
+
+
+@pytest.mark.parametrize("b,hw,c,stride", DW_SM90_SHAPES)
+def test_dw_sm90_form_vs_plain_and_old_form(cuda, b, hw, c, stride):
+    """The depthwise form's Hopper kernel (csrc/dwconv_sm90.cu) against
+    csrc/dwconv.cu bit for bit in every mode (int32, f32, erf, poly and
+    bins codes, relu'd and not), and against the plain version, at every
+    MobileNet-V2 shape at batches 256, 8 and 3; its launches counted."""
+    from alignq_tpu_torch.kernels import dwconv
+
+    rng = np.random.RandomState(c + hw + stride + b)
+    x = _i8(rng, (b, hw, hw, c), 0, 128).to(cuda)
+    kern = _i8(rng, (3, 3, 1, c)).to(cuda)
+    s = torch.from_numpy(((rng.rand(c) * 2 - 0.4) * 2 / (3 * 73.3**2)).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy((rng.randn(c) * 0.5).astype(np.float32)).to(cuda)
+    op = dwconv.pack_dw_weights(kern, s, bias)
+    assert isinstance(dwconv.device_plan(x, stride), dwconv.DwSm90Plan)
+    modes = [("int32", None), ("f32", None)] + [(None, act_map(i, g, cuda, relu=r)) for i, g in (
+        ("erf", 127), ("poly", 127), ("erf", 7), ("bins", 7)) for r in (True, False)]
+    for mode, act in modes:
+        before = _build.launches[dwconv.DW_SM90]
+        got = dwconv.dw_conv(x, op, stride, mode or "f32", act)
+        with dwconv._old_form():
+            old = dwconv.dw_conv(x, op, stride, mode or "f32", act)
+        torch.cuda.synchronize()
+        assert _build.launches[dwconv.DW_SM90] == before + 1
+        if got.dtype == torch.float32:
+            assert torch.equal(got.view(torch.int32), old.view(torch.int32))
+        else:
+            assert torch.equal(got, old)
+        want = dwconv.dw_conv_reference(x, op, stride, mode or "f32", act)
+        if mode == "int32":
+            assert torch.equal(got, want)
+        elif mode == "f32":
+            _assert_f32_close(got, want)
+        else:
+            _assert_codes_close(got, want)
+
+
+@pytest.mark.parametrize("impl,g", [("erf", 127), ("poly", 127), ("erf", 7), ("poly", 7)])
+def test_act_table_every_f32(cuda, impl, g):
+    """The table form of the map (act_codes.cuh table_code) equals its
+    direct map on the card for all 2^32 f32 bit patterns, relu'd and not."""
+    from alignq_tpu_torch.kernels import stem
+
+    for relu in (True, False):
+        assert stem.act_table_differences(impl, g, relu, cuda) == (0, None)
+
+
+def _stem_operands(rng, b, hw, windows=None):
+    """Images and conv1 whose codes span the relu; windows: the map whose
+    non-monotone windows the pooled h are steered into (a faint image,
+    scales of 2^-24, biases at the map's irregular steps)."""
+    from alignq_tpu_torch.kernels.quantize import act_table_steps
+
+    x = (rng.randn(b, hw, hw, 3) * (0.02 if windows else 1.2)).astype(np.float32)
+    k = rng.randint(-127, 128, (7, 7, 3, 64)).astype(np.int8)
+    sign = rng.choice([-1, 1], 64)
+    if windows:
+        wa, wz = act_table_steps(windows, 127)
+        irregular = np.nonzero((wz >= wa) & (np.arange(len(wa)) >= 127))[0]
+        scale, bias = np.float32(2.0 ** -24) * sign, wa[irregular[np.arange(64) % len(irregular)]]
+    else:
+        scale, bias = rng.uniform(1e-5, 4e-5, 64) * sign, rng.uniform(-1, 1, 64)
+    return (torch.from_numpy(x), pack_conv_weights(torch.from_numpy(k), torch.from_numpy(scale.astype(np.float32)),
+                                                   torch.from_numpy(bias.astype(np.float32))))
+
+
+@pytest.mark.parametrize("b,hw,impl,g,windows", [
+    (2, 64, "erf", 127, None), (3, 64, "poly", 127, None), (2, 64, "bins", 7, None), (3, 224, "erf", 127, None),
+    (4, 224, "poly", 127, None), (2, 224, "erf", 7, None), (2, 60, "poly", 7, None), (16, 224, "erf", 127, "erf"),
+    (16, 224, "poly", 127, "poly")])
+def test_stem_kernel_vs_chain(cuda, b, hw, impl, g, windows):
+    """The stem kernel (csrc/stem_sm90.cu, after its prep pass) against the
+    chain it replaced (K1's 7x7 form and the f16 pool) and the CPU's plain
+    chain, bit for bit; with the pooled h steered into the map's windows
+    too. One launch of each under its counter."""
+    from alignq_tpu_torch.kernels import stem
+
+    x, op = _stem_operands(np.random.RandomState(b + hw + g), b, hw, windows)
+    act = act_map(impl, g, cuda, relu=True)
+    xg, opg = x.to(cuda), op._replace(wt=op.wt.to(cuda), scale=op.scale.to(cuda), bias=op.bias.to(cuda))
+    before = (_build.launches[stem.STEM], _build.launches[stem.PREP])
+    got = stem.stem_pool_codes(xg, opg, act)
+    torch.cuda.synchronize()
+    assert (_build.launches[stem.STEM], _build.launches[stem.PREP]) == (before[0] + 1, before[1] + 1)
+    with stem._old_form():
+        old = stem.stem_pool_codes(xg, opg, act)
+    assert got.dtype == torch.int16 and torch.equal(got, old)
+    cpu = stem.stem_pool_codes(x, op, act_map(impl, g, torch.device("cpu"), relu=True))
+    assert torch.equal(got.cpu(), cpu)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
 @pytest.mark.parametrize("ld,c_live,c_out", [(168, 24, 32), (168, 156, 160), (312, 300, 304), (456, 456, 456),
                                              (456, 312, 320), (40, 12, 12), (168, 4, 16), (168, 168, 176),

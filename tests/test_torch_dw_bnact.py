@@ -10,6 +10,11 @@ MobileNet-V2 shape under its serving plan and at the edges on an H100
 SXM's 132 SMs, and where a plan differs there, on an H100 PCIe's 114 and
 an H100 MIG 1g slice's 16.
 
+`_emulate_dw_sm90` does the same for the Hopper form (kernels/dwconv.py
+dw_sm90_plan, csrc/dwconv_sm90.cu): its persistent CTAs' walk, each band
+as the TMA box (zero past the tensor's edges) in one of two buffers, the
+same taps, and the codes through the map's step table.
+
 The table form of the BN-act pass (kernels/quantize.py bn_act_table,
 bn_act_codes_table) must give bn_act_codes' codes exactly. Its kernel's
 grid, shared-memory slice and gathers are emulated likewise: each lane's
@@ -23,6 +28,7 @@ import torch
 from alignq_tpu_torch.kernels import dwconv as DW
 from alignq_tpu_torch.kernels import quantize as K2
 from alignq_tpu_torch.kernels.qmatmul import act_map
+from alignq_tpu_torch.quant.cdf import fma_f32
 
 CPU = torch.device("cpu")
 
@@ -207,6 +213,135 @@ def test_dw_plans_fill_the_card(card):
         DW.dw_plan(1, 8, 8, 6, 1, sms)
     with pytest.raises(ValueError):
         DW.dw_plan(1, 8, 8, 8, 3, sms)
+
+
+# ------------------------------------------- the depthwise form's Hopper kernel
+
+
+def _emulate_dw_sm90(x: torch.Tensor, op: DW.DwWeights, plan: DW.DwSm90Plan, act=None) -> np.ndarray:
+    """csrc/dwconv_sm90.cu's result under `plan` (int32 sums, or act's codes
+    through the map's step table), with its index math in numpy: the
+    persistent CTAs' walk over the tiles with two band buffers, each band
+    the TMA box at (c0, -1, oy0 * s - 1, b) of (CH, HC, HR), zero past the
+    tensor's edges, dense in shared memory; then dwconv.cu's threads,
+    windows, transposes and dp4a sums on it (P = CH, RP = HC * CH)."""
+    p, s = plan, plan.stride
+    xn = x.numpy()
+    n_img = xn.shape[0]
+    w4 = op.w.numpy().view(np.uint32).astype(np.int64)
+    out = np.full((n_img, p.Ho, p.Wo, p.C), -(2**40), np.int64)
+    assert p.P == p.CH and p.RP == p.HC * p.CH and p.band_bytes >= p.HR * p.RP and p.band_bytes % 128 == 0
+    assert p.tab_off >= 2 * p.band_bytes and p.bar_off >= p.tab_off + 1024 * 8 and p.smem >= p.bar_off + 16 + 128
+    q, ry, gx = (a.ravel() for a in np.meshgrid(np.arange(p.CH // 4), np.arange(p.TR), np.arange(p.GX),
+                                                indexing="ij"))
+    assert q.size == p.threads <= DW.MAX_THREADS
+    grid = min(p.n_tiles, 3 * 132)
+    buffers = [np.random.RandomState(1).randint(0, 256, p.band_bytes).astype(np.uint8) for _ in range(2)]
+    xp = np.zeros((n_img, p.H + 2 * p.HR + 2, p.W + p.HC + 2, p.C + p.CH), np.uint8)  # the map's zero outside
+    xp[:, p.HR:p.HR + p.H, 1:1 + p.W, :p.C] = xn.view(np.uint8)
+    for cta in range(grid):
+        for n, tile in enumerate(range(cta, p.n_tiles, grid)):
+            chunk, rest = tile % p.n_chunks, tile // p.n_chunks
+            c0, oy0, b = chunk * p.CH, (rest % p.n_bands) * p.TR, rest // p.n_bands
+            if b >= n_img:
+                continue
+            ch = min(p.CH, p.C - c0)
+            smem = buffers[n % 2]
+            iy0 = oy0 * s - 1 + p.HR  # the box's first row in xp
+            box = xp[b, iy0:iy0 + p.HR, 0:p.HC, c0:c0 + p.CH]
+            assert box.shape == (p.HR, p.HC, p.CH)
+            smem[:p.HR * p.RP] = box.reshape(-1)
+            words = smem.view(np.uint32).astype(np.int64)
+            oy = oy0 + ry
+            ox_begin = gx * p.RUN
+            ox_end = np.minimum(ox_begin + p.RUN, p.Wo)
+            live = (4 * q < ch) & (oy < p.Ho) & (ox_begin < ox_end)
+            c = c0 + 4 * q
+            quad = np.where(live, c // 4, 0)
+            wcols = [[w4[dy * 3 + dx, quad] for dy in range(3)] for dx in range(3)]
+            qw = [[t & 0x00FFFFFF for t in _transpose3(*wcols[dx])] for dx in range(3)]
+            row0 = ry * s * p.RP + 4 * q
+
+            def load_col(band_col, active):
+                at = row0 + band_col * p.P
+                assert (at[active] + 2 * p.RP + 4 <= p.HR * p.RP).all()
+                at = np.where(active, at, 0)
+                return _transpose3(*[words[(at + dy * p.RP) // 4] for dy in range(3)])
+
+            ca = load_col(ox_begin * s, live)
+            cb = load_col(ox_begin + 1, live) if s == 1 else None
+            for k in range(p.RUN):
+                ox = ox_begin + k
+                active = live & (ox < ox_end)
+                if s == 2:
+                    cb = load_col(2 * ox + 1, active)
+                cc = load_col(ox * s + 2, active)
+                ii = np.nonzero(active)[0]
+                for j in range(4):
+                    acc = np.zeros(q.size, np.int64)
+                    for dx, colw in enumerate((ca, cb, cc)):
+                        acc = _dp4a(colw[j], qw[dx][j], acc)
+                    assert (out[b, oy[ii], ox[ii], c[ii] + j] == -(2**40)).all()
+                    out[b, oy[ii], ox[ii], c[ii] + j] = acc[ii]
+                ca, cb = (cb, cc) if s == 1 else (cc, cb)
+    assert (out != -(2**40)).all()
+    if act is None:
+        return out
+    h = fma_f32(torch.from_numpy(out.astype(np.float32)), op.scale, op.bias)
+    if act.impl == "bins":
+        codes = K2.act_codes(h, act.g, "bins")
+        return (torch.clamp_min(codes, 0) if act.relu else codes).numpy()
+    return K2.act_codes_table_plain(h, K2.act_table(act.impl, act.g, CPU, act.relu)).numpy()
+
+
+# MobileNet-V2's shapes at the batches it serves, and the edges the form takes
+SM90_DW_CASES = [(b, *case[1:]) for b in (256, 8, 3) for case in DW_CASES[:10]] + [
+    case for case in DW_CASES[10:] if case[3] % 16 == 0 and case[2] < 254]
+
+
+@pytest.mark.parametrize("case", SM90_DW_CASES)
+def test_dw_sm90_tiling_emulated(case):
+    """The Hopper form's plan of each shape (MobileNet-V2's at batches 256,
+    8 and 3, and the edges), run through the kernel's walk, TMA boxes and
+    tap sums in numpy, gives the plain int32 conv, every output once."""
+    batch, h, w, c, stride = case
+    plan = DW.dw_sm90_plan(batch, h, w, c, stride, SMS["h100_sxm"])
+    assert plan is not None and plan[:15] == DW.dw_plan(batch, h, w, c, stride, SMS["h100_sxm"])[:15]
+    rng = np.random.RandomState(h * 1000 + c + stride + batch)
+    x = _i8(rng, (min(batch, 2), h, w, c))
+    op = DW.pack_dw_weights(_i8(rng, (3, 3, 1, c)), torch.ones(c), torch.zeros(c))
+    np.testing.assert_array_equal(_emulate_dw_sm90(x, op, plan), DW.dw_conv_reference(x, op, stride, "int32").numpy())
+
+
+@pytest.mark.parametrize("case,impl,g,relu", [
+    ((256, 8, 8, 576, 1), "erf", 127, True), ((256, 8, 8, 576, 1), "poly", 127, False),
+    ((256, 8, 8, 576, 1), "erf", 7, False), ((256, 8, 8, 576, 1), "bins", 7, True),
+    ((256, 32, 32, 144, 2), "erf", 127, True)])
+def test_dw_sm90_codes_emulated(case, impl, g, relu):
+    """The Hopper form's codes (the step table of the erf and poly maps,
+    the bins compares) equal the plain version's."""
+    _, h, w, c, stride = case
+    plan = DW.dw_sm90_plan(2, h, w, c, stride, SMS["h100_sxm"])
+    rng = np.random.RandomState(c + g)
+    x = _i8(rng, (2, h, w, c))
+    scale = torch.from_numpy((rng.uniform(2e-4, 6e-4, c) * rng.choice([-1, 1], c)).astype(np.float32))
+    op = DW.pack_dw_weights(_i8(rng, (3, 3, 1, c)), scale, torch.from_numpy(rng.uniform(-1, 1, c).astype(np.float32)))
+    act = act_map(impl, g, CPU, relu)
+    want = DW.dw_conv_reference(x, op, stride, impl, act).numpy()
+    assert len(np.unique(want)) > g
+    np.testing.assert_array_equal(_emulate_dw_sm90(x, op, plan, act), want)
+
+
+def test_dw_sm90_rule_and_refusals():
+    """The rule gives the Hopper form every MobileNet-V2 shape (C % 16 ==
+    0) and dwconv.cu the others; the form refuses C % 16 != 0 and boxes
+    past TMA's 256 a side."""
+    for _, h, w, c, stride in DW_CASES[:10]:
+        for batch in (256, 8, 3):
+            assert DW.dw_sm90_plan(batch, h, w, c, stride, 132) is not None
+    assert DW.dw_sm90_plan(2, 11, 13, 100, 1, 132) is None  # C % 16
+    assert DW.dw_sm90_plan(1, 5, 5, 4, 1, 132) is None
+    assert DW.dw_sm90_plan(1, 3, 600, 64, 1, 132) is None  # a band row of 602 columns
 
 
 # ------------------------------------------------------ the BN-act table form
