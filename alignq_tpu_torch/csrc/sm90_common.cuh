@@ -1,10 +1,11 @@
-// The Hopper primitives K1's and K3's sm_90a forms share (qmatmul_sm90.cu,
-// qmatmul_sm90n.cu, stage_kernel_sm90.cu, stem_sm90.cu): mbarriers, TMA's
-// 2-D and 3-D box loads and 1-D bulk copy,
-// wgmma with A from registers or by a descriptor and B by a shared-memory
-// descriptor under a 32-, 64- or 128-byte swizzle (A's without one), and
-// the CUDA driver's tensor-map encoder, reached through cudaGetDriverEntryPoint
-// so that no source links -lcuda.
+// The Hopper primitives the port's sm_90a kernels share (qmatmul_sm90.cu,
+// qmatmul_sm90n.cu, stage_kernel_sm90.cu, stem_sm90.cu, bn_table_sm90.cu,
+// digit_sm90.cu): mbarriers, TMA's 2-D and 3-D box loads, the 1-D bulk
+// copy in and out, the async proxy's fence, wgmma with A from registers
+// or by a descriptor and B by a shared-memory descriptor under a 32-, 64-
+// or 128-byte swizzle (A's without one, at any strides), and the CUDA
+// driver's tensor-map encoder, reached through cudaGetDriverEntryPoint so
+// that no source links -lcuda.
 
 #pragma once
 
@@ -79,6 +80,29 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
                : "memory");
 }
 
+// `bytes` (a multiple of 16) of shared memory src to global dst (both
+// 16-byte aligned), in this thread's bulk group; the writes to src before
+// it must be made visible to the async proxy first (fence_proxy_async,
+// then a barrier where other threads wrote)
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(smem_u32(src)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// until every bulk store this thread committed has read its source
+__device__ __forceinline__ void bulk_wait_read0() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// until every bulk store this thread committed is done
+__device__ __forceinline__ void bulk_wait0() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// this thread's writes to shared memory made visible to the async proxy
+// (bulk copies, TMA, wgmma's operand reads)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ------------------------------------------------------------ wgmma
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -111,6 +135,17 @@ __device__ __forceinline__ uint64_t make_desc_plain(const void* p, uint32_t lbo)
   const uint32_t addr = smem_u32(p);
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
          (static_cast<uint64_t>(128 >> 4) << 32);
+}
+
+// The descriptor of a K-major operand in shared memory without swizzle at
+// any strides: core matrices of 8 rows by 16 bytes, rows 16 bytes apart,
+// the next 8 rows sbo bytes on, the K step's second 16 bytes lbo bytes on
+// (digit_sm90.cu's A: 8 neighbouring outputs of an image row, 16 bytes of
+// one tap's channels each)
+__device__ __forceinline__ uint64_t make_desc_strided(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t addr = smem_u32(p);
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
 }
 
 #define SM90_D4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
@@ -173,7 +208,7 @@ __device__ __forceinline__ void wgmma_rs<128>(int (&d)[64], const uint32_t (&a)[
 
 // d (64 x NB int32) = A (64 x 32 s8, by descriptor da) * B (32 x NB s8, by
 // descriptor db), plus d where add != 0, for NB = 16, 32 and 64 (K1's
-// narrow form)
+// narrow form) and 48 (digit_sm90.cu's conv2)
 template <int NB>
 __device__ __forceinline__ void wgmma_ss(int (&d)[NB / 2], uint64_t da, uint64_t db, int add);
 
@@ -195,6 +230,18 @@ __device__ __forceinline__ void wgmma_ss<32>(int (&d)[16], uint64_t da, uint64_t
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
       "}, %16, %17, p;\n}\n"
       : SM90_D16(0)
+      : "l"(da), "l"(db), "r"(add));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<48>(int (&d)[24], uint64_t da, uint64_t db, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p;\n}\n"
+      : SM90_D16(0), SM90_D4(16), SM90_D4(20)
       : "l"(da), "l"(db), "r"(add));
 }
 

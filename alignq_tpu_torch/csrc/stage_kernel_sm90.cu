@@ -118,7 +118,6 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
                "r"(smem_u32(src)), "r"(c0), "r"(c1)
                : "memory");
 }
-__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 // ------------------------------------------------------------ the tiles
 

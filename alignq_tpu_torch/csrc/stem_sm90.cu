@@ -63,7 +63,8 @@
 // The pass before it (stem_prep_kernel): q = clip(rint(x * inv), +-127) of
 // the f32 image, one f32 multiply as the JAX graph's _linear_q, written as
 // 4 int8 channels (the 4th zero) in rows of W + 4 pixels, the first 3 and
-// the last zero: 4 pixels (16 bytes) a thread.
+// the last zero: 4 pixels (16 bytes) a thread. (digit_sm90.cu's conv1
+// reads it too, at the digit net's scale.)
 //
 // C interface: stem_launch and stem_prep_launch return cudaGetLastError()
 // after the launch (or the error that refused it); act_table_check counts

@@ -33,7 +33,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("qmatmul", "qmatmul_sm90", "qmatmul_sm90n", "quantize", "stage_kernel", "stage_kernel_sm90", "dwconv",
-           "stem_sm90", "dwconv_sm90")
+           "stem_sm90", "dwconv_sm90", "bn_table_sm90", "digit_sm90")
 
 launches: collections.Counter = collections.Counter()
 

@@ -5,11 +5,12 @@ for value as the JAX package runs it under jit.
   int8 convs with per-channel f32 epilogues, the conv bias absorbed into
   the BN mean (BN(Wx + b) is BN with mean - b);
 - the image is quantized at S_DIGIT = 1/127 (the digit pipelines normalize
-  to [-1, 1]) and padded to 4 channels by K1's wrapper, as the ImageNet
-  stem's; each conv is one K1 launch in the relu'd codes mode
-  (max(code(h), 0)), then a 2x2 max pool on the int8 codes (plain
-  PyTorch: an amax over each window, exact on codes; XLA's reduce_window
-  ran outside any Pallas kernel too);
+  to [-1, 1]) and padded to 4 channels; each conv, its relu'd act codes
+  (max(code(h), 0)) and the 2x2 max pool of the codes after it are one
+  launch of csrc/digit_sm90.cu on the card (kernels/digit.py conv_pool,
+  after a prep pass for conv1), or the chain that kernel replaced (K1's
+  5x5 form, then the pool: an amax over each window, exact on codes) on
+  the CPU or where the kernel does not take the conv;
 - the pooled conv2 codes times the act grid's scale are the feature, in
   flax's (h, w, c) order; the classifier and discriminator MLPs stay f32
   (torch.matmul, TF32 off, as JAX's Precision.HIGHEST), their BatchNorm1d
@@ -23,12 +24,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from alignq_tpu_torch.kernels.convert import fold_conv_bn
-from alignq_tpu_torch.kernels.infer import _act_g, _linear_q
+from alignq_tpu_torch.kernels.digit import S_DIGIT, conv_pool
+from alignq_tpu_torch.kernels.infer import _act_g
 from alignq_tpu_torch.kernels.infer_resnet_imagenet import _f32
-from alignq_tpu_torch.kernels.qmatmul import act_map, int8_conv_codes, pack_conv_weights
+from alignq_tpu_torch.kernels.qmatmul import act_map, pack_conv_weights
 from alignq_tpu_torch.quant.cdf import fma_f32
-
-S_DIGIT = 1.0 / 127.0  # digit images lie in [-1, 1]: the whole code range, no clip
 
 
 def _bn1d_affine(p: Dict[str, torch.Tensor], s: Dict[str, torch.Tensor], eps: float = 1e-5):
@@ -69,24 +69,17 @@ def _mlp_forward(head: Dict[str, Any], x: torch.Tensor, n_bn: int) -> torch.Tens
     return torch.matmul(x, head[f"fc{n_bn}"]["kernel"]) + head[f"fc{n_bn}"]["bias"]
 
 
-def _max_pool2(c: torch.Tensor) -> torch.Tensor:
-    """2x2 stride-2 VALID max pool of NHWC codes."""
-    b, h, w, n = c.shape
-    c = c[:, : h // 2 * 2, : w // 2 * 2]
-    return c.reshape(b, h // 2, 2, w // 2, 2, n).amax(dim=(2, 4))
-
-
 def mnist_dann_int8_codes(qparams: Dict[str, Any], x: torch.Tensor, act_bits: int = 8, act_impl: str = "erf",
                           operands: Optional[Dict[str, Any]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The pooled relu'd codes of conv1 (B, 12, 12, 32) and conv2 (B, 4,
-    4, 48) int8 of NHWC images (28x28); on CUDA two K1 launches of the 5x5
-    form."""
+    4, 48) int8 of NHWC images (28x28); on CUDA two launches of
+    csrc/digit_sm90.cu (kernels/digit.py conv_pool)."""
     if x.shape[-1] == 1:
         x = x.repeat(1, 1, 1, 3)
     ops = pack_mnist_dann_operands(qparams) if operands is None else operands
     relu = act_map(act_impl, int(_act_g(act_bits)), x.device, relu=True)
-    c1 = _max_pool2(int8_conv_codes(_linear_q(x, S_DIGIT), ops["conv1"], 1, 0, relu))
-    return c1, _max_pool2(int8_conv_codes(c1, ops["conv2"], 1, 0, relu))
+    c1 = conv_pool(1, x, ops["conv1"], relu)
+    return c1, conv_pool(2, c1, ops["conv2"], relu)
 
 
 def mnist_dann_int8_forward(qparams: Dict[str, Any], x: torch.Tensor, act_bits: int = 8, act_impl: str = "erf",

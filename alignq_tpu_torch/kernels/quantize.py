@@ -21,15 +21,21 @@ the live-channel prefix of a stage buffer, as one pass: the fused BN-act
 code kernel of csrc/quantize.cu on a CUDA tensor, `bn_act_codes_plain` on
 a CPU tensor. Over an int8 buffer a site's map takes 256 values a channel:
 `bn_act_table` builds the site's codes of every value once, by
-`bn_act_codes` itself, and `bn_act_codes_table` gathers from it (the
-table kernel of csrc/quantize.cu on a CUDA tensor,
-`bn_act_codes_table_plain` on a CPU tensor).
+`bn_act_codes` itself, and `bn_act_codes_table` gathers from it: on a CUDA
+tensor csrc/bn_table_sm90.cu (persistent CTAs whose warps each walk their
+own rows, every lane at work; `bn_table_plan`) where
+`bn_table_takes` gives it the shape (sites of at most 64 code channels,
+where it measured faster), else the table kernel of csrc/quantize.cu;
+`bn_act_codes_table_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import math
+import weakref
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -41,7 +47,9 @@ from alignq_tpu_torch.quant.cdf import _INV_SQRT2, erf_f32, erf_grid_boundaries,
 KERNEL = "cdf_quantize_int8"  # launch-counter key
 BN_ACT = "bn_act_codes"  # launch-counter key of the BN-act kernels, both forms
 BN_ACT_ARITH = BN_ACT + ":arith"  # ... of the arithmetic form (bn_act_codes)
-BN_ACT_TABLE = BN_ACT + ":table"  # ... of the table form (bn_act_codes_table)
+BN_ACT_TABLE = BN_ACT + ":table"  # ... of the table form (bn_act_codes_table), both kernels
+BN_ACT_TABLE_SM90 = BN_ACT_TABLE + ":sm90"  # ... of its Hopper kernel (csrc/bn_table_sm90.cu)
+BN_ACT_TABLE_CHUNKED = BN_ACT_TABLE + ":chunked"  # ... of csrc/quantize.cu's bn_table_kernel
 Q_MAX = 127.0
 TABLE_CHANNELS = 128  # a code table's pitch is a multiple of this: csrc/quantize.cu's chunk, TB_CH
 _BN_ACT_MODE = {"poly": 3, "erf": 4, "bins": 5}
@@ -257,9 +265,11 @@ def bn_act_codes_table_plain(x: torch.Tensor, c_live: int, table: BnActTable, c_
 def bn_act_codes_table(x: torch.Tensor, c_live: int, table: BnActTable, c_out: Optional[int] = None) -> torch.Tensor:
     """A pre-activation site over an int8 stage buffer x (..., ld) through
     its code table (bn_act_table): int8 (..., c_out) codes, the same as
-    bn_act_codes(x, c_live, table.s, table.b, table.act, c_out). The table
-    kernel of csrc/quantize.cu on a CUDA tensor, reading the prefix in
-    place; bn_act_codes_table_plain on a CPU tensor."""
+    bn_act_codes(x, c_live, table.s, table.b, table.act, c_out). On a CUDA
+    tensor csrc/bn_table_sm90.cu where bn_table_takes gives it the shape
+    (counted under BN_ACT_TABLE_SM90), else csrc/quantize.cu's table kernel
+    (under BN_ACT_TABLE_CHUNKED), each reading the prefix in place;
+    bn_act_codes_table_plain on a CPU tensor."""
     c_out = c_live if c_out is None else c_out
     if x.dtype != torch.int8 or table.codes.dtype != torch.int8:
         raise TypeError(f"the table form takes an int8 buffer and table, got {x.dtype} and {table.codes.dtype}")
@@ -276,23 +286,201 @@ def bn_act_codes_table(x: torch.Tensor, c_live: int, table: BnActTable, c_out: O
         raise ValueError("the buffer and the table must lie on one device")
     out = torch.empty((*x.shape[:-1], c_out), dtype=torch.int8, device=x.device)
     if out.numel():
-        _bn_table_launch(x, c_live, table, out)
+        plan = device_table_plan(x, c_live, c_out)
+        _bn_table_launch(x, c_live, table, out, plan)
         _build.launches[BN_ACT] += 1
         _build.launches[BN_ACT_TABLE] += 1
+        _build.launches[BN_ACT_TABLE_CHUNKED if plan is None else BN_ACT_TABLE_SM90] += 1
     return out
 
 
-def _bn_table_launch(x, c_live: int, table: BnActTable, out) -> None:
-    """One launch of csrc/quantize.cu's bn_table_kernel on checked operands
-    (x int8 contiguous and 16-byte aligned, the table's codes (256, c_pad),
-    out int8 (..., c_out)). Counts nothing (the wrapper does)."""
-    lib = _lib()
+def _bn_table_launch(x, c_live: int, table: BnActTable, out, plan: Optional["BnTablePlan"] = None) -> None:
+    """One launch of the table form on checked operands (x int8 contiguous
+    and 16-byte aligned, the table's codes (256, c_pad), out int8 (...,
+    c_out)): csrc/bn_table_sm90.cu on its plan, or csrc/quantize.cu's
+    bn_table_kernel where plan is None. Counts nothing (the wrapper does)."""
     with _build.on_device(x.device):
-        err = lib.bn_table_launch(
-            x.data_ptr(), table.codes.data_ptr(), table.codes.shape[1], out.data_ptr(), x.numel() // x.shape[-1],
-            x.shape[-1], c_live, out.shape[-1], torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _build.check(err, "quantize.cu bn_table_kernel")
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if plan is None:
+            err = _lib().bn_table_launch(
+                x.data_ptr(), table.codes.data_ptr(), table.codes.shape[1], out.data_ptr(), x.numel() // x.shape[-1],
+                x.shape[-1], c_live, out.shape[-1], stream)
+            what = "quantize.cu bn_table_kernel"
+        else:
+            err = _sm90_lib().bn_table_sm90_launch(x.data_ptr(), bn_table_layout(table, plan).data_ptr(),
+                                                   out.data_ptr(), _plan_ints(plan), stream)
+            what = "bn_table_sm90.cu bn_table_sm90_kernel"
+    _build.check(err, what)
+
+
+# The Hopper form of the table pass (csrc/bn_table_sm90.cu)
+BN_TABLE_THREADS = 512  # its CTA: 16 warps
+BN_TABLE_WARPS = BN_TABLE_THREADS // 32
+BN_TABLE_SMEM = 227 * 1024  # shared memory an SM gives its CTAs on an H100
+BN_TABLE_PER_SM = 3  # CTAs an SM at most, where their tables fit
+BN_TABLE_ITEMS = (8, 16)  # work items a warp loads at once: 8 where the CTAs fill the grid, else 16
+BN_TABLE_MAX_C_OUT = 64  # the rule: the Hopper kernel takes the sites of at most this many code channels
+BN_TABLE_REUSE = 1.0  # a CTA moves at least this many times its table's bytes of rows (so fewer CTAs on small buffers)
+
+
+class BnTablePlan(NamedTuple):
+    """One launch of csrc/bn_table_sm90.cu, in the order of its Plan."""
+
+    M: int  # rows
+    ld: int  # the buffer's pitch
+    c_live: int
+    c_out: int
+    F: int  # full chunks of 32 quads a row: c_out // 128
+    T: int  # tail quads past them
+    RT: int  # rows a tail item: 32 // T (0 without a tail)
+    P: int  # the table's pitch in shared memory, a multiple of 128
+    R: int  # rows a warp's tile
+    n_tiles: int
+    ctas: int
+    U: int  # work items a warp loads at once
+    bar_off: int
+    smem: int
+
+
+def bn_table_plan(m_rows: int, ld: int, c_live: int, c_out: int, sms: int,
+                  items: Optional[int] = None) -> BnTablePlan:
+    """The plan of the table pass's Hopper kernel over m_rows rows of pitch
+    ld, c_live live channels, codes at pitch c_out, on a card of `sms` SMs:
+    tiles of the rows whose work items fill one batch of `items` a warp;
+    as many CTAs an SM as BN_TABLE_PER_SM whose tables fit, or fewer where
+    a CTA would move less than BN_TABLE_REUSE times its table's bytes.
+    items (8 or 16) defaults to 8 where the CTAs fill the grid and 16
+    where they do not (chip_smoke.py --bn-digit-ab at DenseNet-40's
+    narrow sites: 8 faster at batch 256, 16 at batch 8); A/B runs set it.
+    Raises ValueError, naming the shape, for one it does not take: c_live,
+    c_out or ld off the kernel's alignment of 4, or a table past a CTA's
+    shared memory."""
+    shape = f"{m_rows} rows of pitch {ld}, {c_live} live channels to {c_out}"
+    if not (0 < c_live <= min(ld, c_out)) or c_live % 4 or c_out % 4 or ld % 4 or not 0 < m_rows < 2**30:
+        raise ValueError(f"the table pass's Hopper kernel does not take {shape}: c_live, c_out and ld must be "
+                         f"multiples of 4, c_live <= c_out, ld")
+    if items is not None and items not in BN_TABLE_ITEMS:
+        raise ValueError(f"{items} items a warp: one of {BN_TABLE_ITEMS}")
+    f, t = divmod(c_out // 4, 32)
+    rt = 32 // t if t else 0
+    p = 128 * -(-(32 * f + rt * t) // 32)
+    tab = 256 * p
+    per_sm = min((BN_TABLE_SMEM - 1024) // (tab + 8 + 1024), BN_TABLE_PER_SM)  # each CTA's table, barrier, reserve
+    if per_sm < 1:
+        raise ValueError(f"the table pass's Hopper kernel does not take {shape}: a {tab}-byte table")
+    ctas = max(1, min(per_sm * sms, math.ceil(m_rows * (c_live + c_out) / (BN_TABLE_REUSE * tab))))
+    if items is None:
+        items = BN_TABLE_ITEMS[0] if ctas == per_sm * sms else BN_TABLE_ITEMS[1]
+    r = 1  # the most rows whose items fit one batch: R F full items and ceil(R / RT) tail ones
+    while (r + 1) * f + (-(-(r + 1) // rt) if t else 0) <= items:
+        r += 1
+    r = max(1, min(r, math.ceil(m_rows / (ctas * BN_TABLE_WARPS))))
+    n_tiles = -(-m_rows // r)
+    return BnTablePlan(m_rows, ld, c_live, c_out, f, t, rt, p, r, n_tiles, min(ctas, n_tiles), items, tab, tab + 8)
+
+
+def bn_table_takes(m_rows: int, ld: int, c_live: int, c_out: int, sms: int) -> bool:
+    """The rule: whether the Hopper kernel takes a launch, that is one of
+    at most BN_TABLE_MAX_C_OUT code channels that bn_table_plan plans. At
+    DenseNet-40's sites (chip_smoke.py --bn-digit-ab, per launch, ABBA)
+    the kernel beat bn_table_kernel at c_out 32-64 (block 1's first four)
+    at batch 256 and tied it at batch 8, and lost at c_out 80-128, 176 and
+    every block-2 and block-3 site at both; bn_table_kernel keeps those.
+    Its two wins past 128 channels (c_out 144, batch 256 only) are left to
+    bn_table_kernel too: it lost there at batch 8."""
+    if c_out > BN_TABLE_MAX_C_OUT:
+        return False
+    try:
+        bn_table_plan(m_rows, ld, c_live, c_out, sms)
+    except ValueError:
+        return False
+    return True
+
+
+_OLD_TABLE_FORM = False  # set only by _old_form
+
+
+@contextlib.contextmanager
+def _old_form():
+    """Every table pass inside runs csrc/quantize.cu's bn_table_kernel. For
+    A/B runs and the card's comparisons (chip_smoke.py --bn-digit-ab); the
+    main path never calls it."""
+    global _OLD_TABLE_FORM
+    saved, _OLD_TABLE_FORM = _OLD_TABLE_FORM, True
+    try:
+        yield
+    finally:
+        _OLD_TABLE_FORM = saved
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_plan(m_rows: int, ld: int, c_live: int, c_out: int, sms: int) -> Optional[BnTablePlan]:
+    return bn_table_plan(m_rows, ld, c_live, c_out, sms) if bn_table_takes(m_rows, ld, c_live, c_out, sms) else None
+
+
+def device_table_plan(x: torch.Tensor, c_live: int, c_out: int) -> Optional[BnTablePlan]:
+    """The Hopper kernel's plan of a table pass over x (a CUDA tensor) on
+    its card, or None where the kernel does not take it (or under
+    _old_form): csrc/quantize.cu's bn_table_kernel runs it then."""
+    if _OLD_TABLE_FORM:
+        return None
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    return _cached_plan(x.numel() // x.shape[-1], x.shape[-1], c_live, c_out, _sms(dev))
+
+
+def bn_table_positions(plan: BnTablePlan) -> np.ndarray:
+    """The channel quad each 4-byte column of the table's shared-memory
+    layout holds (-1: none): quads 0 .. 32F - 1 as they are, then RT
+    replicas of the T tail quads, replica r at column 32F + r T."""
+    pos = np.arange(plan.P // 4)
+    full = 32 * plan.F
+    tail = full + (pos - full) % plan.T if plan.T else pos
+    return np.where(pos < full, pos, np.where(pos < full + plan.RT * plan.T, tail, -1))
+
+
+# (id(codes), P, F, T, RT) -> [a weak reference to codes, the laid-out table]: an entry goes with its table
+_LAYOUTS: dict = {}
+
+
+def bn_table_layout(table: BnActTable, plan: BnTablePlan) -> torch.Tensor:
+    """A site's table as csrc/bn_table_sm90.cu copies it into shared
+    memory: (256, P) int8, column 4i + j the table's channel 4
+    bn_table_positions(plan)[i] + j (zero where none), made once per table
+    and layout and kept while the table lives."""
+    codes = table.codes
+    key = (id(codes), plan.P, plan.F, plan.T, plan.RT)
+    hit = _LAYOUTS.get(key)
+    if hit is None or hit[0]() is not codes:
+        cols = 4 * bn_table_positions(plan)[:, None] + np.arange(4)
+        cols = np.where((cols >= 0) & (cols < codes.shape[1]), cols, codes.shape[1]).reshape(-1)  # past the table: 0
+        padded = torch.cat([codes, codes.new_zeros(256, 1)], 1)
+        laid = padded[:, torch.from_numpy(cols).to(codes.device)].contiguous()
+        hit = [weakref.ref(codes, lambda _, k=key: _LAYOUTS.pop(k, None)), laid]
+        _LAYOUTS[key] = hit
+    return hit[1]
+
+
+def _sm90_lib() -> ctypes.CDLL:
+    lib = _build.load("bn_table_sm90")
+    if not getattr(lib, "_argtypes_set", False):
+        p = ctypes.c_void_p
+        lib.bn_table_sm90_launch.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_int), p]
+        lib.bn_table_sm90_launch.restype = ctypes.c_int
+        lib.bn_table_sm90_plan_ints.restype = ctypes.c_int
+        if lib.bn_table_sm90_plan_ints() != len(BnTablePlan._fields):
+            raise RuntimeError("csrc/bn_table_sm90.cu's Plan does not match BnTablePlan")
+        lib._argtypes_set = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_ints(plan):
+    return (ctypes.c_int * len(plan))(*plan)
 
 
 # The table form of the erf and poly code maps (csrc/act_codes.cuh

@@ -223,12 +223,14 @@ def _lib() -> ctypes.CDLL:
 _INV_S_IMG = float(np.float32(1.0 / S_IMG))  # _linear_q's multiplier, as the f32 the multiply takes
 
 
-def _prep_launch(x: torch.Tensor, q: torch.Tensor) -> None:
+def _prep_launch(x: torch.Tensor, q: torch.Tensor, inv: float = _INV_S_IMG) -> None:
     """One launch of stem_prep_kernel: x (B, H, W, 3) f32 contiguous into q
-    (B, H, W + 4, 4) int8. Counts nothing (the wrapper does)."""
+    (B, H, W + 4, 4) int8, quantized by the multiplier inv (the stem's
+    1 / S_IMG; kernels/digit.py passes the digit net's). Counts nothing
+    (the wrapper does)."""
     b, h, w, _ = x.shape
     with _build.on_device(x.device):
-        err = _lib().stem_prep_launch(x.data_ptr(), q.data_ptr(), b * h, w, _INV_S_IMG,
+        err = _lib().stem_prep_launch(x.data_ptr(), q.data_ptr(), b * h, w, inv,
                                       torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "stem_sm90.cu stem_prep_kernel")
 

@@ -7,8 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
  1. the card's name and power limit; TF32 off for matmul and cuDNN;
  2. build the CUDA kernels from alignq_tpu_torch/csrc (qmatmul.cu,
     qmatmul_sm90.cu, qmatmul_sm90n.cu, quantize.cu, stage_kernel.cu,
-    stage_kernel_sm90.cu, dwconv.cu, stem_sm90.cu, dwconv_sm90.cu: one
-    nvcc each, all started together);
+    stage_kernel_sm90.cu, dwconv.cu, stem_sm90.cu, dwconv_sm90.cu,
+    bn_table_sm90.cu, digit_sm90.cu: one nvcc each, all started together);
     (b) the table form of the act-code map (csrc/act_codes.cuh table_code,
     kernels/quantize.py act_table) against its direct map on the card,
     over all 2^32 f32 bit patterns, for the erf and poly maps at each
@@ -120,14 +120,20 @@ Phases, in order; any failure raises and the script exits non-zero:
     and MobileNet-V2 at full width from seeded random weights: each graph's
     forward at batches 256 and 3 on the card with every K1, depthwise
     (csrc/dwconv.cu) and BN-act (csrc/quantize.cu: the arithmetic form over
-    the f32 buffer and to build the int8 buffer's code tables, the table
-    form over the int8 buffer) launch recorded, and every distinct launch
+    the f32 buffer and to build the int8 buffer's code tables; the table
+    form over the int8 buffer, in csrc/bn_table_sm90.cu) launch recorded,
+    and every distinct launch
     (69 a DenseNet buffer, and 39 table builds over the int8 one; 40 for
     MobileNet-V2; at each batch; K1's streamed 3x3, N blocks, relu'd codes
     and int8 requant among them) held against its plain version on its
     recorded operands, like K1's in phase 3 (requant identical; the table
     form against the arithmetic's plain version, bn_act_codes_plain, on the
-    s, b and map its table was built from); every depthwise launch in the
+    s, b and map its table was built from, and bit for bit quantize.cu's
+    bn_table_kernel, quantize._old_form; the Hopper kernel is launched at
+    every distinct table site too, also where the rule gives the site to
+    bn_table_kernel, and held bit for bit to both; BN_TABLE_SM90_PER_FORWARD
+    (4) of the 39 table launches a forward in the Hopper kernel, the rest in
+    bn_table_kernel); every depthwise launch in the
     form's Hopper kernel (csrc/dwconv_sm90.cu), each distinct one also bit
     for bit csrc/dwconv.cu's (dwconv._old_form); K1's launches in the narrow
     Hopper form counted (NARROW_PER_FORWARD: 30 and 38 of DenseNet-40's 39,
@@ -142,7 +148,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     before and read after; each engine's final stream bit for bit and its
     logits within 1e-5 of the CPU plain path; 39 K1 (37 in the narrow
     form) and 39 BN-act launches a DenseNet forward (table form over the
-    int8 buffer, its 39 tables built once; arithmetic over the f32 one),
+    int8 buffer, 4 under `bn_act_codes:table:sm90` and 35 under
+    `:table:chunked`, its 39 tables built once; arithmetic over the f32
+    one),
     50 K1 (22 in the narrow form) and 17 depthwise a MobileNet one (all
     under `int8_matmul_dequant:dw:sm90`), no tap gathered;
 15. times: each graph's forward at batch 256 (CUDA events, median of
@@ -152,7 +160,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     its bound and the library call of the same product, both
     timed as in phase 9 (torch._int_mm on the gathered taps for K1,
     F.conv2d with groups=C on f32 for the depthwise conv, none for either
-    BN-act form);
+    BN-act form), and each table launch in quantize.cu's bn_table_kernel
+    beside it; the table pass's time over a forward in the rule's forms and
+    in bn_table_kernel alone;
 16. the ImageNet-layout trunks, ResNet-18 and ResNet-50 at 224x224 from
     seeded random weights: the K1 and stem launches of each trunk's
     forward at batches 256 and 3 (erf and poly codes, and A4 bins at batch
@@ -208,10 +218,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     synthetic mnist -> mnistm pair) under cuDNN's deterministic
     algorithms; (c) its INT graph against its fake-quant eval on the target
     test set, at least DA_AGREEMENT_GATE (99.0%) agreement, every K1 launch
-    of the export in the 5x5 form; (d) its artifact served by
-    engine_from_artifact at engine batch 8 (requests of 8 and 3): 2 K1
-    launches of the 5x5 form (counter `int8_matmul_dequant:ks5`, relu'd erf
-    codes) a forward, held to the CPU plain path as in phase 14, and an
+    of the export in the digit kernel (csrc/digit_sm90.cu: each 5x5 conv
+    with its codes and 2x2 max pool); (d) its artifact served by
+    engine_from_artifact at engine batch 8 (requests of 8 and 3): 2
+    launches of the digit kernel (counter `int8_matmul_dequant:ks5_sm90`,
+    relu'd erf codes) a forward, none of K1's 5x5 form, held to the CPU
+    plain path as in phase 14, and an
     engine at batch 256 timed (one-image latency, a backlog's images/s,
     host clock); then the
     trained graph's launches at batches 3, 256 and 2048 each held against
@@ -246,7 +258,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     (c) `python -m torch.distributed.run --nproc_per_node 2 -m
         alignq_tpu_torch.train.cli --mesh 2 --multihost --dist_backend gloo
         --deterministic` on the synthetic set (phase 8(b)'s job: ResNet-20
-        W8A8 int8 deploy_exact poly ADMM, batch 64, 2 epochs), then
+        W8A8 int8 deploy_exact poly ADMM, batch 64, 2 epochs; started
+        first, it trains beside (a) and (b), which time nothing), then
         export_int8 --stage_kernel from rank 0's checkpoint (agreement at
         least 99.0%) and engine_from_artifact serving it, held to the CPU
         plain path; K1 in poly codes mode only, K3, no tap gather;
@@ -289,10 +302,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     launches of one slice-route forward at the serving batch, K3 in its
     Hopper form, its launches those of phase 7's main path; K2: over one
     launch at each act-site size of that batch; K1 on DenseNet-40 and
-    MobileNet-V2, the depthwise kernel and the BN-act kernel's two forms
-    (table on the int8 buffer, arithmetic on the f32 one): over one
-    batch-256 forward of their graph, launches from phase 14 (the
-    depthwise form's Hopper kernel's under its own counter); K1 on
+    MobileNet-V2, the depthwise kernel and the BN-act kernels (the table
+    form on the int8 buffer in its Hopper kernel and in bn_table_kernel,
+    a row each over the launches the rule gives it; the arithmetic form on
+    the f32 one): over one batch-256 forward of their graph, launches from
+    phase 14 (the depthwise form's Hopper kernel's and each table kernel's
+    under its own counter); K1 on
     ResNet-50 and ResNet-18 at 224x224 (both forms; the stem aside) and
     the stem kernel (its time with its prep pass's, over one batch-256
     ResNet-50 forward; its launches over both trunks' served forwards):
@@ -300,9 +315,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     each trunk, its launches over both trunks' served forwards (phase 18);
     K1's narrow Hopper form: over one batch-256 slice-route forward's
     launches in it, its launches those of phase 7's main path;
-    K1's 5x5 form: over one batch-256 digit forward, launches from
-    phase 22's serving, its error the largest of phases 22 and 23's K1
-    checks), the card line, and the final JSON line.
+    the digit kernel (its time with its prep pass's): over one batch-256
+    digit forward, launches from phase 22's serving, its error the largest
+    of phases 22 and 23's checks), the card line, and the final JSON line.
 
 Exits with code 2 and prints no result where CUDA is not available. Writes
 the per-shape details to chiprun_out/chip_smoke.json.
@@ -364,6 +379,20 @@ kernel), and each depthwise launch of a MobileNet-V2 forward at 256 and 8
 order old, new, new, old (graph_ms, cold L2), the outputs bit for bit
 equal; one JSON line, also written to chiprun_out/stem_dw_ab.json.
 
+    python3 chip_smoke.py --bn-digit-ab
+
+times the BN-act table pass's Hopper kernel and the digit kernel against
+the forms they replaced, in one process: each table launch of a DenseNet-40
+stage_int8 forward at batches 256 and 8 in quantize.cu's bn_table_kernel and
+in bn_table_sm90.cu at 8 and 16 work items a warp (ABBA), whichever form the
+rule gives the site, and their sums over the forward (the rule's among
+them); each digit conv at batches 256 and 2048 as the chain (K1's 5x5 form
+and the pool, digit._old_form), as the kernel after its prep pass, and as
+the kernel after _linear_q and a pad in PyTorch, ABBA, and the kernel's
+tile options; the DenseNet-40 stage_int8 forward (at 256 and 8: the rule's
+forms against bn_table_kernel alone) and the digit forward both ways, ABBA; every output bit for bit the old form's. One JSON line, also
+written to chiprun_out/bn_digit_ab.json.
+
     python3 chip_smoke.py --gather-backward-ab
 
 times the data-parallel gather step over two gloo ranks on the card with
@@ -385,6 +414,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -747,11 +777,15 @@ def family_configs():
 
 
 def record_launches(fn):
-    """Run fn with every K1, stem, depthwise and BN-act (both forms) launch
-    recorded: a list of (kind, operands) in launch order; a K1 launch's
-    operands end with the channels of the conv's input as its caller gave
-    them; a stem launch's are (the f32 image, the packed weight, the plan,
-    'codes', the map). The wrappers count as always."""
+    """Run fn with every K1, stem, digit, depthwise and BN-act (both forms)
+    launch recorded: a list of (kind, operands) in launch order; a K1
+    launch's operands end with the channels of the conv's input as its
+    caller gave them; a stem launch's are (the f32 image, the packed
+    weight, the plan, 'codes', the map); a digit launch's (its conv's input
+    as conv_pool takes it: conv 1's f32 image, the packed weight, the plan,
+    the map); a table launch's (the buffer, c_live, the table, the Hopper
+    kernel's plan or None, the map, c_out). The wrappers count as always."""
+    from alignq_tpu_torch.kernels import digit as DSm
     from alignq_tpu_torch.kernels import dwconv as DWm
     from alignq_tpu_torch.kernels import qmatmul as K1
     from alignq_tpu_torch.kernels import quantize as K2
@@ -759,9 +793,9 @@ def record_launches(fn):
 
     rec = []
     saved = (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv, ST._prep_launch,
-             ST._stem_launch)
+             ST._stem_launch, DSm.digit_prep, DSm._digit_launch)
     conv_c = [None]  # the input channels of the conv in flight
-    image = [None]  # the f32 image of the stem in flight
+    image = [None]  # the f32 image of the stem, or of the digit net's conv 1, in flight
 
     def conv(x, op, *a, **kw):
         conv_c[0] = x.shape[-1]
@@ -782,30 +816,40 @@ def record_launches(fn):
         rec.append(("bn", (x, c_live, s, b, act, out.shape[-1])))
         saved[2](x, c_live, s, b, act, out)
 
-    def bn_table(x, c_live, table, out):
-        rec.append(("bn_table", (x, c_live, table, None, table.act, out.shape[-1])))
-        saved[3](x, c_live, table, out)
+    def bn_table(x, c_live, table, out, plan=None):
+        rec.append(("bn_table", (x, c_live, table, plan, table.act, out.shape[-1])))
+        saved[3](x, c_live, table, out, plan)
 
-    def prep(x, q):
+    def prep(x, q, *inv):
         image[0] = x
-        saved[5](x, q)
+        saved[5](x, q, *inv)
 
     def stem(xq, op, act, plan, out):
         rec.append(("stem", (image[0], op, plan, "codes", act)))
         saved[6](xq, op, act, plan, out)
 
+    def digit_prep(x):
+        image[0] = x
+        return saved[7](x)
+
+    def digit(xin, op, act, plan, out):
+        rec.append(("digit", (image[0] if plan.conv == 1 else xin, op, plan, act)))
+        saved[8](xin, op, act, plan, out)
+
     (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv, ST._prep_launch,
-     ST._stem_launch) = k1, dw, bn, bn_table, conv, prep, stem
+     ST._stem_launch, DSm.digit_prep, DSm._digit_launch) = k1, dw, bn, bn_table, conv, prep, stem, digit_prep, digit
     try:
         fn()
     finally:
         (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv, ST._prep_launch,
-         ST._stem_launch) = saved
+         ST._stem_launch, DSm.digit_prep, DSm._digit_launch) = saved
     return rec
 
 
 def launch_key(kind, args):
     """The distinct shape and epilogue of a recorded launch."""
+    if kind == "digit":
+        return (kind, args[2].conv, tuple(args[0].shape), args[3].impl, args[3].relu)
     act = args[4]
     tail = (act.impl, act.relu) if act is not None else ()
     if kind == "K1":
@@ -836,16 +880,19 @@ def check_launch(kind, args):
     operands: (differing elements, elements, max abs difference). int32
     and requant results must be identical; f32 within one ulp and codes
     within one code on at most 1e-6 of the elements (the plain version's
-    float64 evaluation can round twice at an f32 midpoint). The stem kernel
-    and the depthwise Hopper form also against the forms they replaced
-    (the stem's chain under stem._old_form, dwconv.cu under
-    dwconv._old_form), bit for bit."""
+    float64 evaluation can round twice at an f32 midpoint). The stem kernel,
+    the digit kernel, the depthwise Hopper form and the table pass's Hopper
+    kernel also against the forms they replaced (the stem's chain under
+    stem._old_form, the digit conv's under digit._old_form, dwconv.cu under
+    dwconv._old_form, quantize.cu's bn_table_kernel under
+    quantize._old_form), bit for bit."""
     import torch
 
     from alignq_tpu_torch.kernels import dwconv as DWm
     from alignq_tpu_torch.kernels import qmatmul as K1
     from alignq_tpu_torch.kernels import quantize as K2
 
+    from alignq_tpu_torch.kernels import digit as DSm
     from alignq_tpu_torch.kernels import stem as ST
 
     key = launch_key(kind, args)
@@ -874,13 +921,32 @@ def check_launch(kind, args):
         if not torch.equal(got, old):
             raise AssertionError(f"{key}: the stem kernel differs from the chain it replaced in "
                                  f"{int((got != old).sum())} codes")
+    elif kind == "digit":  # the kernel, bit for bit the chain it replaced, and its plain version
+        x, op, plan, act = args
+        got, want = DSm.conv_pool(plan.conv, x, op, act), DSm.digit_reference(plan.conv, x, op, act)
+        with DSm._old_form():
+            old = DSm.conv_pool(plan.conv, x, op, act)
+        if not torch.equal(got, old):
+            raise AssertionError(f"{key}: the digit kernel differs from the chain it replaced in "
+                                 f"{int((got != old).sum())} codes")
     elif kind == "bn":
         x, c_live, sv, bv, act, c_out = args
         got, want = K2.bn_act_codes(x, c_live, sv, bv, act, c_out), K2.bn_act_codes_plain(x, c_live, sv, bv, act, c_out)
-    else:  # the table form, against the arithmetic's plain version on its table's (s, b, map)
+    else:  # the table form, against the arithmetic's plain version on its table's (s, b, map) and the old kernel
         x, c_live, table, _, act, c_out = args
         got = K2.bn_act_codes_table(x, c_live, table, c_out)
         want = K2.bn_act_codes_plain(x, c_live, table.s, table.b, act, c_out)
+        with K2._old_form():
+            old = K2.bn_act_codes_table(x, c_live, table, c_out)
+        hop = torch.empty_like(old)  # the Hopper kernel at the site, whichever form the rule gives it
+        K2._bn_table_launch(x, c_live, table, hop,
+                            K2.bn_table_plan(x.numel() // x.shape[-1], x.shape[-1], c_live, c_out,
+                                             K2._sms(x.device.index or 0)))
+        torch.cuda.synchronize()
+        for form, codes in (("the rule's form", got), ("the Hopper kernel", hop)):
+            if not torch.equal(codes, old):
+                raise AssertionError(f"{key}: {form} differs from bn_table_kernel in "
+                                     f"{int((codes != old).sum())} codes")
     torch.cuda.synchronize()
     if got.dtype == torch.float32:
         diff = f32_mismatches(got, want)
@@ -907,9 +973,13 @@ def time_launch(kind, args):
     either form: none), and the time of the wrapper's pad pass where a K1
     conv's caller gave fewer channels than K1 reads (else None). Both
     BN-act forms are read against the same bound: the live prefix read,
-    the codes written, BN_ACT_OPS an element."""
+    the codes written, BN_ACT_OPS an element. The digit kernel: its ms with
+    conv 1's prep pass (pad_ms that pass's), no library call; its bound the
+    int8 input read (conv 1: the image's 3 channels) and the pooled codes
+    written, against its 2 * M * K * N int8 operations."""
     import torch
 
+    from alignq_tpu_torch.kernels import digit as DSm
     from alignq_tpu_torch.kernels import dwconv as DWm
     from alignq_tpu_torch.kernels import qmatmul as K1
     from alignq_tpu_torch.kernels import quantize as K2
@@ -917,6 +987,20 @@ def time_launch(kind, args):
     from alignq_tpu_torch.kernels import stem as ST
 
     pad_ms = None
+    if kind == "digit":
+        x, op, plan, act = args
+        c = DSm.CONVS[plan.conv]
+        out = torch.empty((plan.B, c.pooled, c.pooled, c.n), device=x.device, dtype=torch.int8)
+        xin = x
+        if plan.conv == 1:
+            xin = DSm.digit_prep(x)
+            pad_ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: ST._prep_launch(x, xin, DSm._INV_S_DIGIT))
+        ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: DSm._digit_launch(xin, op, act, plan, out)) + (pad_ms or 0.0)
+        plain_ms = median_ms(lambda: DSm.digit_reference(plan.conv, x, op, act), runs=PLAIN_RUNS, warmup=0)
+        side = 2 * c.pooled  # the VALID conv's output side: 24 or 8
+        cin = 3 if plan.conv == 1 else c.cin
+        b_ms, b_by = bound(plan.B * c.hw * c.hw * cin + out.numel(), 2 * plan.B * side * side * 25 * cin * c.n)
+        return ms, plain_ms, b_ms, b_by, None, pad_ms
     if kind == "stem":  # the kernel and its prep pass; the bound: the int8 image in, the pooled int16 out
         x, op, plan, _, act = args
         xq = ST.stem_prep(x)
@@ -968,13 +1052,36 @@ def time_launch(kind, args):
             plain_ms = median_ms(lambda: K2.bn_act_codes_plain(x, c_live, sv, bv, act, c_out), runs=PLAIN_RUNS,
                                  warmup=0)
         else:
-            ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: K2._bn_table_launch(x, c_live, sv, out))
+            ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: K2._bn_table_launch(x, c_live, sv, out, bv))
             plain_ms = median_ms(lambda: K2.bn_act_codes_table_plain(x, c_live, sv, c_out), runs=PLAIN_RUNS, warmup=0)
         m = x.numel() // x.shape[-1]
         b_ms, b_by = bound(m * c_live * x.element_size() + 8 * c_live + m * c_out,
                            BN_ACT_OPS.get(act.impl, 4) * m * c_live, PEAK_F32_OPS_PER_S)
         lib_ms = None
     return ms, plain_ms, b_ms, b_by, lib_ms, pad_ms
+
+
+def old_form_ms(kind, args):
+    """The device time (graph_ms, cold L2) of a recorded table or digit
+    launch in the form it replaced: quantize.cu's bn_table_kernel; the
+    digit conv's chain (_linear_q for conv 1, K1's 5x5 form and its pad
+    pass, the pool) under digit._old_form."""
+    import torch
+
+    from alignq_tpu_torch.kernels import digit as DSm
+    from alignq_tpu_torch.kernels import quantize as K2
+
+    if kind == "bn_table":
+        x, c_live, table, _, _, c_out = args
+        out = torch.empty((*x.shape[:-1], c_out), device=x.device, dtype=torch.int8)
+        return graph_ms(runs=LAUNCH_RUNS, fn=lambda: K2._bn_table_launch(x, c_live, table, out, None))
+    x, op, plan, act = args
+
+    def chain():
+        with DSm._old_form():
+            return DSm.conv_pool(plan.conv, x, op, act)
+
+    return graph_ms(runs=LAUNCH_RUNS, fn=chain)
 
 
 def family_kernel_checks(dev, batches=(256, 3)):
@@ -1006,6 +1113,10 @@ def family_kernel_checks(dev, batches=(256, 3)):
             n_by = {k: sum(c for (kk, _), c in launches.values() if kk == k) for k in kinds}
             n_narrow = sum(isinstance(args[2], K1.NarrowPlan) for kind, args in rec if kind == "K1")
             n_dw90 = sum(isinstance(args[2], DWm.DwSm90Plan) for kind, args in rec if kind == "dw")
+            n_tb90 = sum(args[3] is not None for kind, args in rec if kind == "bn_table")
+            if n_by["bn_table"] and n_tb90 != BN_TABLE_SM90_PER_FORWARD:
+                raise AssertionError(f"{label} batch {batch}: {n_tb90} of {n_by['bn_table']} table launches in the "
+                                     f"Hopper kernel, expected {BN_TABLE_SM90_PER_FORWARD}")
             if n_dw90 != n_by["dw"]:
                 raise AssertionError(f"{label} batch {batch}: {n_dw90} of {n_by['dw']} depthwise launches in the "
                                      f"Hopper form, expected all")
@@ -1014,7 +1125,9 @@ def family_kernel_checks(dev, batches=(256, 3)):
                                      f"{NARROW_PER_FORWARD[label.split()[0], batch]}")
             n_diff = sum(counts[f"{label} batch {batch} {k}"] for k in launches)
             print(f"{label} batch {batch}: {len(rec)} launches ({n_by}; K1 {n_narrow} in the narrow form, the "
-                  f"depthwise {n_dw90} in the Hopper form, each distinct one bit for bit dwconv.cu's), "
+                  f"depthwise {n_dw90} in the Hopper form, each distinct one bit for bit dwconv.cu's, the table "
+                  f"pass {n_tb90} in its Hopper kernel, the rest in bn_table_kernel, the Hopper kernel at each "
+                  f"distinct site bit for bit bn_table_kernel's), "
                   f"{len(launches)} distinct, each held against its plain version: {n_diff} differing elements; "
                   f"the {n_pairs} distinct narrow-form launches bit for bit the mma.sync form's", flush=True)
             out[label, batch] = launches
@@ -1086,7 +1199,8 @@ def check_family_launches(label, n, batch=None):
     """The launch counts of a served or exported DenseNet-40 or MobileNet-V2
     (an engine's build and its requests, or an export's evaluation):
     DenseNet 39 K1 and 39 BN-act launches a forward, over the int8 buffer
-    in the table form (its 39 tables built once, by the arithmetic kernel)
+    in the table form's Hopper kernel (its 39 tables built once, by the
+    arithmetic kernel)
     and over the f32 one in the arithmetic form; MobileNet-V2 50 K1 and 17
     depthwise a forward; no tap gather. K1's launches in the narrow Hopper
     form: where every forward ran at `batch`, NARROW_PER_FORWARD's count at
@@ -1106,8 +1220,11 @@ def check_family_launches(label, n, batch=None):
     elif not 0 < n.get(K1.NARROW, 0) < k1:
         raise AssertionError(f"{label}: launches {n}, expected some K1 launches in the narrow form")
     if label.startswith("densenet40 stage_int8"):
-        ok = k1 and k1 % 39 == 0 and n.get(K2.BN_ACT_TABLE) == k1 and n.get(K2.BN_ACT_ARITH) == 39
-        want = "39 K1 and 39 table launches a forward and 39 table builds"
+        ok = k1 and k1 % 39 == 0 and n.get(K2.BN_ACT_TABLE) == k1 and n.get(K2.BN_ACT_ARITH) == 39 and \
+            n.get(K2.BN_ACT_TABLE_SM90, 0) * 39 == k1 * BN_TABLE_SM90_PER_FORWARD and \
+            n.get(K2.BN_ACT_TABLE_CHUNKED, 0) * 39 == k1 * (39 - BN_TABLE_SM90_PER_FORWARD)
+        want = (f"39 K1 and 39 table launches a forward, {BN_TABLE_SM90_PER_FORWARD} in the Hopper kernel, and 39 "
+                f"table builds")
     elif label.startswith("densenet40"):
         ok = k1 and k1 % 39 == 0 and n.get(K2.BN_ACT_ARITH) == k1 and not n.get(K2.BN_ACT_TABLE)
         want = "39 K1 and 39 arithmetic BN-act launches a forward"
@@ -1212,11 +1329,16 @@ def deploy_families(dev, card, repo, details, phase):
             continue
         for key, ((kind, args), count) in launches.items():
             ms, plain_ms, b_ms, b_by, lib_ms, pad_ms = time_launch(kind, args)
-            fam_rows.append(dict(family=label, kind=kind, shape=str(key), launches=count, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, pad_pass_ms=pad_ms))
+            old_ms = old_form_ms(kind, args) if kind == "bn_table" else None
+            form = ("sm90" if args[3] is not None else "chunked") if kind == "bn_table" else None
+            fam_rows.append(dict(family=label, kind=kind, form=form, shape=str(key), launches=count, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                                 pad_pass_ms=pad_ms, old_ms=old_ms))
             print(f"time {label} {key} x{count}: {ms:.4f} ms, plain {plain_ms:.3f}, bound {b_ms:.4f} ({b_by}), "
                   f"library {'none' if lib_ms is None else f'{lib_ms:.4f}'}"
-                  f"{'' if pad_ms is None else f', the pad pass before it {pad_ms:.4f}'} [{card}]", flush=True)
+                  f"{'' if pad_ms is None else f', the pad pass before it {pad_ms:.4f}'}"
+                  f"{'' if form is None else f' (in the {form} form)'}"
+                  f"{'' if old_ms is None else f', bn_table_kernel {old_ms:.4f}'} [{card}]", flush=True)
     details["family_times"] = {"forwards": fam_times, "launches": fam_rows}
     torch.cuda.empty_cache()
 
@@ -1248,6 +1370,10 @@ SM90_PER_FORWARD = {"resnet18": 19, "resnet50": 52}
 # convs and 2 transitions and of MobileNet-V2's narrow 1x1s those the rule
 # gives it at each batch (tests/test_torch_k1_narrow.py holds the rule to
 # these counts)
+# table launches a DenseNet-40 stage_int8 forward in the Hopper kernel
+# (csrc/bn_table_sm90.cu) at every batch: the rule's four sites of at most 64
+# code channels (kernels/quantize.py bn_table_takes); bn_table_kernel the other 35
+BN_TABLE_SM90_PER_FORWARD = 4
 NARROW_PER_FORWARD = {"resnet20 slice": 1, "resnet20 erf": 7, ("densenet40", 256): 30, ("densenet40", 8): 37,
                       ("densenet40", 3): 38, ("mobilenetv2", 256): 11, ("mobilenetv2", 8): 22, ("mobilenetv2", 3): 23}
 NARROW_R20 = {"stage1 conv", "block3 skip"}  # conv_shapes names
@@ -1935,10 +2061,13 @@ def da_card_vs_cpu(dev, case, steps=3):
 
 
 def digit_kernel_checks(qp, dev, card):
-    """The digit graph's K1 launches at batches 3, 256 and 2048 (seeded
-    images in [-1, 1]) recorded, every distinct one held against its plain
-    version; at 256 and 2048 each timed (time_launch). Returns (the time
-    rows, max abs error, differing elements)."""
+    """The digit graph's launches at batches 3, 256 and 2048 (seeded images
+    in [-1, 1]) recorded: two of the digit kernel (csrc/digit_sm90.cu, conv
+    1 and conv 2, each with its codes and pool) and no K1, every distinct
+    one held against its plain version and bit for bit against the chain
+    it replaced; at 256 and 2048 each timed (time_launch) beside the
+    chain's time. Returns (the time rows, max abs error, differing
+    elements)."""
     import torch
 
     from alignq_tpu_torch.kernels import infer_digit as DG
@@ -1950,23 +2079,26 @@ def digit_kernel_checks(qp, dev, card):
         with torch.inference_mode():
             rec = record_launches(lambda: DG.mnist_dann_int8_forward(qp, x, operands=ops))
         launches = distinct_launches(rec)
-        if len(rec) != 2 or any(k[3] != 5 for k in launches):
-            raise AssertionError(f"digit forward batch {batch}: launches {list(launches)}, expected two 5x5 ones")
+        if [kind for kind, _ in rec] != ["digit", "digit"] or [args[2].conv for _, args in rec] != [1, 2]:
+            raise AssertionError(f"digit forward batch {batch}: launches {list(launches)}, expected the digit "
+                                 f"kernel's conv 1 and conv 2")
         for key, ((kind, args), count) in launches.items():
             diff, _, e = check_launch(kind, args)
             err, n_diff = max(err, e), n_diff + diff
             if batch not in DIGIT_TIME_BATCHES:
                 continue
             t_ms, plain_ms, b_ms, b_by, lib_ms, pad_ms = time_launch(kind, args)
-            plan, op, xc = args[2], args[1], args[5]
-            rows.append(dict(family="digit_dann", batch=batch, shape=str(key), M=plan.B * plan.Ho * plan.Wo,
-                             K=25 * xc, N=op.n, tile=f"{plan.TR}x{plan.TW}", launches=count, ms=t_ms,
-                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, pad_pass_ms=pad_ms))
-            print(f"time digit K1 5x5 {key} batch {batch} (tile {plan.TR}x{plan.TW}): {t_ms:.4f} ms, plain "
-                  f"{plain_ms:.3f}, bound {b_ms:.4f} ({b_by}), torch._int_mm {lib_ms:.4f}"
-                  f"{'' if pad_ms is None else f', the pad pass before it {pad_ms:.4f}'} [{card}]", flush=True)
-        print(f"digit forward batch {batch}: 2 K1 launches of the 5x5 form, each held against its plain version: "
-              f"{n_diff} differing elements so far", flush=True)
+            old_ms = old_form_ms(kind, args)
+            plan = args[2]
+            rows.append(dict(family="digit_dann", batch=batch, shape=str(key), conv=plan.conv, tile=plan.IMG,
+                             warpgroups=plan.n_wg, launches=count, ms=t_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib_ms, pad_pass_ms=pad_ms, old_ms=old_ms))
+            print(f"time digit conv{plan.conv} {key} batch {batch} (tiles of {plan.IMG} images, {plan.n_wg} "
+                  f"warpgroups): {t_ms:.4f} ms{'' if pad_ms is None else f' with its prep pass {pad_ms:.4f}'}, "
+                  f"the chain it replaced {old_ms:.4f}, plain {plain_ms:.3f}, bound {b_ms:.4f} ({b_by}) [{card}]",
+                  flush=True)
+        print(f"digit forward batch {batch}: 2 launches of the digit kernel, each held against its plain version "
+              f"and the chain: {n_diff} differing elements so far", flush=True)
     return rows, err, n_diff
 
 
@@ -1974,13 +2106,14 @@ def da_digit(dev, card, repo, details, phase):
     """Phase 22, the digit DANN: (b) trained at full width through
     export_da_int8 under cuDNN's deterministic algorithms, (c) its INT
     graph gated against its fake-quant eval, (d) its artifact served on the
-    card (2 launches of K1's 5x5 form a forward) and held to the CPU plain
-    path; then its K1 launches checked and timed. Returns (time rows,
-    K1's max abs error, the served launches and error)."""
+    card (2 launches of the digit kernel a forward) and held to the CPU
+    plain path; then its launches checked and timed. Returns (time rows,
+    their max abs error, the served launches and error)."""
     import torch
 
     from alignq_tpu_torch import export_da_int8
     from alignq_tpu_torch.kernels import _build
+    from alignq_tpu_torch.kernels import digit as DSm
     from alignq_tpu_torch.kernels import infer_digit as DG
     from alignq_tpu_torch.kernels import qmatmul as K1
 
@@ -2000,9 +2133,10 @@ def da_digit(dev, card, repo, details, phase):
           f"prediction agreement {rep['agreement']:.2f}% (gate {DA_AGREEMENT_GATE}), disagreeing margins "
           f"{rep['disagree_margins']}, median margin {rep['median_margin']:.4g}, logit gap max "
           f"{rep['max_logit_gap']:.4g} median {rep['median_logit_gap']:.4g}; launches {n} [{card}]", flush=True)
-    ks5 = n.get(K1.FORM.format(5), 0)
-    if not (ks5 and ks5 % 2 == 0 and n.get(K1.KERNEL) == ks5 and not n.get(K1.TAP_GATHERS, 0)):
-        raise AssertionError(f"DA (c): launches {n}: expected K1 in its 5x5 form only, two a forward, no tap gather")
+    ks5 = n.get(DSm.DIGIT, 0)
+    if not (ks5 and ks5 % 2 == 0 and n.get(K1.KERNEL) == ks5 and not n.get(K1.FORM.format(5), 0) and
+            not n.get(K1.TAP_GATHERS, 0)):
+        raise AssertionError(f"DA (c): launches {n}: expected the digit kernel only, two a forward, no tap gather")
     if rep["agreement"] < DA_AGREEMENT_GATE:
         raise AssertionError(f"DA (c): prediction agreement {rep['agreement']:.2f}% is below {DA_AGREEMENT_GATE}%")
     out = {k: rep[k] for k in ("fq_top1", "int_top1", "delta", "agreement", "disagree_margins", "median_margin",
@@ -2015,13 +2149,14 @@ def da_digit(dev, card, repo, details, phase):
     served = serve_artifact("digit_dann", art, DG.mnist_dann_int8_codes, dev, reqs)
     n = served["launches"]
     # the engine's warm-up forward and the two requests' batches
-    if not (n.get(K1.FORM.format(5)) == 2 * 3 == n.get(K1.KERNEL) and n.get(K1.MODE.format("erf")) == 6):
-        raise AssertionError(f"serving digit_dann: launches {n}, expected 2 K1 launches of the 5x5 form (erf codes) "
-                             "a forward over 3 forwards")
+    if not (n.get(DSm.DIGIT) == 2 * 3 == n.get(K1.KERNEL) == n.get(K1.MODE.format("erf")) and
+            n.get(DSm.PREP) == 3 and not n.get(K1.FORM.format(5), 0)):
+        raise AssertionError(f"serving digit_dann: launches {n}, expected 2 launches of the digit kernel (erf codes) "
+                             "and one prep pass a forward over 3 forwards, none of K1's 5x5 form")
     out["serving"] = served
     out["serving_times"] = engine_times(art, dev, SERVE_BATCH, card, "digit_dann")
 
-    phase("DA: the digit DANN's K1 launches against their plain version, and times")
+    phase("DA: the digit DANN's launches against their plain version and the chain, and times")
     qp = rep["qparams"]
     rows, err, n_diff = digit_kernel_checks(qp, dev, card)
     with torch.inference_mode():
@@ -2500,6 +2635,35 @@ def dp_phase(dev, card, repo, details, phase):
     ranks on one card, so the cross-rank equalities run two gloo ranks
     sharing it; NCCL runs at world size 1, which still runs every
     wrapper."""
+    from alignq_tpu_torch.entry import free_port
+
+    out = {}
+    out_dir = repo / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="alignq_dp_"))  # the ranks' states and the job: too large to bring back
+
+    # (c)'s torchrun job starts first and trains beside (a) and (b): host-bound
+    # ranks on their own cores; (a) and (b) time nothing
+    job = tmp / "dp_job"
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    job_log = open(out_dir / "dp_job.log", "w")
+    t0 = time.perf_counter()
+    torchrun = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+                                 "--master_addr", "127.0.0.1", "--master_port", str(free_port()), "-m",
+                                 "alignq_tpu_torch.train.cli", "--mesh", "2", "--multihost", "--dist_backend", "gloo",
+                                 *DP_JOB_ARGS, "--job_dir", str(job)], env=env, stdout=job_log,
+                                stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        _dp_checks(dev, card, repo, details, phase, out, tmp, torchrun, t0, job)
+    finally:
+        if torchrun.poll() is None:  # a check failed first: the job and its ranks stop with the run
+            os.killpg(torchrun.pid, signal.SIGKILL)
+            torchrun.wait()
+        job_log.close()
+
+
+def _dp_checks(dev, card, repo, details, phase, out, tmp, torchrun, t0, job):
+    """dp_phase's checks, (a) to (e), with (c)'s torchrun job running."""
     import dataclasses
 
     import numpy as np
@@ -2520,10 +2684,7 @@ def dp_phase(dev, card, repo, details, phase):
     from alignq_tpu_torch.kernels.infer import resnet20_int8_stream
     from alignq_tpu_torch.train import make_train_step
 
-    out = {}
     out_dir = repo / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="alignq_dp_"))  # the ranks' states and the job: too large to bring back
 
     # (a) NCCL at world size 1 on the card
     phase("data parallel (a): NCCL at world size 1, float64 steps against the plain step")
@@ -2585,18 +2746,11 @@ def dp_phase(dev, card, repo, details, phase):
 
     # (c) torchrun: the training CLI over two ranks, export, serve
     phase("data parallel (c): torchrun of the training CLI over 2 gloo ranks, export, serve through K1/K3")
-    job = tmp / "dp_job"
-    env = {**os.environ, "PYTHONPATH": str(repo)}
-    port = str(free_port())
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2", "--master_addr",
-                           "127.0.0.1", "--master_port", port, "-m", "alignq_tpu_torch.train.cli", "--mesh", "2",
-                           "--multihost", "--dist_backend", "gloo", *DP_JOB_ARGS, "--job_dir", str(job)], env=env,
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=900)
+    rc = torchrun.wait(timeout=900)
     train_s = time.perf_counter() - t0
-    (out_dir / "dp_job.log").write_text(proc.stdout)
-    if proc.returncode != 0:
-        raise AssertionError(f"data parallel (c): torchrun exited {proc.returncode}:\n{proc.stdout[-4000:]}")
+    if rc != 0:
+        raise AssertionError(f"data parallel (c): torchrun exited {rc}:\n"
+                             f"{(out_dir / 'dp_job.log').read_text()[-4000:]}")
     losses = [json.loads(line)["loss"] for line in (job / "run" / "train.jsonl").read_text().splitlines()]
     if len(losses) != 64 or not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"data parallel (c): {len(losses)} steps, losses {losses[:2]} ... {losses[-2:]}")
@@ -2613,7 +2767,7 @@ def dp_phase(dev, card, repo, details, phase):
     torch.cuda.synchronize()
     export_launches = {k: v for k, v in _build.launches.items() if v}
     print(f"data parallel (c) torchrun --nproc_per_node 2 of train.cli --mesh 2 --multihost (gloo, one card): "
-          f"{len(losses)} steps in {train_s:.1f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; export from rank 0's "
+          f"{len(losses)} steps in {train_s:.1f} s (beside (a) and (b)), loss {losses[0]:.4f} -> {losses[-1]:.4f}; export from rank 0's "
           f"checkpoint: fake-quant top-1 {rep['fq_top1']:.2f}, INT top-1 {rep['int_top1']:.2f}, prediction "
           f"agreement {rep['agreement']:.2f}%; launches {export_launches}", flush=True)
     if rep["state"].step != 64 or rep["agreement"] < 99.0:
@@ -3526,6 +3680,155 @@ def stem_dw_ab(card) -> None:
     print(json.dumps(res))
 
 
+DIGIT_AB_OPTIONS = {1: ((1, 3), (2, 3), (4, 4), (1, 1)), 2: ((2, 2), (1, 1), (4, 4))}  # (images, warpgroups)
+
+
+def bn_digit_ab(card) -> None:
+    """python3 chip_smoke.py --bn-digit-ab: the table pass's Hopper kernel
+    and the digit kernel against the forms they replaced, in one process.
+    Each table launch of a DenseNet-40 stage_int8 forward at batches 256
+    and 8 in bn_table_kernel and in the Hopper kernel at each batch of
+    work items (quantize.BN_TABLE_ITEMS), in the order old, the options,
+    the options backwards, old, outputs equal, and the sums over
+    the forward; each digit conv of a forward at batches 256 and 2048 as
+    the chain (digit._old_form), as the kernel after its prep pass and as
+    the kernel after _linear_q and a pad in PyTorch, ABBA, and each tile
+    option (DIGIT_AB_OPTIONS, two CTAs an SM); then the DenseNet-40
+    stage_int8 forward at 256 and 8 and the digit forward at 256 and 2048
+    both ways (median_ms, ABBA). One JSON line, also written to
+    chiprun_out/bn_digit_ab.json."""
+    import torch
+    import torch.nn.functional as F
+
+    from alignq_tpu_torch.kernels import digit as DSm
+    from alignq_tpu_torch.kernels import infer_densenet as D
+    from alignq_tpu_torch.kernels import infer_digit as DG
+    from alignq_tpu_torch.kernels import quantize as K2
+    from alignq_tpu_torch.kernels.infer import _linear_q
+    from alignq_tpu_torch.kernels.infer_digit import convert_mnist_dann
+    from alignq_tpu_torch.interop import init_mnist_dann_params
+
+    dev = torch.device("cuda")
+    sms = K2._sms(torch.cuda.current_device())
+    res = {"card": card, "bn_table": {}, "digit": {}, "forwards": {}}
+    for batch in (SERVE_BATCH, FAMILY_SERVE_BATCH):
+        _, (qp, x) = D.build_densenet40_int8(batch, device=dev, stage_int8=True)
+        ops = D.pack_densenet40_operands(qp, stage_int8=True)
+        with torch.inference_mode():
+            rec = record_launches(lambda: D.densenet40_int8_forward(qp, x, operands=ops, stage_int8=True))
+        rows, sums = [], {}
+        for kind, args in rec:
+            if kind != "bn_table":
+                continue
+            xx, c_live, table, plan, _, c_out = args
+            m, ld = xx.numel() // xx.shape[-1], xx.shape[-1]
+            forms = {"old": None, **{f"items {u}": K2.bn_table_plan(m, ld, c_live, c_out, sms, items=u)
+                                     for u in K2.BN_TABLE_ITEMS}}
+            out = {k: torch.empty((*xx.shape[:-1], c_out), device=dev, dtype=torch.int8) for k in forms}
+            for k, p_ in forms.items():
+                K2._bn_table_launch(xx, c_live, table, out[k], p_)
+            torch.cuda.synchronize()
+            for k in forms:
+                if not torch.equal(out[k], out["old"]):
+                    raise AssertionError(f"bn-digit-ab: the table pass in form {k} differs from bn_table_kernel at "
+                                         f"c_live {c_live}, pitch {ld}")
+            order = list(forms) + list(forms)[::-1]
+            t = [graph_ms(lambda k_=k: K2._bn_table_launch(xx, c_live, table, out[k_], forms[k_])) for k in order]
+            r = {k: (t[order.index(k)] + t[len(order) - 1 - order.index(k)]) / 2 for k in forms}
+            hop = forms[f"items {K2.bn_table_plan(m, ld, c_live, c_out, sms).U}"]  # the Hopper kernel's own choice
+            r.update(c_live=c_live, ld=ld, c_out=c_out, rows=m, rule="old" if plan is None else f"items {plan.U}",
+                     R=hop.R, ctas=hop.ctas, runs=t)
+            rows.append(r)
+            for k in (*forms, "rule"):
+                sums[k] = sums.get(k, 0.0) + r[r["rule"] if k == "rule" else k]
+            print(f"bn-digit-ab: table pass c_live {c_live} pitch {ld} ({m} rows) at batch {batch}: "
+                  + ", ".join(f"{k} {r[k]:.4f}" for k in forms) + f" ms (rule: {r['rule']}) [{card}]", flush=True)
+        res["bn_table"][batch] = {"launches": rows, "sums": sums}
+        print(f"bn-digit-ab: the table pass over a DenseNet-40 stage_int8 forward at batch {batch} ({len(rows)} "
+              f"launches): " + ", ".join(f"{k} {v:.4f}" for k, v in sums.items()) + f" ms [{card}]", flush=True)
+        def fwd():
+            return D.densenet40_int8_forward(qp, x, operands=ops, stage_int8=True)
+
+        def fwd_old():
+            with K2._old_form():
+                return fwd()
+
+        with torch.inference_mode():
+            t = [median_ms(f) for f in (fwd_old, fwd, fwd, fwd_old)]
+        res["forwards"][f"densenet40 stage_int8 batch {batch}"] = {"old_ms": (t[0] + t[3]) / 2,
+                                                                  "new_ms": (t[1] + t[2]) / 2, "runs": t}
+        print(f"bn-digit-ab: DenseNet-40 stage_int8 forward at batch {batch}: bn_table_kernel {(t[0] + t[3]) / 2:.4f}"
+              f" ms, the rule's forms {(t[1] + t[2]) / 2:.4f} ms [{card}]", flush=True)
+        del qp, x, ops, rec
+    params, stats = init_mnist_dann_params(torch.Generator().manual_seed(SEED), "cpu")
+    qp = to_device(convert_mnist_dann(params, stats), dev)
+    dops = DG.pack_mnist_dann_operands(qp)
+    for batch in DIGIT_TIME_BATCHES:
+        x = torch.rand((batch, 28, 28, 3), generator=torch.Generator().manual_seed(batch)).to(dev) * 2 - 1
+        with torch.inference_mode():
+            rec = record_launches(lambda: DG.mnist_dann_int8_forward(qp, x, operands=dops))
+        entry = {}
+        for kind, (xin, op, plan, act) in rec:
+            conv = plan.conv
+            c = DSm.CONVS[conv]
+            out = torch.empty((batch, c.pooled, c.pooled, c.n), device=dev, dtype=torch.int8)
+
+            def chain(xin=xin, op=op, act=act, conv=conv):
+                with DSm._old_form():
+                    return DSm.conv_pool(conv, xin, op, act)
+
+            def new(xin=xin, op=op, act=act, conv=conv):
+                return DSm.conv_pool(conv, xin, op, act)
+
+            def glue(xin=xin, op=op, act=act, plan=plan, out=out):  # _linear_q and a pad in PyTorch
+                DSm._digit_launch(F.pad(_linear_q(xin, DSm.S_DIGIT), (0, 1, 3, 1)), op, act, plan, out)
+
+            want = chain()
+            if not torch.equal(new(), want):
+                raise AssertionError(f"bn-digit-ab: the digit kernel differs from the chain, conv {conv}")
+            fns = {"chain": chain, "kernel": new}
+            if conv == 1:
+                glue()
+                if not torch.equal(out, want):
+                    raise AssertionError("bn-digit-ab: the digit kernel after PyTorch's prep differs from the chain")
+                fns["kernel, prep in PyTorch"] = glue
+            order = list(fns) + list(fns)[::-1]
+            t = [graph_ms(fns[k]) for k in order]
+            r = {k: (t[order.index(k)] + t[len(order) - 1 - order.index(k)]) / 2 for k in fns}
+            xk = DSm.digit_prep(xin) if conv == 1 else xin
+            opts = {}
+            for img, wg in DIGIT_AB_OPTIONS[conv]:
+                p_ = DSm.digit_plan(conv, batch, sms, img, wg)
+                DSm._digit_launch(xk, op, act, p_, out)
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise AssertionError(f"bn-digit-ab: the digit kernel's option {img}x{wg} differs, conv {conv}")
+                opts[f"{img} images, {wg} warpgroups"] = graph_ms(lambda p_=p_: DSm._digit_launch(xk, op, act, p_, out))
+            r.update(runs=t, options=opts, rule=f"{plan.IMG} images, {plan.n_wg} warpgroups")
+            entry[f"conv{conv}"] = r
+            print(f"bn-digit-ab: digit conv{conv} at batch {batch}: " + ", ".join(f"{k} {r[k]:.4f}" for k in fns)
+                  + " ms; the kernel's options " + ", ".join(f"{k} {v:.4f}" for k, v in opts.items())
+                  + f" (rule {r['rule']}) [{card}]", flush=True)
+        res["digit"][batch] = entry
+
+        def dfwd():
+            return DG.mnist_dann_int8_forward(qp, x, operands=dops)
+
+        def dfwd_old():
+            with DSm._old_form():
+                return dfwd()
+
+        with torch.inference_mode():
+            t = [median_ms(f) for f in (dfwd_old, dfwd, dfwd, dfwd_old)]
+        res["forwards"][f"digit batch {batch}"] = {"old_ms": (t[0] + t[3]) / 2, "new_ms": (t[1] + t[2]) / 2, "runs": t}
+        print(f"bn-digit-ab: digit forward at batch {batch}: the chain {(t[0] + t[3]) / 2:.4f} ms, the kernel "
+              f"{(t[1] + t[2]) / 2:.4f} ms [{card}]", flush=True)
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "bn_digit_ab.json").write_text(json.dumps(res, indent=1))
+    print(json.dumps(res))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3540,6 +3843,7 @@ def main() -> int:
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
     from alignq_tpu_torch.kernels import _build
+    from alignq_tpu_torch.kernels import digit as DSm
     from alignq_tpu_torch.kernels import dwconv as DWm
     from alignq_tpu_torch.kernels import qmatmul as K1
     from alignq_tpu_torch.kernels import quantize as K2
@@ -3600,6 +3904,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--stem-dw-ab"]:
         stem_dw_ab(card)
+        return 0
+    if sys.argv[1:] == ["--bn-digit-ab"]:
+        bn_digit_ab(card)
         return 0
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -4065,9 +4372,10 @@ def main() -> int:
                 "max_abs_err": err, **per_forward[SERVE_BATCH][kname]}
                for kname, src, replaces, err, launches in meta]
 
-    def family_sum(label, kind):
-        """One batch-256 forward of a family's launches of one kernel."""
-        r = [x for x in fam_rows if x["family"] == label and x["kind"] == kind]
+    def family_sum(label, kind, form=None):
+        """One batch-256 forward of a family's launches of one kernel (of
+        one form of the table pass, where form is given)."""
+        r = [x for x in fam_rows if x["family"] == label and x["kind"] == kind and form in (None, x["form"])]
         lib = [x["library_ms"] for x in r]
         t_bytes = sum(x["bound_ms"] * x["launches"] for x in r if x["bound_by"] == "bytes")
         t_ops = sum(x["bound_ms"] * x["launches"] for x in r if x["bound_by"] == "operations")
@@ -4075,22 +4383,32 @@ def main() -> int:
                 "bound_ms": t_bytes + t_ops, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None if None in lib else sum(x["library_ms"] * x["launches"] for x in r)}
 
-    for kname, src, replaces, label, kind, counter in (
+    for kname, src, replaces, label, kind, form, counter in (
         (K1.KERNEL + "@densenet40", "alignq_tpu_torch/csrc/qmatmul.cu", "alignq_tpu/kernels/qmatmul.py:45",
-         "densenet40 stage_int8", "K1", K1.KERNEL),
+         "densenet40 stage_int8", "K1", None, K1.KERNEL),
         (K1.KERNEL + "@mobilenetv2", "alignq_tpu_torch/csrc/qmatmul.cu", "alignq_tpu/kernels/qmatmul.py:45",
-         "mobilenetv2", "K1", K1.KERNEL),
+         "mobilenetv2", "K1", None, K1.KERNEL),
         (DWm.DW_SM90, "alignq_tpu_torch/csrc/dwconv_sm90.cu", "alignq_tpu/kernels/infer_mobilenet.py:39", "mobilenetv2",
-         "dw", DWm.DW_SM90),
-        (K2.BN_ACT_TABLE, "alignq_tpu_torch/csrc/quantize.cu", "alignq_tpu/kernels/infer_densenet.py:125",
-         "densenet40 stage_int8", "bn_table", K2.BN_ACT_TABLE),
+         "dw", None, DWm.DW_SM90),
+        (K2.BN_ACT_TABLE_SM90, "alignq_tpu_torch/csrc/bn_table_sm90.cu", "alignq_tpu/kernels/infer_densenet.py:125",
+         "densenet40 stage_int8", "bn_table", "sm90", K2.BN_ACT_TABLE_SM90),
+        (K2.BN_ACT_TABLE_CHUNKED, "alignq_tpu_torch/csrc/quantize.cu", "alignq_tpu/kernels/infer_densenet.py:125",
+         "densenet40 stage_int8", "bn_table", "chunked", K2.BN_ACT_TABLE_CHUNKED),
         (K2.BN_ACT_ARITH, "alignq_tpu_torch/csrc/quantize.cu", "alignq_tpu/kernels/infer_densenet.py:125",
-         "densenet40 f32", "bn", K2.BN_ACT_ARITH),
+         "densenet40 f32", "bn", None, K2.BN_ACT_ARITH),
     ):
         kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": fam_serving[label]["launches"].get(counter, 0), "max_abs_err": fam_err[kind],
-                        **family_sum(label, kind)})
+                        **family_sum(label, kind, form)})
         print(f"{kname} over one batch-{SERVE_BATCH} {label} forward: {json.dumps(kernels[-1])} [{card}]", flush=True)
+    tb = [x for x in fam_rows if x["kind"] == "bn_table"]
+    tb90 = [x for x in tb if x["form"] == "sm90"]
+    print(f"the table pass over one batch-{SERVE_BATCH} densenet40 stage_int8 forward ({sum(x['launches'] for x in tb)} "
+          f"launches): {sum(x['ms'] * x['launches'] for x in tb):.4f} ms in the rule's forms "
+          f"({sum(x['launches'] for x in tb90)} in the Hopper kernel: {sum(x['ms'] * x['launches'] for x in tb90):.4f}"
+          f" ms, bn_table_kernel {sum(x['old_ms'] * x['launches'] for x in tb90):.4f} ms at the same sites), "
+          f"{sum(x['old_ms'] * x['launches'] for x in tb):.4f} ms all in bn_table_kernel [{card}]", flush=True)
+
     def trunk_sum(rows_):
         """One batch-256 forward's launches of the rows given (no library
         time where a row has none)."""
@@ -4128,13 +4446,14 @@ def main() -> int:
                     "max_abs_err": sm90_err, **trunk_sum([x for x in trunk_rows if x["form"] == "sm90"])})
     print(f"{kernels[-1]['name']} over one batch-{SERVE_BATCH} {TRUNK_SIZE}x{TRUNK_SIZE} forward of each trunk: "
           f"{json.dumps(kernels[-1])} [{card}]", flush=True)
+    # the digit kernel (its time with conv 1's prep pass): its launches over the served digit forwards
     r5 = [x for x in digit_rows if x["batch"] == SERVE_BATCH]
-    kernels.append({"name": K1.KERNEL + ":5x5@digit_dann", "route": "cuda",
-                    "source": "alignq_tpu_torch/csrc/qmatmul.cu", "replaces": "alignq_tpu/kernels/qmatmul.py:45",
-                    "launches": digit_served["launches"].get(K1.FORM.format(5), 0),
+    kernels.append({"name": DSm.DIGIT + "@digit_dann", "route": "cuda",
+                    "source": "alignq_tpu_torch/csrc/digit_sm90.cu", "replaces": "alignq_tpu/kernels/qmatmul.py:45",
+                    "launches": digit_served["launches"].get(DSm.DIGIT, 0),
                     "max_abs_err": max(digit_err, da_trunk_err), **trunk_sum(r5)})
-    print(f"{kernels[-1]['name']} over one batch-{SERVE_BATCH} digit forward: {json.dumps(kernels[-1])} [{card}]",
-          flush=True)
+    print(f"{kernels[-1]['name']} over one batch-{SERVE_BATCH} digit forward: {json.dumps(kernels[-1])}; the chain it "
+          f"replaced {sum(x['old_ms'] * x['launches'] for x in r5):.4f} ms [{card}]", flush=True)
     out_dir = repo / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))

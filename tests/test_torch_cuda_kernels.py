@@ -778,6 +778,101 @@ def test_bn_act_table_vs_plain_at_stage_shapes(cuda, batch):
         assert torch.equal(got, K2.bn_act_codes_plain(x, c_live, s, b, act, -(-c_live // 16) * 16))
 
 
+# DenseNet-40's 39 int8-buffer sites: (rows of a batch-1 buffer, c_live, pitch, c_out)
+_DN40_SITES = [((32 >> blk) ** 2, c0 + 12 * i, ld, (c0 + 12 * i) if c0 + 12 * i == 456 else -(-(c0 + 12 * i) // 16) * 16)
+               for blk, (c0, ld) in enumerate(((24, 168), (168, 312), (312, 456))) for i in range(13)]
+
+
+@pytest.mark.parametrize("batch", [3, 8])
+def test_bn_table_sm90_vs_old_form_and_plain(cuda, batch):
+    """The table pass's Hopper kernel (csrc/bn_table_sm90.cu) at every
+    DenseNet-40 site, at each batch of work items a warp, bit for bit
+    quantize.cu's bn_table_kernel (quantize._old_form) and the plain
+    version; each launch counted under its own key (the rule's form:
+    the Hopper kernel at c_out <= 64, bn_table_kernel past it)."""
+    rng = np.random.RandomState(batch)
+    act = act_map("erf", 127, cuda, relu=True)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for rows, c_live, ld, c_out in _DN40_SITES:
+        m = batch * rows
+        x = _i8(rng, (m, ld), -128, 128).to(cuda)
+        s = torch.from_numpy((rng.rand(c_live) * 0.05 - 0.01).astype(np.float32)).to(cuda)
+        b = torch.from_numpy((rng.randn(c_live) * 0.5).astype(np.float32)).to(cuda)
+        table = K2.bn_act_table(s, b, act)
+        before = (_build.launches[K2.BN_ACT_TABLE_SM90], _build.launches[K2.BN_ACT_TABLE_CHUNKED])
+        got = K2.bn_act_codes_table(x, c_live, table, c_out)
+        with K2._old_form():
+            old = K2.bn_act_codes_table(x, c_live, table, c_out)
+        torch.cuda.synchronize()
+        taken = c_out <= K2.BN_TABLE_MAX_C_OUT
+        assert (_build.launches[K2.BN_ACT_TABLE_SM90], _build.launches[K2.BN_ACT_TABLE_CHUNKED]) == \
+            (before[0] + taken, before[1] + 2 - taken)
+        assert torch.equal(got, old) and torch.equal(got, K2.bn_act_codes_plain(x, c_live, s, b, act, c_out))
+        for items in K2.BN_TABLE_ITEMS:
+            out = torch.empty_like(got)
+            K2._bn_table_launch(x, c_live, table, out, K2.bn_table_plan(m, ld, c_live, c_out, sms, items=items))
+            torch.cuda.synchronize()
+            assert torch.equal(out, old), (c_live, ld, items)
+
+
+def _digit_operands(rng, conv, b, windows=None):
+    """A digit conv's input (conv 1: f32 images in [-1, 1]; conv 2: relu'd
+    codes) and a weight whose codes span the relu; windows: the map whose
+    non-monotone windows the pooled h are steered into (faint inputs,
+    scales of 2^-24 or 2^-26, biases at the map's irregular steps)."""
+    from alignq_tpu_torch.kernels.quantize import act_table_steps
+
+    cin, n = (3, 32) if conv == 1 else (32, 48)
+    if conv == 1:
+        x = (rng.uniform(-1, 1, (b, 28, 28, 3)) * (0.03 if windows else 1.0)).astype(np.float32)
+    else:
+        x = rng.randint(0, 3 if windows else 128, (b, 12, 12, 32)).astype(np.int8)
+    k = rng.randint(-127, 128, (5, 5, cin, n)).astype(np.int8)
+    sign = rng.choice([-1, 1], n)
+    if windows:
+        wa, wz = act_table_steps(windows, 127)
+        irregular = np.nonzero((wz >= wa) & (np.arange(len(wa)) >= 127))[0]
+        scale = np.float32(2.0 ** (-24 if conv == 1 else -26)) * sign
+        bias = wa[irregular[np.arange(n) % len(irregular)]]
+    else:
+        scale = rng.uniform(0.5, 2.0, n) * sign / (127 * np.sqrt(25 * cin) * (1 if conv == 1 else 64))
+        bias = rng.uniform(-1, 1, n)
+    return (torch.from_numpy(x), pack_conv_weights(torch.from_numpy(k), torch.from_numpy(scale.astype(np.float32)),
+                                                   torch.from_numpy(bias.astype(np.float32))))
+
+
+@pytest.mark.parametrize("conv", [1, 2])
+@pytest.mark.parametrize("b,impl,g,windows", [
+    (1, "erf", 127, None), (3, "poly", 127, None), (3, "bins", 7, None), (256, "erf", 127, None),
+    (257, "poly", 127, None), (64, "erf", 127, "erf"), (64, "poly", 127, "poly")])
+def test_digit_kernel_vs_chain(cuda, conv, b, impl, g, windows):
+    """The digit kernel (csrc/digit_sm90.cu; conv 1 after its prep pass)
+    against the chain it replaced (K1's 5x5 form and the pool,
+    digit._old_form) and the CPU's plain chain, bit for bit; with the
+    pooled h steered into the map's windows too; at each of the kernel's
+    tile options. One launch under its counter."""
+    from alignq_tpu_torch.kernels import digit
+
+    x, op = _digit_operands(np.random.RandomState(b + conv + g), conv, b, windows)
+    act = act_map(impl, g, cuda, relu=True)
+    xg, opg = x.to(cuda), op._replace(wt=op.wt.to(cuda), scale=op.scale.to(cuda), bias=op.bias.to(cuda))
+    before = (_build.launches[digit.DIGIT], _build.launches[digit.PREP])
+    got = digit.conv_pool(conv, xg, opg, act)
+    torch.cuda.synchronize()
+    assert (_build.launches[digit.DIGIT], _build.launches[digit.PREP]) == (before[0] + 1, before[1] + (conv == 1))
+    with digit._old_form():
+        old = digit.conv_pool(conv, xg, opg, act)
+    assert got.dtype == torch.int8 and torch.equal(got, old)
+    assert torch.equal(got.cpu(), digit.conv_pool(conv, x, op, act_map(impl, g, torch.device("cpu"), relu=True)))
+    xin = digit.digit_prep(xg) if conv == 1 else xg
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for img, wg in ((1, 1), (2, 3), (4, 4), (3, 2)):
+        out = torch.empty_like(got)
+        digit._digit_launch(xin, opg, act, digit.digit_plan(conv, b, sms, img, wg), out)
+        torch.cuda.synchronize()
+        assert torch.equal(out, old), (img, wg)
+
+
 @pytest.mark.parametrize("family", ["densenet40 f32", "densenet40 stage_int8", "mobilenetv2"])
 def test_family_forward_cuda_vs_cpu(cuda, family):
     """Full-width DenseNet-40 (both buffers) and MobileNet-V2 at batch 3 on
