@@ -1,5 +1,6 @@
-// K1's epilogue, shared by its three forms (qmatmul.cu's mma.sync kernel,
-// qmatmul_sm90.cu's and qmatmul_sm90n.cu's wgmma kernels), so that all map
+// K1's epilogue, shared by its forms (qmatmul.cu's mma.sync kernel, the
+// wgmma kernels of qmatmul_sm90.cu, qmatmul_sm90n.cu, qmatmul_sm90p.cu and
+// first_conv_sm90.cu), so that all map
 // an int32 accumulator to the same f32 value or act code by the same
 // instructions (site_code, word_value): on the card the forms agree bit for
 // bit in every mode.
@@ -50,6 +51,27 @@ __device__ __forceinline__ int site_code(int acc, float s, float b, int col,
     else code = act::bins_code(h, a.bnd, a.g);
   }
   return a.relu ? max(code, 0) : code;
+}
+
+// The codes of four accumulators acc[j] of columns col[j] (scales s[j],
+// biases b[j]; codes modes only): through the map's step table for POLY
+// and ERF (act_codes.cuh table_code4: tab the entries in shared memory, t
+// the table's bounds, built relu'd where a.relu is), else by site_code.
+// Equal to site_code's in every mode, for every accumulator.
+template <int MODE>
+__device__ __forceinline__ void site_codes4(const int (&acc)[4], const float (&s)[4], const float (&b)[4],
+                                            const int (&col)[4], const ActArgs& a, int ld, const int2* tab,
+                                            const act::Table& t, int (&code)[4]) {
+  if constexpr (MODE == POLY || MODE == ERF) {
+    float h[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) h[j] = __fmaf_rn(static_cast<float>(acc[j]), s[j], b[j]);
+    if (a.relu) act::table_code4<MODE, true>(h, code, tab, t.lo, t.hi, t.b_lo, t.n, a.g);
+    else act::table_code4<MODE, false>(h, code, tab, t.lo, t.hi, t.b_lo, t.n, a.g);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) code[j] = site_code<MODE>(acc[j], s[j], b[j], col[j], a, ld);
+  }
 }
 
 __device__ __forceinline__ uint16_t pack2(int c0, int c1) {

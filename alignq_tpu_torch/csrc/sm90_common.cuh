@@ -1,11 +1,11 @@
 // The Hopper primitives the port's sm_90a kernels share (qmatmul_sm90.cu,
-// qmatmul_sm90n.cu, stage_kernel_sm90.cu, stem_sm90.cu, bn_table_sm90.cu,
-// digit_sm90.cu): mbarriers, TMA's 2-D and 3-D box loads, the 1-D bulk
-// copy in and out, the async proxy's fence, wgmma with A from registers
-// or by a descriptor and B by a shared-memory descriptor under a 32-, 64-
-// or 128-byte swizzle (A's without one, at any strides), and the CUDA
-// driver's tensor-map encoder, reached through cudaGetDriverEntryPoint so
-// that no source links -lcuda.
+// qmatmul_sm90n.cu, qmatmul_sm90p.cu, stage_kernel_sm90.cu, stem_sm90.cu,
+// bn_table_sm90.cu, digit_sm90.cu, first_conv_sm90.cu): mbarriers, TMA's
+// 2-D and 3-D box loads, the 1-D bulk copy in and out, the async proxy's
+// fence, wgmma with A from registers or by a descriptor and B by a
+// shared-memory descriptor under a 32-, 64- or 128-byte swizzle (A's
+// without one, at any strides), and the CUDA driver's tensor-map encoder,
+// reached through cudaGetDriverEntryPoint so that no source links -lcuda.
 
 #pragma once
 
@@ -69,6 +69,11 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
           "r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// one arrival on bar (no transaction bytes)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
 // `bytes` (a multiple of 16) contiguous bytes of global memory into dst
@@ -153,7 +158,8 @@ __device__ __forceinline__ uint64_t make_desc_strided(const void* p, uint32_t lb
 
 // d (64 x NB int32, wgmma's accumulator layout) = A (64 x 32 s8, this
 // warp's 16 rows in a) * B (32 x NB s8, by desc), plus d where add != 0,
-// for NB = 16, 32 (K3), 64 (both) and 128 (K1).
+// for NB = 16, 32 (K3, first_conv_sm90.cu), 24 (first_conv_sm90.cu), 64
+// (both) and 128 (K1).
 // The first product of a tile starts the sums by add = 0: an accumulator
 // that another instruction writes would make ptxas serialize the wgmmas.
 template <int NB>
@@ -166,6 +172,16 @@ __device__ __forceinline__ void wgmma_rs<16>(int (&d)[8], const uint32_t (&a)[4]
       "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
       "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p;\n}\n"
       : SM90_D4(0), SM90_D4(4)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<24>(int (&d)[12], const uint32_t (&a)[4], uint64_t desc, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, %16, p;\n}\n"
+      : SM90_D4(0), SM90_D4(4), SM90_D4(8)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add));
 }
 

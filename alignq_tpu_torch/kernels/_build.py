@@ -32,8 +32,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("qmatmul", "qmatmul_sm90", "qmatmul_sm90n", "quantize", "stage_kernel", "stage_kernel_sm90", "dwconv",
-           "stem_sm90", "dwconv_sm90", "bn_table_sm90", "digit_sm90")
+SOURCES = ("qmatmul", "qmatmul_sm90", "qmatmul_sm90n", "qmatmul_sm90p", "quantize", "stage_kernel",
+           "stage_kernel_sm90", "dwconv", "stem_sm90", "dwconv_sm90", "bn_table_sm90", "digit_sm90", "first_conv_sm90")
 
 launches: collections.Counter = collections.Counter()
 

@@ -15,7 +15,9 @@ The graph, value for value as the JAX package runs it under jit:
 Tensors keep the JAX package's layouts at the public functions: NHWC
 activations, HWIO kernels. On CUDA every conv outside the stage kernel is
 kernel K1's implicit-GEMM conv, which reads the NHWC codes in place
-(kernels/qmatmul.py int8_conv_packed): PyTorch has no int8 conv there.
+(kernels/qmatmul.py int8_conv_packed): PyTorch has no int8 conv there. The
+first conv reads the f32 image itself (kernels/first_conv.py: the image's
+quantization, the conv and its codes in one kernel).
 Every act site after such a conv is K1's codes epilogue (int8_conv_codes):
 the conv's f32 output is never stored. Runs of identity blocks go through
 kernel K3 on the same NHWC stream. On the CPU the same code runs the
@@ -32,6 +34,8 @@ import torch
 from alignq_tpu_torch.device import resolve_device
 from alignq_tpu_torch.interop import init_preact_resnet_params
 from alignq_tpu_torch.kernels.convert import QConvInt8, fold_conv_bn, grid_max
+from alignq_tpu_torch.kernels.first_conv import first_conv
+from alignq_tpu_torch.kernels.first_conv import linear_q as _linear_q
 from alignq_tpu_torch.kernels.qmatmul import (
     ActMap,
     K1Weights,
@@ -74,11 +78,6 @@ def _erfq_codes(h: torch.Tensor, act_bits: int = 8, impl: str = "erf") -> torch.
     for A4). impl: 'erf' | 'poly' | 'bins' (A4/A2: compares against the
     exact erf-grid boundaries). K1's codes epilogue runs the same map."""
     return act_codes(h, int(_act_g(act_bits)), impl)
-
-
-def _linear_q(x: torch.Tensor, scale: float) -> torch.Tensor:
-    """Stem-input quantization by a reciprocal multiply (as the JAX graph)."""
-    return torch.clamp(torch.round(x * (1.0 / scale)), -127.0, 127.0).to(torch.int8)
 
 
 def _requant_codes(k: torch.Tensor, m: int, g: float, signed: bool = False) -> torch.Tensor:
@@ -341,12 +340,10 @@ def resnet20_int8_stream(
     layers = qparams["layers"]
     ms = residual_multipliers(["skip" in blk for blk in layers])
     runs = dict(_identity_runs(layers))
-    # stem: conv0 -> bn -> act_q0 -> relu
-    out_c = torch.clamp_min(
-        _site_codes(_linear_q(x, S_IMG), qparams["conv0"], ops.get("conv0_cut"), 1, 1, ops["conv0"])
-        .to(torch.int16),
-        0,
-    )
+    # stem: conv0 -> bn -> act_q0 -> relu, from the f32 image in one kernel
+    # (kernels/first_conv.py), the relu in its map
+    stem_act = (ops["conv0_cut"] if bins_int else site_act)._replace(relu=True)
+    out_c = first_conv(x, ops["conv0"], S_IMG, stem_act).to(torch.int16)
     if stream == "int8":
         c8 = out_c.to(torch.int8)  # codes on the current block's m*act_scale grid
 

@@ -37,7 +37,8 @@ import torch
 from alignq_tpu_torch.device import resolve_device
 from alignq_tpu_torch.interop import init_densenet_params
 from alignq_tpu_torch.kernels.convert import grid_max, quantize_weight_int8
-from alignq_tpu_torch.kernels.infer import S_IMG, _act_g, _linear_q
+from alignq_tpu_torch.kernels.first_conv import first_conv
+from alignq_tpu_torch.kernels.infer import S_IMG, _act_g
 from alignq_tpu_torch.kernels.qmatmul import act_map, int8_conv_packed, pack_conv_weights, requant_int8
 from alignq_tpu_torch.kernels.quantize import BnActTable, bn_act_codes, bn_act_codes_table, bn_act_table
 
@@ -243,7 +244,7 @@ def densenet40_int8_buffers(
     # stem: a plain quantized conv on the image; in stage_int8 mode its
     # output requantized onto stage 1's buffer grid
     mode = "requant" if stage_int8 else "f32"
-    out = int8_conv_packed(_linear_q(x, S_IMG), ops["conv"], 1, 1, mode)
+    out = first_conv(x, ops["conv"], S_IMG, mode=mode)
     for entry, sops in zip(qparams["stages"], ops["stages"]):
         blocks = entry["blocks"]
         growth = blocks[0]["conv"].kernel_int8.shape[-1] if blocks else 0

@@ -25,7 +25,8 @@ from alignq_tpu_torch.device import resolve_device
 from alignq_tpu_torch.interop import init_mobilenetv2_params
 from alignq_tpu_torch.kernels.convert import fold_conv_bn
 from alignq_tpu_torch.kernels.dwconv import dw_conv, pack_dw_weights
-from alignq_tpu_torch.kernels.infer import S_IMG, _act_g, _linear_q, _requant_codes
+from alignq_tpu_torch.kernels.first_conv import first_conv
+from alignq_tpu_torch.kernels.infer import S_IMG, _act_g, _requant_codes
 from alignq_tpu_torch.kernels.qmatmul import act_map, int8_conv_codes, pack_conv_weights
 
 # (expansion, out_planes, num_blocks, stride): the CIFAR/SVHN MobileNet-V2 of
@@ -112,7 +113,7 @@ def mobilenetv2_int8_streams(
     bare = act_map(act_impl, int(g), x.device)  # act_q3: no relu
 
     # stem: conv1 -> bn1 -> act_q1 -> relu; its m=1 requant is the identity
-    x8 = int8_conv_codes(_linear_q(x, S_IMG), ops["conv1"], 1, 1, relu)
+    x8 = first_conv(x, ops["conv1"], S_IMG, relu)
     yield x8
     for blk, bops in zip(qparams["blocks"], ops["blocks"]):
         stride = 1 if "shortcut" in blk else 2

@@ -4,14 +4,21 @@ Port of alignq_tpu/kernels/qmatmul.py, and of the int8 convs that the JAX
 serving graph leaves to XLA (alignq_tpu/kernels/infer.py _int8_conv_acc):
 PyTorch has no int8 conv on CUDA. On a CUDA tensor the wrappers launch
 an implicit-GEMM NHWC conv on the s8 tensor cores that reads the codes in
-place, in one of three forms that the planner (`k1_plan`) chooses by a
+place, in one of four forms that the planner (`k1_plan`) chooses by a
 written rule over the shape: csrc/qmatmul_sm90.cu (`wgmma` m64nNk32,
 TMA-fed weight chunks, tiles of 64-256 output rows) for every 3x3 and 1x1
 conv over C % 32 == 0 channels to N8 % 64 == 0 columns (`sm90_plan`);
+csrc/qmatmul_sm90p.cu (`wgmma` on image planes laid out in shared memory
+with the halo zero, from rows brought by bulk copies) for the 3x3s at
+stride 1 and 2 over 16 or 32 channels to 16 or 32 columns where
+`plane_takes` gives it them (`plane_plan`: ResNet-20/56's first two
+stages, DenseNet-40's first growth conv);
 csrc/qmatmul_sm90n.cu (`wgmma` at N = 16-64, A and B by descriptors, the
 weight resident) for the narrower stride-1 3x3s and 1x1s over C % 16 == 0
 channels where `narrow_takes` gives it them (`narrow_plan`);
-csrc/qmatmul.cu (`mma.sync` m16n8k32) for every other shape.
+csrc/qmatmul.cu (`mma.sync` m16n8k32) for every other shape. The CIFAR
+nets' first conv, from the f32 image, has a kernel of its own
+(kernels/first_conv.py).
 The forms share their epilogue code (csrc/k1_epilogue.cuh) and agree bit
 for bit. On a CPU tensor the wrappers run the plain PyTorch version
 beside them, which the tests hold against the JAX reference.
@@ -54,7 +61,7 @@ import torch
 
 from alignq_tpu_torch.dist.collectives import gather_slices
 from alignq_tpu_torch.kernels import _build
-from alignq_tpu_torch.kernels.quantize import act_codes, int_bin_codes
+from alignq_tpu_torch.kernels.quantize import act_codes, act_table, int_bin_codes
 from alignq_tpu_torch.quant.cdf import erf_grid_boundaries, fma_f32
 
 K_MULT = 32  # depth of one m16n8k32 int8 MMA: K is zero-padded to it
@@ -879,7 +886,219 @@ def narrow_plan(b: int, h: int, w: int, c: int, ksize: int, stride: int, pad: in
     return None
 
 
+PLANE = FORM.format("sm90p")  # and of every launch of the plane form (csrc/qmatmul_sm90p.cu)
+PLANE_CONSUMERS = 4  # its consumer warpgroups, each with its own stage and planes
+# items of the most rows whose count reaches PLANE_ITEMS (two a CTA on an H100's
+# 132 SMs), else of the fewest: where the plane form's item sizes were timed
+# (PERF.md, K1's plane form) whole 16x16 images won at 2048, halves at 256
+# (whole images there leave half the consumers idle), quarters at 8
+PLANE_ITEMS = 264
+# the 32x32 3x3s to 16 columns take the plane form where its items (4 an
+# image) number this many (one a CTA): at batch 8 the narrow form won there,
+# at 64 and up the plane form
+PLANE_MIN_ITEMS = 132
+_TABLE_BYTES = 1024 * 8  # csrc/act_codes.cuh TABLE_MAX entries of 8 bytes
+
+
+class PlanePlan(NamedTuple):
+    """One launch's plan in K1's plane form, in the order of
+    csrc/qmatmul_sm90p.cu's Plan.
+
+    A work item is TR output rows of an image (TY items an image, n_items
+    in all; MG = TR * Wo / 64 m64 groups, 1, 2 or 4), its image rows
+    brought as they lie into its consumer's stage (raw_bytes at most); the
+    consumer warpgroup lays them out in its planes (plane_bytes): G groups
+    of 16 channels, each NBX planes of BR rows by Wo pixels, 16 bytes a
+    pixel (BOXB bytes): at stride 1 the planes of column offsets -1, 0, +1
+    from row -1 (BR = TR + 2), at stride 2 one plane a tap sampled every
+    other row and column (BR = TR). The weight's K runs in `steps` K steps
+    (_plane_steps), KT = 32 * steps bytes a row, the whole (N8, KT)
+    resident. The *_off fields place the shared-memory regions; smem: the
+    bytes the launch asks for."""
+
+    B: int
+    H: int
+    W: int
+    C: int
+    Ho: int
+    Wo: int
+    stride: int
+    pad: int
+    ksize: int
+    N8: int
+    Kp: int
+    G: int
+    NBX: int
+    TR: int
+    TY: int
+    n_items: int
+    BR: int
+    BOXB: int
+    steps: int
+    KT: int
+    MG: int
+    raw_bytes: int
+    plane_bytes: int
+    w_off: int
+    stage_off: int
+    plane_off: int
+    tab_off: int
+    sb_off: int
+    stab_off: int
+    bar_off: int
+    smem: int
+
+
+def _plane_steps(g: int) -> list:
+    """The plane form's K steps over g groups: _narrow_steps' order, each
+    half (group, tau) with tau the tap in the order of its plane (plane_tap)."""
+    return _narrow_steps(3, g)
+
+
+def plane_tap(stride: int, tau: int) -> tuple:
+    """(dy, dx) of the plane form's tap tau: dx-major at stride 1 (the
+    three column-shifted planes in turn), row-major at stride 2 (a plane a
+    tap)."""
+    return (tau % 3, tau // 3) if stride == 1 else (tau // 3, tau % 3)
+
+
+def plane_rows(ho: int, wo: int) -> list:
+    """The output rows a plane-form item may take, most first: the whole
+    image, a half, a quarter, those of 4, 2 or 1 m64 groups."""
+    return [tr for tr in (ho, ho // 2, ho // 4) if tr >= 1 and ho % tr == 0 and tr * wo in (64, 128, 256)]
+
+
+@functools.lru_cache(maxsize=None)
+def plane_plan(b: int, h: int, w: int, c: int, ksize: int, stride: int, pad: int, n8: int, kp: int,
+               rows: Optional[int] = None) -> Optional[PlanePlan]:
+    """The plane form's plan of one launch, or None where the form does not
+    take the shape: a 3x3 pad 1 conv at stride 1 or 2 over 16 or 32
+    channels (the kernel's K steps, 5 or 9, are constants) to N8 = 16 or 32
+    columns, Wo a power of 2 from 8 to 128, whose four consumers' stages and
+    planes fit beside the weight. Items of TR output rows: the most of
+    plane_rows (at N8 = 16 those of 4 m64 groups only) whose items number
+    PLANE_ITEMS or more, else the fewest; or `rows` where given (for A/B
+    runs)."""
+    if ksize != 3 or pad != 1 or stride not in (1, 2) or c not in (16, 32) or n8 not in (16, 32) or b < 1:
+        return None
+    if kp != _round_up(9 * c, K_MULT):
+        return None
+    ho, wo = conv_out_hw(h, w, 3, stride, 1)
+    options = plane_rows(ho, wo) if wo in (8, 16, 32, 64, 128) else []
+    if n8 == 16:  # the kernel is built for items of 4 m64 groups only there
+        options = [tr for tr in options if tr * wo == 256]
+    if rows is None and options:
+        rows = next((tr for tr in options if b * (ho // tr) >= PLANE_ITEMS), options[-1])
+    if rows not in options:
+        return None
+    g = c // 16
+    nbx = 3 if stride == 1 else 9
+    br = rows + 2 if stride == 1 else rows
+    boxb = br * wo * 16
+    steps = len(_plane_steps(g))
+    kt = 32 * steps
+    raw = _round_up(min(stride * (rows - 1) + 3, h) * w * c, 128)  # an item's image rows at most
+    # the planes, and 16 bytes an odd group's last step may read; or the
+    # outputs' staging, 4 warps' 16 rows in f32
+    plane_bytes = _round_up(max(g * nbx * boxb + 16, 4 * 16 * n8 * 4), 128)
+    stage_off = _round_up(n8 * kt, 128)
+    plane_off = stage_off + PLANE_CONSUMERS * raw
+    tab_off = plane_off + PLANE_CONSUMERS * plane_bytes
+    sb_off = tab_off + _TABLE_BYTES
+    stab_off = sb_off + 8 * n8
+    bar_off = _round_up(stab_off + 8 * steps, 8)
+    smem = bar_off + 8 * (2 * PLANE_CONSUMERS + 1)
+    if smem > SM90_SMEM:
+        return None
+    return PlanePlan(b, h, w, c, ho, wo, stride, 1, 3, n8, kp, g, nbx, rows, ho // rows, b * (ho // rows), br, boxb,
+                     steps, kt, rows * wo // 64, raw, plane_bytes, 0, stage_off, plane_off, tab_off, sb_off, stab_off,
+                     bar_off, smem)
+
+
+def plane_takes(b: int, h: int, w: int, c: int, ksize: int, stride: int, pad: int, n8: int) -> bool:
+    """The planner's rule for the plane form, among the shapes plane_plan
+    takes, where chip_smoke.py --k1-ab and --first-plane-ab timed it faster
+    than the form the rule gave before (PERF.md, K1's plane form): the 3x3s
+    to a 16x16 output and 32 columns (ResNet-20/56's block-3 stride-2 conv0
+    from 32x32x16 and their 16x16 3x3s from 32 channels; mma.sync before),
+    at every batch; the 32x32 3x3s to 16 columns at stride 1 (the narrow
+    form's before: ResNet-20/56's stage-1 convs over 16 channels,
+    DenseNet-40's first growth conv over 32) where their items (quarters of
+    an image) number PLANE_MIN_ITEMS or more (at batch 8 the narrow form
+    won or tied there, from 64 on the plane form)."""
+    ho, wo = conv_out_hw(h, w, ksize, stride, pad)
+    if ksize != 3 or pad != 1 or c not in (16, 32):
+        return False
+    if (ho, wo) == (16, 16):
+        return n8 == 32
+    return (ho, wo) == (32, 32) and stride == 1 and n8 == 16 and b * 4 >= PLANE_MIN_ITEMS
+
+
+# id(wt), C, stride -> [a weak reference to wt, its re-packed copy]: an
+# entry goes with its weight
+_PLANE_WEIGHTS: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _plane_k_order(c: int, stride: int) -> np.ndarray:
+    """The plane form's re-packed weight columns as indices into the packed
+    (dy, dx, c) ones, -1 for a zero column: its K steps in turn
+    (_plane_steps), each 16 bytes of a step the 16 channels of one group at
+    one tap."""
+    order = []
+    for step in _plane_steps(c // 16):
+        for half in step:
+            if half is None:
+                order.append(np.full(16, -1))
+            else:
+                q, tau = half
+                dy, dx = plane_tap(stride, tau)
+                order.append((3 * dy + dx) * c + 16 * q + np.arange(16))
+    return np.concatenate(order)
+
+
+def _plane_weight(wt: torch.Tensor, plan: PlanePlan) -> torch.Tensor:
+    """wt (N8, Kp) re-packed for the plane form: its columns in
+    _plane_k_order, each K step's two 16-byte halves laid out as wgmma's
+    no-swizzle core matrices ([step][half][row][16 bytes], N8 * KT bytes),
+    made once per weight tensor and kept while it lives."""
+    key = (id(wt), plan.C, plan.stride)
+    hit = _PLANE_WEIGHTS.get(key)
+    if hit is None or hit[0]() is not wt:
+        order = torch.from_numpy(_plane_k_order(plan.C, plan.stride)).to(wt.device)
+        ext = torch.nn.functional.pad(wt, (0, 1))  # a zero column
+        cols = ext.index_select(1, torch.where(order < 0, wt.shape[1], order))
+        packed = cols.reshape(wt.shape[0], plan.steps, 2, 16).permute(1, 2, 0, 3).contiguous().reshape(-1)
+        hit = [weakref.ref(wt, lambda _, k=key: _PLANE_WEIGHTS.pop(k, None)), packed]
+        _PLANE_WEIGHTS[key] = hit
+    return hit[1]
+
+
+def _plane_lib() -> ctypes.CDLL:
+    lib = _build.load("qmatmul_sm90p")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.k1_plane_launch.argtypes = [p, p, p, p, p, ctypes.POINTER(i), i, p, p, p, p, i, i, p, f, f, i, i, p]
+        lib.k1_plane_launch.restype = i
+        lib.k1_plane_plan_ints.restype = i
+        if lib.k1_plane_plan_ints() != len(PlanePlan._fields):
+            raise RuntimeError("csrc/qmatmul_sm90p.cu's Plan does not match PlanePlan")
+        lib._argtypes_set = True
+    return lib
+
+
+def table_args(act: Optional[ActMap], mode: str, device: torch.device) -> tuple:
+    """The map's step table as the C entries of the table-mapping forms
+    take it (entries, lo, hi, b_lo, n): act_table of an erf or poly map,
+    relu'd where the map is; zeros in the other modes."""
+    if mode not in ("poly", "erf"):
+        return None, 0.0, 0.0, 0, 0
+    t = act_table(act.impl, act.g, device, act.relu)
+    return t.entries.data_ptr(), t.lo, t.hi, t.b_lo, t.entries.shape[0]
+
+
 _MMA_ONLY = False  # set only by _mma_form
+_PLANE_OFF = False  # set only by _old_form
 
 
 @contextlib.contextmanager
@@ -895,23 +1114,43 @@ def _mma_form():
         _MMA_ONLY = saved
 
 
+@contextlib.contextmanager
+def _old_form():
+    """Every launch planned inside takes the form it took before the plane
+    form: the shapes plane_takes gives the plane form go to the narrow form
+    where narrow_takes gives them it, else to mma.sync. For the A/B timing
+    of the plane form (chip_smoke.py --first-plane-ab, phase 10); the main
+    path never calls it."""
+    global _PLANE_OFF
+    saved, _PLANE_OFF = _PLANE_OFF, True
+    try:
+        yield
+    finally:
+        _PLANE_OFF = saved
+
+
 def k1_plan(b: int, h: int, w: int, c: int, ksize: int, stride: int, pad: int, n8: int,
-            kp: int) -> Union[ConvPlan, Sm90Plan, NarrowPlan]:
+            kp: int) -> Union[ConvPlan, Sm90Plan, PlanePlan, NarrowPlan]:
     """The plan of one K1 launch. The planner's rule: the Hopper form
     (sm90_plan) wherever it takes the shape, every 3x3 and 1x1 conv over
-    C % 32 == 0 channels to N8 % 64 == 0 columns; else the narrow Hopper
+    C % 32 == 0 channels to N8 % 64 == 0 columns; else the plane form
+    (plane_plan) where plane_takes gives it the shape (the 16x16 stage's
+    stride-2 3x3 from 16 channels and 3x3s to 32 columns); else the narrow Hopper
     form (narrow_plan), the stride-1 3x3s and the 1x1s over C % 16 == 0
     channels, where narrow_takes gives it the shape (every one but those it
     measured slower: ResNet-20's stage-1 conv and block-3 skip, DenseNet-40's
     growth convs, the transitions and MobileNet-V2's narrow 1x1s at small
     batches); else the mma.sync form (conv_plan): the 7x7 stem, the 5x5
-    VALID convs, the 4-channel first convs, the narrow stride-2 3x3s, the
-    1x1s over 24 channels and the shapes narrow_takes leaves. chip_smoke.py
+    VALID convs, the 4-channel first convs (where kernels/first_conv.py
+    does not take them), the stride-2 3x3s plane_takes leaves, the 1x1s
+    over 24 channels and the shapes narrow_takes leaves. chip_smoke.py
     --k1-ab timed the forms at every launch the Hopper forms take (PERF.md,
     K1's Hopper forms)."""
     if _MMA_ONLY:
         return conv_plan(b, h, w, c, ksize, stride, pad, n8, kp)
     plan = sm90_plan(b, h, w, c, ksize, stride, pad, n8, kp)
+    if plan is None and not _PLANE_OFF and plane_takes(b, h, w, c, ksize, stride, pad, n8):
+        plan = plane_plan(b, h, w, c, ksize, stride, pad, n8, kp)
     if plan is None and narrow_takes(b, h, w, c, ksize, stride, pad, n8):
         plan = narrow_plan(b, h, w, c, ksize, stride, pad, n8, kp)
     return conv_plan(b, h, w, c, ksize, stride, pad, n8, kp) if plan is None else plan
@@ -1118,6 +1357,8 @@ def _run_k1(x, op: K1Weights, ksize, stride, padding, mode: str, act: Optional[A
             _build.launches[SM90] += 1
         elif isinstance(plan, NarrowPlan):
             _build.launches[NARROW] += 1
+        elif isinstance(plan, PlanePlan):
+            _build.launches[PLANE] += 1
     return out if n8 == op.n else out[:, : op.n]
 
 
@@ -1128,19 +1369,31 @@ def _k1_launch(x, op: K1Weights, plan, out, mode: str, act: Optional[ActMap] = N
     for it): x NHWC int8, op's wt (N8, Kp) int8 and
     scale/bias (N8,) f32 (unread in modes 'int32' and 'bins_int'; in
     'requant' the bias holds the reciprocal of the output's scale), out
-    (B*Ho*Wo, N8) of the mode's type; act, the map of a codes mode. Counts
-    nothing (the wrapper does). A launch that fails raises."""
+    (B*Ho*Wo, N8) of the mode's type; act, the map of a codes mode (PlanePlan:
+    csrc/qmatmul_sm90p.cu on the weight re-packed for it, the erf and poly
+    maps through their step tables). Counts nothing (the wrapper does). A
+    launch that fails raises."""
+    bnd, sgn, t1, t2 = (None,) * 4 if act is None else act[2:6]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    if isinstance(plan, PlanePlan):
+        with _build.on_device(x.device):
+            err = _plane_lib().k1_plane_launch(
+                x.data_ptr(), _plane_weight(op.wt, plan).data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(),
+                out.data_ptr(), _plan_ints(plan), _MODE[mode], ptr(bnd), ptr(sgn), ptr(t1), ptr(t2),
+                0 if act is None else act.g, int(act is not None and act.relu), *table_args(act, mode, x.device),
+                torch.cuda.current_stream(x.device).cuda_stream,
+            )
+        _build.check(err, "qmatmul_sm90p.cu k1_plane_kernel")
+        return
     if isinstance(plan, Sm90Plan):
         what, launch, wt = "qmatmul_sm90.cu k1_sm90_kernel", _sm90_lib().k1_sm90_launch, _sm90_map(op.wt, plan)
     elif isinstance(plan, NarrowPlan):
         what, launch, wt = "qmatmul_sm90n.cu k1_narrow_kernel", _narrow_lib().k1_narrow_launch, _narrow_map(op.wt, plan)
     else:
         what, launch, wt = "qmatmul.cu k1_conv_kernel", _lib().k1_conv_launch, op.wt.data_ptr()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    bnd, sgn, t1, t2 = (None,) * 4 if act is None else act[2:6]
     with _build.on_device(x.device):
         err = launch(
             x.data_ptr(), wt, op.scale.data_ptr(), op.bias.data_ptr(), out.data_ptr(),

@@ -6,9 +6,10 @@
 Phases, in order; any failure raises and the script exits non-zero:
  1. the card's name and power limit; TF32 off for matmul and cuDNN;
  2. build the CUDA kernels from alignq_tpu_torch/csrc (qmatmul.cu,
-    qmatmul_sm90.cu, qmatmul_sm90n.cu, quantize.cu, stage_kernel.cu,
-    stage_kernel_sm90.cu, dwconv.cu, stem_sm90.cu, dwconv_sm90.cu,
-    bn_table_sm90.cu, digit_sm90.cu: one nvcc each, all started together);
+    qmatmul_sm90.cu, qmatmul_sm90n.cu, qmatmul_sm90p.cu, quantize.cu,
+    stage_kernel.cu, stage_kernel_sm90.cu, dwconv.cu, stem_sm90.cu,
+    dwconv_sm90.cu, bn_table_sm90.cu, digit_sm90.cu, first_conv_sm90.cu: one
+    nvcc each, all started together);
     (b) the table form of the act-code map (csrc/act_codes.cuh table_code,
     kernels/quantize.py act_table) against its direct map on the card,
     over all 2^32 f32 bit patterns, for the erf and poly maps at each
@@ -25,10 +26,17 @@ Phases, in order; any failure raises and the script exits non-zero:
     elements, each one ulp away (the plain float64 evaluation can round
     twice at an f32 midpoint); act codes identical but for at most 1e-6 of
     the codes, each one code away; the counts of differing elements are
-    printed. Each conv in the form the rule gives it: NARROW_R20 (the
-    stage-1 conv, block 3's skip) in K1's narrow Hopper form
-    (csrc/qmatmul_sm90n.cu), each of those also held against the mma.sync
-    form on its operands, bit for bit, in every mode checked;
+    printed. Each conv in the form the rule gives it (r20_forms): block 3's
+    skip (and at batch 3 the stage-1 conv) in K1's narrow Hopper form
+    (csrc/qmatmul_sm90n.cu), block 3's stride-2 conv0, the 16x16 3x3s to 32
+    columns and from batch 33 on the stage-1 conv in its plane form
+    (csrc/qmatmul_sm90p.cu),
+    each of those also held against the mma.sync form on its operands, bit
+    for bit, in every mode checked (the plane form's also with the maps
+    relu'd); (b) the first-conv kernel (csrc/first_conv_sm90.cu) from f32
+    images at every site's columns and modes (FIRST_CHECKS), batches 2048,
+    256 and 3, against its plain version and bit for bit against the chain
+    it replaced (linear_q, K1's pad pass and mma.sync form);
  4. K2's path, its entry point: the launch counts are zeroed,
     cdf_quantize_int8 (csrc/quantize.cu) maps the act-site sizes of
     batches 2048 and 256 and a ragged n, and the counts are read; then each
@@ -47,14 +55,16 @@ Phases, in order; any failure raises and the script exits non-zero:
     route, an A4 'bins' and a W4A4 'bins_int' forward. The final int16
     stream bit for bit, every K1 launch in codes mode (1 of the slice
     route's 7 and 7 of the others' 21 in the narrow Hopper form,
-    NARROW_PER_FORWARD), every K3 launch (3 a slice-route forward) in its
-    Hopper form, and no tap gather of a CUDA tensor;
+    NARROW_PER_FORWARD; 2 and 12 in the plane form, PLANE_PER_FORWARD; the
+    first conv in the first-conv kernel), every K3 launch (3 a slice-route
+    forward) in its Hopper form, and no tap gather of a CUDA tensor;
  7. serving, the main path: the launch counts are zeroed, an engine is
     built with build_int8_resnet20_engine(batch_size=256) on the slice's
     route and answers requests of 1, 3, 100, 256 and 40 images, and the
     counts are read: 7 K1 launches, all in codes mode, 1 of them in the
-    narrow Hopper form (counter `int8_matmul_dequant:kssm90n`), to 3 K3 a
-    forward, every K3 launch in its Hopper form, and no tap gather.
+    narrow Hopper form (counter `int8_matmul_dequant:kssm90n`), 2 in the
+    plane form (`:kssm90p`), 1 in the first-conv kernel (`:first_sm90`), to
+    3 K3 a forward, every K3 launch in its Hopper form, and no tap gather.
     Then what was served is held against the CPU's plain path: each
     request's logits within 1e-4, and the int16 stream of the engine's
     forward at its padded batch of 256 bit for bit. Then the engine's
@@ -313,8 +323,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     ResNet-50 forward; its launches over both trunks' served forwards):
     launches from phase 18; K1's Hopper form: over one batch-256 forward of
     each trunk, its launches over both trunks' served forwards (phase 18);
-    K1's narrow Hopper form: over one batch-256 slice-route forward's
-    launches in it, its launches those of phase 7's main path;
+    K1's narrow Hopper form and its plane form, and the first-conv kernel:
+    over one batch-256 slice-route forward's launches in each, their
+    launches those of phase 7's main path (the first conv's time from the
+    f32 image, its quantization inside);
     the digit kernel (its time with its prep pass's): over one batch-256
     digit forward, launches from phase 22's serving, its error the largest
     of phases 22 and 23's checks), the card line, and the final JSON line.
@@ -349,9 +361,9 @@ shape a Hopper form takes, in a forward of ResNet-18 and ResNet-50
 stage buffers) at 256 and 8, and ResNet-20 at 2048 and 256 (graph_ms, cold
 L2), in the mma.sync form and at each option of the Hopper form that takes
 it (the wide form's tiles of 256, 128 and 64 rows; the narrow form's row
-groups, warpgroups and K split), in the order mma.sync, the options, the
-options backwards, mma.sync, beside the form and option the planner's rule
-gives it; each forward's K1 sum all in mma.sync, by the rule and at the
+groups, warpgroups and K split; the plane form's item sizes), in the order
+mma.sync, the options, the options backwards, mma.sync, beside the form and
+option the planner's rule gives it; each forward's K1 sum all in mma.sync, by the rule and at the
 fastest option, and the whole forward in mma.sync and by the rule, ABBA
 (mma.sync everywhere under qmatmul._mma_form); one JSON line, also
 written to chiprun_out/k1_ab.json.
@@ -392,6 +404,16 @@ the kernel after _linear_q and a pad in PyTorch, ABBA, and the kernel's
 tile options; the DenseNet-40 stage_int8 forward (at 256 and 8: the rule's
 forms against bn_table_kernel alone) and the digit forward both ways, ABBA; every output bit for bit the old form's. One JSON line, also
 written to chiprun_out/bn_digit_ab.json.
+
+    python3 chip_smoke.py --first-plane-ab
+
+times the first-conv kernel and K1's plane form against the forms they
+replaced, in one process (first_plane_ab): every first conv and plane-form
+launch of ResNet-20's slice and erf routes at 2048 and 256 (the slice route
+at 8, the erf route at 64 and 8 too), DenseNet-40 (both buffers) and
+MobileNet-V2 at 256 and 8, the old form against each tile or item option,
+ABBA, the outputs bit for bit; each forward's K1 sum and the whole forward
+both ways. One JSON line, also written to chiprun_out/first_plane_ab.json.
 
     python3 chip_smoke.py --gather-backward-ab
 
@@ -777,23 +799,26 @@ def family_configs():
 
 
 def record_launches(fn):
-    """Run fn with every K1, stem, digit, depthwise and BN-act (both forms)
-    launch recorded: a list of (kind, operands) in launch order; a K1
-    launch's operands end with the channels of the conv's input as its
-    caller gave them; a stem launch's are (the f32 image, the packed
+    """Run fn with every K1, first-conv, stem, digit, depthwise and BN-act
+    (both forms) launch recorded: a list of (kind, operands) in launch
+    order; a K1 launch's operands end with the channels of the conv's input
+    as its caller gave them; a first-conv launch's are (the f32 image, the
+    packed weight, the plan, the mode, the map, the image's scale); a stem
+    launch's are (the f32 image, the packed
     weight, the plan, 'codes', the map); a digit launch's (its conv's input
     as conv_pool takes it: conv 1's f32 image, the packed weight, the plan,
     the map); a table launch's (the buffer, c_live, the table, the Hopper
     kernel's plan or None, the map, c_out). The wrappers count as always."""
     from alignq_tpu_torch.kernels import digit as DSm
     from alignq_tpu_torch.kernels import dwconv as DWm
+    from alignq_tpu_torch.kernels import first_conv as FC
     from alignq_tpu_torch.kernels import qmatmul as K1
     from alignq_tpu_torch.kernels import quantize as K2
     from alignq_tpu_torch.kernels import stem as ST
 
     rec = []
     saved = (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv, ST._prep_launch,
-             ST._stem_launch, DSm.digit_prep, DSm._digit_launch)
+             ST._stem_launch, DSm.digit_prep, DSm._digit_launch, FC._first_launch)
     conv_c = [None]  # the input channels of the conv in flight
     image = [None]  # the f32 image of the stem, or of the digit net's conv 1, in flight
 
@@ -836,13 +861,18 @@ def record_launches(fn):
         rec.append(("digit", (image[0] if plan.conv == 1 else xin, op, plan, act)))
         saved[8](xin, op, act, plan, out)
 
+    def first(x, op, scale, act, mode, plan, out):
+        rec.append(("first", (x, op, plan, mode, act, scale)))
+        saved[9](x, op, scale, act, mode, plan, out)
+
     (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv, ST._prep_launch,
-     ST._stem_launch, DSm.digit_prep, DSm._digit_launch) = k1, dw, bn, bn_table, conv, prep, stem, digit_prep, digit
+     ST._stem_launch, DSm.digit_prep, DSm._digit_launch, FC._first_launch) = (
+        k1, dw, bn, bn_table, conv, prep, stem, digit_prep, digit, first)
     try:
         fn()
     finally:
         (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv, ST._prep_launch,
-         ST._stem_launch, DSm.digit_prep, DSm._digit_launch) = saved
+         ST._stem_launch, DSm.digit_prep, DSm._digit_launch, FC._first_launch) = saved
     return rec
 
 
@@ -855,6 +885,8 @@ def launch_key(kind, args):
     if kind == "K1":
         x, op, plan, mode = args[:4]
         return (kind, tuple(x.shape), tuple(op.wt.shape), plan.ksize, plan.stride, mode, *tail)
+    if kind == "first":
+        return (kind, tuple(args[0].shape), tuple(args[1].wt.shape), args[3], *tail)
     if kind == "dw":
         return (kind, tuple(args[0].shape), args[2].stride, args[3], *tail)
     if kind == "stem":
@@ -880,7 +912,8 @@ def check_launch(kind, args):
     operands: (differing elements, elements, max abs difference). int32
     and requant results must be identical; f32 within one ulp and codes
     within one code on at most 1e-6 of the elements (the plain version's
-    float64 evaluation can round twice at an f32 midpoint). The stem kernel,
+    float64 evaluation can round twice at an f32 midpoint). The first-conv
+    kernel (against its chain under first_conv._old_form), the stem kernel,
     the digit kernel, the depthwise Hopper form and the table pass's Hopper
     kernel also against the forms they replaced (the stem's chain under
     stem._old_form, the digit conv's under digit._old_form, dwconv.cu under
@@ -893,10 +926,19 @@ def check_launch(kind, args):
     from alignq_tpu_torch.kernels import quantize as K2
 
     from alignq_tpu_torch.kernels import digit as DSm
+    from alignq_tpu_torch.kernels import first_conv as FC
     from alignq_tpu_torch.kernels import stem as ST
 
     key = launch_key(kind, args)
-    if kind == "K1":
+    if kind == "first":  # the kernel, bit for bit the chain it replaced, and its plain version
+        x, op, _, mode, act, scale = args
+        got, want = FC.first_conv(x, op, scale, act, mode), FC.first_conv_reference(x, op, scale, act, mode)
+        with FC._old_form():
+            old = FC.first_conv(x, op, scale, act, mode)
+        if not torch.equal(got, old):
+            raise AssertionError(f"{key}: the first-conv kernel differs from the chain it replaced in "
+                                 f"{int((got != old).sum())} elements")
+    elif kind == "K1":
         x, op, plan, mode, act, _ = args
         if act is not None:
             got, want = K1.int8_conv_codes(x, op, plan.stride, plan.pad, act), \
@@ -952,7 +994,7 @@ def check_launch(kind, args):
         diff = f32_mismatches(got, want)
         if diff > 1e-6 * got.numel():
             raise AssertionError(f"{key}: {diff} f32 elements differ from the plain version")
-    elif kind == "K1" and args[3] == "requant":
+    elif kind in ("K1", "first") and args[3] == "requant":
         diff = int((got != want).sum())
         if diff:
             raise AssertionError(f"{key}: {diff} requant codes differ from the plain version")
@@ -987,6 +1029,20 @@ def time_launch(kind, args):
     from alignq_tpu_torch.kernels import stem as ST
 
     pad_ms = None
+    if kind == "first":  # the bound: the f32 image read, the outputs written
+        from alignq_tpu_torch.kernels import first_conv as FC
+
+        x, op, plan, mode, act, scale = args
+        dtype = torch.float32 if mode in ("f32", "relu") else torch.int32 if mode == "int32" else torch.int8
+        out = torch.empty((x.numel() // 3, op.n), device=x.device, dtype=dtype)
+        ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: FC._first_launch(x, op, scale, act, mode, plan, out))
+        plain_ms = median_ms(lambda: FC.first_conv_reference(x, op, scale, act, mode), runs=PLAIN_RUNS, warmup=0)
+        m = x.numel() // 3
+        b_ms, b_by = bound(x.numel() * 4 + 27 * op.n + 8 * op.n + m * op.n * out.element_size(), 2 * m * 27 * op.n)
+        cols = K1.gather_taps(K1._conv_input(FC.linear_q(x, scale), op), 3, 1, 1, K1.K_MULT)
+        wmat = op.wt.t().contiguous()
+        lib_ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: torch._int_mm(cols, wmat))
+        return ms, plain_ms, b_ms, b_by, lib_ms, None
     if kind == "digit":
         x, op, plan, act = args
         c = DSm.CONVS[plan.conv]
@@ -1062,15 +1118,26 @@ def time_launch(kind, args):
 
 
 def old_form_ms(kind, args):
-    """The device time (graph_ms, cold L2) of a recorded table or digit
-    launch in the form it replaced: quantize.cu's bn_table_kernel; the
-    digit conv's chain (_linear_q for conv 1, K1's 5x5 form and its pad
-    pass, the pool) under digit._old_form."""
+    """The device time (graph_ms, cold L2) of a recorded table, digit or
+    first-conv launch in the form it replaced: quantize.cu's
+    bn_table_kernel; the digit conv's chain (_linear_q for conv 1, K1's 5x5
+    form and its pad pass, the pool) under digit._old_form; the first
+    conv's (linear_q, K1's pad pass and its mma.sync form) under
+    first_conv._old_form."""
     import torch
 
     from alignq_tpu_torch.kernels import digit as DSm
+    from alignq_tpu_torch.kernels import first_conv as FC
     from alignq_tpu_torch.kernels import quantize as K2
 
+    if kind == "first":
+        x, op, _, mode, act, scale = args
+
+        def first_chain():
+            with FC._old_form():
+                return FC.first_conv(x, op, scale, act, mode)
+
+        return graph_ms(runs=LAUNCH_RUNS, fn=first_chain)
     if kind == "bn_table":
         x, c_live, table, _, _, c_out = args
         out = torch.empty((*x.shape[:-1], c_out), device=x.device, dtype=torch.int8)
@@ -1093,7 +1160,7 @@ def family_kernel_checks(dev, batches=(256, 3)):
     from alignq_tpu_torch.kernels import dwconv as DWm
     from alignq_tpu_torch.kernels import qmatmul as K1
 
-    kinds = ("K1", "dw", "bn", "bn_table")
+    kinds = ("K1", "first", "dw", "bn", "bn_table")
     out, err, counts = {}, dict.fromkeys(kinds, 0.0), {}
     for label, build, fwd, _, pack, kw in family_configs():
         for batch in batches:
@@ -1107,7 +1174,7 @@ def family_kernel_checks(dev, batches=(256, 3)):
                 diff, numel, e = check_launch(kind, args)
                 err[kind] = max(err[kind], e)
                 counts[f"{label} batch {batch} {key}"] = diff
-                if kind == "K1" and isinstance(args[2], K1.NarrowPlan):  # and against the mma.sync form
+                if kind == "K1" and isinstance(args[2], (K1.NarrowPlan, K1.PlanePlan)):  # and against mma.sync
                     form_pair(args[0], args[1], args[2], [(args[3], args[4])])
                     n_pairs += 1
             n_by = {k: sum(c for (kk, _), c in launches.values() if kk == k) for k in kinds}
@@ -1329,7 +1396,7 @@ def deploy_families(dev, card, repo, details, phase):
             continue
         for key, ((kind, args), count) in launches.items():
             ms, plain_ms, b_ms, b_by, lib_ms, pad_ms = time_launch(kind, args)
-            old_ms = old_form_ms(kind, args) if kind == "bn_table" else None
+            old_ms = old_form_ms(kind, args) if kind in ("bn_table", "first") else None
             form = ("sm90" if args[3] is not None else "chunked") if kind == "bn_table" else None
             fam_rows.append(dict(family=label, kind=kind, form=form, shape=str(key), launches=count, ms=ms,
                                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
@@ -1338,7 +1405,7 @@ def deploy_families(dev, card, repo, details, phase):
                   f"library {'none' if lib_ms is None else f'{lib_ms:.4f}'}"
                   f"{'' if pad_ms is None else f', the pad pass before it {pad_ms:.4f}'}"
                   f"{'' if form is None else f' (in the {form} form)'}"
-                  f"{'' if old_ms is None else f', bn_table_kernel {old_ms:.4f}'} [{card}]", flush=True)
+                  f"{'' if old_ms is None else f', the form it replaced {old_ms:.4f}'} [{card}]", flush=True)
     details["family_times"] = {"forwards": fam_times, "launches": fam_rows}
     torch.cuda.empty_cache()
 
@@ -1374,9 +1441,26 @@ SM90_PER_FORWARD = {"resnet18": 19, "resnet50": 52}
 # (csrc/bn_table_sm90.cu) at every batch: the rule's four sites of at most 64
 # code channels (kernels/quantize.py bn_table_takes); bn_table_kernel the other 35
 BN_TABLE_SM90_PER_FORWARD = 4
-NARROW_PER_FORWARD = {"resnet20 slice": 1, "resnet20 erf": 7, ("densenet40", 256): 30, ("densenet40", 8): 37,
+NARROW_PER_FORWARD = {"resnet20 slice": 1, "resnet20 erf": 1, ("densenet40", 256): 29, ("densenet40", 8): 37,
                       ("densenet40", 3): 38, ("mobilenetv2", 256): 11, ("mobilenetv2", 8): 22, ("mobilenetv2", 3): 23}
-NARROW_R20 = {"stage1 conv", "block3 skip"}  # conv_shapes names
+# K1 launches a ResNet-20 forward in the plane form (csrc/qmatmul_sm90p.cu)
+# at the batches of phases 6 and 7 (64, 256): the stage-1 convs, block 3's
+# stride-2 conv0 and the 16x16 3x3s to 32 columns; DenseNet-40's first
+# growth conv at batch 256. NARROW_PER_FORWARD's ResNet-20 counts are those
+# batches' too.
+PLANE_PER_FORWARD = {"resnet20 slice": 2, "resnet20 erf": 12}
+
+
+def r20_forms(batch):
+    """(narrow, plane): the conv_shapes names of ResNet-20's convs the rule
+    gives K1's narrow form and its plane form at `batch` (the stage-1 conv
+    the plane form where its items reach qmatmul.PLANE_MIN_ITEMS)."""
+    from alignq_tpu_torch.kernels import qmatmul as K1
+
+    stage1 = {"stage1 conv"}
+    if batch * 4 >= K1.PLANE_MIN_ITEMS:
+        return {"block3 skip"}, {"block3 conv0", "block3 conv1"} | stage1
+    return {"block3 skip"} | stage1, {"block3 conv0", "block3 conv1"}
 
 
 def affine_bn(model, generator):
@@ -1466,6 +1550,127 @@ def form_pair(x, op, p90, modes):
                                  f"{act.impl if act is not None else ''}: {int((a != b).sum())} elements")
         got32 = a if mode == "int32" else got32
     return got32
+
+
+# the first convs phase 3 checks: columns -> (mode, relu'd) of their sites
+# (ResNet-20/56: the relu'd codes of every served map; DenseNet-40: f32 and
+# the stage buffer's requant; MobileNet-V2: relu'd codes), one unrelu'd map
+FIRST_CHECKS = {16: (("poly", True), ("erf", True), ("bins", True), ("bins_int", True), ("erf", False)),
+                24: (("f32", False), ("requant", False)), 32: (("erf", True), ("poly", True))}
+
+
+def first_conv_checks(dev, gen, code_epilogue):
+    """Phase 3(b): the first-conv kernel (csrc/first_conv_sm90.cu) from f32
+    images at batches 2048 (ResNet-20's relu'd poly and erf codes, the main
+    path's), 256 and 3 (every site of FIRST_CHECKS), through its entry point (each call
+    one launch of it), against its plain version (codes and requant
+    identical, f32 within one ulp on at most 1e-6 of the elements) and bit
+    for bit against the chain it replaced (linear_q, K1's pad pass and
+    mma.sync form, under first_conv._old_form). Returns (max abs error,
+    {batch: (images, ResNet-20's packed weight)} for phase 10)."""
+    import torch
+
+    from alignq_tpu_torch.kernels import _build
+    from alignq_tpu_torch.kernels import first_conv as FC
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels.convert import QConvInt8
+    from alignq_tpu_torch.kernels.infer import S_IMG, act_int_cutpoints
+
+    err, ops, n_cmp = 0.0, {}, 0
+    for batch in (BATCH, SERVE_BATCH, 3):
+        x = torch.randn((batch, 32, 32, 3), generator=gen, device=dev) * 1.3
+        for n, sites in FIRST_CHECKS.items():
+            kern = torch.randint(-127, 128, (3, 3, 3, n), generator=gen, device=dev, dtype=torch.int8)
+            cs, cb = code_epilogue(27, n)
+            op = K1.pack_conv_weights(kern, cs, cb)
+            for mode, relu in sites:
+                if batch == BATCH and (n != 16 or mode not in ("poly", "erf") or not relu):  # the main path's
+                    continue
+                o, act = op, None
+                if mode == "requant":
+                    o = op._replace(bias=torch.full((n,), 1.0 / 0.021, device=dev))
+                elif mode == "bins_int":
+                    act = K1.pack_act_cutpoints(act_int_cutpoints(QConvInt8(kern, cs, cb), 4), n)._replace(relu=relu)
+                elif mode != "f32":
+                    act = K1.act_map(mode, 127 if mode != "bins" else 7, dev, relu=relu)
+                before = _build.launches[FC.FIRST]
+                got = FC.first_conv(x, o, S_IMG, act, mode)
+                with FC._old_form():
+                    old = FC.first_conv(x, o, S_IMG, act, mode)
+                want = FC.first_conv_reference(x, o, S_IMG, act, mode)
+                torch.cuda.synchronize()
+                what = f"first conv N={n} {mode}{' relu' if relu else ''} batch {batch}"
+                if _build.launches[FC.FIRST] != before + 1:
+                    raise AssertionError(f"{what}: the first-conv kernel was not launched once")
+                bits = (lambda t: t.view(torch.int32)) if got.dtype == torch.float32 else (lambda t: t)
+                if not torch.equal(bits(got), bits(old)):
+                    raise AssertionError(f"{what}: {int((got != old).sum())} elements differ from the chain")
+                if mode == "f32":
+                    diff = f32_mismatches(got, want)
+                    if diff > 1e-6 * got.numel():
+                        raise AssertionError(f"{what}: {diff} f32 elements differ from the plain version")
+                elif mode == "requant":
+                    diff = int((got != want).sum())
+                    if diff:
+                        raise AssertionError(f"{what}: {diff} requant codes differ from the plain version")
+                else:
+                    diff = code_mismatches(got, want, what)
+                err = max(err, float((got.double() - want.double()).abs().max()))
+                n_cmp += 1
+                print(f"{what}: differing elements {diff} of {got.numel()}; the chain's bit for bit", flush=True)
+                if n == 16 and mode == "poly" and relu:
+                    ops[batch] = (x, op)
+            del kern, op
+    print(f"the first-conv kernel: {n_cmp} launches, each bit for bit the chain it replaced", flush=True)
+    return err, ops
+
+
+def first_conv_row(batch, x, op, launches, card):
+    """Phase 10's row of the main path's first conv (ResNet-20's, N = 16):
+    the first-conv kernel from the f32 image (relu'd poly and erf codes, f32)
+    by graph_ms, its plain version, the chain it replaced (linear_q, K1's
+    pad pass and mma.sync form), torch._int_mm on the gathered taps of the
+    padded codes, and the bound: the f32 image read once and the outputs
+    written once, against 2 * M * 27 * N int8 operations."""
+    import torch
+
+    from alignq_tpu_torch.kernels import first_conv as FC
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels.infer import S_IMG
+
+    dev = x.device
+    b = x.shape[0]
+    m, n = b * 1024, op.n
+    plan = FC.first_plan(b, 32, n)
+    maps = {impl: K1.act_map(impl, 127, dev, relu=True) for impl in ("poly", "erf")}
+    out_c = torch.empty((m, n), device=dev, dtype=torch.int8)
+    out_f = torch.empty((m, n), device=dev)
+    code_ms = {impl: graph_ms(lambda: FC._first_launch(x, op, S_IMG, maps[impl], impl, plan, out_c), runs=LAUNCH_RUNS)
+               for impl in maps}
+    f32_ms = graph_ms(lambda: FC._first_launch(x, op, S_IMG, None, "f32", plan, out_f), runs=LAUNCH_RUNS)
+
+    def chain(impl):
+        with FC._old_form():
+            return FC.first_conv(x, op, S_IMG, maps[impl])
+
+    old_ms = {impl: graph_ms(lambda: chain(impl), runs=LAUNCH_RUNS) for impl in maps}
+    plain_ms = {impl: median_ms(lambda: FC.first_conv_reference(x, op, S_IMG, maps[impl]), runs=PLAIN_RUNS, warmup=0)
+                for impl in maps}
+    cols = K1.gather_taps(K1._conv_input(FC.linear_q(x, S_IMG), op), 3, 1, 1, K1.K_MULT)
+    wmat = op.wt[:n].t().contiguous()
+    lib_ms = graph_ms(lambda: torch._int_mm(cols, wmat), runs=LAUNCH_RUNS)
+    del cols
+    bc_ms, bc_by = bound(x.numel() * 4 + 35 * n + m * n, 2 * m * 27 * n)
+    bf_ms, _ = bound(x.numel() * 4 + 35 * n + 4 * m * n, 2 * m * 27 * n)
+    print(f"time the first conv (first-conv kernel) batch {b} M={m} K=27 N={n} (tiles of {plan.R} rows): codes poly "
+          f"{code_ms['poly']:.4f} ms, erf {code_ms['erf']:.4f} (the chain it replaced {old_ms['poly']:.4f}, "
+          f"{old_ms['erf']:.4f}; plain {plain_ms['poly']:.3f}, {plain_ms['erf']:.3f}; bound {bc_ms:.4f} {bc_by}); "
+          f"f32 {f32_ms:.4f} (bound {bf_ms:.4f}); torch._int_mm on the gathered taps {lib_ms:.4f} [{card}]", flush=True)
+    return dict(batch=batch, shape="stem conv", M=m, K=27, N=n, slice_launches=launches[0], erf_launches=launches[1],
+                tile=f"{plan.R} rows", form="first", poly_ms=code_ms["poly"], erf_ms=code_ms["erf"], f32_ms=f32_ms,
+                plain_poly_ms=plain_ms["poly"], plain_erf_ms=plain_ms["erf"], bound_ms=bc_ms, bound_f32_ms=bf_ms,
+                bound_by=bc_by, library_ms=lib_ms, pad_pass_ms=None, old_poly_ms=old_ms["poly"],
+                old_erf_ms=old_ms["erf"])
 
 
 def k1_form_pairs(launches_by, dev):
@@ -2844,15 +3049,17 @@ TP_RATE_BATCHES = 4
 
 
 def _n_counter(K1):
-    """Wrap K1's launch sites (qmatmul._run_k1, and the stem kernel's,
-    stem._stem_launch, which counts as K1's launch) so that each launch
+    """Wrap K1's launch sites (qmatmul._run_k1, and the stem kernel's and
+    the first-conv kernel's, stem._stem_launch and first_conv._first_launch,
+    which count as K1's launches) so that each launch
     adds its weight's N (the output channels it writes) to the returned
     dict's 'n'; returns (counter, undo). A sharded stem weight (N/2 a rank)
     is not the stem kernel's: it runs K1's 7x7 form, through _run_k1."""
+    from alignq_tpu_torch.kernels import first_conv as FC
     from alignq_tpu_torch.kernels import stem as ST
 
     seen = {"n": 0}
-    run, run_stem = K1._run_k1, ST._stem_launch
+    run, run_stem, run_first = K1._run_k1, ST._stem_launch, FC._first_launch
 
     def counted(x, op, *args, **kwargs):
         seen["n"] += op.n
@@ -2862,10 +3069,14 @@ def _n_counter(K1):
         seen["n"] += op.n
         return run_stem(xq, op, *args, **kwargs)
 
-    def undo():
-        K1._run_k1, ST._stem_launch = run, run_stem
+    def counted_first(x, op, *args, **kwargs):
+        seen["n"] += op.n
+        return run_first(x, op, *args, **kwargs)
 
-    K1._run_k1, ST._stem_launch = counted, counted_stem
+    def undo():
+        K1._run_k1, ST._stem_launch, FC._first_launch = run, run_stem, run_first
+
+    K1._run_k1, ST._stem_launch, FC._first_launch = counted, counted_stem, counted_first
     return seen, undo
 
 
@@ -3318,6 +3529,8 @@ def k1_options(geo):
     else:
         plans = {"narrow@" + ",".join(map(str, o)): K1.narrow_plan(*geo, option=o)
                  for o in K1.narrow_options(geo[7])}
+        ho, wo = K1.conv_out_hw(geo[1], geo[2], geo[4], geo[5], geo[6])
+        plans.update({f"plane@{tr}": K1.plane_plan(*geo, rows=tr) for tr in K1.plane_rows(ho, wo)})
     return {k: p for k, p in plans.items() if p is not None}
 
 
@@ -3329,6 +3542,8 @@ def option_of(plan):
         return f"sm90@{plan.n_wg}"
     if isinstance(plan, K1.NarrowPlan):
         return f"narrow@{plan.MG},{plan.WM},{plan.WK}"
+    if isinstance(plan, K1.PlanePlan):
+        return f"plane@{plan.TR}"
     return "mma"
 
 
@@ -3349,7 +3564,8 @@ def k1_ab(card, labels=None) -> None:
     whole forward (CUDA events, median of 20) in the order mma.sync, rule,
     rule, mma.sync (mma.sync under qmatmul._mma_form).
     `hopper_slower_at` lists the launches the rule gives a Hopper form
-    where mma.sync was faster, `narrow_lost_at` those where the narrow
+    where mma.sync was faster, `narrow_or_plane_lost_at` those where the narrow
+    or plane
     form's best option was more than 3% slower than mma.sync;
     `rule_misses` each launch where another option was faster than the
     rule's by more than 3%. One JSON line, also written to
@@ -3371,7 +3587,7 @@ def k1_ab(card, labels=None) -> None:
         with torch.inference_mode():
             launches = distinct_launches(record_launches(fwd))
             k1_sum = {"mma": 0.0, "rule": 0.0, "best": 0.0}
-            n_k1, n_taken = 0, {"sm90": 0, "narrow": 0}
+            n_k1, n_taken = 0, {"sm90": 0, "narrow": 0, "plane": 0}
             for key, ((kind, args), count) in launches.items():
                 if kind != "K1":
                     continue
@@ -3414,7 +3630,7 @@ def k1_ab(card, labels=None) -> None:
                 k1_sum["best"] += count * means[best]
                 rows.append(dict(net=label, batch=batch, shape=str(key), launches=count, rule=rule, best=best,
                                  mma_ms=t_mma, hopper_ms=t90, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                                 M=tiles[next(iter(tiles))].M, items={n: p.n_items for n, p in tiles.items()}))
+                                 M=pm.B * pm.Ho * pm.Wo, items={n: getattr(p, "n_items", p.B) for n, p in tiles.items()}))
                 print(f"k1 A/B {label} {key} x{count}: mma.sync {t_mma[0]:.4f} ms, "
                       + ", ".join(f"{n} {t[0]:.4f}" for n, t in t90.items())
                       + f", back {', '.join(f'{t[1]:.4f}' for t in list(t90.values())[::-1])}, mma.sync "
@@ -3438,15 +3654,17 @@ def k1_ab(card, labels=None) -> None:
 
     slower = [f"{r['net']} {r['batch']} {r['shape']}" for r in rows
               if r["rule"] != "mma" and mean(r, r["rule"]) >= mean(r, "mma")]
-    lost = [dict(at=f"{r['net']} {r['batch']} {r['shape']}", mma_ms=mean(r, "mma"),
-                 narrow_ms=min(mean(r, o) for o in r["hopper_ms"]))
-            for r in rows if any(o.startswith("narrow") for o in r["hopper_ms"])
-            and min(mean(r, o) for o in r["hopper_ms"]) > 1.03 * mean(r, "mma")]
+    def best_of(r, form):
+        return min(mean(r, o) for o in r["hopper_ms"] if o.startswith(form))
+
+    lost = [dict(at=f"{r['net']} {r['batch']} {r['shape']}", mma_ms=mean(r, "mma"), **{f"{form}_ms": best_of(r, form)})
+            for form in ("narrow", "plane") for r in rows if any(o.startswith(form) for o in r["hopper_ms"])
+            and best_of(r, form) > 1.03 * mean(r, "mma")]
     misses = [dict(at=f"{r['net']} {r['batch']} {r['shape']}", rule=r["rule"], best=r["best"],
                    ratio=mean(r, r["rule"]) / mean(r, r["best"]))
               for r in rows if mean(r, r["rule"]) > 1.03 * mean(r, r["best"])]
     result = {"k1_ab": rows, "forwards": forwards, "considered": considered, "hopper_slower_at": slower,
-              "narrow_lost_at": lost, "rule_misses": misses, "card": card}
+              "narrow_or_plane_lost_at": lost, "rule_misses": misses, "card": card}
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "k1_ab.json").write_text(json.dumps(result, indent=1))
@@ -3680,6 +3898,153 @@ def stem_dw_ab(card) -> None:
     print(json.dumps(res))
 
 
+FIRST_AB_OPTIONS = ((1, 4), (2, 4), (4, 4), (2, 2), (4, 2))  # (MG, warpgroups) of the first-conv kernel's tiles
+FIRST_AB_NETS = (("resnet20 slice", (BATCH, SERVE_BATCH, FAMILY_SERVE_BATCH)),
+                 ("resnet20 erf", (BATCH, SERVE_BATCH, 64, FAMILY_SERVE_BATCH)),
+                 ("densenet40 f32", (SERVE_BATCH, FAMILY_SERVE_BATCH)),
+                 ("densenet40 stage_int8", (SERVE_BATCH, FAMILY_SERVE_BATCH)),
+                 ("mobilenetv2", (SERVE_BATCH, FAMILY_SERVE_BATCH)))
+
+
+def first_plane_ab(card) -> None:
+    """python3 chip_smoke.py --first-plane-ab: the first-conv kernel and K1's
+    plane form against the forms they replaced, in one process, on the
+    launches of FIRST_AB_NETS' forwards (ResNet-20's slice and erf routes,
+    DenseNet-40 with either buffer, MobileNet-V2): each first conv as its
+    chain (linear_q, K1's pad pass and mma.sync form, under
+    first_conv._old_form) and at each tile option of the kernel
+    (FIRST_AB_OPTIONS), each plane-form launch in the form the rule gave it
+    before (mma.sync, or the narrow form; under qmatmul._old_form) and at
+    each item
+    size (plane_rows: whole images, halves, quarters), in the order old,
+    options, options backwards, old (graph_ms,
+    cold L2), every output bit for bit the old form's; beside each its
+    bound, torch._int_mm on the gathered taps and the option the rule
+    gives. Then each forward's K1 sum (its other launches timed once: they
+    take the same form either way) in the old forms and by the rule, and
+    the whole forward (CUDA events) in the order old, rule, rule, old (old
+    under first_conv._old_form and qmatmul._old_form). One JSON line, also
+    written to chiprun_out/first_plane_ab.json."""
+    import torch
+
+    from alignq_tpu_torch.kernels import first_conv as FC
+    from alignq_tpu_torch.kernels import infer as R20
+    from alignq_tpu_torch.kernels import qmatmul as K1
+
+    dev = torch.device("cuda")
+    fams = {label: (build, fwd, pack, kw) for label, build, fwd, _, pack, kw in family_configs()}
+    rows, forwards = [], {}
+
+    def old_forms():
+        stack = contextlib.ExitStack()
+        stack.enter_context(FC._old_form())
+        stack.enter_context(K1._old_form())
+        return stack
+
+    for label, batches in FIRST_AB_NETS:
+        for batch in batches:
+            if label.startswith("resnet20"):
+                _, (qp, x) = R20.build_resnet20_int8(batch, device=dev)
+                ops = R20.pack_int8_operands(qp)
+                kw = dict(act_impl="poly", stream="int16", use_stage_kernel=True, use_pallas_1x1=True) \
+                    if label.endswith("slice") else {}
+
+                def fwd():
+                    return R20.resnet20_int8_forward(qp, x, operands=ops, **kw)
+            else:
+                build, fwd_fn, pack, kw = fams[label]
+                _, (qp, x) = build(batch, device=dev, **kw)
+                ops = pack(qp, **kw)
+
+                def fwd():
+                    return fwd_fn(qp, x, operands=ops, **kw)
+
+            with torch.inference_mode():
+                launches = distinct_launches(record_launches(fwd))
+                sums = {"old": 0.0, "rule": 0.0}
+                for key, ((kind, args), count) in launches.items():
+                    if kind == "first":
+                        xi, op, plan, mode, act, scale = args
+                        dtype = torch.float32 if mode in ("f32", "relu") else torch.int8
+                        out = torch.empty((xi.numel() // 3, op.n), device=dev, dtype=dtype)
+                        opts = {f"first@{mg},{nw}": FC.first_plan(batch, 32, op.n, mg=mg, n_wg=nw)
+                                for mg, nw in FIRST_AB_OPTIONS}
+                        rule = f"first@{plan.MG},{plan.n_wg}"
+
+                        def old():
+                            with FC._old_form():
+                                return FC.first_conv(xi, op, scale, act, mode)
+
+                        def new(p):
+                            return lambda: FC._first_launch(xi, op, scale, act, mode, p, out)
+                    elif kind == "K1" and isinstance(args[2], K1.PlanePlan):
+                        xk, op, plan, mode, act, _ = args
+                        geo = (*xk.shape, 3, plan.stride, 1, *op.wt.shape)
+                        with K1._old_form():  # the form the rule gave the shape before: mma.sync or narrow
+                            pm = K1.k1_plan(*geo)
+                        out = k1_out(plan, op, mode)
+                        opts = {f"plane@{tr}": K1.plane_plan(*geo, rows=tr) for tr in K1.plane_rows(plan.Ho, plan.Wo)}
+                        opts = {k: p for k, p in opts.items() if p is not None}
+                        rule = f"plane@{plan.TR}"
+
+                        def old():
+                            K1._k1_launch(xk, op, pm, out, mode, act)
+
+                        def new(p):
+                            return lambda: K1._k1_launch(xk, op, p, out, mode, act)
+                    else:
+                        if kind == "K1":  # the same form by either rule: timed once
+                            xk, op, plan, mode, act, _ = args
+                            out = k1_out(plan, op, mode)
+                            t = graph_ms(lambda: K1._k1_launch(xk, op, plan, out, mode, act))
+                            sums["old"] += count * t
+                            sums["rule"] += count * t
+                        continue
+                    t_old, t_new = [graph_ms(old)], {k: [] for k in opts}
+                    for k in list(opts) + list(opts)[::-1]:
+                        t_new[k].append(graph_ms(new(opts[k])))
+                    t_old.append(graph_ms(old))
+                    want = old()
+                    torch.cuda.synchronize()
+                    want = (out if want is None else want).clone()
+                    for k, p in opts.items():  # every option's output is the old form's, bit for bit
+                        new(p)()
+                        torch.cuda.synchronize()
+                        got = out.reshape(want.shape)
+                        if not torch.equal(got.view(torch.int32) if got.dtype == torch.float32 else got,
+                                           want.view(torch.int32) if want.dtype == torch.float32 else want):
+                            raise AssertionError(f"{label} {batch} {key}: {k} differs from the form it replaced")
+                    b_ms, b_by, lib_ms = time_launch(kind, args)[2:5] if batch >= SERVE_BATCH else (None, None, None)
+                    means = {"old": statistics.mean(t_old), **{k: statistics.mean(v) for k, v in t_new.items()}}
+                    best = min(means, key=means.get)
+                    sums["old"] += count * means["old"]
+                    sums["rule"] += count * means[rule]
+                    rows.append(dict(net=label, batch=batch, shape=str(key), launches=count, rule=rule, best=best,
+                                     old_ms=t_old, new_ms=t_new, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+                    print(f"first/plane A/B {label} {batch} {key} x{count}: old {t_old[0]:.4f} ms, "
+                          + ", ".join(f"{k} {v[0]:.4f}" for k, v in t_new.items())
+                          + f", back {', '.join(f'{v[1]:.4f}' for v in list(t_new.values())[::-1])}, old "
+                          f"{t_old[1]:.4f}; rule {rule}, fastest {best}; bound "
+                          f"{'not timed' if b_ms is None else f'{b_ms:.4f} ({b_by})'}, torch._int_mm "
+                          f"{'not timed' if lib_ms is None else f'{lib_ms:.4f}'} [{card}]", flush=True)
+                fw = {"old": [], "rule": []}
+                for form in ("old", "rule", "rule", "old"):
+                    with old_forms() if form == "old" else contextlib.nullcontext():
+                        fw[form].append(median_ms(fwd))
+            forwards[f"{label} {batch}"] = {"k1_sum_ms": sums, "forward_ms": fw}
+            print(f"first/plane A/B {label} batch {batch}: K1 summed over a forward {sums} ms; the forward {fw} ms "
+                  f"(order old, rule, rule, old) [{card}]", flush=True)
+            del qp, x, ops, launches
+            torch.cuda.empty_cache()
+    result = {"first_plane_ab": rows, "forwards": forwards, "card": card,
+              "rule_misses": [dict(at=f"{r['net']} {r['batch']} {r['shape']}", rule=r["rule"], best=r["best"])
+                              for r in rows if r["best"] != r["rule"]]}
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "first_plane_ab.json").write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+
+
 DIGIT_AB_OPTIONS = {1: ((1, 3), (2, 3), (4, 4), (1, 1)), 2: ((2, 2), (1, 1), (4, 4))}  # (images, warpgroups)
 
 
@@ -3845,6 +4210,7 @@ def main() -> int:
     from alignq_tpu_torch.kernels import _build
     from alignq_tpu_torch.kernels import digit as DSm
     from alignq_tpu_torch.kernels import dwconv as DWm
+    from alignq_tpu_torch.kernels import first_conv as FC
     from alignq_tpu_torch.kernels import qmatmul as K1
     from alignq_tpu_torch.kernels import quantize as K2
     from alignq_tpu_torch.kernels import stage_kernel as K3
@@ -3907,6 +4273,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--bn-digit-ab"]:
         bn_digit_ab(card)
+        return 0
+    if sys.argv[1:] == ["--first-plane-ab"]:
+        first_plane_ab(card)
         return 0
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -3971,7 +4340,7 @@ def main() -> int:
     # the conv form, on NHWC codes read in place, at every path conv of
     # batches 2048 (poly and erf) and 256 and a ragged batch 3 (every mode)
     conv_cases = [(b, *shape) for b in (BATCH, SERVE_BATCH, 3) for shape in conv_shapes(b)]
-    narrow_pairs = 0
+    form_pairs = {"NarrowPlan": 0, "PlanePlan": 0}
     for batch, name, b, h, w, cin, ksize, stride, n in conv_cases:
         pad = 1 if ksize == 3 else 0
         x = i8((b, h, w, cin))
@@ -4005,26 +4374,37 @@ def main() -> int:
             k1_err = max(k1_err, float((got.int() - want.int()).abs().max()))
             code_counts[f"conv {impl} {name} batch {batch}"] = counts[impl]
             del got, want
-        # the launch's form by the rule; a narrow-form launch also against the
-        # mma.sync form on the same operands, bit for bit, in each mode checked
+        # the launch's form by the rule; a narrow- or plane-form launch also
+        # against the mma.sync form on the same operands, bit for bit, in each
+        # mode checked (the plane form's also with the maps relu'd)
         xc = K1._conv_input(x, op)
         plan = K1.k1_plan(*xc.shape, ksize, stride, pad, *op.wt.shape)
-        if (name in NARROW_R20) != isinstance(plan, K1.NarrowPlan):
+        narrow_r20, plane_r20 = r20_forms(b)
+        if (name in narrow_r20) != isinstance(plan, K1.NarrowPlan) or \
+                (name in plane_r20) != isinstance(plan, K1.PlanePlan):
             raise AssertionError(f"K1 conv {name} batch {batch}: the rule gave it {type(plan).__name__}")
-        if isinstance(plan, K1.NarrowPlan):
-            modes = [(m, None) for m in ("int32", "f32", "relu")] * (batch != BATCH) + list(
+        paired = isinstance(plan, (K1.NarrowPlan, K1.PlanePlan))
+        if paired:
+            modes = [(m, None) for m in ("int32", "f32", "relu", "requant")] * (batch != BATCH) + list(
                 (a.impl, a) for a in maps.values())
+            if isinstance(plan, K1.PlanePlan):
+                modes += [(impl, K1.act_map(impl, 127, dev, relu=True)) for impl in ("poly", "erf")]
             form_pair(xc, op, plan, modes)
-            narrow_pairs += len(modes)
+            form_pairs[type(plan).__name__] += len(modes)
         print(f"K1 conv {name} batch {b} {h}x{w}x{cin} k{ksize} s{stride} N={n} ({option_of(plan)}): "
               f"{'int32 identical; ' if batch != BATCH else ''}differing elements {counts} of "
               f"{b * ((h - 1) // stride + 1) * ((w - 1) // stride + 1) * n}"
-              f"{'; the mma.sync form bit for bit in each mode' if isinstance(plan, K1.NarrowPlan) else ''}",
+              f"{'; the mma.sync form bit for bit in each mode' if paired else ''}",
               flush=True)
         if batch in (BATCH, SERVE_BATCH) and conv_shapes(batch)[name, b, h, w, cin, ksize, stride, n] != (0, 0):
             k1_ops[batch, name] = (x, kern, cs, cb, op, stride, pad)
     details["k1_code_mismatches"] = code_counts
-    print(f"K1's narrow Hopper form: {narrow_pairs} launches, each bit for bit the mma.sync form's", flush=True)
+    print(f"K1's narrow Hopper form: {form_pairs['NarrowPlan']} launches, its plane form: "
+          f"{form_pairs['PlanePlan']}, each bit for bit the mma.sync form's", flush=True)
+    # the first conv from the f32 image, at each family's width and in the
+    # modes its sites use, against its plain version and its chain
+    first_err, first_ops = first_conv_checks(dev, gen, code_epilogue)
+    plane_err = k1_err
 
     # 4. K2's path, its entry point, then its results against the plain version
     phase("K2: its entry point, against its plain version")
@@ -4097,13 +4477,14 @@ def main() -> int:
     slice_kw = dict(act_impl="poly", stream="int16", use_stage_kernel=True, use_pallas_1x1=True)
     _, (_, x_cpu) = build_resnet20_int8(64, device="cpu")
     params, stats = init_preact_resnet_params(20, torch.Generator().manual_seed(SEED + 1), "cpu")
-    keys = (K1.KERNEL, K1.CODES, K1.F32, K1.NARROW, K3.KERNEL, K3.SM90, K1.TAP_GATHERS)
+    keys = (K1.KERNEL, K1.CODES, K1.F32, K1.NARROW, K1.PLANE, FC.FIRST, K3.KERNEL, K3.SM90, K1.TAP_GATHERS)
     n_slice, n_erf = NARROW_PER_FORWARD["resnet20 slice"], NARROW_PER_FORWARD["resnet20 erf"]
-    for label, (wbits, abits), kw, k1_per_fwd, k3_per_fwd, narrow_per_fwd in (
-        ("slice poly+K3+K1", (8, 8), slice_kw, 7, 3, n_slice),
-        ("default erf/int16", (8, 8), {}, 21, 0, n_erf),
-        ("A4 bins", (8, 4), {"act_impl": "bins"}, 21, 0, n_erf),
-        ("W4A4 bins_int", (4, 4), {"act_impl": "bins_int"}, 21, 0, n_erf),
+    p_slice, p_erf = PLANE_PER_FORWARD["resnet20 slice"], PLANE_PER_FORWARD["resnet20 erf"]
+    for label, (wbits, abits), kw, k1_per_fwd, k3_per_fwd, narrow_per_fwd, plane_per_fwd in (
+        ("slice poly+K3+K1", (8, 8), slice_kw, 7, 3, n_slice, p_slice),
+        ("default erf/int16", (8, 8), {}, 21, 0, n_erf, p_erf),
+        ("A4 bins", (8, 4), {"act_impl": "bins"}, 21, 0, n_erf, p_erf),
+        ("W4A4 bins_int", (4, 4), {"act_impl": "bins_int"}, 21, 0, n_erf, p_erf),
     ):
         qp_cpu = convert_resnet20(params, stats, weight_bits=wbits, act_bits=abits)
         if kw.get("act_impl") == "bins_int":
@@ -4122,7 +4503,8 @@ def main() -> int:
         if not (torch.isfinite(l_gpu).all() and lerr <= 1e-4 and l_gpu.shape == (64, 10)):
             raise AssertionError(f"{label}: logits off by {lerr}")
         want = {K1.KERNEL: k1_per_fwd, K1.CODES: k1_per_fwd, K1.F32: 0, K1.NARROW: narrow_per_fwd,
-                K3.KERNEL: k3_per_fwd, K3.SM90: k3_per_fwd, K1.TAP_GATHERS: 0}
+                K1.PLANE: plane_per_fwd, FC.FIRST: 1, K3.KERNEL: k3_per_fwd, K3.SM90: k3_per_fwd,
+                K1.TAP_GATHERS: 0}
         if counts != want:
             raise AssertionError(f"{label}: launches per forward {counts}, expected {want}")
         print(f"forward {label} batch 64: int16 stream identical to CPU, logits max abs {lerr:.3g}, "
@@ -4180,6 +4562,10 @@ def main() -> int:
         raise AssertionError(f"main path: K3 launches not all in the Hopper form: {main_launches}")
     if main_launches.get(K1.NARROW, 0) * 7 != main_launches[K1.KERNEL] * n_slice:
         raise AssertionError(f"main path: not {n_slice} of 7 K1 launches a forward in the narrow form: {main_launches}")
+    if main_launches.get(K1.PLANE, 0) * 7 != main_launches[K1.KERNEL] * p_slice or \
+            main_launches.get(FC.FIRST, 0) * 7 != main_launches[K1.KERNEL]:
+        raise AssertionError(f"main path: not {p_slice} of 7 K1 launches a forward in the plane form and 1 in the "
+                             f"first-conv kernel: {main_launches}")
     if main_launches.get(K1.CODES, 0) != main_launches[K1.KERNEL] or main_launches.get(K1.F32, 0):
         raise AssertionError(f"main path: K1 launches not all in codes mode: {main_launches}")
     if main_launches.get(K1.TAP_GATHERS, 0):
@@ -4208,9 +4594,10 @@ def main() -> int:
     engine.close()
     n_k1 = erf_launches.get(K1.KERNEL, 0)
     if n_k1 == 0 or n_k1 % 21 or erf_launches.get(K1.CODES, 0) != n_k1 or erf_launches.get(K1.F32, 0) \
-            or erf_launches.get(K1.NARROW, 0) * 21 != n_k1 * n_erf:
+            or erf_launches.get(K1.NARROW, 0) * 21 != n_k1 * n_erf or \
+            erf_launches.get(K1.PLANE, 0) * 21 != n_k1 * p_erf or erf_launches.get(FC.FIRST, 0) * 21 != n_k1:
         raise AssertionError(f"erf route: launches {erf_launches}, expected 21 codes-mode K1 a forward, {n_erf} "
-                             "of them in the narrow form")
+                             f"of them in the narrow form, {p_erf} in the plane form, 1 in the first-conv kernel")
     if erf_launches.get(K1.TAP_GATHERS, 0):
         raise AssertionError(f"erf route: a conv gathered its taps on the card: {erf_launches}")
     details["serving"]["erf_route_launches"] = erf_launches
@@ -4241,9 +4628,14 @@ def main() -> int:
     rows = {K1.KERNEL: [], K2.KERNEL: [], K3.KERNEL: []}
     for (batch, name), (x, kern, cs, cb, op, stride, pad) in k1_ops.items():
         _, b, h, w, cin, ksize, _, n = next(key for key in conv_shapes(batch) if key[0] == name)
+        if name == "stem conv":  # the main path's first conv runs the first-conv kernel from the f32 image
+            rows[K1.KERNEL].append(first_conv_row(batch, *first_ops[batch],
+                                                  conv_shapes(batch)[name, b, h, w, cin, ksize, stride, n], card))
+            continue
         xc = K1._conv_input(x, op)  # as the kernel takes it: the stem's channels padded to 4
         plan = K1.k1_plan(*xc.shape, ksize, stride, pad, *op.wt.shape)
-        tile = f"{plan.TM} rows" if isinstance(plan, (K1.Sm90Plan, K1.NarrowPlan)) else f"{plan.TR}x{plan.TW}"
+        tile = f"{plan.TM} rows" if isinstance(plan, (K1.Sm90Plan, K1.NarrowPlan)) else \
+            f"items of {plan.TR} rows" if isinstance(plan, K1.PlanePlan) else f"{plan.TR}x{plan.TW}"
         m = plan.B * plan.Ho * plan.Wo
         out_c = torch.empty((m, op.wt.shape[0]), device=dev, dtype=torch.int8)
         out_f = torch.empty((m, op.wt.shape[0]), device=dev)
@@ -4252,6 +4644,12 @@ def main() -> int:
                    for impl in ("poly", "erf")}
         f32_ms = graph_ms(lambda: K1._k1_launch(xc, op, plan, out_f, "f32"), runs=LAUNCH_RUNS)
         pad_ms = graph_ms(lambda: K1._conv_input(x, op), runs=LAUNCH_RUNS) if x.shape[-1] != op.cin else None
+        old_ms = {}  # a plane-form launch in the form it replaced (mma.sync, or the narrow form)
+        if isinstance(plan, K1.PlanePlan):
+            with K1._old_form():
+                pm = K1.k1_plan(*xc.shape, ksize, stride, pad, *op.wt.shape)
+            old_ms = {impl: graph_ms(lambda: K1._k1_launch(xc, op, pm, out_c, impl, maps[impl]), runs=LAUNCH_RUNS)
+                      for impl in ("poly", "erf")}
         plain_code_ms = {impl: median_ms(lambda: K1.int8_conv_reference(x, op, stride, pad, impl,
                                                                            K1.act_map(impl, 127, dev)),
                                          runs=PLAIN_RUNS, warmup=0)
@@ -4269,13 +4667,14 @@ def main() -> int:
             tile=tile, form=option_of(plan), poly_ms=code_ms["poly"], erf_ms=code_ms["erf"], f32_ms=f32_ms,
             plain_poly_ms=plain_code_ms["poly"], plain_erf_ms=plain_code_ms["erf"],
             bound_ms=bc_ms, bound_f32_ms=bf_ms, bound_by=bc_by, library_ms=lib_ms, pad_pass_ms=pad_ms,
+            old_poly_ms=old_ms.get("poly"), old_erf_ms=old_ms.get("erf"),
         ))
         print(f"time K1 conv {name} batch {b} M={m} K={ksize * ksize * cin} N={n} ({option_of(plan)}, tile {tile}): "
               f"codes poly {code_ms['poly']:.4f} ms, erf {code_ms['erf']:.4f} (plain {plain_code_ms['poly']:.3f}, "
               f"{plain_code_ms['erf']:.3f}; bound {bc_ms:.4f} {bc_by}); f32 {f32_ms:.4f} (bound {bf_ms:.4f}); "
               f"torch._int_mm on the gathered matrix {lib_ms:.4f}"
-              f"{'' if pad_ms is None else f'; the pad pass before it {pad_ms:.4f}'} "
-              f"[{card}]", flush=True)
+              f"{'' if pad_ms is None else f'; the pad pass before it {pad_ms:.4f}'}"
+              f"{'' if not old_ms else f'; the form it replaced {old_ms}'} [{card}]", flush=True)
     for batch, name, x in k2_inputs:
         if batch is None:
             continue
@@ -4351,10 +4750,15 @@ def main() -> int:
             K3.KERNEL: summed([x for x in rows[K3.KERNEL] if x["batch"] == batch], "ms", "plain_ms", "bound_ms",
                               None),
         }
-        narrow = [x for x in r1 if x["form"].startswith("narrow")]
-        per_forward[batch][K1.NARROW] = summed(narrow, "poly_ms", "plain_poly_ms", "bound_ms", "slice_launches")
-        per_forward[batch][K1.NARROW + " (erf route)"] = summed(narrow, "erf_ms", "plain_erf_ms", "bound_ms",
-                                                               "erf_launches")
+        for key, form in ((K1.NARROW, "narrow"), (K1.PLANE, "plane"), (FC.FIRST, "first")):
+            these = [x for x in r1 if x["form"].startswith(form)]
+            per_forward[batch][key] = summed(these, "poly_ms", "plain_poly_ms", "bound_ms", "slice_launches")
+            per_forward[batch][key + " (erf route)"] = summed(these, "erf_ms", "plain_erf_ms", "bound_ms",
+                                                              "erf_launches")
+            if form != "narrow":  # the form each replaced, over the same launches
+                per_forward[batch][key]["replaced_ms"] = sum(x["old_poly_ms"] * x["slice_launches"] for x in these)
+                per_forward[batch][key + " (erf route)"]["replaced_ms"] = sum(
+                    x["old_erf_ms"] * x["erf_launches"] for x in these)
         for kname, v in per_forward[batch].items():
             print(f"{kname} over one batch-{batch} forward: {json.dumps(v)} [{card}]", flush=True)
     details["per_forward"] = per_forward
@@ -4367,15 +4771,19 @@ def main() -> int:
          main_launches[K3.SM90]),
         (K1.NARROW, "alignq_tpu_torch/csrc/qmatmul_sm90n.cu", "alignq_tpu/kernels/qmatmul.py:45", k1_err,
          main_launches[K1.NARROW]),
+        (K1.PLANE, "alignq_tpu_torch/csrc/qmatmul_sm90p.cu", "alignq_tpu/kernels/qmatmul.py:45", plane_err,
+         main_launches[K1.PLANE]),
+        (FC.FIRST, "alignq_tpu_torch/csrc/first_conv_sm90.cu", "alignq_tpu/kernels/qmatmul.py:45", first_err,
+         main_launches[FC.FIRST]),
     ]
     kernels = [{"name": kname, "route": "cuda", "source": src, "replaces": replaces, "launches": launches,
-                "max_abs_err": err, **per_forward[SERVE_BATCH][kname]}
+                "max_abs_err": err, **{k: v for k, v in per_forward[SERVE_BATCH][kname].items() if k != "replaced_ms"}}
                for kname, src, replaces, err, launches in meta]
 
-    def family_sum(label, kind, form=None):
-        """One batch-256 forward of a family's launches of one kernel (of
-        one form of the table pass, where form is given)."""
-        r = [x for x in fam_rows if x["family"] == label and x["kind"] == kind and form in (None, x["form"])]
+    def family_sum(label, kinds, form=None):
+        """One batch-256 forward of a family's launches of the kernel kinds
+        given (of one form of the table pass, where form is given)."""
+        r = [x for x in fam_rows if x["family"] == label and x["kind"] in kinds and form in (None, x["form"])]
         lib = [x["library_ms"] for x in r]
         t_bytes = sum(x["bound_ms"] * x["launches"] for x in r if x["bound_by"] == "bytes")
         t_ops = sum(x["bound_ms"] * x["launches"] for x in r if x["bound_by"] == "operations")
@@ -4383,23 +4791,23 @@ def main() -> int:
                 "bound_ms": t_bytes + t_ops, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None if None in lib else sum(x["library_ms"] * x["launches"] for x in r)}
 
-    for kname, src, replaces, label, kind, form, counter in (
+    for kname, src, replaces, label, kinds, form, counter in (
         (K1.KERNEL + "@densenet40", "alignq_tpu_torch/csrc/qmatmul.cu", "alignq_tpu/kernels/qmatmul.py:45",
-         "densenet40 stage_int8", "K1", None, K1.KERNEL),
+         "densenet40 stage_int8", ("K1", "first"), None, K1.KERNEL),
         (K1.KERNEL + "@mobilenetv2", "alignq_tpu_torch/csrc/qmatmul.cu", "alignq_tpu/kernels/qmatmul.py:45",
-         "mobilenetv2", "K1", None, K1.KERNEL),
+         "mobilenetv2", ("K1", "first"), None, K1.KERNEL),
         (DWm.DW_SM90, "alignq_tpu_torch/csrc/dwconv_sm90.cu", "alignq_tpu/kernels/infer_mobilenet.py:39", "mobilenetv2",
-         "dw", None, DWm.DW_SM90),
+         ("dw",), None, DWm.DW_SM90),
         (K2.BN_ACT_TABLE_SM90, "alignq_tpu_torch/csrc/bn_table_sm90.cu", "alignq_tpu/kernels/infer_densenet.py:125",
-         "densenet40 stage_int8", "bn_table", "sm90", K2.BN_ACT_TABLE_SM90),
+         "densenet40 stage_int8", ("bn_table",), "sm90", K2.BN_ACT_TABLE_SM90),
         (K2.BN_ACT_TABLE_CHUNKED, "alignq_tpu_torch/csrc/quantize.cu", "alignq_tpu/kernels/infer_densenet.py:125",
-         "densenet40 stage_int8", "bn_table", "chunked", K2.BN_ACT_TABLE_CHUNKED),
+         "densenet40 stage_int8", ("bn_table",), "chunked", K2.BN_ACT_TABLE_CHUNKED),
         (K2.BN_ACT_ARITH, "alignq_tpu_torch/csrc/quantize.cu", "alignq_tpu/kernels/infer_densenet.py:125",
-         "densenet40 f32", "bn", None, K2.BN_ACT_ARITH),
+         "densenet40 f32", ("bn",), None, K2.BN_ACT_ARITH),
     ):
         kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": fam_serving[label]["launches"].get(counter, 0), "max_abs_err": fam_err[kind],
-                        **family_sum(label, kind, form)})
+                        "launches": fam_serving[label]["launches"].get(counter, 0),
+                        "max_abs_err": max(fam_err[k] for k in kinds), **family_sum(label, kinds, form)})
         print(f"{kname} over one batch-{SERVE_BATCH} {label} forward: {json.dumps(kernels[-1])} [{card}]", flush=True)
     tb = [x for x in fam_rows if x["kind"] == "bn_table"]
     tb90 = [x for x in tb if x["form"] == "sm90"]

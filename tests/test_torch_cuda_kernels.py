@@ -913,3 +913,175 @@ def test_family_forward_cuda_vs_cpu(cuda, family):
     assert len(got) == len(ref)
     for i, (g, r) in enumerate(zip(got, ref)):
         assert torch.equal(g.cpu(), r), f"{family}: stream {i} differs from the CPU's"
+
+
+# The CIFAR nets' first conv in its kernel (csrc/first_conv_sm90.cu): the
+# columns and modes of its sites, (N, mode, relu'd): ResNet-20/56 the
+# relu'd codes of every served map (and one map not relu'd), DenseNet-40
+# f32 and the stage buffer's requant, MobileNet-V2 the relu'd codes
+FIRST_CONV_SITES = [(16, "poly", True), (16, "erf", True), (16, "bins", True), (16, "bins_int", True),
+                    (16, "erf", False), (24, "f32", False), (24, "requant", False), (32, "erf", True),
+                    (32, "poly", True)]
+
+
+def _trained_like(acc, rng):
+    """Per-column scale and bias of a BN folded over the conv's own sums
+    (their mean and std over the batch), with an affine drawn as training
+    leaves it: h ~ N(beta, gamma) a column."""
+    a = acc.reshape(-1, acc.shape[-1]).double()
+    gamma = torch.from_numpy(rng.uniform(0.5, 1.5, acc.shape[-1]))
+    beta = torch.from_numpy(rng.normal(0.0, 0.3, acc.shape[-1]))
+    s = gamma / a.std(0).clamp_min(1.0)
+    return s.float(), (beta - a.mean(0) * s).float()
+
+
+def _window_epilogue(impl, n, rng):
+    """Scales of 2^-24 and biases at the map's irregular steps, so that h
+    lies in the table's windows (act_codes.cuh table_code's slow path)."""
+    from alignq_tpu_torch.kernels.quantize import act_table_steps
+
+    wa, wz = act_table_steps(impl, 127)
+    irregular = np.nonzero((wz >= wa) & (np.arange(len(wa)) >= 127))[0]
+    scale = np.float32(2.0 ** -24) * rng.choice([-1, 1], n)
+    return torch.from_numpy(scale.astype(np.float32)), torch.from_numpy(wa[irregular[np.arange(n) % len(irregular)]])
+
+
+def _close(got, want, mode):
+    if mode in ("int32", "requant"):
+        assert torch.equal(got, want), mode
+    elif got.dtype == torch.float32:
+        _assert_f32_close(got, want)
+    else:
+        _assert_codes_close(got, want)
+
+
+@pytest.mark.parametrize("weights", ["random", "trained", "windows"])
+@pytest.mark.parametrize("batch", [1, 3, 8, 256, 2048])
+def test_first_conv_kernel_vs_plain_and_chain(cuda, batch, weights):
+    """The first-conv kernel through its entry point (one launch each,
+    counted) from f32 images, at every site's columns and modes, against the
+    chain it replaced (linear_q, K1's pad pass and mma.sync form, under
+    first_conv._old_form) bit for bit and against its plain version; at
+    random weights, trained-like ones (a BN folded over the conv's own sums)
+    and with h steered into the erf and poly maps' windows. At 2048 the
+    main path's relu'd poly and erf codes."""
+    from alignq_tpu_torch.kernels import first_conv as FC
+    from alignq_tpu_torch.kernels.convert import QConvInt8
+    from alignq_tpu_torch.kernels.infer import S_IMG, act_int_cutpoints
+
+    rng = np.random.RandomState(batch + len(weights))
+    x = torch.from_numpy((rng.randn(batch, 32, 32, 3) * (0.02 if weights == "windows" else 1.2)).astype(np.float32))
+    x = x.to(cuda)
+    for n, mode, relu in FIRST_CONV_SITES:
+        if batch == 2048 and (n != 16 or mode not in ("poly", "erf") or not relu):
+            continue
+        if weights == "windows" and mode not in ("poly", "erf"):
+            continue
+        kern = _i8(rng, (3, 3, 3, n)).to(cuda)
+        if weights == "random":
+            s = torch.from_numpy(rng.uniform(2e-5, 1.2e-4, n).astype(np.float32) * rng.choice([-1, 1], n))
+            b = torch.from_numpy((rng.randn(n) * 0.5).astype(np.float32))
+        elif weights == "trained":
+            acc = FC.first_conv_reference(x, pack_conv_weights(kern), S_IMG, mode="int32")
+            s, b = _trained_like(acc.cpu(), rng)
+        else:
+            s, b = _window_epilogue(mode, n, rng)
+        op = pack_conv_weights(kern, s.to(cuda), b.to(cuda))
+        act = None
+        if mode == "requant":
+            op = op._replace(bias=torch.full((n,), 1.0 / 0.037, device=cuda))
+        elif mode == "bins_int":
+            act = pack_act_cutpoints(act_int_cutpoints(QConvInt8(kern, op.scale[:n], op.bias[:n]), 4),
+                                     op.wt.shape[0])._replace(relu=relu)
+        elif mode != "f32":
+            act = act_map(mode, 7 if mode == "bins" else 127, cuda, relu=relu)
+        before = _build.launches[FC.FIRST]
+        got = FC.first_conv(x, op, S_IMG, act, mode)
+        torch.cuda.synchronize()
+        assert _build.launches[FC.FIRST] == before + 1
+        with FC._old_form():
+            old = FC.first_conv(x, op, S_IMG, act, mode)
+        if got.dtype == torch.float32:
+            assert torch.equal(got.view(torch.int32), old.view(torch.int32)), (n, mode)
+        else:
+            assert torch.equal(got, old), (n, mode, relu)
+        _close(got, FC.first_conv_reference(x, op, S_IMG, act, mode), mode)
+        if weights != "windows" and mode not in ("f32", "requant"):
+            assert len(torch.unique(got)) > 3  # codes spread over the grid
+
+
+# K1's plane form (csrc/qmatmul_sm90p.cu) at its shapes on the main path:
+# block 3's stride-2 conv0 and the 16x16 3x3s to 32 columns (ResNet-20/56),
+# and the narrower forms it also takes: (H, W, Cin, stride, N)
+PLANE_K1_FORMS = [(32, 32, 16, 2, 32), (16, 16, 32, 1, 32), (16, 16, 16, 1, 16), (32, 32, 16, 2, 16),
+                  (32, 32, 16, 1, 16)]
+
+
+@pytest.mark.parametrize("weights", ["random", "trained", "windows"])
+@pytest.mark.parametrize("batch", [1, 3, 8, 256, 2048])
+@pytest.mark.parametrize("form", PLANE_K1_FORMS)
+def test_conv_plane_form_vs_plain_and_mma_form(cuda, form, batch, weights):
+    """K1's plane form at its plan in every mode (int32, f32, relu,
+    requant, the erf, poly, bins and bins_int codes, relu'd and not; at 2048
+    int32 and the site maps' poly and erf codes) against the mma.sync form
+    on the same operands, 0 differing elements, by the raw launches, and
+    against the plain version; where the rule gives it the plane form, the
+    entry points again, each launch counted under PLANE; then each item
+    size (whole images, halves, quarters), bit for bit the rule's output. At random weights, trained-like
+    ones and with h steered into the maps' windows."""
+    from alignq_tpu_torch.kernels import qmatmul as K1
+    from alignq_tpu_torch.kernels.convert import QConvInt8
+    from alignq_tpu_torch.kernels.infer import act_int_cutpoints
+
+    h, w, cin, stride, n = form
+    rng = np.random.RandomState(cin + n + batch + stride + len(weights))
+    x = _i8(rng, (batch, h, w, cin), *((0, 2) if weights == "windows" else (0, 128))).to(cuda)
+    kern = _i8(rng, (3, 3, cin, n)).to(cuda)
+    if weights == "random":
+        s = torch.from_numpy(((rng.rand(n) * 2 - 0.4) * 2 / (np.sqrt(9 * cin) * 73.3**2)).astype(np.float32))
+        b = torch.from_numpy((rng.randn(n) * 0.5).astype(np.float32))
+    elif weights == "trained":
+        s, b = _trained_like(int8_conv_reference(x, pack_conv_weights(kern), stride, 1, "int32").cpu(), rng)
+    else:
+        s, b = _window_epilogue("erf" if batch % 2 else "poly", n, rng)
+    op = pack_conv_weights(kern, s.to(cuda), b.to(cuda))
+    rq = op._replace(bias=torch.full((n,), 1.0 / 0.37, device=cuda))
+    geo = (batch, h, w, cin, 3, stride, 1, *op.wt.shape)
+    plan = K1.plane_plan(*geo)
+    assert plan is not None
+    mma = K1.conv_plan(*geo)
+    acts = [act_map(i, 127, cuda, relu=r) for i in ("erf", "poly") for r in (False, True)]
+    if batch != 2048:
+        cut = pack_act_cutpoints(act_int_cutpoints(QConvInt8(kern, op.scale[:n], op.bias[:n]), 4), op.wt.shape[0])
+        acts += [act_map("bins", 7, cuda, relu=True), cut, cut._replace(relu=True)]
+    modes = [(op, "int32", None)] + [(op, a.impl, a) for a in acts] + (
+        [(op, "f32", None), (op, "relu", None), (rq, "requant", None)] if batch != 2048 else [])
+    got = []
+    for op_, mode, act in modes:
+        a = torch.empty((plan.B * plan.Ho * plan.Wo, n), device=cuda,
+                        dtype={"int32": torch.int32, "f32": torch.float32, "relu": torch.float32}.get(mode, torch.int8))
+        b_ = torch.empty_like(a)
+        K1._k1_launch(x, op_, plan, a, mode, act)
+        K1._k1_launch(x, op_, mma, b_, mode, act)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b_), (mode, act.relu if act is not None else None)
+        a = a.reshape(batch, plan.Ho, plan.Wo, n)
+        _close(a, int8_conv_reference(x, op_, stride, 1, mode, act), mode)
+        got.append(a)
+    if k1_plan(*geo) == plan:  # the rule's form: through the entry points, counted
+        before = _build.launches[K1.PLANE]
+        via = [int8_conv_packed(x, op_, stride, 1, mode) if act is None else int8_conv_codes(x, op_, stride, 1, act)
+               for op_, mode, act in modes]
+        torch.cuda.synchronize()
+        assert _build.launches[K1.PLANE] == before + len(modes)
+        for a, b_ in zip(via, got):
+            assert torch.equal(a, b_)
+    for rows in K1.plane_rows(plan.Ho, plan.Wo):
+        p = K1.plane_plan(*geo, rows=rows)
+        if p is None or p == plan:
+            continue
+        for (op_, mode, act), want in ((modes[0], got[0]), (modes[2], got[2])):
+            out = torch.empty((batch * plan.Ho * plan.Wo, n), device=cuda, dtype=want.dtype)
+            K1._k1_launch(x, op_, p, out, mode, act)
+            torch.cuda.synchronize()
+            assert torch.equal(out.reshape(want.shape), want), rows

@@ -48,28 +48,31 @@ def _resnet20_shapes(batch):
 
 def _form(args):
     plan = K1.k1_plan(*args)
-    return {K1.Sm90Plan: "sm90", K1.NarrowPlan: "narrow", K1.ConvPlan: "mma"}[type(plan)]
+    return {K1.Sm90Plan: "sm90", K1.NarrowPlan: "narrow", K1.PlanePlan: "plane", K1.ConvPlan: "mma"}[type(plan)]
 
 
 @pytest.mark.parametrize("batch", [2048, 256, 64, 8, 3])
 def test_the_rule_on_resnet20(batch):
-    """ResNet-20's stage-1 conv and block-3 skip take the narrow form
-    (chip_smoke.NARROW_R20), its block-6 convs the Hopper form; the stem,
-    the stride-2 block-3 conv0 and merged conv (which the narrow form does
-    not take) and block-3 conv1 (which narrow_takes leaves: it ran slower)
-    the mma.sync form; per forward, 1 of the slice route's 7 launches and 7
-    of the erf route's 21 in the narrow form (chip_smoke.NARROW_PER_FORWARD)."""
+    """ResNet-20's block-3 skip takes the narrow form, its block-6 convs
+    the Hopper form, the stride-2 block-3 conv0 and block-3 conv1 the plane
+    form, the stage-1 conv the plane form from batch 33 and the narrow form
+    below (plane_takes, as measured; chip_smoke.r20_forms); the 4-channel
+    stem (as a K1 launch: the forwards give it kernels/first_conv.py) and
+    the merged conv the mma.sync form; per forward, 1 of the slice route's
+    7 launches in the narrow form, and of the erf route's 21, 1 from batch
+    33 (chip_smoke.NARROW_PER_FORWARD) and 7 below."""
     shapes = _resnet20_shapes(batch)
     forms = {name: _form(args) for name, args in shapes.items()}
-    assert {n for n, f in forms.items() if f == "narrow"} == chip_smoke.NARROW_R20
+    narrow, plane = chip_smoke.r20_forms(batch)
+    assert {n for n, f in forms.items() if f == "narrow"} == narrow
     assert {n for n, f in forms.items() if f == "sm90"} == {
         "block6 conv0", "block6 skip", "block6 conv1", "block6 merged"}
-    assert {n for n, f in forms.items() if f == "mma"} == {"stem conv", "block3 conv0", "block3 conv1",
-                                                            "block3 merged"}
+    assert {n for n, f in forms.items() if f == "plane"} == plane
+    assert {n for n, f in forms.items() if f == "mma"} == {"stem conv", "block3 merged"}
     assert K1.narrow_plan(*shapes["block3 conv1"]) is not None and K1.narrow_plan(*shapes["block3 conv0"]) is None
     for route, i in (("resnet20 slice", 0), ("resnet20 erf", 1)):
         n = sum(counts[i] for key, counts in chip_smoke.conv_shapes(batch).items() if forms[key[0]] == "narrow")
-        assert n == chip_smoke.NARROW_PER_FORWARD[route]
+        assert n == (chip_smoke.NARROW_PER_FORWARD[route] if batch >= 33 else {0: 1, 1: 7}[i])
 
 
 @pytest.mark.parametrize("batch", [256, 8, 3])
@@ -79,15 +82,18 @@ def test_the_rule_on_the_family_graphs(batch):
     narrow form where narrow_takes gives it them, chip_smoke's counts at
     each batch: at 256 DenseNet-40 keeps its two transitions, its two
     32x32 convs over 48 channels and its 16x16 convs over 176-208 channels
-    in mma.sync, at 8 its first transition;
+    in mma.sync, and gives its first growth conv (32 channels) the plane
+    form; at 8 it keeps its first transition;
     every graph's first conv (over the image's 4 channels) and MobileNet-V2's
     1x1s over 24 channels stay in mma.sync, its 23 wide ones in the Hopper
     form."""
     shapes = _family_k1_shapes(batch)
     dense, mobile = shapes[:1] + shapes[2:40], shapes[1:2] + shapes[40:]  # each graph's first conv, then the rest
     forms = collections.Counter(_form(a) for a in dense)
-    assert forms == {"narrow": chip_smoke.NARROW_PER_FORWARD["densenet40", batch],
-                     "mma": 39 - chip_smoke.NARROW_PER_FORWARD["densenet40", batch]}
+    plane = int(batch == 256)
+    want = {"narrow": chip_smoke.NARROW_PER_FORWARD["densenet40", batch],
+            "mma": 39 - plane - chip_smoke.NARROW_PER_FORWARD["densenet40", batch], "plane": plane}
+    assert forms == {k: v for k, v in want.items() if v}
     kept = {(a[1], a[3], a[4], a[7]) for a in dense if _form(a) == "mma"}
     assert kept == {(32, 4, 3, 24)} | {256: {(32, 176, 1, 168), (16, 320, 1, 312), (32, 48, 3, 16), (16, 176, 3, 16),
                                              (16, 192, 3, 16), (16, 208, 3, 16)},
@@ -118,7 +124,7 @@ def test_narrow_plan_refuses_shapes_off_the_form():
 
 
 def test_forced_form_is_the_only_way_round_the_rule():
-    args = _resnet20_shapes(256)["stage1 conv"]
+    args = _resnet20_shapes(256)["block3 skip"]
     assert isinstance(K1.k1_plan(*args), K1.NarrowPlan)
     with K1._mma_form():
         assert isinstance(K1.k1_plan(*args), K1.ConvPlan)
@@ -192,11 +198,12 @@ def test_resnet20_plans_fit_and_cover_every_output_once(batch):
 
 def test_tiles_follow_the_launch_size():
     """Tall tiles on one warpgroup (MG at its most) at ResNet-20's stage-1
-    conv at 2048 (5 K steps), on two at DenseNet-40's 32x32 convs over 64
-    channels at 256; two warpgroups of 64 rows at its 16x16 convs at 256;
-    64-row tiles with K split over 4 warpgroups at its deep 8x8 convs at 256
-    and at the ragged batch 3."""
-    p = K1.k1_plan(*_resnet20_shapes(2048)["stage1 conv"])
+    conv at 2048 (5 K steps; the plane form takes it, narrow_plan still
+    plans it), on two at DenseNet-40's 32x32 convs over 64 channels at 256;
+    two warpgroups of 64 rows at its 16x16 convs at 256; 64-row tiles with
+    K split over 4 warpgroups at its deep 8x8 convs at 256 and at the
+    ragged batch 3."""
+    p = K1.narrow_plan(*_resnet20_shapes(2048)["stage1 conv"])
     assert (p.MG, p.WM, p.WK, p.TM) == (4, 1, 1, 256)
     p = K1.k1_plan(256, 32, 32, 64, 3, 1, 1, 16, 576)
     assert (p.MG, p.WM, p.WK, p.TM) == (4, 2, 1, 512)
