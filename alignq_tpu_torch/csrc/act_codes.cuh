@@ -4,7 +4,9 @@
 // codes = clip(round(c(h) * g), +-g), the fused form of the TPU kernel
 // alignq_tpu/kernels/quantize.py:57 cdf_quantize_int8 (K2) at every act
 // site, with the poly, erf, bins and bins_int variants of
-// alignq_tpu_torch/kernels/quantize.py act_codes / int_bin_codes.
+// alignq_tpu_torch/kernels/quantize.py act_codes / int_bin_codes. And K2's
+// own map, as_code (A&S 7.1.26), which quantize.cu's cdf_quant_kernel
+// evaluates directly and cdf_quant_sm90.cu through its step table.
 //
 // Rounding rule, as the JAX graph under jit: every f32 `a * b + c` is one
 // rounding (__fmaf_rn), a division by a constant is a multiply by its f32
@@ -67,6 +69,42 @@ __device__ __forceinline__ int erf_code(float h, float gf) {
   return round_clip(__fdiv_rn(__fmul_rn(xc, p), q), gf);
 }
 
+// K2's map (IMPL AS, no K1 epilogue mode): clip(round(erf(x / sqrt2) *
+// 127), +-127), erf by Abramowitz-Stegun 7.1.26 as the TPU kernel
+// alignq_tpu/kernels/quantize.py _cdf_quant_kernel computes it under jit
+// (kernels/quantize.py cdf_quantize_int8_plain repeats it): the multiply by
+// the f32 reciprocal of sqrt2, 1 / (1 + p|z|) as an IEEE division of a
+// rounded-once multiply-add, the Horner steps rounded once, the full
+// precision expf (not __expf), 1 - poly * e as fma(-poly, e, 1), then the
+// sign, rintf (half to even, as jnp.round) and the clip. The sign is put
+// on after |z|, so the map is odd (code(-x) = -code(x)), and NaN gives 0.
+// The A&S constants rounded to f32 (kernels/quantize.py _AS_P, _AS_A;
+// checked by tests/test_torch_quantize.py).
+constexpr int AS = 8;
+__device__ __forceinline__ int as_code(float x) {
+  const float z = __fmul_rn(x, 0x1.6a09e6p-1f);
+  const float az = fabsf(z);
+  const float t = __fdiv_rn(1.0f, __fmaf_rn(0x1.4f740ap-2f, az, 1.0f));
+  float poly = 0x1.0fb844p+0f;
+  poly = __fmaf_rn(poly, t, -0x1.7401c6p+0f);
+  poly = __fmaf_rn(poly, t, 0x1.6be1c6p+0f);
+  poly = __fmaf_rn(poly, t, -0x1.23531cp-2f);
+  poly = __fmaf_rn(poly, t, 0x1.04f20cp-2f);
+  poly = __fmul_rn(poly, t);
+  const float e = expf(__fmul_rn(-az, az));
+  const float y = __fmaf_rn(-poly, e, 1.0f);
+  const float c = z > 0.0f ? y : (z < 0.0f ? -y : 0.0f);  // jnp.sign(z) * y
+  return round_clip(c, 127.0f);
+}
+
+// The direct map of a table form (IMPL: 4 erf, 3 poly, AS; K2's ignores g)
+template <int IMPL>
+__device__ __forceinline__ int direct_code(float h, float gf) {
+  if constexpr (IMPL == 4) return erf_code(h, gf);
+  else if constexpr (IMPL == AS) return as_code(h);
+  else return poly_code(h, gf);
+}
+
 // Compares against the g (<= 15) f32 erf-grid boundaries t_k of
 // erf_grid_boundaries(g): code(h) >= k iff h >= t_k, <= -k iff h <= -t_k.
 __device__ __forceinline__ int bins_code(float h, const float* __restrict__ bnd, int g) {
@@ -78,29 +116,30 @@ __device__ __forceinline__ int bins_code(float h, const float* __restrict__ bnd,
   return code;
 }
 
-// The erf or poly code (IMPL: 4 erf, 3 poly, k1_epilogue.cuh's mode codes)
-// of h, relu'd or not, through the map's step table (kernels/quantize.py
-// act_table, ActTable): below lo the least code (0 relu'd, else -g), above
-// hi g; in [lo, hi] entry i = {base + g | w << 16, t} of h's bucket b_lo +
-// i, the bucket floor(h * 128 + 512) by one rounding, gives base + (h >=
-// t), except within w - 1 ulps above t (counted on t's side of 0), the
-// window where the f32 map is not monotone (a few ulps at some steps, so
-// the branch is rarely taken): there the map's own code. Equal to erf_code
-// / poly_code (relu'd) for every f32 (chip_smoke.py checks all 2^32
-// patterns on the card). An entry load and a handful of ALU operations.
+// The erf, poly or K2 code (IMPL: 4 erf, 3 poly, k1_epilogue.cuh's mode
+// codes; AS) of h, relu'd or not, through the map's step table
+// (kernels/quantize.py act_table, ActTable): below lo the least code (0
+// relu'd, else -g), above hi g; in [lo, hi] entry i = {base + g | w << 16,
+// t} of h's bucket b_lo + i, the bucket floor(h * 128 + 512) by one
+// rounding, gives base + (h >= t), except within w - 1 ulps above t
+// (counted on t's side of 0), the window where the f32 map is not monotone
+// (a few ulps at some steps, so the branch is rarely taken): there the
+// map's own code. Equal to erf_code / poly_code / as_code (relu'd) for
+// every f32 (chip_smoke.py checks all 2^32 patterns on the card). An entry
+// load and a handful of ALU operations.
 struct Table {
   const int2* tab;  // (n,) entries
   float lo, hi;
   int b_lo, n;
 };
-constexpr int TABLE_MAX = 1024;  // entries a table holds at most
+constexpr int BUCKETS = 1024;  // of h in [-4, 4): kernels/quantize.py ACT_TABLE_BUCKETS
+constexpr int TABLE_MAX = BUCKETS;  // entries a table holds at most
 
 // The map's own code, for h in a window: out of line, so that the rarely
 // taken branch costs the lookup's code nothing (registers, scheduling)
 template <int IMPL, bool RELU>
 __device__ __noinline__ int window_code(float h, int g) {
-  const float gf = static_cast<float>(g);
-  const int d = IMPL == 4 ? erf_code(h, gf) : poly_code(h, gf);
+  const int d = direct_code<IMPL>(h, static_cast<float>(g));
   return RELU ? max(d, 0) : d;
 }
 
@@ -127,11 +166,19 @@ __device__ __forceinline__ int table_step_code(float h, int2 e, float lo, float 
   return h > hi ? g : (h < lo ? (RELU ? 0 : -g) : code);
 }
 
+// K2's map gives NaN the code 0 (as_code's sign select), which the
+// table's clamped bucket does not: selected here
+template <int IMPL>
+__device__ __forceinline__ int nan_code(float h, int code) {
+  if constexpr (IMPL == AS) return h == h ? code : 0;
+  else return code;
+}
+
 template <int IMPL, bool RELU>
 __device__ __forceinline__ int table_code(float h, const int2* __restrict__ tab, float lo, float hi, int b_lo, int n,
                                           int g) {
   const int2 e = table_entry(h, tab, b_lo, n);
-  return in_window(h, e) ? window_code<IMPL, RELU>(h, g) : table_step_code<RELU>(h, e, lo, hi, g);
+  return in_window(h, e) ? window_code<IMPL, RELU>(h, g) : nan_code<IMPL>(h, table_step_code<RELU>(h, e, lo, hi, g));
 }
 
 // table_code of four values at once: the four lookups first, then one
@@ -146,7 +193,7 @@ __device__ __forceinline__ void table_code4(const float (&h)[4], int (&code)[4],
   unsigned in = 0;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    code[j] = table_step_code<RELU>(h[j], e[j], lo, hi, g);
+    code[j] = nan_code<IMPL>(h[j], table_step_code<RELU>(h[j], e[j], lo, hi, g));
     in |= static_cast<unsigned>(in_window(h[j], e[j])) << j;
   }
   if (in)

@@ -337,7 +337,7 @@ __global__ void table_check_kernel(const act::Table table, int g, unsigned long 
   for (unsigned long long i = blockIdx.x * static_cast<unsigned long long>(blockDim.x) + threadIdx.x;
        i < (1ull << 32); i += static_cast<unsigned long long>(gridDim.x) * blockDim.x) {
     const float h = __uint_as_float(static_cast<uint32_t>(i));
-    int want = IMPL == ERF ? act::erf_code(h, gf) : act::poly_code(h, gf);
+    int want = act::direct_code<IMPL>(h, gf);
     if (RELU) want = max(want, 0);
     if (act::table_code<IMPL, RELU>(h, tab, table.lo, table.hi, table.b_lo, table.n, g) != want) {
       ++n_diff;
@@ -441,8 +441,9 @@ extern "C" int stem_prep_launch(const void* x, void* q, long long rows, int W, f
 
 // diffs (2,) uint64 on the device, set to {0, ~0} by the caller: the
 // count of f32 bit patterns where the table form (entries, lo, hi, b_lo,
-// n as for stem_launch) of the erf (mode 4) or poly (3) map of
-// grid g, relu'd or not, differs from the direct map, and the least one
+// n as for stem_launch) of the erf (mode 4) or poly (3) map of grid g,
+// relu'd or not, or of K2's map (act::AS, g 127, not relu'd), differs from
+// the direct map, and the least one
 extern "C" int act_table_check(const void* entries, float lo, float hi, int b_lo, int n,
                                int mode, int g, int relu, void* diffs, void* stream) {
   if (n < 1 || n > act::TABLE_MAX) return static_cast<int>(cudaErrorInvalidValue);
@@ -454,6 +455,7 @@ extern "C" int act_table_check(const void* entries, float lo, float hi, int b_lo
   else if (mode == ERF) table_check_kernel<ERF, false><<<blocks, 512, 0, s>>>(t, g, d);
   else if (mode == POLY && relu) table_check_kernel<POLY, true><<<blocks, 512, 0, s>>>(t, g, d);
   else if (mode == POLY) table_check_kernel<POLY, false><<<blocks, 512, 0, s>>>(t, g, d);
+  else if (mode == act::AS && g == 127 && !relu) table_check_kernel<act::AS, false><<<blocks, 512, 0, s>>>(t, g, d);
   else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,7 +33,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("qmatmul", "qmatmul_sm90", "qmatmul_sm90n", "qmatmul_sm90p", "quantize", "stage_kernel",
-           "stage_kernel_sm90", "dwconv", "stem_sm90", "dwconv_sm90", "bn_table_sm90", "digit_sm90", "first_conv_sm90")
+           "stage_kernel_sm90", "dwconv", "stem_sm90", "dwconv_sm90", "bn_table_sm90", "digit_sm90", "first_conv_sm90",
+           "cdf_quant_sm90")
 
 launches: collections.Counter = collections.Counter()
 

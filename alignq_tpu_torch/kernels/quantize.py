@@ -4,7 +4,9 @@ maps that K1 runs in its epilogue.
 Port of alignq_tpu/kernels/quantize.py. `cdf_quantize_int8` maps f32 of
 any shape to int8 codes clip(round(erf(x/sqrt2) * 127), +-127), erf being
 Abramowitz-Stegun 7.1.26 as the TPU kernel computes it. On a CUDA tensor it
-launches csrc/quantize.cu; on a CPU tensor it runs the plain version,
+launches csrc/cdf_quant_sm90.cu (the map through its step table,
+`k2_table(device)`, built on the card from the codes of csrc/quantize.cu's
+direct kernel, which `_old_form` gives every launch for A/B runs); on a CPU tensor it runs the plain version,
 `cdf_quantize_int8_plain`, which repeats the kernel's arithmetic. Both
 follow the JAX kernel under jit: a multiply by the f32 reciprocal of sqrt2,
 and every `a * b + c` rounded once (quant/cdf.py fma_f32), including
@@ -44,7 +46,8 @@ import torch
 from alignq_tpu_torch.kernels import _build
 from alignq_tpu_torch.quant.cdf import _INV_SQRT2, erf_f32, erf_grid_boundaries, erf_sqrt2, fma_f32
 
-KERNEL = "cdf_quantize_int8"  # launch-counter key
+KERNEL = "cdf_quantize_int8"  # launch-counter key, both forms
+KERNEL_SM90 = KERNEL + ":sm90"  # ... of its Hopper form (csrc/cdf_quant_sm90.cu)
 BN_ACT = "bn_act_codes"  # launch-counter key of the BN-act kernels, both forms
 BN_ACT_ARITH = BN_ACT + ":arith"  # ... of the arithmetic form (bn_act_codes)
 BN_ACT_TABLE = BN_ACT + ":table"  # ... of the table form (bn_act_codes_table), both kernels
@@ -101,7 +104,14 @@ def _lib() -> ctypes.CDLL:
 
 def cdf_quantize_int8(x: torch.Tensor) -> torch.Tensor:
     """Fused Phi-transform + int8 rounding: f32 of any shape -> int8 of the
-    same shape. K2 on a CUDA tensor, its plain version on a CPU tensor."""
+    same shape. K2 on a CUDA tensor (csrc/cdf_quant_sm90.cu where k2_takes
+    gives it the size, counted under KERNEL and KERNEL_SM90; else, and under
+    _old_form, csrc/quantize.cu's direct kernel, under KERNEL alone), its
+    plain version on a CPU tensor. The kernels read 16-byte aligned f32: a
+    tensor whose data does not start so (a view into its storage) is
+    copied to a fresh buffer first, as a non-contiguous one is; such views
+    are rare, and the copy keeps the kernels' loads and stores whole on a
+    single path."""
     if x.dtype != torch.float32:
         raise TypeError(f"cdf_quantize_int8 takes float32, got {x.dtype}")
     if x.layout != torch.strided:
@@ -110,23 +120,139 @@ def cdf_quantize_int8(x: torch.Tensor) -> torch.Tensor:
         return cdf_quantize_int8_plain(x)
     x = x.contiguous()
     if x.data_ptr() % 16:
-        raise ValueError("K2 needs a 16-byte aligned input")
+        x = x.clone()
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     if x.numel():
-        _k2_launch(x, out)
+        if _k2_device_launch(x, out):
+            _build.launches[KERNEL_SM90] += 1
         _build.launches[KERNEL] += 1
     return out
 
 
+def _k2_device_launch(x: torch.Tensor, out: torch.Tensor) -> bool:
+    """One launch of the form the entry point gives x (f32, contiguous,
+    16-byte aligned, on a card) into out: the Hopper form where k2_takes
+    (and not under _old_form), else the direct kernel. Returns whether it
+    was the Hopper form; counts nothing (the wrapper does)."""
+    if _OLD_K2_FORM or not k2_takes(x.numel()):
+        _k2_launch(x, out)
+        return False
+    _k2_sm90_launch(x, out, device_k2_plan(x))
+    return True
+
+
 def _k2_launch(x: torch.Tensor, out: torch.Tensor) -> None:
-    """One launch of csrc/quantize.cu on x (f32, contiguous, 16-byte
-    aligned) into out (int8, as many elements). Counts nothing (the
+    """One launch of csrc/quantize.cu's direct kernel on x (f32, contiguous,
+    16-byte aligned) into out (int8, as many elements). Counts nothing (the
     wrapper does)."""
     lib = _lib()
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.cdf_quant_launch(x.data_ptr(), out.data_ptr(), x.numel(), stream)
     _build.check(err, "quantize.cu cdf_quant_kernel")
+
+
+# K2's Hopper form (csrc/cdf_quant_sm90.cu)
+K2_THREADS = 256  # its CTA
+K2_PER_THREAD = 16  # elements a thread a step: four 16-byte loads
+K2_TILE = K2_THREADS * K2_PER_THREAD  # elements a CTA a step
+K2_MIN_N = 1 << 19  # the rule: the Hopper form takes n >= this, the direct kernel the rest
+
+
+def k2_takes(n: int) -> bool:
+    """The rule: whether the Hopper form takes a launch of n elements. By
+    chip_smoke.py --k2-ab (ABBA, cold L2) the direct kernel was faster at
+    n of 32K-256K (0.1-0.4 us a launch, the act-site sizes of batches 8 and
+    16: the Hopper form's table copy and larger code are a fixed cost
+    there), the two tied at 512K, and the Hopper form was faster from 1M
+    up."""
+    return n >= K2_MIN_N
+
+
+class K2Plan(NamedTuple):
+    """One launch of csrc/cdf_quant_sm90.cu over n elements."""
+
+    n: int
+    tiles: int  # of K2_TILE elements, the last one ragged where n % K2_TILE
+    ctas: int  # persistent CTAs: one wave, or one a tile where fewer
+    steps: int  # tiles a CTA takes at most
+    tail: int  # elements of the ragged last group of 16 (n % 16), masked in the last step
+
+
+def k2_plan(n: int, sms: int, per_sm: int) -> K2Plan:
+    """The plan of K2's Hopper form over n elements on a card of `sms` SMs
+    that holds `per_sm` of its CTAs an SM (the occupancy calculator's):
+    tiles of K2_TILE elements, dealt round-robin to one wave of persistent
+    CTAs (fewer where there are fewer tiles)."""
+    if n < 1 or sms < 1 or per_sm < 1:
+        raise ValueError(f"K2's Hopper form takes n >= 1 on a card it fits, got n={n}, {sms} SMs, {per_sm} an SM")
+    tiles = -(-n // K2_TILE)
+    ctas = min(tiles, sms * per_sm)
+    return K2Plan(n, tiles, ctas, -(-tiles // ctas), n % K2_PER_THREAD)
+
+
+def _k2_where(device: torch.device) -> str:
+    """The device whose map K2's table on `device` is built from: its own
+    (the card's expf differs from the CPU's in its last bit)."""
+    if device.type == "cpu":
+        return "cpu"
+    return f"cuda:{device.index if device.index is not None else torch.cuda.current_device()}"
+
+
+@functools.lru_cache(maxsize=None)
+def k2_table(device: torch.device) -> "ActTable":
+    """The step table K2's Hopper form reads on `device`, built once a
+    process and device from the device's own map (act_table_steps: on a
+    card, launches of csrc/quantize.cu's direct kernel): an ActTable of K2's
+    map ('as', grid 127, not relu'd) that holds every bucket of [-4, 4),
+    the end codes (-127, 127) in those past [lo, hi], so that the kernel
+    needs no select at lo and hi: the bucket's clamp to the table gives
+    them."""
+    g = int(Q_MAX)
+    lo, hi, b_lo, entries = _act_table_arrays("as", g, False, _k2_where(device))
+    end = np.int32([0, np.float32(np.nan).view(np.int32)])  # an entry with no step, its code -g (+ g: 0)
+    below, above = np.tile(end, (b_lo, 1)), np.tile(end + [2 * g, 0], (ACT_TABLE_BUCKETS - b_lo - len(entries), 1))
+    entries = np.concatenate([below, entries, above]).astype(np.int32)
+    return ActTable("as", g, False, lo, hi, 0, torch.from_numpy(entries).to(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_per_sm(device_index: int) -> int:
+    with _build.on_device(torch.device("cuda", device_index)):
+        per_sm = _k2_lib().cdf_quant_sm90_per_sm()
+    if per_sm < 1:
+        raise RuntimeError(f"cdf_quant_sm90.cu: the occupancy query gave {per_sm}")
+    return per_sm
+
+
+def device_k2_plan(x: torch.Tensor) -> K2Plan:
+    """The Hopper form's plan over x (a CUDA tensor) on its card."""
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    return k2_plan(x.numel(), _sms(dev), _k2_per_sm(dev))
+
+
+def _k2_lib() -> ctypes.CDLL:
+    lib = _build.load("cdf_quant_sm90")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.cdf_quant_sm90_launch.argtypes = [p, p, ctypes.c_longlong, i, p, i, p]
+        lib.cdf_quant_sm90_launch.restype = i
+        lib.cdf_quant_sm90_per_sm.argtypes = []
+        lib.cdf_quant_sm90_per_sm.restype = i
+        lib._argtypes_set = True
+    return lib
+
+
+def _k2_sm90_launch(x: torch.Tensor, out: torch.Tensor, plan: K2Plan) -> None:
+    """One launch of csrc/cdf_quant_sm90.cu on x (f32, contiguous, 16-byte
+    aligned) into out (int8, as many elements) by its plan. Counts nothing
+    (the wrapper does)."""
+    t = k2_table(x.device)
+    with _build.on_device(x.device):
+        err = _k2_lib().cdf_quant_sm90_launch(
+            x.data_ptr(), out.data_ptr(), plan.n, plan.ctas, t.entries.data_ptr(), t.entries.shape[0],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "cdf_quant_sm90.cu cdf_quant_sm90_kernel")
 
 
 def act_codes(h: torch.Tensor, g: int, impl: str) -> torch.Tensor:
@@ -398,19 +524,21 @@ def bn_table_takes(m_rows: int, ld: int, c_live: int, c_out: int, sms: int) -> b
 
 
 _OLD_TABLE_FORM = False  # set only by _old_form
+_OLD_K2_FORM = False  # set only by _old_form
 
 
 @contextlib.contextmanager
 def _old_form():
-    """Every table pass inside runs csrc/quantize.cu's bn_table_kernel. For
-    A/B runs and the card's comparisons (chip_smoke.py --bn-digit-ab); the
-    main path never calls it."""
-    global _OLD_TABLE_FORM
-    saved, _OLD_TABLE_FORM = _OLD_TABLE_FORM, True
+    """Every table pass inside runs csrc/quantize.cu's bn_table_kernel, and
+    every K2 launch its direct kernel. For A/B runs and the card's
+    comparisons (chip_smoke.py --bn-digit-ab, --k2-ab); the main path never
+    calls it."""
+    global _OLD_TABLE_FORM, _OLD_K2_FORM
+    saved, _OLD_TABLE_FORM, _OLD_K2_FORM = (_OLD_TABLE_FORM, _OLD_K2_FORM), True, True
     try:
         yield
     finally:
-        _OLD_TABLE_FORM = saved
+        _OLD_TABLE_FORM, _OLD_K2_FORM = saved
 
 
 @functools.lru_cache(maxsize=None)
@@ -483,11 +611,11 @@ def _plan_ints(plan):
     return (ctypes.c_int * len(plan))(*plan)
 
 
-# The table form of the erf and poly code maps (csrc/act_codes.cuh
-# table_code): h's bucket floor(fl(h * ACT_TABLE_INV_W + ACT_TABLE_OFF)),
-# one f32 rounding, holds at most one step of the code, since the widest
-# grid's steps are >= 0.0098 apart (the erf map at g = 127) and a bucket is
-# 1/128 wide.
+# The table form of the erf and poly code maps and of K2's ("as") map
+# (csrc/act_codes.cuh table_code): h's bucket floor(fl(h * ACT_TABLE_INV_W +
+# ACT_TABLE_OFF)), one f32 rounding, holds at most one step of the code,
+# since the widest grid's steps are >= 0.0098 apart (the erf and A&S maps at
+# g = 127) and a bucket is 1/128 wide.
 ACT_TABLE_BUCKETS = 1024  # the buckets of h in [-4, 4): every step of both maps lies within |h| < 3
 ACT_TABLE_INV_W = 128.0
 ACT_TABLE_OFF = 512.0
@@ -495,15 +623,16 @@ ACT_TABLE_SCAN = 4096  # ulps each side of a step searched for the map's non-mon
 
 
 class ActTable(NamedTuple):
-    """The erf or poly code map of grid g (relu'd: max(code, 0)) as a table
-    of its steps. Below lo the code is the least (0 relu'd, else -g), above
+    """The erf or poly code map of grid g, or K2's ('as', g 127) (relu'd:
+    max(code, 0)) as a table of its steps. Below lo the code is the least (0 relu'd, else -g), above
     hi it is g; h in [lo, hi] lies in one of the buckets b_lo .. b_lo + n -
     1, and entry i = (base + g | w << 16, t) of bucket b_lo + i gives the
     code base + (h >= t) (t an f32 bit pattern, NaN where the bucket has no
     step), except within w - 1 ulps above t (w = 0: nowhere), where the
     f32 map is not monotone (a window of a few ulps at some steps) and the
     code is the map's own. A window that runs on into the next bucket is
-    that bucket's too (its t the step's, its base one less)."""
+    that bucket's too (its t the step's, its base one less). K2's table
+    (k2_table) holds every bucket, b_lo 0."""
 
     impl: str
     g: int
@@ -533,31 +662,49 @@ def act_table_bucket(h: np.ndarray) -> np.ndarray:
     return np.clip(np.floor(np.nan_to_num(u, nan=0.0)), 0, ACT_TABLE_BUCKETS - 1).astype(np.int64)
 
 
-def _map_codes(h: np.ndarray, impl: str, g: int) -> np.ndarray:
-    return act_codes(torch.from_numpy(np.ascontiguousarray(h, np.float32)), g, impl).numpy().astype(np.int64)
+def _map_codes(h: np.ndarray, impl: str, g: int, where: str = "cpu") -> np.ndarray:
+    """The map's codes of the f32 h, as the device `where` computes them:
+    K2's on a card by csrc/quantize.cu's direct kernel (its expf is the
+    card's), every other map by its plain version (their f32 operations
+    round alike everywhere)."""
+    x = torch.from_numpy(np.ascontiguousarray(h, np.float32))
+    if impl != "as":
+        return act_codes(x, g, impl).numpy().astype(np.int64)
+    if where == "cpu":
+        return cdf_quantize_int8_plain(x).numpy().astype(np.int64)
+    x = x.to(where)
+    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if x.numel():
+        _k2_launch(x, out)
+    return out.cpu().numpy().astype(np.int64)
 
 
 @functools.lru_cache(maxsize=None)
-def act_table_steps(impl: str, g: int):
-    """(wa, wz) f32 arrays over the steps k = -g + 1 .. g of the map: wa
-    the first h whose code reaches k, wz the last one still below it (wz <
-    wa where the step is monotone; else [wa, wz] is its window). Each step
-    found by bisection over the f32 order, its window by a scan of
-    ACT_TABLE_SCAN ulps each side."""
-    if impl not in ("erf", "poly"):
-        raise ValueError(f"the table form maps erf or poly, got {impl!r}")
+def act_table_steps(impl: str, g: int, where: str = "cpu"):
+    """(wa, wz) f32 arrays over the steps k = -g + 1 .. g of the map, as the
+    device `where` computes it (_map_codes): wa the first h whose code
+    reaches k, wz the last one still below it (wz < wa where the step is
+    monotone; else [wa, wz] is its window). Each step found by bisection
+    over the f32 order, its window by a scan of ACT_TABLE_SCAN ulps each
+    side (on a card, some 32 launches of a few hundred values and one of
+    2M)."""
+    if impl not in ("erf", "poly", "as"):
+        raise ValueError(f"the table form maps erf or poly, or K2's map 'as', got {impl!r}")
+    if impl == "as" and g != int(Q_MAX):
+        raise ValueError(f"K2's map has grid {int(Q_MAX)}, got {g}")
     ks = np.arange(-g + 1, g + 1)
     lo = np.full(ks.shape, _f32_key(np.float32([-8.0]))[0])
     hi = np.full(ks.shape, _f32_key(np.float32([8.0]))[0])
-    if _map_codes(_f32_of_key(lo[:1]), impl, g)[0] != -g or _map_codes(_f32_of_key(hi[:1]), impl, g)[0] != g:
+    ends = _map_codes(_f32_of_key(np.stack([lo[0], hi[0]])), impl, g, where)
+    if ends[0] != -g or ends[1] != g:
         raise ValueError(f"the {impl} map of grid {g} does not span +-{g} on [-8, 8]")
     while (hi - lo > 1).any():
         mid = (lo + hi) // 2
-        ge = _map_codes(_f32_of_key(mid), impl, g) >= ks
+        ge = _map_codes(_f32_of_key(mid), impl, g, where) >= ks
         hi, lo = np.where(ge, mid, hi), np.where(ge, lo, mid)
     span = np.arange(-ACT_TABLE_SCAN, ACT_TABLE_SCAN + 1)
     keys = hi[:, None] + span[None, :]
-    codes = _map_codes(_f32_of_key(keys.ravel()), impl, g).reshape(keys.shape)
+    codes = _map_codes(_f32_of_key(keys.ravel()), impl, g, where).reshape(keys.shape)
     if ((codes != ks[:, None]) & (codes != ks[:, None] - 1)).any():
         raise ValueError(f"the {impl} map of grid {g} has steps closer than {ACT_TABLE_SCAN} ulps")
     reached = codes >= ks[:, None]
@@ -569,8 +716,8 @@ def act_table_steps(impl: str, g: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _act_table_arrays(impl: str, g: int, relu: bool):
-    wa, wz = act_table_steps(impl, g)
+def _act_table_arrays(impl: str, g: int, relu: bool, where: str = "cpu"):
+    wa, wz = act_table_steps(impl, g, where)
     k0 = 1 if relu else -g + 1  # the first step the table holds
     wa, wz = wa[k0 + g - 1:], wz[k0 + g - 1:]
     lo, hi = wa[0], max(wz[-1], _f32_of_key(_f32_key(wa[-1:]) - 1)[0])  # hi: the last h below g
@@ -601,7 +748,7 @@ def _act_table_arrays(impl: str, g: int, relu: bool):
 def act_table(impl: str, g: int, device: torch.device, relu: bool = True) -> ActTable:
     """The table of the erf or poly map of grid g (relu'd or not) on a
     device, built once a process from the plain map (act_codes,
-    act_table_steps)."""
+    act_table_steps). K2's map has its own, k2_table."""
     lo, hi, b_lo, entries = _act_table_arrays(impl, int(g), bool(relu))
     return ActTable(impl, int(g), bool(relu), lo, hi, b_lo, torch.from_numpy(entries.copy()).to(device))
 
@@ -619,9 +766,10 @@ def act_table_window(h: np.ndarray, table: ActTable) -> np.ndarray:
 
 def act_codes_table_plain(h: torch.Tensor, table: ActTable) -> torch.Tensor:
     """The table map in plain PyTorch: the least code below lo, g above
-    hi, else the bucket's base and step, and the map itself in a window
-    (csrc/act_codes.cuh table_code, which looks up a clamped bucket for
-    every h and selects)."""
+    hi, else the bucket's base and step, and the map itself (on the CPU) in
+    a window (csrc/act_codes.cuh table_code, which looks up a clamped
+    bucket for every h and selects); K2's map gives NaN the code 0, as its
+    kernels select."""
     e = table.entries.cpu().numpy()
     hn = h.detach().cpu().numpy().astype(np.float32)
     with np.errstate(invalid="ignore"):
@@ -635,4 +783,25 @@ def act_codes_table_plain(h: torch.Tensor, table: ActTable) -> torch.Tensor:
         direct = _map_codes(hm[window], table.impl, table.g)
         cm[window] = np.maximum(direct, 0) if table.relu else direct
     codes[mid] = cm
+    if table.impl == "as":
+        codes[np.isnan(hn)] = 0
     return torch.from_numpy(codes.astype(np.int8)).to(h.device)
+
+
+def k2_codes_table_plain(x: torch.Tensor, table: ActTable) -> torch.Tensor:
+    """K2's Hopper form in plain PyTorch, as csrc/cdf_quant_sm90.cu looks
+    its table up (k2_table, every bucket): x's bucket clamped to the
+    table's; the entry's base + (x >= t), the map's own code (on the CPU)
+    in a window; 0 for NaN."""
+    if table.impl != "as" or table.b_lo or len(table.entries) != ACT_TABLE_BUCKETS:
+        raise ValueError("k2_codes_table_plain reads K2's table (k2_table)")
+    e = table.entries.cpu().numpy()
+    xn = x.detach().cpu().numpy().astype(np.float32)
+    i = act_table_bucket(xn)
+    with np.errstate(invalid="ignore"):
+        codes = (e[i, 0] & 0xFFFF).astype(np.int64) - table.g + (xn >= e[i, 1].view(np.float32))
+    window = act_table_window(xn, table)
+    if window.any():
+        codes[window] = _map_codes(xn[window], "as", table.g)
+    codes[np.isnan(xn)] = 0
+    return torch.from_numpy(codes.astype(np.int8)).to(x.device)

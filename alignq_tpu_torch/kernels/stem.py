@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from alignq_tpu_torch.kernels import _build
 from alignq_tpu_torch.kernels import qmatmul as K1
 from alignq_tpu_torch.kernels.infer import S_IMG, _linear_q
-from alignq_tpu_torch.kernels.quantize import ActTable, act_table
+from alignq_tpu_torch.kernels.quantize import ActTable, act_table, k2_table
 
 STEM = K1.KERNEL + ":stem_sm90"  # launch-counter key of the stem kernel
 PREP = STEM + ":prep"  # ... of the pass before it
@@ -297,15 +297,19 @@ def _table_args(t: ActTable) -> tuple:
     return t.entries.data_ptr(), t.lo, t.hi, t.b_lo, t.entries.shape[0]
 
 
+_CHECK_MODE = {"poly": 3, "erf": 4, "as": 8}  # act_table_check's maps: _MODE's, and act_codes.cuh's AS
+
+
 def act_table_differences(impl: str, g: int, relu: bool, device: torch.device):
     """(differing patterns, the least one or None): the table form of the
-    erf or poly map of grid g, relu'd or not (act_codes.cuh table_code on
-    act_table's arrays), against the direct map, on the card, over all
-    2^32 f32 bit patterns."""
-    t = act_table(impl, g, device, relu)
+    erf or poly map of grid g, relu'd or not, or of K2's map ('as', g 127,
+    not relu'd: k2_table, built from the card's own map) (act_codes.cuh
+    table_code on the table's arrays), against the direct map, on the
+    card, over all 2^32 f32 bit patterns."""
+    t = k2_table(device) if impl == "as" else act_table(impl, g, device, relu)
     diffs = torch.tensor([0, -1], dtype=torch.int64, device=device)
     with _build.on_device(device):
-        err = _lib().act_table_check(*_table_args(t), _MODE[impl], g, int(relu), diffs.data_ptr(),
+        err = _lib().act_table_check(*_table_args(t), _CHECK_MODE[impl], g, int(relu), diffs.data_ptr(),
                                      torch.cuda.current_stream(device).cuda_stream)
     _build.check(err, "stem_sm90.cu table_check_kernel")
     n, first = (int(v) for v in diffs.cpu())

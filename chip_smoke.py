@@ -8,13 +8,14 @@ Phases, in order; any failure raises and the script exits non-zero:
  2. build the CUDA kernels from alignq_tpu_torch/csrc (qmatmul.cu,
     qmatmul_sm90.cu, qmatmul_sm90n.cu, qmatmul_sm90p.cu, quantize.cu,
     stage_kernel.cu, stage_kernel_sm90.cu, dwconv.cu, stem_sm90.cu,
-    dwconv_sm90.cu, bn_table_sm90.cu, digit_sm90.cu, first_conv_sm90.cu: one
-    nvcc each, all started together);
+    dwconv_sm90.cu, bn_table_sm90.cu, digit_sm90.cu, first_conv_sm90.cu,
+    cdf_quant_sm90.cu: one nvcc each, all started together);
     (b) the table form of the act-code map (csrc/act_codes.cuh table_code,
     kernels/quantize.py act_table) against its direct map on the card,
     over all 2^32 f32 bit patterns, for the erf and poly maps at each
-    served grid (TABLE_GRIDS: 127, 7, 1), relu'd and not: zero differences,
-    the count checked printed;
+    served grid (TABLE_GRIDS: 127, 7, 1), relu'd and not, and K2's map
+    (grid 127, its table built on the card from csrc/quantize.cu's direct
+    kernel): zero differences, the count checked printed;
  3. K1 (csrc/qmatmul.cu) against its plain version. Its GEMM form at the
     path's gathered-matrix shapes of batches 2048 and 256, plus a ragged M
     with K=27; then its conv form on NHWC codes read in place, at every
@@ -38,9 +39,14 @@ Phases, in order; any failure raises and the script exits non-zero:
     256 and 3, against its plain version and bit for bit against the chain
     it replaced (linear_q, K1's pad pass and mma.sync form);
  4. K2's path, its entry point: the launch counts are zeroed,
-    cdf_quantize_int8 (csrc/quantize.cu) maps the act-site sizes of
-    batches 2048 and 256 and a ragged n, and the counts are read; then each
-    result is held against the plain version like K1's codes;
+    cdf_quantize_int8 maps the act-site sizes of batches 2048 and 256, a
+    ragged n and a view one element into its storage, and the counts are
+    read: every launch in K2's Hopper form (csrc/cdf_quant_sm90.cu, counter
+    `cdf_quantize_int8:sm90`); then each result is held against the plain
+    version like K1's codes and, bit for bit, against the direct kernel
+    (csrc/quantize.cu, quantize._old_form); then the Hopper form against
+    the direct kernel on all 2^32 f32 bit patterns (16 chunks of 2^28, NaNs
+    and infinities included): zero differences;
  5. K3 through its NHWC entry point, in the form the planner gives it
     (its Hopper form, csrc/stage_kernel_sm90.cu, counted under
     `stage_identity_blocks:sm90`), against its plain version and against
@@ -112,7 +118,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. times from CUDA events (median of 20 after warm-up): the forward at
     batches 2048 and 256 on both routes, and each kernel at each path
     shape of batches 2048 and 256 (K1 and K3 in the form the planner gives
-    them, K3's mma.sync form beside it;
+    them, K3's mma.sync form and K2's direct kernel beside them;
     its device time from a cold L2,
     utils/cuda_timing.py graph_ms: 20 launches captured in a CUDA graph,
     each after a read that evicts the L2, and replayed, so that no
@@ -310,8 +316,9 @@ Phases, in order; any failure raises and the script exits non-zero:
         mesh and in one process;
 26. one JSON line of the kernels (K1 and K3: times summed over the
     launches of one slice-route forward at the serving batch, K3 in its
-    Hopper form, its launches those of phase 7's main path; K2: over one
-    launch at each act-site size of that batch; K1 on DenseNet-40 and
+    Hopper form, its launches those of phase 7's main path; K2 (its Hopper
+    form): over one launch at each act-site size of that batch, its
+    launches those of phase 4; K1 on DenseNet-40 and
     MobileNet-V2, the depthwise kernel and the BN-act kernels (the table
     form on the int8 buffer in its Hopper kernel and in bn_table_kernel,
     a row each over the launches the rule gives it; the arithmetic form on
@@ -415,6 +422,15 @@ MobileNet-V2 at 256 and 8, the old form against each tile or item option,
 ABBA, the outputs bit for bit; each forward's K1 sum and the whole forward
 both ways. One JSON line, also written to chiprun_out/first_plane_ab.json.
 
+    python3 chip_smoke.py --k2-ab
+
+times K2's Hopper form against its direct kernel, in one process (k2_ab):
+at the act-site sizes of batches 2048, 256, 64, 16 and 8 and a ragged n of
+1,000,003, ABBA (graph_ms, cold L2), beside PyTorch's cast of the same f32
+to int8; a view one element into its storage through the entry point both
+ways; every output bit for bit; and the card's table against the CPU-built
+one. One JSON line, also written to chiprun_out/k2_ab.json.
+
     python3 chip_smoke.py --gather-backward-ab
 
 times the data-parallel gather step over two gloo ranks on the card with
@@ -454,6 +470,10 @@ PEAK_F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 # the divide, 6 multiply-adds at 2 each, 3 multiplies, the exp counted as 1,
 # the sign, rint and 2 compares)
 K2_OPS_PER_ELEMENT = 24
+# ... of one code of K2's Hopper form (csrc/cdf_quant_sm90.cu: the bucket's
+# multiply-add, its two clamps and conversion, the base's mask and offset,
+# the step's compare and add, NaN's compare and select, the byte's packing)
+K2_TABLE_OPS_PER_ELEMENT = 12
 # repetitions of the default run's timing phases (cut to keep the run
 # within its call, CHANGES.md): a launch's graph_ms runs, a plain
 # version's runs, a whole forward's CUDA-event runs, a profile's iterations
@@ -3798,26 +3818,143 @@ def act_table_checks(dev) -> dict:
     """Phase 2(b): the table form of the erf and poly maps (act_codes.cuh
     table_code, on kernels/quantize.py act_table's entries) against the
     direct map on the card, over all 2^32 f32 bit patterns, at each grid of
-    TABLE_GRIDS, relu'd and not; any difference fails the run."""
+    TABLE_GRIDS, relu'd and not; and K2's map ('as', grid 127: the table
+    csrc/cdf_quant_sm90.cu reads, built on the card from quantize.cu's
+    direct kernel); any difference fails the run."""
     import torch
 
     from alignq_tpu_torch.kernels import stem as ST
 
     out = {}
-    for impl in ("erf", "poly"):
-        for g in TABLE_GRIDS:
-            for relu in (True, False):
-                t0 = time.perf_counter()
-                n, first = ST.act_table_differences(impl, g, relu, dev)
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t0
-                out[f"{impl} g={g} relu={relu}"] = {"patterns": 1 << 32, "differing": n, "first": first, "s": secs}
-                print(f"act table {impl} g={g}{' relu' if relu else ''}: {1 << 32} f32 patterns checked, {n} differing "
-                      f"from the direct map ({secs:.2f} s, the table's build included)", flush=True)
-                if n:
-                    raise AssertionError(f"the {impl} table of grid {g} (relu {relu}) differs from its map at {n} "
-                                         f"patterns, the least {first:#010x}")
+    cases = [(impl, g, relu) for impl in ("erf", "poly") for g in TABLE_GRIDS for relu in (True, False)]
+    for impl, g, relu in cases + [("as", 127, False)]:
+        t0 = time.perf_counter()
+        n, first = ST.act_table_differences(impl, g, relu, dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[f"{impl} g={g} relu={relu}"] = {"patterns": 1 << 32, "differing": n, "first": first, "s": secs}
+        print(f"act table {impl} g={g}{' relu' if relu else ''}: {1 << 32} f32 patterns checked, {n} differing "
+              f"from the direct map ({secs:.2f} s, the table's build included)", flush=True)
+        if n:
+            raise AssertionError(f"the {impl} table of grid {g} (relu {relu}) differs from its map at {n} "
+                                 f"patterns, the least {first:#010x}")
     return out
+
+
+K2_CHUNK_BITS = 28  # phase 4's check of every f32 pattern: 16 chunks of 2^28 (1 GB of f32 each)
+
+
+def k2_every_f32(dev) -> dict:
+    """K2's Hopper form (csrc/cdf_quant_sm90.cu) against its direct kernel
+    (csrc/quantize.cu) on all 2^32 f32 bit patterns, NaNs and infinities
+    included, as 16 chunks of 2^28 consecutive patterns: the differing
+    patterns counted (the least one kept) and the time taken. Raw launches:
+    nothing is counted."""
+    import torch
+
+    from alignq_tpu_torch.kernels import quantize as K2
+
+    t0 = time.perf_counter()
+    base = torch.arange(1 << K2_CHUNK_BITS, dtype=torch.int32, device=dev)
+    new = torch.empty(base.shape, dtype=torch.int8, device=dev)
+    old = torch.empty_like(new)
+    n_diff, first = 0, None
+    for c in range(1 << (32 - K2_CHUNK_BITS)):
+        lo = c << K2_CHUNK_BITS
+        x = (base + (lo - (1 << 32) if lo >= 1 << 31 else lo)).view(torch.float32)
+        plan = K2.device_k2_plan(x)
+        K2._k2_sm90_launch(x, new, plan)
+        K2._k2_launch(x, old)
+        diff = new != old
+        d = int(diff.sum())
+        if d and first is None:
+            first = (lo + int(diff.nonzero()[0, 0])) & 0xFFFFFFFF
+        n_diff += d
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"K2's Hopper form against its direct kernel: {1 << 32} f32 patterns checked in "
+          f"{1 << (32 - K2_CHUNK_BITS)} chunks of 2^{K2_CHUNK_BITS}, {n_diff} differing ({secs:.2f} s)", flush=True)
+    return {"patterns": 1 << 32, "differing": n_diff, "first": first, "s": secs}
+
+
+K2_AB_BATCHES = (2048, 256, 64, 16, 8)  # --k2-ab: the act-site sizes of these batches
+K2_AB_EXTRA = (("ragged", 1000003, 0), ("view 1 element in", 256 * 64 * 64, 1))  # (name, n, storage offset)
+
+
+def k2_ab(card) -> None:
+    """python3 chip_smoke.py --k2-ab: K2's Hopper form against its direct
+    kernel, in one process: at the act-site sizes of batches 2048, 256, 64,
+    16 and 8 and a ragged n of 1,000,003, the raw launches of the direct
+    kernel and of the Hopper form by graph_ms (cold L2) in the order old,
+    new, new, old, beside PyTorch's cast of the same f32 to int8 (the same
+    bytes in and out, no map); at a view one element into its storage, the
+    entry point (cdf_quantize_int8, its copy included) under _old_form and
+    not, ABBA. Every output bit for bit the direct kernel's. The sums over
+    each batch's three sizes, and the card's table against the CPU-built
+    one. One JSON line, also written to chiprun_out/k2_ab.json."""
+    import torch
+
+    from alignq_tpu_torch.kernels import quantize as K2
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cases = [(b, name, n, 0) for b in K2_AB_BATCHES for name, n in act_site_sizes(b)]
+    cases += [(None, name, n, off) for name, n, off in K2_AB_EXTRA]
+    res = {"card": card, "cases": []}
+    card_t = K2.k2_table(dev)
+    tables = [K2.k2_table(torch.device("cpu")).entries.numpy(), card_t.entries.cpu().numpy()]
+    res["table"] = {"entries": len(tables[1]), "windows": int(((tables[1][:, 0] >> 16) > 0).sum()),
+                    "steps_differing_from_the_cpu_table": int((tables[0] != tables[1]).any(1).sum())}
+    print(f"k2-ab: the card's table of K2's map: {json.dumps(res['table'])} [{card}]", flush=True)
+
+    def abba(a, b):
+        t = [graph_ms(f) for f in (a, b, b, a)]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+    for batch, name, n, off in cases:
+        x = (torch.randn(n + off, generator=gen, device=dev) * 1.5)[off:]
+        out = torch.empty(x.shape, dtype=torch.int8, device=dev)
+        row = {"batch": batch, "shape": name, "n": n, "offset": off, "takes": K2.k2_takes(n),
+               "bound_ms": bound(5 * n, K2_TABLE_OPS_PER_ELEMENT * n, PEAK_F32_OPS_PER_S)[0]}
+        if off:  # the entry point, the copy of a view included
+            def old():
+                with K2._old_form():
+                    return K2.cdf_quantize_int8(x)
+
+            if not torch.equal(K2.cdf_quantize_int8(x), old()):
+                raise AssertionError(f"K2's entry point differs from its direct kernel at {name} n={n}")
+            row["old_ms"], row["new_ms"], row["runs"] = abba(old, lambda: K2.cdf_quantize_int8(x))
+        else:
+            K2._k2_launch(x, out)
+            want = out.clone()
+            plan = K2.device_k2_plan(x)
+            out.zero_()
+            K2._k2_sm90_launch(x, out, plan)
+            if not torch.equal(out, want):
+                raise AssertionError(f"K2's Hopper form differs from its direct kernel at {name} n={n}")
+            row["old_ms"], row["new_ms"], row["runs"] = abba(lambda: K2._k2_launch(x, out),
+                                                             lambda: K2._k2_sm90_launch(x, out, plan))
+            row["ctas"], row["steps"] = plan.ctas, plan.steps
+            row["stream_ms"] = graph_ms(lambda: x.to(torch.int8))
+        res["cases"].append(row)
+        more = "" if off else f"; a cast to int8 {row['stream_ms']:.4f}"
+        print(f"k2-ab: {name} batch {batch} n={n}{f' at offset {off}' if off else ''}: direct kernel "
+              f"{row['old_ms']:.4f} ms, Hopper form {row['new_ms']:.4f} ms (bound {row['bound_ms']:.4f}; ABBA "
+              f"{', '.join(f'{v:.4f}' for v in row['runs'])}; the rule gives the "
+              f"{'Hopper form' if row['takes'] else 'direct kernel'}){more} [{card}]", flush=True)
+        del x, out
+    for batch in K2_AB_BATCHES:
+        r = [x for x in res["cases"] if x["batch"] == batch]
+        tot = {k: sum(x[k] for x in r) for k in ("old_ms", "new_ms", "bound_ms", "stream_ms")}
+        tot["rule_ms"] = sum(x["new_ms"] if x["takes"] else x["old_ms"] for x in r)
+        res[f"sum batch {batch}"] = tot
+        print(f"k2-ab: the three act-site sizes of batch {batch}: direct kernel {tot['old_ms']:.4f} ms, Hopper form "
+              f"{tot['new_ms']:.4f} ms, by the rule {tot['rule_ms']:.4f} (bound {tot['bound_ms']:.4f}, a cast to "
+              f"int8 {tot['stream_ms']:.4f}) [{card}]", flush=True)
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "k2_ab.json").write_text(json.dumps(res, indent=1))
+    print(json.dumps(res))
 
 
 def stem_dw_ab(card) -> None:
@@ -4277,6 +4414,9 @@ def main() -> int:
     if sys.argv[1:] == ["--first-plane-ab"]:
         first_plane_ab(card)
         return 0
+    if sys.argv[1:] == ["--k2-ab"]:
+        k2_ab(card)
+        return 0
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
 
@@ -4406,24 +4546,37 @@ def main() -> int:
     first_err, first_ops = first_conv_checks(dev, gen, code_epilogue)
     plane_err = k1_err
 
-    # 4. K2's path, its entry point, then its results against the plain version
-    phase("K2: its entry point, against its plain version")
+    # 4. K2's path, its entry point, then its results against the plain
+    # version and the direct kernel, and the Hopper form against the direct
+    # kernel on every f32 pattern
+    phase("K2: its entry point, against its plain version and its direct kernel")
     k2_inputs = [(b, name, torch.randn(n, generator=gen, device=dev) * 1.5)
                  for b in (BATCH, SERVE_BATCH) for name, n in act_site_sizes(b)]
     k2_inputs.append((None, "ragged", torch.randn((1000003,), generator=gen, device=dev) * 1.5))
+    k2_inputs.append((None, "view 1 element in",
+                      (torch.randn((K2.K2_MIN_N + 4097,), generator=gen, device=dev) * 1.5)[1:]))
     zero_counts(_build.launches)
     k2_out = [K2.cdf_quantize_int8(x) for _, _, x in k2_inputs]
     torch.cuda.synchronize()
     k2_launches = {k: v for k, v in _build.launches.items() if v}
-    if k2_launches != {K2.KERNEL: len(k2_inputs)}:
-        raise AssertionError(f"K2's path launched {k2_launches}, expected {len(k2_inputs)} K2 launches")
+    if k2_launches != {K2.KERNEL: len(k2_inputs), K2.KERNEL_SM90: len(k2_inputs)}:
+        raise AssertionError(f"K2's path launched {k2_launches}, expected {len(k2_inputs)} K2 launches, all in its "
+                             f"Hopper form")
     k2_err = 0
     for (batch, name, x), got in zip(k2_inputs, k2_out):
         want = K2.cdf_quantize_int8_plain(x)
         diff = code_mismatches(got, want, f"K2 {name} n={x.numel()}")
         k2_err = max(k2_err, int((got.int() - want.int()).abs().max()))
-        print(f"K2 {name} batch {batch} n={x.numel()}: codes differ on {diff} of {x.numel()}", flush=True)
+        with K2._old_form():
+            if not torch.equal(got, K2.cdf_quantize_int8(x)):
+                raise AssertionError(f"K2's Hopper form differs from its direct kernel at {name} n={x.numel()}")
+        print(f"K2 {name} batch {batch} n={x.numel()}: codes differ from the plain version on {diff} of "
+              f"{x.numel()}; bit for bit the direct kernel's", flush=True)
     del k2_out
+    k2_inputs.pop()  # the view: checked, not timed
+    details["k2_every_f32"] = k2_every_f32(dev)
+    if details["k2_every_f32"]["differing"]:
+        raise AssertionError(f"K2's Hopper form differs from its direct kernel on {details['k2_every_f32']}")
 
     # 5. K3 against its plain version and its two forms against each other
     # (the path's runs at batch 2048, 256 and 3, g=7, and 8-block runs)
@@ -4675,18 +4828,26 @@ def main() -> int:
               f"torch._int_mm on the gathered matrix {lib_ms:.4f}"
               f"{'' if pad_ms is None else f'; the pad pass before it {pad_ms:.4f}'}"
               f"{'' if not old_ms else f'; the form it replaced {old_ms}'} [{card}]", flush=True)
+    k2_s = [time.perf_counter(), 0.0]  # the K2 loop's start, the seconds its direct kernel's timings took
     for batch, name, x in k2_inputs:
         if batch is None:
             continue
         n = x.numel()
         out = torch.empty(x.shape, device=dev, dtype=torch.int8)
-        ms = graph_ms(lambda: K2._k2_launch(x, out), runs=LAUNCH_RUNS)
+        plan = K2.device_k2_plan(x)
+        ms = graph_ms(lambda: K2._k2_sm90_launch(x, out, plan), runs=LAUNCH_RUNS)
+        t0 = time.perf_counter()
+        old_ms = graph_ms(lambda: K2._k2_launch(x, out), runs=LAUNCH_RUNS)
+        k2_s[1] += time.perf_counter() - t0
         plain_ms = median_ms(lambda: K2.cdf_quantize_int8_plain(x), runs=PLAIN_RUNS, warmup=0)
-        b_ms, b_by = bound(5 * n, K2_OPS_PER_ELEMENT * n, PEAK_F32_OPS_PER_S)
-        rows[K2.KERNEL].append(dict(batch=batch, shape=name, n=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                    bound_by=b_by, library_ms=None))
-        print(f"time K2 {name} n={n}: {ms:.4f} ms, plain {plain_ms:.3f}, bound {b_ms:.4f} ({b_by}) [{card}]",
-              flush=True)
+        b_ms, b_by = bound(5 * n, K2_TABLE_OPS_PER_ELEMENT * n, PEAK_F32_OPS_PER_S)
+        rows[K2.KERNEL].append(dict(batch=batch, shape=name, n=n, ms=ms, old_ms=old_ms, plain_ms=plain_ms,
+                                    bound_ms=b_ms, bound_by=b_by, library_ms=None, ctas=plan.ctas, steps=plan.steps))
+        print(f"time K2 {name} n={n}: {ms:.4f} ms (the direct kernel {old_ms:.4f}), plain {plain_ms:.3f}, bound "
+              f"{b_ms:.4f} ({b_by}) [{card}]", flush=True)
+    details["k2_timing_s"] = {"all": time.perf_counter() - k2_s[0], "direct_kernel": k2_s[1]}
+    print(f"time K2: the loop took {details['k2_timing_s']['all']:.2f} s, of which the direct kernel's timings "
+          f"{k2_s[1]:.2f} s", flush=True)
     for (batch, name), (stream, wt, scale, bias, ms_, hw) in k3_ops.items():
         mt, c = stream.numel() // stream.shape[-1], stream.shape[-1]
         out = torch.empty_like(stream)
@@ -4746,7 +4907,9 @@ def main() -> int:
         per_forward[batch] = {
             K1.KERNEL: summed(r1, "poly_ms", "plain_poly_ms", "bound_ms", "slice_launches"),
             K1.KERNEL + " (erf route)": summed(r1, "erf_ms", "plain_erf_ms", "bound_ms", "erf_launches"),
-            K2.KERNEL: summed([x for x in rows[K2.KERNEL] if x["batch"] == batch], "ms", "plain_ms", "bound_ms", None),
+            K2.KERNEL: {**summed([x for x in rows[K2.KERNEL] if x["batch"] == batch], "ms", "plain_ms", "bound_ms",
+                                 None),
+                        "replaced_ms": sum(x["old_ms"] for x in rows[K2.KERNEL] if x["batch"] == batch)},
             K3.KERNEL: summed([x for x in rows[K3.KERNEL] if x["batch"] == batch], "ms", "plain_ms", "bound_ms",
                               None),
         }
@@ -4765,8 +4928,8 @@ def main() -> int:
     meta = [
         (K1.KERNEL, "alignq_tpu_torch/csrc/qmatmul.cu", "alignq_tpu/kernels/qmatmul.py:45", k1_err,
          main_launches[K1.KERNEL]),
-        (K2.KERNEL, "alignq_tpu_torch/csrc/quantize.cu", "alignq_tpu/kernels/quantize.py:57", k2_err,
-         k2_launches[K2.KERNEL]),
+        (K2.KERNEL, "alignq_tpu_torch/csrc/cdf_quant_sm90.cu", "alignq_tpu/kernels/quantize.py:57", k2_err,
+         k2_launches[K2.KERNEL_SM90]),
         (K3.KERNEL, "alignq_tpu_torch/csrc/stage_kernel_sm90.cu", "alignq_tpu/kernels/stage_kernel.py:171", k3_err,
          main_launches[K3.SM90]),
         (K1.NARROW, "alignq_tpu_torch/csrc/qmatmul_sm90n.cu", "alignq_tpu/kernels/qmatmul.py:45", k1_err,

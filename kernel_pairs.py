@@ -23,7 +23,8 @@ chip_smoke.py's record_launches:
 - every BN-act launch of DenseNet-40 over the f32 buffer (the arithmetic
   form on both sides) and over the int8 buffer (the parent's arithmetic
   kernel on the buffer against this tree's table form), likewise;
-- K2 at the act-site sizes of batches 2048 and 256, likewise.
+- K2 at the act-site sizes of batches 2048 and 256 (this tree's in the
+  form its entry point gives the size), likewise.
 Each kernel's times are summed over a forward's launches. With
 --forwards, in a fresh process of the parent tree and of this one, in
 turns (parent, new, new, parent): the three graphs' forwards at batches
@@ -209,7 +210,7 @@ def kernel_pairs(parent: Path, batch: int, card: str) -> dict:
                 xi = torch.randn(size, generator=gen, device=dev) * 1.5
                 ref, out = (torch.empty(size, dtype=torch.int8, device=dev) for _ in range(2))
                 pair(f"K2 batch {bt}", name, 1, functools.partial(old.cdf_quant, xi, ref),
-                     functools.partial(K2._k2_launch, xi, out), ref, out)
+                     functools.partial(K2._k2_device_launch, xi, out), ref, out)
     sums = {}
     for r in rows:
         s = sums.setdefault(r["kernel"], {"parent_ms": 0.0, "ms": 0.0, "launches": 0})

@@ -134,8 +134,12 @@ def test_cdf_quantize_saturates_and_rejects(cuda):
     assert K2.cdf_quantize_int8(x).tolist() == [-127, 0, 127, 0, 127, -127]
     with pytest.raises(TypeError):
         K2.cdf_quantize_int8(x.double())
-    with pytest.raises(ValueError):  # a view 4 bytes into its storage
-        K2.cdf_quantize_int8(torch.zeros(9, device=cuda)[1:])
+    # a view 4 bytes into its storage is mapped like any other (the wrapper
+    # copies it to an aligned buffer)
+    base = torch.tensor([7.0, -100.0, 0.0, 100.0, -0.0, 1e30, -1e30, 0.5, -0.5], device=cuda)
+    got = K2.cdf_quantize_int8(base[1:])
+    assert got.tolist() == [-127, 0, 127, 0, 127, -127, 49, -49]
+    assert torch.equal(got, K2.cdf_quantize_int8_plain(base[1:]))
 
 
 @pytest.mark.parametrize("m,k,n", [(100, 70, 50), (4099, 144, 32), (300, 16, 32), (257, 576, 64), (130, 288, 128)])

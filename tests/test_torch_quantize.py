@@ -94,9 +94,14 @@ def test_cpu_runs_no_kernel():
 
 
 def test_quantize_source_carries_f32_constants():
-    """csrc/quantize.cu: 1/sqrt2, then p of A&S 7.1.26, then a5..a1 (the
-    Horner order), each the f32 rounding of the JAX kernel's constant."""
-    lits = [float.fromhex(v) for v in re.findall(HEXFLOAT, (CSRC / "quantize.cu").read_text())]
+    """K2's map, csrc/act_codes.cuh as_code (which csrc/quantize.cu's direct
+    kernel evaluates, with no constant of its own): 1/sqrt2, then p of A&S
+    7.1.26, then a5..a1 (the Horner order), each the f32 rounding of the
+    JAX kernel's constant."""
+    assert re.findall(HEXFLOAT, (CSRC / "quantize.cu").read_text()) == []
+    assert "act::as_code(" in (CSRC / "quantize.cu").read_text()
+    body = re.search(r"int as_code\(.*?\n}\n", (CSRC / "act_codes.cuh").read_text(), re.S).group(0)
+    lits = [float.fromhex(v) for v in re.findall(HEXFLOAT, body)]
     want = [float(np.float32(1 / math.sqrt(2.0))), TQ._AS_P, *TQ._AS_A[::-1]]
     assert lits == want
 
