@@ -4,7 +4,11 @@ images/s on one CUDA card.
     python -m alignq_tpu_torch.bench [--smoke] [--device cpu]
 
 Prints ONE JSON line: {"metric", "value", "unit": "images/sec", "batch",
-"vs_baseline", "device"}.
+"vs_baseline", "device"} and bench.py's companion keys beside them,
+measured in the same process at the same batch on the card
+(ceiling_keys): "frac_of_achievable", "frac_of_nominal",
+"conv_ceiling_ms", "epilogue_isolated_ms", "residual_vs_mandatory"; null
+under --device cpu, where there is no card.
 
 Benched path: the configuration the JAX package's bench.py benches, the
 true-INT8 graph (kernels/infer.py resnet20_int8_forward) of W8A8 ResNet-20
@@ -27,10 +31,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import time
 
 import torch
+
+from alignq_tpu_torch.utils.cuda_timing import time_forward_ms
 
 PEAK_INT8_OPS_PER_S = 1979e12  # NVIDIA H100 SXM, dense int8 tensor-core rate
 TARGET_ROOFLINE_FRACTION = 0.90  # the north-star fraction of bench.py
@@ -57,21 +61,27 @@ def resnet20_analytic_ops(batch: int) -> float:
     return float(ops * batch)
 
 
-def time_forward_ms(fwd, device: torch.device, runs: int, warmup: int) -> float:
-    """Median ms of one call of fwd: CUDA events on the card, the host
-    clock on the CPU."""
-    if device.type == "cuda":
-        from alignq_tpu_torch.utils.cuda_timing import median_ms
+def ceiling_keys(fwd, ms: float, nominal: float, batch: int, dev: torch.device) -> dict:
+    """bench.py's companion keys, measured on the card in this process at
+    the bench's batch (tools/shape_ceilings.py): frac_of_achievable, the
+    conv ceiling (each distinct conv of the graph alone, by graph_ms, times
+    its count) over the forward's ms; frac_of_nominal, the analytic ops'
+    share of the int8 peak; conv_ceiling_ms; epilogue_isolated_ms, what the
+    graph runs outside its kernels (shape_ceilings.epilogue_ops: the
+    casts onto and off the int16 stream, the relus, the scaled shortcuts,
+    the residual adds, the block-edge requants, the pool and head), each op
+    alone; residual_vs_mandatory, (ms - conv ceiling) over it. On the CPU
+    each is None: no card."""
+    keys = ("frac_of_achievable", "frac_of_nominal", "conv_ceiling_ms", "epilogue_isolated_ms",
+            "residual_vs_mandatory")
+    if dev.type != "cuda":
+        return dict.fromkeys(keys)
+    from alignq_tpu_torch.tools.shape_ceilings import ceiling, conv_inventory, preact_graph_ceiling
 
-        return median_ms(fwd, runs=runs, warmup=warmup)
-    for _ in range(warmup):
-        fwd()
-    times = []
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        fwd()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    conv_ms, _ = ceiling(conv_inventory(fwd))
+    epilogue_ms = preact_graph_ceiling(20, batch, conv_ms, dev)["epilogue_ms"]
+    return dict(zip(keys, (round(conv_ms / ms, 4), round(nominal, 4), round(conv_ms, 4), round(epilogue_ms, 4),
+                           round((ms - conv_ms) / epilogue_ms, 4))))
 
 
 def main(argv=None) -> dict:
@@ -93,15 +103,16 @@ def main(argv=None) -> dict:
             return resnet20_int8_forward(qparams, x, act_impl="poly", stream="int8", operands=operands)
 
     ms = time_forward_ms(fwd, dev, runs, warmup)
+    nominal = resnet20_analytic_ops(batch) / (ms * 1e-3) / PEAK_INT8_OPS_PER_S
     row = {
         "metric": METRIC,
         "value": round(batch / ms * 1e3, 1),
         "unit": "images/sec",
         "batch": batch,
-        "vs_baseline": round(resnet20_analytic_ops(batch) / (ms * 1e-3) / PEAK_INT8_OPS_PER_S
-                             / TARGET_ROOFLINE_FRACTION, 4),
+        "vs_baseline": round(nominal / TARGET_ROOFLINE_FRACTION, 4),
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }
+    row.update(ceiling_keys(fwd, ms, nominal, batch, dev))
     print(json.dumps(row))
     return row
 

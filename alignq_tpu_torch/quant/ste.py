@@ -46,6 +46,30 @@ def sign_ste(x: torch.Tensor) -> torch.Tensor:
     return _SignSTE.apply(x)
 
 
+# How uniform_quantize dequantizes: 'recip' (the default) or 'div', set
+# only by dequant_division. Read at every call (the port is eager; the JAX
+# package's mode is fixed when a function is traced).
+_DEQUANT_MODE = "recip"
+
+
+class dequant_division:
+    """Context manager: inside it, uniform_quantize dequantizes by true
+    division, round(x * n) / n (the reference's literal grid values), for
+    parity harnesses; the reciprocal multiply is back on exit, also on an
+    exception. It reaches every caller of uniform_quantize (fake_quant.py,
+    the baselines' grids) and not APoT's own uniform grid, which divides
+    by its reciprocal in either mode, as jitted JAX does."""
+
+    def __enter__(self):
+        global _DEQUANT_MODE
+        self._prev = _DEQUANT_MODE
+        _DEQUANT_MODE = "div"
+
+    def __exit__(self, *exc):
+        global _DEQUANT_MODE
+        _DEQUANT_MODE = self._prev
+
+
 def uniform_quantize(x: torch.Tensor, k: int, n: Optional[int] = None) -> torch.Tensor:
     """k-bit uniform fake quantization with STE backward: identity at
     k == 32, sign at k == 1, else round(x * n) * (1/n) with n = 2^k - 1
@@ -54,12 +78,15 @@ def uniform_quantize(x: torch.Tensor, k: int, n: Optional[int] = None) -> torch.
     Dequantized by the reciprocal multiply, as the JAX package does: one
     correctly rounded op, so grid values are the same in every execution
     mode, and the exact-zero residual ties stay exact (`/ n` moved
-    gradients by O(1e-2) there in the JAX package's measurements)."""
+    gradients by O(1e-2) there in the JAX package's measurements). Under
+    dequant_division, by `/ n`."""
     if k == 32:
         return x
     if k == 1:
         return sign_ste(x)
     n = float(n if n is not None else 2**k - 1)
+    if _DEQUANT_MODE == "div":
+        return round_ste(x * n) / n
     return round_ste(x * n) * (1.0 / n)
 
 

@@ -8,6 +8,8 @@ L2: the launches are captured once in a CUDA graph, each after a read that
 evicts the L2, and replayed, so that neither the host's cost nor operands
 left in the L2 by the launch before are in the time. `profile` splits a
 call's wall time into the device's busy time and the host's issue time.
+`time_forward_ms` is `median_ms` on the card and the host clock on the
+CPU.
 """
 
 from __future__ import annotations
@@ -47,6 +49,26 @@ def median_ms(fn, runs: int = RUNS, warmup: int = WARMUP, per_call: int = 1) -> 
             fn()
 
     return statistics.median(_event_ms(calls, runs)) / per_call
+
+
+def time_forward_ms(fn, device, runs: int = RUNS, warmup: int = WARMUP) -> float:
+    """Median ms of one call of fn: CUDA events on the card (median_ms), the
+    host clock on the CPU, after `warmup` calls and a drained device (no
+    device metric)."""
+    if device.type == "cuda":
+        return median_ms(fn, runs=runs, warmup=warmup)
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def graph_ms(fn, runs: int = RUNS, per_graph: int = 20) -> float:

@@ -113,8 +113,7 @@ Phases, in order; any failure raises and the script exits non-zero:
         the buffer (DenseNet) or the depthwise kernel (MobileNet-V2), no
         tap gathered;
     (d) each family's train step at batch 128 with ADMM (CUDA events,
-        median of 2), and one run of `python -m
-        alignq_tpu_torch.bench`, its line printed;
+        median of 2);
 10. times from CUDA events (median of 20 after warm-up): the forward at
     batches 2048 and 256 on both routes, and each kernel at each path
     shape of batches 2048 and 256 (K1 and K3 in the form the planner gives
@@ -314,7 +313,16 @@ Phases, in order; any failure raises and the script exits non-zero:
         and its collectives by op and group (a barrier before each), and
         served images/s of the slice route at engine batch 256 on each
         mesh and in one process;
-26. one JSON line of the kernels (K1 and K3: times summed over the
+26. the tools (tools_phase): (a) `alignq_tpu_torch.bench`'s entry point
+    at batch 2048 with bench.py's ceiling keys (frac_of_achievable,
+    frac_of_nominal, conv_ceiling_ms, epilogue_isolated_ms,
+    residual_vs_mandatory; tools/shape_ceilings.py), measured on the card
+    in this process: each non-null, frac_of_achievable in (0, 1], the conv
+    ceiling below the forward's ms; its line printed; (b) the zoo, serving,
+    artifact and QAT tools of alignq_tpu_torch/tools/ at --smoke, each
+    printing the card line and its rows (the corr-mode and calibration
+    A/Bs drive paths phases 24(b) and 9 hold, and run apart);
+27. one JSON line of the kernels (K1 and K3: times summed over the
     launches of one slice-route forward at the serving batch, K3 in its
     Hopper form, its launches those of phase 7's main path; K2 (its Hopper
     form): over one launch at each act-site size of that batch, its
@@ -437,6 +445,10 @@ times the data-parallel gather step over two gloo ranks on the card with
 the row gather's backward as an all-reduce of all rows (its earlier form)
 and as the reduce-scatter it is, four runs in the order ABBA.
 
+    python3 chip_smoke.py --tools-only
+
+runs the build and phase 26 (the tools) alone.
+
     python3 chip_smoke.py --agreement-study
 
 runs only phase 9(b, c)'s training and export again, without the gate:
@@ -462,36 +474,38 @@ import time
 from pathlib import Path
 
 from alignq_tpu_torch.utils.cuda_timing import RUNS, graph_ms, median_ms, profile
+from alignq_tpu_torch.utils.launches import (  # noqa: F401  (the scripts and tests read them here too)
+    BN_ACT_OPS,
+    K2_OPS_PER_ELEMENT,
+    K2_TABLE_OPS_PER_ELEMENT,
+    LAUNCH_RUNS,
+    PEAK_BYTES_PER_S,
+    PEAK_F32_OPS_PER_S,
+    PEAK_INT8_OPS_PER_S,
+    PLAIN_RUNS,
+    bound,
+    card_line,
+    check_launch,
+    code_mismatches,
+    conv_bound,
+    distinct_launches,
+    f32_mismatches,
+    k3_bound,
+    launch_key,
+    record_launches,
+    time_launch,
+)
 
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
-PEAK_F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-# f32 operations of one K2 code (csrc/quantize.cu cdf_code: 2 multiplies,
-# the divide, 6 multiply-adds at 2 each, 3 multiplies, the exp counted as 1,
-# the sign, rint and 2 compares)
-K2_OPS_PER_ELEMENT = 24
-# ... of one code of K2's Hopper form (csrc/cdf_quant_sm90.cu: the bucket's
-# multiply-add, its two clamps and conversion, the base's mask and offset,
-# the step's compare and add, NaN's compare and select, the byte's packing)
-K2_TABLE_OPS_PER_ELEMENT = 12
 # repetitions of the default run's timing phases (cut to keep the run
-# within its call, CHANGES.md): a launch's graph_ms runs, a plain
-# version's runs, a whole forward's CUDA-event runs, a profile's iterations
-LAUNCH_RUNS, PLAIN_RUNS, FORWARD_RUNS, PROFILE_ITERS = 10, 1, 10, 2
+# within its call, CHANGES.md): a whole forward's CUDA-event runs, a
+# profile's iterations (a launch's: utils/launches.py LAUNCH_RUNS)
+FORWARD_RUNS, PROFILE_ITERS = 10, 2
 ENGINE_RUNS, ENGINE_BACKLOG = 10, 16  # engine_times: one-image requests, full batches of the backlog
 BATCH = 2048  # bench.py's headline batch
 SERVE_BATCH = 256  # the engine's batch on the main path
 K3_DEEP_MS = tuple(range(2, 10))  # ResNet-56's stage-2 and stage-3 runs: 8 blocks, multipliers 2-9
 K3_DEEP_BATCH = 64  # phase 5's 8-block runs
 SEED = 0
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def conv_shapes(batch):
@@ -510,20 +524,6 @@ def conv_shapes(batch):
         ("block3 merged", batch, 32, 32, 16, 3, 2, 64): (0, 0),
         ("block6 merged", batch, 16, 16, 32, 3, 2, 128): (0, 0),
     }
-
-
-def conv_bound(b, h, w, cin, ksize, stride, n, out_bytes, pad=None):
-    """The conv's least time: its input read once (every pixel for a 3x3,
-    5x5 or 7x7, the strided sample for a 1x1), the weight and epilogue
-    vectors, the (M, N) output of out_bytes an element; 2*M*K*N operations
-    (cin the input's channels as the conv's caller gives them: a stem's 3,
-    which the wrapper's pad pass widens to the 4 K1 reads). pad: ksize // 2
-    (a 'same' conv) where None; the digit convs' 0."""
-    pad = ksize // 2 if pad is None else pad
-    ho, wo = (h + 2 * pad - ksize) // stride + 1, (w + 2 * pad - ksize) // stride + 1
-    m = b * ho * wo
-    x_bytes = b * h * w * cin if ksize > 1 else m * cin
-    return bound(x_bytes + ksize * ksize * cin * n + 8 * n + out_bytes * m * n, 2 * m * ksize * ksize * cin * n)
 
 
 def k1_shapes(batch):
@@ -548,31 +548,6 @@ def act_site_sizes(batch):
             ("stage3 sites", batch * 64 * 64)]
 
 
-def f32_mismatches(got, want) -> int:
-    """Elements where got differs from want; raises if any is more than
-    one ulp away."""
-    import torch
-
-    diff = got != want
-    w = want[diff]
-    near = (got[diff] == torch.nextafter(w, w + 1)) | (got[diff] == torch.nextafter(w, w - 1))
-    if not bool(near.all()):
-        raise AssertionError("an f32 result is more than one ulp from its plain version")
-    return int(diff.sum())
-
-
-def code_mismatches(got, want, what: str) -> int:
-    """Codes where got differs from want; raises if any is more than one
-    code away or more than 1e-6 of them differ."""
-    diff = got != want
-    n = int(diff.sum())
-    if n and int((got[diff].int() - want[diff].int()).abs().max()) > 1:
-        raise AssertionError(f"{what}: a code is more than one from its plain version")
-    if n > 1e-6 * got.numel():
-        raise AssertionError(f"{what}: {n} of {got.numel()} codes differ from the plain version")
-    return n
-
-
 def to_device(tree, dev):
     """A qparams tree (dicts, lists, QConvInt8, tensors, host scalars) on dev."""
     import torch
@@ -584,20 +559,6 @@ def to_device(tree, dev):
     if isinstance(tree, list):
         return [to_device(v, dev) for v in tree]
     return tree.to(dev) if torch.is_tensor(tree) else tree
-
-
-def bound(bytes_moved, ops, peak_ops=PEAK_INT8_OPS_PER_S):
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / peak_ops * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def k3_bound(pixels, c, n_blocks):
-    """K3's bound over a run of n_blocks on pixels NHWC pixels of C
-    channels: the int16 stream read and written once and every conv's
-    weight, scale and bias read once, against 2 convs a block of 2*9*C*C
-    int8 operations a pixel."""
-    return bound(2 * 2 * c * pixels + n_blocks * 2 * (9 * c * c + 8 * c), n_blocks * 2 * 2 * pixels * 9 * c * c)
 
 
 @contextlib.contextmanager
@@ -792,15 +753,6 @@ def profile_step(fn, card, label="QAT step batch 128 ADMM", iters=5):
 
 FAMILY_SERVE_BATCH = 8  # the engine batch of the families' serving phase
 FAMILY_TIME_BATCHES = (256,)
-# f32 operations of one BN-act code on the CUDA cores (csrc/quantize.cu
-# bn_act_code: the BN multiply-add at 2, then act_codes.cuh's map: erf 3
-# multiplies, 2 clamps, 11 multiply-adds at 2, the divide, rint, 2 clamps,
-# the relu; poly 2 clamps, 2 multiplies, 7 multiply-adds at 2, 2
-# multiplies, rint, 2 clamps, the relu)
-BN_ACT_OPS = {"erf": 34, "poly": 25}
-# the int32 operations of one depthwise output element (9 multiply-adds at
-# 2), counted at the CUDA cores' f32 rate
-DW_OPS = 18
 
 
 def family_configs():
@@ -816,325 +768,6 @@ def family_configs():
         ("mobilenetv2", M.build_mobilenetv2_int8, M.mobilenetv2_int8_forward, M.mobilenetv2_int8_streams,
          M.pack_mobilenetv2_operands, {}),
     ]
-
-
-def record_launches(fn):
-    """Run fn with every K1, first-conv, stem, digit, depthwise and BN-act
-    (both forms) launch recorded: a list of (kind, operands) in launch
-    order; a K1 launch's operands end with the channels of the conv's input
-    as its caller gave them; a first-conv launch's are (the f32 image, the
-    packed weight, the plan, the mode, the map, the image's scale); a stem
-    launch's are (the f32 image, the packed
-    weight, the plan, 'codes', the map); a digit launch's (its conv's input
-    as conv_pool takes it: conv 1's f32 image, the packed weight, the plan,
-    the map); a table launch's (the buffer, c_live, the table, the Hopper
-    kernel's plan or None, the map, c_out). The wrappers count as always."""
-    from alignq_tpu_torch.kernels import digit as DSm
-    from alignq_tpu_torch.kernels import dwconv as DWm
-    from alignq_tpu_torch.kernels import first_conv as FC
-    from alignq_tpu_torch.kernels import qmatmul as K1
-    from alignq_tpu_torch.kernels import quantize as K2
-    from alignq_tpu_torch.kernels import stem as ST
-
-    rec = []
-    saved = (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv, ST._prep_launch,
-             ST._stem_launch, DSm.digit_prep, DSm._digit_launch, FC._first_launch)
-    conv_c = [None]  # the input channels of the conv in flight
-    image = [None]  # the f32 image of the stem, or of the digit net's conv 1, in flight
-
-    def conv(x, op, *a, **kw):
-        conv_c[0] = x.shape[-1]
-        try:
-            return saved[4](x, op, *a, **kw)
-        finally:
-            conv_c[0] = None
-
-    def k1(x, op, plan, out, mode, act=None):
-        rec.append(("K1", (x, op, plan, mode, act, conv_c[0] or x.shape[-1])))
-        saved[0](x, op, plan, out, mode, act)
-
-    def dw(x, op, plan, impl, act, out):
-        rec.append(("dw", (x, op, plan, impl, act)))
-        saved[1](x, op, plan, impl, act, out)
-
-    def bn(x, c_live, s, b, act, out):
-        rec.append(("bn", (x, c_live, s, b, act, out.shape[-1])))
-        saved[2](x, c_live, s, b, act, out)
-
-    def bn_table(x, c_live, table, out, plan=None):
-        rec.append(("bn_table", (x, c_live, table, plan, table.act, out.shape[-1])))
-        saved[3](x, c_live, table, out, plan)
-
-    def prep(x, q, *inv):
-        image[0] = x
-        saved[5](x, q, *inv)
-
-    def stem(xq, op, act, plan, out):
-        rec.append(("stem", (image[0], op, plan, "codes", act)))
-        saved[6](xq, op, act, plan, out)
-
-    def digit_prep(x):
-        image[0] = x
-        return saved[7](x)
-
-    def digit(xin, op, act, plan, out):
-        rec.append(("digit", (image[0] if plan.conv == 1 else xin, op, plan, act)))
-        saved[8](xin, op, act, plan, out)
-
-    def first(x, op, scale, act, mode, plan, out):
-        rec.append(("first", (x, op, plan, mode, act, scale)))
-        saved[9](x, op, scale, act, mode, plan, out)
-
-    (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv, ST._prep_launch,
-     ST._stem_launch, DSm.digit_prep, DSm._digit_launch, FC._first_launch) = (
-        k1, dw, bn, bn_table, conv, prep, stem, digit_prep, digit, first)
-    try:
-        fn()
-    finally:
-        (K1._k1_launch, DWm._dw_launch, K2._bn_act_launch, K2._bn_table_launch, K1._conv, ST._prep_launch,
-         ST._stem_launch, DSm.digit_prep, DSm._digit_launch, FC._first_launch) = saved
-    return rec
-
-
-def launch_key(kind, args):
-    """The distinct shape and epilogue of a recorded launch."""
-    if kind == "digit":
-        return (kind, args[2].conv, tuple(args[0].shape), args[3].impl, args[3].relu)
-    act = args[4]
-    tail = (act.impl, act.relu) if act is not None else ()
-    if kind == "K1":
-        x, op, plan, mode = args[:4]
-        return (kind, tuple(x.shape), tuple(op.wt.shape), plan.ksize, plan.stride, mode, *tail)
-    if kind == "first":
-        return (kind, tuple(args[0].shape), tuple(args[1].wt.shape), args[3], *tail)
-    if kind == "dw":
-        return (kind, tuple(args[0].shape), args[2].stride, args[3], *tail)
-    if kind == "stem":
-        return (kind, tuple(args[0].shape), args[2].R, *tail)
-    x, c_live, _, _, _, c_out = args
-    return (kind, tuple(x.shape), str(x.dtype), c_live, c_out, *tail)
-
-
-def distinct_launches(rec):
-    """{launch_key: [operands, launches]} of a recorded run."""
-    out = {}
-    for kind, args in rec:
-        key = launch_key(kind, args)
-        if key in out:
-            out[key][1] += 1
-        else:
-            out[key] = [(kind, args), 1]
-    return out
-
-
-def check_launch(kind, args):
-    """The launch's wrapper against its plain version on the recorded
-    operands: (differing elements, elements, max abs difference). int32
-    and requant results must be identical; f32 within one ulp and codes
-    within one code on at most 1e-6 of the elements (the plain version's
-    float64 evaluation can round twice at an f32 midpoint). The first-conv
-    kernel (against its chain under first_conv._old_form), the stem kernel,
-    the digit kernel, the depthwise Hopper form and the table pass's Hopper
-    kernel also against the forms they replaced (the stem's chain under
-    stem._old_form, the digit conv's under digit._old_form, dwconv.cu under
-    dwconv._old_form, quantize.cu's bn_table_kernel under
-    quantize._old_form), bit for bit."""
-    import torch
-
-    from alignq_tpu_torch.kernels import dwconv as DWm
-    from alignq_tpu_torch.kernels import qmatmul as K1
-    from alignq_tpu_torch.kernels import quantize as K2
-
-    from alignq_tpu_torch.kernels import digit as DSm
-    from alignq_tpu_torch.kernels import first_conv as FC
-    from alignq_tpu_torch.kernels import stem as ST
-
-    key = launch_key(kind, args)
-    if kind == "first":  # the kernel, bit for bit the chain it replaced, and its plain version
-        x, op, _, mode, act, scale = args
-        got, want = FC.first_conv(x, op, scale, act, mode), FC.first_conv_reference(x, op, scale, act, mode)
-        with FC._old_form():
-            old = FC.first_conv(x, op, scale, act, mode)
-        if not torch.equal(got, old):
-            raise AssertionError(f"{key}: the first-conv kernel differs from the chain it replaced in "
-                                 f"{int((got != old).sum())} elements")
-    elif kind == "K1":
-        x, op, plan, mode, act, _ = args
-        if act is not None:
-            got, want = K1.int8_conv_codes(x, op, plan.stride, plan.pad, act), \
-                K1.int8_conv_reference(x, op, plan.stride, plan.pad, act.impl, act)
-        else:
-            got, want = K1.int8_conv_packed(x, op, plan.stride, plan.pad, mode), \
-                K1.int8_conv_reference(x, op, plan.stride, plan.pad, mode)
-    elif kind == "dw":
-        x, op, plan, impl, act = args
-        got, want = DWm.dw_conv(x, op, plan.stride, impl, act), DWm.dw_conv_reference(x, op, plan.stride, impl, act)
-        if isinstance(plan, DWm.DwSm90Plan):  # and bit for bit the form it replaced
-            with DWm._old_form():
-                old = DWm.dw_conv(x, op, plan.stride, impl, act)
-            if not torch.equal(got.view(torch.int32) if got.dtype == torch.float32 else got,
-                               old.view(torch.int32) if old.dtype == torch.float32 else old):
-                raise AssertionError(f"{key}: the depthwise Hopper form differs from dwconv.cu's")
-    elif kind == "stem":  # the kernel, bit for bit the chain it replaced, and its plain version
-        x, op, plan, _, act = args
-        got, want = ST.stem_pool_codes(x, op, act), ST.stem_reference(x, op, act)
-        with ST._old_form():
-            old = ST.stem_pool_codes(x, op, act)
-        if not torch.equal(got, old):
-            raise AssertionError(f"{key}: the stem kernel differs from the chain it replaced in "
-                                 f"{int((got != old).sum())} codes")
-    elif kind == "digit":  # the kernel, bit for bit the chain it replaced, and its plain version
-        x, op, plan, act = args
-        got, want = DSm.conv_pool(plan.conv, x, op, act), DSm.digit_reference(plan.conv, x, op, act)
-        with DSm._old_form():
-            old = DSm.conv_pool(plan.conv, x, op, act)
-        if not torch.equal(got, old):
-            raise AssertionError(f"{key}: the digit kernel differs from the chain it replaced in "
-                                 f"{int((got != old).sum())} codes")
-    elif kind == "bn":
-        x, c_live, sv, bv, act, c_out = args
-        got, want = K2.bn_act_codes(x, c_live, sv, bv, act, c_out), K2.bn_act_codes_plain(x, c_live, sv, bv, act, c_out)
-    else:  # the table form, against the arithmetic's plain version on its table's (s, b, map) and the old kernel
-        x, c_live, table, _, act, c_out = args
-        got = K2.bn_act_codes_table(x, c_live, table, c_out)
-        want = K2.bn_act_codes_plain(x, c_live, table.s, table.b, act, c_out)
-        with K2._old_form():
-            old = K2.bn_act_codes_table(x, c_live, table, c_out)
-        hop = torch.empty_like(old)  # the Hopper kernel at the site, whichever form the rule gives it
-        K2._bn_table_launch(x, c_live, table, hop,
-                            K2.bn_table_plan(x.numel() // x.shape[-1], x.shape[-1], c_live, c_out,
-                                             K2._sms(x.device.index or 0)))
-        torch.cuda.synchronize()
-        for form, codes in (("the rule's form", got), ("the Hopper kernel", hop)):
-            if not torch.equal(codes, old):
-                raise AssertionError(f"{key}: {form} differs from bn_table_kernel in "
-                                     f"{int((codes != old).sum())} codes")
-    torch.cuda.synchronize()
-    if got.dtype == torch.float32:
-        diff = f32_mismatches(got, want)
-        if diff > 1e-6 * got.numel():
-            raise AssertionError(f"{key}: {diff} f32 elements differ from the plain version")
-    elif kind in ("K1", "first") and args[3] == "requant":
-        diff = int((got != want).sum())
-        if diff:
-            raise AssertionError(f"{key}: {diff} requant codes differ from the plain version")
-    else:
-        diff = code_mismatches(got, want, str(key))
-    return diff, got.numel(), float((got.double() - want.double()).abs().max())
-
-
-def time_launch(kind, args):
-    """(ms, plain_ms, bound_ms, bound_by, library_ms, pad_ms) of one launch
-    at its recorded operands (the stem kernel: its ms with its prep pass's,
-    pad_ms that pass's, no library call computing the same function): the raw launch's device time from a cold L2
-    (graph_ms), its plain version, its bound (each input read once, each
-    output written once; a K1 conv's input at the channels its caller gave),
-    one PyTorch call of the same product where there is one, also by
-    graph_ms (K1: torch._int_mm on the gathered taps;
-    depthwise: F.conv2d with groups=C on f32, TF32 off; the BN-act pass,
-    either form: none), and the time of the wrapper's pad pass where a K1
-    conv's caller gave fewer channels than K1 reads (else None). Both
-    BN-act forms are read against the same bound: the live prefix read,
-    the codes written, BN_ACT_OPS an element. The digit kernel: its ms with
-    conv 1's prep pass (pad_ms that pass's), no library call; its bound the
-    int8 input read (conv 1: the image's 3 channels) and the pooled codes
-    written, against its 2 * M * K * N int8 operations."""
-    import torch
-
-    from alignq_tpu_torch.kernels import digit as DSm
-    from alignq_tpu_torch.kernels import dwconv as DWm
-    from alignq_tpu_torch.kernels import qmatmul as K1
-    from alignq_tpu_torch.kernels import quantize as K2
-
-    from alignq_tpu_torch.kernels import stem as ST
-
-    pad_ms = None
-    if kind == "first":  # the bound: the f32 image read, the outputs written
-        from alignq_tpu_torch.kernels import first_conv as FC
-
-        x, op, plan, mode, act, scale = args
-        dtype = torch.float32 if mode in ("f32", "relu") else torch.int32 if mode == "int32" else torch.int8
-        out = torch.empty((x.numel() // 3, op.n), device=x.device, dtype=dtype)
-        ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: FC._first_launch(x, op, scale, act, mode, plan, out))
-        plain_ms = median_ms(lambda: FC.first_conv_reference(x, op, scale, act, mode), runs=PLAIN_RUNS, warmup=0)
-        m = x.numel() // 3
-        b_ms, b_by = bound(x.numel() * 4 + 27 * op.n + 8 * op.n + m * op.n * out.element_size(), 2 * m * 27 * op.n)
-        cols = K1.gather_taps(K1._conv_input(FC.linear_q(x, scale), op), 3, 1, 1, K1.K_MULT)
-        wmat = op.wt.t().contiguous()
-        lib_ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: torch._int_mm(cols, wmat))
-        return ms, plain_ms, b_ms, b_by, lib_ms, None
-    if kind == "digit":
-        x, op, plan, act = args
-        c = DSm.CONVS[plan.conv]
-        out = torch.empty((plan.B, c.pooled, c.pooled, c.n), device=x.device, dtype=torch.int8)
-        xin = x
-        if plan.conv == 1:
-            xin = DSm.digit_prep(x)
-            pad_ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: ST._prep_launch(x, xin, DSm._INV_S_DIGIT))
-        ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: DSm._digit_launch(xin, op, act, plan, out)) + (pad_ms or 0.0)
-        plain_ms = median_ms(lambda: DSm.digit_reference(plan.conv, x, op, act), runs=PLAIN_RUNS, warmup=0)
-        side = 2 * c.pooled  # the VALID conv's output side: 24 or 8
-        cin = 3 if plan.conv == 1 else c.cin
-        b_ms, b_by = bound(plan.B * c.hw * c.hw * cin + out.numel(), 2 * plan.B * side * side * 25 * cin * c.n)
-        return ms, plain_ms, b_ms, b_by, None, pad_ms
-    if kind == "stem":  # the kernel and its prep pass; the bound: the int8 image in, the pooled int16 out
-        x, op, plan, _, act = args
-        xq = ST.stem_prep(x)
-        out = torch.empty((plan.B, plan.Hp, plan.Wp, ST.N_OUT), device=x.device, dtype=torch.int16)
-        pad_ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: ST._prep_launch(x, xq))
-        ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: ST._stem_launch(xq, op, act, plan, out)) + pad_ms
-        plain_ms = median_ms(lambda: ST.stem_reference(x, op, act), runs=PLAIN_RUNS, warmup=0)
-        b_ms, b_by = bound(plan.B * plan.H * plan.W * 3 + out.numel() * 2,
-                           2 * plan.B * plan.Ho * plan.Wo * ST.N_OUT * 147)
-        return ms, plain_ms, b_ms, b_by, None, pad_ms
-    if kind == "K1":
-        x, op, plan, mode, act, xc = args
-        out_dtype = torch.float32 if mode == "f32" else torch.int8
-        out = torch.empty((plan.B * plan.Ho * plan.Wo, op.wt.shape[0]), device=x.device, dtype=out_dtype)
-        ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: K1._k1_launch(x, op, plan, out, mode, act))
-        impl = act.impl if act is not None else mode
-        plain_ms = median_ms(lambda: K1.int8_conv_reference(x, op, plan.stride, plan.pad, impl, act), runs=PLAIN_RUNS,
-                             warmup=0)
-        b, h, w, c = x.shape
-        b_ms, b_by = conv_bound(b, h, w, xc, plan.ksize, plan.stride, op.n, 4 if mode == "f32" else 1, plan.pad)
-        if xc != c:
-            x_in = x[..., :xc].contiguous()  # the caller's input, before the pad pass
-            pad_ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: K1._conv_input(x_in, op))
-            del x_in
-        cols = K1.gather_taps(x, plan.ksize, plan.stride, plan.pad, K1.K_MULT)
-        wmat = op.wt.t().contiguous()
-        lib_ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: torch._int_mm(cols, wmat))
-        del cols
-    elif kind == "dw":
-        x, op, plan, impl, act = args
-        b, h, w, c = x.shape
-        stride = plan.stride
-        dtype = torch.float32 if impl == "f32" else torch.int8
-        out = torch.empty((b, plan.Ho, plan.Wo, c), device=x.device, dtype=dtype)
-        ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: DWm._dw_launch(x, op, plan, impl, act, out))
-        plain_ms = median_ms(lambda: DWm.dw_conv_reference(x, op, stride, impl, act), runs=PLAIN_RUNS, warmup=0)
-        b_ms, b_by = bound(b * h * w * c + 17 * c + out.numel() * out.element_size(), DW_OPS * out.numel(),
-                           PEAK_F32_OPS_PER_S)
-        xf = x.permute(0, 3, 1, 2).float().contiguous()
-        wf = op.w.t().reshape(c, 1, 3, 3).float().contiguous()
-        lib_ms = graph_ms(runs=LAUNCH_RUNS,
-                          fn=lambda: torch.nn.functional.conv2d(xf, wf, stride=stride, padding=1, groups=c))
-        del xf
-    else:
-        x, c_live, sv, bv, act, c_out = args
-        out = torch.empty((*x.shape[:-1], c_out), device=x.device, dtype=torch.int8)
-        if kind == "bn":
-            ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: K2._bn_act_launch(x, c_live, sv, bv, act, out))
-            plain_ms = median_ms(lambda: K2.bn_act_codes_plain(x, c_live, sv, bv, act, c_out), runs=PLAIN_RUNS,
-                                 warmup=0)
-        else:
-            ms = graph_ms(runs=LAUNCH_RUNS, fn=lambda: K2._bn_table_launch(x, c_live, sv, out, bv))
-            plain_ms = median_ms(lambda: K2.bn_act_codes_table_plain(x, c_live, sv, c_out), runs=PLAIN_RUNS, warmup=0)
-        m = x.numel() // x.shape[-1]
-        b_ms, b_by = bound(m * c_live * x.element_size() + 8 * c_live + m * c_out,
-                           BN_ACT_OPS.get(act.impl, 4) * m * c_live, PEAK_F32_OPS_PER_S)
-        lib_ms = None
-    return ms, plain_ms, b_ms, b_by, lib_ms, pad_ms
 
 
 def old_form_ms(kind, args):
@@ -1680,8 +1313,8 @@ def first_conv_row(batch, x, op, launches, card):
     wmat = op.wt[:n].t().contiguous()
     lib_ms = graph_ms(lambda: torch._int_mm(cols, wmat), runs=LAUNCH_RUNS)
     del cols
-    bc_ms, bc_by = bound(x.numel() * 4 + 35 * n + m * n, 2 * m * 27 * n)
-    bf_ms, _ = bound(x.numel() * 4 + 35 * n + 4 * m * n, 2 * m * 27 * n)
+    bc_ms, bc_by = conv_bound(*x.shape[:3], 3, 3, 1, n, 1, itemsize=4)
+    bf_ms, _ = conv_bound(*x.shape[:3], 3, 3, 1, n, 4, itemsize=4)
     print(f"time the first conv (first-conv kernel) batch {b} M={m} K=27 N={n} (tiles of {plan.R} rows): codes poly "
           f"{code_ms['poly']:.4f} ms, erf {code_ms['erf']:.4f} (the chain it replaced {old_ms['poly']:.4f}, "
           f"{old_ms['erf']:.4f}; plain {plain_ms['poly']:.3f}, {plain_ms['erf']:.3f}; bound {bc_ms:.4f} {bc_by}); "
@@ -2022,8 +1655,7 @@ def family_qat(dev, card, repo, phase):
     MobileNet-V2: (a) float64 steps on the card against the CPU; (b) each
     family trained at full width through export_int8.main on the synthetic
     set; (c) exported, its artifact served on the card and held against
-    the CPU plain path; (d) the train step's times at batch 128 with ADMM,
-    and one run of alignq_tpu_torch.bench."""
+    the CPU plain path; (d) the train step's times at batch 128 with ADMM."""
     import math
     import shutil
 
@@ -2145,15 +1777,6 @@ def family_qat(dev, card, repo, phase):
         out["step_times"][label] = {"ms_per_step": ms, "images_per_s": FAMILY_QAT_TIME_BATCH / ms * 1e3}
         del model, state, step, x, y
         torch.cuda.empty_cache()
-
-    phase("the port's bench")
-    proc = subprocess.run([sys.executable, "-m", "alignq_tpu_torch.bench"], cwd=repo, capture_output=True, text=True,
-                          timeout=600)
-    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
-    if proc.returncode != 0 or len(lines) != 1:
-        raise AssertionError(f"alignq_tpu_torch.bench: exit {proc.returncode}, output {lines}, {proc.stderr[-2000:]}")
-    out["bench"] = json.loads(lines[0])
-    print(f"bench: {lines[0]} [{card}]", flush=True)
     return out
 
 
@@ -4331,6 +3954,43 @@ def bn_digit_ab(card) -> None:
     print(json.dumps(res))
 
 
+TOOLS_SMOKE = ("model_zoo_bench", "serve_bench", "artifact_bench", "qat_throughput", "qat_breakdown")
+BENCH_CEILING_KEYS = ("frac_of_achievable", "frac_of_nominal", "conv_ceiling_ms", "epilogue_isolated_ms",
+                      "residual_vs_mandatory")
+
+
+def tools_phase(card, details, phase):
+    """Phase 26, the tools: (a) the bench (alignq_tpu_torch.bench.main, the
+    entry point `python -m alignq_tpu_torch.bench` calls) at batch 2048 with
+    bench.py's ceiling keys, measured in this process on the card: every
+    key non-null, frac_of_achievable in (0, 1], the conv ceiling below the
+    forward's ms; (b) the zoo, serving, artifact and QAT tools
+    (alignq_tpu_torch/tools/) at --smoke, each printing the card line and
+    its rows."""
+    import importlib
+
+    from alignq_tpu_torch import bench
+
+    phase("tools (a): the bench with its ceiling keys")
+    t0 = time.perf_counter()
+    row = bench.main([])
+    e2e_ms = row["batch"] / row["value"] * 1e3
+    if any(row[k] is None for k in BENCH_CEILING_KEYS) or row["batch"] != BATCH:
+        raise AssertionError(f"the bench left a ceiling key null or ran at another batch: {row}")
+    if not (0 < row["frac_of_achievable"] <= 1 and row["conv_ceiling_ms"] < e2e_ms):
+        raise AssertionError(f"the bench's conv ceiling {row['conv_ceiling_ms']} ms against its forward's "
+                             f"{e2e_ms} ms: frac_of_achievable {row['frac_of_achievable']}")
+    print(f"bench: {json.dumps(row)} [{card}] ({time.perf_counter() - t0:.1f} s)", flush=True)
+    out = {"bench": row}
+    phase("tools (b): the zoo, serving, artifact and QAT tools at --smoke")
+    t0 = time.perf_counter()
+    for tool in TOOLS_SMOKE:
+        out[tool] = importlib.import_module(f"alignq_tpu_torch.tools.{tool}").main(["--smoke"])
+    out["smoke_s"] = time.perf_counter() - t0
+    print(f"tools at --smoke: {', '.join(TOOLS_SMOKE)} in {out['smoke_s']:.1f} s [{card}]", flush=True)
+    details["tools"] = out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4404,6 +4064,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--tp-only"]:
         tp_phase(dev, card, repo, details, phase)
+        return 0
+    if sys.argv[1:] == ["--tools-only"]:
+        tools_phase(card, details, phase)
         return 0
     if sys.argv[1:] == ["--stem-dw-ab"]:
         stem_dw_ab(card)
@@ -4886,7 +4549,10 @@ def main() -> int:
     # 25. tensor parallelism and mesh serving
     tp_phase(dev, card, repo, details, phase)
 
-    # 26. the kernels line, the card line, the final line
+    # 26. the tools
+    tools_phase(card, details, phase)
+
+    # 27. the kernels line, the card line, the final line
     phase("done")
 
     def summed(r, ms_key, plain_key, bound_key, weight):
